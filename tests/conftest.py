@@ -57,6 +57,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-second end-to-end runs; deselect with -m 'not slow' "
         "(the fast CI lane)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skips "
+        "without one")
 
 
 @pytest.fixture
