@@ -29,6 +29,9 @@ import numpy as np
 
 import repro_torch.obs as obs
 
+BIG = 1e6  # cost of structurally-forbidden arcs in re-derived cost matrices
+
+
 @dataclasses.dataclass
 class SolveResult:
     assign: np.ndarray          # [M] region index, or -1 if unassigned

@@ -8,5 +8,6 @@ layout (``repro/kernels/<name>/``):
               tensor takes the plain version
   ref.py      the plain PyTorch version the kernel is held against
 
-Kernels: sinkhorn (the scheduler's entropic-OT inner loop).
+Kernels: sinkhorn (the scheduler's entropic-OT inner loop), rglru_scan
+(the learned forecaster's linear recurrence, forward and backward).
 """

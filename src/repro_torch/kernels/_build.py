@@ -46,29 +46,50 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(_build(name)))
+            build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
         return lib
 
 
-def _build(name: str) -> pathlib.Path:
+def _target(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{key}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a private name and rename, so a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(names) -> None:
+    """Build every named source that is not built yet: one ``nvcc`` each,
+    all started together, then wait for all of them."""
+    running = []
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
-        os.replace(tmp, out)
+        for name in names:
+            out = _target(name)
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # Build to a private name and rename, so a concurrent process
+            # never loads a half-written library.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            running.append((name, out, tmp, proc))
+        errors = []
+        for name, out, tmp, proc in running:
+            _, err = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+            else:
+                errors.append(f"nvcc failed to build {CSRC / name}.cu:\n"
+                              f"{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)

@@ -7,19 +7,23 @@ A ``PolicyPipeline`` is assembled from composable stages:
                       assignment plan.  ``SnapshotPricer`` prices every job
                       at the live telemetry snapshot and offers one virtual
                       defer arc at the trailing-mean cost (the paper's
-                      myopic controller).
+                      myopic controller); ``ForecastPricer`` widens the plan
+                      to jobs × (regions × horizon-slots) priced by a
+                      forecast integrated over each execution window.
   ``DeferralPolicy``  owns jobs the solver decided to hold.
                       ``NextRoundDeferral`` simply re-offers them next round
-                      (reactive defer arc).
+                      (reactive defer arc); ``QueueDeferral`` wraps the
+                      slack-guarded ``forecast.DeferralQueue`` with planned
+                      release times and engine wake-ups;
+                      ``ReplanQueueDeferral`` re-prices held jobs.
   solver backend      any ``repro_torch.core.solvers`` backend name; hard
                       solve with soft (Eqs 12-13) fallback is pipeline
                       logic. The pipeline's ``device`` reaches the device
                       backends (``torch``, ``fused``).
 
 All stages speak one protocol — ``schedule(jobs, now_s, capacity) ->
-Decision``. The forecast-driven stages (``ForecastPricer``,
-``QueueDeferral``, ``ReplanQueueDeferral``, ``forecast_pipeline``) and
-offline window replay are not ported yet.
+Decision``. Offline window replay (``record_windows`` /
+``replay_recorded``) and the warm-started Sinkhorn are not ported yet.
 """
 from __future__ import annotations
 
@@ -227,6 +231,217 @@ class SnapshotPricer(Pricer):
         return DEFER, None           # the virtual defer arc: retry next round
 
 
+class ForecastPricer(Pricer):
+    """Forecast-integrated pricing (beyond-paper subsystem).
+
+    Replaces the reactive defer *arc* with a forecast-priced defer *grid*:
+    every round prices ``jobs × (regions × horizon-slots)`` where slot 0 is
+    "run now" at the live snapshot and slots 1..S−1 are "hold until t+s·Δ"
+    priced at a forecast of (ci, ewif, wue) — Holt–Winters by default, the
+    true-future ``oracle`` for upper-bound studies. Deadline feasibility is
+    masked, never penalized, so deferral cannot cause a tolerance miss (see
+    ``forecast.planner``). Forecasters that run on a torch device
+    (``holtwinters``, ``learned``) get the pipeline's ``device``.
+
+    ``risk`` shades future-slot prices toward the upper quantile band
+    (risk-averse deferral under forecast uncertainty); ``forecast_bias`` /
+    ``forecast_noise`` inject systematic error for the ``forecast-error``
+    scenario regime.
+    """
+
+    def __init__(self, *, forecaster: str = "holtwinters",
+                 horizon_slots: int = 8, slot_s: float = 1800.0,
+                 risk: float = 0.25, defer_eps: float = 1e-3,
+                 guard_s: float = 240.0, warmup_hours: int = 96,
+                 forecast_bias: float = 1.0, forecast_noise: float = 0.0,
+                 forecast_seed: int = 0, warm: bool = False):
+        # ``forecaster`` names any registered model ("holtwinters",
+        # "seasonal-naive", "persistence", "learned", ...) or "oracle".
+        if warm:
+            raise NotImplementedError(
+                "warm-started Sinkhorn (warm=True) is not ported yet; use "
+                "warm=False")
+        from repro_torch import forecast as fcast
+        self._fcast = fcast
+        self.forecaster_name = forecaster
+        self.horizon_slots = int(horizon_slots)
+        self.slot_s = float(slot_s)
+        self.risk = float(risk)
+        self.defer_eps = float(defer_eps)
+        self.guard_s = float(guard_s)
+        # Pre-run telemetry archive: production forecasters are warm-started
+        # on months of history, but a simulation starts at t=0. The synthetic
+        # telemetry is the single period of a periodic environment
+        # (``Telemetry.at`` wraps), so its cyclic extension *is* the
+        # environment's past — the archive at simulated hour h is the
+        # ``warmup_hours`` wrapped hours ending at h. Set 0 for a cold start.
+        self.warmup_hours = int(warmup_hours)
+        self.forecast_bias = float(forecast_bias)
+        self.forecast_noise = float(forecast_noise)
+        self.forecast_seed = int(forecast_seed)
+        self._truth = None
+        self._fit_hour = -1
+        self._forecast = None
+        self._fitted = None
+        # The forecaster object is created once and re-fit every refresh:
+        # classical models reset fully on fit() (bit-identical to a fresh
+        # instance), while stateful models (the learned forecaster) keep
+        # their trained parameters across refits and decide internally when
+        # to retrain (``retrain_every``) vs. just re-condition.
+        self._forecaster_obj = None
+        # Online forecast-accuracy bookkeeping (the sweep's accuracy column):
+        # each refit scores the previous forecast against the hours that have
+        # since realized.
+        self._ape_sum = 0.0
+        self._ape_n = 0
+
+    def bind(self, pipeline) -> None:
+        super().bind(pipeline)
+        tele = pipeline.tele
+        # Ground truth, stacked [T, 3R]: columns [ci | ewif | wue] — one
+        # forecaster fit covers all three signals at once.
+        self._truth = np.concatenate([tele.ci, tele.ewif, tele.wue], axis=1)
+
+    # -- forecasting ---------------------------------------------------------
+
+    def _make_forecaster(self):
+        if self.forecaster_name == "oracle":
+            f = self._fcast.Oracle(self._truth)
+        else:
+            cls = self._fcast.base.model_class(self.forecaster_name)
+            f = (cls(device=self.pipe.device) if cls.on_device else cls())
+        if self.forecast_bias != 1.0 or self.forecast_noise > 0.0:
+            f = self._fcast.Perturbed(f, self.forecast_bias,
+                                      self.forecast_noise,
+                                      self.forecast_seed)
+        return f
+
+    @property
+    def forecast_mape(self) -> float:
+        """Realized 1..H-hour-ahead MAPE (%) of the forecasts actually used."""
+        return 100.0 * self._ape_sum / self._ape_n if self._ape_n else 0.0
+
+    def _refresh_forecast(self, now_s: float) -> None:
+        tele = self.pipe.tele
+        h = min(int(now_s // telemetry.HOUR), tele.num_hours - 1)
+        if h <= self._fit_hour:
+            return
+        if self._forecast is not None:
+            fc = self._forecast
+            for k in range(self._fit_hour + 1, h + 1):
+                lead = k - fc.issue_hour - 1
+                if 0 <= lead < fc.horizon:
+                    truth = self._truth[k % self._truth.shape[0]]
+                    pred = fc.mean[lead]
+                    self._ape_sum += float(np.mean(
+                        np.abs(pred - truth)
+                        / np.maximum(np.abs(truth), 1e-9)))
+                    self._ape_n += 1
+        T = self._truth.shape[0]
+        if self.forecaster_name == "oracle" or self.warmup_hours <= 0:
+            hist = self._truth[:h + 1]       # oracle indexes truth absolutely
+        else:
+            idx = np.arange(h - self.warmup_hours + 1, h + 1) % T
+            hist = self._truth[idx]
+        if self._forecaster_obj is None:
+            self._forecaster_obj = self._make_forecaster()
+        self._fitted = self._forecaster_obj.fit(hist)
+        self._fit_hour = h
+        horizon_h = int(np.ceil(self.horizon_slots * self.slot_s
+                                / telemetry.HOUR)) + 1
+        self._forecast = self._predict(horizon_h)
+
+    def _predict(self, horizon_h: int):
+        fc = self._fitted.predict(horizon_h)
+        if fc.issue_hour != self._fit_hour:
+            # Re-anchor from archive-relative to absolute hours (wrapped
+            # warm-start histories end at hour ``_fit_hour`` by construction).
+            fc = dataclasses.replace(fc, issue_hour=self._fit_hour)
+        return fc
+
+    def _ensure_horizon(self, now_s: float, max_exec_s: float,
+                        last_offset_s: float) -> None:
+        """Grow the cached forecast so every execution window it will price
+        — up to [last slot start, + longest exec] — lies inside the horizon
+        (beyond it the forecast extrapolates flat, which would silently
+        de-calibrate the pricing, oracle included)."""
+        t_end = now_s + last_offset_s + max_exec_s
+        needed = int(np.ceil(t_end / telemetry.HOUR)) - self._fit_hour + 1
+        if needed > self._forecast.horizon:
+            self._forecast = self._predict(needed)
+
+    def _slot_signal_tensors(self, jobs: Sequence[problem.Job], now_s: float,
+                             offsets: np.ndarray):
+        """(ci, ewif, wue) estimates per (job, slot), each [M, S, R].
+
+        Every cell is priced at the forecast's exact time-mean over the
+        job's would-be execution window [slot_start, slot_start + exec] —
+        the simulator accounts with the integrated telemetry over the same
+        window, so "run now" and "run later" are compared on the accounting
+        footing (with the oracle forecaster planned and accounted signal
+        means coincide exactly). Future slots are shaded toward the upper
+        quantile band by ``risk`` — deferring on an uncertain forecast must
+        price the uncertainty in.
+        """
+        R = self.pipe.tele.num_regions
+        M, S = len(jobs), len(offsets)
+        exec_t = np.array([j.exec_time_s for j in jobs])
+        self._ensure_horizon(now_s, float(exec_t.max()), float(offsets[-1]))
+        t0 = np.broadcast_to(now_s + offsets[None, :], (M, S)).ravel()
+        t1 = (now_s + offsets[None, :] + exec_t[:, None]).ravel()
+        rows = self._forecast.mean_many(t0, t1)
+        if self.risk > 0.0:
+            hi = self._forecast.mean_many(t0, t1, "hi")
+            shade = self.risk * (hi - rows)
+            shade[np.arange(t0.size) % S == 0] = 0.0      # slot 0 is observed
+            rows = rows + shade
+        rows = np.maximum(rows, 1e-6)          # physical signals are positive
+        rows = rows.reshape(M, S, 3 * R)
+        return rows[..., :R], rows[..., R:2 * R], rows[..., 2 * R:]
+
+    # -- pricing -------------------------------------------------------------
+
+    def price(self, jobs, now_s, inst, snap) -> PricedPlan:
+        pipe = self.pipe
+        with obs.span("policy.forecast"):
+            self._refresh_forecast(now_s)
+            offsets = np.arange(self.horizon_slots) * self.slot_s
+            ci, ewif, wue = self._slot_signal_tensors(jobs, now_s, offsets)
+        if pipe.backend == "fused":
+            # Pricing, masking, Sinkhorn, and extraction run on the device
+            # in one program; the plan comes back already hard-solved.
+            from repro_torch.core import round as fused_round
+            cost, allowed, cap, res = fused_round.fused_temporal_round(
+                inst, now_s, ci, ewif, wue, snap["pue"], snap["wsf"],
+                offsets, pipe.server, pipe.lam_co2, pipe.lam_h2o,
+                pipe.lam_ref, pipe.history.co2_ref, pipe.history.h2o_ref,
+                defer_eps=self.defer_eps, guard_s=self.guard_s,
+                device=pipe.device)
+            S = len(offsets)
+            return PricedPlan(cost=cost, allowed=allowed, capacity=cap,
+                              overrun=np.tile(inst.overrun, (1, S)),
+                              num_regions=inst.shape[1], num_slots=S,
+                              slot_offsets=np.asarray(offsets, np.float64),
+                              presolved=res)
+        plan = self._fcast.build_temporal_plan(
+            inst, now_s, ci, ewif, wue, snap["pue"], snap["wsf"], offsets,
+            pipe.server, pipe.lam_co2, pipe.lam_h2o, pipe.lam_ref,
+            pipe.history.co2_ref, pipe.history.h2o_ref,
+            defer_eps=self.defer_eps, guard_s=self.guard_s)
+        return PricedPlan(cost=plan.cost, allowed=plan.allowed,
+                          capacity=plan.capacity,
+                          overrun=np.tile(inst.overrun, (1, plan.num_slots)),
+                          num_regions=plan.num_regions,
+                          num_slots=plan.num_slots,
+                          slot_offsets=plan.slot_offsets)
+
+    def decode(self, plan, col, now_s):
+        s, n = col // plan.num_regions, col % plan.num_regions
+        if s == 0:
+            return RUN, n
+        return HOLD, now_s + float(plan.slot_offsets[s])
+
+
 # ---------------------------------------------------------------------------
 # Deferral policies
 # ---------------------------------------------------------------------------
@@ -264,6 +479,145 @@ class DeferralPolicy:
 class NextRoundDeferral(DeferralPolicy):
     """Reactive deferral: a deferred job simply returns with the next
     round's pending set — no planned release, no engine wake-up."""
+
+
+class QueueDeferral(DeferralPolicy):
+    """Planned temporal holds backed by the slack-guarded
+    ``forecast.DeferralQueue``: jobs assigned a future slot wait out their
+    hold and are re-offered at the planned slot (or early, when their
+    remaining tolerance budget drops to the guard)."""
+
+    def __init__(self, guard_s: float = 240.0):
+        from repro_torch import forecast as fcast
+        self.queue = fcast.DeferralQueue(guard_s)
+
+    def admit(self, jobs, now_s, capacity=None):
+        return self.queue.partition(jobs, now_s)
+
+    def hold(self, job, release_s, now_s):
+        self.queue.hold(job, release_s, now_s)
+
+    def wake_s(self):
+        return self.queue.next_release_s()
+
+    @property
+    def mean_defer_s(self) -> float:
+        return self.queue.mean_defer_s
+
+    @property
+    def deferred_jobs(self) -> int:
+        """Distinct jobs ever time-shifted (re-deferrals don't double-count)."""
+        return len(self.queue.unique_held)
+
+
+class ReplanQueueDeferral(QueueDeferral):
+    """Receding-horizon re-planning over the deferral queue.
+
+    ``QueueDeferral`` commits a held job to the slot priced at admission
+    time; this variant sends held jobs *back into pricing every round*, so
+    the plan is re-made against the freshest forecast — the rolling
+    spatio-temporal shifting regime of Attenni et al. (arXiv:2512.08725)
+    on top of WaterWise's carbon/water co-optimization. The solver may
+    confirm the hold (same or new slot — the episode continues, stats
+    uncounted), pull the job forward to run now, or push it later.
+
+    The **re-plan guard**: a job within ``replan_guard_s`` of its planned
+    release stays committed. Re-pricing that close to release cannot move
+    the job materially but doubles solver load and can thrash the plan —
+    the guard bounds both, and makes the commit monotone near release.
+
+    The **hysteresis margin**: running is irreversible, holding is not.
+    Each re-pricing round is a fresh draw from an approximate (entropic)
+    solver on a slot grid re-anchored at *now* — without friction, a held
+    job runs the first round the blur happens to favor slot 0, a ratchet
+    that erodes planned deferrals (measurably worse footprints). So a
+    re-planned "run now" is accepted only when it beats the job's
+    committed slot by ``replan_margin`` *in the same cost matrix*;
+    otherwise the hold is restored at its original release (``revise``).
+    Re-planned holds (slot moves) carry no friction — they stay reversible.
+    """
+
+    def __init__(self, guard_s: float = 240.0,
+                 replan_guard_s: float = 900.0,
+                 replan_margin: float = 0.02):
+        super().__init__(guard_s)
+        self.replan_guard_s = float(replan_guard_s)
+        self.replan_margin = float(replan_margin)
+        self.replans = 0            # re-pricing episodes (job-rounds)
+        self.replan_runs = 0        # re-plans that ran the job early
+        self.replan_vetoes = 0      # early runs vetoed by the margin
+        # Episodes opened before the current re-pricing round:
+        # job_id -> (original held_at_s, pop round's now_s, committed
+        # release_s). Entries are reclaimed by ``hold`` (job re-held:
+        # episode continues) or closed at the next round for jobs that
+        # left the queue.
+        self._carried: dict = {}
+
+    def admit(self, jobs, now_s, capacity=None):
+        q = self.queue
+        if self._carried:
+            # Settle last round's popped-but-not-re-held episodes: a job
+            # that ran (gone from pending) ends its episode at the pop
+            # instant; one the solver dropped (defer / infeasible row) gets
+            # its committed hold restored — re-planning must never *lose* a
+            # commitment.
+            incoming = {j.job_id: j for j in jobs}
+            for jid, (held_at, popped_at, release_s) in self._carried.items():
+                j = incoming.get(jid)
+                if j is None:
+                    q.close_replan(held_at, popped_at)
+                else:
+                    q.hold(j, release_s, now_s, held_at_s=held_at)
+            self._carried.clear()
+        due, held = q.partition(jobs, now_s)
+        if not held:
+            return due, held
+        # Re-plan only into *spare* seats: an added row must never displace
+        # a genuinely due job (urgent-trim) or tip the round into the soft
+        # fallback — under a capacity crunch held jobs stay committed.
+        spare = (len(held) if capacity is None
+                 else max(int(capacity) - len(due), 0))
+        keep: List[problem.Job] = []
+        for j in held:
+            release_s = q._held[j.job_id].release_s
+            if spare > 0 and release_s - now_s > self.replan_guard_s:
+                self._carried[j.job_id] = (q.pop_for_replan(j.job_id),
+                                           now_s, release_s)
+                self.replans += 1
+                spare -= 1
+                due.append(j)
+            else:
+                keep.append(j)
+        if obs.enabled() and len(keep) < len(held):
+            obs.counter("policy.replanned", len(held) - len(keep))
+        return due, keep
+
+    def revise(self, job, action, payload, plan, row, col, now_s):
+        carried = self._carried.get(job.job_id)
+        if carried is None or plan.slot_offsets is None or plan.num_slots < 2:
+            return action, payload
+        release_s = carried[2]
+        S, N = plan.num_slots, plan.num_regions
+        slot_s = float(plan.slot_offsets[1] - plan.slot_offsets[0])
+        s = int(np.clip(np.rint((release_s - now_s) / slot_s), 1, S - 1))
+        if action == HOLD and col // N == s:
+            return action, payload          # plan confirmed (slot unchanged)
+        ok = plan.allowed[row, s * N:(s + 1) * N]
+        if not ok.any():
+            return action, payload          # committed slot gone infeasible
+        committed = float(np.min(np.where(
+            ok, plan.cost[row, s * N:(s + 1) * N], np.inf)))
+        if float(plan.cost[row, col]) <= committed - self.replan_margin:
+            if action == RUN:
+                self.replan_runs += 1
+            return action, payload          # genuine improvement: move
+        self.replan_vetoes += 1
+        return HOLD, release_s              # restore the committed hold
+
+    def hold(self, job, release_s, now_s):
+        carried = self._carried.pop(job.job_id, None)
+        self.queue.hold(job, release_s, now_s,
+                        held_at_s=None if carried is None else carried[0])
 
 
 # ---------------------------------------------------------------------------
@@ -429,3 +783,49 @@ def reactive_pipeline(tele: telemetry.Telemetry, *,
         NextRoundDeferral(), server=server, lam_co2=lam_co2,
         lam_h2o=lam_h2o, lam_ref=lam_ref, window=window, sigma=sigma,
         backend=backend, lam_emb=lam_emb, device=device)
+
+
+def forecast_pipeline(tele: telemetry.Telemetry, *,
+                      forecaster: str = "holtwinters",
+                      horizon_slots: int = 8, slot_s: float = 1800.0,
+                      risk: float = 0.25, defer_eps: float = 1e-3,
+                      guard_s: float = 240.0, warmup_hours: int = 96,
+                      forecast_bias: float = 1.0,
+                      forecast_noise: float = 0.0, forecast_seed: int = 0,
+                      backend: str = "torch",
+                      server: footprint.ServerSpec = None,
+                      lam_co2: float = 0.5, lam_h2o: float = 0.5,
+                      lam_ref: float = 0.1, window: int = 10,
+                      sigma: float = 10.0,
+                      warm: bool = False, replan: bool = False,
+                      replan_guard_s: float = 900.0,
+                      replan_margin: float = 0.02,
+                      record_windows: bool = False,
+                      device=None) -> PolicyPipeline:
+    """Predictive spatio-temporal configuration: forecast-grid pricing +
+    slack-guarded deferral queue over the same pipeline.
+
+    ``replan=True`` swaps the commit-at-admission queue for
+    receding-horizon re-planning (``ReplanQueueDeferral``) with its
+    ``replan_guard_s`` commit window and ``replan_margin`` early-run
+    hysteresis. ``device`` is where the device backends and forecasters run
+    (None: the CUDA card). The reference's ``backend="jax"`` default is the
+    port's ``"torch"``. ``warm=True`` (warm-started Sinkhorn) and
+    ``record_windows=True`` (offline replay) are not ported yet and raise
+    ``NotImplementedError``."""
+    if record_windows:
+        raise NotImplementedError(
+            "record_windows=True (offline window replay through solve_many) "
+            "is not ported yet")
+    pricer = ForecastPricer(
+        forecaster=forecaster, horizon_slots=horizon_slots, slot_s=slot_s,
+        risk=risk, defer_eps=defer_eps, guard_s=guard_s,
+        warmup_hours=warmup_hours, forecast_bias=forecast_bias,
+        forecast_noise=forecast_noise, forecast_seed=forecast_seed,
+        warm=warm)
+    deferral = (ReplanQueueDeferral(guard_s, replan_guard_s, replan_margin)
+                if replan else QueueDeferral(guard_s))
+    return PolicyPipeline(
+        tele, pricer, deferral, server=server,
+        lam_co2=lam_co2, lam_h2o=lam_h2o, lam_ref=lam_ref, window=window,
+        sigma=sigma, backend=backend, device=device)

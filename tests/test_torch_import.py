@@ -18,13 +18,27 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
 def test_main_path_imports_without_jax_or_reference():
+    """With jax blocked: import the main paths of both slices, then run one
+    learned-forecaster forward and one Holt-Winters fit on the CPU."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
         "import repro_torch.sim.engine\n"
         "import repro_torch.policy.pipeline\n"
         "import repro_torch.core.round\n"
         "import repro_torch.convert\n"
+        "import repro_torch.forecast as fc\n"
+        "import repro_torch.kernels.rglru_scan.ops\n"
+        "from repro_torch.policy.pipeline import forecast_pipeline\n"
+        "from repro_torch.forecast import learned\n"
+        "p = learned.init_params(0, 16, 24)\n"
+        "q = learned._quantiles_from_windows(p, torch.zeros(8, 48), 24, 24,"
+        " 'kernel')\n"
+        "assert q.shape == (8, 24, 3)\n"
+        "y = np.abs(np.sin(np.arange(72))[:, None]) + np.ones((72, 2))\n"
+        "hw = fc.make_forecaster('holtwinters', device='cpu').fit(y)\n"
+        "assert np.isfinite(hw.predict(6).mean).all()\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -42,7 +56,10 @@ _FORBIDDEN = re.compile(
 
 def test_port_sources_never_import_jax_or_reference():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
-    assert files
+    names = {str(p.relative_to(SRC / "repro_torch")) for p in files}
+    assert {"forecast/learned.py", "forecast/holtwinters.py",
+            "models/rglru.py", "optim/adamw.py", "checkpoint/store.py",
+            "kernels/rglru_scan/ops.py"} <= names
     hits = [(str(p), m.group(0).strip()) for p in files
             for m in _FORBIDDEN.finditer(p.read_text())]
     assert hits == []
