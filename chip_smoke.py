@@ -17,7 +17,23 @@ Builds the port's kernels from the sources in this checkout, then:
      ``forecast_pipeline(forecaster="learned", backend="fused")`` — on the
      same cell, on the card and on the CPU, compares the two, checks the
      kernels' launch counts, and runs ``forecaster="holtwinters"`` on the
-     card once.
+     card once;
+  6. holds the flash-attention and SSD-scan kernels against their plain
+     versions on the card (the reference kernel tests' shapes, GQA, ragged
+     lengths, and the qwen2-1.5B and mamba2-2.7B prefill shapes) and times
+     them beside the plain versions, their bounds and, for attention,
+     ``scaled_dot_product_attention``;
+  7. serves qwen2-1.5B and mamba2-2.7B at full width and depth 2 in
+     float32 through ``Server.generate`` on the card and on the CPU (the
+     same weights) and compares logits and tokens;
+  8. serves both at full depth in bf16 on the card (B 4, prompt 2048, 32
+     new tokens), reports prefill tokens/s, decode ms per step and peak
+     memory, and checks that each prefill launched one kernel per layer
+     and never the plain versions.
+
+The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
+SSM scalars are drawn live (``models.ssm.draw_live_mixer``), since the
+reference's zero conv would feed the SSD exact zeros.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -467,11 +483,15 @@ def scan_grads(scan, a, bx, w):
     return a.grad, bx.grad
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> dict:
+    """The least time for the work: bytes over the HBM rate or operations
+    over the peak rate of their type, whichever is larger."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / FP32_OPS_PER_S * 1e3
+    ops_ms = nops / ops_per_s * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                nbytes=nbytes, nops=nops)
 
 
 def phase_scan(dev) -> dict:
@@ -646,6 +666,460 @@ def phase_forecast(tele, jobs, cap) -> dict:
         fail("the holtwinters run did not solve through the kernel")
     return dict(launches=launches, card=card, hw_sinkhorn=sinkhorn.LAUNCHES)
 
+# --- The LM serving path (phases 6-8) -----------------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), at 700 W: the
+# rate of the type the attention and SSD inputs come in.
+BF16_OPS_PER_S = 989e12
+# Flash attention, kernel vs plain version: the reference kernel tests'
+# tolerances (float32 2e-5, bf16 2e-2); the model-layout GQA wrapper
+# against the blocked twin, 3e-5 as in test_flash_attention_gqa.
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GQA_ATOL = 3e-5
+# SSD scan, kernel vs plain chunked version: the reference's 2e-3; in bf16
+# both round their float32 results to bf16 on their own, so one bf16 step
+# on top (bf16 keeps 8 significant bits: a step is at most 2^-7 of the
+# value).
+SSD_ATOL = 2e-3
+BF16_RTOL = 2.0 ** -7
+# Phase 7, card vs CPU, float32 at full width and depth 2: cuBLAS and the
+# CPU's BLAS sum d = 1536-5120 products in other orders and the kernels
+# sum in their own; the differences expected are ~1e-5, while a kernel off
+# by one mask row or chunk moves logits by far more than 1e-3.
+LM_LOGITS_ATOL = 1e-3
+# Greedy tokens may part only at a near-tie: the reference's
+# test_decode_matches_forward rule (the other device's logit of the token
+# chosen is within 0.15 of its max).
+TIE_GAP = 0.15
+ARCHS = ("qwen2_1_5b", "mamba2_2_7b")
+
+
+def check(name: str, err: float, limit: float) -> float:
+    if not np.isfinite(err) or err > limit:
+        fail(f"{name}: max |d| {err:.3e} beyond {limit:.1e}")
+    return err
+
+
+def flash_case(BH, S, D, causal, window, dtype, group, seed):
+    """Kernel vs plain version on standard-normal q, k, v; returns
+    (max |d|, (q, k, v))."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((BH // group, S, D), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    out = fops.flash_attention_bh(q, k, v, causal=causal, window=window,
+                                  group=group)
+    ref = flash_attention_bh_ref(q, k, v, causal=causal, window=window,
+                                 group=group)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"  flash BH={BH} S={S} D={D} causal={causal} window={window} "
+          f"{str(dtype)[6:]} group={group}: max|do|={err:.3e}", flush=True)
+    check("flash attention", err, FLASH_ATOL[dtype])
+    return err, (q, k, v)
+
+
+def ssd_inputs(b, S, H, P, G, N, dtype, seed, model_like):
+    """(x, dt, A, B, C) on the card. model_like: as the Mamba-2 block hands
+    them to the scan — x, B, C are SiLU outputs of unit-normal
+    pre-activations (the causal conv's output), dt = softplus(N(0, 0.5^2)
+    + dt_bias) and A = -exp(A_log) at Mamba-2's init ranges
+    (``draw_live_mixer``). Otherwise test_ssd_scan_sweep's draws."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.common import softplus
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if model_like:
+        cfg = get_config("mamba2_2_7b").replace(
+            d_inner=H * P, ssm_head_dim=P, ssm_groups=G, ssm_state=N)
+        mix = ssm.draw_live_mixer(np.random.default_rng(seed), cfg)
+        x = F.silu(randn(b, S, H, P)).to(dtype)
+        dt = softplus(0.5 * randn(b, S, H) + torch.from_numpy(
+            mix["dt_bias"]).cuda())
+        A = -torch.exp(torch.from_numpy(mix["A_log"]).cuda())
+        Bm, Cm = (F.silu(randn(b, S, G, N)).to(dtype) for _ in range(2))
+    else:
+        x = randn(b, S, H, P).to(dtype)
+        dt = torch.rand((b, S, H), generator=gen, device="cuda") * 0.5 + 0.1
+        A = -torch.rand(H, generator=gen, device="cuda") - 0.2
+        Bm, Cm = (randn(b, S, G, N).to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_case(b, S, H, P, G, N, chunk, dtype, seed, model_like=False):
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    args = ssd_inputs(b, S, H, P, G, N, dtype, seed, model_like)
+    y, st = sops.ssd_scan(*args, chunk=chunk)
+    yr, sr = ssd_ref(*args, chunk=min(chunk, S))
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    # max |d| beyond the bf16 rounding allowance, plus that allowance's
+    # use: the check is |d| <= atol + rtol |ref|.
+    err = max(((y.float() - yr.float()).abs()
+               - rtol * yr.float().abs()).max().item(),
+              ((st.float() - sr.float()).abs()
+               - rtol * sr.float().abs()).max().item())
+    raw = max((y.float() - yr.float()).abs().max().item(),
+              (st.float() - sr.float()).abs().max().item())
+    print(f"  ssd b={b} S={S} H={H} P={P} G={G} N={N} chunk={chunk} "
+          f"{str(dtype)[6:]}{' model-like' if model_like else ''}: "
+          f"max|d(y, state)|={raw:.3e} (beyond rtol {rtol:.2e}: "
+          f"{err:.3e}); max|y|={yr.float().abs().max().item():.3e}",
+          flush=True)
+    check("ssd scan", err, SSD_ATOL)
+    if yr.float().abs().max().item() == 0.0:
+        fail("ssd scan output is zero")
+    return raw, args
+
+
+def phase_lm_kernels(dev) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.models import attention
+    print("== phase 6: flash attention and SSD scan kernels vs plain "
+          "versions on the card", flush=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = dict(flash=0.0, ssd=0.0)
+    # test_flash_attention_sweep's six shapes, ragged S = 1000 (GQA,
+    # sliding), then the qwen2-1.5B prefill shape (B 4, S 2048).
+    for i, case in enumerate([
+            (4, 256, 64, True, 0, f32, 1), (2, 512, 128, True, 0, f32, 1),
+            (2, 256, 64, False, 0, f32, 1), (2, 512, 64, True, 100, f32, 1),
+            (2, 256, 128, True, 0, bf16, 1), (1, 128, 256, True, 64, f32, 1),
+            (8, 1000, 64, True, 0, f32, 4), (4, 1000, 128, True, 300, bf16, 2),
+            (48, 2048, 128, True, 0, bf16, 6)]):
+        err, qkv = flash_case(*case, seed=i)
+        worst["flash"] = max(worst["flash"], err)
+    # test_flash_attention_gqa: the model-layout wrapper vs the blocked twin.
+    for G in (1, 2, 4):
+        gen = torch.Generator(device="cuda").manual_seed(10 + G)
+        B, S, Kh, D = 2, 256, 2, 64
+        q = torch.randn((B, S, Kh, G, D), generator=gen, device="cuda")
+        k, v = (torch.randn((B, S, Kh, D), generator=gen, device="cuda")
+                for _ in range(2))
+        pos = torch.arange(S, device="cuda")
+        err = (fops.flash_attention(q, k, v) - attention.blocked_attention(
+            q, k, v, pos, pos, block_kv=128)).abs().max().item()
+        print(f"  flash GQA G={G} (model layout) vs blocked_attention: "
+              f"max|do|={err:.3e}", flush=True)
+        worst["flash"] = max(worst["flash"], check("flash GQA", err,
+                                                   GQA_ATOL))
+
+    # Timing at the qwen2-1.5B prefill shape (the last case above).
+    q, k, v = qkv
+    BHq, S, D = q.shape
+    kernel = lambda: fk.flash_attention_bh_cuda(q, k, v, causal=True,
+                                                group=6)
+    plain = lambda: flash_attention_bh_ref(q, k, v, causal=True, group=6)
+    q4, k4, v4 = (t.view(4, -1, S, D) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+    lib_err = (library().reshape(BHq, S, D).float()
+               - plain().float()).abs().max().item()
+    pairs = BHq * S * (S + 1) // 2             # the causal triangle
+    flash_t = dict(ms=cuda_ms(kernel, warmup=3, reps=20),
+                   device_ms=profiled_device_ms(kernel, reps=5),
+                   plain_ms=cuda_ms(plain, warmup=2, reps=5),
+                   plain_device_ms=profiled_device_ms(plain, reps=2),
+                   library_ms=cuda_ms(library, warmup=3, reps=20),
+                   library_device_ms=profiled_device_ms(library, reps=5),
+                   **bound(2 * (q.numel() + k.numel() + v.numel()
+                                + q.numel()), 4 * pairs * D, BF16_OPS_PER_S))
+    print(f"  timing flash at [48, 2048, 128] bf16 group 6: kernel "
+          f"{flash_t['ms']:.4f} ms (device {fmt_us(flash_t['device_ms'])}), "
+          f"plain {flash_t['plain_ms']:.4f} ms (device "
+          f"{fmt_us(flash_t['plain_device_ms'])}), SDPA "
+          f"{flash_t['library_ms']:.4f} ms (device "
+          f"{fmt_us(flash_t['library_device_ms'])}; max|d| vs plain "
+          f"{lib_err:.3e}), bound {flash_t['bound_ms'] * 1e3:.2f} us "
+          f"({flash_t['bound_by']}: {flash_t['nops'] / 1e9:.2f} GFLOP, "
+          f"{flash_t['nbytes'] / 1e6:.2f} MB)", flush=True)
+
+    # test_ssd_scan_sweep's three shapes, a ragged S, then the mamba2-2.7B
+    # prefill shape (b 4, S 2048) in bf16 and in float32.
+    for i, case in enumerate([(2, 64, 4, 16, 2, 8, 16, f32),
+                              (2, 128, 2, 32, 1, 16, 32, f32),
+                              (2, 64, 8, 64, 8, 8, 64, f32),
+                              (2, 100, 4, 16, 2, 8, 16, f32)]):
+        err, _ = ssd_case(*case, seed=20 + i)
+        worst["ssd"] = max(worst["ssd"], err)
+    err, _ = ssd_case(4, 2048, 80, 64, 1, 128, 256, f32, seed=30,
+                      model_like=True)
+    worst["ssd"] = max(worst["ssd"], err)
+    err, args = ssd_case(4, 2048, 80, 64, 1, 128, 256, bf16, seed=31,
+                         model_like=True)
+    worst["ssd"] = max(worst["ssd"], err)
+    x, dt, A, Bm, Cm = args
+    b, S, H, P = x.shape
+    N, L = Bm.shape[3], 256
+    nc = -(-S // L)
+    # Causal intra-chunk products L(L+1)/2 (N + P), inter term and state
+    # update 2 L N P, per (b, h, chunk); bytes: x, dt, A, B, C read, y and
+    # the state written.
+    nops = 2 * b * H * nc * (L * (L + 1) // 2 * (N + P) + 2 * L * N * P)
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
+              + 2 * Bm.numel() * 2 + b * H * P * N * 2)
+    kernel = lambda: sk.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L)
+    plain = lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=L)
+    ssd_t = dict(ms=cuda_ms(kernel, warmup=3, reps=20),
+                 device_ms=profiled_device_ms(kernel, reps=5),
+                 plain_ms=cuda_ms(plain, warmup=2, reps=5),
+                 plain_device_ms=profiled_device_ms(plain, reps=2),
+                 library_ms=None, **bound(nbytes, nops, BF16_OPS_PER_S))
+    print(f"  timing ssd at mamba2-2.7B prefill (4, 2048, 80, 64; G 1, N "
+          f"128, L 256) bf16: kernel {ssd_t['ms']:.4f} ms (device "
+          f"{fmt_us(ssd_t['device_ms'])}), plain {ssd_t['plain_ms']:.4f} ms "
+          f"(device {fmt_us(ssd_t['plain_device_ms'])}), bound "
+          f"{ssd_t['bound_ms'] * 1e3:.2f} us ({ssd_t['bound_by']}: "
+          f"{nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); library call: "
+          f"none (no PyTorch call computes the chunked SSD)", flush=True)
+    return dict(worst=worst, flash=flash_t, ssd=ssd_t)
+
+
+def lm_params(cfg, gen, seed):
+    """The port's init drawn from ``gen`` (on its device), with the
+    Mamba-2 mixers' conv and SSM scalars from ``draw_live_mixer`` (the
+    reference's zero conv would feed the SSD exact zeros)."""
+    from repro_torch.models import ssm
+    from repro_torch.models.model import Model
+    params = Model(cfg).init(gen)
+    if cfg.ssm:
+        rng = np.random.default_rng(seed)
+        for lp in params["layers"]:
+            for k, v in ssm.draw_live_mixer(rng, cfg).items():
+                old = lp["mixer"][k]
+                lp["mixer"][k] = torch.from_numpy(v).to(old.device, old.dtype)
+    return params
+
+
+@contextlib.contextmanager
+def scan_recorder():
+    """Record max |y| of every SSD scan the model runs (kernel or plain)."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import ssm
+    seen = []
+    saved = (sops.ssd_scan, ssm.ssd_chunked)
+
+    def wrap(fn):
+        def rec(*args, **kw):
+            y, st = fn(*args, **kw)
+            seen.append(y.float().abs().max().item())
+            return y, st
+        return rec
+    sops.ssd_scan, ssm.ssd_chunked = wrap(saved[0]), wrap(saved[1])
+    try:
+        yield seen
+    finally:
+        sops.ssd_scan, ssm.ssd_chunked = saved
+
+
+def serve_logits(model, params, toks, stream, device) -> list:
+    """Prefill ``toks`` then decode along ``stream`` (teacher forced):
+    the [B, V] logits of every step, as float32 numpy."""
+    from repro_torch.runtime.serve_loop import _splice
+    with torch.inference_mode():
+        t = torch.as_tensor(toks, dtype=torch.int64, device=device)
+        B, S = t.shape
+        cache = model.init_cache(B, S + stream.shape[1], device)
+        last, built = model.prefill(params, dict(tokens=t))
+        cache = _splice(cache, built)
+        out = [last.float().cpu().numpy()]
+        for i in range(stream.shape[1] - 1):
+            tok = torch.as_tensor(stream[:, i:i + 1], dtype=torch.int64,
+                                  device=device)
+            logits, cache = model.decode(params, cache, tok, S + i)
+            out.append(logits.float().cpu().numpy())
+    return out
+
+
+def phase_lm_parity(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.runtime.serve_loop import Server
+    print("== phase 7: LM serving, card vs CPU (full width, depth 2, "
+          "float32)", flush=True)
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch).replace(n_layers=2, dtype="float32",
+                                       param_dtype="float32")
+        model = Model(cfg)
+        t0 = time.perf_counter()
+        host_params = lm_params(cfg, torch.Generator().manual_seed(0), 7)
+        card_params = to_device(host_params, dev)
+        init_s = time.perf_counter() - t0
+        toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 320))
+        with scan_recorder() as card_scans:
+            card_tokens = Server(model, card_params).generate(
+                dict(tokens=toks), max_new=8)
+        with scan_recorder() as host_scans:
+            host_tokens = Server(model, host_params, device="cpu").generate(
+                dict(tokens=toks), max_new=8)
+        card_steps = serve_logits(model, card_params, toks, host_tokens, dev)
+        host_steps = serve_logits(model, host_params, toks, host_tokens,
+                                  "cpu")
+        errs = [float(np.abs(a - b).max()) for a, b in zip(card_steps,
+                                                           host_steps)]
+        live = np.ones(2, bool)
+        for t, (a, b) in enumerate(zip(card_steps, host_steps)):
+            ai, bi = a.argmax(-1), b.argmax(-1)
+            gap = b[np.arange(2), bi] - b[np.arange(2), ai]
+            if not ((ai == bi) | (gap <= TIE_GAP)).all():
+                fail(f"{arch} step {t}: card argmax {ai} vs cpu {bi}, gap "
+                     f"{gap}")
+            same = card_tokens[:, t] == host_tokens[:, t]
+            if not (same | ~live | (ai != bi)).all():
+                fail(f"{arch}: card and cpu tokens part without a near-tie "
+                     f"at step {t}")
+            live &= same
+        print(f"  {arch}: {model.param_count() / 1e9:.3f} B parameters at "
+              f"depth 2 (drawn on the CPU in {init_s:.1f} s); prompt "
+              f"(2, 320), 8 new tokens; card tokens {card_tokens.tolist()}; "
+              f"cpu tokens {host_tokens.tolist()}; max |d logits| card vs "
+              f"cpu per step {['%.2e' % e for e in errs]} (limit "
+              f"{LM_LOGITS_ATOL:.0e})", flush=True)
+        check(f"{arch} logits card vs cpu", max(errs), LM_LOGITS_ATOL)
+        if cfg.ssm:
+            print(f"    SSD max |y| per scan: card "
+                  f"{['%.3e' % s for s in card_scans]}, cpu "
+                  f"{['%.3e' % s for s in host_scans]}", flush=True)
+            if not card_scans or min(card_scans + host_scans) <= 0.0:
+                fail(f"{arch}: the SSD carried zeros")
+        out[arch] = dict(max_logits_err=max(errs),
+                         tokens_equal=bool(np.array_equal(card_tokens,
+                                                          host_tokens)))
+        del card_params, host_params
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_call_counter():
+    """Count calls of the two kernels' plain versions on the model path."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import attention, ssm
+    calls = collections.Counter()
+    targets = [(attention, "blocked_attention"),
+               (fops, "flash_attention_bh_ref"), (ssm, "ssd_chunked"),
+               (sops, "ssd_ref")]
+    saved = [getattr(mod, name) for mod, name in targets]
+
+    def wrap(fn, name):
+        def counted(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return counted
+    for (mod, name), fn in zip(targets, saved):
+        setattr(mod, name, wrap(fn, name))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, fn)
+
+
+def prefill_profile(model, params, toks) -> dict:
+    """The profiler's device time of one prefill, by kernel name, and the
+    host wall around it."""
+    from torch.profiler import ProfilerActivity, profile
+    t = torch.as_tensor(toks, dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.prefill(params, dict(tokens=t))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    by_name = {ev.key: ev.self_device_time_total / 1e3
+               for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")
+               and ev.self_device_time_total > 0}
+    return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+
+def phase_lm_serve(dev) -> dict:
+    import repro_torch.obs as obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import Server
+    print("== phase 8: LM serving at full depth on the card (bf16, B 4, "
+          "prompt 2048, 32 new tokens)", flush=True)
+    B, S, NEW = 4, 2048, 32
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        model = Model(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           8)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, S))
+        server = Server(model, params)
+        # Warm-up at the measured shapes, so the allocator's pool and the
+        # libraries' handles are set up outside the measured run.
+        server.generate(dict(tokens=toks), max_new=2)
+        torch.cuda.reset_peak_memory_stats()
+        with plain_call_counter() as plain_calls:
+            fk.LAUNCHES, sk.LAUNCHES = 0, 0
+            with obs.capture() as reg:
+                tokens = server.generate(dict(tokens=toks), max_new=NEW)
+            launches = dict(flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        prefill_s = reg.hists["serve.prefill"].total
+        decode_s = reg.hists["serve.decode"].total
+        want = dict(flash_attention=0 if cfg.ssm else cfg.n_layers,
+                    ssd_scan=cfg.n_layers if cfg.ssm else 0)
+        prof = prefill_profile(model, params, toks)
+        print(f"  {arch}: {model.param_count() / 1e9:.4f} B parameters, "
+              f"{cfg.n_layers} layers, drawn on the card in {init_s:.1f} s; "
+              f"prefill {prefill_s * 1e3:.1f} ms = "
+              f"{B * S / prefill_s:.0f} tokens/s; decode "
+              f"{decode_s / (NEW - 1) * 1e3:.2f} ms per token of each "
+              f"sequence (one step of {B} tokens; {NEW - 1} steps in "
+              f"{decode_s * 1e3:.1f} ms = "
+              f"{B * (NEW - 1) / decode_s:.1f} tokens/s); peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; launches {launches} (want {want}); "
+              f"plain-version calls {dict(plain_calls)}", flush=True)
+        print(f"    one profiled prefill: wall {prof['wall_ms']:.1f} ms, "
+              f"device {prof['device_ms']:.1f} ms (busy "
+              f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); top "
+              "kernels (device ms): " + "; ".join(
+                  f"{name[:60]} {ms:.2f}" for name, ms in prof["top"]),
+              flush=True)
+        print(f"    first tokens: {tokens[:, :8].tolist()}", flush=True)
+        if launches != want:
+            fail(f"{arch}: launches {launches}, want {want}")
+        if sum(plain_calls.values()):
+            fail(f"{arch}: the plain versions ran on the card's main path: "
+                 f"{dict(plain_calls)}")
+        if tokens.shape != (B, NEW) or tokens.min() < 0 or \
+                tokens.max() >= cfg.vocab:
+            fail(f"{arch}: tokens out of range {tokens.min()}.."
+                 f"{tokens.max()} or shape {tokens.shape}")
+        out[arch] = dict(launches=launches, prefill_s=prefill_s,
+                         decode_s=decode_s, peak_bytes=peak,
+                         params=model.param_count(), profile=prof)
+        del params, server
+        torch.cuda.empty_cache()
+    return out
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -662,17 +1136,28 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build(["sinkhorn", "rglru_scan"])
-    _build.library("sinkhorn")
-    _build.library("rglru_scan")
-    print(f"built the sinkhorn and rglru_scan kernels in "
+    sources = ["sinkhorn", "rglru_scan", "flash_attention", "ssd_scan"]
+    _build.build(sources)
+    for name in sources:
+        _build.library(name)
+    print(f"built the {', '.join(sources)} kernels in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
           flush=True)
-    k = phase_kernel(dev)
-    phase_round(dev)
-    e2e = phase_e2e(dev)
-    scan = phase_scan(dev)
-    fc = phase_forecast(*e2e["cell"])
+
+    def timed(label, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        print(f"  [{label}: {time.perf_counter() - start:.1f} s of wall]",
+              flush=True)
+        return result
+    k = timed("phase 1", phase_kernel, dev)
+    timed("phase 2", phase_round, dev)
+    e2e = timed("phase 3", phase_e2e, dev)
+    scan = timed("phase 4", phase_scan, dev)
+    fc = timed("phase 5", phase_forecast, *e2e["cell"])
+    lmk = timed("phase 6", phase_lm_kernels, dev)
+    timed("phase 7", phase_lm_parity, dev)
+    serve = timed("phase 8", phase_lm_serve, dev)
     t = k["timings"][(512, 6)]           # the bucket of phase 3's rounds
     kernels = [dict(
         name="sinkhorn_iteration", route="cuda",
@@ -703,6 +1188,20 @@ def main() -> None:
             launches_per_call=1))
     infer = scan["timings"][("fwd", (16, 48, 16))]
     kernels[1]["infer_shape"] = dict(shape=[16, 48, 16], **infer)
+    for name, arch, shape, replaces in (
+            ("flash_attention", "qwen2_1_5b", [48, 2048, 128],
+             "src/repro/kernels/flash_attention/flash_attention.py:104"),
+            ("ssd_scan", "mamba2_2_7b", [4, 2048, 80, 64],
+             "src/repro/kernels/ssd_scan/ssd_scan.py:93")):
+        t = lmk[name.split("_")[0]]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=replaces, launches=serve[arch]["launches"][name],
+            max_abs_err=lmk["worst"][name.split("_")[0]], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"], shape=shape,
+            launches_per_call=1, main_path=f"{arch} Server.generate"))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

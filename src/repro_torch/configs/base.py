@@ -1,0 +1,132 @@
+"""ModelConfig: the reference's declarative architecture description
+(``repro/configs/base.py``), with the same fields and defaults, for the
+port's LM serving path.
+
+The port runs the ``decoder`` family with dense-GQA attention or Mamba-2
+SSD mixers; ``list_archs()`` names the architectures it serves, and
+``get_config`` of any other reference architecture raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models import common
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # decoder | gemma3 | griffin | encdec | vision
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 → d_model // n_heads
+    # attention
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    rope_theta_global: float = 0.0   # gemma3 dual-base (global layers)
+    window: int = 0                  # sliding-window size (local layers)
+    attn_every: int = 0              # gemma3: every k-th layer is global
+    norm: str = "rmsnorm"
+    softmax_scale: Optional[float] = None
+    embed_scale: bool = False        # gemma-style sqrt(d_model) embed scaling
+    # MLA (deepseek-v2 / minicpm3)
+    mla: bool = False
+    q_lora: int = 0
+    kv_lora: int = 0
+    d_nope: int = 0
+    d_rope: int = 0
+    d_v: int = 0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    first_dense: int = 0             # leading dense layers (deepseek-v2)
+    dense_d_ff: int = 0              # d_ff of those dense layers
+    # SSM (mamba2)
+    ssm: bool = False
+    d_inner: int = 0
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    # hybrid (recurrentgemma)
+    lru_width: int = 0
+    # enc-dec
+    enc_layers: int = 0
+    # vision
+    cross_every: int = 0             # one cross layer leads each group
+    n_img_tokens: int = 0
+    # numerics / runtime
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    remat: str = "full"              # none | dots | full
+    block_kv: int = 1024
+    ssd_chunk: int = 256
+    moe_capacity_factor: float = 1.25
+
+    # -- derived -------------------------------------------------------------
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return common.pad_vocab(self.vocab)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+ARCH_REGISTRY = ["qwen2_1_5b", "mamba2_2_7b"]
+
+# Reference architectures the port does not run yet, and the ROADMAP item
+# (queue 1 item 2's later parts) that ports each.
+_NOT_PORTED = {
+    "dbrx_132b": "MoE (ROADMAP queue 1 item 2b)",
+    "deepseek_v2_236b": "MLA, MoE and first_dense (ROADMAP queue 1 item 2b)",
+    "qwen2_72b": "weights sharded across cards, 145 GB in bf16 (ROADMAP "
+                 "queue 1 item 3)",
+    "gemma3_4b": "the gemma3 local/global family (ROADMAP queue 1 item 2b)",
+    "minicpm3_4b": "MLA (ROADMAP queue 1 item 2b)",
+    "recurrentgemma_2b": "the griffin family, RG-LRU decode and prefill "
+                         "(ROADMAP queue 1 item 2b)",
+    "llama_3_2_vision_11b": "vision cross-attention (ROADMAP queue 1 item "
+                            "2b)",
+    "seamless_m4t_large_v2": "the encdec family (ROADMAP queue 1 item 2b)",
+}
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    """Load ``repro_torch/configs/<arch>.py`` (dashes normalized)."""
+    mod_name = arch.replace("-", "_").replace(".", "_")
+    if mod_name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet: it needs {_NOT_PORTED[mod_name]}; "
+            f"ported archs: {', '.join(ARCH_REGISTRY)}")
+    if mod_name not in ARCH_REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; ported archs: "
+                       f"{', '.join(ARCH_REGISTRY)}")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.reduced() if reduced else mod.config()
+
+
+def list_archs() -> Tuple[str, ...]:
+    return tuple(ARCH_REGISTRY)

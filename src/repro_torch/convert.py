@@ -1,7 +1,8 @@
 """Carry the JAX package's state into the port.
 
 For this system data plays the role of weights: telemetry and job traces,
-and the learned forecaster's parameters.
+the learned forecaster's parameters, and the LM serving path's model
+parameters.
 These functions read the reference's objects field by field, by the names
 of the port's dataclasses, so they need no import of the reference package
 (any object with those attributes converts).
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import problem, telemetry
+from repro_torch.models import transformer
 
 
 def telemetry_from_reference(tele) -> telemetry.Telemetry:
@@ -48,3 +50,38 @@ def learned_params_from_reference(tree, device="cpu") -> dict:
         return {k: learned_params_from_reference(v, device)
                 for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, np.float32)).to(device)
+
+
+def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
+    """The reference LM's parameter values (the ``params`` of
+    ``repro.models.Model.init``'s ``split_tree``, a nested dict of arrays
+    with the decoder stack under ``layers`` stacked on a leading layer
+    axis) as the port's tree: the same names and layouts (``[in, out]``,
+    ``[d, heads, head_dim]``), ``layers`` unstacked into a list of
+    per-layer dicts, each leaf in its own dtype on ``device``. A bfloat16
+    leaf (an ``ml_dtypes`` array, which ``torch.from_numpy`` rejects)
+    goes through float32, which holds it exactly."""
+    transformer.check_supported(cfg)
+
+    def leaf(value):
+        arr = np.asarray(value)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return leaf(node)
+
+    stacked = convert(tree["layers"])
+
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {k: layer(v, i) for k, v in node.items()}
+        return node[i].clone()
+
+    out = {k: convert(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    return out

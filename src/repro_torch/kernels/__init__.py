@@ -9,5 +9,7 @@ layout (``repro/kernels/<name>/``):
   ref.py      the plain PyTorch version the kernel is held against
 
 Kernels: sinkhorn (the scheduler's entropic-OT inner loop), rglru_scan
-(the learned forecaster's linear recurrence, forward and backward).
+(the learned forecaster's linear recurrence, forward and backward),
+flash_attention (LM prefill self-attention) and ssd_scan (the Mamba-2
+prefill's chunked scan).
 """

@@ -1,0 +1,251 @@
+"""Multi-head attention with grouped query heads — the counterpart of
+``repro/models/attention.py``.
+
+Prefill self-attention (kind ``causal`` or ``sliding``, positions
+``arange(S)``) runs the hand-written flash-attention kernel
+(``kernels/flash_attention``) on a CUDA tensor, in the place where the TPU
+ran the Pallas kernel; on the CPU it runs the plain blocked twin
+``blocked_attention`` below, so the CPU tests compare like with like.
+Decode attention (one query against the cache) and the projections are
+plain PyTorch, as the reference leaves them to XLA.
+
+Shapes (canonical): q [B, Sq, Kh, G, D]; k, v [B, Skv, Kh, D] where
+Kh = kv heads, G = query-group fan-out (n_heads = Kh·G).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import common
+from repro_torch.models.common import dense_init, zeros_init
+
+NEG_INF = -2.0e38
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init(gen, d_model, n_heads, n_kv, head_dim, *, qkv_bias=False,
+         dtype=torch.float32) -> dict:
+    """QKV + output projections, drawn in the order wq, wk, wv, wo."""
+    p = dict(
+        wq=dense_init(gen, (d_model, n_heads, head_dim), dtype=dtype),
+        wk=dense_init(gen, (d_model, n_kv, head_dim), dtype=dtype),
+        wv=dense_init(gen, (d_model, n_kv, head_dim), dtype=dtype),
+        wo=dense_init(gen, (n_heads, head_dim, d_model),
+                      fan_in=n_heads * head_dim, dtype=dtype),
+    )
+    if qkv_bias:
+        dev = gen.device
+        p["bq"] = zeros_init((n_heads, head_dim), dtype, dev)
+        p["bk"] = zeros_init((n_kv, head_dim), dtype, dev)
+        p["bv"] = zeros_init((n_kv, head_dim), dtype, dev)
+    return p
+
+
+def _project(x, w):
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(
+        *x.shape[:-1], h, k)
+
+
+def project_q(x, p, rope_theta, positions):
+    """``rope_theta=None`` disables RoPE."""
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    if rope_theta is not None:
+        q = common.apply_rope(q, positions, rope_theta)
+    return q
+
+
+def project_kv(x, p, rope_theta, positions):
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if rope_theta is not None:
+        k = common.apply_rope(k, positions, rope_theta)
+    return k, v
+
+
+def project_out(o, p):
+    # o: [B, Sq, H, D]
+    h, k, d = p["wo"].shape
+    return o.reshape(*o.shape[:-2], h * k) @ p["wo"].to(o.dtype).reshape(
+        h * k, d)
+
+
+# ---------------------------------------------------------------------------
+# Masking and scaling
+# ---------------------------------------------------------------------------
+
+def mask_bias(q_pos, kv_pos, kind: str, window: int):
+    """Additive mask bias [Sq, bk] from position vectors."""
+    qp = q_pos[:, None]
+    kp = kv_pos[None, :]
+    valid = kp >= 0                                   # KV padding
+    if kind == "causal":
+        valid = valid & (kp <= qp)
+    elif kind == "sliding":
+        valid = valid & (kp <= qp) & (qp - kp < window)
+    elif kind == "full":
+        pass
+    else:
+        raise ValueError(kind)
+    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    return torch.where(valid, zero, torch.full_like(zero, NEG_INF))
+
+
+def _weak_scale(q, scale: float):
+    """q * scale as JAX computes it for a weakly typed Python float: the
+    scalar is first rounded to q's dtype."""
+    return q * torch.full((), scale, dtype=q.dtype, device=q.device)
+
+
+def _scaled_f32(q, softmax_scale):
+    """q * scale as float32, with the reference's promotion: its default
+    scale ``1 / np.sqrt(D)`` is a numpy float64, which promotes q to
+    float32 before the product; a Python float given as
+    ``softmax_scale`` is weakly typed and scales in q's dtype."""
+    if softmax_scale is None:
+        return q.to(torch.float32) * float(np.float32(1.0 / np.sqrt(
+            q.shape[-1])))
+    return _weak_scale(q, softmax_scale).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Blocked attention (train / prefill; the plain twin of the kernel)
+# ---------------------------------------------------------------------------
+
+def blocked_attention(q, k, v, q_pos, kv_pos, *, kind="causal", window=0,
+                      block_kv=1024, softmax_scale=None):
+    """Online-softmax attention, KV visited in blocks.
+
+    q: [B, Sq, Kh, G, D]; k, v: [B, Skv, Kh, D]. Returns [B, Sq, Kh, G, D].
+    """
+    B, Sq, Kh, G, D = q.shape
+    Skv, Dv = k.shape[1], v.shape[-1]
+    bk = min(block_kv, Skv)
+    nblk = math.ceil(Skv / bk)
+    pad = nblk * bk - Skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
+
+    qf = _scaled_f32(q, softmax_scale)
+    acc = torch.zeros((B, Kh, G, Sq, Dv), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, Kh, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Kh, G, Sq), dtype=torch.float32, device=q.device)
+    for i in range(nblk):
+        kc = k[:, i * bk:(i + 1) * bk].to(torch.float32)
+        vc = v[:, i * bk:(i + 1) * bk].to(torch.float32)
+        pc = kv_pos[i * bk:(i + 1) * bk]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc)
+        s = s + mask_bias(q_pos, pc, kind, window)[None, None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p_ = torch.exp(s - m_new[..., None])
+        l = l * alpha + p_.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                    p_, vc)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)         # [B,Sq,Kh,G,D]
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (single query position against a cache)
+# ---------------------------------------------------------------------------
+
+def decode_attention(q, cache_k, cache_v, pos, *, kind="causal", window=0,
+                     softmax_scale=None):
+    """q: [B, 1, Kh, G, D]; cache_k/v: [B, Smax, Kh, D]; pos: int — the
+    position being generated. The cache already holds this token's own K/V
+    at index ``pos``. ``full`` kind attends the whole cache."""
+    Smax = cache_k.shape[1]
+    kv_pos = torch.arange(Smax, device=q.device)
+    if kind == "full":
+        valid = torch.ones((Smax,), dtype=torch.bool, device=q.device)
+    else:
+        valid = kv_pos <= pos
+        if kind == "sliding":
+            valid &= kv_pos > pos - window
+    s = torch.einsum("bqhgd,bkhd->bhgqk", _scaled_f32(q, softmax_scale),
+                     cache_k.to(torch.float32))
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p_ = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p_, cache_v.to(torch.float32))
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def update_cache(cache_k, cache_v, k_new, v_new, pos):
+    """Write [B, 1, Kh, D] new KV at position ``pos``, in place (the
+    reference returns updated copies; the port's caches are owned by the
+    caller's decode loop, so writing in place saves a copy per step)."""
+    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Full module forward (used by transformer.py)
+# ---------------------------------------------------------------------------
+
+def _self_attention(q, k, v, positions, kind, window, block_kv,
+                    softmax_scale):
+    """Prefill self-attention: the flash kernel on a CUDA tensor, the
+    blocked twin on the CPU."""
+    if q.device.type != "cuda":
+        return blocked_attention(q, k, v, positions, positions, kind=kind,
+                                 window=window, block_kv=block_kv,
+                                 softmax_scale=softmax_scale)
+    scale = None
+    if softmax_scale is not None:
+        # Scale in q's dtype, as the model path does for a Python float.
+        q, scale = _weak_scale(q, softmax_scale), 1.0
+    return flash_ops.flash_attention(q, k, v, causal=True,
+                                     window=window if kind == "sliding"
+                                     else 0, scale=scale)
+
+
+def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
+          rope_theta=10000.0, block_kv=1024, softmax_scale=None, cache=None,
+          decode_pos=None):
+    """One self-attention sub-layer. Returns (out, kv).
+
+    Train/prefill (cache=None): x is [B, S, d] at positions ``arange(S)``;
+    returns the projected (k, v), which the prefill keeps as its cache.
+    Decode (cache=(k, v), decode_pos set): x is [B, 1, d]; writes this
+    token's K/V at ``decode_pos`` and attends [0, decode_pos]; returns the
+    cache. Cross-attention (``kv_x``) is not ported yet.
+    """
+    if kind not in ("causal", "sliding"):
+        raise NotImplementedError(
+            f"attention kind {kind!r}: only self-attention (causal, "
+            "sliding) is ported (cross-attention: ROADMAP queue 1 item 2b)")
+    G = n_heads // n_kv
+    q = project_q(x, p, rope_theta, positions)
+    B, Sq = q.shape[:2]
+    q = q.reshape(B, Sq, n_kv, G, -1)
+    k, v = project_kv(x, p, rope_theta, positions)
+    if cache is None:
+        out = _self_attention(q, k, v, positions, kind, window, block_kv,
+                              softmax_scale)
+        kv = (k, v)
+    else:
+        kv = update_cache(*cache, k, v, decode_pos)
+        out = decode_attention(q, *kv, decode_pos, kind=kind, window=window,
+                               softmax_scale=softmax_scale)
+    out = out.reshape(B, Sq, n_heads, -1)
+    return project_out(out, p), kv

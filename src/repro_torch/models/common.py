@@ -1,39 +1,62 @@
-"""Shared model building blocks — the parts of ``repro/models/common.py``
-the learned forecaster needs: fan-in-scaled truncated-normal init, zero
-init, and RMS norm.
+"""Shared model building blocks — the counterpart of
+``repro/models/common.py``: truncated-normal and fan-in-scaled inits,
+RMS and layer norm, the gated MLP, RoPE, and the token embedding and
+logits head over a padded vocabulary.
 
 Parameters are plain tensors in the reference's layouts (a dense weight is
-``[in, out]`` and applied as ``x @ W``). ``jax.random`` cannot be
-reproduced, so inits draw from a seeded ``torch.Generator`` on the CPU and
-are then moved to the target device: the same seed gives the same
-parameters on the card and on the CPU.
+``[in, out]`` and applied as ``x @ W``; attention weights keep
+``[d, heads, head_dim]``). ``jax.random`` cannot be reproduced, so inits
+draw from a seeded ``torch.Generator``: on the CPU by default, so the same
+seed gives the same parameters on the card and on the CPU; or on the card,
+with a generator on the card, where a model is too large to draw on the
+host (the card's draw is its own stream of numbers).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+_TN_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+_TN_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
 
 
-def trunc_normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
+def trunc_normal(gen: torch.Generator, shape, scale: float,
+                 dtype=torch.float32) -> torch.Tensor:
     """``scale`` times a standard normal truncated to [-2, 2] (the
-    reference's ``trunc_normal``), drawn on the CPU from ``gen`` by inverse
-    CDF, in float32."""
-    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=gen, dtype=torch.float64)
-    x = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0)
-    return (scale * x.clamp(-2.0, 2.0)).to(torch.float32)
+    reference's ``trunc_normal``), drawn from ``gen`` by inverse CDF on
+    the generator's device, returned in ``dtype``. On the CPU the draw is
+    float64; on the card it is float32 (a 2.7 B-parameter model would
+    otherwise spend minutes of host erfinv and a float64 temporary per
+    embedding)."""
+    wide = torch.float64 if gen.device.type == "cpu" else torch.float32
+    u = torch.rand(shape, generator=gen, dtype=wide, device=gen.device)
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * (_TN_LO + u * (_TN_HI - _TN_LO))
+                                      - 1.0)
+    return (scale * x.clamp(-2.0, 2.0)).to(dtype)
 
 
-def dense_init(gen: torch.Generator, shape, fan_in=None) -> torch.Tensor:
+def dense_init(gen: torch.Generator, shape, fan_in=None,
+               dtype=torch.float32) -> torch.Tensor:
     """Fan-in-scaled init (the MaxText default)."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    return trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in))
+    return trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype)
 
 
-def zeros_init(shape) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.float32)
+def zeros_init(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), with no
+    switch to the identity above a threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -43,3 +66,100 @@ def rms_norm(x, scale, eps=1e-6):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def norm_init(d, kind, dtype, device=None) -> dict:
+    if kind == "rmsnorm":
+        return dict(scale=zeros_init((d,), dtype, device))
+    return dict(scale=ones_init((d,), dtype, device),
+                bias=zeros_init((d,), dtype, device))
+
+
+def apply_norm(x, p, kind):
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, d_model, d_ff, dtype) -> dict:
+    """Draws in the order wi, wg, wo."""
+    return dict(wi=dense_init(gen, (d_model, d_ff), dtype=dtype),
+                wg=dense_init(gen, (d_model, d_ff), dtype=dtype),
+                wo=dense_init(gen, (d_ff, d_model), fan_in=d_ff,
+                              dtype=dtype))
+
+
+def mlp_apply(x, p):
+    h = F.silu(x @ p["wi"].to(x.dtype)) * (x @ p["wg"].to(x.dtype))
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    # torch.full fills on the device; torch.tensor would copy from the
+    # host and synchronize the stream on every call.
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]. Split halves
+    (not interleaved), in float32, cast back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                     # [d/2]
+    ang = positions[..., :, None, None].to(torch.float32) * freqs
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Token embedding + logits head (padded vocab)
+# ---------------------------------------------------------------------------
+
+def pad_vocab(vocab: int, multiple: int = 2048) -> int:
+    return int(np.ceil(vocab / multiple) * multiple)
+
+
+def embedding_init(gen, vocab_padded, d_model, dtype, tied=True) -> dict:
+    # 1/sqrt(d) rows keep tied logits ~unit-scale at init.
+    out = dict(tokens=trunc_normal(gen, (vocab_padded, d_model),
+                                   1.0 / math.sqrt(d_model), dtype))
+    if not tied:
+        out["head"] = dense_init(gen, (d_model, vocab_padded), dtype=dtype)
+    return out
+
+
+def embed_tokens(tokens, p, dtype):
+    return p["tokens"].to(dtype)[tokens]
+
+
+def logits_from_hidden(h, p, true_vocab, dtype):
+    """Logits over the padded vocabulary, the padded tail set to -1e9 in
+    the compute dtype (out of the partition function)."""
+    table = p.get("head")
+    if table is None:
+        logits = h @ p["tokens"].to(dtype).T
+    else:
+        logits = h @ table.to(dtype)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(iota >= true_vocab, -1e9)

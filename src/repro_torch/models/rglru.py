@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-from repro_torch.models.common import dense_init, zeros_init
+from repro_torch.models.common import dense_init, softplus, zeros_init
 from repro_torch.models.ssm import _causal_conv
 
 _C = 8.0  # Griffin's fixed constant
@@ -42,12 +42,6 @@ def block_init(gen: torch.Generator, d_model: int, *, lru_width: int,
     )
 
 
-def softplus(x):
-    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), with no
-    switch to the identity above a threshold."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def _gates(x, p):
     """(a, gated input) of the recurrence, both [B, S, W] float32."""
     xf = x.to(torch.float32)
@@ -66,6 +60,6 @@ def block_apply(x, p, scan=rglru_scan_ref):
     learned forecaster passes it; everything around it is the same."""
     gate = F.gelu(x @ p["in_gate"], approximate="tanh")
     u = x @ p["in_x"]
-    u = _causal_conv(u, p["conv_w"], p["conv_b"])
+    u, _ = _causal_conv(u, p["conv_w"], p["conv_b"])
     y = scan(*_gates(u, p)).to(u.dtype)
     return (y * gate) @ p["out"]

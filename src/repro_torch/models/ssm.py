@@ -1,15 +1,213 @@
-"""The depthwise causal conv of ``repro/models/ssm.py`` (train path only;
-the Mamba-2 block waits for the LM stack)."""
+"""Mamba-2 blocks via SSD (state-space duality, arXiv:2405.21060) — the
+counterpart of ``repro/models/ssm.py``.
+
+Training and prefill run the chunked SSD: within a chunk the recurrence
+in its quadratic dual form, and a [H, P, N] state passed from chunk to
+chunk. On a CUDA tensor the prefill's scan is the hand-written kernel
+(``kernels/ssd_scan``), which takes the TPU kernel's place; on the CPU it
+is the plain chunked twin ``ssd_chunked`` below, so the CPU tests compare
+like with like. Decode is the O(1) recurrent update.
+
+Shapes: x [B, S, H, P] (H heads × P head_dim = d_inner), B/C [B, S, G, N]
+(G groups broadcast over heads), dt [B, S, H], A [H] (negative).
+"""
 from __future__ import annotations
 
+import numpy as np
+import torch
 import torch.nn.functional as F
 
+from repro_torch.models.common import (dense_init, ones_init, softplus,
+                                       zeros_init)
 
-def _causal_conv(u, w, b):
+
+# ---------------------------------------------------------------------------
+# Core SSD scan (chunked)
+# ---------------------------------------------------------------------------
+
+def _segsum(a):
+    """Stable segment-sum: out[..., i, j] = sum a[..., j+1..i] (−inf j>i)."""
+    L = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=a.device))
+    return out.masked_fill(~mask, -torch.inf)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, init_state=None):
+    """Returns (y [B,S,H,P], final_state [B,H,P,N]), in x's dtype; float32
+    inside."""
+    b, S, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    S0 = S
+    pad = (-S) % chunk
+    if pad:
+        # dt=0 padding is exact: a = dt·A = 0 ⇒ decay 1 (state preserved),
+        # x·dt = 0 ⇒ nothing injected; padded outputs are sliced away.
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        S = S + pad
+    nc = S // chunk
+    rep = H // G
+
+    xf = x.to(torch.float32)
+    a = dt.to(torch.float32) * A.to(torch.float32)            # [B,S,H] (<0)
+    xdt = xf * dt.to(torch.float32)[..., None]                # fold dt into x
+    Bf = Bm.to(torch.float32).repeat_interleave(rep, dim=2)   # [B,S,H,N]
+    Cf = Cm.to(torch.float32).repeat_interleave(rep, dim=2)
+
+    def to_chunks(t):
+        return t.reshape(b, nc, chunk, *t.shape[2:])
+
+    xc, ac, Bc, Cc = map(to_chunks, (xdt, a, Bf, Cf))
+    state = (torch.zeros((b, H, Pd, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.to(torch.float32))
+    ys = []
+    for k in range(nc):
+        xk, ak, Bk, Ck = xc[:, k], ac[:, k], Bc[:, k], Cc[:, k]
+        acs = torch.cumsum(ak, dim=1)                          # [B,L,H]
+        # Intra-chunk (dual quadratic form):
+        Lmat = torch.exp(_segsum(ak.transpose(1, 2)))          # [B,H,L,L]
+        scores = torch.einsum("blhn,bshn->bhls", Ck, Bk) * Lmat
+        y_intra = torch.einsum("bhls,bshp->blhp", scores, xk)
+        # Inter-chunk: contribution of the carried state.
+        y_inter = torch.einsum("blhn,bhpn,blh->blhp", Ck, state,
+                               torch.exp(acs))
+        # New state: decay old + inject this chunk.
+        decay_tail = torch.exp(acs[:, -1:, :] - acs)           # [B,L,H]
+        state = (state * torch.exp(acs[:, -1, :])[..., None, None]
+                 + torch.einsum("blhn,blhp,blh->bhpn", Bk, xk, decay_tail))
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(b, S, H, Pd)[:, :S0]
+    return y.to(x.dtype), state.to(x.dtype)
+
+
+def ssd_step(x, dt, A, Bm, Cm, state):
+    """O(1) decode: x [B,1,H,P], state [B,H,P,N] → (y, new_state)."""
+    rep = state.shape[1] // Bm.shape[2]
+    Bf = Bm.to(torch.float32).repeat_interleave(rep, dim=2)[:, 0]  # [B,H,N]
+    Cf = Cm.to(torch.float32).repeat_interleave(rep, dim=2)[:, 0]
+    a = torch.exp(dt.to(torch.float32)[:, 0] * A.to(torch.float32))  # [B,H]
+    xdt = (x.to(torch.float32) * dt.to(torch.float32)[..., None])[:, 0]
+    state_new = (state.to(torch.float32) * a[..., None, None]
+                 + torch.einsum("bhn,bhp->bhpn", Bf, xdt))
+    y = torch.einsum("bhn,bhpn->bhp", Cf, state_new)
+    return y[:, None].to(x.dtype), state_new.to(state.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 block (in_proj → conv → SSD → gate → out_proj)
+# ---------------------------------------------------------------------------
+
+def block_init(gen, d_model, *, d_inner, head_dim, n_groups, d_state,
+               d_conv=4, dtype=torch.float32) -> dict:
+    """The reference's parameter tree and init: the conv and the SSM
+    scalars start at zero (A_log 0, D 1), so the SSD carries zeros until
+    trained; draws in the order in_proj, out_proj."""
+    H = d_inner // head_dim
+    conv_dim = d_inner + 2 * n_groups * d_state
+    dev = gen.device
+    return dict(
+        in_proj=dense_init(gen, (d_model,
+                                 2 * d_inner + 2 * n_groups * d_state + H),
+                           dtype=dtype),
+        conv_w=zeros_init((d_conv, conv_dim), dtype, dev),
+        conv_b=zeros_init((conv_dim,), dtype, dev),
+        A_log=zeros_init((H,), torch.float32, dev),
+        D=ones_init((H,), torch.float32, dev),
+        dt_bias=zeros_init((H,), torch.float32, dev),
+        norm_scale=zeros_init((d_inner,), dtype, dev),
+        out_proj=dense_init(gen, (d_inner, d_model), fan_in=d_inner,
+                            dtype=dtype),
+    )
+
+
+def draw_live_mixer(rng: np.random.Generator, cfg) -> dict:
+    """The Mamba-2 mixer parameters that ``block_init`` leaves at zero or
+    one (conv_w, conv_b, A_log, dt_bias, D, norm_scale), drawn from
+    ``rng`` at the scales of Mamba-2's published init: conv taps and bias
+    uniform within 1/sqrt(d_conv), A = -U(1, 16), dt in log-U(1e-3, 0.1)
+    through the inverse softplus. With the zero conv of ``block_init`` the
+    SSD carries exactly zero (silu(0) = 0); with these it carries signal.
+    Float32 numpy arrays under ``block_init``'s names, one layer."""
+    H = cfg.d_inner // cfg.ssm_head_dim
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), H))
+    out = dict(conv_w=rng.uniform(-0.5, 0.5, (4, conv_dim)),
+               conv_b=rng.uniform(-0.5, 0.5, conv_dim),
+               A_log=np.log(rng.uniform(1.0, 16.0, H)),
+               dt_bias=dt + np.log(-np.expm1(-dt)),
+               D=rng.uniform(0.5, 1.5, H),
+               norm_scale=rng.normal(0.0, 0.1, cfg.d_inner))
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def _causal_conv(u, w, b, state=None):
     """Depthwise causal conv, width d_conv, then SiLU. u: [B, S, C];
-    w: [d_conv, C]; b: [C]. Taps are summed in the reference's order."""
+    w: [d_conv, C]; b: [C]. Taps are summed in the reference's order.
+
+    state: [B, d_conv-1, C] trailing context for decode. Returns (y, new
+    state of the last d_conv-1 inputs)."""
     d_conv = w.shape[0]
+    if state is None:
+        u_pad = F.pad(u, (0, 0, d_conv - 1, 0))
+    else:
+        u_pad = torch.cat([state.to(u.dtype), u], dim=1)
     S = u.shape[1]
-    u_pad = F.pad(u, (0, 0, d_conv - 1, 0))
     y = sum(u_pad[:, i:i + S, :] * w[i] for i in range(d_conv))
-    return F.silu(y + b)
+    new_state = u_pad[:, -(d_conv - 1):, :]
+    return F.silu(y + b), new_state
+
+
+def _scan(xs, dt, A, Bm, Cm, chunk):
+    """The prefill's SSD: the kernel on the card, the plain twin on the
+    CPU (the same chunk length either way)."""
+    if xs.device.type == "cuda":
+        # Imported here: the kernel's plain version imports this module.
+        from repro_torch.kernels.ssd_scan import ops
+        return ops.ssd_scan(xs.contiguous(), dt, A, Bm.contiguous(),
+                            Cm.contiguous(), chunk=chunk)
+    return ssd_chunked(xs, dt, A, Bm, Cm, chunk=chunk)
+
+
+def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
+    """cfg: object with d_inner, ssm_head_dim, ssm_groups, ssm_state.
+    mode: train (no cache out) | prefill (returns final state as cache) |
+    decode (cache: dict(conv=[B,3,C], state=[B,H,P,N]), O(1) update)."""
+    d_inner = cfg.d_inner
+    Pd, G, N = cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    H = d_inner // Pd
+    Bsz, S, _ = x.shape
+
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    z, xbc, dt_raw = torch.split(
+        zxbcdt, [d_inner, d_inner + 2 * G * N, H], dim=-1)
+    conv_state = None if mode != "decode" else cache["conv"]
+    xbc, conv_state = _causal_conv(xbc, p["conv_w"].to(x.dtype),
+                                   p["conv_b"].to(x.dtype), conv_state)
+    xs, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(Bsz, S, H, Pd)
+    Bm = Bm.reshape(Bsz, S, G, N)
+    Cm = Cm.reshape(Bsz, S, G, N)
+    dt = softplus(dt_raw.to(torch.float32)
+                  + p["dt_bias"].to(torch.float32))
+    A = -torch.exp(p["A_log"].to(torch.float32))
+
+    if mode == "decode":
+        y, ssm_state = ssd_step(xs, dt, A, Bm, Cm, cache["state"])
+        new_cache = dict(conv=conv_state, state=ssm_state)
+    else:
+        y, final = _scan(xs, dt, A, Bm, Cm, min(chunk, S))
+        new_cache = (dict(conv=conv_state, state=final)
+                     if mode == "prefill" else None)
+
+    y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
+    y = y.reshape(Bsz, S, d_inner)
+    # Gated RMSNorm (Mamba-2 norm-before-out_proj).
+    y = y * F.silu(z)
+    var = torch.mean(torch.square(y.to(torch.float32)), -1, keepdim=True)
+    y = (y.to(torch.float32) * torch.rsqrt(var + 1e-6)
+         * (1.0 + p["norm_scale"].to(torch.float32))).to(x.dtype)
+    return y @ p["out_proj"].to(x.dtype), new_cache

@@ -157,3 +157,137 @@ def test_fused_temporal_round_on_card_goes_through_kernel(card):
     assert sinkhorn.LAUNCHES - before == 360 * sinkhorn.LAUNCHES_PER_ITERATION
     _, _, _, host = port_round.fused_temporal_round(*args, device="cpu")
     assert host.status == res.status
+
+
+# --- LM serving path: flash attention and the SSD scan -----------------------
+
+# bf16 outputs of kernel and plain version round independently: one bf16
+# step (at most 2^-7 of the value: bf16 keeps 8 significant bits) on top
+# of the reference kernel tests' atol.
+BF16_RTOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("BH,S,D,causal,window,dtype,group", [
+    (4, 256, 64, True, 0, torch.float32, 1),
+    (2, 512, 128, True, 0, torch.float32, 1),
+    (2, 256, 64, False, 0, torch.float32, 1),
+    (2, 512, 64, True, 100, torch.float32, 1),
+    (2, 256, 128, True, 0, torch.bfloat16, 1),
+    (1, 128, 256, True, 64, torch.float32, 1),
+    (8, 1000, 16, True, 0, torch.float32, 4),
+])
+def test_flash_kernel_matches_plain_on_card(card, BH, S, D, causal, window,
+                                            dtype, group):
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator().manual_seed(BH + S + D)
+    q = torch.randn((BH, S, D), generator=gen).to(card, dtype)
+    k, v = (torch.randn((BH // group, S, D), generator=gen).to(card, dtype)
+            for _ in range(2))
+    before = fb.LAUNCHES
+    out = fops.flash_attention_bh(q, k, v, causal=causal, window=window,
+                                  group=group)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    ref = flash_attention_bh_ref(q, k, v, causal=causal, window=window,
+                                 group=group)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=0 if dtype == torch.float32
+                               else BF16_RTOL)
+
+
+def test_flash_kernel_rejects_bad_inputs(card):
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    q = torch.zeros((4, 64, 64), device=card)
+    with pytest.raises(TypeError):
+        fb.flash_attention_bh_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="head dim"):
+        fb.flash_attention_bh_cuda(q[..., :48].contiguous(),
+                                   q[..., :48].contiguous(),
+                                   q[..., :48].contiguous())
+    with pytest.raises(ValueError, match="group"):
+        fb.flash_attention_bh_cuda(q, q[:3].contiguous(), q[:3].contiguous(),
+                                   group=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.flash_attention_bh_cuda(q.transpose(1, 2), q, q)
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype", [
+    (2, 64, 4, 16, 2, 8, 16, torch.float32),
+    (2, 128, 2, 32, 1, 16, 32, torch.float32),
+    (2, 64, 8, 64, 8, 8, 64, torch.float32),
+    (2, 100, 4, 16, 2, 8, 16, torch.float32),
+    (1, 600, 8, 64, 1, 128, 256, torch.bfloat16),
+])
+def test_ssd_kernel_matches_plain_on_card(card, b, S, H, P, G, N, chunk,
+                                          dtype):
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    gen = torch.Generator().manual_seed(S + H + P)
+    x = torch.randn((b, S, H, P), generator=gen).to(card, dtype)
+    dt = (torch.rand((b, S, H), generator=gen) * 0.5 + 0.1).to(card)
+    A = (-torch.rand(H, generator=gen) - 0.2).to(card)
+    Bm, Cm = (torch.randn((b, S, G, N), generator=gen).to(card, dtype)
+              for _ in range(2))
+    before = sb.LAUNCHES
+    y, st = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES == before + 1
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, chunk=min(chunk, S))
+    rtol = 0 if dtype == torch.float32 else BF16_RTOL
+    torch.testing.assert_close(y.float(), yr.float(), atol=2e-3, rtol=rtol)
+    torch.testing.assert_close(st.float(), sr.float(), atol=2e-3, rtol=rtol)
+
+
+def test_ssd_kernel_rejects_bad_inputs(card):
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    x = torch.zeros((1, 8, 4, 16), device=card)
+    dt = torch.zeros((1, 8, 4), device=card)
+    A = torch.zeros(4, device=card)
+    Bm = torch.zeros((1, 8, 2, 8), device=card)
+    with pytest.raises(TypeError):
+        sb.ssd_scan_cuda(x, dt.double(), A, Bm, Bm)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 8, 4, 80), device=card)
+        sb.ssd_scan_cuda(big, dt, A, Bm, Bm)
+    with pytest.raises(ValueError, match="unsupported"):
+        sb.ssd_scan_cuda(x, dt, A, Bm[:, :, :1].expand(1, 8, 3, 8)
+                         .contiguous(), Bm[:, :, :1].expand(1, 8, 3, 8)
+                         .contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        sb.ssd_scan_cuda(x.transpose(1, 2), dt, A, Bm, Bm)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "mamba2_2_7b"])
+def test_server_on_card_goes_through_kernels(card, arch):
+    """Reduced config, float32, weights drawn on the CPU and copied: the
+    card's ``Server.generate`` launches one kernel per layer in its
+    prefill and gives the CPU's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    from repro_torch.models import ssm
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.runtime.serve_loop import Server
+    cfg = get_config(arch, reduced=True).replace(dtype="float32",
+                                                 param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    if cfg.ssm:
+        rng = np.random.default_rng(0)
+        for lp in params["layers"]:
+            lp["mixer"].update({k: torch.from_numpy(v) for k, v in
+                                ssm.draw_live_mixer(rng, cfg).items()})
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+    before = (fb.LAUNCHES, sb.LAUNCHES)
+    out = Server(model, to_device(params, card)).generate(dict(tokens=toks),
+                                                          max_new=4)
+    launched = (fb.LAUNCHES - before[0], sb.LAUNCHES - before[1])
+    assert launched == ((0, cfg.n_layers) if cfg.ssm else (cfg.n_layers, 0))
+    host = Server(model, params, device="cpu").generate(dict(tokens=toks),
+                                                        max_new=4)
+    np.testing.assert_array_equal(out, host)

@@ -18,8 +18,9 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
 def test_main_path_imports_without_jax_or_reference():
-    """With jax blocked: import the main paths of both slices, then run one
-    learned-forecaster forward and one Holt-Winters fit on the CPU."""
+    """With jax blocked: import the main paths of the three slices, then
+    run one learned-forecaster forward, one Holt-Winters fit and one
+    reduced-config LM prefill per architecture on the CPU."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -39,6 +40,18 @@ def test_main_path_imports_without_jax_or_reference():
         "y = np.abs(np.sin(np.arange(72))[:, None]) + np.ones((72, 2))\n"
         "hw = fc.make_forecaster('holtwinters', device='cpu').fit(y)\n"
         "assert np.isfinite(hw.predict(6).mean).all()\n"
+        "import repro_torch.runtime.serve_loop\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.ssd_scan.ops\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.model import Model\n"
+        "for arch in ('qwen2_1_5b', 'mamba2_2_7b'):\n"
+        "    m = Model(get_config(arch, reduced=True))\n"
+        "    p = m.init(torch.Generator().manual_seed(0))\n"
+        "    t = torch.zeros((2, 12), dtype=torch.long)\n"
+        "    logits, cache = m.prefill(p, dict(tokens=t))\n"
+        "    assert logits.shape == (2, m.cfg.padded_vocab)\n"
+        "    assert torch.isfinite(logits.float()).all()\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -59,7 +72,15 @@ def test_port_sources_never_import_jax_or_reference():
     names = {str(p.relative_to(SRC / "repro_torch")) for p in files}
     assert {"forecast/learned.py", "forecast/holtwinters.py",
             "models/rglru.py", "optim/adamw.py", "checkpoint/store.py",
-            "kernels/rglru_scan/ops.py"} <= names
+            "kernels/rglru_scan/ops.py", "configs/base.py",
+            "configs/qwen2_1_5b.py", "configs/mamba2_2_7b.py",
+            "models/attention.py", "models/transformer.py",
+            "models/model.py", "runtime/serve_loop.py",
+            "runtime/train_loop.py", "kernels/flash_attention/ops.py",
+            "kernels/flash_attention/flash_attention.py",
+            "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ssd_scan.py"} <= names
+    cu = {p.name for p in (SRC / "repro_torch" / "csrc").glob("*.cu")}
+    assert {"flash_attention.cu", "ssd_scan.cu"} <= cu
     hits = [(str(p), m.group(0).strip()) for p in files
             for m in _FORBIDDEN.finditer(p.read_text())]
     assert hits == []
@@ -100,6 +121,42 @@ def test_pipeline_passes_device_to_device_backends(monkeypatch):
     # The host backend takes no device at all.
     dec = reactive_pipeline(tele, backend="flow").schedule(jobs, 0.0, cap)
     assert len(dec.scheduled) == 4
+
+
+def test_server_without_cuda_raises(monkeypatch):
+    """The LM server runs on the card unless asked for the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import Server
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = Model(get_config("qwen2_1_5b", reduced=True))
+    params = m.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        Server(m, params)
+    out = Server(m, params, device="cpu").generate(
+        dict(tokens=np.zeros((1, 5), np.int32)), max_new=2)
+    assert out.shape == (1, 2)
+
+
+def test_kernel_wrappers_take_plain_versions_only_on_cpu():
+    """On a CPU tensor each wrapper takes its plain version and launches
+    nothing; there is no path for another device."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    before = (fb.LAUNCHES, sb.LAUNCHES)
+    q = torch.randn(1, 9, 1, 2, 16)
+    k = torch.randn(1, 9, 1, 16)
+    assert fops.flash_attention(q, k, k).shape == q.shape
+    x = torch.randn(1, 9, 2, 16)
+    y, st = sops.ssd_scan(x, torch.rand(1, 9, 2), -torch.rand(2),
+                          torch.randn(1, 9, 1, 4), torch.randn(1, 9, 1, 4),
+                          chunk=4)
+    assert y.shape == x.shape and st.shape == (1, 2, 16, 4)
+    assert (fb.LAUNCHES, sb.LAUNCHES) == before
+    with pytest.raises(ValueError, match="no SSD scan kernel"):
+        sops.ssd_scan(x.to("meta"), *(torch.zeros(1, device="meta"),) * 4)
 
 
 def test_registry_lists_port_backends():

@@ -1,0 +1,155 @@
+"""The port's SSD scan against the JAX package's, on the same numpy inputs:
+the kernel's plain versions (``kernels/ssd_scan``: the chunked form and
+the sequential recurrence) against ``ssd_naive``, ``ssd_chunked`` and, at
+a small shape, the Pallas kernel in interpret mode; the Mamba-2 block's
+pieces (segment sum, decode step, causal conv) against the reference's.
+The CUDA kernel itself is held to the plain version on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 6)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan.ref import ssd_naive, ssd_ref
+from repro.models import ssm as jssm
+from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan.ref import ssd_naive as port_naive
+from repro_torch.models import ssm
+
+# The reference kernel test's tolerance (float32 on both sides; the chunked
+# form and the recurrence sum in other orders).
+ATOL = 2e-3
+
+
+def _inputs(seed, b, S, H, P, G, N):
+    """test_ssd_scan_sweep's draws: x, dt in [0.1, 0.6), A in (-1.2, -0.2],
+    B, C standard normal."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, S, H, P)).astype(np.float32),
+            (rng.random((b, S, H)) * 0.5 + 0.1).astype(np.float32),
+            (-rng.random(H) - 0.2).astype(np.float32),
+            rng.standard_normal((b, S, G, N)).astype(np.float32),
+            rng.standard_normal((b, S, G, N)).astype(np.float32))
+
+
+def _jax(arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+def _torch(arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _close(port, ref, atol=ATOL):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), atol=atol)
+
+
+# test_ssd_scan_sweep's shapes (tests/test_kernels.py).
+SWEEP = [(64, 4, 16, 2, 8, 16), (128, 2, 32, 1, 16, 32),
+         (64, 8, 64, 8, 8, 64)]
+
+
+@pytest.mark.parametrize("S,H,P,G,N,chunk", SWEEP)
+def test_plain_matches_naive_and_chunked_sweep(S, H, P, G, N, chunk):
+    arrs = _inputs(2, 2, S, H, P, G, N)
+    yn, sn = ssd_naive(*_jax(arrs))
+    yc, sc = ssd_ref(*_jax(arrs), chunk=chunk)
+    y, st = ops.ssd_scan(*_torch(arrs), chunk=chunk)
+    _close(y, yn)
+    _close(st, sn)
+    _close(y, yc, 1e-4)
+    _close(st, sc, 1e-4)
+    y, st = port_naive(*_torch(arrs))
+    _close(y, yn, 1e-4)
+    _close(st, sn, 1e-4)
+
+
+def test_plain_matches_pallas_interpret():
+    arrs = _inputs(3, 1, 32, 2, 8, 1, 4)
+    yk, sk = jax_ssd_scan(*_jax(arrs), chunk=8, interpret=True)
+    y, st = ops.ssd_scan(*_torch(arrs), chunk=8)
+    _close(y, yk, 1e-4)
+    _close(st, sk, 1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(50, 16), (7, 16), (33, 32)])
+def test_ragged_sequence_is_exact_padding(S, chunk):
+    """S not a multiple of the chunk: the reference pads with dt = 0."""
+    arrs = _inputs(4, 2, S, 4, 16, 2, 8)
+    yc, sc = ssd_ref(*_jax(arrs), chunk=min(chunk, S))
+    yn, sn = ssd_naive(*_jax(arrs))
+    y, st = ops.ssd_scan(*_torch(arrs), chunk=chunk)
+    _close(y, yc, 1e-4)
+    _close(st, sc, 1e-4)
+    _close(y, yn)
+    _close(st, sn)
+
+
+def test_segsum_matches_reference():
+    a = np.random.default_rng(5).standard_normal((3, 12)).astype(np.float32)
+    np.testing.assert_allclose(ssm._segsum(torch.from_numpy(a)).numpy(),
+                               np.asarray(jssm._segsum(jnp.asarray(a))),
+                               atol=1e-5)
+
+
+def test_ssd_step_matches_reference():
+    rng = np.random.default_rng(6)
+    b, H, P, G, N = 2, 4, 8, 2, 6
+    arrs = [rng.standard_normal((b, 1, H, P)).astype(np.float32),
+            (rng.random((b, 1, H)) * 0.5).astype(np.float32),
+            (-rng.random(H) - 0.2).astype(np.float32),
+            rng.standard_normal((b, 1, G, N)).astype(np.float32),
+            rng.standard_normal((b, 1, G, N)).astype(np.float32),
+            rng.standard_normal((b, H, P, N)).astype(np.float32)]
+    yj, sj = jssm.ssd_step(*_jax(arrs))
+    y, st = ssm.ssd_step(*_torch(arrs))
+    _close(y, yj, 1e-5)
+    _close(st, sj, 1e-5)
+
+
+def test_causal_conv_with_and_without_state():
+    rng = np.random.default_rng(7)
+    u = rng.standard_normal((2, 5, 6)).astype(np.float32)
+    w = rng.standard_normal((4, 6)).astype(np.float32)
+    bias = rng.standard_normal(6).astype(np.float32)
+    st = rng.standard_normal((2, 3, 6)).astype(np.float32)
+    for state in (None, st):
+        yj, nj = jssm._causal_conv(*_jax([u, w, bias]),
+                                   None if state is None
+                                   else jnp.asarray(state))
+        y, n = ssm._causal_conv(*_torch([u, w, bias]),
+                                None if state is None
+                                else torch.from_numpy(state))
+        _close(y, yj, 1e-6)
+        _close(n, nj, 0.0)
+
+
+def test_live_mixer_draw_makes_the_scan_carry_signal(monkeypatch):
+    """The reference's zero-init conv makes x, B and C exactly zero at the
+    scan; ``draw_live_mixer`` gives a Mamba-2 block whose scan output is
+    nonzero."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import dense_init
+    cfg = get_config("mamba2_2_7b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = ssm.block_init(gen, cfg.d_model, d_inner=cfg.d_inner,
+                       head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
+                       d_state=cfg.ssm_state)
+    x = dense_init(gen, (2, 24, cfg.d_model), fan_in=1)
+    seen = []
+    plain = ssm.ssd_chunked
+
+    def record(*args, **kw):
+        y, s = plain(*args, **kw)
+        seen.append(float(y.abs().max()))
+        return y, s
+    monkeypatch.setattr(ssm, "ssd_chunked", record)
+    ssm.block_apply(x, p, cfg, mode="prefill", chunk=cfg.ssd_chunk)
+    live = dict(p, **{k: torch.from_numpy(v) for k, v in
+                      ssm.draw_live_mixer(np.random.default_rng(0),
+                                          cfg).items()})
+    ssm.block_apply(x, live, cfg, mode="prefill", chunk=cfg.ssd_chunk)
+    assert seen[0] == 0.0 and seen[1] > 1e-3
