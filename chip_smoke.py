@@ -2,14 +2,20 @@
 
 Builds the port's kernels from the sources in this checkout, then:
 
-  1. holds each kernel against its plain PyTorch version on the card, at the
-     shapes the scheduling round gives it, and times both;
+  1. holds the Sinkhorn kernels against their plain PyTorch versions on the
+     card, at the shapes the scheduling round gives them: one iteration
+     (two launches) at each shape and eps, and the whole annealed solve in
+     one launch, which must also equal the loop of 360 iterations bit for
+     bit; times all of them;
   2. runs one fused round at storm scale (4095 jobs x 6 columns, bucket
-     4096) through the kernel and through the plain loop on the card;
+     4096) through the annealed launch and through the plain loop on the
+     card;
   3. drives the reactive WaterWise round end to end — ``EventSimulator`` +
      ``reactive_pipeline(backend="fused")`` — on a diurnal Borg-like cell
      of ~50k jobs (1M jobs/day for 0.05 days, 5 regions, 15% load), on the
-     card and on the CPU, compares the two, and holds the kernel against
+     card and on the CPU, compares the two (one annealed launch per solve),
+     times a round's Sinkhorn stage through the launch and through the
+     iteration loop side by side, and holds the iteration kernel against
      its plain version at every row bucket the card run's solves spanned;
   4. holds the RG-LRU scan kernels (forward and backward) against their
      plain versions at the learned forecaster's shapes and times both;
@@ -18,18 +24,20 @@ Builds the port's kernels from the sources in this checkout, then:
      same cell, on the card and on the CPU, compares the two, checks the
      kernels' launch counts, and runs ``forecaster="holtwinters"`` on the
      card once;
-  6. holds the flash-attention and SSD-scan kernels against their plain
-     versions on the card (the reference kernel tests' shapes, GQA, ragged
-     lengths, and the qwen2-1.5B and mamba2-2.7B prefill shapes) and times
-     them beside the plain versions, their bounds and, for attention,
-     ``scaled_dot_product_attention``;
+  6. holds the flash-attention kernels (bf16 D 64/128 on wgmma tensor
+     cores; float32 and D 16/256 on the scalar kernel) and the SSD-scan
+     kernel against their plain versions on the card (the reference kernel
+     tests' shapes, GQA, ragged lengths, and the qwen2-1.5B and mamba2-2.7B
+     prefill shapes) and times them beside the plain versions, their bounds
+     and, for attention, ``scaled_dot_product_attention``;
   7. serves qwen2-1.5B and mamba2-2.7B at full width and depth 2 in
      float32 through ``Server.generate`` on the card and on the CPU (the
      same weights) and compares logits and tokens;
   8. serves both at full depth in bf16 on the card (B 4, prompt 2048, 32
      new tokens), reports prefill tokens/s, decode ms per step and peak
      memory, and checks that each prefill launched one kernel per layer
-     and never the plain versions.
+     (qwen2-1.5B: the wgmma flash kernel, never the scalar one) and never
+     the plain versions.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars are drawn live (``models.ssm.draw_live_mixer``), since the
@@ -176,10 +184,9 @@ def tree_sha256() -> str:
 def schedule_eps() -> list:
     """The eps of every stage of the fused round's annealed schedule."""
     from repro_torch.core.solvers import torch_solver
-    eps0, eps_min = torch_solver.SINKHORN_EPS0, 0.005
-    stages = torch_solver.SINKHORN_STAGES
-    decay = (eps_min / eps0) ** (1.0 / max(stages - 1, 1))
-    return [eps0 * decay ** s for s in range(stages)]
+    from repro_torch.kernels.sinkhorn.ops import anneal_schedule
+    return anneal_schedule(torch_solver.SINKHORN_EPS0, 0.005,
+                           torch_solver.SINKHORN_STAGES)
 
 
 def hold(M: int, N: int, eps: float, seed: int) -> float:
@@ -208,10 +215,66 @@ def fmt_us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
 
 
+def iteration_loop(C, log_a, log_b, table, iters):
+    """The annealed schedule as the per-iteration kernel runs it: 2 launches
+    an iteration (the yardstick of the one-launch solve, off the main
+    path)."""
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    f = torch.zeros(C.shape[0], dtype=torch.float32, device=C.device)
+    g = torch.zeros(C.shape[1], dtype=torch.float32, device=C.device)
+    for eps in table:
+        for _ in range(iters):
+            f, g = sinkhorn.sinkhorn_iteration_cuda(C, g, log_a, log_b, eps)
+    return f, g
+
+
+def solve_schedule():
+    """(eps table, iterations a stage) of the fused round's solve."""
+    from repro_torch.core.solvers import torch_solver
+    from repro_torch.kernels.sinkhorn.ops import eps_table
+    return (eps_table(torch_solver.SINKHORN_EPS0, 0.005,
+                      torch_solver.SINKHORN_STAGES),
+            torch_solver.SINKHORN_ITERS)
+
+
+def hold_anneal(M: int, N: int, seed: int) -> float:
+    """The one-launch annealed solve at (M, N) on main-path inputs against
+    the per-iteration kernel's loop (bitwise: max |d| must be 0) and
+    against the plain loop (KERNEL_ATOL; padding rows relative). Returns
+    max(|df|, |dg|) against the plain loop."""
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_ref
+    C, _, log_a, log_b = main_path_inputs(M, N, 0.5, torch.device("cuda"),
+                                          seed=seed)
+    table, iters = solve_schedule()
+    f_a, g_a = sinkhorn.sinkhorn_solve_cuda(C, log_a, log_b, table, iters)
+    f_l, g_l = iteration_loop(C, log_a, log_b, table, iters)
+    f_r, g_r = sinkhorn_solve_ref(C, log_a, log_b, table, iters)
+    torch.cuda.synchronize()
+    bitwise = max((f_a - f_l).abs().max().item(),
+                  (g_a - g_l).abs().max().item())
+    same = torch.equal(f_a, f_l) and torch.equal(g_a, g_l)
+    df = f_error(f_a, f_r, log_a)
+    dg = (g_a - g_r).abs().max().item()
+    print(f"  anneal M={M:6d} N={N:3d}: vs iteration loop max|d|="
+          f"{bitwise:.3e} (bitwise equal: {same}); vs plain max|df|="
+          f"{df:.3e} max|dg|={dg:.3e}", flush=True)
+    if not same:
+        fail(f"annealed launch differs from the iteration loop at M={M} "
+             f"N={N}: {bitwise:.3e}")
+    if not (np.isfinite(df) and np.isfinite(dg)) or max(df, dg) > \
+            KERNEL_ATOL:
+        fail(f"annealed launch disagrees with the plain loop at M={M} "
+             f"N={N}: {df:.3e} / {dg:.3e}")
+    return max(df, dg)
+
+
 def phase_kernel(dev) -> dict:
     from repro_torch.kernels.sinkhorn import sinkhorn
-    from repro_torch.kernels.sinkhorn.ref import sinkhorn_iteration_ref
-    print("== phase 1: kernel vs plain version on the card", flush=True)
+    from repro_torch.kernels.sinkhorn.ref import (sinkhorn_iteration_ref,
+                                                  sinkhorn_solve_ref)
+    print("== phase 1: Sinkhorn kernels vs plain versions on the card",
+          flush=True)
     worst = 0.0
     for M in (4, 128, 512, 4096, 16384):
         for N in (6, 41):
@@ -254,21 +317,58 @@ def phase_kernel(dev) -> dict:
               f"(device {fmt_us(plain_device_ms)}), bound "
               f"{bytes_ms * 1e3:.4f} us (bytes) / {ops_ms * 1e3:.4f} us "
               f"(operations)", flush=True)
-    return dict(max_abs_err=worst, timings=timings)
+
+    # The annealed solve in one launch, at every shape of the grid above.
+    anneal_worst = 0.0
+    for M in (4, 128, 512, 4096, 16384):
+        for N in (6, 41):
+            anneal_worst = max(anneal_worst, hold_anneal(M, N, seed=M + N))
+    for M in (512, 4096):
+        anneal_worst = max(anneal_worst, hold_anneal(M, 40, seed=M + 40))
+    table, iters = solve_schedule()
+    n_iter = len(table) * iters
+    anneal_t = {}
+    for M, N in ((16384, 6), (4096, 6), (512, 6), (512, 40)):
+        C, _, log_a, log_b = main_path_inputs(M, N, 0.5, dev, seed=7)
+
+        def kernel():
+            return sinkhorn.sinkhorn_solve_cuda(C, log_a, log_b, table, iters)
+
+        def loop():
+            return iteration_loop(C, log_a, log_b, table, iters)
+
+        def plain():
+            return sinkhorn_solve_ref(C, log_a, log_b, table, iters)
+        t = dict(ms=cuda_ms(kernel, warmup=3, reps=20),
+                 device_ms=profiled_device_ms(kernel, reps=5),
+                 loop_ms=cuda_ms(loop, warmup=1, reps=3),
+                 plain_ms=cuda_ms(plain, warmup=1, reps=2),
+                 # C, log_a, log_b read once, f and g written once; ~12
+                 # float32 operations per element per iteration.
+                 **bound(4 * (M * N + M + N + M + N), 12 * M * N * n_iter))
+        anneal_t[(M, N)] = t
+        print(f"  timing anneal M={M} N={N}: one launch {t['ms'] * 1e3:.2f} "
+              f"us/solve (device {fmt_us(t['device_ms'])}), iteration loop "
+              f"{t['loop_ms'] * 1e3:.2f} us/solve ({n_iter} iterations x "
+              f"{sinkhorn.LAUNCHES_PER_ITERATION} launches), plain "
+              f"{t['plain_ms'] * 1e3:.2f} us/solve, bound "
+              f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']})", flush=True)
+    return dict(max_abs_err=worst, timings=timings,
+                anneal_max_abs_err=anneal_worst, anneal_timings=anneal_t)
 
 
 @contextlib.contextmanager
-def plain_iteration():
-    """Run the fused round's kernel-order loop with the plain version in
-    place of the kernel (the comparison run of phase 2)."""
+def plain_solve():
+    """Run the fused round's kernel-order solve with the plain loop in place
+    of the annealed launch (the comparison run of phase 2)."""
     from repro_torch.core import round as port_round
-    from repro_torch.kernels.sinkhorn.ref import sinkhorn_iteration_ref
-    saved = port_round.sinkhorn_iteration
-    port_round.sinkhorn_iteration = sinkhorn_iteration_ref
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_ref
+    saved = port_round.sinkhorn_solve
+    port_round.sinkhorn_solve = sinkhorn_solve_ref
     try:
         yield
     finally:
-        port_round.sinkhorn_iteration = saved
+        port_round.sinkhorn_solve = saved
 
 
 def phase_round(dev) -> None:
@@ -283,27 +383,27 @@ def phase_round(dev) -> None:
     allowed = rng.random((M, N)) > 0.2
     allowed[np.arange(M), rng.integers(0, N, M)] = True
     cap = np.full(N, (M + N) // N + 1)
-    iters = torch_solver.SINKHORN_ITERS * torch_solver.SINKHORN_STAGES
 
-    before = sinkhorn.LAUNCHES
+    def counts():
+        return (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.LAUNCHES)
+    before = counts()
     t0 = time.perf_counter()
     r_k = port_round.fused_solve(cost, allowed, cap, sinkhorn_impl="kernel",
                                  device=dev)
     t_k = time.perf_counter() - t0
-    launched = sinkhorn.LAUNCHES - before
-    with plain_iteration():
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    with plain_solve():
         t0 = time.perf_counter()
         r_p = port_round.fused_solve(cost, allowed, cap,
                                      sinkhorn_impl="kernel", device=dev)
         t_p = time.perf_counter() - t0
-    if sinkhorn.LAUNCHES - before != launched:
-        fail("the plain run launched the kernel")
-    want = iters * sinkhorn.LAUNCHES_PER_ITERATION
+    if tuple(a - b for a, b in zip(counts(), before)) != launched:
+        fail("the plain run launched a kernel")
     print(f"  kernel round {t_k:.3f} s, plain round {t_p:.3f} s (host "
-          f"rounding included); launches {launched} (want {want})",
-          flush=True)
-    if launched != want:
-        fail(f"kernel round made {launched} launches, want {want}")
+          f"rounding included); launches (annealed, per-iteration) "
+          f"{launched} (want (1, 0))", flush=True)
+    if launched != (1, 0):
+        fail(f"kernel round made {launched} launches, want (1, 0)")
     if r_k.status != r_p.status or not np.array_equal(r_k.assign,
                                                       r_p.assign):
         fail(f"kernel and plain rounds disagree: {r_k.status} vs "
@@ -323,7 +423,7 @@ def phase_round(dev) -> None:
               iters=torch_solver.SINKHORN_ITERS,
               anneal_stages=torch_solver.SINKHORN_STAGES)
     f_k, g_k, _ = port_round._sinkhorn_kernel(C, log_a, log_b, **kw)
-    with plain_iteration():
+    with plain_solve():
         f_p, g_p, _ = port_round._sinkhorn_kernel(C, log_a, log_b, **kw)
     torch.cuda.synchronize()
     df = f_error(f_k, f_p, log_a)
@@ -394,28 +494,51 @@ def run_cell(tele, jobs, cap, device, pipe=None):
                 round_p99_ms=rounds.quantile(99) * 1e3)
 
 
+def identical_share(card: dict, host: dict) -> float:
+    """The share of the card run's records (job, region, start, finish)
+    that the CPU run has too."""
+    def key(r):
+        return (r.job.job_id, r.region, r.start_s, r.finish_s)
+    same = len({key(r) for r in card["res"]["records"]}
+               & {key(r) for r in host["res"]["records"]})
+    return same / max(len(card["res"]["records"]), 1)
+
+
 def sinkhorn_stage(dev, M: int = 512, N: int = 6) -> dict:
-    """The Sinkhorn stage of one round at bucket M through the kernel:
-    host wall (ms, to a synchronize) and the profiler's device time."""
+    """The Sinkhorn stage of one round at bucket M, host wall (ms, to a
+    synchronize; median of 5) and the profiler's device time, through the
+    round's one-launch solve and, side by side in the same run, through
+    the per-iteration kernel's loop of 720 launches."""
     from repro_torch.core import round as port_round
     from repro_torch.core.solvers import torch_solver
     C, _, log_a, log_b = main_path_inputs(M, N, 0.5, dev, seed=5)
     kw = dict(eps0=torch_solver.SINKHORN_EPS0, eps_min=0.005,
               iters=torch_solver.SINKHORN_ITERS,
               anneal_stages=torch_solver.SINKHORN_STAGES)
+    table, iters = solve_schedule()
 
-    def stage():
-        return port_round._sinkhorn_kernel(C, log_a, log_b, **kw)
-    stage()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
+    def wall_ms(stage):
         stage()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    return dict(wall_ms=float(np.median(walls)) * 1e3,
-                device_ms=profiled_device_ms(stage, reps=3))
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            stage()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls)) * 1e3
+
+    def launch():
+        return port_round._sinkhorn_kernel(C, log_a, log_b, **kw)
+
+    def loop():
+        return iteration_loop(C, log_a, log_b, table, iters)
+    out = {}
+    for name, stage in (("loop", loop), ("launch", launch),
+                        ("launch_again", launch), ("loop_again", loop)):
+        out[name] = dict(wall_ms=wall_ms(stage),
+                         device_ms=profiled_device_ms(stage, reps=3))
+    return out
 
 
 def phase_e2e(dev) -> dict:
@@ -424,32 +547,32 @@ def phase_e2e(dev) -> dict:
     tele, jobs, cap = diurnal_cell()
     print(f"  cell: {len(jobs)} jobs, {tele.num_regions} regions, capacity "
           f"{cap.tolist()}", flush=True)
-    sinkhorn.LAUNCHES = 0
+    sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
     card = run_cell(tele, jobs, cap, None)
-    launches = sinkhorn.LAUNCHES
+    launches = sinkhorn.ANNEAL_LAUNCHES
+    iteration_launches = sinkhorn.LAUNCHES
     host = run_cell(tele, jobs, cap, "cpu")
-    if sinkhorn.LAUNCHES != launches:
-        fail("the CPU run launched the kernel")
-    per_round = 360 * sinkhorn.LAUNCHES_PER_ITERATION
+    if (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.LAUNCHES) != (
+            launches, iteration_launches):
+        fail("the CPU run launched a kernel")
     for name, r in (("card", card), ("cpu", host)):
         report_cell(name, r)
-    print(f"  kernel launches in the card run: {launches} "
-          f"({launches / per_round:.0f} fused solves x {per_round})",
-          flush=True)
-    if launches == 0 or launches != card["solves"] * per_round:
-        fail(f"main path launched the kernel {launches} times for "
+    print(f"  Sinkhorn launches in the card run: annealed {launches} for "
+          f"{card['solves']} fused solves (want one each), per-iteration "
+          f"{iteration_launches} (want 0)", flush=True)
+    if launches == 0 or launches != card["solves"] or iteration_launches:
+        fail(f"main path launched the annealed kernel {launches} times and "
+             f"the per-iteration kernel {iteration_launches} times for "
              f"{card['solves']} solves")
 
-    def key(r):
-        return (r.job.job_id, r.region, r.start_s, r.finish_s)
-    same = len({key(r) for r in card["res"]["records"]}
-               & {key(r) for r in host["res"]["records"]})
-    share = same / max(len(card["res"]["records"]), 1)
-    print(f"  identical records card vs cpu: {share * 100:.3f}%", flush=True)
+    print(f"  identical records card vs cpu: "
+          f"{identical_share(card, host) * 100:.3f}%", flush=True)
     st = sinkhorn_stage(dev)
-    print(f"  Sinkhorn stage of one bucket-512 round on the card: wall "
-          f"{st['wall_ms']:.3f} ms (median of 5), device "
-          f"{fmt_us(st['device_ms'])}", flush=True)
+    print("  Sinkhorn stage of one bucket-512 round on the card (wall: "
+          "median of 5; loop, launch, launch, loop): " + "; ".join(
+              f"{name} wall {t['wall_ms']:.3f} ms, device "
+              f"{fmt_us(t['device_ms'])}" for name, t in st.items()),
+          flush=True)
     for k in ("carbon_kg", "water_kl"):
         a, b = card["summary"][k], host["summary"][k]
         if not (np.isfinite(a) and abs(a - b) <= E2E_RTOL * abs(b)):
@@ -461,7 +584,8 @@ def phase_e2e(dev) -> dict:
     for M in card["buckets"]:
         for eps in schedule_eps():
             worst = max(worst, hold(M, tele.num_regions + 1, eps, seed=M))
-    return dict(launches=launches, card=card, max_abs_err=worst,
+    return dict(launches=launches, iteration_launches=iteration_launches,
+                card=card, max_abs_err=worst, stage=st,
                 cell=(tele, jobs, cap))
 
 
@@ -601,14 +725,15 @@ def phase_forecast(tele, jobs, cap) -> dict:
     from repro_torch.kernels.sinkhorn import sinkhorn
     print("== phase 5: forecast-driven WaterWise round end to end "
           "(learned forecaster)", flush=True)
-    sinkhorn.LAUNCHES = 0
+    sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
     rk.LAUNCHES.update(fwd=0, bwd=0)
     card = forecast_cell(tele, jobs, cap, None, "learned")
-    launches = dict(sinkhorn=sinkhorn.LAUNCHES, **rk.LAUNCHES)
+    launches = dict(sinkhorn=sinkhorn.ANNEAL_LAUNCHES,
+                    sinkhorn_iteration=sinkhorn.LAUNCHES, **rk.LAUNCHES)
     host = forecast_cell(tele, jobs, cap, "cpu", "learned")
-    if (sinkhorn.LAUNCHES, rk.LAUNCHES) != (
-            launches["sinkhorn"], dict(fwd=launches["fwd"],
-                                       bwd=launches["bwd"])):
+    if (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.LAUNCHES, rk.LAUNCHES) != (
+            launches["sinkhorn"], launches["sinkhorn_iteration"],
+            dict(fwd=launches["fwd"], bwd=launches["bwd"])):
         fail("the CPU run launched a kernel")
     for name, r in (("card", card), ("cpu", host)):
         report_cell(name, r)
@@ -626,9 +751,9 @@ def phase_forecast(tele, jobs, cap) -> dict:
                     if s % 10 == 9 or s == steps - 1)
     want_fwd = f.train_count * (steps + evals) + card["fits"]
     want_bwd = f.train_count * steps
-    per_solve = 360 * sinkhorn.LAUNCHES_PER_ITERATION
-    print(f"  launches in the card run: sinkhorn {launches['sinkhorn']} "
-          f"({launches['sinkhorn'] / per_solve:.0f} solves x {per_solve}), "
+    print(f"  launches in the card run: sinkhorn_anneal "
+          f"{launches['sinkhorn']} for {card['solves']} solves (want one "
+          f"each), per-iteration {launches['sinkhorn_iteration']} (want 0), "
           f"rglru_scan fwd {launches['fwd']} (want {want_fwd} = "
           f"{f.train_count} x ({steps} steps + {evals} validation passes) "
           f"+ {card['fits']} fits), bwd {launches['bwd']} (want "
@@ -637,9 +762,11 @@ def phase_forecast(tele, jobs, cap) -> dict:
         fail("the card run launched no RG-LRU scan kernel")
     if launches["fwd"] != want_fwd or launches["bwd"] != want_bwd:
         fail("RG-LRU launch counts differ from the training schedule")
-    if launches["sinkhorn"] != card["solves"] * per_solve:
-        fail(f"sinkhorn launched {launches['sinkhorn']} times for "
-             f"{card['solves']} solves")
+    if launches["sinkhorn"] != card["solves"] or \
+            launches["sinkhorn_iteration"]:
+        fail(f"sinkhorn launched {launches} for {card['solves']} solves")
+    print(f"  identical records card vs cpu: "
+          f"{identical_share(card, host) * 100:.3f}%", flush=True)
     for k in ("carbon_kg", "water_kl"):
         a, b = card["summary"][k], host["summary"][k]
         if not (np.isfinite(a) and abs(a - b) <= E2E_RTOL * abs(b)):
@@ -654,17 +781,20 @@ def phase_forecast(tele, jobs, cap) -> dict:
 
     print("== phase 5b: forecast-driven round with holtwinters on the card",
           flush=True)
-    sinkhorn.LAUNCHES = 0
+    sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
     rk.LAUNCHES.update(fwd=0, bwd=0)
     hw = forecast_cell(tele, jobs, cap, None, "holtwinters")
     report_cell("card", hw)
     print(f"    holtwinters: {hw['fits']} fits; forecast MAPE "
           f"{hw['pipe'].forecast_mape:.4f} %; deferred "
-          f"{hw['deferred_pct']:.3f} % of jobs; sinkhorn launches "
-          f"{sinkhorn.LAUNCHES}, rglru_scan {rk.LAUNCHES}", flush=True)
-    if sinkhorn.LAUNCHES != hw["solves"] * per_solve:
-        fail("the holtwinters run did not solve through the kernel")
-    return dict(launches=launches, card=card, hw_sinkhorn=sinkhorn.LAUNCHES)
+          f"{hw['deferred_pct']:.3f} % of jobs; sinkhorn_anneal launches "
+          f"{sinkhorn.ANNEAL_LAUNCHES}, per-iteration {sinkhorn.LAUNCHES}, "
+          f"rglru_scan {rk.LAUNCHES}", flush=True)
+    if sinkhorn.ANNEAL_LAUNCHES != hw["solves"] or sinkhorn.LAUNCHES:
+        fail("the holtwinters run did not solve through the annealed "
+             "launch")
+    return dict(launches=launches, card=card,
+                hw_sinkhorn=sinkhorn.ANNEAL_LAUNCHES)
 
 # --- The LM serving path (phases 6-8) -----------------------------------------
 
@@ -701,8 +831,10 @@ def check(name: str, err: float, limit: float) -> float:
 
 
 def flash_case(BH, S, D, causal, window, dtype, group, seed):
-    """Kernel vs plain version on standard-normal q, k, v; returns
+    """Kernel vs plain version on standard-normal q, k, v; checks that the
+    call launched the kernel ``variant`` chooses once; returns
     (max |d|, (q, k, v))."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bh_ref
@@ -710,15 +842,78 @@ def flash_case(BH, S, D, causal, window, dtype, group, seed):
     q = torch.randn((BH, S, D), generator=gen, device="cuda").to(dtype)
     k, v = (torch.randn((BH // group, S, D), generator=gen,
                         device="cuda").to(dtype) for _ in range(2))
+    kind = fk.variant(dtype, D)
+    before = dict(fk.LAUNCHES_BY_VARIANT)
     out = fops.flash_attention_bh(q, k, v, causal=causal, window=window,
                                   group=group)
     ref = flash_attention_bh_ref(q, k, v, causal=causal, window=window,
                                  group=group)
     err = (out.float() - ref.float()).abs().max().item()
     print(f"  flash BH={BH} S={S} D={D} causal={causal} window={window} "
-          f"{str(dtype)[6:]} group={group}: max|do|={err:.3e}", flush=True)
+          f"{str(dtype)[6:]} group={group} ({kind} kernel): "
+          f"max|do|={err:.3e}", flush=True)
+    if fk.LAUNCHES_BY_VARIANT != {**before, kind: before[kind] + 1}:
+        fail(f"flash attention did not launch its {kind} kernel once")
     check("flash attention", err, FLASH_ATOL[dtype])
     return err, (q, k, v)
+
+
+def flash_timing(D: int, seed: int) -> dict:
+    """At the qwen2-1.5B prefill shape ([48, 2048, D] bf16, group 6,
+    causal): the wgmma kernel, the scalar kernel on the same inputs in
+    float32, the plain version and scaled_dot_product_attention, by CUDA
+    events and by the profiler, beside each kernel's bound."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    BHq, S, group = 48, 2048, 6
+    q = torch.randn((BHq, S, D), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((BHq // group, S, D), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    kernel = lambda: fk.flash_attention_bh_cuda(q, k, v, causal=True,
+                                                group=group)
+    scalar = lambda: fk.flash_attention_bh_cuda(q32, k32, v32, causal=True,
+                                                group=group)
+    plain = lambda: flash_attention_bh_ref(q, k, v, causal=True, group=group)
+    q4, k4, v4 = (t.view(4, -1, S, D) for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+    ref = plain().float()
+    err = (kernel().float() - ref).abs().max().item()
+    lib_err = (library().reshape(BHq, S, D).float() - ref).abs().max().item()
+    check("flash attention (wgmma) at the timed shape", err,
+          FLASH_ATOL[torch.bfloat16])
+    pairs = BHq * S * (S + 1) // 2             # the causal triangle
+    elems = q.numel() + k.numel() + v.numel() + q.numel()
+    t = dict(ms=cuda_ms(kernel, warmup=5, reps=50),
+             device_ms=profiled_device_ms(kernel, reps=10),
+             scalar_ms=cuda_ms(scalar, warmup=2, reps=5),
+             scalar_device_ms=profiled_device_ms(scalar, reps=2),
+             plain_ms=cuda_ms(plain, warmup=2, reps=5),
+             plain_device_ms=profiled_device_ms(plain, reps=2),
+             library_ms=cuda_ms(library, warmup=5, reps=50),
+             library_device_ms=profiled_device_ms(library, reps=10),
+             max_abs_err=err, library_err=lib_err,
+             scalar_bound=bound(4 * elems, 4 * pairs * D),
+             **bound(2 * elems, 4 * pairs * D, BF16_OPS_PER_S))
+    print(f"  timing flash at [48, 2048, {D}] group 6, causal: wgmma kernel "
+          f"(bf16) {t['ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['device_ms'])}; max|d| vs plain {err:.3e}), scalar "
+          f"kernel (float32) {t['scalar_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['scalar_device_ms'])}; bound "
+          f"{t['scalar_bound']['bound_ms'] * 1e3:.2f} us at the float32 "
+          f"rate), plain {t['plain_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['plain_device_ms'])}), SDPA "
+          f"{t['library_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['library_device_ms'])}; max|d| vs plain "
+          f"{lib_err:.3e}), bound {t['bound_ms'] * 1e3:.2f} us "
+          f"({t['bound_by']}: {t['nops'] / 1e9:.2f} GFLOP at the bf16 "
+          f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB)", flush=True)
+    return t
 
 
 def ssd_inputs(b, S, H, P, G, N, dtype, seed, model_like):
@@ -781,25 +976,31 @@ def ssd_case(b, S, H, P, G, N, chunk, dtype, seed, model_like=False):
 def phase_lm_kernels(dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.flash_attention.ref import \
-        flash_attention_bh_ref
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     from repro_torch.models import attention
     print("== phase 6: flash attention and SSD scan kernels vs plain "
           "versions on the card", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
-    worst = dict(flash=0.0, ssd=0.0)
+    worst = dict(flash=0.0, flash_sm90=0.0, ssd=0.0)
     # test_flash_attention_sweep's six shapes, ragged S = 1000 (GQA,
-    # sliding), then the qwen2-1.5B prefill shape (B 4, S 2048).
+    # sliding, full), then the qwen2-1.5B prefill shape (B 4, S 2048) and
+    # the same at D 64. bf16 at D 64 and 128 takes the wgmma kernel, the
+    # rest the scalar one.
     for i, case in enumerate([
             (4, 256, 64, True, 0, f32, 1), (2, 512, 128, True, 0, f32, 1),
             (2, 256, 64, False, 0, f32, 1), (2, 512, 64, True, 100, f32, 1),
             (2, 256, 128, True, 0, bf16, 1), (1, 128, 256, True, 64, f32, 1),
             (8, 1000, 64, True, 0, f32, 4), (4, 1000, 128, True, 300, bf16, 2),
+            (12, 1000, 64, True, 300, bf16, 6),
+            (4, 1000, 64, False, 0, bf16, 2),
+            (6, 1000, 128, False, 0, bf16, 6),
+            (48, 2048, 64, True, 0, bf16, 6),
             (48, 2048, 128, True, 0, bf16, 6)]):
-        err, qkv = flash_case(*case, seed=i)
-        worst["flash"] = max(worst["flash"], err)
+        err, _ = flash_case(*case, seed=i)
+        key = ("flash_sm90" if fk.variant(case[5], case[2]) == "wgmma"
+               else "flash")
+        worst[key] = max(worst[key], err)
     # test_flash_attention_gqa: the model-layout wrapper vs the blocked twin.
     for G in (1, 2, 4):
         gen = torch.Generator(device="cuda").manual_seed(10 + G)
@@ -814,39 +1015,7 @@ def phase_lm_kernels(dev) -> dict:
               f"max|do|={err:.3e}", flush=True)
         worst["flash"] = max(worst["flash"], check("flash GQA", err,
                                                    GQA_ATOL))
-
-    # Timing at the qwen2-1.5B prefill shape (the last case above).
-    q, k, v = qkv
-    BHq, S, D = q.shape
-    kernel = lambda: fk.flash_attention_bh_cuda(q, k, v, causal=True,
-                                                group=6)
-    plain = lambda: flash_attention_bh_ref(q, k, v, causal=True, group=6)
-    q4, k4, v4 = (t.view(4, -1, S, D) for t in (q, k, v))
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True)
-    lib_err = (library().reshape(BHq, S, D).float()
-               - plain().float()).abs().max().item()
-    pairs = BHq * S * (S + 1) // 2             # the causal triangle
-    flash_t = dict(ms=cuda_ms(kernel, warmup=3, reps=20),
-                   device_ms=profiled_device_ms(kernel, reps=5),
-                   plain_ms=cuda_ms(plain, warmup=2, reps=5),
-                   plain_device_ms=profiled_device_ms(plain, reps=2),
-                   library_ms=cuda_ms(library, warmup=3, reps=20),
-                   library_device_ms=profiled_device_ms(library, reps=5),
-                   **bound(2 * (q.numel() + k.numel() + v.numel()
-                                + q.numel()), 4 * pairs * D, BF16_OPS_PER_S))
-    print(f"  timing flash at [48, 2048, 128] bf16 group 6: kernel "
-          f"{flash_t['ms']:.4f} ms (device {fmt_us(flash_t['device_ms'])}), "
-          f"plain {flash_t['plain_ms']:.4f} ms (device "
-          f"{fmt_us(flash_t['plain_device_ms'])}), SDPA "
-          f"{flash_t['library_ms']:.4f} ms (device "
-          f"{fmt_us(flash_t['library_device_ms'])}; max|d| vs plain "
-          f"{lib_err:.3e}), bound {flash_t['bound_ms'] * 1e3:.2f} us "
-          f"({flash_t['bound_by']}: {flash_t['nops'] / 1e9:.2f} GFLOP, "
-          f"{flash_t['nbytes'] / 1e6:.2f} MB)", flush=True)
-
+    flash_t = {D: flash_timing(D, seed=40 + D) for D in (128, 64)}
     # test_ssd_scan_sweep's three shapes, a ragged S, then the mamba2-2.7B
     # prefill shape (b 4, S 2048) in bf16 and in float32.
     for i, case in enumerate([(2, 64, 4, 16, 2, 8, 16, f32),
@@ -946,6 +1115,7 @@ def serve_logits(model, params, toks, stream, device) -> list:
 
 def phase_lm_parity(dev) -> dict:
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.models.model import Model, to_device
     from repro_torch.runtime.serve_loop import Server
     print("== phase 7: LM serving, card vs CPU (full width, depth 2, "
@@ -960,9 +1130,15 @@ def phase_lm_parity(dev) -> dict:
         card_params = to_device(host_params, dev)
         init_s = time.perf_counter() - t0
         toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 320))
+        fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
         with scan_recorder() as card_scans:
             card_tokens = Server(model, card_params).generate(
                 dict(tokens=toks), max_new=8)
+        flash_launches = dict(fk.LAUNCHES_BY_VARIANT)
+        want = dict(wgmma=0, scalar=0 if cfg.ssm else cfg.n_layers)
+        if flash_launches != want:
+            fail(f"{arch}: float32 serving launched the flash kernels "
+                 f"{flash_launches}, want {want}")
         with scan_recorder() as host_scans:
             host_tokens = Server(model, host_params, device="cpu").generate(
                 dict(tokens=toks), max_new=8)
@@ -988,7 +1164,8 @@ def phase_lm_parity(dev) -> dict:
               f"(2, 320), 8 new tokens; card tokens {card_tokens.tolist()}; "
               f"cpu tokens {host_tokens.tolist()}; max |d logits| card vs "
               f"cpu per step {['%.2e' % e for e in errs]} (limit "
-              f"{LM_LOGITS_ATOL:.0e})", flush=True)
+              f"{LM_LOGITS_ATOL:.0e}); flash launches in the card's "
+              f"generate {flash_launches}", flush=True)
         check(f"{arch} logits card vs cpu", max(errs), LM_LOGITS_ATOL)
         if cfg.ssm:
             print(f"    SSD max |y| per scan: card "
@@ -996,7 +1173,7 @@ def phase_lm_parity(dev) -> dict:
                   f"{['%.3e' % s for s in host_scans]}", flush=True)
             if not card_scans or min(card_scans + host_scans) <= 0.0:
                 fail(f"{arch}: the SSD carried zeros")
-        out[arch] = dict(max_logits_err=max(errs),
+        out[arch] = dict(max_logits_err=max(errs), flash=flash_launches,
                          tokens_equal=bool(np.array_equal(card_tokens,
                                                           host_tokens)))
         del card_params, host_params
@@ -1046,8 +1223,14 @@ def prefill_profile(model, params, toks) -> dict:
                for ev in prof.key_averages()
                if str(ev.device_type).endswith("CUDA")
                and ev.self_device_time_total > 0}
+    # The port's own kernels among them, by the kernel's function name.
+    ours = {label: sum(ms for name, ms in by_name.items() if key in name)
+            for label, key in (("flash_attention_sm90", "flash_fwd_sm90"),
+                               ("flash_attention", "flash_fwd<"),
+                               ("ssd_scan", "ssd_fwd"))}
     return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
-                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6],
+                ours=ours)
 
 
 def phase_lm_serve(dev) -> dict:
@@ -1078,14 +1261,19 @@ def phase_lm_serve(dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         with plain_call_counter() as plain_calls:
             fk.LAUNCHES, sk.LAUNCHES = 0, 0
+            fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
             with obs.capture() as reg:
                 tokens = server.generate(dict(tokens=toks), max_new=NEW)
-            launches = dict(flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES)
+            launches = dict(flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES,
+                            **fk.LAUNCHES_BY_VARIANT)
         peak = torch.cuda.max_memory_allocated()
         prefill_s = reg.hists["serve.prefill"].total
         decode_s = reg.hists["serve.decode"].total
+        # One flash launch per layer of qwen2-1.5B's prefill, all on the
+        # tensor-core kernel (bf16, D 128); none of the scalar kernel.
         want = dict(flash_attention=0 if cfg.ssm else cfg.n_layers,
-                    ssd_scan=cfg.n_layers if cfg.ssm else 0)
+                    ssd_scan=cfg.n_layers if cfg.ssm else 0,
+                    wgmma=0 if cfg.ssm else cfg.n_layers, scalar=0)
         prof = prefill_profile(model, params, toks)
         print(f"  {arch}: {model.param_count() / 1e9:.4f} B parameters, "
               f"{cfg.n_layers} layers, drawn on the card in {init_s:.1f} s; "
@@ -1099,8 +1287,10 @@ def phase_lm_serve(dev) -> dict:
               f"plain-version calls {dict(plain_calls)}", flush=True)
         print(f"    one profiled prefill: wall {prof['wall_ms']:.1f} ms, "
               f"device {prof['device_ms']:.1f} ms (busy "
-              f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); top "
-              "kernels (device ms): " + "; ".join(
+              f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); the "
+              "port's kernels (device ms): " + ", ".join(
+                  f"{k} {ms:.2f}" for k, ms in prof["ours"].items())
+              + "; top kernels (device ms): " + "; ".join(
                   f"{name[:60]} {ms:.2f}" for name, ms in prof["top"]),
               flush=True)
         print(f"    first tokens: {tokens[:, :8].tolist()}", flush=True)
@@ -1136,7 +1326,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    sources = ["sinkhorn", "rglru_scan", "flash_attention", "ssd_scan"]
+    sources = ["sinkhorn", "rglru_scan", "flash_attention",
+               "flash_attention_sm90", "ssd_scan"]
     _build.build(sources)
     for name in sources:
         _build.library(name)
@@ -1156,21 +1347,37 @@ def main() -> None:
     scan = timed("phase 4", phase_scan, dev)
     fc = timed("phase 5", phase_forecast, *e2e["cell"])
     lmk = timed("phase 6", phase_lm_kernels, dev)
-    timed("phase 7", phase_lm_parity, dev)
+    parity = timed("phase 7", phase_lm_parity, dev)
     serve = timed("phase 8", phase_lm_serve, dev)
-    t = k["timings"][(512, 6)]           # the bucket of phase 3's rounds
+    a = k["anneal_timings"][(512, 6)]    # the bucket of phase 3's rounds
     kernels = [dict(
-        name="sinkhorn_iteration", route="cuda",
+        name="sinkhorn_anneal", route="cuda",
         source="src/repro_torch/csrc/sinkhorn.cu",
         replaces="src/repro/kernels/sinkhorn/sinkhorn.py:83",
         launches=e2e["launches"],
         launches_forecast_round=fc["launches"]["sinkhorn"],
+        max_abs_err=k["anneal_max_abs_err"], ms=a["ms"],
+        plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+        device_ms=a["device_ms"], bound_by=a["bound_by"], library_ms=None,
+        shape=[512, 6], iteration_loop_ms=a["loop_ms"], launches_per_call=1,
+        main_path="every fused solve of phases 3 and 5",
+        forecast_shape=dict(shape=[512, 40],
+                            **k["anneal_timings"][(512, 40)]))]
+    t = k["timings"][(512, 6)]
+    kernels.append(dict(
+        name="sinkhorn_iteration", route="cuda",
+        source="src/repro_torch/csrc/sinkhorn.cu",
+        replaces="src/repro/kernels/sinkhorn/sinkhorn.py:83",
+        launches=e2e["iteration_launches"],
+        launches_forecast_round=fc["launches"]["sinkhorn_iteration"],
         max_abs_err=max(k["max_abs_err"], e2e["max_abs_err"]),
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
         bound_by=t["bound_by"], library_ms=None, shape=[512, 6],
         launches_per_call=sinkhorn.LAUNCHES_PER_ITERATION,
-        forecast_shape=dict(shape=[512, 40], **k["timings"][(512, 40)]))]
+        main_path="none: the round's solve is sinkhorn_anneal; the bitwise "
+                  "yardstick of phase 1",
+        forecast_shape=dict(shape=[512, 40], **k["timings"][(512, 40)])))
     for name, direction, replaces in (
             ("rglru_scan_fwd", "fwd",
              "src/repro/kernels/rglru_scan/rglru_scan.py:49"),
@@ -1187,21 +1394,48 @@ def main() -> None:
             bound_by=t["bound_by"], library_ms=None, shape=[64, 48, 16],
             launches_per_call=1))
     infer = scan["timings"][("fwd", (16, 48, 16))]
-    kernels[1]["infer_shape"] = dict(shape=[16, 48, 16], **infer)
-    for name, arch, shape, replaces in (
-            ("flash_attention", "qwen2_1_5b", [48, 2048, 128],
-             "src/repro/kernels/flash_attention/flash_attention.py:104"),
-            ("ssd_scan", "mamba2_2_7b", [4, 2048, 80, 64],
-             "src/repro/kernels/ssd_scan/ssd_scan.py:93")):
-        t = lmk[name.split("_")[0]]
-        kernels.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=replaces, launches=serve[arch]["launches"][name],
-            max_abs_err=lmk["worst"][name.split("_")[0]], ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"], shape=shape,
-            launches_per_call=1, main_path=f"{arch} Server.generate"))
+    kernels[2]["infer_shape"] = dict(shape=[16, 48, 16], **infer)
+    f128, f64 = lmk["flash"][128], lmk["flash"][64]
+    flash = "src/repro/kernels/flash_attention/flash_attention.py:104"
+    kernels.append(dict(
+        name="flash_attention_sm90", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        replaces=flash,
+        launches=serve["qwen2_1_5b"]["launches"]["wgmma"],
+        max_abs_err=lmk["worst"]["flash_sm90"], ms=f128["ms"],
+        plain_ms=f128["plain_ms"], bound_ms=f128["bound_ms"],
+        device_ms=f128["device_ms"], plain_device_ms=f128["plain_device_ms"],
+        bound_by=f128["bound_by"], library_ms=f128["library_ms"],
+        shape=[48, 2048, 128], dtype="bfloat16", launches_per_call=1,
+        main_path="qwen2_1_5b Server.generate, bf16 (phase 8)",
+        d64=dict(shape=[48, 2048, 64], **{
+            key: f64[key] for key in ("ms", "device_ms", "plain_ms",
+                                      "library_ms", "bound_ms",
+                                      "max_abs_err")})))
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu", replaces=flash,
+        launches=parity["qwen2_1_5b"]["flash"]["scalar"],
+        max_abs_err=lmk["worst"]["flash"], ms=f128["scalar_ms"],
+        plain_ms=f128["plain_ms"],
+        bound_ms=f128["scalar_bound"]["bound_ms"],
+        device_ms=f128["scalar_device_ms"],
+        bound_by=f128["scalar_bound"]["bound_by"],
+        library_ms=f128["library_ms"], shape=[48, 2048, 128],
+        dtype="float32", launches_per_call=1,
+        main_path="qwen2_1_5b Server.generate, float32 at depth 2 (phase 7)"))
+    t = lmk["ssd"]
+    kernels.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:93",
+        launches=serve["mamba2_2_7b"]["launches"]["ssd_scan"],
+        max_abs_err=lmk["worst"]["ssd"], ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        shape=[4, 2048, 80, 64], launches_per_call=1,
+        main_path="mamba2_2_7b Server.generate"))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -19,11 +19,11 @@ Round-trip discipline, as in the reference:
 
 The Sinkhorn inner loop (``impl``):
 
-  ``kernel``  the hand-written CUDA iteration kernel
-              (``repro_torch.kernels.sinkhorn``), f <- g then g <- f — the
-              order of the reference's Pallas path. The default on a CUDA
-              device. On a CPU tensor the same loop runs the kernel's plain
-              version.
+  ``kernel``  the hand-written CUDA annealed solve
+              (``repro_torch.kernels.sinkhorn``): the whole eps schedule in
+              one launch, f <- g then g <- f — the order of the reference's
+              Pallas path. The default on a CUDA device. On a CPU tensor the
+              same schedule runs the kernel's plain loop.
   ``torch``   the eager loop of ``torch_solver`` in the reference's XLA
               order (g <- f, then f <- g). The default on the CPU, where it
               is the twin of the reference's default ``xla`` path; CPU
@@ -47,7 +47,8 @@ import repro_torch.obs as obs
 from repro_torch.core import footprint, problem, solvers
 from repro_torch.core.solvers import torch_solver
 from repro_torch.core.solvers.torch_solver import BIG, _NEG, bucket_for
-from repro_torch.kernels.sinkhorn.ops import sinkhorn_iteration
+from repro_torch.kernels.sinkhorn.ops import (anneal_schedule, eps_table,
+                                              sinkhorn_solve)
 from repro_torch.runtime import platform
 
 __all__ = ["fused_solve", "fused_temporal_round", "sinkhorn_impl_default"]
@@ -104,21 +105,17 @@ def _prepare_device(c_eff, mask, cap, valid):
 
 def _sinkhorn_kernel(C, log_a, log_b, *, eps0: float, eps_min: float,
                      iters: int, anneal_stages: int):
-    """eps-annealed Sinkhorn with the iteration kernel as the inner loop
-    (port of the reference's ``_sinkhorn_pallas``). The anneal schedule is
-    unrolled in Python and eps is a Python float per stage, as there. The
+    """eps-annealed Sinkhorn (port of the reference's ``_sinkhorn_pallas``)
+    as one call: the whole schedule in one launch of the annealed kernel on
+    the card, its plain loop on the CPU. Each stage's eps is the reference
+    loop's Python float rounded to float32, as the iteration kernel takes
+    it; the returned eps is the last stage's Python float, as there. The
     kernel updates (f <- g, then g <- f) where the ``torch`` loop updates
     (g <- f, then f <- g); both converge to the same polytope vertex as
     eps -> 0."""
-    decay = (eps_min / eps0) ** (1.0 / max(anneal_stages - 1, 1))
-    f = torch.zeros(C.shape[0], dtype=torch.float32, device=C.device)
-    g = torch.zeros(C.shape[1], dtype=torch.float32, device=C.device)
-    eps = eps0
-    for s in range(anneal_stages):
-        eps = eps0 * decay ** s
-        for _ in range(iters):
-            f, g = sinkhorn_iteration(C, f, g, log_a, log_b, eps)
-    return f, g, eps
+    f, g = sinkhorn_solve(C, log_a, log_b,
+                          eps_table(eps0, eps_min, anneal_stages), iters)
+    return f, g, anneal_schedule(eps0, eps_min, anneal_stages)[-1]
 
 
 def _solve_core(c_eff, mask, cap, valid, *, impl: str, eps0: float,

@@ -1,5 +1,9 @@
 // Blocked online-softmax attention (flash attention, forward) for Hopper
-// (sm_90a): causal, sliding-window or full masks, grouped-query heads.
+// (sm_90a) on scalar float32 FMAs: causal, sliding-window or full masks,
+// grouped-query heads. It serves float32 inputs, and D 16 and 256; bf16 at
+// D 64 and 128 (the LM prefill's path) goes to the tensor-core kernel of
+// flash_attention_sm90.cu (kernels/flash_attention/flash_attention.py::
+// variant).
 //
 // Replaces: repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_bh (the Pallas TPU kernel, `_kernel`). For each query
@@ -26,8 +30,8 @@
 // written; keys past Skv are masked like the reference's padding), so any
 // Sq and Skv are taken. Transposed tiles have a padded stride (+1) so that
 // their stores and loads are free of bank conflicts. A simple kernel:
-// scalar float32 FMAs, no tensor cores, no TMA; those are a later
-// redesign's work.
+// scalar float32 FMAs, no tensor cores, no TMA, which keeps float32 inputs
+// exact to float32 (the card-vs-CPU parity of float32 serving).
 //
 // Numbers. The reference's finite NEG_INF is kept: a row whose first live
 // tile is fully masked accumulates exp(0) = 1 terms, wiped by
@@ -42,8 +46,9 @@
 // = 51.5 GFLOP of the causal triangle, 52 us at the bf16 tensor-core peak
 // (989 TFLOP/s); the bytes (q, k, v read once, o written once) are 59 MB,
 // 18 us at 3.35 TB/s. The kernel runs on the float32 cores (67 TFLOP/s),
-// so it cannot come near the bound; wgmma is the redesign. (Peaks: the
-// H100 SXM data sheet, at its 700 W power limit.)
+// so it cannot come near that bound; in float32 the same work is 770 us at
+// the float32 rate. (Peaks: the H100 SXM data sheet, at its 700 W power
+// limit.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

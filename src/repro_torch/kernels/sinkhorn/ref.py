@@ -1,6 +1,6 @@
-"""Plain PyTorch version of one fused Sinkhorn iteration (log-domain): the
-counterpart of ``repro/kernels/sinkhorn/ref.py``, and what the CUDA kernel
-is held against."""
+"""Plain PyTorch versions of the Sinkhorn kernels (log-domain): one fused
+iteration, the counterpart of ``repro/kernels/sinkhorn/ref.py``, and the
+annealed solve as a loop of it. What the CUDA kernels are held against."""
 from __future__ import annotations
 
 import torch
@@ -12,3 +12,14 @@ def sinkhorn_iteration_ref(C, f, g, log_a, log_b, eps):
     g_new = eps * (log_b - torch.logsumexp((f_new[:, None] - C) / eps,
                                            dim=0))
     return f_new, g_new
+
+
+def sinkhorn_solve_ref(C, log_a, log_b, eps_table, iters):
+    """``iters`` iterations at each eps of ``eps_table`` in turn, from
+    f = g = 0. Returns (f [M], g [N])."""
+    f = torch.zeros(C.shape[0], dtype=torch.float32, device=C.device)
+    g = torch.zeros(C.shape[1], dtype=torch.float32, device=C.device)
+    for eps in eps_table:
+        for _ in range(iters):
+            f, g = sinkhorn_iteration_ref(C, f, g, log_a, log_b, eps)
+    return f, g

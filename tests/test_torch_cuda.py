@@ -47,6 +47,35 @@ def test_kernel_matches_plain_on_card(card, M, N):
         assert (g_k - g_r).abs().max().item() <= ATOL
 
 
+@pytest.mark.parametrize("N", [6, 41])
+@pytest.mark.parametrize("M", [4, 512, 4096, 16384])
+def test_anneal_is_bitwise_the_iteration_loop(card, M, N):
+    """The one-launch annealed solve against 360 calls of the iteration
+    kernel over the same float32 eps table: f and g bit for bit (same row
+    partition, same reduction trees); and within ATOL of the plain loop."""
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_ref
+    rng = np.random.default_rng(M * 7 + N)
+    C = torch.from_numpy(rng.random((M, N)).astype(np.float32)).to(card)
+    log_a = torch.full((M,), -float(np.log(M)), device=card)
+    b = rng.random(N) + 0.5
+    log_b = torch.from_numpy(np.log(b / b.sum()).astype(np.float32)).to(card)
+    table = ops.eps_table(0.5, 0.005, 6)
+    before = (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES)
+    f_a, g_a = ops.sinkhorn_solve(C, log_a, log_b, table, 60)
+    torch.cuda.synchronize()
+    assert (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES) == (before[0],
+                                                             before[1] + 1)
+    f = torch.zeros(M, device=card)
+    g = torch.zeros(N, device=card)
+    for eps in table:
+        for _ in range(60):
+            f, g = sinkhorn.sinkhorn_iteration_cuda(C, g, log_a, log_b, eps)
+    assert torch.equal(f_a, f) and torch.equal(g_a, g)
+    f_r, g_r = sinkhorn_solve_ref(C, log_a, log_b, table, 60)
+    assert (f_a - f_r).abs().max().item() <= ATOL
+    assert (g_a - g_r).abs().max().item() <= ATOL
+
+
 def test_kernel_rejects_bad_inputs(card):
     C = torch.rand(128, 6, device=card)
     g, log_a, log_b = (torch.zeros(6, device=card),
@@ -69,10 +98,12 @@ def test_fused_round_on_card_goes_through_kernel(card):
     allowed = rng.random((M, N)) > 0.2
     allowed[np.arange(M), rng.integers(0, N, M)] = True
     cap = np.full(N, (M + N) // N + 1)
-    before = sinkhorn.LAUNCHES
+    before = (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES)
     res = port_round.fused_solve(cost, allowed, cap)
     assert res.feasible and res.backend == "fused"
-    assert sinkhorn.LAUNCHES - before == 360 * sinkhorn.LAUNCHES_PER_ITERATION
+    # One launch of the annealed solve, none of the per-iteration kernel.
+    assert (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES) == (before[0],
+                                                             before[1] + 1)
 
 
 def test_fused_round_on_card_takes_only_the_kernel(card):
@@ -151,10 +182,11 @@ def test_fused_temporal_round_on_card_goes_through_kernel(card):
     sig = [rng.random((M, S, R)) * k + 0.5 for k in (300, 2, 1)]
     args = (inst, 0.0, *sig, snap["pue"], snap["wsf"], np.arange(S) * 1800.0,
             server, 0.5, 0.5)
-    before = sinkhorn.LAUNCHES
+    before = (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES)
     _, _, _, res = port_round.fused_temporal_round(*args)
     assert res.feasible
-    assert sinkhorn.LAUNCHES - before == 360 * sinkhorn.LAUNCHES_PER_ITERATION
+    assert (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES) == (before[0],
+                                                             before[1] + 1)
     _, _, _, host = port_round.fused_temporal_round(*args, device="cpu")
     assert host.status == res.status
 
@@ -197,6 +229,36 @@ def test_flash_kernel_matches_plain_on_card(card, BH, S, D, causal, window,
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=0 if dtype == torch.float32
                                else BF16_RTOL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 6])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 300),
+                                           (False, 0)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_flash_kernel_matches_plain_on_card(card, D, causal, window,
+                                                  group):
+    """The tensor-core kernel (bf16, D 64 and 128) against the plain version
+    at Sq = Skv = 1000 (ragged for its 128-row tiles): causal, sliding and
+    full masks, groups 1, 2 and 6; bf16 limit 2e-2 plus one bf16 step."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator().manual_seed(D + group + window)
+    BH, S = 2 * group, 1000
+    q = torch.randn((BH, S, D), generator=gen).to(card, torch.bfloat16)
+    k, v = (torch.randn((BH // group, S, D), generator=gen).to(
+        card, torch.bfloat16) for _ in range(2))
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    out = fops.flash_attention_bh(q, k, v, causal=causal, window=window,
+                                  group=group)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
+                                          scalar=before["scalar"])
+    ref = flash_attention_bh_ref(q, k, v, causal=causal, window=window,
+                                 group=group)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=BF16_RTOL)
 
 
 def test_flash_kernel_rejects_bad_inputs(card):

@@ -152,3 +152,50 @@ def test_wrapper_raises_off_cpu_and_cuda():
     q = torch.zeros((1, 8, 16), device="meta")
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         ops.flash_attention_bh(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+def test_variant_choice(dtype, D):
+    """bf16 at D 64 and 128 takes the wgmma kernel; float32, and D 16 and
+    256, keep the scalar kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+            else "scalar")
+    assert fb.variant(dtype, D) == want
+    q = torch.zeros((2, 8, D), dtype=dtype)
+    assert fb.check_inputs(q, q[:1].contiguous(), q[:1].contiguous(),
+                           group=2) == want
+
+
+def test_cuda_wrapper_refusals():
+    """The launcher raises, before any build or launch, on host memory and
+    on every input neither kernel takes; the wgmma kernel also refuses
+    tensors that are not 16-byte aligned (its TMA loads need it)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    q = torch.zeros((4, 64, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.flash_attention_bh_cuda(q, q, q)
+    with pytest.raises(TypeError):
+        fb.check_inputs(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="head dim"):
+        fb.check_inputs(*(q[..., :48].contiguous() for _ in range(3)))
+    with pytest.raises(ValueError, match="group"):
+        fb.check_inputs(q, q[:3].contiguous(), q[:3].contiguous(), group=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.check_inputs(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="share one dtype"):
+        fb.check_inputs(q, q.float(), q.float())
+    with pytest.raises(ValueError, match="window"):
+        fb.check_inputs(q, q, q, window=-1)
+    with pytest.raises(ValueError, match="must both be"):
+        fb.check_inputs(q, q, q[:, :32].contiguous())
+    flat = torch.zeros(4 * 64 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(4, 64, 64)           # 2 bytes off alignment
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        fb.check_inputs(shifted, q, q)
+    # The scalar kernel reads with plain loads: no alignment demand.
+    flat32 = torch.zeros(4 * 64 * 64 + 1)
+    shifted32 = flat32[1:].view(4, 64, 64)       # 4 bytes off alignment
+    assert fb.check_inputs(shifted32, q.float(), q.float()) == "scalar"
