@@ -26,18 +26,22 @@ Builds the port's kernels from the sources in this checkout, then:
      card once;
   6. holds the flash-attention kernels (bf16 D 64/128 on wgmma tensor
      cores; float32 and D 16/256 on the scalar kernel) and the SSD-scan
-     kernel against their plain versions on the card (the reference kernel
-     tests' shapes, GQA, ragged lengths, and the qwen2-1.5B and mamba2-2.7B
-     prefill shapes) and times them beside the plain versions, their bounds
-     and, for attention, ``scaled_dot_product_attention``;
+     kernels (bf16 P 64 on the chunk-parallel wgmma kernel; float32 and
+     other shapes on the scalar kernel) against their plain versions on
+     the card (the reference kernel tests' shapes, GQA, ragged lengths,
+     chunks of 64 to 256, and the qwen2-1.5B and mamba2-2.7B prefill
+     shapes, the latter at B 4 and B 1) and times them beside the plain
+     versions, their bounds and, for attention,
+     ``scaled_dot_product_attention``; the two SSD kernels on the same bf16
+     inputs;
   7. serves qwen2-1.5B and mamba2-2.7B at full width and depth 2 in
      float32 through ``Server.generate`` on the card and on the CPU (the
      same weights) and compares logits and tokens;
   8. serves both at full depth in bf16 on the card (B 4, prompt 2048, 32
      new tokens), reports prefill tokens/s, decode ms per step and peak
-     memory, and checks that each prefill launched one kernel per layer
-     (qwen2-1.5B: the wgmma flash kernel, never the scalar one) and never
-     the plain versions.
+     memory, and checks that each prefill called one kernel per layer (the
+     wgmma flash kernel for qwen2-1.5B and the wgmma SSD kernel for
+     mamba2-2.7B, never the scalar ones) and never the plain versions.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars are drawn live (``models.ssm.draw_live_mixer``), since the
@@ -127,6 +131,27 @@ def profiled_device_ms(fn, reps: int = 50):
     total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
                    if str(ev.device_type).endswith("CUDA"))
     return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def device_us_by_kernel(fn, reps: int = 10) -> dict:
+    """Device us per call of each kernel ``fn()`` launches, by the
+    profiler: {kernel name: us} (the port's SSD kernels by their own
+    names)."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0:
+            name = re.search(r"ssd_[a-z_]+", ev.key)
+            name = name.group(0) if name else ev.key[:40]
+            out[name] = round(ev.self_device_time_total / reps, 2)
+    return out
 
 
 def main_path_inputs(M: int, N: int, eps: float, dev, seed: int):
@@ -947,42 +972,115 @@ def ssd_inputs(b, S, H, P, G, N, dtype, seed, model_like):
     return x, dt, A, Bm, Cm
 
 
+def ssd_err(got, ref, rtol: float):
+    """(max |d|, max |d| beyond the bf16 rounding allowance) over y and
+    the state: the check is |d| <= atol + rtol |ref|."""
+    raw = max((g.float() - r.float()).abs().max().item()
+              for g, r in zip(got, ref))
+    err = max(((g.float() - r.float()).abs() - rtol * r.float().abs())
+              .max().item() for g, r in zip(got, ref))
+    return raw, err
+
+
 def ssd_case(b, S, H, P, G, N, chunk, dtype, seed, model_like=False):
+    """Kernel vs plain version; checks that the call took the kernel
+    ``variant`` chooses, once; returns (max |d|, variant, inputs)."""
     from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     args = ssd_inputs(b, S, H, P, G, N, dtype, seed, model_like)
+    kind = sk.variant(dtype, P, N, min(chunk, S))
+    before = dict(sk.LAUNCHES_BY_VARIANT)
     y, st = sops.ssd_scan(*args, chunk=chunk)
+    if sk.LAUNCHES_BY_VARIANT != {**before, kind: before[kind] + 1}:
+        fail(f"ssd scan did not call its {kind} kernel once")
     yr, sr = ssd_ref(*args, chunk=min(chunk, S))
     rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
-    # max |d| beyond the bf16 rounding allowance, plus that allowance's
-    # use: the check is |d| <= atol + rtol |ref|.
-    err = max(((y.float() - yr.float()).abs()
-               - rtol * yr.float().abs()).max().item(),
-              ((st.float() - sr.float()).abs()
-               - rtol * sr.float().abs()).max().item())
-    raw = max((y.float() - yr.float()).abs().max().item(),
-              (st.float() - sr.float()).abs().max().item())
+    raw, err = ssd_err((y, st), (yr, sr), rtol)
     print(f"  ssd b={b} S={S} H={H} P={P} G={G} N={N} chunk={chunk} "
-          f"{str(dtype)[6:]}{' model-like' if model_like else ''}: "
+          f"{str(dtype)[6:]}{' model-like' if model_like else ''} ({kind} "
+          f"kernel): "
           f"max|d(y, state)|={raw:.3e} (beyond rtol {rtol:.2e}: "
           f"{err:.3e}); max|y|={yr.float().abs().max().item():.3e}",
           flush=True)
     check("ssd scan", err, SSD_ATOL)
     if yr.float().abs().max().item() == 0.0:
         fail("ssd scan output is zero")
-    return raw, args
+    return raw, kind, args
+
+
+def ssd_timing(args, L: int) -> dict:
+    """At a mamba2-2.7B prefill shape, bf16 inputs: the wgmma kernel (and
+    each of its three launches), the scalar kernel on the same inputs
+    (held to the plain version at the card's limit) and on their float32
+    copies, and the plain version on both, by CUDA events and by the
+    profiler, beside the function's bound (at the bf16 tensor-core rate; the
+    float32 call's at the float32 rate)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    x, dt, A, Bm, Cm = args
+    b, S, H, P = x.shape
+    N = Bm.shape[3]
+    nc = -(-S // L)
+    # Causal intra-chunk products L(L+1)/2 (N + P), inter term and state
+    # update 2 L N P, per (b, h, chunk); bytes: x, dt, A, B, C read, y and
+    # the state written.
+    nops = 2 * b * H * nc * (L * (L + 1) // 2 * (N + P) + 2 * L * N * P)
+    elems = 2 * x.numel() + 2 * Bm.numel() + b * H * P * N
+    small = dt.numel() * 4 + A.numel() * 4
+    x32, B32, C32 = (t.float() for t in (x, Bm, Cm))
+    wgmma = lambda: sk.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L)
+    # The scalar kernel on a call the wgmma kernel takes: past the
+    # dispatch, straight to its launch.
+    scalar = lambda: sk._launch("scalar", x, dt, A, Bm, Cm, L)
+    scalar32 = lambda: sk.ssd_scan_cuda(x32, dt, A, B32, C32, chunk=L)
+    plain = lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=L)
+    plain32 = lambda: ssd_ref(x32, dt, A, B32, C32, chunk=L)
+    raw, scalar_err = ssd_err(scalar(), plain(), BF16_RTOL)
+    print(f"  ssd b={b} S={S} H={H} P={P} N={N} chunk={L} bfloat16 "
+          f"model-like (scalar kernel, same inputs): max|d(y, state)|="
+          f"{raw:.3e} (beyond rtol {BF16_RTOL:.2e}: {scalar_err:.3e})",
+          flush=True)
+    check("ssd scan (scalar kernel, bf16)", scalar_err, SSD_ATOL)
+    t = dict(ms=cuda_ms(wgmma, warmup=5, reps=50),
+             device_ms=profiled_device_ms(wgmma, reps=10),
+             launch_device_us=device_us_by_kernel(wgmma),
+             scalar_ms=cuda_ms(scalar, warmup=2, reps=10),
+             scalar_device_ms=profiled_device_ms(scalar, reps=3),
+             scalar32_ms=cuda_ms(scalar32, warmup=2, reps=10),
+             scalar32_device_ms=profiled_device_ms(scalar32, reps=3),
+             plain_ms=cuda_ms(plain, warmup=2, reps=5),
+             plain_device_ms=profiled_device_ms(plain, reps=2),
+             plain32_ms=cuda_ms(plain32, warmup=2, reps=5),
+             scalar_raw_err=raw, library_ms=None,
+             scalar32_bound=bound(4 * elems + small, nops),
+             **bound(2 * elems + small, nops, BF16_OPS_PER_S))
+    print(f"  timing ssd at mamba2-2.7B prefill ({b}, {S}, {H}, {P}; G 1, "
+          f"N {N}, L {L}) bf16: wgmma kernel {t['ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['device_ms'])}; by launch {t['launch_device_us']}), "
+          f"scalar kernel on the same bf16 inputs {t['scalar_ms'] * 1e3:.2f} "
+          f"us (device {fmt_us(t['scalar_device_ms'])}), scalar kernel in "
+          f"float32 {t['scalar32_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['scalar32_device_ms'])}; bound "
+          f"{t['scalar32_bound']['bound_ms'] * 1e3:.2f} us at the float32 "
+          f"rate), plain {t['plain_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['plain_device_ms'])}; on the float32 copies "
+          f"{t['plain32_ms'] * 1e3:.2f} us), bound "
+          f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {nops / 1e9:.2f} "
+          f"GFLOP at the bf16 tensor-core rate, {t['nbytes'] / 1e6:.2f} MB); "
+          f"library call: none (no PyTorch call computes the chunked SSD)",
+          flush=True)
+    return t
 
 
 def phase_lm_kernels(dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.ssd_scan import ssd_scan as sk
-    from repro_torch.kernels.ssd_scan.ref import ssd_ref
     from repro_torch.models import attention
     print("== phase 6: flash attention and SSD scan kernels vs plain "
           "versions on the card", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
-    worst = dict(flash=0.0, flash_sm90=0.0, ssd=0.0)
+    worst = dict(flash=0.0, flash_sm90=0.0, ssd=0.0, ssd_sm90=0.0)
     # test_flash_attention_sweep's six shapes, ragged S = 1000 (GQA,
     # sliding, full), then the qwen2-1.5B prefill shape (B 4, S 2048) and
     # the same at D 64. bf16 at D 64 and 128 takes the wgmma kernel, the
@@ -1016,44 +1114,42 @@ def phase_lm_kernels(dev) -> dict:
         worst["flash"] = max(worst["flash"], check("flash GQA", err,
                                                    GQA_ATOL))
     flash_t = {D: flash_timing(D, seed=40 + D) for D in (128, 64)}
-    # test_ssd_scan_sweep's three shapes, a ragged S, then the mamba2-2.7B
-    # prefill shape (b 4, S 2048) in bf16 and in float32.
+    # test_ssd_scan_sweep's three shapes and a ragged S in float32 (the
+    # scalar kernel); the card tests' bf16 shapes (the wgmma kernel: ragged
+    # S, G 1 and 2 over 8 heads, chunks of 64 to 256 and one longer than S,
+    # N 64 and 128) and two bf16 calls it does not take (chunks of S = 100
+    # rows; P 32), which the scalar kernel takes in bf16; then the
+    # mamba2-2.7B prefill shape in float32 (scalar) and in bf16 (wgmma) at
+    # B 4 and B 1, the bf16 ones timed beside the scalar kernel on the same
+    # inputs, which is held to the plain version there too.
+    key = dict(wgmma="ssd_sm90", scalar="ssd")
     for i, case in enumerate([(2, 64, 4, 16, 2, 8, 16, f32),
                               (2, 128, 2, 32, 1, 16, 32, f32),
                               (2, 64, 8, 64, 8, 8, 64, f32),
-                              (2, 100, 4, 16, 2, 8, 16, f32)]):
-        err, _ = ssd_case(*case, seed=20 + i)
-        worst["ssd"] = max(worst["ssd"], err)
-    err, _ = ssd_case(4, 2048, 80, 64, 1, 128, 256, f32, seed=30,
-                      model_like=True)
-    worst["ssd"] = max(worst["ssd"], err)
-    err, args = ssd_case(4, 2048, 80, 64, 1, 128, 256, bf16, seed=31,
-                         model_like=True)
-    worst["ssd"] = max(worst["ssd"], err)
-    x, dt, A, Bm, Cm = args
-    b, S, H, P = x.shape
-    N, L = Bm.shape[3], 256
-    nc = -(-S // L)
-    # Causal intra-chunk products L(L+1)/2 (N + P), inter term and state
-    # update 2 L N P, per (b, h, chunk); bytes: x, dt, A, B, C read, y and
-    # the state written.
-    nops = 2 * b * H * nc * (L * (L + 1) // 2 * (N + P) + 2 * L * N * P)
-    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
-              + 2 * Bm.numel() * 2 + b * H * P * N * 2)
-    kernel = lambda: sk.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L)
-    plain = lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=L)
-    ssd_t = dict(ms=cuda_ms(kernel, warmup=3, reps=20),
-                 device_ms=profiled_device_ms(kernel, reps=5),
-                 plain_ms=cuda_ms(plain, warmup=2, reps=5),
-                 plain_device_ms=profiled_device_ms(plain, reps=2),
-                 library_ms=None, **bound(nbytes, nops, BF16_OPS_PER_S))
-    print(f"  timing ssd at mamba2-2.7B prefill (4, 2048, 80, 64; G 1, N "
-          f"128, L 256) bf16: kernel {ssd_t['ms']:.4f} ms (device "
-          f"{fmt_us(ssd_t['device_ms'])}), plain {ssd_t['plain_ms']:.4f} ms "
-          f"(device {fmt_us(ssd_t['plain_device_ms'])}), bound "
-          f"{ssd_t['bound_ms'] * 1e3:.2f} us ({ssd_t['bound_by']}: "
-          f"{nops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); library call: "
-          f"none (no PyTorch call computes the chunked SSD)", flush=True)
+                              (2, 100, 4, 16, 2, 8, 16, f32),
+                              (1, 600, 8, 64, 1, 128, 256, bf16),
+                              (1, 600, 8, 64, 2, 128, 256, bf16),
+                              (2, 300, 8, 64, 2, 128, 64, bf16),
+                              (2, 300, 8, 64, 1, 128, 128, bf16),
+                              (2, 300, 8, 64, 2, 64, 128, bf16),
+                              (1, 600, 8, 64, 1, 128, 192, bf16),
+                              (2, 192, 8, 64, 2, 64, 256, bf16),
+                              (2, 100, 8, 64, 1, 128, 256, bf16),
+                              (2, 160, 4, 32, 2, 64, 64, bf16)]):
+        err, kind, _ = ssd_case(*case, seed=20 + i)
+        worst[key[kind]] = max(worst[key[kind]], err)
+    err, kind, _ = ssd_case(4, 2048, 80, 64, 1, 128, 256, f32, seed=30,
+                            model_like=True)
+    worst[key[kind]] = max(worst[key[kind]], err)
+    ssd_t = {}
+    for b, seed in ((4, 31), (1, 32)):
+        err, kind, args = ssd_case(b, 2048, 80, 64, 1, 128, 256, bf16,
+                                   seed=seed, model_like=True)
+        if kind != "wgmma":
+            fail(f"the bf16 prefill shape took the {kind} SSD kernel")
+        worst[key[kind]] = max(worst[key[kind]], err)
+        ssd_t[b] = ssd_timing(args, L=256)
+        worst["ssd"] = max(worst["ssd"], ssd_t[b]["scalar_raw_err"])
     return dict(worst=worst, flash=flash_t, ssd=ssd_t)
 
 
@@ -1116,6 +1212,7 @@ def serve_logits(model, params, toks, stream, device) -> list:
 def phase_lm_parity(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models.model import Model, to_device
     from repro_torch.runtime.serve_loop import Server
     print("== phase 7: LM serving, card vs CPU (full width, depth 2, "
@@ -1131,14 +1228,19 @@ def phase_lm_parity(dev) -> dict:
         init_s = time.perf_counter() - t0
         toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 320))
         fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+        sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
         with scan_recorder() as card_scans:
             card_tokens = Server(model, card_params).generate(
                 dict(tokens=toks), max_new=8)
         flash_launches = dict(fk.LAUNCHES_BY_VARIANT)
+        ssd_launches = dict(sk.LAUNCHES_BY_VARIANT)
+        # float32 takes the scalar kernels: one call per layer's prefill.
         want = dict(wgmma=0, scalar=0 if cfg.ssm else cfg.n_layers)
-        if flash_launches != want:
-            fail(f"{arch}: float32 serving launched the flash kernels "
-                 f"{flash_launches}, want {want}")
+        want_ssd = dict(wgmma=0, scalar=cfg.n_layers if cfg.ssm else 0)
+        if flash_launches != want or ssd_launches != want_ssd:
+            fail(f"{arch}: float32 serving called the flash kernels "
+                 f"{flash_launches} (want {want}) and the SSD kernels "
+                 f"{ssd_launches} (want {want_ssd})")
         with scan_recorder() as host_scans:
             host_tokens = Server(model, host_params, device="cpu").generate(
                 dict(tokens=toks), max_new=8)
@@ -1164,8 +1266,9 @@ def phase_lm_parity(dev) -> dict:
               f"(2, 320), 8 new tokens; card tokens {card_tokens.tolist()}; "
               f"cpu tokens {host_tokens.tolist()}; max |d logits| card vs "
               f"cpu per step {['%.2e' % e for e in errs]} (limit "
-              f"{LM_LOGITS_ATOL:.0e}); flash launches in the card's "
-              f"generate {flash_launches}", flush=True)
+              f"{LM_LOGITS_ATOL:.0e}); kernel calls in the card's "
+              f"generate: flash {flash_launches}, ssd {ssd_launches}",
+              flush=True)
         check(f"{arch} logits card vs cpu", max(errs), LM_LOGITS_ATOL)
         if cfg.ssm:
             print(f"    SSD max |y| per scan: card "
@@ -1174,6 +1277,7 @@ def phase_lm_parity(dev) -> dict:
             if not card_scans or min(card_scans + host_scans) <= 0.0:
                 fail(f"{arch}: the SSD carried zeros")
         out[arch] = dict(max_logits_err=max(errs), flash=flash_launches,
+                         ssd=ssd_launches,
                          tokens_equal=bool(np.array_equal(card_tokens,
                                                           host_tokens)))
         del card_params, host_params
@@ -1224,10 +1328,14 @@ def prefill_profile(model, params, toks) -> dict:
                if str(ev.device_type).endswith("CUDA")
                and ev.self_device_time_total > 0}
     # The port's own kernels among them, by the kernel's function name.
-    ours = {label: sum(ms for name, ms in by_name.items() if key in name)
-            for label, key in (("flash_attention_sm90", "flash_fwd_sm90"),
-                               ("flash_attention", "flash_fwd<"),
-                               ("ssd_scan", "ssd_fwd"))}
+    ours = {label: sum(ms for name, ms in by_name.items()
+                       if any(key in name for key in keys))
+            for label, keys in (
+                ("flash_attention_sm90", ("flash_fwd_sm90",)),
+                ("flash_attention", ("flash_fwd<",)),
+                ("ssd_scan_sm90", ("ssd_chunk_state", "ssd_state_pass",
+                                   "ssd_chunk_scan")),
+                ("ssd_scan", ("ssd_fwd",)))}
     return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6],
                 ours=ours)
@@ -1262,18 +1370,24 @@ def phase_lm_serve(dev) -> dict:
         with plain_call_counter() as plain_calls:
             fk.LAUNCHES, sk.LAUNCHES = 0, 0
             fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+            sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
             with obs.capture() as reg:
                 tokens = server.generate(dict(tokens=toks), max_new=NEW)
-            launches = dict(flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES,
-                            **fk.LAUNCHES_BY_VARIANT)
+            launches = dict(
+                flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES,
+                **{f"flash_{k}": n for k, n in fk.LAUNCHES_BY_VARIANT.items()},
+                **{f"ssd_{k}": n for k, n in sk.LAUNCHES_BY_VARIANT.items()})
         peak = torch.cuda.max_memory_allocated()
         prefill_s = reg.hists["serve.prefill"].total
         decode_s = reg.hists["serve.decode"].total
-        # One flash launch per layer of qwen2-1.5B's prefill, all on the
-        # tensor-core kernel (bf16, D 128); none of the scalar kernel.
-        want = dict(flash_attention=0 if cfg.ssm else cfg.n_layers,
-                    ssd_scan=cfg.n_layers if cfg.ssm else 0,
-                    wgmma=0 if cfg.ssm else cfg.n_layers, scalar=0)
+        # One kernel call per layer of the prefill, all on the tensor-core
+        # kernels (bf16: flash at D 128, SSD at P 64, N 128, L 256); none of
+        # the scalar ones.
+        n_attn = 0 if cfg.ssm else cfg.n_layers
+        n_ssd = cfg.n_layers if cfg.ssm else 0
+        want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
+                    flash_wgmma=n_attn, flash_scalar=0, ssd_wgmma=n_ssd,
+                    ssd_scalar=0)
         prof = prefill_profile(model, params, toks)
         print(f"  {arch}: {model.param_count() / 1e9:.4f} B parameters, "
               f"{cfg.n_layers} layers, drawn on the card in {init_s:.1f} s; "
@@ -1288,8 +1402,10 @@ def phase_lm_serve(dev) -> dict:
         print(f"    one profiled prefill: wall {prof['wall_ms']:.1f} ms, "
               f"device {prof['device_ms']:.1f} ms (busy "
               f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); the "
-              "port's kernels (device ms): " + ", ".join(
-                  f"{k} {ms:.2f}" for k, ms in prof["ours"].items())
+              "port's kernels (device ms, share of device time): "
+              + ", ".join(
+                  f"{k} {ms:.2f} ({ms / prof['device_ms'] * 100:.1f} %)"
+                  for k, ms in prof["ours"].items())
               + "; top kernels (device ms): " + "; ".join(
                   f"{name[:60]} {ms:.2f}" for name, ms in prof["top"]),
               flush=True)
@@ -1316,6 +1432,7 @@ def main() -> None:
         fail("no CUDA device available")
     from repro_torch.kernels import _build
     from repro_torch.kernels.sinkhorn import sinkhorn
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.runtime import platform
     dev = platform.device()
     print(f"tree sha256 {tree_sha256()} (chip_smoke.py + src/repro_torch "
@@ -1327,7 +1444,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     sources = ["sinkhorn", "rglru_scan", "flash_attention",
-               "flash_attention_sm90", "ssd_scan"]
+               "flash_attention_sm90", "ssd_scan", "ssd_scan_sm90"]
     _build.build(sources)
     for name in sources:
         _build.library(name)
@@ -1401,7 +1518,7 @@ def main() -> None:
         name="flash_attention_sm90", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces=flash,
-        launches=serve["qwen2_1_5b"]["launches"]["wgmma"],
+        launches=serve["qwen2_1_5b"]["launches"]["flash_wgmma"],
         max_abs_err=lmk["worst"]["flash_sm90"], ms=f128["ms"],
         plain_ms=f128["plain_ms"], bound_ms=f128["bound_ms"],
         device_ms=f128["device_ms"], plain_device_ms=f128["plain_device_ms"],
@@ -1424,18 +1541,38 @@ def main() -> None:
         library_ms=f128["library_ms"], shape=[48, 2048, 128],
         dtype="float32", launches_per_call=1,
         main_path="qwen2_1_5b Server.generate, float32 at depth 2 (phase 7)"))
-    t = lmk["ssd"]
+    t, t1 = lmk["ssd"][4], lmk["ssd"][1]
+    ssd = "src/repro/kernels/ssd_scan/ssd_scan.py:93"
     kernels.append(dict(
-        name="ssd_scan", route="cuda",
-        source="src/repro_torch/csrc/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:93",
-        launches=serve["mamba2_2_7b"]["launches"]["ssd_scan"],
-        max_abs_err=lmk["worst"]["ssd"], ms=t["ms"],
+        name="ssd_scan_sm90", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan_sm90.cu", replaces=ssd,
+        launches=serve["mamba2_2_7b"]["launches"]["ssd_wgmma"],
+        max_abs_err=lmk["worst"]["ssd_sm90"], ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
         bound_by=t["bound_by"], library_ms=t["library_ms"],
-        shape=[4, 2048, 80, 64], launches_per_call=1,
-        main_path="mamba2_2_7b Server.generate"))
+        shape=[4, 2048, 80, 64], dtype="bfloat16",
+        launches_per_call=sk.KERNELS_PER_CALL["wgmma"],
+        launch_device_us=t["launch_device_us"],
+        scalar_same_inputs_ms=t["scalar_ms"],
+        main_path="mamba2_2_7b Server.generate, bf16 (phase 8)",
+        b1=dict(shape=[1, 2048, 80, 64], **{
+            key: t1[key] for key in ("ms", "device_ms", "launch_device_us",
+                                     "scalar_ms", "plain_ms", "bound_ms")})))
+    kernels.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu", replaces=ssd,
+        launches=parity["mamba2_2_7b"]["ssd"]["scalar"],
+        max_abs_err=lmk["worst"]["ssd"], ms=t["scalar32_ms"],
+        plain_ms=t["plain32_ms"],
+        bound_ms=t["scalar32_bound"]["bound_ms"],
+        device_ms=t["scalar32_device_ms"],
+        bound_by=t["scalar32_bound"]["bound_by"], library_ms=None,
+        shape=[4, 2048, 80, 64], dtype="float32",
+        launches_per_call=sk.KERNELS_PER_CALL["scalar"],
+        bf16_inputs_ms=t["scalar_ms"],
+        main_path="mamba2_2_7b Server.generate, float32 at depth 2 "
+                  "(phase 7)"))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -6,6 +6,7 @@ repository root on the machine with the card:
     python3 kernel_probe.py ptxas     # registers and spills per kernel
     python3 kernel_probe.py sinkhorn  # annealed launch vs iteration loop
     python3 kernel_probe.py flash     # wgmma flash kernel vs plain, SDPA
+    python3 kernel_probe.py ssd       # wgmma SSD kernel vs scalar and plain
     python3 kernel_probe.py ab OTHER.cu
         # the built flash_attention_sm90.cu against OTHER.cu (another
         # version of it, e.g. ``git show REV:src/repro_torch/csrc/
@@ -44,7 +45,7 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 20) -> float:
 
 def ptxas() -> None:
     from repro_torch.kernels import _build
-    for name in ("flash_attention_sm90", "sinkhorn"):
+    for name in ("flash_attention_sm90", "sinkhorn", "ssd_scan_sm90"):
         out = _build.BUILD_DIR / f"probe-{name}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
@@ -114,6 +115,86 @@ def flash() -> None:
               flush=True)
 
 
+def ssd() -> None:
+    """The wgmma SSD kernel against the plain chunked version (chip_smoke's
+    limit) at the card tests' and phase 6's shapes, then timed against the
+    scalar kernel on the same bf16 inputs at mamba2-2.7B's prefill shape,
+    B 4 and B 1."""
+    from chip_smoke import (BF16_RTOL, SSD_ATOL, device_us_by_kernel,
+                            ssd_inputs)
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    bf16 = torch.bfloat16
+    ok = True
+    for i, (b, S, H, P, G, N, L, like) in enumerate([
+            (1, 600, 8, 64, 1, 128, 256, False),
+            (1, 600, 8, 64, 2, 128, 64, False),
+            (2, 300, 8, 64, 2, 64, 128, False),
+            (1, 2048, 80, 64, 1, 128, 256, True),
+            (4, 2048, 80, 64, 1, 128, 256, True)]):
+        args = ssd_inputs(b, S, H, P, G, N, bf16, 60 + i, like)
+        y, st = sk.ssd_scan_cuda(*args, chunk=L)
+        torch.cuda.synchronize()
+        yr, sr = ssd_ref(*args, chunk=min(L, S))
+        err = max(((y.float() - yr.float()).abs()
+                   - BF16_RTOL * yr.float().abs()).max().item(),
+                  ((st.float() - sr.float()).abs()
+                   - BF16_RTOL * sr.float().abs()).max().item())
+        ok &= bool(err <= SSD_ATOL)
+        print(f"ssd ({b}, {S}, {H}, {P}) G {G} N {N} L {L}"
+              f"{' model-like' if like else ''}: wgmma max|d| beyond "
+              f"2^-7 |ref|: {err:.3e} (limit {SSD_ATOL}); max|y| "
+              f"{yr.float().abs().max().item():.3e}", flush=True)
+    for b in (4, 1):
+        args = ssd_inputs(b, 2048, 80, 64, 1, 128, bf16, 70 + b, True)
+        wgmma = lambda: sk.ssd_scan_cuda(*args, chunk=256)
+        scalar = lambda: sk._launch("scalar", *args, 256)
+        t = [cuda_ms(f, 3, 20) * 1e3 for f in (wgmma, scalar, scalar,
+                                               wgmma)]
+        print(f"ssd ({b}, 2048, 80, 64) N 128 L 256 bf16: us (wgmma, "
+              f"scalar, scalar, wgmma) {[round(x, 2) for x in t]}; the "
+              f"wgmma call's launches (profiled device us): "
+              f"{device_us_by_kernel(wgmma)}", flush=True)
+    if not ok:
+        sys.exit("ssd: the wgmma kernel is beyond the limit")
+
+
+def ab_ssd(lib) -> None:
+    """The built ssd_scan_sm90.cu against another version of it, at
+    mamba2-2.7B's prefill shape, B 4 and B 1."""
+    from chip_smoke import device_us_by_kernel, ssd_inputs
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_fwd_sm90.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+    for b in (4, 1):
+        x, dt, A, Bm, Cm = args = ssd_inputs(b, 2048, 80, 64, 1, 128,
+                                             torch.bfloat16, 80 + b, True)
+        y, st = torch.empty_like(x), torch.empty((b, 80, 64, 128),
+                                                 dtype=x.dtype, device="cuda")
+        sc = torch.empty((b, 8, 80, 64, 128), device="cuda")
+        decay = torch.empty((b, 8, 80), device="cuda")
+        hin = torch.empty((b, 8, 80, 2, 64, 128), dtype=x.dtype,
+                          device="cuda")
+
+        def theirs():
+            err = lib.ssd_scan_fwd_sm90(
+                *(t.data_ptr() for t in (x, dt, A, Bm, Cm, y, st, sc, decay,
+                                         hin)), b, 2048, 80, 1, 128, 256,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+            return y, st
+        ours = lambda: sk.ssd_scan_cuda(*args, chunk=256)
+        (y1, s1), (y2, s2) = ours(), [t.clone() for t in theirs()]
+        same = max((y1.float() - y2.float()).abs().max().item(),
+                   (s1.float() - s2.float()).abs().max().item())
+        t = [cuda_ms(f, 3, 20) * 1e3 for f in (theirs, ours, ours, theirs)]
+        print(f"ssd B {b}: us (other, built, built, other) "
+              f"{[round(v, 2) for v in t]}; max|d| between them "
+              f"{same:.3e}; other's launches (profiled device us): "
+              f"{device_us_by_kernel(theirs)}", flush=True)
+
+
 def ab(other: str) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fb
@@ -123,6 +204,8 @@ def ab(other: str) -> None:
                     other], check=True)
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, "ssd_scan_fwd_sm90"):
+        return ab_ssd(lib)
     lib.flash_attention_fwd_sm90.argtypes = ([ptr] * 4 + [i32] * 7
                                              + [ctypes.c_float, ptr])
     for D in (128, 64):
@@ -154,7 +237,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     stage = sys.argv[1] if len(sys.argv) > 1 else "flash"
-    stages = dict(ptxas=ptxas, sinkhorn=sinkhorn, flash=flash)
+    stages = dict(ptxas=ptxas, sinkhorn=sinkhorn, flash=flash, ssd=ssd)
     if stage == "ab" and len(sys.argv) == 3:
         ab(sys.argv[2])
     elif stage in stages:

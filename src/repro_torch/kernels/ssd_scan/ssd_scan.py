@@ -1,9 +1,19 @@
-"""The Hopper SSD scan kernel (``csrc/ssd_scan.cu``): ctypes binding and
-launch.
+"""The Hopper SSD scan kernels: ctypes binding and launch.
 
-Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan/ssd_scan.py::
-ssd_scan_pallas``; see the note at the top of the CUDA source for the
-design and what bounds it.
+Two kernels replace the Pallas TPU kernel ``repro/kernels/ssd_scan/
+ssd_scan.py::ssd_scan_pallas``, chosen by ``variant(dtype, P, N, L)``:
+
+  ``wgmma``   bf16 with P = 64, N a multiple of 64 up to 128 and chunk
+              length L a multiple of 64 up to 256: ``csrc/ssd_scan_sm90.cu``,
+              the chunk-parallel SSD in three launches with every product
+              on the tensor cores (wgmma) and x, B, C staged by TMA — the
+              LM prefill's path;
+  ``scalar``  float32, and every other shape: ``csrc/ssd_scan.cu``, one
+              block per (b, h) stream, scalar float32 FMAs.
+
+See the notes at the top of the CUDA sources for the designs and what
+bounds them. Neither falls back on the other: a call the chosen kernel
+does not take raises.
 """
 from __future__ import annotations
 
@@ -13,35 +23,55 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Kernel launches made by ``ssd_scan_cuda`` in this process (one per call).
-# A plain counter, so a run can show that its main path went through the
-# kernel.
+# Kernel calls in this process (one per call), in all and by variant.
+# Plain counters, so a run can show that its main path went through the
+# kernels, and which.
 LAUNCHES = 0
+LAUNCHES_BY_VARIANT = {"wgmma": 0, "scalar": 0}
+# Device launches one call makes, by variant.
+KERNELS_PER_CALL = {"wgmma": 3, "scalar": 1}
 
 MAX_HEAD_DIM = 64
+WGMMA_HEAD_DIM = 64
+WGMMA_STATES = (64, 128)
+WGMMA_MAX_CHUNK = 256
 # Dynamic shared memory one block may use on a Hopper card.
 SMEM_LIMIT = 232448
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# TMA reads from 16-byte aligned global addresses only.
+TMA_ALIGN = 16
 
-_LIB = None
+_LIBS = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = _build.library("ssd_scan")
+def variant(dtype: torch.dtype, P: int, N: int, L: int) -> str:
+    """The kernel that takes a call with head dim P, state size N and chunk
+    length L (``min(chunk, S)``): ``"wgmma"`` for bf16 with P 64, N in
+    ``WGMMA_STATES`` and L a multiple of 64 up to 256, else ``"scalar"``."""
+    return ("wgmma" if dtype == torch.bfloat16 and P == WGMMA_HEAD_DIM
+            and N in WGMMA_STATES and L % 64 == 0
+            and 0 < L <= WGMMA_MAX_CHUNK else "scalar")
+
+
+def _lib(kind: str) -> ctypes.CDLL:
+    lib = _LIBS.get(kind)
+    if lib is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_fwd.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
-        lib.ssd_scan_fwd.restype = i32
-        lib.ssd_scan_smem_bytes.argtypes = [i32] * 3
-        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
-        _LIB = lib
-    return _LIB
+        if kind == "scalar":
+            lib = _build.library("ssd_scan")
+            lib.ssd_scan_fwd.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+            lib.ssd_scan_fwd.restype = i32
+            lib.ssd_scan_smem_bytes.argtypes = [i32] * 3
+            lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+        else:
+            lib = _build.library("ssd_scan_sm90")
+            lib.ssd_scan_fwd_sm90.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            lib.ssd_scan_fwd_sm90.restype = i32
+        _LIBS[kind] = lib
+    return lib
 
 
 def _check(name, t, dtypes, dim, device):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device != device:
         raise ValueError("all inputs must be on one device")
     if t.dtype not in dtypes:
@@ -54,13 +84,9 @@ def _check(name, t, dtypes, dim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int = 256):
-    """x: [b, S, H, P] (float32 or bfloat16); dt: [b, S, H] float32;
-    A: [H] float32; Bm, Cm: [b, S, G, N] in x's dtype, G dividing H.
-    Returns (y [b, S, H, P], final state [b, H, P, N]), both in x's dtype,
-    from one launch on the card. Chunks are ``min(chunk, S)`` rows; a
-    ragged last chunk is read as the reference's exact dt = 0 padding."""
-    global LAUNCHES
+def check_inputs(x, dt, A, Bm, Cm, *, chunk: int = 256) -> str:
+    """Raise on what neither kernel takes; return the variant that takes
+    the rest. Device-free, so that the CPU tests reach every refusal."""
     dev = x.device
     _check("x", x, tuple(_DTYPES), 4, dev)
     _check("dt", dt, (torch.float32,), 3, dev)
@@ -85,20 +111,71 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int = 256):
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     L = min(int(chunk), S)
-    lib = _lib()
-    smem = lib.ssd_scan_smem_bytes(P, N, L)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"P {P}, N {N}, chunk {L} need {smem} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
+    kind = variant(x.dtype, P, N, L)
+    if kind == "wgmma":
+        nc = -(-S // L)
+        if b * nc * H * 2 * P * N >= 2 ** 31:
+            raise ValueError(f"x too large for the wgmma kernel's scratch: "
+                             f"{tuple(x.shape)}, N {N}, chunk {L}")
+        for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+            if t.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"{name} must be {TMA_ALIGN}-byte aligned "
+                                 f"for the TMA loads of the wgmma kernel")
+    return kind
+
+
+def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """x: [b, S, H, P] (float32 or bfloat16); dt: [b, S, H] float32;
+    A: [H] float32; Bm, Cm: [b, S, G, N] in x's dtype, G dividing H.
+    Returns (y [b, S, H, P], final state [b, H, P, N]), both in x's dtype,
+    from the kernel ``variant`` chooses, on the card. Chunks are
+    ``min(chunk, S)`` rows; a ragged last chunk is read as the reference's
+    exact dt = 0 padding."""
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    kind = check_inputs(x, dt, A, Bm, Cm, chunk=chunk)
+    return _launch(kind, x, dt, A, Bm, Cm, min(int(chunk), x.shape[1]))
+
+
+def _launch(kind: str, x, dt, A, Bm, Cm, L: int):
+    """One call of the ``kind`` kernel on inputs ``check_inputs`` passed,
+    with chunks of L rows. The scalar kernel takes every such call, so
+    timing code may hand it a call the wgmma kernel would take."""
+    global LAUNCHES
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dev = x.device
+    lib = _lib(kind)
     y = torch.empty_like(x)
     state = torch.empty((b, H, P, N), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype],
-            b, S, H, P, G, N, L, stream)
+        ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), y.data_ptr(), state.data_ptr())
+        if kind == "wgmma":
+            # Scratch of the three launches: each chunk's own state
+            # contribution and decay, and the state entering each chunk as
+            # a bf16 hi + lo pair.
+            nc = -(-S // L)
+            sc = torch.empty((b, nc, H, P, N), dtype=torch.float32,
+                             device=dev)
+            decay = torch.empty((b, nc, H), dtype=torch.float32, device=dev)
+            hin = torch.empty((b, nc, H, 2, P, N), dtype=torch.bfloat16,
+                              device=dev)
+            err = lib.ssd_scan_fwd_sm90(
+                *ptrs, sc.data_ptr(), decay.data_ptr(), hin.data_ptr(), b, S,
+                H, G, N, L, stream)
+        else:
+            smem = lib.ssd_scan_smem_bytes(P, N, L)
+            if smem > SMEM_LIMIT:
+                raise ValueError(f"P {P}, N {N}, chunk {L} need {smem} "
+                                 f"bytes of shared memory, more than "
+                                 f"{SMEM_LIMIT}")
+            err = lib.ssd_scan_fwd(*ptrs, _DTYPES[x.dtype], b, S, H, P, G,
+                                   N, L, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan ({kind}) launch failed: error {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[kind] += 1
     return y, state

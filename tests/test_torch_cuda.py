@@ -283,6 +283,10 @@ def test_flash_kernel_rejects_bad_inputs(card):
     (2, 64, 8, 64, 8, 8, 64, torch.float32),
     (2, 100, 4, 16, 2, 8, 16, torch.float32),
     (1, 600, 8, 64, 1, 128, 256, torch.bfloat16),
+    # bf16 calls the wgmma kernel does not take (chunks of S = 100 rows;
+    # P 32): the scalar kernel in bf16.
+    (2, 100, 8, 64, 1, 128, 256, torch.bfloat16),
+    (2, 160, 4, 32, 2, 64, 64, torch.bfloat16),
 ])
 def test_ssd_kernel_matches_plain_on_card(card, b, S, H, P, G, N, chunk,
                                           dtype):
@@ -295,14 +299,102 @@ def test_ssd_kernel_matches_plain_on_card(card, b, S, H, P, G, N, chunk,
     A = (-torch.rand(H, generator=gen) - 0.2).to(card)
     Bm, Cm = (torch.randn((b, S, G, N), generator=gen).to(card, dtype)
               for _ in range(2))
-    before = sb.LAUNCHES
+    kind = sb.variant(dtype, P, N, min(chunk, S))
+    before, by_variant = sb.LAUNCHES, dict(sb.LAUNCHES_BY_VARIANT)
     y, st = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
+    # One call (of KERNELS_PER_CALL[kind] device launches), of its variant.
     assert sb.LAUNCHES == before + 1
+    assert sb.LAUNCHES_BY_VARIANT == {**by_variant,
+                                      kind: by_variant[kind] + 1}
     yr, sr = ssd_ref(x, dt, A, Bm, Cm, chunk=min(chunk, S))
     rtol = 0 if dtype == torch.float32 else BF16_RTOL
     torch.testing.assert_close(y.float(), yr.float(), atol=2e-3, rtol=rtol)
     torch.testing.assert_close(st.float(), sr.float(), atol=2e-3, rtol=rtol)
+
+
+def _ssd_model_like(card, seed, b, S, H, P, G, N):
+    """Inputs as the Mamba-2 block hands them to the scan (chip_smoke.py's
+    model-like draws, made on the CPU): x, B, C SiLU outputs of unit
+    normals in bf16, dt and A at Mamba-2's init ranges."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.common import softplus
+    gen = torch.Generator().manual_seed(seed)
+    cfg = get_config("mamba2_2_7b").replace(
+        d_inner=H * P, ssm_head_dim=P, ssm_groups=G, ssm_state=N)
+    mix = ssm.draw_live_mixer(np.random.default_rng(seed), cfg)
+    x = F.silu(torch.randn((b, S, H, P), generator=gen)).bfloat16()
+    dt = softplus(0.5 * torch.randn((b, S, H), generator=gen)
+                  + torch.from_numpy(mix["dt_bias"]))
+    A = -torch.exp(torch.from_numpy(mix["A_log"]))
+    Bm, Cm = (F.silu(torch.randn((b, S, G, N), generator=gen)).bfloat16()
+              for _ in range(2))
+    return [t.to(card) for t in (x, dt, A, Bm, Cm)]
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,model_like", [
+    (1, 600, 8, 64, 1, 128, 256, False),
+    (1, 600, 8, 64, 2, 128, 256, False),
+    (2, 300, 8, 64, 2, 128, 64, False),
+    (2, 300, 8, 64, 1, 128, 128, False),
+    (2, 300, 8, 64, 2, 64, 128, False),
+    (1, 600, 8, 64, 1, 128, 192, False),
+    (2, 192, 8, 64, 2, 64, 256, False),
+    (1, 2048, 80, 64, 1, 128, 256, True),
+])
+def test_wgmma_ssd_kernel_matches_plain_on_card(card, b, S, H, P, G, N,
+                                                chunk, model_like):
+    """The chunk-parallel tensor-core kernel (bf16, P 64) against the plain
+    chunked version: ragged S, G 1 and 2 over 8 heads, chunks of 64, 128,
+    192 and 256 (and one longer than S, so of S = 192 rows), N 64 and 128,
+    and mamba2-2.7B's shape at B 1 drawn as the model draws; limit 2e-3
+    plus one bf16 step, on y and the state."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    if model_like:
+        x, dt, A, Bm, Cm = _ssd_model_like(card, 0, b, S, H, P, G, N)
+    else:
+        gen = torch.Generator().manual_seed(S + H + G + N + chunk)
+        x = torch.randn((b, S, H, P), generator=gen).to(card, torch.bfloat16)
+        dt = (torch.rand((b, S, H), generator=gen) * 0.5 + 0.1).to(card)
+        A = (-torch.rand(H, generator=gen) - 0.2).to(card)
+        Bm, Cm = (torch.randn((b, S, G, N), generator=gen).to(
+            card, torch.bfloat16) for _ in range(2))
+    assert sb.variant(x.dtype, P, N, min(chunk, S)) == "wgmma"
+    before = dict(sb.LAUNCHES_BY_VARIANT)
+    y, st = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
+                                          scalar=before["scalar"])
+    yr, sr = ssd_ref(x, dt, A, Bm, Cm, chunk=min(chunk, S))
+    assert float(yr.float().abs().max()) > 0.0
+    torch.testing.assert_close(y.float(), yr.float(), atol=2e-3,
+                               rtol=BF16_RTOL)
+    torch.testing.assert_close(st.float(), sr.float(), atol=2e-3,
+                               rtol=BF16_RTOL)
+
+
+def test_ssd_variant_sends_bf16_to_wgmma_and_float32_to_scalar(card):
+    """The same inputs in bf16 and in float32: one call each, counted under
+    its variant; the two kernels agree within the bf16 limit."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    x, dt, A, Bm, Cm = _ssd_model_like(card, 1, 1, 512, 8, 64, 1, 128)
+    before = dict(sb.LAUNCHES_BY_VARIANT)
+    y16, s16 = sb.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=256)
+    assert sb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
+                                          scalar=before["scalar"])
+    y32, s32 = sb.ssd_scan_cuda(x.float(), dt, A, Bm.float(), Cm.float(),
+                                chunk=256)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
+                                          scalar=before["scalar"] + 1)
+    assert y16.dtype == torch.bfloat16 and y32.dtype == torch.float32
+    assert sb.KERNELS_PER_CALL == dict(wgmma=3, scalar=1)
+    torch.testing.assert_close(y16.float(), y32, atol=2e-3, rtol=BF16_RTOL)
+    torch.testing.assert_close(s16.float(), s32, atol=2e-3, rtol=BF16_RTOL)
 
 
 def test_ssd_kernel_rejects_bad_inputs(card):
@@ -322,6 +414,17 @@ def test_ssd_kernel_rejects_bad_inputs(card):
                          .contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         sb.ssd_scan_cuda(x.transpose(1, 2), dt, A, Bm, Bm)
+    # The wgmma kernel: refused for an address TMA cannot read; never
+    # passed on to the scalar kernel.
+    shape = (1, 64, 4, 64)
+    flat = torch.zeros(64 * 4 * 64 + 1, dtype=torch.bfloat16, device=card)
+    xm = flat[1:].view(shape)
+    Bw = torch.zeros((1, 64, 1, 128), dtype=torch.bfloat16, device=card)
+    before = dict(sb.LAUNCHES_BY_VARIANT)
+    with pytest.raises(ValueError, match="aligned"):
+        sb.ssd_scan_cuda(xm, torch.zeros((1, 64, 4), device=card),
+                         torch.zeros(4, device=card), Bw, Bw, chunk=64)
+    assert sb.LAUNCHES_BY_VARIANT == before
 
 
 @pytest.mark.parametrize("arch", ["qwen2_1_5b", "mamba2_2_7b"])

@@ -1,21 +1,29 @@
 """The port's SSD scan against the JAX package's, on the same numpy inputs:
-the kernel's plain versions (``kernels/ssd_scan``: the chunked form and
-the sequential recurrence) against ``ssd_naive``, ``ssd_chunked`` and, at
-a small shape, the Pallas kernel in interpret mode; the Mamba-2 block's
-pieces (segment sum, decode step, causal conv) against the reference's.
-The CUDA kernel itself is held to the plain version on the card
+the kernel's plain versions (``kernels/ssd_scan``: the chunked form, the
+sequential recurrence and the chunk-parallel twin of the wgmma kernel)
+against ``ssd_naive``, ``ssd_chunked`` and the Pallas kernel in interpret
+mode; the twin with the wgmma kernel's rounding against the card's limit;
+the kernels' variant rule and input checks; the Mamba-2 block's pieces
+(segment sum, decode step, causal conv) against the reference's. The CUDA
+kernels themselves are held to the plain version on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 6)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_naive, ssd_ref
 from repro.models import ssm as jssm
+from repro_torch.configs import get_config
 from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan import ssd_scan as binding
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_parallel
 from repro_torch.kernels.ssd_scan.ref import ssd_naive as port_naive
+from repro_torch.kernels.ssd_scan.ref import ssd_ref as port_ref
 from repro_torch.models import ssm
+from repro_torch.models.common import softplus
 
 # The reference kernel test's tolerance (float32 on both sides; the chunked
 # form and the recurrence sum in other orders).
@@ -85,6 +93,106 @@ def test_ragged_sequence_is_exact_padding(S, chunk):
     _close(st, sc, 1e-4)
     _close(y, yn)
     _close(st, sn)
+
+
+# The sweep's shapes, then G > 1 at P 64, a ragged S and a chunk longer
+# than S.
+CHUNK_PARALLEL = SWEEP + [(96, 8, 64, 2, 16, 32), (100, 4, 16, 2, 8, 16),
+                          (40, 4, 16, 2, 8, 64)]
+
+
+@pytest.mark.parametrize("S,H,P,G,N,chunk", CHUNK_PARALLEL)
+def test_chunk_parallel_matches_reference(S, H, P, G, N, chunk):
+    """The plain twin of the wgmma kernel's three stages, in float32,
+    against the reference's chunked form, its recurrence and (where S is
+    whole chunks, as the Pallas kernel needs) its Pallas kernel."""
+    arrs = _inputs(8, 2, S, H, P, G, N)
+    L = min(chunk, S)
+    y, st = ssd_chunk_parallel(*_torch(arrs), chunk=chunk)
+    for ref in (ssd_ref(*_jax(arrs), chunk=L), ssd_naive(*_jax(arrs))):
+        _close(y, ref[0], 1e-4)
+        _close(st, ref[1], 1e-4)
+    if S % L == 0:
+        yk, sk = jax_ssd_scan(*_jax(arrs), chunk=L, interpret=True)
+        _close(y, yk, 1e-4)
+        _close(st, sk, 1e-4)
+
+
+def _model_like(seed, b, S, H, P, G, N):
+    """Inputs as the Mamba-2 block hands them to the scan, drawn as
+    ``chip_smoke.py::ssd_inputs(model_like=True)`` draws them (on the CPU
+    here): x, B, C SiLU outputs of unit normals in bf16, dt and A at
+    Mamba-2's init ranges."""
+    gen = torch.Generator().manual_seed(seed)
+    cfg = get_config("mamba2_2_7b").replace(
+        d_inner=H * P, ssm_head_dim=P, ssm_groups=G, ssm_state=N)
+    mix = ssm.draw_live_mixer(np.random.default_rng(seed), cfg)
+    x = F.silu(torch.randn((b, S, H, P), generator=gen)).bfloat16()
+    dt = softplus(0.5 * torch.randn((b, S, H), generator=gen)
+                  + torch.from_numpy(mix["dt_bias"]))
+    A = -torch.exp(torch.from_numpy(mix["A_log"]))
+    Bm, Cm = (F.silu(torch.randn((b, S, G, N), generator=gen)).bfloat16()
+              for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def test_chunk_parallel_kernel_rounding_within_card_limit():
+    """The twin with the operands the wgmma kernel rounds rounded as it
+    does (three bf16 hi + lo pairs) stays within the limit the card holds
+    the kernel to, |d| <= 2e-3 + 2^-7 |ref| on y and on the state, against
+    the plain chunked version on the same bf16 inputs."""
+    args = _model_like(0, 1, 1024, 16, 64, 1, 128)
+    yr, sr = port_ref(*args, chunk=256)
+    y, st = ssd_chunk_parallel(*args, chunk=256, rounding="kernel")
+    assert y.dtype == st.dtype == torch.bfloat16
+    assert float(yr.float().abs().max()) > 1.0
+    for out, ref in ((y, yr), (st, sr)):
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-3,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype,P,N,L,want", [
+    (torch.bfloat16, 64, 128, 256, "wgmma"),
+    (torch.bfloat16, 64, 64, 64, "wgmma"),
+    (torch.bfloat16, 64, 128, 192, "wgmma"),
+    (torch.float32, 64, 128, 256, "scalar"),
+    (torch.bfloat16, 32, 128, 256, "scalar"),
+    (torch.bfloat16, 64, 96, 256, "scalar"),
+    (torch.bfloat16, 64, 256, 256, "scalar"),
+    (torch.bfloat16, 64, 128, 100, "scalar"),
+    (torch.bfloat16, 64, 128, 512, "scalar"),
+])
+def test_variant_rule(dtype, P, N, L, want):
+    assert binding.variant(dtype, P, N, L) == want
+
+
+def test_check_inputs_picks_the_variant_and_refuses_bad_inputs():
+    """Device-free: the refusals the card path raises, on CPU tensors."""
+    def make(S, H, P, G, N, dtype):
+        return (torch.zeros((1, S, H, P), dtype=dtype),
+                torch.zeros((1, S, H)), torch.zeros(H),
+                torch.zeros((1, S, G, N), dtype=dtype),
+                torch.zeros((1, S, G, N), dtype=dtype))
+    assert binding.check_inputs(*make(600, 8, 64, 1, 128, torch.bfloat16),
+                                chunk=256) == "wgmma"
+    assert binding.check_inputs(*make(600, 8, 64, 1, 128, torch.float32),
+                                chunk=256) == "scalar"
+    # chunk > S: chunks of S rows, not a multiple of 64 here.
+    assert binding.check_inputs(*make(40, 8, 64, 1, 128, torch.bfloat16),
+                                chunk=256) == "scalar"
+    x, dt, A, Bm, Cm = make(64, 8, 64, 2, 128, torch.bfloat16)
+    with pytest.raises(TypeError):
+        binding.check_inputs(x, dt.double(), A, Bm, Cm)
+    with pytest.raises(TypeError):
+        binding.check_inputs(x, dt, A, Bm.float(), Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        binding.check_inputs(x.transpose(1, 2), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="unsupported"):
+        binding.check_inputs(*make(64, 8, 64, 3, 128, torch.bfloat16))
+    with pytest.raises(ValueError, match="head dim"):
+        binding.check_inputs(*make(64, 8, 80, 1, 128, torch.bfloat16))
+    with pytest.raises(ValueError, match="chunk"):
+        binding.check_inputs(x, dt, A, Bm, Cm, chunk=0)
 
 
 def test_segsum_matches_reference():
