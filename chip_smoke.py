@@ -17,13 +17,19 @@ Builds the port's kernels from the sources in this checkout, then:
      times a round's Sinkhorn stage through the launch and through the
      iteration loop side by side, and holds the iteration kernel against
      its plain version at every row bucket the card run's solves spanned;
-  4. holds the RG-LRU scan kernels (forward and backward) against their
-     plain versions at the learned forecaster's shapes and times both;
+  4. holds the RG-LRU kernels against their plain versions, forward and
+     backward: the fused layer (gate math + recurrence, one launch each
+     way) and the scan alone, at the learned forecaster's shapes, the
+     reference tests' odd shapes, a case at the sqrt factor's 1e-12 clamp
+     and griffin's [4, 2048, 2560]; times them beside the eager
+     composition the fused pair replaces (gate math + scan kernel), the
+     plain versions and their bounds;
   5. drives the forecast-driven round end to end — ``EventSimulator`` +
      ``forecast_pipeline(forecaster="learned", backend="fused")`` — on the
      same cell, on the card and on the CPU, compares the two, checks the
-     kernels' launch counts, and runs ``forecaster="holtwinters"`` on the
-     card once;
+     fused kernels' launch counts against the training schedule, profiles
+     one training step (device kernels, aten operations, wall), and runs
+     ``forecaster="holtwinters"`` on the card once;
   6. holds the flash-attention kernels (bf16 D 64/128 on wgmma tensor
      cores; float32 and D 16/256 on the scalar kernel) and the SSD-scan
      kernels (bf16 P 64 on the chunk-parallel wgmma kernel; float32 and
@@ -33,7 +39,8 @@ Builds the port's kernels from the sources in this checkout, then:
      shapes, the latter at B 4 and B 1) and times them beside the plain
      versions, their bounds and, for attention,
      ``scaled_dot_product_attention``; the two SSD kernels on the same bf16
-     inputs;
+     inputs; and checks that both refuse an input that requires grad
+     under grad (they are forward-only);
   7. serves qwen2-1.5B and mamba2-2.7B at full width and depth 2 in
      float32 through ``Server.generate`` on the card and on the CPU (the
      same weights) and compares logits and tokens;
@@ -86,10 +93,16 @@ PAD_RTOL = 1e-6
 # End to end, card (kernel order) vs CPU (XLA order): near-ties may round
 # differently, so totals are compared, not records.
 E2E_RTOL = 5e-3
-# RG-LRU scan, kernel vs plain version on the card: the kernel's step is one
-# fmaf where the plain version multiplies and adds (two roundings); the
-# reference's own kernel test holds its scan to the same 1e-4.
+# RG-LRU kernels vs plain versions on the card: the kernels' steps are one
+# fmaf where the plain version multiplies and adds (two roundings), and
+# their chunk carries come from the combine; the reference's own kernel
+# test holds its scan to the same 1e-4.
 SCAN_ATOL = 1e-4
+# At the clamp (pre_r <= -40, 1 - exp(2 log_a) = 0) every gradient through
+# the gates is at most ~1e-5, so each is held relative to its largest
+# element: the sqrt factor's slope is 0 in both, the rest is exp's and
+# sigmoid's last bits in two libraries.
+CLAMP_RTOL = 1e-3
 # The first fit's q50 forecast, card vs CPU (original units, relative):
 # 300 float32 AdamW steps through cuBLAS and the kernels against the CPU's
 # BLAS and plain loops, then a 15-column inference pass.
@@ -615,8 +628,8 @@ def phase_e2e(dev) -> dict:
 
 
 def scan_inputs(B: int, S: int, W: int, dev, seed: int):
-    """(a, bx, w) as the learned forecaster feeds the scan: decays in
-    (0, 0.95), gated inputs and an output cotangent, from a seed."""
+    """(a, bx, w) as the scan takes them: decays in (0, 0.95), gated
+    inputs and an output cotangent, from a seed."""
     gen = torch.Generator().manual_seed(seed)
     a = torch.rand((B, S, W), generator=gen) * 0.95
     bx = torch.randn((B, S, W), generator=gen)
@@ -624,12 +637,27 @@ def scan_inputs(B: int, S: int, W: int, dev, seed: int):
     return a.to(dev), bx.to(dev), w.to(dev)
 
 
-def scan_grads(scan, a, bx, w):
-    """(da, dbx) of sum(w * scan(a, bx)) by autograd."""
-    a = a.clone().requires_grad_(True)
-    bx = bx.clone().requires_grad_(True)
-    torch.autograd.backward((w * scan(a, bx)).sum())
-    return a.grad, bx.grad
+def layer_inputs(B: int, S: int, W: int, dev, seed: int,
+                 clamp: bool = False):
+    """(pre_r, pre_i, x, lam, w) as the learned forecaster's block feeds
+    the fused layer (gate pre-activations of unit scale, lam of scale 0.5)
+    and an output cotangent, from a seed. ``clamp`` shifts pre_r to
+    [-60, -40], where 1 - exp(2 log_a) is 0 and takes the 1e-12 floor."""
+    gen = torch.Generator().manual_seed(seed)
+    pre_r = torch.randn((B, S, W), generator=gen) - (50.0 if clamp else 0.0)
+    pre_i = torch.randn((B, S, W), generator=gen)
+    x = torch.randn((B, S, W), generator=gen)
+    lam = torch.randn((W,), generator=gen) * 0.5
+    w = torch.randn((B, S, W), generator=gen)
+    return tuple(t.to(dev) for t in (pre_r, pre_i, x, lam, w))
+
+
+def grads(fn, inputs, w):
+    """(output, gradients of sum(w * fn(*inputs)) in every input)."""
+    inputs = [t.clone().requires_grad_(True) for t in inputs]
+    y = fn(*inputs)
+    g = torch.autograd.grad((w * y).sum(), inputs)
+    return y.detach(), g
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S
@@ -643,65 +671,170 @@ def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S
                 nbytes=nbytes, nops=nops)
 
 
+# Phase 4's shapes: the learned forecaster's training, validation and
+# inference batches, the reference kernel tests' odd shapes, a wide one,
+# and griffin's lru_width at B 4, S 2048 (recurrentgemma_2b's prefill).
+SCAN_SHAPES = ((64, 48, 16), (75, 48, 16), (16, 48, 16), (5, 29, 16),
+               (2, 7, 15), (2, 128, 128), (4, 2048, 2560))
+GRIFFIN = (4, 2048, 2560)
+# Operations an element, counting each exp, log1p, sqrt and division as
+# one: the fused forward's gate math and step (17), its backward's
+# recomputed gates, reverse step and chain rule (40); the scan alone's step
+# (2) and its backward's step and da (3).
+LAYER_FWD_OPS, LAYER_BWD_OPS, SCAN_FWD_OPS, SCAN_BWD_OPS = 17, 40, 2, 3
+
+
+def hold_layer(shape, clamp: bool, dev, seed: int) -> tuple:
+    """The fused layer, forward and backward (one launch each), against
+    autograd through its plain version on the card. Returns (max|dy|, the
+    gradients' max|d|, the gradient error held to its limit): the max|d|
+    over the four gradients, held to SCAN_ATOL, or in the clamp case, where
+    every gradient through the gates is tiny, max|d| / max|ref| for each
+    gradient, held to CLAMP_RTOL."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.rglru_scan.ref import rglru_layer_ref
+    *inputs, w = layer_inputs(*shape, dev, seed=seed, clamp=clamp)
+    before = dict(rk.LAUNCHES)
+    y_k, g_k = grads(ops.rglru_layer, inputs, w)
+    if (rk.LAUNCHES["layer_fwd"], rk.LAUNCHES["layer_bwd"]) != (
+            before["layer_fwd"] + 1, before["layer_bwd"] + 1):
+        fail(f"the fused layer did not launch once each way at {shape}")
+    y_r, g_r = grads(rglru_layer_ref, inputs, w)
+    fwd = (y_k - y_r).abs().max().item()
+    bwd_abs = max((k - r).abs().max().item() for k, r in zip(g_k, g_r))
+    if clamp:
+        bwd = max((k - r).abs().max().item() / r.abs().max().item()
+                  for k, r in zip(g_k, g_r))
+        what = f", max|d| / max|ref| {bwd:.3e} (limit {CLAMP_RTOL:.0e})"
+        limit = CLAMP_RTOL
+    else:
+        bwd, limit, what = bwd_abs, SCAN_ATOL, f" (limit {SCAN_ATOL:.0e})"
+    print(f"  layer {shape}{' at the clamp' if clamp else ''}: max|dy| "
+          f"{fwd:.3e}; grads (pre_r, pre_i, x, lam) max|d| {bwd_abs:.3e}"
+          f"{what}", flush=True)
+    if not (np.isfinite(fwd) and fwd <= SCAN_ATOL):
+        fail(f"fused forward disagrees at {shape}: {fwd:.3e}")
+    if not (np.isfinite(bwd) and bwd <= limit):
+        fail(f"fused backward disagrees at {shape}: {bwd:.3e}")
+    return fwd, bwd_abs, bwd
+
+
+def hold_scan(shape, dev, seed: int) -> tuple:
+    """The scan alone, forward and backward, against autograd through the
+    plain loop on the card: (forward error, gradient error)."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    a, bx, w = scan_inputs(*shape, dev, seed=seed)
+    before = dict(rk.LAUNCHES)
+    y_k, g_k = grads(ops.rglru_scan, (a, bx), w)
+    if (rk.LAUNCHES["fwd"], rk.LAUNCHES["bwd"]) != (before["fwd"] + 1,
+                                                    before["bwd"] + 1):
+        fail(f"the scan did not launch once each way at {shape}")
+    y_r, g_r = grads(rglru_scan_ref, (a, bx), w)
+    fwd = (y_k - y_r).abs().max().item()
+    bwd = max((k - r).abs().max().item() for k, r in zip(g_k, g_r))
+    print(f"  scan {shape}: max|dy| {fwd:.3e}, max|d grad| {bwd:.3e}",
+          flush=True)
+    if not all(np.isfinite(e) and e <= SCAN_ATOL for e in (fwd, bwd)):
+        fail(f"scan disagrees at {shape}: {fwd:.3e} / {bwd:.3e}")
+    return fwd, bwd
+
+
+def time_kernel(kernel, plain, b: dict, composition=None,
+                plain_reps: int = 200) -> dict:
+    """Events and profiled device time of ``kernel``, of ``plain`` and of
+    ``composition`` (the eager gate math around the scan-only kernel that
+    the fused kernel replaces), with the bound ``b``."""
+    t = dict(ms=cuda_ms(kernel), device_ms=profiled_device_ms(kernel),
+             plain_ms=cuda_ms(plain, warmup=min(20, plain_reps),
+                              reps=plain_reps),
+             plain_device_ms=profiled_device_ms(plain,
+                                                reps=min(50, plain_reps)),
+             **b)
+    if composition is not None:
+        t.update(composition_ms=cuda_ms(composition),
+                 composition_device_ms=profiled_device_ms(composition))
+    return t
+
+
+def report_timing(name: str, shape, t: dict) -> None:
+    comp = ("" if "composition_ms" not in t else
+            f", gates + scan kernel {t['composition_ms'] * 1e3:.2f} us "
+            f"(device {fmt_us(t['composition_device_ms'])})")
+    print(f"  timing {name} {shape}: kernel {t['ms'] * 1e3:.2f} us/call "
+          f"(device {fmt_us(t['device_ms'])}){comp}, plain "
+          f"{t['plain_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['plain_device_ms'])}), bound "
+          f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']})", flush=True)
+
+
 def phase_scan(dev) -> dict:
     from repro_torch.kernels.rglru_scan import ops
     from repro_torch.kernels.rglru_scan import rglru_scan as rk
-    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+    from repro_torch.kernels.rglru_scan.ref import (rglru_gates,
+                                                    rglru_layer_ref,
+                                                    rglru_scan_bwd_ref,
                                                     rglru_scan_ref)
-    print("== phase 4: RG-LRU scan kernels vs plain versions on the card",
-          flush=True)
-    worst = dict(fwd=0.0, bwd=0.0)
-    # Training, validation and inference shapes of the learned forecaster,
-    # then the reference kernel tests' odd shapes and a wide one.
-    for shape in ((64, 48, 16), (75, 48, 16), (16, 48, 16), (5, 29, 16),
-                  (2, 7, 15), (2, 128, 128)):
-        a, bx, _ = scan_inputs(*shape, dev, seed=sum(shape))
-        err = (ops.rglru_scan(a, bx) - rglru_scan_ref(a, bx)).abs().max()
-        err = err.item()
-        print(f"  fwd {shape}: max|dy|={err:.3e}", flush=True)
-        if not np.isfinite(err) or err > SCAN_ATOL:
-            fail(f"scan forward disagrees at {shape}: {err:.3e}")
-        worst["fwd"] = max(worst["fwd"], err)
-    for shape in ((64, 48, 16), (2, 7, 15)):
-        a, bx, w = scan_inputs(*shape, dev, seed=sum(shape) + 1)
-        before = dict(rk.LAUNCHES)
-        da_k, dbx_k = scan_grads(ops.rglru_scan, a, bx, w)
-        if rk.LAUNCHES["bwd"] != before["bwd"] + 1:
-            fail("the backward did not launch its kernel once")
-        da_r, dbx_r = scan_grads(rglru_scan_ref, a, bx, w)
-        err = max((da_k - da_r).abs().max().item(),
-                  (dbx_k - dbx_r).abs().max().item())
-        print(f"  bwd {shape}: max|d grad|={err:.3e} (autograd through "
-              f"the plain version)", flush=True)
-        if not np.isfinite(err) or err > SCAN_ATOL:
-            fail(f"scan backward disagrees at {shape}: {err:.3e}")
-        worst["bwd"] = max(worst["bwd"], err)
+    print("== phase 4: RG-LRU kernels (the fused layer, the scan alone) vs "
+          "plain versions on the card", flush=True)
+    worst = dict(layer_fwd=0.0, layer_bwd=0.0, fwd=0.0, bwd=0.0)
+    for shape in SCAN_SHAPES:
+        fwd, bwd, _ = hold_layer(shape, False, dev, seed=sum(shape))
+        worst["layer_fwd"] = max(worst["layer_fwd"], fwd)
+        worst["layer_bwd"] = max(worst["layer_bwd"], bwd)
+    fwd, bwd_abs, clamp_rel = hold_layer((4, 48, 16), True, dev, seed=7)
+    worst["layer_fwd"] = max(worst["layer_fwd"], fwd)
+    worst["layer_bwd"] = max(worst["layer_bwd"], bwd_abs)
+    for shape in SCAN_SHAPES:
+        fwd, bwd = hold_scan(shape, dev, seed=sum(shape) + 1)
+        worst["fwd"] = max(worst["fwd"], fwd)
+        worst["bwd"] = max(worst["bwd"], bwd)
     timings = {}
-    for name, shape in (("fwd", (64, 48, 16)), ("fwd", (16, 48, 16)),
-                        ("bwd", (64, 48, 16))):
-        a, bx, gy = scan_inputs(*shape, dev, seed=3)
-        n = a.numel()
-        if name == "fwd":
-            kernel = lambda: rk.rglru_scan_fwd_cuda(a, bx)
-            plain = lambda: rglru_scan_ref(a, bx)
-            # a, bx in, y out; one multiply-add per element.
-            b = bound(3 * 4 * n, 2 * n)
-        else:
-            y = rk.rglru_scan_fwd_cuda(a, bx)
-            kernel = lambda: rk.rglru_scan_bwd_cuda(a, y, gy)
-            plain = lambda: rglru_scan_bwd_ref(a, y, gy)
-            # a, y, gy in, da, dbx out; a multiply-add and a multiply.
-            b = bound(5 * 4 * n, 3 * n)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        t = dict(ms=ms, plain_ms=plain_ms, device_ms=profiled_device_ms(kernel),
-                 plain_device_ms=profiled_device_ms(plain), **b)
-        timings[(name, shape)] = t
-        print(f"  timing {name} {shape}: kernel {ms * 1e3:.2f} us/call "
-              f"(device {fmt_us(t['device_ms'])}), plain "
-              f"{plain_ms * 1e3:.2f} us (device "
-              f"{fmt_us(t['plain_device_ms'])}), bound "
-              f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']})", flush=True)
-    return dict(worst=worst, timings=timings)
+    for shape in ((64, 48, 16), (16, 48, 16), GRIFFIN):
+        pre_r, pre_i, x, lam, gy = layer_inputs(*shape, dev, seed=3)
+        n, W = pre_r.numel(), shape[-1]
+        reps = 3 if shape == GRIFFIN else 200
+        # Forward: pre_r, pre_i, x, lam in, y out.
+        timings[("layer_fwd", shape)] = time_kernel(
+            lambda: rk.rglru_layer_fwd_cuda(pre_r, pre_i, x, lam),
+            lambda: rglru_layer_ref(pre_r, pre_i, x, lam),
+            bound(4 * (4 * n + W), LAYER_FWD_OPS * n),
+            composition=lambda: rk.rglru_scan_fwd_cuda(
+                *rglru_gates(pre_r, pre_i, x, lam)), plain_reps=reps)
+        # The scan alone on the gates of the same inputs: a, bx in, y out.
+        a, bx = rglru_gates(pre_r, pre_i, x, lam)
+        timings[("fwd", shape)] = time_kernel(
+            lambda: rk.rglru_scan_fwd_cuda(a, bx),
+            lambda: rglru_scan_ref(a, bx),
+            bound(3 * 4 * n, SCAN_FWD_OPS * n), plain_reps=reps)
+        # Backward: pre_r, pre_i, x, y, gy (and lam) in, d_pre_r, d_pre_i,
+        # d_x (and d_lam) out. The plain and composed backwards replay a
+        # graph built once.
+        y = rk.rglru_layer_fwd_cuda(pre_r, pre_i, x, lam)
+        live = [t.clone().requires_grad_(True) for t in (pre_r, pre_i, x,
+                                                         lam)]
+        y_plain = rglru_layer_ref(*live)
+        a_l, bx_l = rglru_gates(*live)
+        y_comp = ops.rglru_scan(a_l, bx_l)
+        timings[("layer_bwd", shape)] = time_kernel(
+            lambda: rk.rglru_layer_bwd_cuda(pre_r, pre_i, x, lam, y, gy),
+            lambda: torch.autograd.grad(y_plain, live, gy,
+                                        retain_graph=True),
+            bound(4 * (8 * n + 2 * W), LAYER_BWD_OPS * n),
+            composition=lambda: torch.autograd.grad(y_comp, live, gy,
+                                                    retain_graph=True),
+            plain_reps=reps)
+        ys = rk.rglru_scan_fwd_cuda(a, bx)
+        timings[("bwd", shape)] = time_kernel(
+            lambda: rk.rglru_scan_bwd_cuda(a, ys, gy),
+            lambda: rglru_scan_bwd_ref(a, ys, gy),
+            bound(5 * 4 * n, SCAN_BWD_OPS * n), plain_reps=reps)
+    for (name, shape), t in timings.items():
+        report_timing(name, shape, t)
+    return dict(worst=worst, clamp_rel=clamp_rel,
+                timings=timings)
 
 
 def forecast_cell(tele, jobs, cap, device, forecaster: str) -> dict:
@@ -745,20 +878,69 @@ def report_cell(name: str, r: dict) -> None:
         fail(f"{name} run left {r['res']['unfinished']} jobs unfinished")
 
 
+def train_step_profile(steps: int = 20, profiled: int = 5) -> dict:
+    """AdamW steps of the learned forecaster on the card as ``fit`` takes
+    them (the default config, a [64, 48] batch, ``scan_impl`` "kernel"):
+    per step, the device kernels (copies and fills not counted), their
+    device time and the forward's top-level aten operations (the backward's
+    run under autograd nodes) over ``profiled`` profiled steps, and the
+    median host wall of ``steps`` steps, each to a synchronize. Uses only
+    names the forecaster has had since it was ported, so ``kernel_probe.py
+    steps`` runs it on an older tree too."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.forecast import learned
+    from repro_torch.optim import adamw, cosine_schedule
+    f = learned.LearnedForecaster()
+    dev = f.device
+    params = learned.init_params(0, f.d_model, f.horizon, dev)
+    opt = adamw(lr=cosine_schedule(f.lr, 30, 300),
+                weight_decay=f.weight_decay)
+    state = opt.init(params)
+    gen = torch.Generator().manual_seed(0)
+    xb = torch.randn((f.batch, f.window), generator=gen).to(dev)
+    yb = torch.randn((f.batch, f.horizon), generator=gen).to(dev)
+
+    def step():
+        return learned._train_step(opt, params, state, xb, yb, f.horizon,
+                                   f.period, f.scan_impl)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            step()
+        torch.cuda.synchronize()
+    device = [ev for ev in prof.events()
+              if str(ev.device_type).endswith("CUDA")
+              and not ev.name.startswith(("Memcpy", "Memset"))]
+    ops = sum(1 for ev in prof.events()
+              if str(ev.device_type).endswith("CPU")
+              and ev.name.startswith("aten::") and ev.cpu_parent is None)
+    return dict(kernels=len(device) / profiled, ops=ops / profiled,
+                device_ms=sum(ev.device_time_total for ev in device) / profiled
+                / 1e3, steps=steps, wall_ms=float(np.median(walls)) * 1e3)
+
+
 def phase_forecast(tele, jobs, cap) -> dict:
     from repro_torch.kernels.rglru_scan import rglru_scan as rk
     from repro_torch.kernels.sinkhorn import sinkhorn
     print("== phase 5: forecast-driven WaterWise round end to end "
           "(learned forecaster)", flush=True)
     sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
-    rk.LAUNCHES.update(fwd=0, bwd=0)
+    rk.LAUNCHES.update(dict.fromkeys(rk.LAUNCHES, 0))
     card = forecast_cell(tele, jobs, cap, None, "learned")
     launches = dict(sinkhorn=sinkhorn.ANNEAL_LAUNCHES,
                     sinkhorn_iteration=sinkhorn.LAUNCHES, **rk.LAUNCHES)
     host = forecast_cell(tele, jobs, cap, "cpu", "learned")
-    if (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.LAUNCHES, rk.LAUNCHES) != (
-            launches["sinkhorn"], launches["sinkhorn_iteration"],
-            dict(fwd=launches["fwd"], bwd=launches["bwd"])):
+    if dict(sinkhorn=sinkhorn.ANNEAL_LAUNCHES,
+            sinkhorn_iteration=sinkhorn.LAUNCHES, **rk.LAUNCHES) != launches:
         fail("the CPU run launched a kernel")
     for name, r in (("card", card), ("cpu", host)):
         report_cell(name, r)
@@ -779,14 +961,24 @@ def phase_forecast(tele, jobs, cap) -> dict:
     print(f"  launches in the card run: sinkhorn_anneal "
           f"{launches['sinkhorn']} for {card['solves']} solves (want one "
           f"each), per-iteration {launches['sinkhorn_iteration']} (want 0), "
-          f"rglru_scan fwd {launches['fwd']} (want {want_fwd} = "
+          f"rglru_layer fwd {launches['layer_fwd']} (want {want_fwd} = "
           f"{f.train_count} x ({steps} steps + {evals} validation passes) "
-          f"+ {card['fits']} fits), bwd {launches['bwd']} (want "
-          f"{want_bwd})", flush=True)
-    if launches["fwd"] == 0 or launches["bwd"] == 0:
-        fail("the card run launched no RG-LRU scan kernel")
-    if launches["fwd"] != want_fwd or launches["bwd"] != want_bwd:
+          f"+ {card['fits']} fits), bwd {launches['layer_bwd']} (want "
+          f"{want_bwd}), scan alone fwd {launches['fwd']} bwd "
+          f"{launches['bwd']} (want 0)", flush=True)
+    if launches["layer_fwd"] == 0 or launches["layer_bwd"] == 0:
+        fail("the card run launched no fused RG-LRU kernel")
+    if (launches["layer_fwd"], launches["layer_bwd"], launches["fwd"],
+            launches["bwd"]) != (want_fwd, want_bwd, 0, 0):
         fail("RG-LRU launch counts differ from the training schedule")
+    step = train_step_profile()
+    print(f"  a training step of the learned forecaster ([64, 48] batch, "
+          f"profiled): {step['kernels']:.1f} device kernels of "
+          f"{step['device_ms']:.3f} ms device time, {step['ops']:.1f} "
+          f"top-level aten operations in the forward, "
+          f"{step['wall_ms']:.3f} ms of wall (median of {step['steps']}); "
+          f"forecast.fit {card['stages']['forecast.fit']:.3f} s of the "
+          f"card run", flush=True)
     if launches["sinkhorn"] != card["solves"] or \
             launches["sinkhorn_iteration"]:
         fail(f"sinkhorn launched {launches} for {card['solves']} solves")
@@ -807,7 +999,7 @@ def phase_forecast(tele, jobs, cap) -> dict:
     print("== phase 5b: forecast-driven round with holtwinters on the card",
           flush=True)
     sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
-    rk.LAUNCHES.update(fwd=0, bwd=0)
+    rk.LAUNCHES.update(dict.fromkeys(rk.LAUNCHES, 0))
     hw = forecast_cell(tele, jobs, cap, None, "holtwinters")
     report_cell("card", hw)
     print(f"    holtwinters: {hw['fits']} fits; forecast MAPE "
@@ -818,7 +1010,7 @@ def phase_forecast(tele, jobs, cap) -> dict:
     if sinkhorn.ANNEAL_LAUNCHES != hw["solves"] or sinkhorn.LAUNCHES:
         fail("the holtwinters run did not solve through the annealed "
              "launch")
-    return dict(launches=launches, card=card,
+    return dict(launches=launches, card=card, step=step,
                 hw_sinkhorn=sinkhorn.ANNEAL_LAUNCHES)
 
 # --- The LM serving path (phases 6-8) -----------------------------------------
@@ -950,7 +1142,7 @@ def ssd_inputs(b, S, H, P, G, N, dtype, seed, model_like):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
-    from repro_torch.models.common import softplus
+    from repro_torch.numerics import softplus
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -1150,7 +1342,44 @@ def phase_lm_kernels(dev) -> dict:
         worst[key[kind]] = max(worst[key[kind]], err)
         ssd_t[b] = ssd_timing(args, L=256)
         worst["ssd"] = max(worst["ssd"], ssd_t[b]["scalar_raw_err"])
+    check_refusal()
     return dict(worst=worst, flash=flash_t, ssd=ssd_t)
+
+
+def check_refusal() -> None:
+    """The flash and SSD kernels are forward-only: with grad enabled and an
+    input that requires grad, both wrappers raise and launch nothing; under
+    no_grad the same inputs run."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((n, 128, 64), generator=gen, device="cuda")
+               for n in (2, 1, 1))
+    x, dt, A, Bm, Cm = ssd_inputs(1, 128, 2, 16, 1, 8, torch.float32, 3,
+                                  False)
+    calls = dict(
+        flash=lambda: fk.flash_attention_bh_cuda(q, k, v, group=2),
+        ssd=lambda: sk.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=64))
+    q.requires_grad_(True)
+    dt.requires_grad_(True)
+    before = (fk.LAUNCHES, sk.LAUNCHES)
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as err:
+            if "forward-only" not in str(err):
+                raise
+        else:
+            fail(f"the {name} kernel ran under grad with an input that "
+                 f"requires grad")
+    if (fk.LAUNCHES, sk.LAUNCHES) != before:
+        fail("a refused call launched a kernel")
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    torch.cuda.synchronize()
+    print("  flash and SSD kernels refuse an input that requires grad "
+          "under grad (no launch) and run it under no_grad", flush=True)
 
 
 def lm_params(cfg, gen, seed):
@@ -1495,23 +1724,47 @@ def main() -> None:
         main_path="none: the round's solve is sinkhorn_anneal; the bitwise "
                   "yardstick of phase 1",
         forecast_shape=dict(shape=[512, 40], **k["timings"][(512, 40)])))
-    for name, direction, replaces in (
+    keep = ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+            "bound_by", "composition_ms", "composition_device_ms")
+    for name, entry, replaces, path in (
+            ("rglru_layer_fwd", "layer_fwd",
+             "src/repro/kernels/rglru_scan/rglru_scan.py:49",
+             "every learned-forecaster forward of phase 5"),
+            ("rglru_layer_bwd", "layer_bwd",
+             "src/repro/kernels/rglru_scan/ops.py:40",
+             "every learned-forecaster training step of phase 5"),
             ("rglru_scan_fwd", "fwd",
-             "src/repro/kernels/rglru_scan/rglru_scan.py:49"),
+             "src/repro/kernels/rglru_scan/rglru_scan.py:49",
+             "none: the forecaster takes the fused layer; the scan-only "
+             "wrapper ops.rglru_scan"),
             ("rglru_scan_bwd", "bwd",
-             "src/repro/kernels/rglru_scan/ops.py:40")):
-        t = scan["timings"][(direction, (64, 48, 16))]
-        kernels.append(dict(
+             "src/repro/kernels/rglru_scan/ops.py:40",
+             "none: the scan-only wrapper's backward")):
+        t = scan["timings"][(entry, (64, 48, 16))]
+        row = dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/rglru_scan.cu", replaces=replaces,
-            launches=fc["launches"][direction],
-            max_abs_err=scan["worst"][direction], ms=t["ms"],
+            launches=fc["launches"][entry],
+            max_abs_err=scan["worst"][entry], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
             bound_by=t["bound_by"], library_ms=None, shape=[64, 48, 16],
-            launches_per_call=1))
-    infer = scan["timings"][("fwd", (16, 48, 16))]
-    kernels[2]["infer_shape"] = dict(shape=[16, 48, 16], **infer)
+            launches_per_call=1, main_path=path,
+            griffin_shape=dict(shape=list(GRIFFIN), **{
+                k: v for k, v in scan["timings"][(entry, GRIFFIN)].items()
+                if k in keep}))
+        if (entry, (16, 48, 16)) in scan["timings"]:
+            row["infer_shape"] = dict(shape=[16, 48, 16], **{
+                k: v for k, v in scan["timings"][(entry, (16, 48, 16))]
+                .items() if k in keep})
+        if "composition_ms" in t:
+            row.update(composition_ms=t["composition_ms"],
+                       composition_device_ms=t["composition_device_ms"])
+        if entry == "layer_bwd":
+            row.update(clamp_max_rel_err=scan["clamp_rel"])
+        if entry == "layer_fwd":
+            row["train_step"] = fc["step"]
+        kernels.append(row)
     f128, f64 = lmk["flash"][128], lmk["flash"][64]
     flash = "src/repro/kernels/flash_attention/flash_attention.py:104"
     kernels.append(dict(

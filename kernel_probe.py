@@ -3,14 +3,23 @@
 A short companion of ``chip_smoke.py`` for kernel work, run from the
 repository root on the machine with the card:
 
-    python3 kernel_probe.py ptxas     # registers and spills per kernel
+    python3 kernel_probe.py ptxas [NAME ...]
+        # registers and spills per kernel (of csrc/NAME.cu; default all
+        # the redesigned sources)
     python3 kernel_probe.py sinkhorn  # annealed launch vs iteration loop
     python3 kernel_probe.py flash     # wgmma flash kernel vs plain, SDPA
     python3 kernel_probe.py ssd       # wgmma SSD kernel vs scalar and plain
+    python3 kernel_probe.py rglru     # fused and scan-only RG-LRU vs plain
+    python3 kernel_probe.py alloc     # host time of the fused backward's
+                                      # output allocations, two ways
+    python3 kernel_probe.py steps [SRC]
+        # kernels per learned-forecaster training step, of the port under
+        # SRC (default: this checkout's src), e.g. an older tree's
     python3 kernel_probe.py ab OTHER.cu
-        # the built flash_attention_sm90.cu against OTHER.cu (another
-        # version of it, e.g. ``git show REV:src/repro_torch/csrc/
-        # flash_attention_sm90.cu``) on the same inputs, timed in turns
+        # the built flash_attention_sm90.cu, ssd_scan_sm90.cu or
+        # rglru_scan.cu (by OTHER.cu's entry points) against OTHER.cu
+        # (another version of it, e.g. ``git show REV:src/repro_torch/
+        # csrc/rglru_scan.cu``) on the same inputs, timed in turns
 
 Times are CUDA events over back-to-back calls; every stage prints the
 card's name first.
@@ -21,6 +30,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -43,9 +53,10 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def ptxas() -> None:
+def ptxas(*names) -> None:
     from repro_torch.kernels import _build
-    for name in ("flash_attention_sm90", "sinkhorn", "ssd_scan_sm90"):
+    for name in names or ("flash_attention_sm90", "sinkhorn",
+                          "ssd_scan_sm90", "rglru_scan"):
         out = _build.BUILD_DIR / f"probe-{name}.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
@@ -195,6 +206,160 @@ def ab_ssd(lib) -> None:
               f"{device_us_by_kernel(theirs)}", flush=True)
 
 
+def rglru() -> None:
+    """The fused RG-LRU layer and the scan alone against their plain
+    versions (chip_smoke's limits), with events and the profiler's device
+    time a launch, at the forecaster's training shape and griffin's."""
+    from chip_smoke import SCAN_ATOL, layer_inputs, profiled_device_ms
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.rglru_scan.ref import (rglru_gates,
+                                                    rglru_layer_ref,
+                                                    rglru_scan_ref)
+    ok = True
+    for shape in ((64, 48, 16), (4, 2048, 2560)):
+        *inputs, gy = layer_inputs(*shape, "cuda", seed=9)
+        live = [t.clone().requires_grad_(True) for t in inputs]
+        y_r = rglru_layer_ref(*live)
+        g_r = torch.autograd.grad(y_r, live, gy)
+        y = rk.rglru_layer_fwd_cuda(*inputs)
+        g = rk.rglru_layer_bwd_cuda(*inputs, y, gy)
+        a, bx = rglru_gates(*inputs)
+        ys = rk.rglru_scan_fwd_cuda(a, bx)
+        da, dbx = rk.rglru_scan_bwd_cuda(a, ys, gy)
+        torch.cuda.synchronize()
+        errs = [(y - y_r).abs().max().item(),
+                max((k - r).abs().max().item() for k, r in zip(g, g_r)),
+                (ys - rglru_scan_ref(a, bx)).abs().max().item()]
+        ok &= all(e <= SCAN_ATOL for e in errs)
+        calls = dict(
+            layer_fwd=lambda: rk.rglru_layer_fwd_cuda(*inputs),
+            layer_bwd=lambda: rk.rglru_layer_bwd_cuda(*inputs, y, gy),
+            fwd=lambda: rk.rglru_scan_fwd_cuda(a, bx),
+            bwd=lambda: rk.rglru_scan_bwd_cuda(a, ys, gy))
+        times = {k: (round(cuda_ms(f, 5, 50) * 1e3, 2),
+                     round((profiled_device_ms(f, 20) or float("nan"))
+                           * 1e3, 2)) for k, f in calls.items()}
+        print(f"rglru {shape}: max|dy| {errs[0]:.3e}, grads max|d| "
+              f"{errs[1]:.3e}, scan max|dy| "
+              f"{errs[2]:.3e} (limit {SCAN_ATOL}); us a call (events, "
+              f"device): {times}", flush=True)
+    if not ok:
+        sys.exit("rglru: a kernel is beyond the limit")
+
+
+def host_us(fn, warmup: int = 200, reps: int = 5000) -> float:
+    """Host wall a call of ``fn``, in microseconds (no synchronize: for
+    host-only work such as caching-allocator calls)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def alloc() -> None:
+    """Host time of the fused backward's outputs on the card, in turns:
+    one caching-allocator call an output (d_pre_r, d_pre_i, d_x, d_lam and
+    d_lam's partials, as the wrapper makes them) against two allocations
+    cut into views, at the forecaster's training shape and griffin's."""
+    for B, S, W in ((64, 48, 16), (4, 2048, 2560)):
+        pre_r = torch.empty((B, S, W), device="cuda")
+        lam = torch.empty((W,), device="cuda")
+
+        def apart():
+            return ([torch.empty_like(pre_r) for _ in range(3)],
+                    torch.empty_like(lam), pre_r.new_empty(B * W))
+
+        def views():
+            return (pre_r.new_empty((3, B, S, W)).unbind(0),
+                    pre_r.new_empty(W + B * W).split((W, B * W)))
+        us = [round(host_us(f), 3) for f in (apart, views, views, apart)]
+        print(f"alloc {(B, S, W)}: host us a call (apart, views, views, "
+              f"apart) {us}", flush=True)
+
+
+def fit_wall_s(seed: int = 0) -> float:
+    """Host wall of one ``fit`` of the learned forecaster on the card (300
+    AdamW steps and its validation passes) on a 15-column telemetry history
+    of 120 hours, to a synchronize: the ``forecast.fit`` span of phase 5's
+    training round outside the round."""
+    from repro_torch.core import telemetry
+    from repro_torch.forecast import learned
+    tele = telemetry.generate(days=6, seed=seed)
+    y = np.concatenate([tele.ci, tele.wue, tele.ewif], axis=1)[:120]
+    f = learned.LearnedForecaster(seed=seed)
+    t0 = time.perf_counter()
+    f.fit(y)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def steps(src=None) -> None:
+    """Kernels and time of a training step of the learned forecaster, and
+    the wall of two whole fits, with the port under ``src`` first on the
+    path (run once per tree, in turns, to compare trees in one call)."""
+    from chip_smoke import train_step_profile
+    if src:                           # after chip_smoke put its src first
+        sys.path.insert(0, os.path.abspath(src))
+    import repro_torch
+    fits = [round(fit_wall_s(), 4) for _ in range(2)]
+    print(f"port from {os.path.dirname(repro_torch.__file__)}: a step "
+          f"{train_step_profile()}; fit walls (s) {fits}", flush=True)
+
+
+def ab_rglru(lib) -> None:
+    """The built rglru_scan.cu's scan alone against a source with the
+    per-lane kernels' ABI that the chunked ones replaced
+    (``rglru_scan_fwd(a, bx, y, B, S, W, stream)``, ``rglru_scan_bwd(a,
+    y, gy, da, dbx, B, S, W, stream)``) on the same inputs, at the
+    forecaster's shapes and griffin's."""
+    from chip_smoke import profiled_device_ms, scan_inputs
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_fwd.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.rglru_scan_bwd.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+    for shape in ((64, 48, 16), (16, 48, 16), (4, 2048, 2560)):
+        a, bx, gy = scan_inputs(*shape, "cuda", seed=11)
+        y_o = torch.empty_like(a)
+        d_o = torch.empty((2, *shape), device="cuda")
+        ys = rk.rglru_scan_fwd_cuda(a, bx)
+
+        def theirs_fwd():
+            err = lib.rglru_scan_fwd(a.data_ptr(), bx.data_ptr(),
+                                     y_o.data_ptr(), *shape,
+                                     torch.cuda.current_stream()
+                                     .cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+            return y_o
+
+        def theirs_bwd():
+            err = lib.rglru_scan_bwd(a.data_ptr(), ys.data_ptr(),
+                                     gy.data_ptr(), d_o[0].data_ptr(),
+                                     d_o[1].data_ptr(), *shape,
+                                     torch.cuda.current_stream()
+                                     .cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: {err}")
+            return d_o
+        ours_fwd = lambda: rk.rglru_scan_fwd_cuda(a, bx)
+        ours_bwd = lambda: rk.rglru_scan_bwd_cuda(a, ys, gy)
+        same = max((ours_fwd() - theirs_fwd()).abs().max().item(),
+                   (torch.stack(ours_bwd()) - theirs_bwd()).abs().max()
+                   .item())
+        for name, theirs, ours in (("fwd", theirs_fwd, ours_fwd),
+                                   ("bwd", theirs_bwd, ours_bwd)):
+            t = [cuda_ms(f, 5, 50) * 1e3 for f in (theirs, ours, ours,
+                                                   theirs)]
+            dev = [(profiled_device_ms(f, 20) or float("nan")) * 1e3
+                   for f in (theirs, ours)]
+            print(f"rglru {name} {shape}: us (other, built, built, other) "
+                  f"{[round(x, 2) for x in t]}; device us (other, built) "
+                  f"{[round(x, 2) for x in dev]}; max|d| between them "
+                  f"{same:.3e}", flush=True)
+
+
 def ab(other: str) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fb
@@ -206,6 +371,8 @@ def ab(other: str) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if hasattr(lib, "ssd_scan_fwd_sm90"):
         return ab_ssd(lib)
+    if hasattr(lib, "rglru_scan_fwd"):
+        return ab_rglru(lib)
     lib.flash_attention_fwd_sm90.argtypes = ([ptr] * 4 + [i32] * 7
                                              + [ctypes.c_float, ptr])
     for D in (128, 64):
@@ -237,9 +404,14 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     stage = sys.argv[1] if len(sys.argv) > 1 else "flash"
-    stages = dict(ptxas=ptxas, sinkhorn=sinkhorn, flash=flash, ssd=ssd)
+    stages = dict(sinkhorn=sinkhorn, flash=flash, ssd=ssd, rglru=rglru,
+                  alloc=alloc)
     if stage == "ab" and len(sys.argv) == 3:
         ab(sys.argv[2])
+    elif stage == "steps" and len(sys.argv) <= 3:
+        steps(*sys.argv[2:])
+    elif stage == "ptxas":
+        ptxas(*sys.argv[2:])
     elif stage in stages:
         stages[stage]()
     else:

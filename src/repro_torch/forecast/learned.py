@@ -5,9 +5,10 @@ outputs, trained on sliding telemetry windows — the port of
 The recurrent core is the Griffin recurrent block
 (``repro_torch.models.rglru``: conv1d -> RG-LRU -> gated output projection),
 the optimizer is ``repro_torch.optim.adamw``, checkpoints go through
-``repro_torch.checkpoint.store`` in the reference's format, and the linear
-recurrence runs through the hand-written CUDA scan
-(``repro_torch.kernels.rglru_scan``) in both training and inference.
+``repro_torch.checkpoint.store`` in the reference's format, and the gate
+math with the linear recurrence runs through the hand-written fused CUDA
+kernels (``repro_torch.kernels.rglru_scan``) in both training and
+inference.
 
 Model shape
 -----------
@@ -20,10 +21,11 @@ untrained forecaster is exactly seasonal-naive.
 
 The scan (``scan_impl``)
 ------------------------
-  ``kernel``  ``kernels.rglru_scan.ops.rglru_scan``: the CUDA kernels,
-              forward and backward, on a CUDA device (their plain versions
-              on CPU tensors). The default on a CUDA device.
-  ``torch``   the plain sequential recurrence
+  ``kernel``  ``kernels.rglru_scan.ops.rglru_layer``: the fused CUDA
+              kernels (gate math and recurrence), one launch forward and
+              one backward, on a CUDA device (the plain version on CPU
+              tensors). The default on a CUDA device.
+  ``torch``   the plain gate math and sequential recurrence
               (``kernels/rglru_scan/ref.py``), differentiated by autograd — the twin of the reference's
               default ``assoc``. The default on the CPU; a CUDA device
               takes only ``kernel``, so the plain version never runs on
@@ -54,7 +56,7 @@ import torch
 import repro_torch.obs as obs
 from repro_torch.checkpoint import store
 from repro_torch.forecast import base
-from repro_torch.kernels.rglru_scan.ops import rglru_scan as kernel_scan
+from repro_torch.kernels.rglru_scan.ops import rglru_layer as kernel_layer
 from repro_torch.models import common, rglru
 from repro_torch.optim import adamw as _adamw
 from repro_torch.optim import cosine_schedule
@@ -110,11 +112,11 @@ def init_params(seed: int, d_model: int, horizon: int, device=None) -> dict:
 
 
 def _recurrent_block(x, p, scan_impl: str):
-    """Griffin recurrent block; ``kernel`` swaps only the recurrence for the
-    ``repro_torch.kernels.rglru_scan`` kernel, keeping everything around it
-    identical."""
+    """Griffin recurrent block; ``kernel`` swaps only the gate math and the
+    recurrence for the fused ``repro_torch.kernels.rglru_scan`` kernels,
+    keeping everything around them identical."""
     if scan_impl == "kernel":
-        return rglru.block_apply(x, p, scan=kernel_scan)
+        return rglru.block_apply(x, p, layer=kernel_layer)
     return rglru.block_apply(x, p)
 
 

@@ -107,8 +107,16 @@ def flash_attention_bh_cuda(q: torch.Tensor, k: torch.Tensor,
     """q: [BHq, Sq, D]; k, v: [BHkv, Skv, D] with BHq = BHkv * group, on
     the card. Returns [BHq, Sq, D] in q's dtype. Head ``h`` attends kv head
     ``h // group``; ``scale`` defaults to 1/sqrt(D) (the scalar kernel
-    applies it to q in float32, the wgmma kernel to the float32 scores)."""
+    applies it to q in float32, the wgmma kernel to the float32 scores).
+    Forward only: raises when grad is enabled and an input requires it."""
     global LAUNCHES
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_bh_cuda is forward-only: an input requires "
+            "grad, and its output would carry no gradient. Training "
+            "through the attention kernels is ROADMAP queue 1 item [3]; "
+            "call it under torch.no_grad() or with detached inputs")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")

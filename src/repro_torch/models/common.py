@@ -53,12 +53,6 @@ def ones_init(shape, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.ones(shape, dtype=dtype, device=device)
 
 
-def softplus(x):
-    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), with no
-    switch to the identity above a threshold."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def rms_norm(x, scale, eps=1e-6):
     """RMS norm with the reference's ``(1 + scale)`` gain (zero-init scale
     is the identity gain)."""

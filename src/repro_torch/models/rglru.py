@@ -7,9 +7,11 @@ the train path of ``repro/models/rglru.py``.
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 The block is in_x / in_gate projections -> conv1d(4) -> RG-LRU -> gated
-output projection. Its plain recurrence is the sequential loop of
+output projection. The RG-LRU after its two gate matmuls is a ``layer(pre_r,
+pre_i, x, lam)``: by default the plain gate math and sequential loop of
 ``kernels/rglru_scan/ref.py`` (the reference uses an associative scan;
-both compute the same recurrence). Decode and prefill wait for the LM
+both compute the same recurrence), or the fused kernel wrapper
+``kernels.rglru_scan.ops.rglru_layer``. Decode and prefill wait for the LM
 stack.
 """
 from __future__ import annotations
@@ -17,11 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-from repro_torch.models.common import dense_init, softplus, zeros_init
+from repro_torch.kernels.rglru_scan.ref import rglru_gates, rglru_layer_ref
+from repro_torch.models.common import dense_init, zeros_init
 from repro_torch.models.ssm import _causal_conv
-
-_C = 8.0  # Griffin's fixed constant
 
 
 def block_init(gen: torch.Generator, d_model: int, *, lru_width: int,
@@ -42,24 +42,25 @@ def block_init(gen: torch.Generator, d_model: int, *, lru_width: int,
     )
 
 
+def _layer_inputs(x, p):
+    """(pre_r, pre_i, x, lam) of the recurrence: the two gate matmuls of
+    the reference's ``_gates``, in float32."""
+    xf = x.to(torch.float32)
+    return xf @ p["w_a"] + p["b_a"], xf @ p["w_x"] + p["b_x"], xf, p["lam"]
+
+
 def _gates(x, p):
     """(a, gated input) of the recurrence, both [B, S, W] float32."""
-    xf = x.to(torch.float32)
-    r = torch.sigmoid(xf @ p["w_a"] + p["b_a"])
-    i = torch.sigmoid(xf @ p["w_x"] + p["b_x"])
-    log_a = -_C * softplus(p["lam"]) * r
-    a = torch.exp(log_a)
-    gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
-                                     min=1e-12)) * (i * xf)
-    return a, gated_x
+    return rglru_gates(*_layer_inputs(x, p))
 
 
-def block_apply(x, p, scan=rglru_scan_ref):
-    """Griffin recurrent block, train mode. ``scan(a, bx)`` is the linear
-    recurrence: the plain loop by default, the kernel wrapper when the
-    learned forecaster passes it; everything around it is the same."""
+def block_apply(x, p, layer=rglru_layer_ref):
+    """Griffin recurrent block, train mode. ``layer(pre_r, pre_i, x, lam)``
+    is the gate math and the linear recurrence: the plain version by
+    default, the fused kernel wrapper when the learned forecaster passes
+    it; everything around it is the same."""
     gate = F.gelu(x @ p["in_gate"], approximate="tanh")
     u = x @ p["in_x"]
     u, _ = _causal_conv(u, p["conv_w"], p["conv_b"])
-    y = scan(*_gates(u, p)).to(u.dtype)
+    y = layer(*_layer_inputs(u, p)).to(u.dtype)
     return (y * gate) @ p["out"]

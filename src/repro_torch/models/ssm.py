@@ -17,8 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (dense_init, ones_init, softplus,
-                                       zeros_init)
+from repro_torch.models.common import dense_init, ones_init, zeros_init
+from repro_torch.numerics import softplus
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ import torch
 from repro_torch.core import round as port_round
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan import rglru_scan as scan_binding
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_layer_ref,
+                                                rglru_scan_chunked_ref,
+                                                rglru_scan_ref)
 from repro_torch.kernels.sinkhorn import ops, sinkhorn
 from repro_torch.kernels.sinkhorn.ref import sinkhorn_iteration_ref
 
@@ -116,7 +118,8 @@ def test_fused_round_on_card_takes_only_the_kernel(card):
 
 
 @pytest.mark.parametrize("B,S,W", [(64, 48, 16), (75, 48, 16), (16, 48, 16),
-                                   (5, 29, 16), (2, 7, 15), (2, 128, 128)])
+                                   (5, 29, 16), (2, 7, 15), (2, 128, 128),
+                                   (4, 2048, 2560)])
 def test_scan_kernels_match_plain_on_card(card, B, S, W):
     gen = torch.Generator().manual_seed(B + S + W)
     a = (torch.rand((B, S, W), generator=gen) * 0.95).to(card)
@@ -131,10 +134,13 @@ def test_scan_kernels_match_plain_on_card(card, B, S, W):
         (w * y).sum().backward()
         grads.append((y.detach(), at.grad, bt.grad))
     torch.cuda.synchronize()
-    assert scan_binding.LAUNCHES == dict(fwd=before["fwd"] + 1,
+    assert scan_binding.LAUNCHES == dict(before, fwd=before["fwd"] + 1,
                                          bwd=before["bwd"] + 1)
     for k, r in zip(*grads):
         assert (k - r).abs().max().item() <= ATOL
+    # The kernels take the chunks of the plain chunk-order twin.
+    y_twin = rglru_scan_chunked_ref(a, bx, scan_binding.chunk_for(S))
+    assert (grads[0][0] - y_twin).abs().max().item() <= ATOL
 
 
 def test_scan_kernel_rejects_bad_inputs(card):
@@ -148,6 +154,86 @@ def test_scan_kernel_rejects_bad_inputs(card):
         scan_binding.rglru_scan_bwd_cuda(a, a, a[:1])
 
 
+def _layer_inputs(card, B, S, W, seed, clamp=False):
+    gen = torch.Generator().manual_seed(seed)
+    pre_r = torch.randn((B, S, W), generator=gen) - (50.0 if clamp else 0.0)
+    pre_i, x = (torch.randn((B, S, W), generator=gen) for _ in range(2))
+    lam = torch.randn((W,), generator=gen) * 0.5
+    w = torch.randn((B, S, W), generator=gen)
+    return [t.to(card) for t in (pre_r, pre_i, x, lam)], w.to(card)
+
+
+@pytest.mark.parametrize("B,S,W,clamp", [
+    (64, 48, 16, False), (16, 48, 16, False), (5, 29, 16, False),
+    (2, 7, 15, False), (4, 48, 16, True), (4, 2048, 2560, False)])
+def test_fused_layer_matches_plain_on_card(card, B, S, W, clamp):
+    """The fused layer, one launch each way, against autograd through its
+    plain version: y and the four gradients within ATOL; at the clamp
+    every gradient through the gates is tiny, so each is held to 1e-3 of
+    its largest element (as chip_smoke.py's CLAMP_RTOL)."""
+    inputs, w = _layer_inputs(card, B, S, W, B + S + W, clamp)
+    before = dict(scan_binding.LAUNCHES)
+    out = []
+    for layer in (scan_ops.rglru_layer, rglru_layer_ref):
+        live = [t.clone().requires_grad_(True) for t in inputs]
+        y = layer(*live)
+        out.append((y.detach(), *torch.autograd.grad((w * y).sum(), live)))
+    torch.cuda.synchronize()
+    assert scan_binding.LAUNCHES == dict(
+        before, layer_fwd=before["layer_fwd"] + 1,
+        layer_bwd=before["layer_bwd"] + 1)
+    (y_k, *g_k), (y_r, *g_r) = out
+    assert (y_k - y_r).abs().max().item() <= ATOL
+    for k, r in zip(g_k, g_r):
+        if clamp:
+            assert ((k - r).abs().max() / r.abs().max()).item() <= 1e-3
+        else:
+            assert (k - r).abs().max().item() <= ATOL
+
+
+def test_fused_layer_rejects_bad_inputs(card):
+    t = torch.rand(2, 7, 15, device=card)
+    lam = torch.rand(15, device=card)
+    with pytest.raises(TypeError):
+        scan_binding.rglru_layer_fwd_cuda(t.double(), t, t, lam)
+    with pytest.raises(ValueError, match="contiguous"):
+        scan_binding.rglru_layer_fwd_cuda(
+            t, t.transpose(1, 2).contiguous().transpose(1, 2), t, lam)
+    with pytest.raises(ValueError, match="shape"):
+        scan_binding.rglru_layer_fwd_cuda(t, t, t, lam[:5])
+    with pytest.raises(ValueError, match="shape"):
+        scan_binding.rglru_layer_bwd_cuda(t, t, t, lam, t, t[:1])
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_binding.rglru_layer_bwd_cuda(t, t, t, lam.cpu(), t, t)
+
+
+def test_forward_only_kernels_refuse_grad_on_card(card):
+    """The flash and SSD kernels have no backward: with grad enabled and an
+    input that requires grad they raise and launch nothing, where they
+    once returned an output without a grad_fn; under no_grad they run."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    q, k, v = (torch.randn((n, 128, 64), device=card) for n in (2, 1, 1))
+    x = torch.randn((1, 128, 2, 16), device=card)
+    dt = torch.rand((1, 128, 2), device=card) * 0.5 + 0.1
+    A = -torch.rand(2, device=card) - 0.2
+    Bm, Cm = (torch.randn((1, 128, 1, 8), device=card) for _ in range(2))
+    calls = (lambda: fb.flash_attention_bh_cuda(q, k, v, group=2),
+             lambda: sb.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=64))
+    q.requires_grad_(True)
+    Bm.requires_grad_(True)
+    before = (fb.LAUNCHES, sb.LAUNCHES)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+    assert (fb.LAUNCHES, sb.LAUNCHES) == before
+    with torch.no_grad():
+        for call in calls:
+            call()
+    torch.cuda.synchronize()
+    assert (fb.LAUNCHES, sb.LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
 def test_learned_forecaster_trains_through_kernels_on_card(card):
     from repro_torch import forecast
     from repro_torch.core import telemetry
@@ -159,9 +245,11 @@ def test_learned_forecaster_trains_through_kernels_on_card(card):
     before = dict(scan_binding.LAUNCHES)
     f.fit(y)
     # 3 steps + 2 validation passes (the init and the last step) + the
-    # conditioning pass; one backward per step.
-    assert scan_binding.LAUNCHES == dict(fwd=before["fwd"] + 6,
-                                         bwd=before["bwd"] + 3)
+    # conditioning pass through the fused forward; one fused backward per
+    # step; the scan-only kernels not at all.
+    assert scan_binding.LAUNCHES == dict(
+        before, layer_fwd=before["layer_fwd"] + 6,
+        layer_bwd=before["layer_bwd"] + 3)
     host = forecast.make_forecaster("learned", train_steps=3, seed=0,
                                     device="cpu").fit(y)
     np.testing.assert_allclose(f.predict(6).mean, host.predict(6).mean,
@@ -320,7 +408,7 @@ def _ssd_model_like(card, seed, b, S, H, P, G, N):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
-    from repro_torch.models.common import softplus
+    from repro_torch.numerics import softplus
     gen = torch.Generator().manual_seed(seed)
     cfg = get_config("mamba2_2_7b").replace(
         d_inner=H * P, ssm_head_dim=P, ssm_groups=G, ssm_state=N)

@@ -199,3 +199,19 @@ def test_cuda_wrapper_refusals():
     flat32 = torch.zeros(4 * 64 * 64 + 1)
     shifted32 = flat32[1:].view(4, 64, 64)       # 4 bytes off alignment
     assert fb.check_inputs(shifted32, q.float(), q.float()) == "scalar"
+
+
+def test_kernel_wrapper_refuses_autograd():
+    """The flash kernels are forward-only: with grad enabled and an input
+    that requires grad the wrapper raises before any device check or
+    launch (a CPU tensor reaches the refusal here); under no_grad it goes
+    on to its device check, which refuses a CPU tensor."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    q = torch.zeros((2, 8, 16), requires_grad=True)
+    k = torch.zeros((2, 8, 16))
+    with pytest.raises(RuntimeError, match=r"forward-only.*\[3\]"):
+        fb.flash_attention_bh_cuda(q, k, k)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fb.flash_attention_bh_cuda(k, k, q)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fb.flash_attention_bh_cuda(q, k, k)

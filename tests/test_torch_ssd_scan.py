@@ -23,7 +23,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunk_parallel
 from repro_torch.kernels.ssd_scan.ref import ssd_naive as port_naive
 from repro_torch.kernels.ssd_scan.ref import ssd_ref as port_ref
 from repro_torch.models import ssm
-from repro_torch.models.common import softplus
+from repro_torch.numerics import softplus
 
 # The reference kernel test's tolerance (float32 on both sides; the chunked
 # form and the recurrence sum in other orders).
@@ -261,3 +261,20 @@ def test_live_mixer_draw_makes_the_scan_carry_signal(monkeypatch):
                                           cfg).items()})
     ssm.block_apply(x, live, cfg, mode="prefill", chunk=cfg.ssd_chunk)
     assert seen[0] == 0.0 and seen[1] > 1e-3
+
+
+def test_kernel_launch_refuses_autograd():
+    """The SSD kernels are forward-only: ``_launch``, which the model's
+    path and the timing paths both reach, raises with grad enabled and any
+    input that requires grad, before it builds or launches (CPU tensors
+    reach the refusal here)."""
+    b, S, H, P, G, N = 1, 8, 2, 16, 1, 8
+    x = torch.zeros((b, S, H, P))
+    dt = torch.zeros((b, S, H))
+    A = torch.zeros(H)
+    Bm = torch.zeros((b, S, G, N))
+    for i in range(5):
+        args = [x, dt, A, Bm, Bm.clone()]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=r"forward-only.*\[3\]"):
+            binding._launch("scalar", *args, S)
