@@ -48,7 +48,19 @@ Builds the port's kernels from the sources in this checkout, then:
      new tokens), reports prefill tokens/s, decode ms per step and peak
      memory, and checks that each prefill called one kernel per layer (the
      wgmma flash kernel for qwen2-1.5B and the wgmma SSD kernel for
-     mamba2-2.7B, never the scalar ones) and never the plain versions.
+     mamba2-2.7B, never the scalar ones) and never the plain versions;
+  9. runs the paper's comparison on the cell of phases 3 and 5, built by
+     the port's scenario registry, through a serial ``ExperimentPlan`` of
+     policy specs (the six §5 rule schedulers, ``waterwise[backend=fused]``
+     and ``waterwise-forecast[forecaster=learned,backend=fused]``) on the
+     card: prints the tidy table with savings against ``baseline`` and each
+     cell's wall time, checks that the two pipeline rows equal phases 3 and
+     5 (totals and kernel launch counts), runs four policies again through
+     the auto-sized ``"process"`` executor (spawned workers, at most
+     ``CARD_WORKERS`` on the card; rows equal the serial ones, no kernel
+     rebuilt; the device memory the pool held is printed), checks that the ``scipy`` backend is
+     registered, and validates phase 3's trace with
+     ``python -m repro_torch.obs.report``.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars are drawn live (``models.ssm.draw_live_mixer``), since the
@@ -69,8 +81,10 @@ import glob
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -472,21 +486,16 @@ def phase_round(dev) -> None:
         fail(f"round duals disagree: {df:.3e} / {dg:.3e}")
 
 
+# The cell of phases 3, 5 and 9, as a scenario spec of the port's registry.
+CELL = "diurnal[days=0.05,jobs_per_day=1e6,tolerance=0.5,seed=3]"
+
+
 def diurnal_cell():
-    """diurnal[days=0.05, jobs_per_day=1e6, tolerance=0.5, seed=3], built
-    as the reference's scenario registry builds it."""
-    from repro_torch.core import telemetry
-    from repro_torch.sim.trace import (borg_trace,
-                                       scale_capacity_for_utilization)
-    days, seed = 0.05, 3
-    tele = telemetry.generate(days=max(int(np.ceil(days)) + 1, 2), seed=seed,
-                              ewif_table="macknick",
-                              regions=tuple(telemetry.REGIONS))
-    jobs = borg_trace(days=days, seed=seed, tolerance=0.5,
-                      num_regions=tele.num_regions,
-                      target_jobs_per_day=1e6)
-    cap = scale_capacity_for_utilization(jobs, days, tele.num_regions, 0.15)
-    return tele, jobs, cap
+    """``CELL`` built by the port's scenario registry: (telemetry, jobs,
+    capacity)."""
+    from repro_torch import experiments
+    inst, _ = experiments.build_instance(CELL)
+    return inst.tele, inst.jobs, inst.capacity
 
 
 STAGES = ("engine.round", "policy.admit", "policy.build", "policy.forecast",
@@ -496,11 +505,11 @@ STAGES = ("engine.round", "policy.admit", "policy.build", "policy.forecast",
 SOLVE_SPANS = ("solver.solve", "solver.fused_round")
 
 
-def run_cell(tele, jobs, cap, device, pipe=None):
+def run_cell(tele, jobs, cap, device, pipe=None, trace_path=None):
     """One traced run of the cell through ``pipe`` (default: the reactive
     pipeline, backend ``fused``, on ``device``). Returns the engine result,
     its summary, wall time, per-stage span totals and the solver buckets
-    seen."""
+    seen. The trace is kept at ``trace_path`` when one is given."""
     import tempfile
 
     import repro_torch.obs as obs
@@ -510,7 +519,7 @@ def run_cell(tele, jobs, cap, device, pipe=None):
     if pipe is None:
         pipe = reactive_pipeline(tele, backend="fused", device=device)
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "run.trace.jsonl")
+        path = trace_path or os.path.join(tmp, "run.trace.jsonl")
         with obs.capture(trace_path=path) as reg:
             t0 = time.perf_counter()
             res = EventSimulator(tele, cap, SimConfig()).run(
@@ -579,14 +588,14 @@ def sinkhorn_stage(dev, M: int = 512, N: int = 6) -> dict:
     return out
 
 
-def phase_e2e(dev) -> dict:
+def phase_e2e(dev, trace_path: str) -> dict:
     from repro_torch.kernels.sinkhorn import sinkhorn
     print("== phase 3: reactive WaterWise round end to end", flush=True)
     tele, jobs, cap = diurnal_cell()
-    print(f"  cell: {len(jobs)} jobs, {tele.num_regions} regions, capacity "
-          f"{cap.tolist()}", flush=True)
+    print(f"  cell {CELL}: {len(jobs)} jobs, {tele.num_regions} regions, "
+          f"capacity {cap.tolist()}", flush=True)
     sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
-    card = run_cell(tele, jobs, cap, None)
+    card = run_cell(tele, jobs, cap, None, trace_path=trace_path)
     launches = sinkhorn.ANNEAL_LAUNCHES
     iteration_launches = sinkhorn.LAUNCHES
     host = run_cell(tele, jobs, cap, "cpu")
@@ -624,7 +633,7 @@ def phase_e2e(dev) -> dict:
             worst = max(worst, hold(M, tele.num_regions + 1, eps, seed=M))
     return dict(launches=launches, iteration_launches=iteration_launches,
                 card=card, max_abs_err=worst, stage=st,
-                cell=(tele, jobs, cap))
+                cell=(tele, jobs, cap), trace=trace_path)
 
 
 def scan_inputs(B: int, S: int, W: int, dev, seed: int):
@@ -1656,6 +1665,181 @@ def phase_lm_serve(dev) -> dict:
     return out
 
 
+# --- The paper's comparison through the registry (phase 9) --------------------
+
+# The paper's §5 comparison schedulers, WaterWise through the annealed
+# Sinkhorn launch, and the learned-forecast round, by the names users type.
+COMPARISON = ("baseline", "round-robin", "least-load", "carbon-greedy-opt",
+              "water-greedy-opt", "ecovisor", "waterwise[backend=fused]",
+              "waterwise-forecast[forecaster=learned,backend=fused]")
+# Run again in spawned worker processes, one a cell, through the auto-sized
+# "process" executor: four cells, so the card's cap on the pool
+# (experiments.executor.CARD_WORKERS) is what sizes it.
+PROCESS_POLICIES = ("baseline", "round-robin", "waterwise[backend=fused]",
+                    "waterwise-forecast[backend=fused]")
+# Row columns that are host wall times, not results.
+WALL_COLS = ("wall_s", "mean_solve_ms")
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
+    rk.LAUNCHES.update(dict.fromkeys(rk.LAUNCHES, 0))
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    return dict(sinkhorn=sinkhorn.ANNEAL_LAUNCHES,
+                sinkhorn_iteration=sinkhorn.LAUNCHES, **rk.LAUNCHES)
+
+
+def counting_serial():
+    """The serial executor, with every launch count set to 0 just before
+    each cell and read just after it (``row["_launches"]``)."""
+    from repro_torch import experiments
+    from repro_torch.experiments import runner
+
+    class CountingSerial(experiments.SerialExecutor):
+        def run(self, cells, device=None):
+            rows = []
+            for cell in cells:
+                reset_launches()
+                row = self._guarded(runner.run_cell, cell, device)
+                row["_launches"] = read_launches()
+                rows.append(row)
+            return rows
+    return CountingSerial()
+
+
+class DeviceMemoryPeak:
+    """Polls the card's used memory (``cudaMemGetInfo``: every process's
+    contexts and allocations) on a thread; ``peak_mib`` is the most seen
+    beyond the level when the block was entered."""
+
+    def __enter__(self):
+        import threading
+        free, total = torch.cuda.mem_get_info()
+        self.base, self.peak, self.total = total - free, total - free, total
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.02):
+                free, total = torch.cuda.mem_get_info()
+                self.peak = max(self.peak, total - free)
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_mib = (self.peak - self.base) / 2**20
+        return False
+
+
+def results_of(row: dict) -> dict:
+    return {k: v for k, v in row.items()
+            if k not in WALL_COLS and not k.startswith("_")}
+
+
+def phase_comparison(e2e: dict, fc: dict) -> dict:
+    from repro_torch import experiments
+    from repro_torch.core import solvers
+    from repro_torch.kernels import _build
+    print("== phase 9: the paper's comparison on the cell, through the "
+          "policy and scenario registries", flush=True)
+    plan = experiments.ExperimentPlan.build([CELL], COMPARISON)
+    t0 = time.perf_counter()
+    rows = plan.run(counting_serial(), strict=True)     # device None: card
+    serial_s = time.perf_counter() - t0
+    print(f"  (a) serial plan, {len(rows)} cells on the card in "
+          f"{serial_s:.3f} s:", flush=True)
+    print(experiments.to_table(rows, experiments.TABLE_COLS + (
+        "moved_pct", "mean_solve_ms")), flush=True)
+    for r in rows:
+        live = {k: v for k, v in r["_launches"].items() if v}
+        print(f"    {r['spec']}: wall {r['wall_s']:.3f} s, launches "
+              f"{live or 'none'}", flush=True)
+    zero = dict.fromkeys(read_launches(), 0)
+    by_spec = dict(zip(COMPARISON, rows))
+    for spec, run, want, phase in (
+            ("waterwise[backend=fused]", e2e["card"],
+             dict(zero, sinkhorn=e2e["launches"]), "phase 3"),
+            ("waterwise-forecast[forecaster=learned,backend=fused]",
+             fc["card"], dict(zero, **fc["launches"]), "phase 5")):
+        row = by_spec[spec]
+        diff = {k: (row[k], v) for k, v in run["summary"].items()
+                if k not in WALL_COLS and row[k] != v}
+        print(f"  {spec} against {phase}'s card run of the cell: "
+              f"{'equal totals' if not diff else diff}; launches "
+              f"{row['_launches']} (want {want})", flush=True)
+        if diff:
+            fail(f"{spec} through the registry differs from {phase}: {diff}")
+        if row["_launches"] != want:
+            fail(f"{spec} launched {row['_launches']}, {phase} {want}")
+    for spec in COMPARISON[:6]:
+        if by_spec[spec]["_launches"] != zero:
+            fail(f"rule scheduler {spec} launched a kernel")
+        if by_spec[spec]["unfinished"]:
+            fail(f"{spec} left {by_spec[spec]['unfinished']} jobs unfinished")
+    savings = {r["spec"]: (r["carbon_savings_pct"], r["water_savings_pct"])
+               for r in rows}
+
+    workers = experiments.executor.auto_workers(len(PROCESS_POLICIES))
+    print(f"  (b) {', '.join(PROCESS_POLICIES)}: serial, then \"process\" "
+          f"(spawned workers on the card, auto-sized to {workers})",
+          flush=True)
+    if workers > experiments.executor.CARD_WORKERS:
+        fail(f"the auto-sized pool opens {workers} contexts on the card")
+    built = {p.name: p.stat().st_mtime_ns
+             for p in _build.BUILD_DIR.glob("*.so")}
+    sub = experiments.ExperimentPlan.build([CELL], PROCESS_POLICIES)
+    serial = sub.run("serial", strict=True)
+    t0 = time.perf_counter()
+    with DeviceMemoryPeak() as mem:
+        proc = sub.run("process", strict=True)
+    process_s = time.perf_counter() - t0
+    for a, b in zip(serial, proc):
+        print(f"    {a['spec']}: serial wall {a['wall_s']:.3f} s, worker "
+              f"wall {b['wall_s']:.3f} s, carbon {b['carbon_kg']:.6f} kg",
+              flush=True)
+        if results_of(a) != results_of(b):
+            fail(f"{a['spec']}: process row differs from the serial row: "
+                 f"{results_of(a)} vs {results_of(b)}")
+    after = {p.name: p.stat().st_mtime_ns
+             for p in _build.BUILD_DIR.glob("*.so")}
+    print(f"  process plan: {process_s:.3f} s of wall for {len(proc)} cells "
+          f"on {workers} workers (serial "
+          f"{sum(r['wall_s'] for r in serial):.3f} s of cell walls); rows "
+          f"equal the serial rows; built kernels untouched by the workers: "
+          f"{after == built}; the pool held at most {mem.peak_mib:.1f} MiB "
+          f"of device memory beyond the parent's "
+          f"({mem.peak_mib / workers:.1f} MiB a worker; the card has "
+          f"{mem.total / 2**20:.0f} MiB)", flush=True)
+    if after != built:
+        fail("a worker process rebuilt a kernel")
+
+    backends = solvers.available_backends()
+    print(f"  (c) solver backends: {backends}", flush=True)
+    if "scipy" not in backends:
+        fail("the scipy (HiGHS) backend is not registered")
+
+    report = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", "--validate",
+         e2e["trace"]], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    out = report.stdout.strip()
+    print(f"  (d) python -m repro_torch.obs.report --validate on phase 3's "
+          f"trace: {out.replace(e2e['trace'], 'trace')}", flush=True)
+    if report.returncode != 0 or "schema OK" not in out:
+        fail(f"trace report failed: {out} {report.stderr.strip()}")
+    return dict(launches=by_spec, savings=savings, serial_s=serial_s,
+                process_s=process_s, process_mib=mem.peak_mib,
+                walls={r["spec"]: r["wall_s"] for r in rows})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device available")
@@ -1687,14 +1871,22 @@ def main() -> None:
         print(f"  [{label}: {time.perf_counter() - start:.1f} s of wall]",
               flush=True)
         return result
-    k = timed("phase 1", phase_kernel, dev)
-    timed("phase 2", phase_round, dev)
-    e2e = timed("phase 3", phase_e2e, dev)
-    scan = timed("phase 4", phase_scan, dev)
-    fc = timed("phase 5", phase_forecast, *e2e["cell"])
-    lmk = timed("phase 6", phase_lm_kernels, dev)
-    parity = timed("phase 7", phase_lm_parity, dev)
-    serve = timed("phase 8", phase_lm_serve, dev)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        k = timed("phase 1", phase_kernel, dev)
+        timed("phase 2", phase_round, dev)
+        e2e = timed("phase 3", phase_e2e, dev,
+                    os.path.join(workdir, "phase3.trace.jsonl"))
+        scan = timed("phase 4", phase_scan, dev)
+        fc = timed("phase 5", phase_forecast, *e2e["cell"])
+        lmk = timed("phase 6", phase_lm_kernels, dev)
+        parity = timed("phase 7", phase_lm_parity, dev)
+        serve = timed("phase 8", phase_lm_serve, dev)
+        cmp9 = timed("phase 9", phase_comparison, e2e, fc)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    reactive9 = cmp9["launches"]["waterwise[backend=fused]"]["_launches"]
+    learned9 = cmp9["launches"][COMPARISON[-1]]["_launches"]
     a = k["anneal_timings"][(512, 6)]    # the bucket of phase 3's rounds
     kernels = [dict(
         name="sinkhorn_anneal", route="cuda",
@@ -1702,11 +1894,13 @@ def main() -> None:
         replaces="src/repro/kernels/sinkhorn/sinkhorn.py:83",
         launches=e2e["launches"],
         launches_forecast_round=fc["launches"]["sinkhorn"],
+        launches_phase9=dict(reactive=reactive9["sinkhorn"],
+                             learned=learned9["sinkhorn"]),
         max_abs_err=k["anneal_max_abs_err"], ms=a["ms"],
         plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         device_ms=a["device_ms"], bound_by=a["bound_by"], library_ms=None,
         shape=[512, 6], iteration_loop_ms=a["loop_ms"], launches_per_call=1,
-        main_path="every fused solve of phases 3 and 5",
+        main_path="every fused solve of phases 3, 5 and 9",
         forecast_shape=dict(shape=[512, 40],
                             **k["anneal_timings"][(512, 40)]))]
     t = k["timings"][(512, 6)]
@@ -1745,6 +1939,7 @@ def main() -> None:
             name=name, route="cuda",
             source="src/repro_torch/csrc/rglru_scan.cu", replaces=replaces,
             launches=fc["launches"][entry],
+            launches_phase9=learned9[entry],
             max_abs_err=scan["worst"][entry], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],

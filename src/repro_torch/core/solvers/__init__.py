@@ -3,6 +3,13 @@ registry (counterpart of ``repro/core/solvers/__init__.py``).
 
 Interchangeable backends behind one interface:
 
+  ``pulp``   paper-faithful PuLP + CBC branch-and-cut, literal Eq 8-13
+             formulation with explicit binary x[m,n] and penalty P[m,n].
+             Registered only when PuLP (an optional dependency) is
+             importable; without it the literal-MILP cross-checks use
+             ``scipy``.
+  ``scipy``  HiGHS via scipy.optimize.milp, same formulation in sparse form
+             (the default of ``solve``).
   ``flow``   exact successive-shortest-path min-cost flow on the host
              (numpy), specialized to the capacitated assignment structure.
   ``torch``  entropic OT (log-space Sinkhorn, eager PyTorch on a device) +
@@ -88,12 +95,15 @@ def register(name: str, *, on_device: bool = False):
 
 def get_solver(name: str) -> Callable:
     if name not in _REGISTRY:
-        # Import side-effect registration.
+        # Import side-effect registration. PuLP is optional; its module
+        # import is a no-op when it is unavailable.
         from repro_torch.core.solvers import (  # noqa: F401
-            flow_solver, torch_solver)
+            flow_solver, pulp_solver, scipy_solver, torch_solver)
         from repro_torch.core import round  # noqa: F401  (registers "fused")
     if name not in _REGISTRY:
-        raise KeyError(f"solver backend {name!r} unavailable; "
+        hint = (" (the JAX package's backend; the port's counterpart is "
+                "'torch')" if name == "jax" else "")
+        raise KeyError(f"solver backend {name!r} unavailable{hint}; "
                        f"have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
@@ -104,7 +114,7 @@ def available_backends() -> list:
 
 
 def solve(cost: np.ndarray, allowed: np.ndarray, capacity: np.ndarray,
-          *, backend: str = "flow", soften: bool = False,
+          *, backend: str = "scipy", soften: bool = False,
           overrun: Optional[np.ndarray] = None,
           tol: Optional[np.ndarray] = None, sigma: float = 10.0,
           device=None) -> SolveResult:

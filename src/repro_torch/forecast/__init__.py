@@ -22,7 +22,8 @@ from repro_torch.forecast.backtest import (backtest, backtest_telemetry,
                                            mape, pinball_loss)
 from repro_torch.forecast.base import (Forecast, Forecaster, Oracle,
                                        Persistence, Perturbed, SeasonalNaive,
-                                       UnknownNameError, list_forecasters,
+                                       UnknownNameError, describe_forecasters,
+                                       forecaster_schema, list_forecasters,
                                        make_forecaster, register_model)
 from repro_torch.forecast.holtwinters import HoltWinters
 from repro_torch.forecast.learned import LearnedForecaster
@@ -32,7 +33,8 @@ from repro_torch.forecast.planner import (DeferralQueue, TemporalPlan,
 __all__ = [
     "Forecast", "Forecaster", "Persistence", "SeasonalNaive", "Oracle",
     "Perturbed", "HoltWinters", "LearnedForecaster", "make_forecaster",
-    "list_forecasters", "register_model", "UnknownNameError",
+    "list_forecasters", "forecaster_schema", "describe_forecasters",
+    "register_model", "UnknownNameError",
     "backtest", "backtest_telemetry", "mape", "pinball_loss",
     "DeferralQueue", "TemporalPlan", "build_temporal_plan",
 ]

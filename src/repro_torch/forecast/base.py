@@ -15,10 +15,12 @@ reproducible cell-for-cell.
 from __future__ import annotations
 
 import dataclasses
-import difflib
-from typing import Dict, Optional, Tuple, Type
+from typing import Dict, List, Optional, Tuple, Type
 
 import numpy as np
+
+from repro_torch import spec as _spec
+from repro_torch.spec import UnknownNameError  # noqa: F401  (re-export)
 
 
 HOUR = 3600.0
@@ -266,14 +268,6 @@ def register_model(cls: Type[Forecaster]) -> Type[Forecaster]:
     return cls
 
 
-class UnknownNameError(KeyError):
-    """A forecaster name that is not registered (a ``KeyError``, as the
-    reference's registry error is)."""
-
-    def __str__(self) -> str:        # KeyError would repr() the message
-        return self.args[0] if self.args else ""
-
-
 def _ensure_models() -> None:
     # The HoltWinters / learned registrations are import side effects of
     # their modules; importing the package pulls them in. Guard for callers
@@ -283,15 +277,12 @@ def _ensure_models() -> None:
 
 
 def model_class(name: str) -> Type[Forecaster]:
-    """The registered forecaster class ``name``. Unknown names raise
-    ``UnknownNameError`` (a ``KeyError``) with a did-you-mean hint."""
+    """The registered forecaster class ``name``. Unknown names raise the
+    shared did-you-mean ``UnknownNameError`` (a ``KeyError`` subclass,
+    matching the policy/scenario registries)."""
     _ensure_models()
     if name not in _MODELS:
-        hint = difflib.get_close_matches(name, list(_MODELS), n=1)
-        did = f" — did you mean {hint[0]!r}?" if hint else ""
-        raise UnknownNameError(
-            f"unknown forecaster {name!r}{did} "
-            f"(have: {', '.join(sorted(_MODELS))})")
+        raise _spec.unknown_name_error("forecaster", name, sorted(_MODELS))
     return _MODELS[name]
 
 
@@ -307,3 +298,33 @@ def make_forecaster(name: str, **kw) -> Forecaster:
 def list_forecasters() -> list:
     _ensure_models()
     return sorted(_MODELS)
+
+
+def forecaster_schema(name: str) -> Dict[str, _spec.Param]:
+    """Typed constructor-parameter schema of a registered forecaster,
+    introspected from its ``__init__`` signature (the same derivation the
+    policy registry uses, so documented defaults can never drift; the
+    ``device`` of the on-device models has no spec type and is skipped)."""
+    return {p.name: p
+            for p in _spec.params_from_signature(model_class(name))}
+
+
+def describe_forecasters(markdown: bool = False) -> str:
+    """Human-readable registry dump (the ``--list-forecasters`` surface and
+    the source of the README forecaster table)."""
+    entries: List[Type[Forecaster]] = [_MODELS[n]
+                                       for n in list_forecasters()]
+    if markdown:
+        lines = ["| forecaster | parameters | description |", "|---|---|---|"]
+        for cls in entries:
+            ps = ", ".join(f"`{p.describe()}`"
+                           for p in forecaster_schema(cls.name).values()) \
+                or "—"
+            lines.append(f"| `{cls.name}` | {ps} | {cls.description} |")
+        return "\n".join(lines)
+    lines = []
+    for cls in entries:
+        lines.append(f"{cls.name:16s} {cls.description}")
+        for p in forecaster_schema(cls.name).values():
+            lines.append(f"    {p.describe()}")
+    return "\n".join(lines)

@@ -9,9 +9,10 @@ Three pillars:
 * structured **span tracing** with nesting, exported as
   Chrome-trace-event JSONL (Perfetto / ``chrome://tracing``-loadable)
   via :class:`~repro_torch.obs.trace.TraceWriter`;
-* the trace format of the JAX package, so its reporting CLI
-  (``python -m repro.obs.report``) renders the port's traces: per-stage
-  p50/p99 tables, per-region carbon/water/WUE series, and run diffs.
+* a reporting CLI (``python -m repro_torch.obs.report``) rendering
+  per-stage p50/p99 tables, per-region carbon/water/WUE series, and run
+  diffs (the JAX package's trace format, so either CLI reads either
+  package's traces).
 
 Disabled (the default) is the fast path: ``span()`` returns a shared
 no-op context manager, ``observe``/``gauge`` return immediately, and no
@@ -27,7 +28,7 @@ Typical use::
     with obs.capture(trace_path="out/run.trace.jsonl"):
         result = engine.run(...)
         snap = obs.snapshot()          # counters/gauges/histograms
-    # trace file closed; report with `python -m repro.obs.report`
+    # trace file closed; report with `python -m repro_torch.obs.report`
 
 Instrumentation sites use::
 

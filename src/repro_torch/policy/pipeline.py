@@ -641,6 +641,7 @@ class PolicyPipeline:
         self.lam_co2, self.lam_h2o, self.lam_ref = lam_co2, lam_h2o, lam_ref
         self.lam_emb = lam_emb
         self.sigma = sigma
+        solvers.get_solver(backend)      # an unknown backend fails here
         self.backend = backend
         # Device of the device backends: None is the CUDA card (and raises
         # without one); "cpu" runs them on the host.
@@ -773,11 +774,18 @@ def reactive_pipeline(tele: telemetry.Telemetry, *,
                       sigma: float = 10.0, backend: str = "flow",
                       defer_margin: float = 0.02,
                       defer_slack_s: float = 120.0,
-                      lam_emb: float = 0.0, device=None) -> PolicyPipeline:
+                      lam_emb: float = 0.0, record_windows: bool = False,
+                      device=None) -> PolicyPipeline:
     """The paper's myopic co-optimizing controller (Algorithm 1): snapshot
     pricing + virtual defer arc, hard→soft MILP fallback. ``lam_emb`` adds
     the embodied-carbon dimension to the objective (``waterwise-embodied``);
-    ``device`` is where the device backends run (None: the CUDA card)."""
+    ``device`` is where the device backends run (None: the CUDA card).
+    ``record_windows=True`` (offline replay) is not ported yet and raises
+    ``NotImplementedError``, as ``forecast_pipeline``'s does."""
+    if record_windows:
+        raise NotImplementedError(
+            "record_windows=True (offline window replay through solve_many) "
+            "is not ported yet")
     return PolicyPipeline(
         tele, SnapshotPricer(defer_margin, defer_slack_s),
         NextRoundDeferral(), server=server, lam_co2=lam_co2,

@@ -1,9 +1,14 @@
 """Discrete-event simulation engine — replays a trace through a scheduler
 (port of ``repro/sim/engine.py``'s event engine).
 
-Schedulers are objects satisfying the uniform ``Scheduler`` protocol of
-``repro_torch.policy.pipeline`` — ``schedule(jobs, now_s, capacity) ->
-Decision``. Policy-spec strings are not parsed here yet.
+Schedulers are anything satisfying the uniform ``Scheduler`` protocol of
+``repro_torch.policy`` — ``schedule(jobs, now_s, capacity) -> Decision`` —
+which every registry policy (rule baselines, the reactive pipeline, the
+forecast pipeline) implements. ``run()`` also accepts a declarative policy
+spec (``"waterwise[lam_h2o=0.7,backend=torch]"`` or a
+``repro_torch.policy.PolicySpec``) and builds it against the engine's
+telemetry, on the CUDA card; build it with ``policy.build(spec, tele,
+device=...)`` to run it elsewhere.
 
 ``EventSimulator`` holds a completion heap plus a sorted arrival cursor and
 only materializes the instants where something can happen — a scheduling
@@ -114,13 +119,15 @@ class EngineState:
     finished: Dict[int, float] = dataclasses.field(default_factory=dict)
 
 
-def resolve_scheduler(scheduler):
-    """Check that ``scheduler`` satisfies the ``schedule()`` protocol and
-    return it (policy-spec strings are not supported yet)."""
-    if not callable(getattr(scheduler, "schedule", None)):
-        raise TypeError(
-            f"scheduler {scheduler!r} has no schedule() method; pass a "
-            "scheduler object such as policy.pipeline.reactive_pipeline(...)")
+def resolve_scheduler(scheduler, tele):
+    """Materialize ``scheduler`` against ``tele``: policy-spec strings and
+    ``PolicySpec`` objects are built through the port's registry (on the
+    CUDA card; build with ``policy.build(spec, tele, device=...)`` to run
+    elsewhere); anything already satisfying the ``schedule()`` protocol
+    passes through untouched."""
+    from repro_torch import policy
+    if isinstance(scheduler, (str, policy.PolicySpec)):
+        return policy.build(scheduler, tele)
     return scheduler
 
 
@@ -329,7 +336,7 @@ class EngineStepper:
                  state: Optional[EngineState] = None,
                  hold_grid: bool = False):
         self.sim = sim
-        self.scheduler = resolve_scheduler(scheduler)
+        self.scheduler = resolve_scheduler(scheduler, sim.tele)
         self.hold_grid = hold_grid
         self.jobs: List[Job] = sorted(jobs, key=lambda j: j.submit_time_s)
         self._submit: List[float] = [j.submit_time_s for j in self.jobs]

@@ -544,3 +544,40 @@ def test_server_on_card_goes_through_kernels(card, arch):
     host = Server(model, params, device="cpu").generate(dict(tokens=toks),
                                                         max_new=4)
     np.testing.assert_array_equal(out, host)
+
+
+def test_registry_builds_fused_pipeline_on_card(card):
+    """A spec string with no device builds a pipeline on the card, and one
+    round of it is one annealed Sinkhorn launch."""
+    from repro_torch import policy
+    from repro_torch.core import problem, telemetry
+    from repro_torch.runtime import platform
+    tele = telemetry.generate(days=2, seed=0)
+    sched = policy.build("waterwise[backend=fused]", tele)
+    assert sched.backend == "fused"
+    assert platform.device(sched.device).type == "cuda"
+    jobs = [problem.Job(job_id=i, home_region=i % 5, submit_time_s=0.0,
+                        exec_time_s=600.0, energy_kwh=0.05, tolerance=1.0)
+            for i in range(12)]
+    before = (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.LAUNCHES)
+    dec = sched.schedule(jobs, 0.0, np.full(5, 4))
+    assert (sinkhorn.ANNEAL_LAUNCHES - before[0],
+            sinkhorn.LAUNCHES - before[1]) == (1, 0)
+    assert dec.solver.backend == "fused" and len(dec.scheduled) == 12
+
+
+def test_process_plan_on_card_equals_serial(card):
+    """Two cells in spawned workers on the card: the serial rows on every
+    column but the wall times."""
+    from repro_torch import experiments
+    plan = experiments.ExperimentPlan.build(
+        ["nominal[days=0.01,jobs_per_day=20000,seed=2]"],
+        ["baseline", "waterwise[backend=fused]"])
+    serial = plan.run("serial")
+    proc = plan.run("process[max_workers=2]")
+
+    def strip(rows):
+        return [{k: v for k, v in r.items()
+                 if k not in ("wall_s", "mean_solve_ms")} for r in rows]
+    assert all(r["error"] == "" for r in serial + proc), serial + proc
+    assert strip(proc) == strip(serial)

@@ -18,9 +18,10 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
 def test_main_path_imports_without_jax_or_reference():
-    """With jax blocked: import the main paths of the three slices, then
-    run one learned-forecaster forward, one Holt-Winters fit and one
-    reduced-config LM prefill per architecture on the CPU."""
+    """With jax blocked: import the main paths of the slices, then run one
+    learned-forecaster forward, one Holt-Winters fit, a two-cell plan
+    built from spec strings and one reduced-config LM prefill per
+    architecture on the CPU."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -40,6 +41,15 @@ def test_main_path_imports_without_jax_or_reference():
         "y = np.abs(np.sin(np.arange(72))[:, None]) + np.ones((72, 2))\n"
         "hw = fc.make_forecaster('holtwinters', device='cpu').fit(y)\n"
         "assert np.isfinite(hw.predict(6).mean).all()\n"
+        "import repro_torch.policy, repro_torch.sim.scenarios\n"
+        "import repro_torch.experiments, repro_torch.obs.report\n"
+        "from repro_torch import experiments, policy\n"
+        "from repro_torch.core import baselines, controller, solvers\n"
+        "assert 'scipy' in solvers.available_backends()\n"
+        "rows = experiments.ExperimentPlan.build(\n"
+        "    ['nominal[days=0.01,jobs_per_day=5000]'],\n"
+        "    ['baseline', 'waterwise[backend=fused]']).run(device='cpu')\n"
+        "assert [r['error'] for r in rows] == ['', ''], rows\n"
         "import repro_torch.runtime.serve_loop\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.ssd_scan.ops\n"
@@ -78,7 +88,13 @@ def test_port_sources_never_import_jax_or_reference():
             "models/model.py", "runtime/serve_loop.py",
             "runtime/train_loop.py", "kernels/flash_attention/ops.py",
             "kernels/flash_attention/flash_attention.py",
-            "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ssd_scan.py"} <= names
+            "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ssd_scan.py",
+            "spec.py", "policy/spec.py", "policy/registry.py",
+            "policy/builtin.py", "core/baselines.py", "core/controller.py",
+            "core/solvers/scipy_solver.py", "core/solvers/pulp_solver.py",
+            "sim/scenarios.py", "experiments/scenario.py",
+            "experiments/plan.py", "experiments/runner.py",
+            "experiments/executor.py", "obs/report.py"} <= names
     cu = {p.name for p in (SRC / "repro_torch" / "csrc").glob("*.cu")}
     assert {"flash_attention.cu", "ssd_scan.cu"} <= cu
     hits = [(str(p), m.group(0).strip()) for p in files
@@ -160,6 +176,7 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
 
 
 def test_registry_lists_port_backends():
-    assert {"flow", "torch", "fused"} <= set(solvers.available_backends())
-    with pytest.raises(KeyError):
+    assert {"flow", "torch", "fused", "scipy"} <= set(
+        solvers.available_backends())
+    with pytest.raises(KeyError, match="counterpart is 'torch'"):
         solvers.get_solver("jax")
