@@ -60,7 +60,20 @@ Builds the port's kernels from the sources in this checkout, then:
      ``CARD_WORKERS`` on the card; rows equal the serial ones, no kernel
      rebuilt; the device memory the pool held is printed), checks that the ``scipy`` backend is
      registered, and validates phase 3's trace with
-     ``python -m repro_torch.obs.report``.
+     ``python -m repro_torch.obs.report``;
+ 10. many cells on one card: holds the cell-batched annealed Sinkhorn
+     launch bitwise against one single-cell launch a cell (B 1, 3, 8 at
+     buckets 512 and 4096 with 6 columns and bucket 512 with 40; 20 cells
+     at bucket 16384, which must split into several launches) and against
+     its plain version, and times 8 cells in one launch beside 8 single
+     launches; runs ``waterwise[backend=fused]`` on the cell over 8 seeds
+     plus ``baseline`` through the ``serial`` and the ``device`` executor
+     (rows equal, launch counts and walls printed); runs the cell through
+     ``"sharded[shards=2]"`` for ``baseline`` (speculative, spawned
+     workers) and ``waterwise[backend=fused]`` (chained handoff), rows
+     equal to phase 9's serial ones; and records every window of the cell
+     (``record_windows=true``) and replays them through ``solve_many`` on
+     the card.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars are drawn live (``models.ssm.draw_live_mixer``), since the
@@ -1685,6 +1698,7 @@ def reset_launches() -> None:
     from repro_torch.kernels.rglru_scan import rglru_scan as rk
     from repro_torch.kernels.sinkhorn import sinkhorn
     sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
+    sinkhorn.ANNEAL_BATCHED_LAUNCHES = 0
     rk.LAUNCHES.update(dict.fromkeys(rk.LAUNCHES, 0))
 
 
@@ -1692,6 +1706,7 @@ def read_launches() -> dict:
     from repro_torch.kernels.rglru_scan import rglru_scan as rk
     from repro_torch.kernels.sinkhorn import sinkhorn
     return dict(sinkhorn=sinkhorn.ANNEAL_LAUNCHES,
+                sinkhorn_batched=sinkhorn.ANNEAL_BATCHED_LAUNCHES,
                 sinkhorn_iteration=sinkhorn.LAUNCHES, **rk.LAUNCHES)
 
 
@@ -1837,7 +1852,213 @@ def phase_comparison(e2e: dict, fc: dict) -> dict:
         fail(f"trace report failed: {out} {report.stderr.strip()}")
     return dict(launches=by_spec, savings=savings, serial_s=serial_s,
                 process_s=process_s, process_mib=mem.peak_mib,
-                walls={r["spec"]: r["wall_s"] for r in rows})
+                walls={r["spec"]: r["wall_s"] for r in rows}, rows=by_spec)
+
+
+# --- Many cells on one card (phase 10) ----------------------------------------
+
+# The sweep of phase 10(b): the reactive round through the annealed launch
+# over 8 seeds of the cell (a Monte-Carlo ensemble / seed sweep), and one
+# row the device executor cannot batch.
+SWEEP_POLICY = "waterwise[backend=fused]"
+SWEEP_SEEDS = tuple(range(3, 11))
+
+
+def batched_inputs(B: int, M: int, N: int, dev, seed: int):
+    """B cells of ``main_path_inputs`` stacked on a leading axis: (C,
+    log_a, log_b), each [B, ...] and contiguous."""
+    cells = [main_path_inputs(M, N, 0.5, dev, seed=seed + b)
+             for b in range(B)]
+    return tuple(torch.stack([c[k] for c in cells]).contiguous()
+                 for k in (0, 2, 3))
+
+
+def hold_batched(B: int, M: int, N: int, seed: int, plain: bool) -> tuple:
+    """The cell-batched launch at (B, M, N) on main-path inputs: each
+    cell's f and g bitwise one ``sinkhorn_anneal`` launch on that cell
+    (fails otherwise), and, with ``plain``, within KERNEL_ATOL of the
+    plain batched loop (padding rows relative). Returns (launches the call
+    made, max |d| against the plain version or None)."""
+    from repro_torch.kernels.sinkhorn import ops, sinkhorn
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_batched_ref
+    C, log_a, log_b = batched_inputs(B, M, N, torch.device("cuda"), seed)
+    table, iters = solve_schedule()
+    before = (sinkhorn.ANNEAL_BATCHED_LAUNCHES, sinkhorn.ANNEAL_LAUNCHES)
+    f_b, g_b = ops.sinkhorn_solve_batched(C, log_a, log_b, table, iters)
+    torch.cuda.synchronize()
+    launches = sinkhorn.ANNEAL_BATCHED_LAUNCHES - before[0]
+    if sinkhorn.ANNEAL_LAUNCHES != before[1] or launches < 1:
+        fail(f"batched solve at {(B, M, N)} made {launches} batched and "
+             f"{sinkhorn.ANNEAL_LAUNCHES - before[1]} single launches")
+    same = True
+    for b in range(B):
+        f, g = sinkhorn.sinkhorn_solve_cuda(C[b], log_a[b], log_b[b], table,
+                                            iters)
+        same &= torch.equal(f_b[b], f) and torch.equal(g_b[b], g)
+    torch.cuda.synchronize()
+    err = None
+    if plain:
+        f_r, g_r = sinkhorn_solve_batched_ref(C, log_a, log_b, table, iters)
+        err = max(max(f_error(f_b[b], f_r[b], log_a[b]) for b in range(B)),
+                  (g_b - g_r).abs().max().item())
+    print(f"  batched B={B:2d} M={M:6d} N={N:3d}: {launches} launch(es); "
+          f"bitwise equal to {B} single launches: {same}; vs plain "
+          f"{'max|d|=%.3e' % err if err is not None else 'not held'}",
+          flush=True)
+    if not same:
+        fail(f"batched launch differs from single launches at {(B, M, N)}")
+    if err is not None and not (np.isfinite(err) and err <= KERNEL_ATOL):
+        fail(f"batched launch disagrees with the plain version at "
+             f"{(B, M, N)}: {err:.3e}")
+    return launches, err
+
+
+def phase_batched(e2e: dict, cmp9: dict) -> dict:
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_batched_ref
+    print("== phase 10: many cells on one card — the cell-batched annealed "
+          "launch, the device and sharded executors, window replay",
+          flush=True)
+    dev = torch.device("cuda")
+    # (a) The batched launch against single launches.
+    worst = 0.0
+    for M, N in ((512, 6), (4096, 6), (512, 40)):
+        for B in (1, 3, 8):
+            _, err = hold_batched(B, M, N, seed=M + N + B, plain=True)
+            worst = max(worst, err)
+    nblocks = 16384 // sinkhorn.rows_per_block()
+    fit = sinkhorn.max_blocks(6, dev) // nblocks
+    split, _ = hold_batched(20, 16384, 6, seed=99, plain=False)
+    print(f"  20 cells at bucket 16384: {fit} fit at once ({nblocks} blocks "
+          f"a cell of {sinkhorn.max_blocks(6, dev)} co-resident), "
+          f"{split} launches", flush=True)
+    if fit >= 20 or split != -(-20 // fit):
+        fail(f"the 20-cell group should split into {-(-20 // fit)} "
+             f"launches, made {split}")
+    B, M, N = 8, 512, 6
+    C, log_a, log_b = batched_inputs(B, M, N, dev, seed=7)
+    table, iters = solve_schedule()
+    n_iter = len(table) * iters
+
+    def batched():
+        return sinkhorn.sinkhorn_solve_batched_cuda(C, log_a, log_b, table,
+                                                    iters)
+
+    def singles():
+        for b in range(B):
+            sinkhorn.sinkhorn_solve_cuda(C[b], log_a[b], log_b[b], table,
+                                         iters)
+
+    def plain():
+        return sinkhorn_solve_batched_ref(C, log_a, log_b, table, iters)
+    t = dict(ms=cuda_ms(batched, warmup=3, reps=20),
+             singles_ms=cuda_ms(singles, warmup=1, reps=10),
+             ms_again=cuda_ms(batched, warmup=1, reps=20),
+             device_ms=profiled_device_ms(batched, reps=5),
+             plain_ms=cuda_ms(plain, warmup=1, reps=2),
+             # The 8 cells' C, log_a, log_b read once, f and g written
+             # once; ~12 float32 operations per element per iteration.
+             **bound(B * 4 * (M * N + M + N + M + N),
+                     B * 12 * M * N * n_iter))
+    print(f"  timing {B} cells at M={M} N={N}: one batched launch "
+          f"{t['ms'] * 1e3:.2f} us ({t['ms_again'] * 1e3:.2f} us again; "
+          f"device {fmt_us(t['device_ms'])}), {B} single launches "
+          f"{t['singles_ms'] * 1e3:.2f} us, plain batched loop "
+          f"{t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.4f} us "
+          f"({t['bound_by']})", flush=True)
+
+    out = executor_sweep(cmp9["rows"])
+    return dict(max_abs_err=worst, timing=t, split=split, fit=fit, **out)
+
+
+def executor_sweep(rows9: dict, device=None, cell_spec: str = CELL) -> dict:
+    """Phase 10 (b)-(d) on ``cell_spec`` (None: on the card; the rows of
+    phase 9's serial plan, by spec, are ``rows9``)."""
+    from repro_torch import experiments
+    from repro_torch.experiments import runner
+    # (b) The device executor on a seed sweep of the cell.
+    cells = (experiments.ExperimentPlan.build(
+        [cell_spec], [SWEEP_POLICY], seeds=list(SWEEP_SEEDS)).cells()
+        + experiments.ExperimentPlan.build([cell_spec], ["baseline"]).cells())
+    runs = {}
+    for name in ("serial", "device"):
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = experiments.get_executor(name).run(cells, device=device)
+        wall = time.perf_counter() - t0
+        runs[name] = dict(rows=rows, wall=wall, launches=read_launches())
+        bad = [r["error"] for r in rows if r["error"]]
+        if bad:
+            fail(f"{name} sweep: {bad}")
+        live = {k: v for k, v in runs[name]["launches"].items() if v}
+        print(f"  (b) {name}: {len(cells)} cells ({SWEEP_POLICY} over seeds "
+              f"{SWEEP_SEEDS[0]}-{SWEEP_SEEDS[-1]}, and baseline) in "
+              f"{wall:.3f} s of wall; launches {live}", flush=True)
+    serial, device_run = runs["serial"], runs["device"]
+    for a, b in zip(serial["rows"], device_run["rows"]):
+        if results_of(a) != results_of(b):
+            fail(f"{a['spec']} seed {a['seed']}: device row differs from the "
+                 f"serial row: {results_of(a)} vs {results_of(b)}")
+    dl, sl = device_run["launches"], serial["launches"]
+    print(f"  device rows equal the serial rows; serial made "
+          f"{sl['sinkhorn']} single launches, device "
+          f"{dl['sinkhorn_batched']} batched and {dl['sinkhorn']} single; "
+          f"walls serial {serial['wall']:.3f} s, device "
+          f"{device_run['wall']:.3f} s", flush=True)
+    if dl["sinkhorn"] or dl["sinkhorn_iteration"] or \
+            not dl["sinkhorn_batched"] or \
+            dl["sinkhorn_batched"] >= sl["sinkhorn"]:
+        fail(f"the device sweep did not go through batched launches: "
+             f"{dl} (serial {sl})")
+
+    # (c) The sharded executor against phase 9's serial rows.
+    sharded = {}
+    for spec in ("baseline", SWEEP_POLICY):
+        t0 = time.perf_counter()
+        row = experiments.ExperimentPlan.build([cell_spec], [spec]).run(
+            "sharded[shards=2]", strict=True, device=device)[0]
+        wall = time.perf_counter() - t0
+        ref = rows9[spec]
+        # Savings are against the plan's baseline row, which a one-policy
+        # plan lacks.
+        diff = {k: (ref[k], row.get(k)) for k in results_of(ref)
+                if k != "utilization" and not k.endswith("_savings_pct")
+                and ref[k] != row.get(k)}
+        rel = abs(row["utilization"] - ref["utilization"]) / abs(
+            ref["utilization"])
+        path = "speculative, spawned workers" if spec == "baseline" \
+            else "chained handoff"
+        print(f"  (c) sharded[shards=2] {spec} ({path}): {wall:.3f} s of "
+              f"wall; carbon {row['carbon_kg']!r} kg, water "
+              f"{row['water_kl']!r} kL, violations {row['violation_pct']!r} "
+              f"%; {'equal to phase 9' if not diff else diff}; utilization "
+              f"relative {rel:.3e}", flush=True)
+        if diff or rel > 1e-9:
+            fail(f"sharded {spec} differs from the serial row: {diff}, "
+                 f"utilization {rel:.3e}")
+        sharded[spec] = wall
+
+    # (d) Record every window of the cell, replay them through solve_many.
+    cell = experiments.ExperimentPlan.build(
+        [cell_spec], ["waterwise[backend=fused,record_windows=true]"]).cells()[0]
+    _, _, sched, result, _ = runner.execute(cell, device=device)
+    t0 = time.perf_counter()
+    replayed = sched.replay_recorded(backend="torch")
+    if device is None:
+        torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    assigned = sum(int((r.assign >= 0).sum()) for r in replayed)
+    feasible = all(r is not None and r.feasible for r in replayed)
+    print(f"  (d) {len(sched.recorded)} recorded windows replayed through "
+          f"solve_many on the card in {replay_s:.3f} s: all feasible "
+          f"{feasible}; {assigned} jobs assigned, the run placed "
+          f"{len(result['records'])}", flush=True)
+    if not feasible or assigned != len(result["records"]):
+        fail("window replay does not match the recorded run")
+    return dict(launches=dl["sinkhorn_batched"], serial=sl,
+                walls=dict(serial=serial["wall"], device=device_run["wall"]),
+                sharded=sharded, replay_s=replay_s,
+                windows=len(sched.recorded))
 
 
 def main() -> None:
@@ -1883,6 +2104,7 @@ def main() -> None:
         parity = timed("phase 7", phase_lm_parity, dev)
         serve = timed("phase 8", phase_lm_serve, dev)
         cmp9 = timed("phase 9", phase_comparison, e2e, fc)
+        b10 = timed("phase 10", phase_batched, e2e, cmp9)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     reactive9 = cmp9["launches"]["waterwise[backend=fused]"]["_launches"]
@@ -1903,6 +2125,19 @@ def main() -> None:
         main_path="every fused solve of phases 3, 5 and 9",
         forecast_shape=dict(shape=[512, 40],
                             **k["anneal_timings"][(512, 40)]))]
+    t = b10["timing"]
+    kernels.append(dict(
+        name="sinkhorn_anneal_batched", route="cuda",
+        source="src/repro_torch/csrc/sinkhorn.cu",
+        replaces="src/repro/kernels/sinkhorn/sinkhorn.py:83",
+        launches=b10["launches"], max_abs_err=b10["max_abs_err"],
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        device_ms=t["device_ms"], bound_by=t["bound_by"], library_ms=None,
+        shape=[8, 512, 6], single_launches_ms=t["singles_ms"],
+        launches_per_call="1, or ceil(B / cells that fit) when the cells "
+                          "cannot all be co-resident",
+        split_at_16384=dict(cells=20, fit=b10["fit"], launches=b10["split"]),
+        main_path="the device executor's seed sweep of phase 10(b)"))
     t = k["timings"][(512, 6)]
     kernels.append(dict(
         name="sinkhorn_iteration", route="cuda",

@@ -29,15 +29,26 @@ The Sinkhorn inner loop (``impl``):
               is the twin of the reference's default ``xla`` path; CPU
               tensors only (a CUDA device takes ``kernel``).
 
+Program 1b, ``fused_round_batch``, solves many cells' assignment rounds at
+once: the same device body over a leading cell axis (the reference vmaps
+it), one cell-batched kernel launch per group of same-shaped requests, and
+the per-cell host rounding on exactly the inputs a per-cell ``fused_solve``
+would get. The device stages broadcast over that optional leading axis, so
+the single-cell path is the B = 1 case of the same code. The reference's
+``round.batch_compile`` counter and its power-of-two padding of the cell
+axis (``_batch_size``) serve XLA's compile cache, which PyTorch has no
+counterpart of: the port launches each group at its own size.
+
 Program 2, ``fused_temporal_round``, additionally prices and masks the
 forecast round's jobs x (regions x slots) grid on the device (paper Eqs
 1-8 and 11 via ``core.footprint``) before the same solve; the forecast
 pipeline drives it with backend ``fused``. The reference's
-``SinkhornWarmStart`` (with its adaptive loop) and the batched program are
-not ported yet.
+``SinkhornWarmStart`` (with its adaptive loop) is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -48,10 +59,12 @@ from repro_torch.core import footprint, problem, solvers
 from repro_torch.core.solvers import torch_solver
 from repro_torch.core.solvers.torch_solver import BIG, _NEG, bucket_for
 from repro_torch.kernels.sinkhorn.ops import (anneal_schedule, eps_table,
-                                              sinkhorn_solve)
+                                              sinkhorn_solve,
+                                              sinkhorn_solve_batched)
 from repro_torch.runtime import platform
 
-__all__ = ["fused_solve", "fused_temporal_round", "sinkhorn_impl_default"]
+__all__ = ["fused_solve", "fused_temporal_round", "fused_round_batch",
+           "sinkhorn_impl_default", "SolveRequest", "group_requests"]
 
 IMPLS = ("kernel", "torch")
 
@@ -85,20 +98,24 @@ def _prepare_device(c_eff, mask, cap, valid):
     """Device equivalent of ``torch_solver._prepare``, in float32: normalize
     costs to ~unit scale, price forbidden arcs at BIG, append the balanced-OT
     dummy supply row. ``valid`` marks real job rows; padding rows get zero
-    mass (log marginal ``_NEG``). Returns (C, log_a, log_b, Cn, scale)."""
-    N = c_eff.shape[1]
+    mass (log marginal ``_NEG``). Every tensor may carry a leading cell
+    axis ([B, Mb, N] costs, [B, N] capacities, [B, Mb] validity); each
+    reduction runs within its cell. Returns (C, log_a, log_b, Cn, scale),
+    ``scale`` one per cell."""
+    lead, N = c_eff.shape[:-2], c_eff.shape[-1]
     zero = torch.zeros((), dtype=torch.float32, device=c_eff.device)
-    scale = torch.clamp(torch.max(torch.where(mask, c_eff.abs(), zero)),
-                        min=1e-9)
-    Cn = torch.where(mask, c_eff / scale, torch.full_like(c_eff, BIG))
-    C = torch.cat([Cn, torch.zeros((1, N), dtype=torch.float32,
-                                   device=c_eff.device)], dim=0)
-    m_true = valid.sum().to(torch.float32)
-    slack = torch.clamp(cap.sum() - m_true, min=1e-9)
-    total = m_true + slack
+    scale = torch.clamp(torch.where(mask, c_eff.abs(), zero)
+                        .amax(dim=(-2, -1)), min=1e-9)
+    Cn = torch.where(mask, c_eff / scale[..., None, None],
+                     torch.full_like(c_eff, BIG))
+    C = torch.cat([Cn, torch.zeros(lead + (1, N), dtype=torch.float32,
+                                   device=c_eff.device)], dim=-2)
+    m_true = valid.sum(dim=-1).to(torch.float32)
+    slack = torch.clamp(cap.sum(dim=-1) - m_true, min=1e-9)
+    total = (m_true + slack)[..., None]
     log_a = torch.cat([
         torch.where(valid, -torch.log(total), torch.full_like(total, _NEG)),
-        torch.log(slack / total)[None]])
+        torch.log(slack[..., None] / total)], dim=-1)
     log_b = torch.log(torch.clamp(cap, min=1e-12) / total)
     return C, log_a, log_b, Cn, scale
 
@@ -107,22 +124,24 @@ def _sinkhorn_kernel(C, log_a, log_b, *, eps0: float, eps_min: float,
                      iters: int, anneal_stages: int):
     """eps-annealed Sinkhorn (port of the reference's ``_sinkhorn_pallas``)
     as one call: the whole schedule in one launch of the annealed kernel on
-    the card, its plain loop on the CPU. Each stage's eps is the reference
-    loop's Python float rounded to float32, as the iteration kernel takes
-    it; the returned eps is the last stage's Python float, as there. The
-    kernel updates (f <- g, then g <- f) where the ``torch`` loop updates
-    (g <- f, then f <- g); both converge to the same polytope vertex as
-    eps -> 0."""
-    f, g = sinkhorn_solve(C, log_a, log_b,
-                          eps_table(eps0, eps_min, anneal_stages), iters)
+    the card — one cell-batched launch for a [B, M, N] C — its plain loop
+    on the CPU. Each stage's eps is the reference loop's Python float
+    rounded to float32, as the iteration kernel takes it; the returned eps
+    is the last stage's Python float, as there. The kernel updates
+    (f <- g, then g <- f) where the ``torch`` loop updates (g <- f, then
+    f <- g); both converge to the same polytope vertex as eps -> 0."""
+    solve = sinkhorn_solve_batched if C.dim() == 3 else sinkhorn_solve
+    f, g = solve(C, log_a, log_b, eps_table(eps0, eps_min, anneal_stages),
+                 iters)
     return f, g, anneal_schedule(eps0, eps_min, anneal_stages)[-1]
 
 
 def _solve_core(c_eff, mask, cap, valid, *, impl: str, eps0: float,
                 eps_min: float, iters: int, anneal_stages: int):
-    """prepare -> annealed Sinkhorn -> plan extraction on the device.
-    Returns the (padded-row) normalized cost matrix, row-normalized plan
-    and the normalization scale; the host slices off the padding."""
+    """prepare -> annealed Sinkhorn -> plan extraction on the device, over
+    an optional leading cell axis. Returns the (padded-row) normalized cost
+    matrix, row-normalized plan and the normalization scale; the host
+    slices off the padding."""
     C, log_a, log_b, Cn, scale = _prepare_device(c_eff, mask, cap, valid)
     if impl == "kernel":
         f, g, eps = _sinkhorn_kernel(C, log_a, log_b, eps0=eps0,
@@ -131,8 +150,9 @@ def _solve_core(c_eff, mask, cap, valid, *, impl: str, eps0: float,
     else:
         f, g, eps = torch_solver._sinkhorn_log_impl(
             C, log_a, log_b, eps0, eps_min, iters, anneal_stages)
-    X = torch.exp((f[:, None] + g[None, :] - C) / eps)[:Cn.shape[0]]
-    X = X / torch.clamp(X.sum(dim=1, keepdim=True), min=1e-30)
+    X = torch.exp((f[..., :, None] + g[..., None, :] - C) / eps)
+    X = X[..., :Cn.shape[-2], :]
+    X = X / torch.clamp(X.sum(dim=-1, keepdim=True), min=1e-30)
     return Cn, X, scale
 
 
@@ -144,21 +164,61 @@ def _assignment_body(arcs, tolv, cap, *, soften: bool, sigma: float,
 
     ``arcs`` packs [cost | allowed(0/1) | overrun] as one [3, Mb, C] upload;
     ``tolv`` packs [tol | row-validity] as [Mb, 2] — bucket-padded, with the
-    true job count implied by the validity column.
+    true job count implied by the validity column. With a leading cell axis
+    ([B, 3, Mb, C], [B, Mb, 2], [B, C]) it is Program 1b's body: each
+    cell's results are those of the body on that cell alone.
     """
-    cost, allowed, overrun = arcs[0], arcs[1] > 0.5, arcs[2]
-    tol, valid = tolv[:, 0], tolv[:, 1] > 0.5
+    cost, allowed, overrun = (arcs[..., 0, :, :], arcs[..., 1, :, :] > 0.5,
+                              arcs[..., 2, :, :])
+    tol, valid = tolv[..., 0], tolv[..., 1] > 0.5
     if soften:
-        excess = torch.clamp(overrun - tol[:, None], min=0.0)
+        excess = torch.clamp(overrun - tol[..., None], min=0.0)
         c_eff = cost + sigma * excess
-        mask = valid[:, None] & torch.ones_like(allowed)
+        mask = valid[..., None] & torch.ones_like(allowed)
     else:
         c_eff = cost
-        mask = valid[:, None] & allowed
+        mask = valid[..., None] & allowed
     Cn, X, _ = _solve_core(c_eff, mask, cap, valid, impl=impl, eps0=eps0,
                            eps_min=eps_min, iters=iters,
                            anneal_stages=anneal_stages)
     return Cn, X
+
+
+def _resolve_impl(sinkhorn_impl: Optional[str], dev: torch.device) -> str:
+    impl = sinkhorn_impl or sinkhorn_impl_default(dev)
+    if impl not in IMPLS:
+        raise ValueError(f"sinkhorn_impl {impl!r} not in {IMPLS}")
+    if dev.type == "cuda" and impl != "kernel":
+        raise ValueError(f"sinkhorn_impl {impl!r} runs on CPU tensors only; "
+                         "a CUDA device takes 'kernel'")
+    return impl
+
+
+def _pack(cost, allowed, overrun, tol, pad: int):
+    """One request's host blobs, bucket-padded: arcs [3, Mb, C] and tolv
+    [Mb, 2], float32."""
+    M, N = cost.shape
+    arcs = np.stack([
+        _pad0(cost, pad),
+        _pad0(np.asarray(allowed).astype(np.float64), pad),
+        _pad0(overrun if overrun is not None else np.zeros((M, N)),
+              pad)]).astype(np.float32)
+    tolv = np.stack([
+        _pad0(tol if tol is not None else np.zeros(M), pad),
+        _pad0(np.ones(M), pad)], axis=1).astype(np.float32)
+    return arcs, tolv
+
+
+def _rounded(X, Cn, cost, allowed, cap, soften, overrun, tol, sigma):
+    """The host half of ``fused``: the vertex rounding of one cell's
+    (real-row) plan."""
+    c_eff, mask = torch_solver._effective(cost, allowed, soften, overrun,
+                                          tol, sigma)
+    res = torch_solver._finalize(np.asarray(X, np.float64),
+                                 np.asarray(Cn, np.float64), c_eff, mask,
+                                 cap, soften, overrun, tol)
+    res.backend = "fused"
+    return res
 
 
 @solvers.register("fused", on_device=True)
@@ -173,12 +233,7 @@ def fused_solve(cost: np.ndarray, allowed: np.ndarray, capacity: np.ndarray,
     host transfer per round. The greedy vertex rounding + exact SSP repair
     + 2-swap polish stay on the host. ``device=None`` is the CUDA card."""
     dev = platform.device(device)
-    impl = sinkhorn_impl or sinkhorn_impl_default(dev)
-    if impl not in IMPLS:
-        raise ValueError(f"sinkhorn_impl {impl!r} not in {IMPLS}")
-    if dev.type == "cuda" and impl != "kernel":
-        raise ValueError(f"sinkhorn_impl {impl!r} runs on CPU tensors only; "
-                         "a CUDA device takes 'kernel'")
+    impl = _resolve_impl(sinkhorn_impl, dev)
 
     def run() -> solvers.SolveResult:
         M, N = cost.shape
@@ -187,14 +242,7 @@ def fused_solve(cost: np.ndarray, allowed: np.ndarray, capacity: np.ndarray,
                 not (soften or allowed.any(axis=1).all()):
             return _infeasible(M)
         _, pad = _pad_rows(M)
-        arcs = np.stack([
-            _pad0(cost, pad),
-            _pad0(allowed.astype(np.float64), pad),
-            _pad0(overrun if overrun is not None else np.zeros((M, N)),
-                  pad)]).astype(np.float32)
-        tolv = np.stack([
-            _pad0(tol if tol is not None else np.zeros(M), pad),
-            _pad0(np.ones(M), pad)], axis=1).astype(np.float32)
+        arcs, tolv = _pack(cost, allowed, overrun, tol, pad)
         Cn, X = _assignment_body(
             torch.from_numpy(arcs).to(dev), torch.from_numpy(tolv).to(dev),
             torch.from_numpy(cap.astype(np.float32)).to(dev),
@@ -210,13 +258,8 @@ def fused_solve(cost: np.ndarray, allowed: np.ndarray, capacity: np.ndarray,
                 eps0=torch_solver.SINKHORN_EPS0, eps_min=eps_min,
                 anneal_stages=torch_solver.SINKHORN_STAGES, impl=impl,
                 device=str(dev))
-        c_eff, mask = torch_solver._effective(cost, allowed, soften, overrun,
-                                              tol, sigma)
-        res = torch_solver._finalize(np.asarray(X[:M], np.float64),
-                                     np.asarray(Cn[:M], np.float64), c_eff,
-                                     mask, cap, soften, overrun, tol)
-        res.backend = "fused"
-        return res
+        return _rounded(X[:M], Cn[:M], cost, allowed, cap, soften, overrun,
+                        tol, sigma)
     return solvers._timed(run)
 
 
@@ -224,6 +267,161 @@ def _infeasible(M: int) -> solvers.SolveResult:
     res = torch_solver._infeasible(M)
     res.backend = "fused"
     return res
+
+
+# ---------------------------------------------------------------------------
+# Program 1b: many cells' assignment rounds over a leading cell axis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SolveRequest:
+    """One cell's assignment-round solve, queued for batching
+    (``fused_round_batch``). Fields mirror ``fused_solve``'s signature — a
+    request is exactly one deferred call; the device travels beside the
+    requests, as an argument of ``fused_round_batch``."""
+    cost: np.ndarray                       # [M, C]
+    allowed: np.ndarray                    # [M, C]
+    capacity: np.ndarray                   # [C]
+    soften: bool = False
+    overrun: Optional[np.ndarray] = None
+    tol: Optional[np.ndarray] = None
+    sigma: float = 10.0
+    eps_min: float = 0.005
+    sinkhorn_impl: Optional[str] = None
+
+
+def group_requests(requests) -> dict:
+    """Group request *indices* by batch signature: (row bucket, columns,
+    cost dtype, soften, sigma, impl, eps_min).
+
+    Pure bookkeeping (property-tested): a group never mixes row buckets,
+    column counts, dtypes, or solver statics — each group maps onto exactly
+    one batched body and one cell-batched launch (or its split).
+    """
+    groups: dict = {}
+    for i, r in enumerate(requests):
+        M, C = np.asarray(r.cost).shape
+        key = (bucket_for(M + 1), C, np.dtype(np.asarray(r.cost).dtype).str,
+               bool(r.soften), float(r.sigma), r.sinkhorn_impl,
+               float(r.eps_min))
+        groups.setdefault(key, []).append(i)
+    return groups
+
+
+def _request_statics(req: SolveRequest, dev: torch.device) -> dict:
+    """The resolved solver constants of one request on ``dev`` — identical
+    across a group by construction of the group key."""
+    return dict(soften=bool(req.soften), sigma=float(req.sigma),
+                impl=_resolve_impl(req.sinkhorn_impl, dev),
+                eps_min=float(req.eps_min))
+
+
+def visible_devices(dev: torch.device) -> int:
+    """The devices ``fused_round_batch`` can split a group across: every
+    visible CUDA card for a CUDA device, one for the CPU."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _shard_devices(dev: torch.device, devices: int) -> list:
+    """The device of each of ``devices`` shards: the named card alone, or
+    cards 0 .. devices - 1 (an explicit index, so a flush from any thread
+    lands where it should)."""
+    if dev.type != "cuda":
+        return [dev]
+    if devices == 1:
+        return [torch.device("cuda", dev.index if dev.index is not None
+                             else torch.cuda.current_device())]
+    return [torch.device("cuda", k) for k in range(devices)]
+
+
+def fused_round_batch(requests, devices: int = 1, device=None) -> list:
+    """Solve many independent cells' assignment rounds, one batched body
+    (and one cell-batched kernel launch, or its split) per (bucket, dtype,
+    statics) group instead of one launch per cell.
+
+    The batch runs the single-cell ``fused`` body over a leading cell axis
+    with identical per-cell bucket padding, so every cell's normalized
+    costs and transport plan are **bitwise identical** to a per-cell
+    ``fused_solve`` call (pinned in tests/test_torch_device_executor.py),
+    and the host-side vertex rounding consumes identical inputs. With
+    ``devices > 1`` each group is split into ``devices`` contiguous shards,
+    one a card (the reference's ``shard_map`` over its cell axis; only one
+    card has been proven).
+
+    Returns ``SolveResult``s in request order; per-request infeasibility
+    (capacity shortfall / fully masked row) short-circuits exactly like
+    ``fused_solve``. ``obs`` counter ``round.batch_solves`` counts cells
+    served. ``device=None`` is the CUDA card.
+    """
+    dev = platform.device(device)
+    devices = max(1, int(devices))
+    n_avail = visible_devices(dev)
+    if devices > n_avail:
+        raise ValueError(f"devices={devices} exceeds the {n_avail} "
+                         f"available {dev.type} device(s)")
+    results: list = [None] * len(requests)
+    live: list = []
+    for i, r in enumerate(requests):
+        M, C = r.cost.shape
+        cap = np.asarray(r.capacity).astype(np.int64)
+        allowed = np.asarray(r.allowed, bool)
+        if int(cap.sum()) < M or \
+                not (r.soften or allowed.any(axis=1).all()):
+            results[i] = _infeasible(M)
+        else:
+            live.append(i)
+    if not live:
+        return results
+    groups = group_requests([requests[i] for i in live])
+    shard_devs = _shard_devices(dev, devices)
+    with obs.timed("solver.round_batch", requests=len(requests),
+                   groups=len(groups), devices=devices) as t:
+        for key, local in groups.items():
+            idxs = [live[j] for j in local]
+            bucket = key[0]
+            statics = _request_statics(requests[idxs[0]], dev)
+            arcs_l, tolv_l, cap_l = [], [], []
+            for i in idxs:
+                r = requests[i]
+                arcs, tolv = _pack(r.cost, r.allowed, r.overrun, r.tol,
+                                   bucket - 1 - r.cost.shape[0])
+                arcs_l.append(arcs)
+                tolv_l.append(tolv)
+                cap_l.append(np.asarray(r.capacity).astype(np.int64)
+                             .astype(np.float32))
+            arcs, tolv, cap = (np.stack(arcs_l), np.stack(tolv_l),
+                               np.stack(cap_l))
+            out = []
+            for part, sdev in zip(np.array_split(np.arange(len(idxs)),
+                                                 len(shard_devs)),
+                                  shard_devs):
+                if not len(part):
+                    continue
+                lo, hi = int(part[0]), int(part[-1]) + 1
+                # The device is per thread, and a flush runs on whichever
+                # cell thread arrives last: name it for every shard.
+                with (torch.cuda.device(sdev) if sdev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    Cn, X = _assignment_body(
+                        torch.from_numpy(arcs[lo:hi]).to(sdev),
+                        torch.from_numpy(tolv[lo:hi]).to(sdev),
+                        torch.from_numpy(cap[lo:hi]).to(sdev), **statics)
+                    out.append(torch.stack([Cn, X], dim=1).cpu().numpy())
+            CnX = np.concatenate(out)
+            for b, i in enumerate(idxs):
+                r = requests[i]
+                M = r.cost.shape[0]
+                results[i] = _rounded(
+                    CnX[b, 1, :M], CnX[b, 0, :M],
+                    np.asarray(r.cost, np.float64),
+                    np.asarray(r.allowed, bool),
+                    np.asarray(r.capacity).astype(np.int64), r.soften,
+                    r.overrun, r.tol, r.sigma)
+        obs.counter("round.batch_solves", len(live))
+    per = t.elapsed_s / max(len(requests), 1)
+    for r in results:
+        r.solve_time_s = per
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +471,7 @@ def _price_temporal(blob, rattrs, *, offsets: tuple, lam_co2: float,
     return cost, mask, cap_t, valid
 
 
-def _temporal_program(blob, rattrs, *, impl: str,
+def _temporal_program(blob, rattrs, *, impl: str, want_plan: bool = False,
                       eps0: float = 0.5, eps_min: float = 0.005,
                       iters: int = 60, anneal_stages: int = 6, **statics):
     """The whole forecast-driven round on the device: Eq 1/5 footprint
@@ -289,11 +487,16 @@ def _temporal_program(blob, rattrs, *, impl: str,
       rattrs  [4, R]              pue | wsf | lambda_ref history row |
                                   capacity
     ``statics`` are the per-pipeline constants of ``_price_temporal``.
+    Returns ``(Cn, X, scale)``, and with ``want_plan`` the priced ``cost``
+    and ``mask`` too.
     """
     cost, mask, cap_t, valid = _price_temporal(blob, rattrs, **statics)
-    return _solve_core(cost, mask, cap_t, valid, impl=impl, eps0=eps0,
-                       eps_min=eps_min, iters=iters,
-                       anneal_stages=anneal_stages)
+    Cn, X, scale = _solve_core(cost, mask, cap_t, valid, impl=impl,
+                               eps0=eps0, eps_min=eps_min, iters=iters,
+                               anneal_stages=anneal_stages)
+    if want_plan:
+        return Cn, X, scale, cost, mask
+    return Cn, X, scale
 
 
 def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
@@ -301,6 +504,7 @@ def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
                          lam_h2o: float, lam_ref: float = 0.0,
                          co2_ref=None, h2o_ref=None,
                          defer_eps: float = 1e-3, guard_s: float = 240.0,
+                         want_plan: bool = False,
                          sinkhorn_impl: Optional[str] = None,
                          eps_min: float = 0.005, device=None):
     """Price, mask, and solve one forecast round on the device: two
@@ -308,21 +512,16 @@ def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
 
     Same signature family as ``forecast.planner.build_temporal_plan`` (the
     unfused path), plus the solve. Returns ``(cost, allowed, capacity,
-    SolveResult)``; cost/allowed are re-derived on the host from the
-    normalized costs that come back anyway (equal to the priced tensor on
-    every allowed arc; forbidden arcs carry ``solvers.BIG``).
-    ``device=None`` is the CUDA card; ``sinkhorn_impl`` is chosen as in
-    ``fused_solve``. The reference's ``want_plan`` (offline window
-    recording) and warm-started variant (``SinkhornWarmStart``) are not
-    ported yet.
+    SolveResult)``. With ``want_plan`` (offline window recording) the raw
+    priced tensors come back from the device; otherwise cost/allowed are
+    re-derived on the host from the normalized costs that come back anyway
+    (equal to the priced tensor on every allowed arc; forbidden arcs carry
+    ``solvers.BIG``). ``device=None`` is the CUDA card; ``sinkhorn_impl``
+    is chosen as in ``fused_solve``. The reference's warm-started variant
+    (``SinkhornWarmStart``) is not ported yet.
     """
     dev = platform.device(device)
-    impl = sinkhorn_impl or sinkhorn_impl_default(dev)
-    if impl not in IMPLS:
-        raise ValueError(f"sinkhorn_impl {impl!r} not in {IMPLS}")
-    if dev.type == "cuda" and impl != "kernel":
-        raise ValueError(f"sinkhorn_impl {impl!r} runs on CPU tensors only; "
-                         "a CUDA device takes 'kernel'")
+    impl = _resolve_impl(sinkhorn_impl, dev)
     jobs = inst.jobs
     M, N = inst.shape
     S = len(slot_offsets)
@@ -358,19 +557,19 @@ def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
         blob[:M, 4 + 3 * S * N:4 + 3 * S * N + N] = inst.latency
         blob[:M, 4 + 3 * S * N + N:] = inst.allowed
         rattrs = np.stack([pue, wsf, ref_row, cap]).astype(np.float32)
-        Cn, X, scale = _temporal_program(
+        out = _temporal_program(
             torch.from_numpy(blob).to(dev), torch.from_numpy(rattrs).to(dev),
-            impl=impl, eps_min=float(eps_min),
+            impl=impl, want_plan=bool(want_plan), eps_min=float(eps_min),
             offsets=tuple(float(o) for o in slot_offsets),
             lam_co2=float(lam_co2), lam_h2o=float(lam_h2o),
             defer_eps=float(defer_eps), guard_s=float(guard_s),
             lifetime_s=float(server.lifetime_s),
             embodied_gco2=float(server.embodied_gco2),
             embodied_water_l=float(server.embodied_water_l))
-        Cn, X = torch.stack([Cn, X]).cpu().numpy()
+        Cn, X = torch.stack(out[:2]).cpu().numpy()
         Cn = np.asarray(Cn[:M], np.float64)
         X = np.asarray(X[:M], np.float64)
-        scale = float(scale)
+        scale = float(out[2])
         mask = Cn < torch_solver.BIG * 0.5   # forbidden arcs are exactly BIG
         # De-normalized costs price the objective; identical to the priced
         # tensor on every allowed arc (forbidden arcs never enter objectives).
@@ -385,4 +584,8 @@ def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
             res.backend = "fused"
         t.set(status=res.status)
     res.solve_time_s = t.elapsed_s
+    if want_plan:
+        cost = np.asarray(out[3][:M].cpu().numpy(), np.float64)
+        allowed = out[4][:M].cpu().numpy()
+        return cost, allowed, cap_t, res
     return c_eff, mask, cap_t, res

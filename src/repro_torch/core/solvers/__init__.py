@@ -29,7 +29,9 @@ raises without one), ``"cpu"`` runs them on the host.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Set
 
 import numpy as np
@@ -113,19 +115,76 @@ def available_backends() -> list:
     return sorted(_REGISTRY)
 
 
+# Thread-local solve interception: a batching driver (the ``device``
+# executor) installs a per-thread hook around a cell's whole run; every
+# ``solve()`` the cell issues is offered to the hook first, which may
+# return a SolveResult computed elsewhere (a batch shared with other cells'
+# threads) or ``None`` to decline — declined solves run the normal backend
+# in-thread. Thread-local by design: cells running concurrently each carry
+# their own hook, and code outside an ``intercepted`` block is never
+# affected.
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def intercepted(hook: Callable):
+    """Install ``hook(cost, allowed, capacity, *, backend, soften, overrun,
+    tol, sigma, device) -> Optional[SolveResult]`` for ``solve()`` calls on
+    the current thread. Nests: the innermost hook wins; ``None``
+    restores."""
+    prev = getattr(_LOCAL, "hook", None)
+    _LOCAL.hook = hook
+    try:
+        yield
+    finally:
+        _LOCAL.hook = prev
+
+
 def solve(cost: np.ndarray, allowed: np.ndarray, capacity: np.ndarray,
           *, backend: str = "scipy", soften: bool = False,
           overrun: Optional[np.ndarray] = None,
           tol: Optional[np.ndarray] = None, sigma: float = 10.0,
           device=None) -> SolveResult:
     """Unified entry point. See module docstring; ``device`` reaches the
-    device backends only."""
+    device backends only (and the current thread's hook, if any)."""
     cost = np.asarray(cost, dtype=np.float64)
     allowed = np.asarray(allowed, bool)
     capacity = np.asarray(capacity)
     overrun = None if overrun is None else np.asarray(overrun)
     tol = None if tol is None else np.asarray(tol)
+    hook = getattr(_LOCAL, "hook", None)
+    if hook is not None:
+        res = hook(cost, allowed, capacity, backend=backend, soften=soften,
+                   overrun=overrun, tol=tol, sigma=sigma, device=device)
+        if res is not None:
+            return res
     fn = get_solver(backend)
     kw = dict(device=device) if backend in _ON_DEVICE else {}
     return fn(cost, allowed, capacity, soften=soften, overrun=overrun,
               tol=tol, sigma=sigma, **kw)
+
+
+def solve_many(costs, alloweds, capacities, *, backend: str = "torch",
+               soften: bool = False, overruns=None, tols=None,
+               sigma: float = 10.0, device=None) -> list:
+    """Solve K independent instances; returns SolveResults in input order.
+
+    The ``torch`` backend buckets instances by padded shape and runs each
+    bucket's Sinkhorn once over a leading instance axis (see
+    ``torch_solver.solve_many``) — the amortized path for queued scheduling
+    windows. Every other backend falls back to a per-instance loop. The
+    reference's default ``jax`` is the port's ``torch``.
+    """
+    get_solver(backend)  # trigger registration / validate name
+    if backend == "torch":
+        from repro_torch.core.solvers import torch_solver
+        return torch_solver.solve_many(costs, alloweds, capacities,
+                                       soften=soften, overruns=overruns,
+                                       tols=tols, sigma=sigma, device=device)
+    K = len(costs)
+    overruns = overruns if overruns is not None else [None] * K
+    tols = tols if tols is not None else [None] * K
+    return [solve(costs[k], alloweds[k], capacities[k], backend=backend,
+                  soften=soften, overrun=overruns[k], tol=tols[k],
+                  sigma=sigma, device=device)
+            for k in range(K)]

@@ -13,10 +13,11 @@ Log-domain Sinkhorn with eps-annealing drives X toward a vertex; the host
 then rounds it to an integral assignment (greedy, SSP repair, 2-swap).
 
 The Sinkhorn loop here is eager PyTorch in the reference's XLA order
-(g <- f, then f <- g) and float32 throughout. The numpy host stages are
-copies of the reference's, so equal plans round to equal assignments.
-Warm-started adaptive Sinkhorn and the batched ``solve_many`` are not
-ported yet.
+(g <- f, then f <- g) and float32 throughout; it takes optional leading
+axes of independent instances, which is how ``solve_many`` runs a group of
+same-shape instances at once (the reference vmaps it). The numpy host
+stages are copies of the reference's, so equal plans round to equal
+assignments. The warm-started adaptive Sinkhorn is not ported yet.
 """
 from __future__ import annotations
 
@@ -82,25 +83,29 @@ def _sinkhorn_log_impl(C: torch.Tensor, log_a: torch.Tensor,
     """Log-stabilized Sinkhorn with geometric eps-annealing, eager.
 
     Args:
-      C: [M, N] cost (forbidden arcs already priced at BIG).
-      log_a: [M] log row marginals; log_b: [N] log col marginals. Rows with
-        log_a ~ _NEG carry no mass — padding rows are exact no-ops.
+      C: [..., M, N] cost (forbidden arcs already priced at BIG); leading
+        axes are independent instances.
+      log_a: [..., M] log row marginals; log_b: [..., N] log col marginals.
+        Rows with log_a ~ _NEG carry no mass — padding rows are exact
+        no-ops.
     Returns:
       (f, g, eps): dual potentials and the final eps (a 0-d tensor). The
-      primal plan is X = exp((f[:,None] + g[None,:] - C) / eps).
+      primal plan is X = exp((f[..., :, None] + g[..., None, :] - C) / eps).
     """
     eps_sched = eps_schedule(eps0, eps_min, anneal_stages, C.device)
     f = torch.zeros_like(log_a)
     g = torch.zeros_like(log_b)
     for eps in eps_sched:
         for _ in range(iters):
-            g = eps * (log_b - torch.logsumexp((f[:, None] - C) / eps, dim=0))
-            f = eps * (log_a - torch.logsumexp((g[None, :] - C) / eps, dim=1))
+            g = eps * (log_b - torch.logsumexp((f[..., :, None] - C) / eps,
+                                               dim=-2))
+            f = eps * (log_a - torch.logsumexp((g[..., None, :] - C) / eps,
+                                               dim=-1))
     return f, g, eps_sched[-1]
 
 
 def plan_from_duals(C, f, g, eps):
-    return torch.exp((f[:, None] + g[None, :] - C) / eps)
+    return torch.exp((f[..., :, None] + g[..., None, :] - C) / eps)
 
 
 def _round_to_vertex(X: np.ndarray, cost: np.ndarray, mask: np.ndarray,
@@ -271,3 +276,61 @@ def solve(cost: np.ndarray, allowed: np.ndarray, capacity: np.ndarray, *,
                          device=str(dev))
         return _finalize(X, Cn, c_eff, mask, cap, soften, overrun, tol)
     return solvers._timed(run)
+
+
+def solve_many(costs, alloweds, capacities, *, soften: bool = False,
+               overruns=None, tols=None, sigma: float = 10.0,
+               eps_min: float = 0.005, device=None):
+    """Batched entry point: solve K instances, running the Sinkhorn loop
+    once for each group of same-bucket instances over a leading instance
+    axis (the reference vmaps it).
+
+    Queued scheduling windows (a replayed multi-round trace, a Monte-Carlo
+    ensemble, a seed sweep) usually have jittery row counts; bucketing pads
+    them to a handful of shapes, grouped by (bucket, N) as in the
+    reference. Each instance's result equals a ``solve()`` of it. Returns
+    a list of SolveResults in input order. ``device=None`` is the CUDA
+    card.
+    """
+    dev = platform.device(device)
+    K = len(costs)
+    overruns = overruns if overruns is not None else [None] * K
+    tols = tols if tols is not None else [None] * K
+    results: list = [None] * K
+    groups: dict = {}
+    with obs.timed("solver.solve_many", K=K) as t:
+        for k in range(K):
+            cost = np.asarray(costs[k], np.float64)
+            allowed = np.asarray(alloweds[k], bool)
+            cap = np.asarray(capacities[k]).astype(np.int64)
+            M, N = cost.shape
+            c_eff, mask = _effective(cost, allowed, soften, overruns[k],
+                                     tols[k], sigma)
+            if int(cap.sum()) < M or not mask.any(axis=1).all():
+                results[k] = _infeasible(M)
+                continue
+            rows = M + 1
+            pad = bucket_for(rows) - rows
+            C, log_a, log_b, Cn = _prepare(c_eff, mask, cap, pad)
+            groups.setdefault((bucket_for(rows), N), []).append(
+                (k, C, log_a, log_b, Cn, c_eff, mask, cap))
+        for items in groups.values():
+            Cb = torch.from_numpy(np.stack([it[1] for it in items])).to(dev)
+            la = torch.from_numpy(np.stack([it[2] for it in items])).to(dev)
+            lb = torch.from_numpy(np.stack([it[3] for it in items])).to(dev)
+            fb, gb, eps = _sinkhorn_log_impl(
+                Cb, la, lb, SINKHORN_EPS0, eps_min, SINKHORN_ITERS,
+                SINKHORN_STAGES)
+            plans = plan_from_duals(Cb, fb, gb, eps).cpu().numpy()
+            for it, X in zip(items, plans):
+                k, _, _, _, Cn, c_eff, mask, cap = it
+                M = Cn.shape[0]
+                results[k] = _finalize(X[:M], Cn, c_eff, mask, cap, soften,
+                                       overruns[k], tols[k])
+        t.set(buckets=len(groups),
+              sinkhorn_iters=SINKHORN_ITERS * SINKHORN_STAGES,
+              device=str(dev))
+    per = t.elapsed_s / max(K, 1)
+    for r in results:
+        r.solve_time_s = per
+    return results

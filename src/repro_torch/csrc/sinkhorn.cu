@@ -65,6 +65,22 @@
 // The launch is bound by latency instead: 360 grid-wide syncs and the
 // block reductions between them, in sequence.
 //
+// Many cells in one launch (sinkhorn_anneal_batched). The reference's device
+// executor vmaps the round's body over a leading cell axis, and under vmap
+// the Pallas iteration gains a batch grid axis: one TPU kernel serves many
+// cells. Here the annealed launch takes B cells' C [B, M, N], log_a [B, M]
+// and log_b [B, N] on a grid of (ceil(M / ROWS), B) blocks: blockIdx.y is
+// the cell, blockIdx.x the row block within it, and each cell's blocks
+// write and combine only that cell's own [2, nblocks, N] partials. All
+// cells run the same schedule, so the one grid.sync() an iteration serves
+// them all. The single-cell launch is the B = 1 case of the same kernel, so
+// each cell's f and g are bitwise equal to a single launch on that cell.
+// At bucket 512 a cell is 2 blocks, so one launch of 8 cells fills 16 SMs
+// for about the time one cell's launch takes (it is bound by the latency
+// of its 360 grid syncs, not by the cells' bytes or operations). The grid
+// must be co-resident: sinkhorn_anneal_max_blocks reports how many blocks
+// fit, and the caller splits a larger group into several launches.
+//
 // Built without --use_fast_math: at eps = 0.005 the exponent arguments reach
 // +-2e6 before masking, and expf/logf/division must stay IEEE-accurate for
 // the duals to match the plain version.
@@ -334,9 +350,10 @@ __device__ __forceinline__ void column_combine_batched(
 }
 
 // The whole annealed schedule; see the note at the top. Launched
-// cooperatively with ceil(M / ROWS) blocks and (N * ROWS + N) floats of
-// dynamic shared memory; pmax / psum hold two [nblocks, N] buffers, used
-// by turns. G: the columns reduced together.
+// cooperatively on a grid of (ceil(M / ROWS), B) blocks, blockIdx.y the
+// cell, with (N * ROWS + N) floats of dynamic shared memory; each cell's
+// pmax / psum are two [nblocks, N] buffers, used by turns, at
+// [cell][2][nblocks][N]. G: the columns reduced together.
 template <int G>
 __global__ void __launch_bounds__(ROWS)
 sinkhorn_anneal_kernel(const float* __restrict__ C,
@@ -352,6 +369,18 @@ sinkhorn_anneal_kernel(const float* __restrict__ C,
   __shared__ float red[G][WARPS];
   __shared__ float colm[G];
 
+  // This block's cell: its own slices of every array.
+  const size_t cell = blockIdx.y;
+  const int nblocks = gridDim.x;
+  const size_t half = static_cast<size_t>(nblocks) * N;
+  C += cell * M * N;
+  log_a += cell * M;
+  log_b += cell * N;
+  f += cell * M;
+  g += cell * N;
+  pmax += cell * 2 * half;
+  psum += cell * 2 * half;
+
   const int row0 = blockIdx.x * ROWS;
   const int rows = min(ROWS, M - row0);
   const float* Cb = C + static_cast<size_t>(row0) * N;
@@ -364,8 +393,6 @@ sinkhorn_anneal_kernel(const float* __restrict__ C,
   // A dead thread's row slot is never written; it reads the block's row 0
   // and masks the value out, as the per-iteration kernel does.
   const float* c = Cs + (live ? threadIdx.x : 0);
-  const int nblocks = gridDim.x;
-  const size_t half = static_cast<size_t>(nblocks) * N;
   __syncthreads();
 
   float fi = 0.f;
@@ -386,6 +413,60 @@ sinkhorn_anneal_kernel(const float* __restrict__ C,
   if (live) f[i] = fi;
   if (blockIdx.x == 0)
     for (int j = threadIdx.x; j < N; j += ROWS) g[j] = sg[j];
+}
+
+// The annealed kernel's instantiation for N columns and its dynamic shared
+// memory.
+const void* anneal_kernel_for(int N, size_t* smem) {
+  *smem = sizeof(float) * (static_cast<size_t>(N) * ROWS + N);
+  return N <= 8 ? reinterpret_cast<const void*>(sinkhorn_anneal_kernel<8>)
+                : reinterpret_cast<const void*>(sinkhorn_anneal_kernel<16>);
+}
+
+// Blocks of the annealed kernel at N columns that can be co-resident on the
+// current device.
+cudaError_t anneal_max_blocks(int N, int* blocks) {
+  size_t smem = 0;
+  const void* kernel = anneal_kernel_for(N, &smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, ROWS, smem)) != cudaSuccess)
+    return err;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// B cells' annealed solves in one cooperative launch (B = 1: one cell).
+int anneal_launch(const float* C, const float* log_a, const float* log_b,
+                  const float* eps_table, int stages, int iters, float* f,
+                  float* g, float* pmax, float* psum, int B, int M, int N,
+                  cudaStream_t stream) {
+  if (stages < 1 || stages > MAX_STAGES || iters < 0 || B < 1 || M < 1 ||
+      N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EpsTable table;
+  for (int s = 0; s < stages; ++s) table.eps[s] = eps_table[s];
+  size_t smem = 0;
+  const void* kernel = anneal_kernel_for(N, &smem);
+  const int nblocks = (M + ROWS - 1) / ROWS;
+  int fit = 0;
+  cudaError_t err = anneal_max_blocks(N, &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (static_cast<long long>(nblocks) * B > fit)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&C, &log_a, &log_b, &f, &g, &pmax, &psum, &M, &N,
+                  &iters, &stages, &table};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(nblocks, B), dim3(ROWS),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -427,34 +508,32 @@ int sinkhorn_anneal(const float* C, const float* log_a, const float* log_b,
                     const float* eps_table, int stages, int iters, float* f,
                     float* g, float* pmax, float* psum, int M, int N,
                     cudaStream_t stream) {
-  if (stages < 1 || stages > MAX_STAGES || iters < 0 || M < 1 || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  EpsTable table;
-  for (int s = 0; s < stages; ++s) table.eps[s] = eps_table[s];
-  const void* kernel =
-      N <= 8 ? reinterpret_cast<const void*>(sinkhorn_anneal_kernel<8>)
-             : reinterpret_cast<const void*>(sinkhorn_anneal_kernel<16>);
-  const int nblocks = (M + ROWS - 1) / ROWS;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(N) * ROWS + N);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, ROWS, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm * sms < nblocks)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {&C, &log_a, &log_b, &f, &g, &pmax, &psum, &M, &N,
-                  &iters, &stages, &table};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(nblocks), dim3(ROWS), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return anneal_launch(C, log_a, log_b, eps_table, stages, iters, f, g, pmax,
+                       psum, 1, M, N, stream);
+}
+
+// B cells' annealed solves in one cooperative launch: C [B, M, N], log_a
+// [B, M], log_b [B, N] in, f [B, M] and g [B, N] out; pmax / psum are
+// scratch of [B, 2, ceil(M / ROWS), N] floats. Each cell's f and g are
+// bitwise those of sinkhorn_anneal on that cell. Returns
+// cudaErrorCooperativeLaunchTooLarge when the B x ceil(M / ROWS) blocks
+// cannot be co-resident (see sinkhorn_anneal_max_blocks), else the launch's
+// CUDA error code (0 on success).
+int sinkhorn_anneal_batched(const float* C, const float* log_a,
+                            const float* log_b, const float* eps_table,
+                            int stages, int iters, float* f, float* g,
+                            float* pmax, float* psum, int B, int M, int N,
+                            cudaStream_t stream) {
+  return anneal_launch(C, log_a, log_b, eps_table, stages, iters, f, g, pmax,
+                       psum, B, M, N, stream);
+}
+
+// Into *blocks: how many blocks of the annealed launch at N columns can be
+// co-resident on the current device (per-SM occupancy x SMs). A launch
+// needs B x ceil(M / ROWS) of them. Returns the CUDA error code.
+int sinkhorn_anneal_max_blocks(int N, int* blocks) {
+  if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(anneal_max_blocks(N, blocks));
 }
 
 }  // extern "C"

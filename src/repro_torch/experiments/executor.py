@@ -12,12 +12,16 @@ scale), never a semantic one:
   holds its own CUDA context and loads the kernels already built under
   ``build/repro_torch/``, so on the card the auto-sized pool stops at
   ``CARD_WORKERS``.
-* ``sharded``  — one cell split by arrival time across workers with
-  engine-state handoff; and
-* ``device``   — many cells' scheduling rounds batched into one device
-  program. Both are registered under the reference's grammar and schemas
-  and are not ported yet (queue item [5]): their ``run`` raises
-  ``NotImplementedError``.
+* ``sharded``  — splits each *single* cell's trace by arrival time across
+  worker processes with engine-state handoff + boundary stitching
+  (``repro_torch.experiments.shard``); spawned workers, as ``process``.
+* ``device``   — runs many cells' scheduling rounds batched over a cell
+  axis: one engine thread per cell, every ``fused``-backend solve
+  intercepted and batched across cells into ONE batched body and
+  cell-batched Sinkhorn launch per (bucket, dtype, statics) group
+  (``repro_torch.core.round.fused_round_batch``). Cells the batch cannot
+  serve (forecast-driven policies, non-``fused`` solver backends) run on
+  the serial path, so any plan runs on any backend.
 
 Executors are spec-addressable through the shared grammar —
 ``"process[max_workers=4]"`` — with schemas introspected from the backend
@@ -34,9 +38,11 @@ from __future__ import annotations
 import concurrent.futures
 import multiprocessing
 import os
-from typing import Dict, List, Union
+import threading
+from typing import Dict, List, Optional, Union
 
 import repro_torch.obs as obs
+from repro_torch.core import solvers
 from repro_torch.experiments import runner
 from repro_torch.experiments.plan import Cell
 from repro_torch.spec import (Param, parse_raw, params_from_signature,
@@ -123,11 +129,14 @@ class ProcessExecutor(Executor):
 
 
 class ShardedExecutor(Executor):
-    """Splits each cell's trace across ``shards`` worker slices (not
-    ported yet: queue item [5]).
+    """Splits each cell's trace across ``shards`` worker slices
+    (``repro_torch.experiments.shard``): the single-cell scale-out backend.
 
     ``shards`` trace slices per cell; ``max_workers=0`` auto-sizes the
-    per-cell pool; ``handoff_s=0`` auto-sizes the warm-up handoff window.
+    per-cell pool (``auto_workers``: at most ``CARD_WORKERS`` on the card);
+    ``handoff_s=0`` auto-sizes the warm-up handoff window from the trace's
+    longest possible in-flight span. Cells run one after another — the
+    parallelism lives *inside* each cell.
     """
 
     name = "sharded"
@@ -139,18 +148,98 @@ class ShardedExecutor(Executor):
         self.handoff_s = float(handoff_s)
 
     def run(self, cells: List[Cell], device=None) -> List[Dict]:
-        raise NotImplementedError(
-            "the sharded executor (engine-state handoff across trace "
-            "slices) is not ported yet (queue item [5]); use 'serial' or "
-            "'process'")
+        from repro_torch.experiments import shard
+
+        def one(cell: Cell, device=None) -> Dict:
+            return shard.run_sharded_cell(
+                cell, shards=self.shards,
+                max_workers=self.max_workers or None,
+                handoff_s=self.handoff_s, device=device)
+
+        return [self._guarded(one, c, device) for c in cells]
+
+
+class _CellBatcher:
+    """Lockstep cross-cell solve batcher (the ``device`` backend's core).
+
+    Every participating cell runs in its own thread and funnels each
+    ``fused`` solve here via :func:`repro_torch.core.solvers.intercepted`;
+    :meth:`submit` blocks until the whole wave's requests are flushed as
+    one batch (``flush_fn``) and the caller's result is back.
+
+    Liveness invariant: a flush fires exactly when every *active* thread
+    is blocked in :meth:`submit` — the last arrival executes the flush.
+    A thread that will submit nothing more MUST :meth:`finish` (the
+    executor does so in a ``finally``), which both removes it from the
+    barrier arithmetic and flushes any wave it was holding up. Cells make
+    different numbers of solves (different round counts, hard + soft
+    fallback rounds): late waves simply batch across whichever cells are
+    still running, down to single-request "batches" for the last cell
+    standing — identical results, less amortization.
+
+    A flush exception fans out to every waiting ``submit`` (re-raised in
+    each cell thread → that cell's error row); the batcher itself stays
+    usable for the survivors.
+    """
+
+    def __init__(self, flush_fn):
+        self._flush_fn = flush_fn
+        self._cv = threading.Condition()
+        self._active = 0
+        self._pending: List[list] = []      # [request, result, exception]
+
+    def register(self) -> None:
+        with self._cv:
+            self._active += 1
+
+    def finish(self) -> None:
+        with self._cv:
+            self._active -= 1
+            self._maybe_flush()
+
+    def submit(self, request):
+        item = [request, None, None]
+        with self._cv:
+            self._pending.append(item)
+            self._maybe_flush()
+            while item[1] is None and item[2] is None:
+                self._cv.wait()
+        if item[2] is not None:
+            raise item[2]
+        return item[1]
+
+    def _maybe_flush(self) -> None:
+        # Caller holds the lock. Every active thread pending -> flush now.
+        # (The non-submitting threads are all inside submit(), waiting, so
+        # holding the lock across the flush serializes nothing that could
+        # otherwise run.)
+        if not self._pending or len(self._pending) < self._active:
+            return
+        batch, self._pending = self._pending, []
+        try:
+            results = self._flush_fn([it[0] for it in batch])
+            for it, res in zip(batch, results):
+                it[1] = res
+        except BaseException as e:          # noqa: BLE001 — fan out to cells
+            for it in batch:
+                it[2] = e
+        self._cv.notify_all()
 
 
 class DeviceExecutor(Executor):
-    """Device-parallel cell execution, the cells' fused solves batched into
-    one device program a round wave (not ported yet: queue item [5]).
+    """Batched cell execution: one engine thread per cell, the cells' fused
+    scheduling solves batched into ONE batched body and cell-batched
+    Sinkhorn launch per round wave
+    (``repro_torch.core.round.fused_round_batch``).
 
-    ``devices=0`` auto-sizes to every visible device; ``max_cells=0`` runs
-    all batchable cells as one wave.
+    ``devices=0`` auto-sizes to every visible CUDA card (one for
+    ``device="cpu"``); with more than one, each group is split into
+    contiguous shards, one a card. ``max_cells=0`` runs all batchable cells
+    as one wave, else waves of at most ``max_cells`` threads. Cells whose
+    policy cannot batch — forecast-driven pipelines (their fused path
+    pre-solves inside pricing) and non-``fused`` solver backends — run on
+    the serial path first; rows come back in plan order either way, equal
+    to ``serial``'s.
     """
 
     name = "device"
@@ -159,11 +248,81 @@ class DeviceExecutor(Executor):
         self.devices = int(devices)
         self.max_cells = int(max_cells)
 
+    @staticmethod
+    def _batchable(cell: Cell) -> bool:
+        """True when the cell's every hard/soft solve goes through solver
+        backend ``"fused"`` — the one program the batch path serves.
+        Forecast-driven policies are excluded even with ``backend=fused``:
+        their fused path pre-solves inside pricing (``PricedPlan.presolved``)
+        and never reaches ``solvers.solve``, so a barrier slot for them
+        could deadlock the wave. Anything unclassifiable is non-batchable
+        (clean fallback beats a wrong classification)."""
+        from repro_torch import policy
+        try:
+            spec = policy.as_spec(cell.policy)
+            entry = policy.get_policy(spec.name)
+            if entry.forecast_driven:
+                return False
+            backend = spec.params.get("backend")
+            if backend is None:
+                p = entry.params.get("backend")
+                backend = None if p is None else p.default
+            return backend == "fused"
+        except Exception:                   # noqa: BLE001 — conservative
+            return False
+
+    def _run_threaded(self, cell: Cell, i: int, rows: List,
+                      batcher: _CellBatcher, cell_device) -> None:
+        from repro_torch.core.round import SolveRequest
+
+        def hook(cost, allowed, capacity, *, backend, soften, overrun, tol,
+                 sigma, device):
+            if backend != "fused" or device != cell_device:
+                return None                 # decline: solve runs in-thread
+            return batcher.submit(SolveRequest(
+                cost=cost, allowed=allowed, capacity=capacity,
+                soften=soften, overrun=overrun, tol=tol, sigma=sigma))
+
+        try:
+            with solvers.intercepted(hook):
+                rows[i] = self._guarded(runner.run_cell, cell, cell_device)
+        finally:
+            batcher.finish()
+
     def run(self, cells: List[Cell], device=None) -> List[Dict]:
-        raise NotImplementedError(
-            "the device executor (cells' fused solves batched over a cell "
-            "axis) is not ported yet (queue item [5]); use 'serial' or "
-            "'process'")
+        from repro_torch.core import round as fused_round
+        from repro_torch.runtime import platform
+
+        avail = fused_round.visible_devices(platform.device(device))
+        devices = self.devices or avail
+        if devices > avail:
+            obs.warn("executor.device_clamp",
+                     f"device executor asked for {devices} devices but only "
+                     f"{avail} are visible — clamping")
+            devices = avail
+        rows: List[Optional[Dict]] = [None] * len(cells)
+        batched = [i for i, c in enumerate(cells) if self._batchable(c)]
+        serial = [i for i in range(len(cells)) if i not in set(batched)]
+        for i in serial:
+            rows[i] = self._guarded(runner.run_cell, cells[i], device)
+        wave = self.max_cells or max(len(batched), 1)
+        for start in range(0, len(batched), wave):
+            chunk = batched[start:start + wave]
+            batcher = _CellBatcher(
+                lambda reqs: fused_round.fused_round_batch(
+                    reqs, devices=devices, device=device))
+            threads = []
+            for i in chunk:
+                batcher.register()
+                threads.append(threading.Thread(
+                    target=self._run_threaded,
+                    args=(cells[i], i, rows, batcher, device),
+                    name=f"device-cell-{i}", daemon=True))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        return rows
 
 
 _EXECUTORS = {cls.name: cls

@@ -1,11 +1,13 @@
-"""Public wrappers for the Sinkhorn kernels: one iteration, and the whole
-annealed solve in one launch (the scheduling round's path)."""
+"""Public wrappers for the Sinkhorn kernels: one iteration, the whole
+annealed solve in one launch (the scheduling round's path), and many
+cells' annealed solves in one launch (the device executor's path)."""
 from __future__ import annotations
 
 import ctypes
 
 from repro_torch.kernels.sinkhorn import sinkhorn
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_iteration_ref,
+                                              sinkhorn_solve_batched_ref,
                                               sinkhorn_solve_ref)
 
 
@@ -47,3 +49,17 @@ def sinkhorn_solve(C, log_a, log_b, table, iters):
     if C.device.type != "cpu":
         raise ValueError(f"no Sinkhorn kernel for device {C.device}")
     return sinkhorn_solve_ref(C, log_a, log_b, table, iters)
+
+
+def sinkhorn_solve_batched(C, log_a, log_b, table, iters):
+    """The annealed solve of B cells: C [B, M, N], log_a [B, M], log_b
+    [B, N]. A CUDA tensor launches the cell-batched kernel (several
+    launches when the cells cannot all be co-resident; raises on what it
+    does not take); a CPU tensor takes the plain loop over the cell axis.
+    Each cell's (f, g) equals ``sinkhorn_solve`` on that cell."""
+    if C.device.type == "cuda":
+        return sinkhorn.sinkhorn_solve_batched_cuda(C, log_a, log_b, table,
+                                                    iters)
+    if C.device.type != "cpu":
+        raise ValueError(f"no Sinkhorn kernel for device {C.device}")
+    return sinkhorn_solve_batched_ref(C, log_a, log_b, table, iters)

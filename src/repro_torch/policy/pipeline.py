@@ -22,8 +22,9 @@ A ``PolicyPipeline`` is assembled from composable stages:
                       backends (``torch``, ``fused``).
 
 All stages speak one protocol — ``schedule(jobs, now_s, capacity) ->
-Decision``. Offline window replay (``record_windows`` /
-``replay_recorded``) and the warm-started Sinkhorn are not ported yet.
+Decision``. ``record_windows=True`` captures every solved window for
+offline replay through ``solvers.solve_many`` (``replay_recorded``). The
+warm-started Sinkhorn is not ported yet.
 """
 from __future__ import annotations
 
@@ -416,7 +417,7 @@ class ForecastPricer(Pricer):
                 offsets, pipe.server, pipe.lam_co2, pipe.lam_h2o,
                 pipe.lam_ref, pipe.history.co2_ref, pipe.history.h2o_ref,
                 defer_eps=self.defer_eps, guard_s=self.guard_s,
-                device=pipe.device)
+                want_plan=pipe.record_windows, device=pipe.device)
             S = len(offsets)
             return PricedPlan(cost=cost, allowed=allowed, capacity=cap,
                               overrun=np.tile(inst.overrun, (1, S)),
@@ -633,7 +634,8 @@ class PolicyPipeline:
                  lam_co2: float = 0.5, lam_h2o: float = 0.5,
                  lam_ref: float = 0.1, window: int = 10,
                  sigma: float = 10.0, backend: str = "flow",
-                 lam_emb: float = 0.0, device=None):
+                 lam_emb: float = 0.0, record_windows: bool = False,
+                 device=None):
         assert abs(lam_co2 + lam_h2o + lam_emb - 1.0) < 1e-9, \
             "footprint weights must sum to 1"
         self.tele = tele
@@ -648,6 +650,12 @@ class PolicyPipeline:
         self.device = device
         self.history = HistoryLearner(tele.num_regions, window)
         self.solve_times: List[float] = []
+        # Offline queued-window replay: when enabled, every solved instance
+        # (the one that produced the round's decision) is captured so the
+        # whole run can be re-solved in bulk through ``solvers.solve_many``
+        # (bucketed, one batched Sinkhorn per bucket).
+        self.record_windows = record_windows
+        self.recorded: List[dict] = []
         self.pricer = pricer
         self.deferral = deferral or NextRoundDeferral()
         self.pricer.bind(self)
@@ -665,6 +673,44 @@ class PolicyPipeline:
                 return getattr(stage, name)
         raise AttributeError(
             f"{type(self).__name__!r} object has no attribute {name!r}")
+
+    # -- offline replay ------------------------------------------------------
+
+    def _record(self, cost, allowed, capacity, overrun, tol, soften) -> None:
+        if self.record_windows:
+            self.recorded.append(dict(
+                cost=np.array(cost), allowed=np.array(allowed),
+                capacity=np.array(capacity), overrun=np.array(overrun),
+                tol=np.array(tol), soften=bool(soften)))
+
+    def replay_recorded(self, backend: str = "torch"
+                        ) -> List[solvers.SolveResult]:
+        """Re-solve every recorded scheduling window through the batched
+        ``solvers.solve_many`` path, on the pipeline's device; results come
+        back in round order.
+
+        Hard and soft rounds are batched separately (``soften`` is a batch-
+        level flag); with the default ``torch`` backend each group buckets
+        by padded shape and runs one batched Sinkhorn per bucket. The
+        reference's default ``jax`` is the port's ``torch``.
+        """
+        out: List[Optional[solvers.SolveResult]] = [None] * len(self.recorded)
+        for soften in (False, True):
+            idx = [i for i, w in enumerate(self.recorded)
+                   if w["soften"] == soften]
+            if not idx:
+                continue
+            res = solvers.solve_many(
+                [self.recorded[i]["cost"] for i in idx],
+                [self.recorded[i]["allowed"] for i in idx],
+                [self.recorded[i]["capacity"] for i in idx],
+                backend=backend, soften=soften,
+                overruns=[self.recorded[i]["overrun"] for i in idx],
+                tols=[self.recorded[i]["tol"] for i in idx],
+                sigma=self.sigma, device=self.device)
+            for i, r in zip(idx, res):
+                out[i] = r
+        return out
 
     # -- Algorithm 1 ---------------------------------------------------------
 
@@ -710,7 +756,10 @@ class PolicyPipeline:
                                     backend=self.backend, soften=False,
                                     overrun=plan.overrun, tol=tol,
                                     sigma=self.sigma, device=self.device)
-            if not res.feasible:                             # lines 10-11
+            if res.feasible:
+                self._record(plan.cost, plan.allowed, plan.capacity,
+                             plan.overrun, tol, False)
+            else:                                            # lines 10-11
                 # Soft fallback is slot-0 only: a job that must overrun its
                 # tolerance should pay the Eq 12-13 penalty and run *now*,
                 # not hide in a future slot or behind the defer arc.
@@ -726,6 +775,8 @@ class PolicyPipeline:
                                     backend=self.backend, soften=True,
                                     overrun=inst.overrun, tol=tol,
                                     sigma=self.sigma, device=self.device)
+                self._record(cost0, inst.allowed, capacity, inst.overrun,
+                             tol, True)
             obs.annotate(softened=softened, status=res.status)
         self.solve_times.append(res.solve_time_s)
 
@@ -780,17 +831,14 @@ def reactive_pipeline(tele: telemetry.Telemetry, *,
     pricing + virtual defer arc, hard→soft MILP fallback. ``lam_emb`` adds
     the embodied-carbon dimension to the objective (``waterwise-embodied``);
     ``device`` is where the device backends run (None: the CUDA card).
-    ``record_windows=True`` (offline replay) is not ported yet and raises
-    ``NotImplementedError``, as ``forecast_pipeline``'s does."""
-    if record_windows:
-        raise NotImplementedError(
-            "record_windows=True (offline window replay through solve_many) "
-            "is not ported yet")
+    ``record_windows=True`` keeps every solved window for
+    ``replay_recorded``."""
     return PolicyPipeline(
         tele, SnapshotPricer(defer_margin, defer_slack_s),
         NextRoundDeferral(), server=server, lam_co2=lam_co2,
         lam_h2o=lam_h2o, lam_ref=lam_ref, window=window, sigma=sigma,
-        backend=backend, lam_emb=lam_emb, device=device)
+        backend=backend, lam_emb=lam_emb, record_windows=record_windows,
+        device=device)
 
 
 def forecast_pipeline(tele: telemetry.Telemetry, *,
@@ -818,13 +866,9 @@ def forecast_pipeline(tele: telemetry.Telemetry, *,
     ``replan_guard_s`` commit window and ``replan_margin`` early-run
     hysteresis. ``device`` is where the device backends and forecasters run
     (None: the CUDA card). The reference's ``backend="jax"`` default is the
-    port's ``"torch"``. ``warm=True`` (warm-started Sinkhorn) and
-    ``record_windows=True`` (offline replay) are not ported yet and raise
-    ``NotImplementedError``."""
-    if record_windows:
-        raise NotImplementedError(
-            "record_windows=True (offline window replay through solve_many) "
-            "is not ported yet")
+    port's ``"torch"``. ``record_windows=True`` keeps every solved window
+    for ``replay_recorded``. ``warm=True`` (warm-started Sinkhorn) is not
+    ported yet and raises ``NotImplementedError``."""
     pricer = ForecastPricer(
         forecaster=forecaster, horizon_slots=horizon_slots, slot_s=slot_s,
         risk=risk, defer_eps=defer_eps, guard_s=guard_s,
@@ -836,4 +880,5 @@ def forecast_pipeline(tele: telemetry.Telemetry, *,
     return PolicyPipeline(
         tele, pricer, deferral, server=server,
         lam_co2=lam_co2, lam_h2o=lam_h2o, lam_ref=lam_ref, window=window,
-        sigma=sigma, backend=backend, device=device)
+        sigma=sigma, backend=backend, record_windows=record_windows,
+        device=device)

@@ -581,3 +581,128 @@ def test_process_plan_on_card_equals_serial(card):
                  if k not in ("wall_s", "mean_solve_ms")} for r in rows]
     assert all(r["error"] == "" for r in serial + proc), serial + proc
     assert strip(proc) == strip(serial)
+
+
+# --- Many cells in one launch: the device executor's path --------------------
+
+def _cells(card, B, M, N, seed):
+    rng = np.random.default_rng(seed)
+    C = torch.from_numpy(rng.random((B, M, N)).astype(np.float32)).to(card)
+    log_a = torch.full((B, M), -float(np.log(M)), device=card)
+    b = rng.random((B, N)) + 0.5
+    log_b = torch.from_numpy(np.log(b / b.sum(1, keepdims=True))
+                             .astype(np.float32)).to(card)
+    return C, log_a, log_b
+
+
+@pytest.mark.parametrize("B,M,N", [(1, 512, 6), (3, 512, 6), (8, 512, 6),
+                                   (3, 4096, 6), (8, 512, 40), (5, 4, 41)])
+def test_batched_anneal_is_bitwise_single_launches(card, B, M, N):
+    """The cell-batched launch against one ``sinkhorn_anneal`` launch a
+    cell: f and g bit for bit (one kernel, blockIdx.y the cell); and within
+    ATOL of the plain batched loop."""
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_batched_ref
+    C, log_a, log_b = _cells(card, B, M, N, seed=B * M + N)
+    table = ops.eps_table(0.5, 0.005, 6)
+    before = (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.ANNEAL_BATCHED_LAUNCHES)
+    f_b, g_b = ops.sinkhorn_solve_batched(C, log_a, log_b, table, 60)
+    torch.cuda.synchronize()
+    assert (sinkhorn.ANNEAL_LAUNCHES,
+            sinkhorn.ANNEAL_BATCHED_LAUNCHES) == (before[0], before[1] + 1)
+    for b in range(B):
+        f, g = sinkhorn.sinkhorn_solve_cuda(C[b], log_a[b], log_b[b],
+                                            table, 60)
+        assert torch.equal(f_b[b], f) and torch.equal(g_b[b], g)
+    f_r, g_r = sinkhorn_solve_batched_ref(C, log_a, log_b, table, 60)
+    assert (f_b - f_r).abs().max().item() <= ATOL
+    assert (g_b - g_r).abs().max().item() <= ATOL
+
+
+def test_batched_anneal_splits_a_group_that_cannot_be_coresident(card):
+    """20 cells at bucket 16384 (64 blocks each) exceed what the card holds
+    at once: the wrapper splits them into several launches of as many as
+    fit, by the library's own count, and no cell's bits change."""
+    B, M, N = 20, 16384, 6
+    C, log_a, log_b = _cells(card, B, M, N, seed=11)
+    table = ops.eps_table(0.5, 0.005, 6)
+    fit = sinkhorn.max_blocks(N, C.device) // (M // sinkhorn.rows_per_block())
+    assert 1 <= fit < B
+    before = sinkhorn.ANNEAL_BATCHED_LAUNCHES
+    f_b, g_b = ops.sinkhorn_solve_batched(C, log_a, log_b, table, 60)
+    torch.cuda.synchronize()
+    assert sinkhorn.ANNEAL_BATCHED_LAUNCHES - before == -(-B // fit)
+    for b in (0, fit - 1, fit, B - 1):
+        f, g = sinkhorn.sinkhorn_solve_cuda(C[b], log_a[b], log_b[b],
+                                            table, 60)
+        assert torch.equal(f_b[b], f) and torch.equal(g_b[b], g)
+
+
+def test_batched_anneal_rejects_bad_inputs(card):
+    C, log_a, log_b = _cells(card, 2, 128, 6, seed=1)
+    table = ops.eps_table(0.5, 0.005, 6)
+    with pytest.raises(ValueError, match="shape"):
+        sinkhorn.sinkhorn_solve_batched_cuda(C[0], log_a, log_b, table, 60)
+    with pytest.raises(ValueError, match="shape"):
+        sinkhorn.sinkhorn_solve_batched_cuda(C, log_a[:1], log_b, table, 60)
+    with pytest.raises(ValueError, match="contiguous"):
+        sinkhorn.sinkhorn_solve_batched_cuda(
+            C.transpose(1, 2).contiguous().transpose(1, 2), log_a, log_b,
+            table, 60)
+    with pytest.raises(TypeError):
+        sinkhorn.sinkhorn_solve_batched_cuda(C.double(), log_a.double(),
+                                             log_b.double(), table, 60)
+
+
+def test_round_batch_on_card_makes_one_batched_launch_a_group(card):
+    """``fused_round_batch`` on the card: one cell-batched launch per
+    (bucket, statics) group and no single-cell launch; every cell's
+    decisions bitwise those of its own ``fused_solve`` on the card."""
+    rng = np.random.default_rng(8)
+    reqs = []
+    for k in range(6):          # buckets 16 and 32, hard and soft: 4 groups
+        M, N = 10 + 3 * k, 6
+        cost = rng.uniform(1.0, 5.0, (M, N))
+        allowed = rng.random((M, N)) > 0.2
+        allowed[:, 0] = True
+        reqs.append(port_round.SolveRequest(
+            cost=cost, allowed=allowed, capacity=np.full(N, M, np.int64),
+            soften=bool(k % 2), overrun=rng.uniform(0.0, 2.0, (M, N)),
+            tol=rng.uniform(0.0, 1.0, M), sigma=8.0))
+    groups = len(port_round.group_requests(reqs))
+    before = (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES,
+              sinkhorn.ANNEAL_BATCHED_LAUNCHES)
+    out = port_round.fused_round_batch(reqs)
+    assert (sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES,
+            sinkhorn.ANNEAL_BATCHED_LAUNCHES) == (before[0], before[1],
+                                                  before[2] + groups)
+    for r, b in zip(reqs, out):
+        single = port_round.fused_solve(
+            r.cost, r.allowed, r.capacity, soften=r.soften,
+            overrun=r.overrun, tol=r.tol, sigma=r.sigma)
+        assert (b.status, b.objective) == (single.status, single.objective)
+        np.testing.assert_array_equal(b.assign, single.assign)
+    with pytest.raises(ValueError, match="exceeds"):
+        port_round.fused_round_batch(reqs,
+                                     devices=torch.cuda.device_count() + 1)
+
+
+def test_device_plan_on_card_equals_serial(card):
+    """Two seeds of ``waterwise[backend=fused]`` and a rule scheduler
+    through the ``device`` executor on the card: the serial rows on every
+    column but the wall times, the fused cells' solves through
+    cell-batched launches only."""
+    from repro_torch import experiments
+    plan = experiments.ExperimentPlan.build(
+        ["nominal[days=0.01,jobs_per_day=20000,seed=2]"],
+        ["baseline", "waterwise[backend=fused]"], seeds=[0, 1])
+    serial = plan.run("serial")
+    before = (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.ANNEAL_BATCHED_LAUNCHES)
+    device = plan.run("device")
+    assert sinkhorn.ANNEAL_LAUNCHES == before[0]
+    assert sinkhorn.ANNEAL_BATCHED_LAUNCHES > before[1]
+
+    def strip(rows):
+        return [{k: v for k, v in r.items()
+                 if k not in ("wall_s", "mean_solve_ms")} for r in rows]
+    assert all(r["error"] == "" for r in serial + device), serial + device
+    assert strip(device) == strip(serial)

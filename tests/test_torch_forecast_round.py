@@ -153,11 +153,29 @@ def test_learned_round_matches_reference(teles, cell, monkeypatch):
 
 
 def test_unported_options_raise(teles):
+    """``warm=True`` (the warm-started Sinkhorn) is not ported and raises;
+    ``record_windows=True`` records each fused round's priced tensors (the
+    ``want_plan`` ones) for a replay through ``solve_many``."""
     _, tele = teles
     with pytest.raises(NotImplementedError, match="warm"):
         forecast_pipeline(tele, warm=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="record_windows"):
-        forecast_pipeline(tele, record_windows=True, device="cpu")
+    pipe = forecast_pipeline(tele, record_windows=True, backend="fused",
+                             device="cpu")
+    jobs = [problem.Job(job_id=i, home_region=i % 5, submit_time_s=0.0,
+                        exec_time_s=600.0, energy_kwh=0.05, tolerance=4.0)
+            for i in range(6)]
+    dec = pipe.schedule(jobs, 0.0, np.full(5, 2))
+    assert len(pipe.recorded) == 1
+    window = pipe.recorded[0]
+    S, R = pipe.horizon_slots, 5
+    assert window["cost"].shape == window["allowed"].shape == (6, S * R)
+    assert window["cost"].dtype == np.float64
+    np.testing.assert_array_equal(window["capacity"], np.tile(np.full(R, 2),
+                                                              S))
+    (replayed,) = pipe.replay_recorded()
+    assert replayed.feasible and replayed.backend == "torch"
+    assert int((replayed.assign >= 0).sum()) == \
+        int((dec.solver.assign >= 0).sum())
 
 
 def test_forecast_pipeline_needs_a_device_for_device_models(teles,

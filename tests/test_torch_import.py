@@ -20,8 +20,9 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 def test_main_path_imports_without_jax_or_reference():
     """With jax blocked: import the main paths of the slices, then run one
     learned-forecaster forward, one Holt-Winters fit, a two-cell plan
-    built from spec strings and one reduced-config LM prefill per
-    architecture on the CPU."""
+    built from spec strings (serial, then two seeds through the ``device``
+    executor) and one reduced-config LM prefill per architecture on the
+    CPU."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -49,6 +50,12 @@ def test_main_path_imports_without_jax_or_reference():
         "rows = experiments.ExperimentPlan.build(\n"
         "    ['nominal[days=0.01,jobs_per_day=5000]'],\n"
         "    ['baseline', 'waterwise[backend=fused]']).run(device='cpu')\n"
+        "assert [r['error'] for r in rows] == ['', ''], rows\n"
+        "import repro_torch.experiments.shard\n"
+        "rows = experiments.ExperimentPlan.build(\n"
+        "    ['nominal[days=0.01,jobs_per_day=5000]'],\n"
+        "    ['waterwise[backend=fused]'], seeds=[0, 1]).run(\n"
+        "    'device', device='cpu')\n"
         "assert [r['error'] for r in rows] == ['', ''], rows\n"
         "import repro_torch.runtime.serve_loop\n"
         "import repro_torch.kernels.flash_attention.ops\n"

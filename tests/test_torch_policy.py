@@ -249,16 +249,35 @@ def test_backend_jax_fails_at_build_naming_torch(tele):
 
 
 def test_reactive_pipeline_takes_record_windows(tele):
-    """The reference's ``record_windows`` parameter exists on the port's
-    reactive factory (so the two ``waterwise`` schemas agree) and raises
-    when set, as the forecast factory's does."""
+    """The reference's ``record_windows`` parameter on the port's reactive
+    factory and spec: off by default; on, every solved window is kept
+    (cost, mask, capacity, overrun, tol, soften) and replays through
+    ``solve_many`` to the run's placements."""
+    from repro_torch.core import problem
     assert policy.parse("waterwise[record_windows=false]").params == \
         {"record_windows": False}
-    assert reactive_pipeline(tele, record_windows=False).backend == "flow"
-    with pytest.raises(NotImplementedError, match="record_windows"):
-        reactive_pipeline(tele, record_windows=True)
-    with pytest.raises(NotImplementedError, match="record_windows"):
-        policy.build("waterwise[record_windows=true]", tele, device="cpu")
+    off = reactive_pipeline(tele, record_windows=False)
+    assert off.backend == "flow" and off.record_windows is False
+    jobs = [problem.Job(job_id=i, home_region=i % 5, submit_time_s=0.0,
+                        exec_time_s=600.0, energy_kwh=0.05, tolerance=1.0)
+            for i in range(12)]
+    for pipe in (reactive_pipeline(tele, record_windows=True,
+                                   backend="fused", device="cpu"),
+                 policy.build("waterwise[record_windows=true]", tele,
+                              device="cpu")):
+        assert pipe.record_windows is True and pipe.recorded == []
+        dec = pipe.schedule(jobs, 0.0, np.full(5, 4))
+        assert len(pipe.recorded) == 1
+        window = pipe.recorded[0]
+        assert window["cost"].shape == window["allowed"].shape
+        assert window["cost"].shape[0] == 12
+        assert window["soften"] is False
+        (replayed,) = pipe.replay_recorded(backend="torch")
+        assert replayed.feasible
+        assert int((replayed.assign >= 0).sum()) == \
+            int((dec.solver.assign >= 0).sum())
+    off.schedule(jobs, 0.0, np.full(5, 4))
+    assert off.recorded == [] and off.replay_recorded() == []
 
 
 def test_solve_defaults_to_scipy_like_reference():

@@ -13,7 +13,8 @@ from repro.core.round import _sinkhorn_pallas
 from repro.kernels.sinkhorn.ops import sinkhorn_iteration as jax_iteration
 from repro.kernels.sinkhorn.ref import sinkhorn_iteration_ref as jax_ref
 from repro_torch.kernels.sinkhorn import ops, sinkhorn
-from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_ref
+from repro_torch.kernels.sinkhorn.ref import (sinkhorn_solve_batched_ref,
+                                              sinkhorn_solve_ref)
 
 # The tolerance of the reference's own kernel test (test_kernels.py).
 ATOL = 2e-4
@@ -143,3 +144,78 @@ def test_solve_wrapper_rejects_what_the_launch_does_not_take():
     meta = [t.to("meta") for t in (C, log_a, log_b)]
     with pytest.raises(ValueError, match="no Sinkhorn kernel"):
         ops.sinkhorn_solve(*meta, table, 60)
+
+
+# --- Many cells at once: the cell-batched launch's plain version -------------
+
+def _cells(B, M, N, seed):
+    rng = np.random.default_rng(seed)
+    C = rng.random((B, M, N)).astype(np.float32)
+    log_a = np.full((B, M), -np.log(M), np.float32)
+    b = rng.random((B, N)) + 0.5
+    log_b = np.log(b / b.sum(1, keepdims=True)).astype(np.float32)
+    return C, log_a, log_b
+
+
+@pytest.mark.parametrize("B,M,N", [(1, 4, 6), (3, 16, 6), (5, 128, 41),
+                                   (8, 512, 6), (2, 512, 40), (4, 7, 3)])
+def test_batched_plain_solve_is_bitwise_the_per_cell_loop(B, M, N):
+    """The plain version of the cell-batched launch, cell for cell, bit for
+    bit the single-cell plain loop (each reduction runs within its cell),
+    and no launch on a CPU tensor."""
+    C, log_a, log_b = (torch.from_numpy(x) for x in _cells(B, M, N, B + M))
+    table = ops.eps_table(0.5, 0.005, 6)
+    before = (sinkhorn.ANNEAL_LAUNCHES, sinkhorn.ANNEAL_BATCHED_LAUNCHES)
+    f_b, g_b = ops.sinkhorn_solve_batched(C, log_a, log_b, table, 60)
+    assert (sinkhorn.ANNEAL_LAUNCHES,
+            sinkhorn.ANNEAL_BATCHED_LAUNCHES) == before
+    assert f_b.shape == (B, M) and g_b.shape == (B, N)
+    for b in range(B):
+        f, g = sinkhorn_solve_ref(C[b], log_a[b], log_b[b], table, 60)
+        assert torch.equal(f_b[b], f) and torch.equal(g_b[b], g)
+
+
+@pytest.mark.parametrize("B,M,N", [(3, 16, 6), (2, 64, 40)])
+def test_batched_plain_solve_matches_vmapped_pallas_anneal(B, M, N):
+    """Against the reference's batched path: ``jax.vmap`` of its annealed
+    loop of the Pallas kernel (interpret mode) over the cell axis, as its
+    ``fused_round_batch`` runs it; two stages of 20 iterations keep the
+    interpreted loop short. Within SOLVE_ATOL."""
+    import functools
+
+    import jax
+    C, log_a, log_b = _cells(B, M, N, B * N)
+    run = functools.partial(_sinkhorn_pallas, eps0=0.5, eps_min=0.05,
+                            iters=20, anneal_stages=2, interpret=True)
+    f_j, g_j, _ = jax.vmap(run)(jnp.asarray(C), jnp.asarray(log_a),
+                                jnp.asarray(log_b))
+    f_t, g_t = sinkhorn_solve_batched_ref(
+        torch.from_numpy(C), torch.from_numpy(log_a), torch.from_numpy(log_b),
+        ops.eps_table(0.5, 0.05, 2), 20)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), atol=SOLVE_ATOL)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=SOLVE_ATOL)
+
+
+def test_batched_wrapper_rejects_what_the_launch_does_not_take():
+    """The cell-batched binding raises before any build or launch on host
+    memory, a bad shape or a bad schedule; the dispatch in ops is the only
+    route from a CPU tensor to the plain loop."""
+    C, log_a, log_b = (torch.from_numpy(x) for x in _cells(2, 128, 6, 0))
+    table = ops.eps_table(0.5, 0.005, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        sinkhorn.sinkhorn_solve_batched_cuda(C, log_a, log_b, table, 60)
+    with pytest.raises(ValueError, match="shape"):
+        sinkhorn.sinkhorn_solve_batched_cuda(C[0], log_a, log_b, table, 60)
+    wide = torch.zeros(2, 4, sinkhorn.MAX_ANNEAL_COLUMNS + 1)
+    with pytest.raises(ValueError, match="unsupported"):
+        sinkhorn.sinkhorn_solve_batched_cuda(
+            wide, log_a[:, :4], torch.zeros(2, wide.shape[2]), table, 60)
+    with pytest.raises(ValueError, match="stages"):
+        sinkhorn.sinkhorn_solve_batched_cuda(C, log_a, log_b, [], 60)
+    with pytest.raises(ValueError, match="iters"):
+        sinkhorn.sinkhorn_solve_batched_cuda(C, log_a, log_b, table, 1.5)
+    with pytest.raises(ValueError, match="B, M, N"):
+        sinkhorn_solve_batched_ref(C[0], log_a[0], log_b[0], table, 60)
+    meta = [t.to("meta") for t in (C, log_a, log_b)]
+    with pytest.raises(ValueError, match="no Sinkhorn kernel"):
+        ops.sinkhorn_solve_batched(*meta, table, 60)

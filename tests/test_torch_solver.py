@@ -126,3 +126,110 @@ def test_fused_rejects_unknown_impl():
     with pytest.raises(ValueError, match="sinkhorn_impl"):
         port_round.fused_solve(cost, allowed, cap, sinkhorn_impl="xla",
                                device="cpu")
+
+
+# --- solve_many: queued windows in one batched Sinkhorn a bucket -------------
+
+def _random_instance(rng):
+    """The instances of tests/test_scenarios.py's solve_many tests."""
+    M = int(rng.integers(3, 30))
+    N = int(rng.integers(2, 6))
+    cost = rng.random((M, N)) * 10
+    allowed = rng.random((M, N)) < 0.85
+    allowed[np.arange(M), rng.integers(0, N, M)] = True
+    cap = rng.integers(1, max(M // max(N - 1, 1), 2), N)
+    while cap.sum() < M:
+        cap[rng.integers(0, N)] += 1
+    return cost, allowed, cap
+
+
+@pytest.mark.parametrize("soften", [False, True])
+def test_solve_many_matches_single_solves(soften):
+    """Each instance of a batched ``solve_many`` equals its own ``solve``
+    (same decisions, same float64 objective: the batched Sinkhorn is the
+    single one over a leading axis, bitwise on the CPU), and the
+    reference's ``solve_many`` over ``jax``; capacities hold."""
+    rng = np.random.default_rng(11 + soften)
+    insts = [_random_instance(rng) for _ in range(12)]
+    costs, alloweds, caps = map(list, zip(*insts))
+    kw = {}
+    if soften:
+        kw = dict(overruns=[rng.random(c.shape) * 3 for c in costs],
+                  tols=[rng.random(c.shape[0]) * 2 for c in costs])
+    batched = solvers.solve_many(costs, alloweds, caps, backend="torch",
+                                 soften=soften, device="cpu", **kw)
+    ref = ref_solvers.solve_many(costs, alloweds, caps, backend="jax",
+                                 soften=soften, **kw)
+    assert len(batched) == len(insts) == len(ref)
+    for k, (c, a, p) in enumerate(insts):
+        single = solvers.solve(c, a, p, backend="torch", device="cpu",
+                               soften=soften,
+                               overrun=kw.get("overruns", [None] * 12)[k],
+                               tol=kw.get("tols", [None] * 12)[k])
+        _assert_same(single, batched[k], "torch")
+        _assert_same(ref[k], batched[k], "torch")
+        if batched[k].feasible:
+            assert (np.bincount(batched[k].assign, minlength=len(p))
+                    <= p).all()
+
+
+def test_solve_many_loop_fallback_backend():
+    rng = np.random.default_rng(13)
+    insts = [_random_instance(rng) for _ in range(4)]
+    costs, alloweds, caps = map(list, zip(*insts))
+    rs = solvers.solve_many(costs, alloweds, caps, backend="flow")
+    for (c, a, p), r in zip(insts, rs):
+        ref = solvers.solve(c, a, p, backend="flow")
+        assert r.status == ref.status and r.backend == "flow"
+        if r.feasible:
+            assert r.objective == pytest.approx(ref.objective, abs=1e-9)
+    with pytest.raises(KeyError, match="'torch'"):
+        solvers.solve_many(costs, alloweds, caps, backend="jax")
+
+
+def test_solve_many_infeasible_and_default_backend():
+    """An infeasible instance short-circuits inside a batch; the default
+    backend is ``torch`` (the reference's ``jax``)."""
+    import inspect
+    rng = np.random.default_rng(17)
+    cost, allowed, cap = _random_instance(rng)
+    short = np.ones_like(cap)
+    short[0] = 0
+    out = solvers.solve_many([cost, cost], [allowed, allowed], [cap, short],
+                             device="cpu")
+    assert out[0].feasible and out[1].status == "infeasible"
+    assert inspect.signature(solvers.solve_many).parameters[
+        "backend"].default == "torch"
+
+
+def test_intercepted_hook_sees_every_solve_and_nests():
+    """A thread's hook is offered each ``solve`` first, device included;
+    ``None`` declines to the backend; the innermost hook wins; other
+    threads are untouched."""
+    import threading
+    cost, allowed, cap = _rand_instance(np.random.default_rng(2), 6, 3)
+    seen = []
+    canned = solvers.solve(cost, allowed, cap, backend="flow")
+
+    def outer(*args, **kw):
+        seen.append(("outer", kw["backend"], kw["device"]))
+        return None
+
+    def inner(*args, **kw):
+        seen.append(("inner", kw["backend"], kw["device"]))
+        return canned
+    with solvers.intercepted(outer):
+        r = solvers.solve(cost, allowed, cap, backend="fused", device="cpu")
+        assert r.backend == "fused"
+        with solvers.intercepted(inner):
+            assert solvers.solve(cost, allowed, cap, backend="torch",
+                                 device="cpu") is canned
+            other = []
+            t = threading.Thread(target=lambda: other.append(solvers.solve(
+                cost, allowed, cap, backend="flow")))
+            t.start()
+            t.join()
+            assert other[0] is not canned
+        solvers.solve(cost, allowed, cap, backend="flow")
+    assert seen == [("outer", "fused", "cpu"), ("inner", "torch", "cpu"),
+                    ("outer", "flow", None)]
