@@ -6,7 +6,13 @@ Builds the port's kernels from the sources in this checkout, then:
      card, at the shapes the scheduling round gives them: one iteration
      (two launches) at each shape and eps, and the whole annealed solve in
      one launch, which must also equal the loop of 360 iterations bit for
-     bit; times all of them;
+     bit; the warm-started, convergence-exit launch, cold at (512, 6),
+     (512, 40) and (16384, 40) (a 64-block grid, waited on under a
+     timeout) and warm from a drifted instance at (512, 40) and (2048, 40),
+     which must equal the host loop of iteration launches under the same
+     exit rule in f, g and iterations used, bit for bit; times all of them
+     (the adaptive launch cold and warm beside the fixed 360-iteration
+     launch on the same inputs);
   2. runs one fused round at storm scale (4095 jobs x 6 columns, bucket
      4096) through the annealed launch and through the plain loop on the
      card;
@@ -73,7 +79,17 @@ Builds the port's kernels from the sources in this checkout, then:
      workers) and ``waterwise[backend=fused]`` (chained handoff), rows
      equal to phase 9's serial ones; and records every window of the cell
      (``record_windows=true``) and replays them through ``solve_many`` on
-     the card.
+     the card;
+ 11. the live service (``repro_torch.serve``) on the card: (a) the cell of
+     phases 3 and 5 streamed through a ``DecisionLoop`` over
+     ``ReplayArrivals`` with ``waterwise-forecast[forecaster=holtwinters,
+     backend=fused,warm=true]`` — records equal to the batch run of the
+     same policy, totals within 0.5 % of ``warm=false``, one warm-started
+     Sinkhorn launch a round; (b) a Poisson burst storm (11.57 jobs/s,
+     bursts x5, tolerance 4, 1.2 hours) with re-planning and a bounded
+     drop-oldest admission queue — every shed job accounted; (c) a
+     workflow (DAG) cell under ``waterwise[backend=fused]``, streamed and
+     in batch — records equal, no task started before a predecessor ended.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars are drawn live (``models.ssm.draw_live_mixer``), since the
@@ -194,10 +210,13 @@ def device_us_by_kernel(fn, reps: int = 10) -> dict:
     return out
 
 
-def main_path_inputs(M: int, N: int, eps: float, dev, seed: int):
+def main_path_inputs(M: int, N: int, eps: float, dev, seed: int,
+                     drift: float = 0.0):
     """(C, g, log_a, log_b) as a round of bucket M feeds the iteration:
     normalized costs with forbidden arcs priced at BIG, a dummy slack row,
-    zero-mass padding rows (log_a = _NEG), and g after a few iterations."""
+    zero-mass padding rows (log_a = _NEG), and g after a few iterations.
+    ``drift`` multiplies the raw costs by ``1 + drift * noise`` (the next
+    round of a drifting service)."""
     from repro_torch.core import round as port_round
     from repro_torch.kernels.sinkhorn.ref import sinkhorn_iteration_ref
     rng = np.random.default_rng(seed)
@@ -207,6 +226,8 @@ def main_path_inputs(M: int, N: int, eps: float, dev, seed: int):
     allowed = rng.random((jobs, N)) > 0.2
     allowed[np.arange(jobs), rng.integers(0, N, jobs)] = True
     cap = np.full(N, jobs // N + 2, np.float32)
+    cost = cost * (1 + drift * np.random.default_rng(seed + 1)
+                   .standard_normal(cost.shape))
     c_eff = np.pad(cost, ((0, pad), (0, 0))).astype(np.float32)
     mask = np.pad(allowed, ((0, pad), (0, 0)))
     valid = np.arange(M - 1) < jobs
@@ -334,6 +355,144 @@ def hold_anneal(M: int, N: int, seed: int) -> float:
     return max(df, dg)
 
 
+def synchronize_within(seconds: float, what: str) -> None:
+    """Wait for the card's work so far, failing after ``seconds``: a
+    cooperative grid whose blocks disagree on an exit waits at a grid sync
+    forever, and a plain synchronize would wait with it."""
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > deadline:
+            print(f"FAIL: {what} did not finish within {seconds} s",
+                  flush=True)
+            os._exit(1)
+        time.sleep(0.001)
+
+
+def adaptive_loop(C, log_a, log_b, g0, tol, table, iters):
+    """The warm-started solve's exit rule read on the host over launches of
+    the iteration kernel (2 launches and one device-to-host read an
+    iteration): the bitwise yardstick of the one-launch adaptive solve."""
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    tol32 = torch.tensor(tol, dtype=torch.float32)
+    f, g, used = torch.zeros_like(log_a), g0, 0
+    for eps in table:
+        for _ in range(iters):
+            f, g_new = sinkhorn.sinkhorn_iteration_cuda(C, g, log_a, log_b,
+                                                        eps)
+            delta = (g_new - g).abs().max()
+            g, used = g_new, used + 1
+            if not bool(delta.cpu() > tol32):
+                break
+    return f, g, used
+
+
+def adaptive_case(M: int, N: int, dev, seed: int, warm: bool):
+    """(C, log_a, log_b, g0, table, iters) of the warm-started solve as the
+    forecast round runs it: cold, from g = 0 over the 6 x 60 schedule; or
+    warm, one final-eps stage capped at 360 on the instance drifted by 3 %,
+    from the cold solve's g."""
+    from repro_torch.core.solvers import torch_solver
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    C, _, log_a, log_b = main_path_inputs(M, N, 0.5, dev, seed)
+    g0 = torch.zeros(N, dtype=torch.float32, device=dev)
+    table = torch_solver.eps_schedule(torch_solver.SINKHORN_EPS0, 0.005,
+                                      torch_solver.SINKHORN_STAGES).tolist()
+    if not warm:
+        return C, log_a, log_b, g0, table, torch_solver.SINKHORN_ITERS
+    _, g_cold, _ = sinkhorn.sinkhorn_solve_adaptive_cuda(
+        C, log_a, log_b, g0, torch_solver.SINKHORN_TOL, table,
+        torch_solver.SINKHORN_ITERS)
+    C, _, log_a, log_b = main_path_inputs(M, N, 0.5, dev, seed, drift=0.03)
+    return (C, log_a, log_b, g_cold, table[-1:],
+            torch_solver.SINKHORN_ITERS * torch_solver.SINKHORN_STAGES)
+
+
+def hold_adaptive(M: int, N: int, seed: int, warm: bool) -> tuple:
+    """The warm-started, convergence-exit launch at (M, N) against the host
+    loop of iteration launches under the same exit rule (f, g and the
+    iterations used: bitwise) and against the plain loop (KERNEL_ATOL;
+    padding rows relative). Returns (max(|df|, |dg|) against the plain
+    loop, iterations used)."""
+    from repro_torch.core.solvers import torch_solver
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_adaptive_ref
+    tol = torch_solver.SINKHORN_TOL
+    C, log_a, log_b, g0, table, iters = adaptive_case(
+        M, N, torch.device("cuda"), seed, warm)
+    f_a, g_a, used = sinkhorn.sinkhorn_solve_adaptive_cuda(
+        C, log_a, log_b, g0, tol, table, iters)
+    synchronize_within(120.0, f"the adaptive launch at M={M} N={N}")
+    f_l, g_l, used_l = adaptive_loop(C, log_a, log_b, g0, tol, table, iters)
+    f_r, g_r, used_r = sinkhorn_solve_adaptive_ref(C, log_a, log_b, g0, tol,
+                                                   table, iters)
+    torch.cuda.synchronize()
+    same = torch.equal(f_a, f_l) and torch.equal(g_a, g_l) and \
+        int(used) == used_l
+    df = f_error(f_a, f_r, log_a)
+    dg = (g_a - g_r).abs().max().item()
+    name = "warm" if warm else "cold"
+    print(f"  adaptive {name} M={M:6d} N={N:3d} ({-(-M // 256)} blocks): "
+          f"{int(used)} iterations, the iteration loop {used_l} (f, g "
+          f"bitwise equal: {torch.equal(f_a, f_l) and torch.equal(g_a, g_l)})"
+          f"; vs plain ({int(used_r)} iterations) max|df|={df:.3e} "
+          f"max|dg|={dg:.3e}", flush=True)
+    if not same:
+        fail(f"adaptive launch differs from the iteration loop at M={M} "
+             f"N={N} ({name})")
+    if not (np.isfinite(df) and np.isfinite(dg)) or max(df, dg) > \
+            KERNEL_ATOL:
+        fail(f"adaptive launch disagrees with the plain loop at M={M} "
+             f"N={N} ({name}): {df:.3e} / {dg:.3e}")
+    return max(df, dg), int(used)
+
+
+def time_adaptive(M: int, N: int, warm: bool, dev) -> dict:
+    """The adaptive launch at (M, N), cold or warm, by events and device
+    time, beside the fixed-schedule launch on the same C and the plain
+    loop; the bound counts the iterations this solve used."""
+    from repro_torch.core.solvers import torch_solver
+    from repro_torch.kernels.sinkhorn import sinkhorn
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_adaptive_ref
+    tol = torch_solver.SINKHORN_TOL
+    C, log_a, log_b, g0, table, iters = adaptive_case(M, N, dev, seed=7,
+                                                      warm=warm)
+    fixed_table, fixed_iters = solve_schedule()
+
+    def kernel():
+        return sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0, tol,
+                                                     table, iters)
+
+    def fixed():
+        return sinkhorn.sinkhorn_solve_cuda(C, log_a, log_b, fixed_table,
+                                            fixed_iters)
+
+    def plain():
+        return sinkhorn_solve_adaptive_ref(C, log_a, log_b, g0, tol, table,
+                                           iters)
+    used = int(kernel()[2])
+    # C, log_a, log_b and g0 read once, f, g and the count written once;
+    # ~12 float32 operations per element per iteration used.
+    t = dict(used=used, ms=cuda_ms(kernel, warmup=3, reps=20),
+             device_ms=profiled_device_ms(kernel, reps=5),
+             fixed_ms=cuda_ms(fixed, warmup=1, reps=10),
+             fixed_device_ms=profiled_device_ms(fixed, reps=3),
+             ms_again=cuda_ms(kernel, warmup=1, reps=20),
+             plain_ms=cuda_ms(plain, warmup=1, reps=2),
+             **bound(4 * (M * N + M + N + N + M + N) + 4,
+                     12 * M * N * used))
+    print(f"  timing adaptive {'warm' if warm else 'cold'} M={M} N={N}: "
+          f"{used} iterations in one launch {t['ms'] * 1e3:.2f} us/solve "
+          f"({t['ms_again'] * 1e3:.2f} us again; device "
+          f"{fmt_us(t['device_ms'])}); the fixed 360-iteration launch "
+          f"{t['fixed_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['fixed_device_ms'])}); plain loop "
+          f"{t['plain_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.4f} us "
+          f"({t['bound_by']})", flush=True)
+    return t
+
+
 def phase_kernel(dev) -> dict:
     from repro_torch.kernels.sinkhorn import sinkhorn
     from repro_torch.kernels.sinkhorn.ref import (sinkhorn_iteration_ref,
@@ -418,8 +577,21 @@ def phase_kernel(dev) -> dict:
               f"{sinkhorn.LAUNCHES_PER_ITERATION} launches), plain "
               f"{t['plain_ms'] * 1e3:.2f} us/solve, bound "
               f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']})", flush=True)
+    # The warm-started, convergence-exit launch (the live service's round):
+    # cold at the round's buckets and at 16384 (a 64-block grid, every
+    # block deciding each exit alone), warm from a drifted instance.
+    adaptive_worst = 0.0
+    for M, N, warm in ((512, 6, False), (512, 40, False), (16384, 40, False),
+                       (512, 40, True), (2048, 40, True)):
+        err, _ = hold_adaptive(M, N, seed=M + N, warm=warm)
+        adaptive_worst = max(adaptive_worst, err)
+    adaptive_t = {(warm, M, N): time_adaptive(M, N, warm, dev)
+                  for warm, M, N in ((False, 512, 40), (True, 512, 40),
+                                     (True, 2048, 40))}
     return dict(max_abs_err=worst, timings=timings,
-                anneal_max_abs_err=anneal_worst, anneal_timings=anneal_t)
+                anneal_max_abs_err=anneal_worst, anneal_timings=anneal_t,
+                adaptive_max_abs_err=adaptive_worst,
+                adaptive_timings=adaptive_t)
 
 
 @contextlib.contextmanager
@@ -1698,7 +1870,7 @@ def reset_launches() -> None:
     from repro_torch.kernels.rglru_scan import rglru_scan as rk
     from repro_torch.kernels.sinkhorn import sinkhorn
     sinkhorn.LAUNCHES, sinkhorn.ANNEAL_LAUNCHES = 0, 0
-    sinkhorn.ANNEAL_BATCHED_LAUNCHES = 0
+    sinkhorn.ANNEAL_BATCHED_LAUNCHES = sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES = 0
     rk.LAUNCHES.update(dict.fromkeys(rk.LAUNCHES, 0))
 
 
@@ -1707,6 +1879,7 @@ def read_launches() -> dict:
     from repro_torch.kernels.sinkhorn import sinkhorn
     return dict(sinkhorn=sinkhorn.ANNEAL_LAUNCHES,
                 sinkhorn_batched=sinkhorn.ANNEAL_BATCHED_LAUNCHES,
+                sinkhorn_adaptive=sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES,
                 sinkhorn_iteration=sinkhorn.LAUNCHES, **rk.LAUNCHES)
 
 
@@ -2061,6 +2234,183 @@ def executor_sweep(rows9: dict, device=None, cell_spec: str = CELL) -> dict:
                 windows=len(sched.recorded))
 
 
+# --- The live service (phase 11) ---------------------------------------------
+
+# The forecast round with the warm-started Sinkhorn carry, as a user types it.
+SERVE_POLICY = ("waterwise-forecast[forecaster=holtwinters,backend=fused,"
+                "warm=true]")
+# (b)'s endless stream, cut at 1.2 hours: a 30-minute hot window at five
+# times the diurnal cell's 11.57 jobs/s, then the plain rate.
+STORM = dict(rate_per_s=11.57, seed=3, tolerance=4.0, burst=1.0,
+             horizon_s=4320.0)
+# Below one hot round's ~1,700 arrivals (30 s at 5 x 11.57 jobs/s), so the
+# bound sheds there, and above a plain round's ~350. The held jobs come back
+# into every round's pricing (re-planning), so the rounds' rows grow to
+# several times the bound; the host rounding's M x M arrays bound it.
+STORM_BOUND = 500
+WORKFLOW_CELL = "workflow-diurnal[days=0.05,jobs_per_day=1e6,seed=3]"
+
+
+def record_key(r):
+    return (r.job.job_id, r.region, r.start_s, r.finish_s, r.carbon_g,
+            r.water_l, r.embodied_g)
+
+
+def serve(sim, pipe, source, config, duration_s: float) -> tuple:
+    """One ``DecisionLoop`` run over ``source`` for ``duration_s`` and the
+    drain: (loop, report, wall seconds)."""
+    from repro_torch.serve import DecisionLoop
+    loop = DecisionLoop(sim, pipe, source, config)
+    t0 = time.perf_counter()
+    rep = loop.run(duration_s)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return loop, rep, wall
+
+
+def phase_serve(tele, jobs, cap, device=None, days: float = 0.05,
+                storm=None, bound: int = STORM_BOUND,
+                workflow_spec: str = WORKFLOW_CELL) -> dict:
+    """Phase 11 (device None: on the card): (a) the cell streamed through
+    the warm-started service against its batch run, (b) a burst storm with
+    bounded admission and re-planning, (c) a workflow cell streamed and in
+    batch."""
+    from repro_torch import experiments, policy
+    from repro_torch.serve import (DROP_OLDEST, PoissonBurstArrivals,
+                                   ReplayArrivals, ServeConfig)
+    from repro_torch.sim.engine import EventSimulator, SimConfig
+    from repro_torch.sim.metrics import summarize
+    from repro_torch.sim.trace import scale_capacity_for_utilization
+    from repro_torch.workflows import precedence_violations, workflow_miss_rate
+    storm = dict(STORM, **(storm or {}))
+    print("== phase 11: the live service — warm-started rounds, bounded "
+          "admission, workflows", flush=True)
+    # (a) The cell streamed through the service, against its batch run.
+    duration = days * 86400.0
+    reset_launches()
+    pipe = policy.build(SERVE_POLICY, tele, device=device)
+    loop, rep, wall = serve(
+        EventSimulator(tele, cap, SimConfig()), pipe,
+        ReplayArrivals(copy.deepcopy(jobs)), ServeConfig(queue_bound=1 << 30),
+        duration)
+    launches = read_launches()
+    stream = loop.stepper.result()
+    # The batch runs, warm and with the fixed schedule (warm=false), traced
+    # alike: their round latencies and solve spans side by side.
+    batch, fixed = (run_cell(tele, jobs, cap, device, pipe=policy.build(
+        spec, tele, device=device)) for spec in (
+            SERVE_POLICY, SERVE_POLICY.replace("warm=true", "warm=false")))
+    cold, warm = pipe.sinkhorn_cold_iters, pipe.sinkhorn_warm_iters
+    same = [record_key(r) for r in stream["records"]] == \
+        [record_key(r) for r in batch["res"]["records"]]
+    s_warm, s_fixed = summarize(stream), fixed["summary"]
+    print(f"  (a) {len(jobs)} jobs streamed through {SERVE_POLICY} in "
+          f"{wall:.3f} s = {len(jobs) / wall:.1f} jobs/s; {rep.rounds} "
+          f"decision rounds, {rep.engine_rounds} engine rounds; round p50 "
+          f"{rep.p50_round_ms:.3f} ms p99 {rep.p99_round_ms:.3f} ms; records "
+          f"equal to the batch run: {same}; Sinkhorn iterations: "
+          f"{len(cold)} cold (mean {rep.sinkhorn_cold_iters:.2f}), "
+          f"{len(warm)} warm (mean {rep.sinkhorn_warm_iters:.2f}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"    carbon {s_warm['carbon_kg']!r} kg, water "
+          f"{s_warm['water_kl']!r} kL; with warm=false "
+          f"{s_fixed['carbon_kg']!r} kg, {s_fixed['water_kl']!r} kL",
+          flush=True)
+    for name, r in (("batch, warm", batch), ("batch, warm=false", fixed)):
+        print(f"    {name}: {r['wall_s']:.3f} s of wall (traced), round p50 "
+              f"{r['round_p50_ms']:.3f} ms p99 {r['round_p99_ms']:.3f} ms; "
+              f"solver.fused_round {r['stages']['solver.fused_round']:.3f} "
+              f"s, policy.price {r['stages']['policy.price']:.3f} s, "
+              f"engine.round {r['stages']['engine.round']:.3f} s",
+              flush=True)
+    if not same or rep.placed != len(jobs):
+        fail("the streamed records differ from the batch run")
+    for k in ("carbon_kg", "water_kl"):
+        a, b = s_warm[k], s_fixed[k]
+        if not (np.isfinite(a) and abs(a - b) <= E2E_RTOL * abs(b)):
+            fail(f"{k}: warm {a} vs warm=false {b} beyond {E2E_RTOL:.1%}")
+    want = len(cold) + len(warm)
+    if device is None and (launches["sinkhorn_adaptive"] != want or not want
+                           or launches["sinkhorn_iteration"]):
+        fail(f"the warm rounds launched {launches}, want one adaptive "
+             f"launch for each of {want} fused rounds")
+
+    # (b) A burst storm: bounded admission sheds, the holds and re-planning
+    # run on the card.
+    horizon = storm["horizon_s"]
+    rate = storm.pop("rate_per_s")
+    kw = dict(storm, num_regions=tele.num_regions)
+    storm_cap = scale_capacity_for_utilization(
+        PoissonBurstArrivals(rate, **kw).poll(horizon), horizon / 86400.0,
+        tele.num_regions, 0.15)
+    reset_launches()
+    spipe = policy.build(SERVE_POLICY[:-1] + ",replan=true]", tele,
+                         device=device)
+    sloop, srep, swall = serve(
+        EventSimulator(tele, storm_cap, SimConfig()), spipe,
+        PoissonBurstArrivals(rate, **kw),
+        ServeConfig(queue_bound=bound, shed_policy=DROP_OLDEST), horizon)
+    slaunch = read_launches()
+    scold, swarm = spipe.sinkhorn_cold_iters, spipe.sinkhorn_warm_iters
+    deferred = 100.0 * spipe.deferred_jobs / max(srep.admitted, 1)
+    print(f"  (b) storm {rate} jobs/s x burst {storm['burst']} over "
+          f"{horizon:.0f} s, bound {bound} drop-oldest, capacity "
+          f"{storm_cap.tolist()}: {srep.jobs_in} in, {srep.admitted} "
+          f"admitted, {srep.shed} shed, {srep.placed} placed, "
+          f"{srep.violations} violations, {srep.deadline_misses} misses; "
+          f"peak admission depth {srep.max_admission_depth}, engine depth "
+          f"{srep.max_engine_depth}; {srep.replans} replans, "
+          f"{deferred:.3f} % deferred, mean defer {srep.mean_defer_s:.3f} s; "
+          f"round p50 {srep.p50_round_ms:.3f} ms p99 "
+          f"{srep.p99_round_ms:.3f} ms; {srep.rounds} decision rounds, "
+          f"{srep.engine_rounds} engine rounds; {swall:.3f} s of wall; "
+          f"Sinkhorn iterations: {len(scold)} cold (mean "
+          f"{srep.sinkhorn_cold_iters:.2f}), {len(swarm)} warm (mean "
+          f"{srep.sinkhorn_warm_iters:.2f}); launches "
+          f"{ {k: v for k, v in slaunch.items() if v} }", flush=True)
+    if not (srep.jobs_in == srep.admitted + srep.shed and srep.shed > 0
+            and srep.placed == srep.admitted
+            and srep.deadline_misses == srep.violations + srep.shed
+            and srep.max_admission_depth <= bound
+            and sloop.admission.shed_ids == sorted(sloop.admission.shed_ids)):
+        fail(f"storm accounting: {srep}")
+    want = len(scold) + len(swarm)
+    if device is None and (slaunch["sinkhorn_adaptive"] != want or not want
+                           or slaunch["sinkhorn_iteration"]):
+        fail(f"the storm launched {slaunch}, want one adaptive launch for "
+             f"each of {want} fused rounds")
+
+    # (c) A workflow cell, streamed and in batch.
+    inst, cell = experiments.build_instance(workflow_spec)
+    spec = "waterwise[backend=fused]"
+    wbatch = EventSimulator(inst.tele, inst.capacity, SimConfig()).run(
+        copy.deepcopy(inst.jobs), policy.build(spec, inst.tele,
+                                               device=device))
+    wloop, wrep, wwall = serve(
+        EventSimulator(inst.tele, inst.capacity, SimConfig()),
+        policy.build(spec, inst.tele, device=device),
+        ReplayArrivals(copy.deepcopy(inst.jobs)),
+        ServeConfig(queue_bound=1 << 30), cell["days"] * 86400.0)
+    wstream = wloop.stepper.result()
+    wsame = [record_key(r) for r in wstream["records"]] == \
+        [record_key(r) for r in wbatch["records"]]
+    bad = (precedence_violations(wstream["records"]),
+           precedence_violations(wbatch["records"]))
+    miss, n_wf = workflow_miss_rate(wstream["records"])
+    print(f"  (c) {workflow_spec} under {spec}: {len(inst.jobs)} tasks of "
+          f"{n_wf} workflows streamed in {wwall:.3f} s; records equal to the "
+          f"batch run: {wsame}; precedence violations {bad}; workflow miss "
+          f"rate {100.0 * miss:.3f} %", flush=True)
+    if not wsame or bad != (0, 0) or wrep.placed != len(inst.jobs):
+        fail(f"workflow stream vs batch: equal {wsame}, violations {bad}, "
+             f"placed {wrep.placed} of {len(inst.jobs)}")
+    return dict(launches=launches["sinkhorn_adaptive"],
+                storm_launches=slaunch["sinkhorn_adaptive"],
+                cold=rep.sinkhorn_cold_iters, warm=rep.sinkhorn_warm_iters,
+                rounds=len(cold) + len(warm))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device available")
@@ -2105,6 +2455,7 @@ def main() -> None:
         serve = timed("phase 8", phase_lm_serve, dev)
         cmp9 = timed("phase 9", phase_comparison, e2e, fc)
         b10 = timed("phase 10", phase_batched, e2e, cmp9)
+        srv = timed("phase 11", phase_serve, *e2e["cell"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     reactive9 = cmp9["launches"]["waterwise[backend=fused]"]["_launches"]
@@ -2138,6 +2489,27 @@ def main() -> None:
                           "cannot all be co-resident",
         split_at_16384=dict(cells=20, fit=b10["fit"], launches=b10["split"]),
         main_path="the device executor's seed sweep of phase 10(b)"))
+    t = k["adaptive_timings"][(True, 512, 40)]
+
+    def adaptive_fields(key):
+        return {f: k["adaptive_timings"][key][f] for f in (
+            "used", "ms", "device_ms", "fixed_ms", "fixed_device_ms",
+            "plain_ms", "bound_ms", "bound_by")}
+    kernels.append(dict(
+        name="sinkhorn_anneal_adaptive", route="cuda",
+        source="src/repro_torch/csrc/sinkhorn.cu",
+        replaces="src/repro/kernels/sinkhorn/sinkhorn.py:83",
+        launches=srv["launches"], launches_storm=srv["storm_launches"],
+        max_abs_err=k["adaptive_max_abs_err"], ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        device_ms=t["device_ms"], bound_by=t["bound_by"], library_ms=None,
+        shape=[512, 40], warm=True, iterations=t["used"],
+        fixed_schedule_ms=t["fixed_ms"], launches_per_call=1,
+        mean_iterations=dict(cold=srv["cold"], warm=srv["warm"]),
+        cold_512_40=adaptive_fields((False, 512, 40)),
+        warm_2048_40=adaptive_fields((True, 2048, 40)),
+        main_path="every warm-started fused round of phase 11(a), one a "
+                  "round; (b)'s storm too"))
     t = k["timings"][(512, 6)]
     kernels.append(dict(
         name="sinkhorn_iteration", route="cuda",

@@ -1,3 +1,4 @@
-from repro_torch.checkpoint.store import (latest_step,  # noqa: F401
+from repro_torch.checkpoint.store import (AsyncCheckpointer,  # noqa: F401
+                                          checkpoint_bytes, latest_step,
                                           restore_checkpoint,
                                           save_checkpoint)

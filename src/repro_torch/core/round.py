@@ -42,8 +42,11 @@ counterpart of: the port launches each group at its own size.
 Program 2, ``fused_temporal_round``, additionally prices and masks the
 forecast round's jobs x (regions x slots) grid on the device (paper Eqs
 1-8 and 11 via ``core.footprint``) before the same solve; the forecast
-pipeline drives it with backend ``fused``. The reference's
-``SinkhornWarmStart`` (with its adaptive loop) is not ported yet.
+pipeline drives it with backend ``fused``. With a ``SinkhornWarmStart``
+it runs the adaptive solve instead (``_temporal_adaptive_program``): the
+column potentials carried from the last round seed it, each annealing
+stage exits on convergence, and on the card it is one launch of the
+warm-started kernel — the live service's between-round carry.
 """
 from __future__ import annotations
 
@@ -60,11 +63,13 @@ from repro_torch.core.solvers import torch_solver
 from repro_torch.core.solvers.torch_solver import BIG, _NEG, bucket_for
 from repro_torch.kernels.sinkhorn.ops import (anneal_schedule, eps_table,
                                               sinkhorn_solve,
+                                              sinkhorn_solve_adaptive,
                                               sinkhorn_solve_batched)
 from repro_torch.runtime import platform
 
 __all__ = ["fused_solve", "fused_temporal_round", "fused_round_batch",
-           "sinkhorn_impl_default", "SolveRequest", "group_requests"]
+           "sinkhorn_impl_default", "SolveRequest", "group_requests",
+           "SinkhornWarmStart"]
 
 IMPLS = ("kernel", "torch")
 
@@ -499,6 +504,67 @@ def _temporal_program(blob, rattrs, *, impl: str, want_plan: bool = False,
     return Cn, X, scale
 
 
+def _temporal_adaptive_program(blob, rattrs, g0, tol: float, *, impl: str,
+                               eps0: float, eps_min: float, iters: int,
+                               anneal_stages: int, **statics):
+    """``_temporal_program`` with the adaptive warm-startable Sinkhorn: the
+    caller supplies initial column potentials ``g0`` ([S*R], zeros for a
+    cold start) and gets back the converged potentials and the iterations
+    run — the live-serving path that carries duals between consecutive
+    rounds (``SinkhornWarmStart``). ``impl`` ``kernel`` is one launch of
+    the adaptive kernel on the card (its plain loop on a CPU tensor);
+    ``torch`` is ``torch_solver._sinkhorn_log_adaptive_impl``. Both run
+    the float32 schedule of ``torch_solver.eps_schedule``, computed on the
+    host, and extract the plan at its last eps. Returns ``(Cn, X, scale,
+    g, used)``, ``used`` a 0-d int32 tensor."""
+    cost, mask, cap_t, valid = _price_temporal(blob, rattrs, **statics)
+    C, log_a, log_b, Cn, scale = _prepare_device(cost, mask, cap_t, valid)
+    if impl == "kernel":
+        table = torch_solver.eps_schedule(eps0, eps_min,
+                                          anneal_stages).tolist()
+        f, g, used = sinkhorn_solve_adaptive(C, log_a, log_b, g0, tol, table,
+                                             iters)
+        eps = table[-1]
+    else:
+        f, g, eps, used = torch_solver._sinkhorn_log_adaptive_impl(
+            C, log_a, log_b, g0, tol, eps0, eps_min, iters, anneal_stages)
+    X = torch.exp((f[:, None] + g[None, :] - C) / eps)[:Cn.shape[0]]
+    X = X / torch.clamp(X.sum(dim=1, keepdim=True), min=1e-30)
+    return Cn, X, scale, g, used
+
+
+@dataclasses.dataclass
+class SinkhornWarmStart:
+    """Column-potential carry between consecutive fused temporal rounds.
+
+    The temporal OT's column space — (region, slot) cells — is fixed per
+    pipeline while the row space (jobs) changes every round, so the column
+    potentials ``g`` are the part of the duals worth carrying: passed as
+    the next round's ``g0``, a drifted-telemetry round converges in a
+    handful of final-eps iterations instead of the full annealed schedule.
+    The first round (or any column-shape change) runs cold: zeros init +
+    the full schedule. Cold and warm iteration counts are recorded via
+    ``repro_torch.obs`` (``solver.sinkhorn_iters_cold`` / ``_warm``) and
+    kept on the object for reporting (``repro_torch.serve`` folds them
+    into its report).
+    """
+    tol: float = torch_solver.SINKHORN_TOL
+    g: Optional[np.ndarray] = None
+    cold_iters: list = dataclasses.field(default_factory=list)
+    warm_iters: list = dataclasses.field(default_factory=list)
+
+    def reset(self) -> None:
+        self.g = None
+
+    @property
+    def mean_cold_iters(self) -> float:
+        return float(np.mean(self.cold_iters)) if self.cold_iters else 0.0
+
+    @property
+    def mean_warm_iters(self) -> float:
+        return float(np.mean(self.warm_iters)) if self.warm_iters else 0.0
+
+
 def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
                          slot_offsets, server, lam_co2: float,
                          lam_h2o: float, lam_ref: float = 0.0,
@@ -506,7 +572,9 @@ def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
                          defer_eps: float = 1e-3, guard_s: float = 240.0,
                          want_plan: bool = False,
                          sinkhorn_impl: Optional[str] = None,
-                         eps_min: float = 0.005, device=None):
+                         eps_min: float = 0.005,
+                         warm_start: Optional[SinkhornWarmStart] = None,
+                         device=None):
     """Price, mask, and solve one forecast round on the device: two
     uploads, one transfer back.
 
@@ -517,8 +585,16 @@ def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
     re-derived on the host from the normalized costs that come back anyway
     (equal to the priced tensor on every allowed arc; forbidden arcs carry
     ``solvers.BIG``). ``device=None`` is the CUDA card; ``sinkhorn_impl``
-    is chosen as in ``fused_solve``. The reference's warm-started variant
-    (``SinkhornWarmStart``) is not ported yet.
+    is chosen as in ``fused_solve``.
+
+    ``warm_start`` switches to the adaptive Sinkhorn (convergence-exit
+    stages; on the card one launch of ``sinkhorn_anneal_adaptive``): the
+    object's carried column potentials seed the solve — zeros + the full
+    annealed schedule when empty (cold) — and the converged potentials
+    plus iteration counts are written back, so consecutive calls with the
+    same object warm-start each other (the ``repro_torch.serve`` decision
+    loop's between-round carry). The plan, the potentials and the count
+    come back in one transfer.
     """
     dev = platform.device(device)
     impl = _resolve_impl(sinkhorn_impl, dev)
@@ -557,19 +633,62 @@ def fused_temporal_round(inst, now_s: float, ci, ewif, wue, pue, wsf,
         blob[:M, 4 + 3 * S * N:4 + 3 * S * N + N] = inst.latency
         blob[:M, 4 + 3 * S * N + N:] = inst.allowed
         rattrs = np.stack([pue, wsf, ref_row, cap]).astype(np.float32)
-        out = _temporal_program(
-            torch.from_numpy(blob).to(dev), torch.from_numpy(rattrs).to(dev),
-            impl=impl, want_plan=bool(want_plan), eps_min=float(eps_min),
+        statics = dict(
             offsets=tuple(float(o) for o in slot_offsets),
             lam_co2=float(lam_co2), lam_h2o=float(lam_h2o),
             defer_eps=float(defer_eps), guard_s=float(guard_s),
             lifetime_s=float(server.lifetime_s),
             embodied_gco2=float(server.embodied_gco2),
             embodied_water_l=float(server.embodied_water_l))
-        Cn, X = torch.stack(out[:2]).cpu().numpy()
+        blob_t = torch.from_numpy(blob).to(dev)
+        rattrs_t = torch.from_numpy(rattrs).to(dev)
+        if warm_start is not None:
+            assert not want_plan, \
+                "warm_start and want_plan are mutually exclusive"
+            cols = S * N
+            cold = warm_start.g is None or warm_start.g.shape != (cols,)
+            g0 = (np.zeros(cols, np.float32) if cold
+                  else warm_start.g.astype(np.float32))
+            # Cold: the full annealed schedule with per-stage early exit.
+            # Warm: one final-eps stage from the carried potentials, with
+            # the whole fixed budget available as the iteration cap (the
+            # cap should never bind when the carry is any good).
+            if cold:
+                schedule = dict(eps0=torch_solver.SINKHORN_EPS0,
+                                iters=torch_solver.SINKHORN_ITERS,
+                                anneal_stages=torch_solver.SINKHORN_STAGES)
+            else:
+                schedule = dict(eps0=float(eps_min),
+                                iters=torch_solver.SINKHORN_ITERS
+                                * torch_solver.SINKHORN_STAGES,
+                                anneal_stages=1)
+            Cn_t, X_t, scale_t, g_t, used_t = _temporal_adaptive_program(
+                blob_t, rattrs_t, torch.from_numpy(g0).to(dev),
+                float(warm_start.tol), impl=impl, eps_min=float(eps_min),
+                **schedule, **statics)
+            # One transfer: [Cn | X | scale | iterations | g].
+            host = torch.cat([torch.stack([Cn_t, X_t]).reshape(-1),
+                              scale_t.reshape(1),
+                              used_t.to(torch.float32).reshape(1),
+                              g_t]).cpu().numpy()
+            Mb = Cn_t.shape[0]
+            Cn, X = host[:2 * Mb * cols].reshape(2, Mb, cols)
+            scale = float(host[2 * Mb * cols])
+            used = int(host[2 * Mb * cols + 1])
+            warm_start.g = host[2 * Mb * cols + 2:].copy()
+            (warm_start.cold_iters if cold
+             else warm_start.warm_iters).append(used)
+            obs.observe("solver.sinkhorn_iters_cold" if cold
+                        else "solver.sinkhorn_iters_warm", float(used))
+            t.set(warm=not cold, adaptive_iters=used)
+        else:
+            out = _temporal_program(blob_t, rattrs_t, impl=impl,
+                                    want_plan=bool(want_plan),
+                                    eps_min=float(eps_min), **statics)
+            Cn, X = torch.stack(out[:2]).cpu().numpy()
+            scale = float(out[2])
         Cn = np.asarray(Cn[:M], np.float64)
         X = np.asarray(X[:M], np.float64)
-        scale = float(out[2])
         mask = Cn < torch_solver.BIG * 0.5   # forbidden arcs are exactly BIG
         # De-normalized costs price the objective; identical to the priced
         # tensor on every allowed arc (forbidden arcs never enter objectives).

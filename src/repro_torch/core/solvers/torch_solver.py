@@ -17,7 +17,9 @@ The Sinkhorn loop here is eager PyTorch in the reference's XLA order
 axes of independent instances, which is how ``solve_many`` runs a group of
 same-shape instances at once (the reference vmaps it). The numpy host
 stages are copies of the reference's, so equal plans round to equal
-assignments. The warm-started adaptive Sinkhorn is not ported yet.
+assignments. The warm-started adaptive Sinkhorn
+(``_sinkhorn_log_adaptive_impl``) updates in the other order (f <- g, then
+g <- f), the order of the kernel, whose plain loop it runs.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 import repro_torch.obs as obs
 from repro_torch.core import solvers
+from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_adaptive_ref
 from repro_torch.runtime import platform
 
 BIG = 1e4          # forbidden-arc cost after normalization to ~unit scale
@@ -102,6 +105,42 @@ def _sinkhorn_log_impl(C: torch.Tensor, log_a: torch.Tensor,
             f = eps * (log_a - torch.logsumexp((g[..., None, :] - C) / eps,
                                                dim=-1))
     return f, g, eps_sched[-1]
+
+
+# Convergence tolerance of the adaptive (warm-startable) Sinkhorn: a stage
+# exits once the sup-norm change of the column potentials per iteration
+# drops below this (``repro_torch.core.round.SinkhornWarmStart``).
+SINKHORN_TOL = 1e-5
+
+
+def _sinkhorn_log_adaptive_impl(C: torch.Tensor, log_a: torch.Tensor,
+                                log_b: torch.Tensor, g0: torch.Tensor,
+                                tol: float, eps0: float = 0.5,
+                                eps_min: float = 0.01, iters: int = 60,
+                                anneal_stages: int = 6):
+    """Warm-startable annealed Sinkhorn with a per-stage convergence exit.
+
+    Same fixed point as ``_sinkhorn_log_impl``, but (a) iterations start
+    from the caller's column potentials ``g0`` and update (f <- row(g),
+    then g <- col(f)), so a warm ``g0`` is honoured, and (b) each stage
+    exits as soon as the iteration's float32 sup-norm change of g is not
+    above ``tol`` (a NaN change exits too), after at most ``iters``
+    iterations. A cold call passes ``g0 = 0`` and the full schedule; a
+    warm one the previous round's potentials with ``anneal_stages=1,
+    eps0=eps_min``.
+
+    The loop is the plain version of the ``sinkhorn_anneal_adaptive``
+    kernel (``kernels/sinkhorn/ref.py::sinkhorn_solve_adaptive_ref``) over
+    the float32 schedule of ``eps_schedule``, as the reference's
+    ``jax_solver._sinkhorn_log_adaptive_impl`` computes it; it reads each
+    iteration's change on the host. Returns ``(f, g, eps, iters_used)``:
+    the last stage's eps (a 0-d float32 tensor) and the iterations run in
+    all (a 0-d int32 tensor).
+    """
+    eps_sched = eps_schedule(eps0, eps_min, anneal_stages)
+    f, g, used = sinkhorn_solve_adaptive_ref(C, log_a, log_b, g0, tol,
+                                             eps_sched.tolist(), iters)
+    return f, g, eps_sched[-1].to(C.device), used
 
 
 def plan_from_duals(C, f, g, eps):

@@ -81,6 +81,28 @@
 // must be co-resident: sinkhorn_anneal_max_blocks reports how many blocks
 // fit, and the caller splits a larger group into several launches.
 //
+// The warm-started solve with a convergence exit (sinkhorn_anneal_adaptive).
+// The reference's live service runs the adaptive solve of
+// repro/core/solvers/jax_solver.py::_sinkhorn_log_adaptive_impl: from
+// caller-given column potentials g0 (f from g, then g from the new f), each
+// stage runs while fewer than `iters` iterations have run and the last
+// iteration's sup_j |g_j(new) - g_j(old)| is above tol; it reports the
+// iterations run. On the TPU that is an XLA while_loop around the same
+// update. Here it is the annealed launch with a template flag: g starts from
+// g0 instead of 0; the thread that combines column j keeps
+// |g_j(new) - g_j(old)| before it overwrites sg[j]; after each combine the
+// block reduces those with a NaN-propagating max (fmaxf would drop a NaN,
+// where the reference's max keeps it, and a NaN change must exit as it does
+// there) and leaves the stage when !(iterations < iters && delta > tol).
+// Invariant: every block combines all N columns from the same partials in
+// the same order, so every block's g, and so its delta, is bitwise equal to
+// every other's; all blocks therefore leave a stage at the same iteration,
+// with no flag and no second grid sync. (Were it ever broken, a block would
+// wait at a grid.sync() the others never reach: the card tests run a
+// 64-block grid under a timeout.) Block 0 writes the total iterations to a
+// device int32, read back with f and g. The extra work is one block
+// reduction an iteration.
+//
 // Built without --use_fast_math: at eps = 0.005 the exponent arguments reach
 // +-2e6 before masking, and expf/logf/division must stay IEEE-accurate for
 // the duals to match the plain version.
@@ -128,6 +150,24 @@ __device__ float block_sum(float v, float* red) {
   __syncthreads();
   float r = red[0];
   for (int w = 1; w < WARPS; ++w) r += red[w];
+  __syncthreads();
+  return r;
+}
+
+// max that keeps a NaN from either side (as jnp.max does; fmaxf drops it).
+__device__ __forceinline__ float nanmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// Block-wide NaN-propagating max; every thread gets the result. `red` as
+// for block_max.
+__device__ float block_nanmax(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = nanmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < WARPS; ++w) r = nanmax(r, red[w]);
   __syncthreads();
   return r;
 }
@@ -284,10 +324,13 @@ __device__ __forceinline__ void column_partials_batched(
 
 // column_combine for all N columns into sg, bitwise equal to it. The
 // partials were written by other blocks before a grid sync: read past L1.
-template <int G>
+// With TRACK, *dmax (this thread's) takes the NaN-propagating max of
+// |g_j(new) - g_j(old)| over the columns this thread writes.
+template <int G, bool TRACK>
 __device__ __forceinline__ void column_combine_batched(
     const float* pmax, const float* psum, const float* log_b, int nblocks,
-    int N, float eps, float (*red)[WARPS], float* colm, float* sg) {
+    int N, float eps, float (*red)[WARPS], float* colm, float* sg,
+    float* dmax) {
   for (int j0 = 0; j0 < N; j0 += G) {
     const int nc = min(G, N - j0);
     float pm[G], ps[G], v[G];
@@ -340,10 +383,12 @@ __device__ __forceinline__ void column_combine_batched(
     __syncthreads();
     if (threadIdx.x < nc) {
       const int j = j0 + threadIdx.x;
-      sg[j] = eps * (log_b[j] - (colm[threadIdx.x] +
-                                 logf(fmaxf(warps_in_order<false>(
-                                                red, threadIdx.x),
-                                            1e-30f))));
+      const float gj = eps * (log_b[j] - (colm[threadIdx.x] +
+                                          logf(fmaxf(warps_in_order<false>(
+                                                         red, threadIdx.x),
+                                                     1e-30f))));
+      if constexpr (TRACK) *dmax = nanmax(fabsf(gj - sg[j]), *dmax);
+      sg[j] = gj;
     }
     __syncthreads();
   }
@@ -353,15 +398,20 @@ __device__ __forceinline__ void column_combine_batched(
 // cooperatively on a grid of (ceil(M / ROWS), B) blocks, blockIdx.y the
 // cell, with (N * ROWS + N) floats of dynamic shared memory; each cell's
 // pmax / psum are two [nblocks, N] buffers, used by turns, at
-// [cell][2][nblocks][N]. G: the columns reduced together.
-template <int G>
+// [cell][2][nblocks][N]. G: the columns reduced together. ADAPTIVE: g
+// starts from g0 ([B, N]), each stage exits on convergence (tol), and
+// used ([B]) receives each cell's iterations; else g0, tol and used are
+// not read.
+template <int G, bool ADAPTIVE>
 __global__ void __launch_bounds__(ROWS)
 sinkhorn_anneal_kernel(const float* __restrict__ C,
                        const float* __restrict__ log_a,
-                       const float* __restrict__ log_b, float* __restrict__ f,
+                       const float* __restrict__ log_b,
+                       const float* __restrict__ g0, float* __restrict__ f,
                        float* __restrict__ g, float* __restrict__ pmax,
-                       float* __restrict__ psum, int M, int N, int iters,
-                       int stages, const EpsTable table) {
+                       float* __restrict__ psum, int* __restrict__ used,
+                       int M, int N, int iters, int stages, float tol,
+                       const EpsTable table) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   extern __shared__ float smem[];
   float* Cs = smem;                  // [N][ROWS], this block's rows
@@ -386,7 +436,12 @@ sinkhorn_anneal_kernel(const float* __restrict__ C,
   const float* Cb = C + static_cast<size_t>(row0) * N;
   for (int e = threadIdx.x; e < rows * N; e += ROWS)
     Cs[(e % N) * ROWS + e / N] = Cb[e];
-  for (int j = threadIdx.x; j < N; j += ROWS) sg[j] = 0.f;
+  if constexpr (ADAPTIVE) {
+    g0 += cell * N;
+    for (int j = threadIdx.x; j < N; j += ROWS) sg[j] = g0[j];
+  } else {
+    for (int j = threadIdx.x; j < N; j += ROWS) sg[j] = 0.f;
+  }
   const int i = row0 + threadIdx.x;
   const bool live = i < M;
   const float la = live ? log_a[i] : 0.f;
@@ -397,37 +452,55 @@ sinkhorn_anneal_kernel(const float* __restrict__ C,
 
   float fi = 0.f;
   int turn = 0;
+  int total = 0;     // ADAPTIVE: iterations run, equal in every block
   for (int s = 0; s < stages; ++s) {
     const float eps = table.eps[s];
-    for (int it = 0; it < iters; ++it, turn ^= 1) {
+    float delta = INFINITY;
+    for (int it = 0; ADAPTIVE ? (it < iters && delta > tol) : it < iters;
+         ++it, turn ^= 1) {
       float* pm = pmax + turn * half;
       float* ps = psum + turn * half;
       if (live) fi = row_update(sg, c, ROWS, la, N, eps);
       column_partials_batched<G>(fi, live, c, ROWS, N, eps, red, colm, pm,
                                  ps);
       grid.sync();
-      column_combine_batched<G>(pm, ps, log_b, nblocks, N, eps, red, colm,
-                                sg);
+      float dmax = 0.f;
+      column_combine_batched<G, ADAPTIVE>(pm, ps, log_b, nblocks, N, eps,
+                                          red, colm, sg, &dmax);
+      if constexpr (ADAPTIVE) {
+        delta = block_nanmax(dmax, red[0]);
+        ++total;
+      }
     }
   }
   if (live) f[i] = fi;
-  if (blockIdx.x == 0)
+  if (blockIdx.x == 0) {
     for (int j = threadIdx.x; j < N; j += ROWS) g[j] = sg[j];
+    if constexpr (ADAPTIVE)
+      if (threadIdx.x == 0) used[cell] = total;
+  }
 }
 
-// The annealed kernel's instantiation for N columns and its dynamic shared
-// memory.
-const void* anneal_kernel_for(int N, size_t* smem) {
+// The annealed kernel's instantiation for N columns (adaptive or fixed)
+// and its dynamic shared memory.
+const void* anneal_kernel_for(int N, bool adaptive, size_t* smem) {
   *smem = sizeof(float) * (static_cast<size_t>(N) * ROWS + N);
-  return N <= 8 ? reinterpret_cast<const void*>(sinkhorn_anneal_kernel<8>)
-                : reinterpret_cast<const void*>(sinkhorn_anneal_kernel<16>);
+  if (adaptive)
+    return N <= 8
+               ? reinterpret_cast<const void*>(sinkhorn_anneal_kernel<8, true>)
+               : reinterpret_cast<const void*>(
+                     sinkhorn_anneal_kernel<16, true>);
+  return N <= 8
+             ? reinterpret_cast<const void*>(sinkhorn_anneal_kernel<8, false>)
+             : reinterpret_cast<const void*>(
+                   sinkhorn_anneal_kernel<16, false>);
 }
 
 // Blocks of the annealed kernel at N columns that can be co-resident on the
 // current device.
-cudaError_t anneal_max_blocks(int N, int* blocks) {
+cudaError_t anneal_max_blocks(int N, bool adaptive, int* blocks) {
   size_t smem = 0;
-  const void* kernel = anneal_kernel_for(N, &smem);
+  const void* kernel = anneal_kernel_for(N, adaptive, &smem);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -444,25 +517,29 @@ cudaError_t anneal_max_blocks(int N, int* blocks) {
 }
 
 // B cells' annealed solves in one cooperative launch (B = 1: one cell).
+// g0 != nullptr takes the adaptive kernel (warm start from g0, exit at tol,
+// iterations to used); else the fixed schedule from g = 0.
 int anneal_launch(const float* C, const float* log_a, const float* log_b,
-                  const float* eps_table, int stages, int iters, float* f,
-                  float* g, float* pmax, float* psum, int B, int M, int N,
+                  const float* g0, float tol, const float* eps_table,
+                  int stages, int iters, float* f, float* g, float* pmax,
+                  float* psum, int* used, int B, int M, int N,
                   cudaStream_t stream) {
   if (stages < 1 || stages > MAX_STAGES || iters < 0 || B < 1 || M < 1 ||
       N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool adaptive = g0 != nullptr;
   EpsTable table;
   for (int s = 0; s < stages; ++s) table.eps[s] = eps_table[s];
   size_t smem = 0;
-  const void* kernel = anneal_kernel_for(N, &smem);
+  const void* kernel = anneal_kernel_for(N, adaptive, &smem);
   const int nblocks = (M + ROWS - 1) / ROWS;
   int fit = 0;
-  cudaError_t err = anneal_max_blocks(N, &fit);
+  cudaError_t err = anneal_max_blocks(N, adaptive, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (static_cast<long long>(nblocks) * B > fit)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {&C, &log_a, &log_b, &f, &g, &pmax, &psum, &M, &N,
-                  &iters, &stages, &table};
+  void* args[] = {&C, &log_a, &log_b, &g0, &f, &g, &pmax, &psum, &used,
+                  &M, &N, &iters, &stages, &tol, &table};
   err = cudaLaunchCooperativeKernel(kernel, dim3(nblocks, B), dim3(ROWS),
                                     args, smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -508,8 +585,27 @@ int sinkhorn_anneal(const float* C, const float* log_a, const float* log_b,
                     const float* eps_table, int stages, int iters, float* f,
                     float* g, float* pmax, float* psum, int M, int N,
                     cudaStream_t stream) {
-  return anneal_launch(C, log_a, log_b, eps_table, stages, iters, f, g, pmax,
-                       psum, 1, M, N, stream);
+  return anneal_launch(C, log_a, log_b, nullptr, 0.f, eps_table, stages,
+                       iters, f, g, pmax, psum, nullptr, 1, M, N, stream);
+}
+
+// The warm-started annealed solve with a per-stage convergence exit, in one
+// cooperative launch: from f = 0 and g = g0 [N], each stage s runs
+// iterations at eps_table[s] while fewer than `iters` have run in the stage
+// and the last one's max_j |g_j(new) - g_j(old)| is above tol (a NaN change
+// exits); f [M] and g [N] out, and the iterations run in all to *used (an
+// int32 on the device). C, log_a, log_b and the scratch as for
+// sinkhorn_anneal. Returns cudaErrorCooperativeLaunchTooLarge when the grid
+// cannot be co-resident, else the launch's CUDA error code (0 on success).
+int sinkhorn_anneal_adaptive(const float* C, const float* log_a,
+                             const float* log_b, const float* g0, float tol,
+                             const float* eps_table, int stages, int iters,
+                             float* f, float* g, float* pmax, float* psum,
+                             int* used, int M, int N, cudaStream_t stream) {
+  if (g0 == nullptr || used == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return anneal_launch(C, log_a, log_b, g0, tol, eps_table, stages, iters, f,
+                       g, pmax, psum, used, 1, M, N, stream);
 }
 
 // B cells' annealed solves in one cooperative launch: C [B, M, N], log_a
@@ -524,8 +620,8 @@ int sinkhorn_anneal_batched(const float* C, const float* log_a,
                             int stages, int iters, float* f, float* g,
                             float* pmax, float* psum, int B, int M, int N,
                             cudaStream_t stream) {
-  return anneal_launch(C, log_a, log_b, eps_table, stages, iters, f, g, pmax,
-                       psum, B, M, N, stream);
+  return anneal_launch(C, log_a, log_b, nullptr, 0.f, eps_table, stages,
+                       iters, f, g, pmax, psum, nullptr, B, M, N, stream);
 }
 
 // Into *blocks: how many blocks of the annealed launch at N columns can be
@@ -533,7 +629,7 @@ int sinkhorn_anneal_batched(const float* C, const float* log_a,
 // needs B x ceil(M / ROWS) of them. Returns the CUDA error code.
 int sinkhorn_anneal_max_blocks(int N, int* blocks) {
   if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(anneal_max_blocks(N, blocks));
+  return static_cast<int>(anneal_max_blocks(N, false, blocks));
 }
 
 }  // extern "C"

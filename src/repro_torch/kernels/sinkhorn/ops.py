@@ -1,12 +1,15 @@
 """Public wrappers for the Sinkhorn kernels: one iteration, the whole
-annealed solve in one launch (the scheduling round's path), and many
-cells' annealed solves in one launch (the device executor's path)."""
+annealed solve in one launch (the scheduling round's path), many cells'
+annealed solves in one launch (the device executor's path), and the
+warm-started solve with a convergence exit (the live service's warm
+round)."""
 from __future__ import annotations
 
 import ctypes
 
 from repro_torch.kernels.sinkhorn import sinkhorn
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_iteration_ref,
+                                              sinkhorn_solve_adaptive_ref,
                                               sinkhorn_solve_batched_ref,
                                               sinkhorn_solve_ref)
 
@@ -63,3 +66,18 @@ def sinkhorn_solve_batched(C, log_a, log_b, table, iters):
     if C.device.type != "cpu":
         raise ValueError(f"no Sinkhorn kernel for device {C.device}")
     return sinkhorn_solve_batched_ref(C, log_a, log_b, table, iters)
+
+
+def sinkhorn_solve_adaptive(C, log_a, log_b, g0, tol, table, iters):
+    """The warm-started annealed solve with a per-stage convergence exit:
+    from g = ``g0``, each eps of ``table`` runs until the iteration's
+    ``max |g_new - g|`` is not above ``tol`` or ``iters`` have run. A CUDA
+    tensor makes one launch of the adaptive kernel (and raises on what it
+    does not take); a CPU tensor takes the plain loop. Returns (f, g,
+    iterations used as a 0-d int32 tensor)."""
+    if C.device.type == "cuda":
+        return sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0, tol,
+                                                     table, iters)
+    if C.device.type != "cpu":
+        raise ValueError(f"no Sinkhorn kernel for device {C.device}")
+    return sinkhorn_solve_adaptive_ref(C, log_a, log_b, g0, tol, table, iters)

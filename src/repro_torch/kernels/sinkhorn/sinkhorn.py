@@ -1,7 +1,8 @@
 """The Hopper Sinkhorn kernels (``csrc/sinkhorn.cu``): ctypes binding and
 launch of one iteration (``sinkhorn_iteration_cuda``), of the whole
-annealed solve in one launch (``sinkhorn_solve_cuda``) and of many cells'
-annealed solves in one launch (``sinkhorn_solve_batched_cuda``).
+annealed solve in one launch (``sinkhorn_solve_cuda``), of many cells'
+annealed solves in one launch (``sinkhorn_solve_batched_cuda``) and of the
+warm-started solve with a convergence exit (``sinkhorn_solve_adaptive_cuda``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/sinkhorn/sinkhorn.py::
 sinkhorn_iteration_pallas`` (and, for the solve, the annealed loop around
@@ -29,6 +30,10 @@ ANNEAL_LAUNCHES = 0
 # ``sinkhorn_solve_batched_cuda`` (one per launch; a group too large to be
 # co-resident takes several): the device executor's path.
 ANNEAL_BATCHED_LAUNCHES = 0
+# Launches of the warm-started, convergence-exit annealed solve made by
+# ``sinkhorn_solve_adaptive_cuda`` (one per solve): the live service's
+# warm round.
+ANNEAL_ADAPTIVE_LAUNCHES = 0
 # The counters are bumped from whichever thread launches (the device
 # executor flushes from a cell's thread).
 _COUNT_LOCK = threading.Lock()
@@ -60,6 +65,10 @@ def _lib() -> ctypes.CDLL:
         lib.sinkhorn_anneal_batched.argtypes = [ptr] * 4 + [
             ctypes.c_int] * 2 + [ptr] * 4 + [ctypes.c_int] * 3 + [ptr]
         lib.sinkhorn_anneal_batched.restype = ctypes.c_int
+        lib.sinkhorn_anneal_adaptive.argtypes = [ptr] * 4 + [
+            ctypes.c_float, ptr] + [ctypes.c_int] * 2 + [ptr] * 5 + [
+            ctypes.c_int] * 2 + [ptr]
+        lib.sinkhorn_anneal_adaptive.restype = ctypes.c_int
         lib.sinkhorn_anneal_max_blocks.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.sinkhorn_anneal_max_blocks.restype = ctypes.c_int
@@ -177,6 +186,65 @@ def sinkhorn_solve_cuda(C: torch.Tensor, log_a: torch.Tensor,
     with _COUNT_LOCK:
         ANNEAL_LAUNCHES += 1
     return f, g
+
+
+def sinkhorn_solve_adaptive_cuda(C: torch.Tensor, log_a: torch.Tensor,
+                                 log_b: torch.Tensor, g0: torch.Tensor,
+                                 tol: float, eps_table, iters: int):
+    """The warm-started annealed solve with a per-stage convergence exit on
+    the card, in one launch: from f = 0 and g = ``g0``, each eps of
+    ``eps_table`` (float32 values, one a stage) runs iterations while
+    fewer than ``iters`` have run in the stage and the last one's
+    ``max |g_new - g|`` is above float32 ``tol`` (a NaN change exits).
+    C: [M, N]; log_a: [M]; g0/log_b: [N]; all float32, contiguous, on one
+    CUDA device. Returns (f [M], g [N], used): ``used`` a 0-d int32 tensor
+    on the card, the iterations run in all; f, g and used are bitwise
+    those of the loop of ``sinkhorn_iteration_cuda`` under the same exit
+    rule."""
+    global ANNEAL_ADAPTIVE_LAUNCHES
+    table = [float(e) for e in eps_table]
+    _check_schedule(table, iters)
+    if C.dim() != 2:
+        raise ValueError(f"C must be [M, N], got shape {tuple(C.shape)}")
+    M, N = C.shape
+    if M < 1 or not 1 <= N <= MAX_ANNEAL_COLUMNS:
+        raise ValueError(f"unsupported cost shape {(M, N)} for the annealed "
+                         f"launch (need M >= 1, 1 <= N <= "
+                         f"{MAX_ANNEAL_COLUMNS})")
+    _check("C", C, (M, N))
+    _check("log_a", log_a, (M,))
+    _check("log_b", log_b, (N,))
+    _check("g0", g0, (N,))
+    if not (log_a.device == log_b.device == g0.device == C.device):
+        raise ValueError("C, log_a, log_b and g0 must be on one device")
+    lib = _lib()
+    nblocks = -(-M // _ROWS)
+    # f [M] | g [N] | pmax [2, nblocks, N] | psum [2, nblocks, N], as for
+    # the fixed schedule; the iteration count apart, as an int32.
+    buf = torch.empty(M + N + 4 * nblocks * N, dtype=torch.float32,
+                      device=C.device)
+    used = torch.empty((), dtype=torch.int32, device=C.device)
+    f, g = buf[:M], buf[M:M + N]
+    pmax = buf.data_ptr() + 4 * (M + N)
+    psum = pmax + 4 * 2 * nblocks * N
+    host_table = (ctypes.c_float * len(table))(*table)
+    with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sinkhorn_anneal_adaptive(
+            C.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), g0.data_ptr(),
+            float(tol), ctypes.cast(host_table, ctypes.c_void_p), len(table),
+            int(iters), f.data_ptr(), g.data_ptr(), pmax, psum,
+            used.data_ptr(), M, N, stream)
+    if err == _TOO_LARGE:
+        raise RuntimeError(f"the annealed Sinkhorn's {nblocks} blocks (M = "
+                           f"{M}, N = {N}) cannot all be co-resident on "
+                           f"this card")
+    if err != 0:
+        raise RuntimeError(f"sinkhorn_anneal_adaptive launch failed: CUDA "
+                           f"error {err}")
+    with _COUNT_LOCK:
+        ANNEAL_ADAPTIVE_LAUNCHES += 1
+    return f, g, used
 
 
 def _check_schedule(table: list, iters) -> None:

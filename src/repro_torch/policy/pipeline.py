@@ -23,8 +23,9 @@ A ``PolicyPipeline`` is assembled from composable stages:
 
 All stages speak one protocol — ``schedule(jobs, now_s, capacity) ->
 Decision``. ``record_windows=True`` captures every solved window for
-offline replay through ``solvers.solve_many`` (``replay_recorded``). The
-warm-started Sinkhorn is not ported yet.
+offline replay through ``solvers.solve_many`` (``replay_recorded``).
+``ForecastPricer(warm=True)`` carries the Sinkhorn column potentials between
+fused rounds (``core.round.SinkhornWarmStart``).
 """
 from __future__ import annotations
 
@@ -258,10 +259,6 @@ class ForecastPricer(Pricer):
                  forecast_seed: int = 0, warm: bool = False):
         # ``forecaster`` names any registered model ("holtwinters",
         # "seasonal-naive", "persistence", "learned", ...) or "oracle".
-        if warm:
-            raise NotImplementedError(
-                "warm-started Sinkhorn (warm=True) is not ported yet; use "
-                "warm=False")
         from repro_torch import forecast as fcast
         self._fcast = fcast
         self.forecaster_name = forecaster
@@ -290,6 +287,12 @@ class ForecastPricer(Pricer):
         # their trained parameters across refits and decide internally when
         # to retrain (``retrain_every``) vs. just re-condition.
         self._forecaster_obj = None
+        # Warm-started Sinkhorn: carry the temporal OT's column potentials
+        # between rounds (``core.round.SinkhornWarmStart``). Fused backend
+        # only — the unfused path ignores it (warned once).
+        self.warm = bool(warm)
+        self.warm_state = None
+        self._warm_warned = False
         # Online forecast-accuracy bookkeeping (the sweep's accuracy column):
         # each refit scores the previous forecast against the hours that have
         # since realized.
@@ -412,18 +415,27 @@ class ForecastPricer(Pricer):
             # Pricing, masking, Sinkhorn, and extraction run on the device
             # in one program; the plan comes back already hard-solved.
             from repro_torch.core import round as fused_round
+            if self.warm and self.warm_state is None \
+                    and not pipe.record_windows:
+                self.warm_state = fused_round.SinkhornWarmStart()
             cost, allowed, cap, res = fused_round.fused_temporal_round(
                 inst, now_s, ci, ewif, wue, snap["pue"], snap["wsf"],
                 offsets, pipe.server, pipe.lam_co2, pipe.lam_h2o,
                 pipe.lam_ref, pipe.history.co2_ref, pipe.history.h2o_ref,
                 defer_eps=self.defer_eps, guard_s=self.guard_s,
-                want_plan=pipe.record_windows, device=pipe.device)
+                want_plan=pipe.record_windows, warm_start=self.warm_state,
+                device=pipe.device)
             S = len(offsets)
             return PricedPlan(cost=cost, allowed=allowed, capacity=cap,
                               overrun=np.tile(inst.overrun, (1, S)),
                               num_regions=inst.shape[1], num_slots=S,
                               slot_offsets=np.asarray(offsets, np.float64),
                               presolved=res)
+        if self.warm and not self._warm_warned:
+            self._warm_warned = True
+            obs.warn("policy.warm_ignored",
+                     "warm-started Sinkhorn requires backend='fused'; "
+                     f"backend={pipe.backend!r} prices unfused — ignored")
         plan = self._fcast.build_temporal_plan(
             inst, now_s, ci, ewif, wue, snap["pue"], snap["wsf"], offsets,
             pipe.server, pipe.lam_co2, pipe.lam_h2o, pipe.lam_ref,
@@ -441,6 +453,14 @@ class ForecastPricer(Pricer):
         if s == 0:
             return RUN, n
         return HOLD, now_s + float(plan.slot_offsets[s])
+
+    @property
+    def sinkhorn_cold_iters(self) -> List[int]:
+        return self.warm_state.cold_iters if self.warm_state else []
+
+    @property
+    def sinkhorn_warm_iters(self) -> List[int]:
+        return self.warm_state.warm_iters if self.warm_state else []
 
 
 # ---------------------------------------------------------------------------
@@ -867,8 +887,8 @@ def forecast_pipeline(tele: telemetry.Telemetry, *,
     hysteresis. ``device`` is where the device backends and forecasters run
     (None: the CUDA card). The reference's ``backend="jax"`` default is the
     port's ``"torch"``. ``record_windows=True`` keeps every solved window
-    for ``replay_recorded``. ``warm=True`` (warm-started Sinkhorn) is not
-    ported yet and raises ``NotImplementedError``."""
+    for ``replay_recorded``. ``warm=True`` carries Sinkhorn column
+    potentials between rounds (fused backend only)."""
     pricer = ForecastPricer(
         forecaster=forecaster, horizon_slots=horizon_slots, slot_s=slot_s,
         risk=risk, defer_eps=defer_eps, guard_s=guard_s,

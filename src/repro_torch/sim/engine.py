@@ -18,6 +18,12 @@ into one vectorized closed-form telemetry integration at the end of the run,
 and time-varying capacity (scenario outages) is supported. ``EngineStepper``
 is the same loop held open between ``step`` calls (the live-serving seam).
 
+``WindowedSimulator`` is the original fixed-window loop, kept verbatim as
+the fidelity oracle: it ticks every ``window_s`` whether or not anything
+happens and prices each job with per-job sub-sampled integration. The
+golden parity test (tests/test_torch_workflows.py, on the reference's
+small cell) pins its records to the reference's.
+
 Rounds happen on a ``window_s`` grid (re-anchored at each fully-idle
 fast-forward): arrivals within ``window_s`` are presented to the scheduler
 together (the paper's controller also "co-optimizes jobs that are invoked
@@ -598,3 +604,113 @@ class EngineStepper:
                 blocked=self.blocked + [j for j in tail if j.deps],
                 finished=dict(self._finish))
         return result
+
+
+class WindowedSimulator:
+    """The original fixed-window engine — kept as the golden-parity oracle.
+
+    Spins the ``window_s`` grid through idle time and prices each job with
+    per-job sub-sampled integration (``Telemetry.mean_between``). Quadratic
+    in trace span; use only for small fidelity checks.
+    """
+
+    def __init__(self, tele: telemetry.Telemetry, capacity: np.ndarray,
+                 config: Optional[SimConfig] = None):
+        self.tele = tele
+        self.capacity = np.asarray(capacity, np.int64)
+        self.cfg = config or SimConfig()
+
+    # -- footprint accounting ------------------------------------------------
+
+    def _account(self, job: Job, region: int, start_s: float):
+        t_eff = job.exec_time_s * job.time_scale
+        e_eff = job.energy_kwh * job.energy_scale
+        te = self.tele
+        if self.cfg.integrate:
+            m = te.mean_between(start_s, start_s + t_eff)
+            ci = float(m["ci"][region])
+            ewif = float(m["ewif"][region])
+            wue = float(m["wue"][region])
+        else:
+            snap = te.at(start_s)
+            ci, ewif, wue = (snap["ci"][region], snap["ewif"][region],
+                             snap["wue"][region])
+        server = self.cfg.server
+        carbon = float(footprint.job_carbon(e_eff, t_eff, ci, server))
+        water = float(footprint.job_water(e_eff, t_eff, te.pue[region], ewif,
+                                          wue, te.wsf[region], server))
+        embodied = float(footprint.job_embodied(
+            t_eff, server,
+            region_scale=float(
+                footprint.region_embodied_scale(te.num_regions)[region]),
+            servers=job.servers))
+        return carbon, water, embodied
+
+    # -- main loop -----------------------------------------------------------
+
+    def run(self, jobs: Sequence[Job], scheduler) -> Dict:
+        scheduler = resolve_scheduler(scheduler, self.tele)
+        jobs = sorted(jobs, key=lambda j: j.submit_time_s)
+        cluster = Cluster(self.capacity)
+        records: List[JobRecord] = []
+        pending: List[Job] = []
+        i = 0
+        now = 0.0
+        windows = 0
+        rounds = 0
+        stalls = 0
+        while i < len(jobs) or pending or cluster.busy.any():
+            cluster.advance(now)
+            while i < len(jobs) and jobs[i].submit_time_s <= now:
+                pending.append(jobs[i])
+                i += 1
+            progressed = False
+            if pending:
+                dec = scheduler.schedule(pending, now, cluster.free())
+                progressed = bool(dec.scheduled)
+                for job, n in zip(dec.scheduled, dec.assign):
+                    n = int(n)
+                    lat = self.tele.transfer_latency_s(job.package_bytes,
+                                                       job.home_region, n)
+                    start = now + lat
+                    if job.planned_start_s is not None:
+                        start = max(start, job.planned_start_s)
+                    finish = start + job.exec_time_s * job.time_scale
+                    cluster.dispatch(n, finish)
+                    job.start_time_s, job.finish_time_s = start, finish
+                    carbon, water, embodied = self._account(job, n, start)
+                    records.append(JobRecord(job, n, start, finish, carbon,
+                                             water, embodied))
+                pending = list(dec.deferred)
+                rounds += 1
+            windows += 1
+            if i < len(jobs) and not pending and not cluster.busy.any():
+                now = jobs[i].submit_time_s      # fast-forward idle gaps
+            else:
+                now += self.cfg.window_s
+            # Deadlock guard: pending jobs that no scheduler round can place
+            # and no running job will ever release capacity for. A scheduler
+            # holding jobs on purpose (Decision.wake_s) keeps ticking — the
+            # windowed engine spins the grid rather than jumping.
+            if pending and not progressed and not cluster.busy.any() \
+                    and i >= len(jobs):
+                wake = getattr(dec, "wake_s", None)
+                if wake is not None and wake > now:
+                    stalls = 0
+                else:
+                    stalls += 1
+                    if stalls > 2:
+                        break
+            else:
+                stalls = 0
+        return dict(records=records, windows=windows, rounds=rounds,
+                    solve_times=np.asarray(getattr(scheduler, "solve_times",
+                                                   [])),
+                    utilization=cluster.utilization(max(now, 1.0)),
+                    peak_busy=cluster.peak_busy.copy(),
+                    horizon_s=max(now, 1.0),
+                    unfinished=len(pending))
+
+
+# The event-driven engine is the default.
+Simulator = EventSimulator

@@ -30,11 +30,9 @@ Adding a scenario::
 
 The builder must be deterministic in its arguments (property-tested).
 
-The two workflow scenarios need the workflow (DAG) trace generators, which
-are not ported yet (queue item [7]): they are registered with the
-reference's parameters and their builders raise ``NotImplementedError``.
-``run_cell`` and ``sweep`` take the torch ``device`` the policies run on
-(None: the CUDA card).
+The two workflow scenarios build their DAG traces with the port's
+``repro_torch.workflows.generators``. ``run_cell`` and ``sweep`` take the
+torch ``device`` the policies run on (None: the CUDA card).
 """
 from __future__ import annotations
 
@@ -374,10 +372,27 @@ def _regime_shift(days, seed, jobs_per_day, utilization, *,
     return dataclasses.replace(inst, name="regime-shift", tele=tele)
 
 
-def _workflow_base(name: str) -> ScenarioInstance:
-    raise NotImplementedError(
-        f"scenario {name!r} needs the workflow (DAG) trace generators, "
-        "which are not ported yet (queue item [7])")
+# Average tasks per workflow under ``workflows.generators.TEMPLATES``
+# (chain/fanout/diamond/montage mix) — converts the shared ``jobs_per_day``
+# cell param (which counts *tasks*, like every other scenario) into the
+# generator's workflow arrival rate.
+_TASKS_PER_WORKFLOW = 6.7
+
+
+def _workflow_base(days, seed, jobs_per_day, utilization, *,
+                   tolerance: float = 0.5, ewif_table: str = "macknick",
+                   burst: float = 0.0, name: str = "workflow-diurnal"
+                   ) -> ScenarioInstance:
+    from repro_torch.workflows import generators
+    tele = telemetry.generate(days=max(int(np.ceil(days)) + 1, 2), seed=seed,
+                              ewif_table=ewif_table)
+    jobs = generators.workflow_trace(
+        days=days, seed=seed, num_regions=tele.num_regions,
+        tolerance=tolerance,
+        workflows_per_day=jobs_per_day / _TASKS_PER_WORKFLOW, burst=burst)
+    cap = scale_capacity_for_utilization(jobs, days, tele.num_regions,
+                                         utilization)
+    return ScenarioInstance(name=name, tele=tele, jobs=jobs, capacity=cap)
 
 
 @register("workflow-diurnal",
@@ -385,7 +400,9 @@ def _workflow_base(name: str) -> ScenarioInstance:
           "mix) with diurnal arrivals; jobs_per_day counts tasks")
 def _workflow_diurnal(days, seed, jobs_per_day, utilization, *,
                       tolerance: float = 0.5, ewif_table: str = "macknick"):
-    return _workflow_base("workflow-diurnal")
+    return _workflow_base(days, seed, jobs_per_day, utilization,
+                          tolerance=tolerance, ewif_table=ewif_table,
+                          name="workflow-diurnal")
 
 
 @register("workflow-burst",
@@ -395,7 +412,9 @@ def _workflow_diurnal(days, seed, jobs_per_day, utilization, *,
 def _workflow_burst(days, seed, jobs_per_day, utilization, *,
                     tolerance: float = 0.5, ewif_table: str = "macknick",
                     burst: float = 0.5):
-    return _workflow_base("workflow-burst")
+    return _workflow_base(days, seed, jobs_per_day, utilization,
+                          tolerance=tolerance, ewif_table=ewif_table,
+                          burst=burst, name="workflow-burst")
 
 
 def register_csv_scenario(name: str, path: str, *,
@@ -518,8 +537,7 @@ def sweep(schedulers: Sequence, scenarios: Optional[Sequence[str]] = None,
     pair is raised at the end with all rows attached as ``err.rows``.
 
     ``device`` is where the policies run (None: the CUDA card); it travels
-    beside the cells to every worker. The ``sharded`` executor is not
-    ported yet.
+    beside the cells to every worker.
     """
     from repro_torch import experiments, policy
     from repro_torch.experiments.executor import auto_workers

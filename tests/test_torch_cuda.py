@@ -706,3 +706,159 @@ def test_device_plan_on_card_equals_serial(card):
                  if k not in ("wall_s", "mean_solve_ms")} for r in rows]
     assert all(r["error"] == "" for r in serial + device), serial + device
     assert strip(device) == strip(serial)
+
+
+# --- The warm-started solve with a convergence exit: the live service --------
+
+def _adaptive_inputs(card, M, N, seed, drift=0.0):
+    """A prepared round at M rows (forbidden arcs at BIG, the dummy row):
+    (C, log_a, log_b) on the card; ``drift`` perturbs the raw costs."""
+    rng = np.random.default_rng(seed)
+    jobs = M - 1
+    cost = rng.random((jobs, N)) * 10
+    allowed = rng.random((jobs, N)) > 0.2
+    allowed[np.arange(jobs), rng.integers(0, N, jobs)] = True
+    noise = np.random.default_rng(seed + 1).standard_normal(cost.shape)
+    cost = (cost * (1 + drift * noise)).astype(np.float32)
+    C, log_a, log_b, _, _ = port_round._prepare_device(
+        torch.from_numpy(cost).to(card), torch.from_numpy(allowed).to(card),
+        torch.full((N,), float(jobs // N + 2), device=card),
+        torch.ones(jobs, dtype=torch.bool, device=card))
+    return C.contiguous(), log_a.contiguous(), log_b.contiguous()
+
+
+def _adaptive_iteration_loop(C, log_a, log_b, g0, tol, table, iters):
+    """The adaptive exit rule read on the host over launches of the
+    iteration kernel: the yardstick the one-launch solve must equal."""
+    tol32 = torch.tensor(tol, dtype=torch.float32)
+    f, g, used = torch.zeros_like(log_a), g0, 0
+    for eps in table:
+        for _ in range(iters):
+            f, g_new = sinkhorn.sinkhorn_iteration_cuda(C, g, log_a, log_b,
+                                                        eps)
+            delta = (g_new - g).abs().max()
+            g, used = g_new, used + 1
+            if not bool(delta.cpu() > tol32):
+                break
+    return f, g, used
+
+
+@pytest.mark.parametrize("M,N", [(4, 6), (512, 6), (512, 40), (2048, 40)])
+def test_adaptive_anneal_is_bitwise_the_iteration_loop(card, M, N):
+    """The warm-started, convergence-exit launch, cold (6 stages x 60 from
+    g = 0) and warm (one final-eps stage capped at 360, from the cold g, on
+    a drifted instance): f, g and the iterations used equal the host loop
+    of iteration launches under the same exit rule, bit for bit; f and g
+    within ATOL of the plain loop; one launch a solve."""
+    from repro_torch.core.solvers import torch_solver
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_adaptive_ref
+    tol = torch_solver.SINKHORN_TOL
+    g0 = torch.zeros(N, device=card)
+    for case, eps0, stages, iters in (
+            (_adaptive_inputs(card, M, N, M + N), 0.5, 6, 60),
+            (_adaptive_inputs(card, M, N, M + N, drift=0.03), 0.005, 1, 360)):
+        table = torch_solver.eps_schedule(eps0, 0.005, stages).tolist()
+        before = (sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES, sinkhorn.ANNEAL_LAUNCHES)
+        f_a, g_a, used = ops.sinkhorn_solve_adaptive(*case, g0, tol, table,
+                                                     iters)
+        torch.cuda.synchronize()
+        assert (sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES,
+                sinkhorn.ANNEAL_LAUNCHES) == (before[0] + 1, before[1])
+        assert used.dtype == torch.int32 and used.device.type == "cuda"
+        f_l, g_l, used_l = _adaptive_iteration_loop(*case, g0, tol, table,
+                                                    iters)
+        assert torch.equal(f_a, f_l) and torch.equal(g_a, g_l)
+        assert int(used) == used_l and 0 < used_l <= stages * iters
+        f_r, g_r, _ = sinkhorn_solve_adaptive_ref(*case, g0, tol, table,
+                                                  iters)
+        assert (f_a - f_r).abs().max().item() <= ATOL
+        assert (g_a - g_r).abs().max().item() <= ATOL
+        g0 = g_a
+
+
+def test_adaptive_anneal_on_a_64_block_grid_finishes(card):
+    """Bucket 16384 is a 64-block cooperative grid: every block must leave
+    each stage at the same iteration, or one waits at a grid sync forever.
+    Run in a child process under a timeout, so a hang fails the test; the
+    child holds the launch bitwise against the iteration loop."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = (
+        "import sys, torch\n"
+        "sys.path[:0] = [sys.argv[1], sys.argv[2]]\n"
+        "from test_torch_cuda import (_adaptive_inputs,\n"
+        "    _adaptive_iteration_loop)\n"
+        "from repro_torch.core.solvers import torch_solver\n"
+        "from repro_torch.kernels.sinkhorn import ops\n"
+        "card = torch.device('cuda')\n"
+        "C, la, lb = _adaptive_inputs(card, 16384, 40, 7)\n"
+        "g0 = torch.zeros(40, device=card)\n"
+        "table = torch_solver.eps_schedule(0.5, 0.005, 6).tolist()\n"
+        "f, g, used = ops.sinkhorn_solve_adaptive(C, la, lb, g0, 1e-5,\n"
+        "                                         table, 60)\n"
+        "torch.cuda.synchronize()\n"
+        "f_l, g_l, used_l = _adaptive_iteration_loop(C, la, lb, g0, 1e-5,\n"
+        "                                            table, 60)\n"
+        "assert torch.equal(f, f_l) and torch.equal(g, g_l)\n"
+        "assert int(used) == used_l > 0\n"
+        "print('ok', used_l)\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(root / "src"), str(root / "tests")],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_adaptive_anneal_rejects_bad_inputs(card):
+    C, log_a, log_b = _adaptive_inputs(card, 128, 6, 0)
+    g0 = torch.zeros(6, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0.cpu(),
+                                              1e-5, [0.005], 360)
+    with pytest.raises(ValueError, match="shape"):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0[:5], 1e-5,
+                                              [0.005], 360)
+    with pytest.raises(TypeError):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0.double(),
+                                              1e-5, [0.005], 360)
+    with pytest.raises(ValueError, match="no Sinkhorn kernel"):
+        ops.sinkhorn_solve_adaptive(*(t.to("meta") for t in
+                                      (C, log_a, log_b, g0)),
+                                    1e-5, [0.005], 360)
+
+
+def test_warm_round_on_card_makes_one_adaptive_launch(card):
+    """``fused_temporal_round(warm_start=)`` on the card: one adaptive
+    launch a round and no other Sinkhorn launch; the carry warms the next
+    round; the decisions equal the CPU's plain loop on the same rounds."""
+    from repro_torch.core import footprint, problem, telemetry
+    tele = telemetry.generate(days=2, seed=0)
+    M, S, R = 30, 8, 5
+    rng = np.random.default_rng(0)
+    jobs = [problem.Job(job_id=i, home_region=i % R, submit_time_s=0.0,
+                        exec_time_s=600.0, energy_kwh=0.05, tolerance=4.0)
+            for i in range(M)]
+    server = footprint.m5_metal()
+    snap = tele.at(0.0)
+    inst = problem.build(jobs, tele, 0.0, np.full(R, 8), server, snap=snap)
+    sig = [rng.random((M, S, R)) * k + 0.5 for k in (300, 2, 1)]
+    drifted = [s * (1 + 0.03 * rng.standard_normal(s.shape)) for s in sig]
+    ws, host = port_round.SinkhornWarmStart(), port_round.SinkhornWarmStart()
+    for grid in (sig, drifted):
+        args = (inst, 0.0, *grid, snap["pue"], snap["wsf"],
+                np.arange(S) * 1800.0, server, 0.5, 0.5)
+        before = (sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES, sinkhorn.ANNEAL_LAUNCHES,
+                  sinkhorn.LAUNCHES)
+        res = port_round.fused_temporal_round(*args, warm_start=ws)[3]
+        assert (sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES - before[0],
+                sinkhorn.ANNEAL_LAUNCHES - before[1],
+                sinkhorn.LAUNCHES - before[2]) == (1, 0, 0)
+        ref = port_round.fused_temporal_round(*args, warm_start=host,
+                                              device="cpu",
+                                              sinkhorn_impl="kernel")[3]
+        assert res.feasible and res.status == ref.status
+        np.testing.assert_array_equal(res.assign, ref.assign)
+    assert len(ws.cold_iters) == len(ws.warm_iters) == 1
+    assert ws.warm_iters[0] < ws.cold_iters[0]

@@ -119,7 +119,25 @@ def test_process_rows_equal_serial_rows(serial_rows):
     assert _strip_wall(proc) == _strip_wall(rows)
 
 
-def test_process_workers_are_spawned(monkeypatch):
+@pytest.fixture
+def raising_scenario():
+    """A scenario registered in this process only, whose builder raises:
+    the failing cell of the error-row tests."""
+    from repro_torch.sim import scenarios
+    name = "raises-on-build"
+
+    @scenarios.register(name, "a cell that fails at build (tests only)")
+    def build(days, seed, jobs_per_day, utilization):
+        raise NotImplementedError(f"scenario {name!r} fails at build")
+    yield name
+    del scenarios._REGISTRY[name]
+
+
+def test_process_workers_are_spawned(monkeypatch, raising_scenario):
+    """The workers start by ``spawn``, from a fresh import: a scenario
+    registered in this process only is unknown there (a forked worker
+    would inherit it and fail in its builder), and each cell comes back as
+    an error row naming it."""
     seen = {}
     real = experiments.executor.concurrent.futures.ProcessPoolExecutor
 
@@ -129,11 +147,12 @@ def test_process_workers_are_spawned(monkeypatch):
     monkeypatch.setattr(experiments.executor.concurrent.futures,
                         "ProcessPoolExecutor", pool)
     cells = experiments.ExperimentPlan.build(
-        ["workflow-diurnal[days=0.01]"], ["baseline", "least-load"]).cells()
+        [f"{raising_scenario}[days=0.01]"], ["baseline", "least-load"]).cells()
     rows = experiments.ProcessExecutor(2).run(cells, device="cpu")
     assert seen["method"] == "spawn"
     assert [r["error"].split(":")[0] for r in rows] == \
-        ["NotImplementedError"] * 2
+        ["UnknownNameError"] * 2
+    assert all(raising_scenario in r["error"] for r in rows)
 
 
 def test_auto_sized_pool_is_capped_on_the_card(monkeypatch):
@@ -183,20 +202,21 @@ def test_auto_sized_pool_is_capped_on_the_card(monkeypatch):
         == [("process", 3, None), ("process", 4, "cpu")]
 
 
-def test_error_rows_and_cell_error():
+def test_error_rows_and_cell_error(raising_scenario):
     """A crashed cell leaves an error row and the others finish; strict
     runs raise ``CellError`` naming the cell, with every row attached."""
-    plan = experiments.ExperimentPlan.build(
-        [SCENARIOS[0], "workflow-burst[days=0.01]"], ["baseline"])
+    failing = f"{raising_scenario}[days=0.01]"
+    plan = experiments.ExperimentPlan.build([SCENARIOS[0], failing],
+                                            ["baseline"])
     rows = plan.run("serial", device="cpu")
     assert rows[0]["error"] == "" and rows[0]["jobs"] > 0
     assert rows[1]["error"].startswith("NotImplementedError: scenario "
-                                       "'workflow-burst'")
-    assert rows[1]["scenario_spec"] == "workflow-burst[days=0.01]"
+                                       f"'{raising_scenario}'")
+    assert rows[1]["scenario_spec"] == failing
     assert "carbon_kg" not in rows[1]
     with pytest.raises(experiments.CellError) as err:
         plan.run("serial", strict=True, device="cpu")
-    assert err.value.scenario == "workflow-burst[days=0.01]"
+    assert err.value.scenario == failing
     assert err.value.spec == "baseline" and len(err.value.rows) == 2
     ref_err = ref_experiments.CellError("s", "p", "boom")
     assert str(experiments.CellError("s", "p", "boom")) == str(ref_err)

@@ -152,13 +152,22 @@ def test_learned_round_matches_reference(teles, cell, monkeypatch):
     assert f.train_count == 1 and f.scan_impl == "torch"
 
 
-def test_unported_options_raise(teles):
-    """``warm=True`` (the warm-started Sinkhorn) is not ported and raises;
-    ``record_windows=True`` records each fused round's priced tensors (the
-    ``want_plan`` ones) for a replay through ``solve_many``."""
+def test_unported_options_raise(teles, cell):
+    """The options that once raised run now. ``warm=True`` (the warm-started
+    Sinkhorn, ported since) on the cell through both engines: equal
+    records, totals and deferrals, and equal cold and warm iteration lists
+    round by round. ``record_windows=True`` records each fused round's
+    priced tensors (the ``want_plan`` ones) for a replay through
+    ``solve_many``."""
     _, tele = teles
-    with pytest.raises(NotImplementedError, match="warm"):
-        forecast_pipeline(tele, warm=True, device="cpu")
+    kw = dict(forecaster="oracle", backend="fused", warm=True)
+    ref, port = _run_both(teles, cell, kw, kw)
+    _assert_same_run(ref, port)
+    (_, ref_pipe), (_, pipe) = ref, port
+    assert pipe.sinkhorn_cold_iters == ref_pipe.sinkhorn_cold_iters
+    assert pipe.sinkhorn_warm_iters == ref_pipe.sinkhorn_warm_iters
+    assert len(pipe.sinkhorn_cold_iters) == 1
+    assert min(pipe.sinkhorn_warm_iters) > 0
     pipe = forecast_pipeline(tele, record_windows=True, backend="fused",
                              device="cpu")
     jobs = [problem.Job(job_id=i, home_region=i % 5, submit_time_s=0.0,

@@ -21,8 +21,8 @@ def test_main_path_imports_without_jax_or_reference():
     """With jax blocked: import the main paths of the slices, then run one
     learned-forecaster forward, one Holt-Winters fit, a two-cell plan
     built from spec strings (serial, then two seeds through the ``device``
-    executor) and one reduced-config LM prefill per architecture on the
-    CPU."""
+    executor), one reduced-config LM prefill per architecture and a small
+    workflow cell streamed through the warm-started service on the CPU."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -69,6 +69,23 @@ def test_main_path_imports_without_jax_or_reference():
         "    logits, cache = m.prefill(p, dict(tokens=t))\n"
         "    assert logits.shape == (2, m.cfg.padded_vocab)\n"
         "    assert torch.isfinite(logits.float()).all()\n"
+        "import repro_torch.serve, repro_torch.workflows\n"
+        "import repro_torch.runtime.elastic\n"
+        "from repro_torch.serve import DecisionLoop, ReplayArrivals\n"
+        "from repro_torch.sim.engine import EventSimulator\n"
+        "from repro_torch.sim.scenarios import get_scenario\n"
+        "from repro_torch.workflows import precedence_violations\n"
+        "inst = get_scenario('workflow-diurnal').build(0.005, 0, 5000.0, "
+        "0.15)\n"
+        "pipe = forecast_pipeline(inst.tele, forecaster='oracle', "
+        "backend='fused', warm=True, device='cpu')\n"
+        "loop = DecisionLoop(EventSimulator(inst.tele, inst.capacity), pipe,"
+        " ReplayArrivals(inst.jobs))\n"
+        "rep = loop.run(0.005 * 86400.0)\n"
+        "assert rep.placed == len(inst.jobs) > 0, rep\n"
+        "assert pipe.sinkhorn_cold_iters, rep\n"
+        "assert precedence_violations(loop.stepper.result()['records']) "
+        "== 0\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -101,7 +118,11 @@ def test_port_sources_never_import_jax_or_reference():
             "core/solvers/scipy_solver.py", "core/solvers/pulp_solver.py",
             "sim/scenarios.py", "experiments/scenario.py",
             "experiments/plan.py", "experiments/runner.py",
-            "experiments/executor.py", "obs/report.py"} <= names
+            "experiments/executor.py", "obs/report.py",
+            "serve/__init__.py", "serve/arrivals.py", "serve/loop.py",
+            "workflows/__init__.py", "workflows/spec.py",
+            "workflows/cpath.py", "workflows/generators.py",
+            "workflows/ingest.py", "runtime/elastic.py"} <= names
     cu = {p.name for p in (SRC / "repro_torch" / "csrc").glob("*.cu")}
     assert {"flash_attention.cu", "ssd_scan.cu"} <= cu
     hits = [(str(p), m.group(0).strip()) for p in files

@@ -1,7 +1,8 @@
 """The port's scenario registry against the JAX package's: the same names
-and builder schemas, every non-workflow scenario building an identical
-instance (host numpy on both sides, compared exactly), CSV-backed scenarios,
-and the ``run_cell`` / ``sweep`` shims on the CPU."""
+and builder schemas, every scenario building an identical instance (host
+numpy on both sides, compared exactly; the workflow scenarios' DAG traces
+too), CSV-backed scenarios, and the ``run_cell`` / ``sweep`` shims on the
+CPU."""
 import dataclasses
 
 import numpy as np
@@ -120,11 +121,20 @@ def test_telemetry_perturbations_match_reference():
 
 @pytest.mark.parametrize("name", WORKFLOW)
 def test_workflow_scenarios_raise_with_reference_schema(name):
+    """The workflow scenarios, which raised until the DAG generators were
+    ported, build the reference's instance: the same schema, DAG trace
+    (deps, workflow ids, critical-path deadlines), telemetry and capacity,
+    at two seeds and a builder parameter."""
     assert schema_tuples(scenarios.get_scenario(name).params) == \
         schema_tuples(ref_scenarios.get_scenario(name).params)
-    spec = experiments.parse_scenario(f"{name}[days=0.1,tolerance=0.7]")
-    with pytest.raises(NotImplementedError, match=r"\[7\]"):
-        experiments.build_instance(spec)
+    for seed in (0, 7):
+        spec = f"{name}[days=0.1,tolerance=0.7,seed={seed},jobs_per_day=4000]"
+        inst, cell = experiments.build_instance(spec)
+        ref, ref_cell = ref_experiments.build_instance(spec)
+        assert cell == ref_cell and len(ref.jobs) > 0
+        assert_instance_equal(inst, ref)
+        assert all(j.workflow_id is not None for j in inst.jobs)
+        assert all(j.tolerance == 0.7 for j in inst.jobs)
 
 
 @pytest.fixture

@@ -219,3 +219,134 @@ def test_batched_wrapper_rejects_what_the_launch_does_not_take():
     meta = [t.to("meta") for t in (C, log_a, log_b)]
     with pytest.raises(ValueError, match="no Sinkhorn kernel"):
         ops.sinkhorn_solve_batched(*meta, table, 60)
+
+
+# --- The warm-started solve with a convergence exit -------------------------
+
+def _adaptive_case(M, N, seed, drift=0.0):
+    """A round's solve inputs at M rows (M - 1 jobs and the dummy row):
+    normalized costs with forbidden arcs at BIG, prepared by the port's
+    device stage on the CPU. ``drift`` multiplies the raw costs by
+    ``1 + drift * noise`` (a drifted next round). Returns torch tensors."""
+    from repro_torch.core import round as port_round
+    rng = np.random.default_rng(seed)
+    jobs = M - 1
+    cost = rng.random((jobs, N)) * 10
+    allowed = rng.random((jobs, N)) > 0.2
+    allowed[np.arange(jobs), rng.integers(0, N, jobs)] = True
+    cap = np.full(N, jobs // N + 2, np.float32)
+    noise = np.random.default_rng(seed + 1).standard_normal(cost.shape)
+    cost = cost * (1 + drift * noise)
+    C, log_a, log_b, _, _ = port_round._prepare_device(
+        torch.from_numpy(cost.astype(np.float32)), torch.from_numpy(allowed),
+        torch.from_numpy(cap), torch.ones(jobs, dtype=torch.bool))
+    return C, log_a, log_b
+
+
+def _ref_adaptive(C, log_a, log_b, g0, **kw):
+    from repro.core.solvers import jax_solver
+    f, g, eps, used = jax_solver._sinkhorn_log_adaptive_impl(
+        jnp.asarray(C.numpy()), jnp.asarray(log_a.numpy()),
+        jnp.asarray(log_b.numpy()), jnp.asarray(g0.numpy()),
+        jnp.float32(jax_solver.SINKHORN_TOL), **kw)
+    return np.asarray(f), np.asarray(g), np.asarray(eps), int(used)
+
+
+COLD = dict(eps0=0.5, eps_min=0.005, iters=60, anneal_stages=6)
+WARM = dict(eps0=0.005, eps_min=0.005, iters=360, anneal_stages=1)
+
+
+@pytest.mark.parametrize("M,N", [(64, 6), (256, 40), (512, 40)])
+def test_adaptive_solve_matches_reference(M, N):
+    """``torch_solver._sinkhorn_log_adaptive_impl`` against the reference's
+    ``_sinkhorn_log_adaptive_impl``: cold (6 x 60 from g = 0), then warm (one
+    final-eps stage capped at 360) on a drifted instance from the cold
+    solve's g. Duals within SOLVE_ATOL, iteration counts equal, the same
+    float32 eps; the kernel's plain loop is bitwise the solver's."""
+    from repro.core.solvers import jax_solver
+    from repro_torch.core.solvers import torch_solver
+    from repro_torch.kernels.sinkhorn.ref import sinkhorn_solve_adaptive_ref
+    assert torch_solver.SINKHORN_TOL == jax_solver.SINKHORN_TOL
+    C, log_a, log_b = _adaptive_case(M, N, seed=M + N)
+    g0 = torch.zeros(N)
+    for kw, case in ((COLD, (C, log_a, log_b)),
+                     (WARM, _adaptive_case(M, N, seed=M + N, drift=0.03))):
+        f_j, g_j, eps_j, used_j = _ref_adaptive(*case, g0, **kw)
+        before = sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES
+        f, g, eps, used = torch_solver._sinkhorn_log_adaptive_impl(
+            *case, g0, torch_solver.SINKHORN_TOL, **kw)
+        assert sinkhorn.ANNEAL_ADAPTIVE_LAUNCHES == before
+        assert used.dtype == torch.int32 and int(used) == used_j
+        assert 0 < used_j < kw["iters"] * kw["anneal_stages"]
+        np.testing.assert_allclose(f.numpy(), f_j, atol=SOLVE_ATOL)
+        np.testing.assert_allclose(g.numpy(), g_j, atol=SOLVE_ATOL)
+        assert eps.dtype == torch.float32 and float(eps) == float(eps_j)
+        table = torch_solver.eps_schedule(
+            kw["eps0"], kw["eps_min"], kw["anneal_stages"]).tolist()
+        f_r, g_r, used_r = sinkhorn_solve_adaptive_ref(
+            *case, g0, torch_solver.SINKHORN_TOL, table, kw["iters"])
+        assert torch.equal(f_r, f) and torch.equal(g_r, g)
+        assert int(used_r) == int(used)
+        f_o, g_o, used_o = ops.sinkhorn_solve_adaptive(
+            *case, g0, torch_solver.SINKHORN_TOL, table, kw["iters"])
+        assert torch.equal(f_o, f) and torch.equal(g_o, g)
+        assert int(used_o) == int(used)
+        g0 = torch.from_numpy(g_j.copy())  # the warm start is the cold g
+    assert used_j < 360                    # the warm stage converged
+
+
+def test_adaptive_schedule_is_the_references_float32():
+    """The eps of each stage, as the adaptive solve runs it, bit for bit the
+    reference's float32 ``eps0 * decay ** arange(stages)``."""
+    import jax
+    from repro_torch.core.solvers import torch_solver
+    for eps0, eps_min, stages in ((0.5, 0.005, 6), (0.005, 0.005, 1),
+                                  (1.0, 0.01, 4)):
+        decay = (eps_min / eps0) ** (1.0 / max(stages - 1, 1))
+        ref = jax.jit(lambda: eps0 * decay ** jnp.arange(stages))()
+        got = torch_solver.eps_schedule(eps0, eps_min, stages).numpy()
+        assert got.tobytes() == np.asarray(ref, np.float32).tobytes()
+
+
+def test_adaptive_solve_exits_on_nan_as_the_reference():
+    """A NaN change of g exits a stage, as ``NaN > tol`` is false in JAX:
+    every stage runs exactly one iteration on a cost with a NaN."""
+    from repro_torch.core.solvers import torch_solver
+    C, log_a, log_b = _adaptive_case(16, 6, seed=3)
+    C[2, 1] = float("nan")
+    g0 = torch.zeros(6)
+    _, _, _, used_j = _ref_adaptive(C, log_a, log_b, g0, **COLD)
+    _, g, _, used = torch_solver._sinkhorn_log_adaptive_impl(
+        C, log_a, log_b, g0, torch_solver.SINKHORN_TOL, **COLD)
+    assert int(used) == used_j == COLD["anneal_stages"]
+    assert torch.isnan(g).any()
+
+
+def test_adaptive_wrapper_rejects_what_the_launch_does_not_take():
+    """The adaptive launch's binding raises before any build or launch on
+    host memory, a bad shape, a g0 of the wrong width or a schedule it
+    cannot hold; the dispatch in ops is the only route from a CPU tensor to
+    the plain loop."""
+    C, log_a, log_b = _adaptive_case(128, 6, seed=0)
+    g0 = torch.zeros(6)
+    table = [0.005]
+    with pytest.raises(ValueError, match="CUDA"):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0, 1e-5,
+                                              table, 360)
+    with pytest.raises(ValueError, match="shape"):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(C[:, None], log_a, log_b, g0,
+                                              1e-5, table, 360)
+    wide = torch.zeros(4, sinkhorn.MAX_ANNEAL_COLUMNS + 1)
+    with pytest.raises(ValueError, match="unsupported"):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(
+            wide, log_a[:4], torch.zeros(wide.shape[1]),
+            torch.zeros(wide.shape[1]), 1e-5, table, 360)
+    with pytest.raises(ValueError, match="stages"):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0, 1e-5, [],
+                                              360)
+    with pytest.raises(ValueError, match="iters"):
+        sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0, 1e-5,
+                                              table, -1)
+    meta = [t.to("meta") for t in (C, log_a, log_b, g0)]
+    with pytest.raises(ValueError, match="no Sinkhorn kernel"):
+        ops.sinkhorn_solve_adaptive(*meta, 1e-5, table, 360)
