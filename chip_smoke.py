@@ -27,7 +27,8 @@ Builds the port's kernels from the sources in this checkout, then:
      backward: the fused layer (gate math + recurrence, one launch each
      way) and the scan alone, at the learned forecaster's shapes, the
      reference tests' odd shapes, a case at the sqrt factor's 1e-12 clamp
-     and griffin's [4, 2048, 2560]; times them beside the eager
+     and griffin's [4, 2048, 2560] (recurrentgemma-2b's prefill, phase 8's
+     path); times them beside the eager
      composition the fused pair replaces (gate math + scan kernel), the
      plain versions and their bounds;
   5. drives the forecast-driven round end to end — ``EventSimulator`` +
@@ -41,20 +42,27 @@ Builds the port's kernels from the sources in this checkout, then:
      kernels (bf16 P 64 on the chunk-parallel wgmma kernel; float32 and
      other shapes on the scalar kernel) against their plain versions on
      the card (the reference kernel tests' shapes, GQA, ragged lengths,
-     chunks of 64 to 256, and the qwen2-1.5B and mamba2-2.7B prefill
-     shapes, the latter at B 4 and B 1) and times them beside the plain
-     versions, their bounds and, for attention,
+     chunks of 64 to 256, the qwen2-1.5B and mamba2-2.7B prefill shapes,
+     the latter at B 4 and B 1, and the scalar flash kernel in bf16 at D
+     256 at the gemma models' per-call prefill shapes) and times them
+     beside the plain versions, their bounds and, for attention,
      ``scaled_dot_product_attention``; the two SSD kernels on the same bf16
      inputs; and checks that both refuse an input that requires grad
      under grad (they are forward-only);
-  7. serves qwen2-1.5B and mamba2-2.7B at full width and depth 2 in
-     float32 through ``Server.generate`` on the card and on the CPU (the
-     same weights) and compares logits and tokens;
-  8. serves both at full depth in bf16 on the card (B 4, prompt 2048, 32
-     new tokens), reports prefill tokens/s, decode ms per step and peak
-     memory, and checks that each prefill called one kernel per layer (the
-     wgmma flash kernel for qwen2-1.5B and the wgmma SSD kernel for
-     mamba2-2.7B, never the scalar ones) and never the plain versions;
+  7. serves qwen2-1.5B and mamba2-2.7B at depth 2, gemma3-4B at depth 6
+     (five local layers, one global) and recurrentgemma-2B at depth 4 (one
+     group of two RG-LRU layers and a local attention layer, then one
+     RG-LRU layer), all at full width in float32, through
+     ``Server.generate`` on the card and on the CPU (the same weights) and
+     compares logits and tokens;
+  8. serves all four at full depth in bf16 on the card (B 4, prompt 2048,
+     32 new tokens), reports prefill tokens/s, decode ms per step, peak
+     memory and the profiled prefill's busy share, and checks the kernel
+     calls of each prefill (one wgmma flash call a layer for qwen2-1.5B,
+     one wgmma SSD call a layer for mamba2-2.7B, one scalar flash call an
+     attention layer for gemma3-4B and recurrentgemma-2B and one fused
+     RG-LRU launch a recurrent layer for the latter) and that no plain
+     version ran;
   9. runs the paper's comparison on the cell of phases 3 and 5, built by
      the port's scenario registry, through a serial ``ExperimentPlan`` of
      policy specs (the six §5 rule schedulers, ``waterwise[backend=fused]``
@@ -92,8 +100,9 @@ Builds the port's kernels from the sources in this checkout, then:
      in batch — records equal, no task started before a predecessor ended.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
-SSM scalars are drawn live (``models.ssm.draw_live_mixer``), since the
-reference's zero conv would feed the SSD exact zeros.
+SSM scalars and the RG-LRU blocks' conv, gate biases and decay are drawn
+live (``models.ssm.draw_live_mixer``, ``models.rglru.draw_live_block``),
+since the reference's zero convs would feed both recurrences exact zeros.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -1232,7 +1241,13 @@ LM_LOGITS_ATOL = 1e-3
 # test_decode_matches_forward rule (the other device's logit of the token
 # chosen is within 0.15 of its max).
 TIE_GAP = 0.15
-ARCHS = ("qwen2_1_5b", "mamba2_2_7b")
+ARCHS = ("qwen2_1_5b", "mamba2_2_7b", "gemma3_4b", "recurrentgemma_2b")
+# Phase 7's depths: the smallest that hold every kind of layer. gemma3-4B's
+# 6 is five local layers and one global; recurrentgemma-2B's 4 is one
+# group (two RG-LRU layers, one local attention layer) and a one-layer
+# tail.
+PARITY_DEPTH = dict(qwen2_1_5b=2, mamba2_2_7b=2, gemma3_4b=6,
+                    recurrentgemma_2b=4)
 
 
 def check(name: str, err: float, limit: float) -> float:
@@ -1324,6 +1339,79 @@ def flash_timing(D: int, seed: int) -> dict:
           f"{lib_err:.3e}), bound {t['bound_ms'] * 1e3:.2f} us "
           f"({t['bound_by']}: {t['nops'] / 1e9:.2f} GFLOP at the bf16 "
           f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB)", flush=True)
+    return t
+
+
+# The gemma models' per-call flash shapes at B 4, S 2048, D 256 in bf16,
+# which the scalar kernel takes: gemma3-4B's 32 query heads over 16 kv
+# heads on its 29 local layers (window 1024) and on its 5 global ones (the
+# reference's BIG_WINDOW, 1 << 30: the causal mask at any S below it);
+# recurrentgemma-2B's 40 over 4 (MQA, group 10) at window 2048, on its 8
+# attention layers. Keys: (model, BHq, group, window).
+GEMMA_FLASH = (("gemma3_4b local", 32, 2, 1024),
+               ("gemma3_4b global", 32, 2, 1 << 30),
+               ("recurrentgemma_2b", 40, 10, 2048))
+
+
+def gemma_flash_timing(BHq: int, group: int, window: int, seed: int
+                       ) -> dict:
+    """At a gemma prefill shape ([BHq, 2048, 256] bf16, causal, ``window``):
+    holds the scalar kernel against the plain version (``flash_case``),
+    then times the kernel, the plain version and
+    ``scaled_dot_product_attention(enable_gqa=True)`` (causal, or with an
+    explicit boolean window mask where the window is shorter than S) by
+    CUDA events and by the profiler, beside the function's bound at the
+    bf16 tensor-core rate (and at the float32 rate the scalar kernel's
+    FMAs run at)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    S, D = 2048, 256
+    err, (q, k, v) = flash_case(BHq, S, D, True, window, torch.bfloat16,
+                                group, seed)
+    kernel = lambda: fk.flash_attention_bh_cuda(q, k, v, causal=True,
+                                                window=window, group=group)
+    plain = lambda: flash_attention_bh_ref(q, k, v, causal=True,
+                                           window=window, group=group)
+    q4, k4, v4 = (t.view(4, -1, S, D) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window >= S:
+        name = "SDPA causal"
+        library = lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+    else:
+        name = "SDPA with an explicit boolean window mask"
+        pos = torch.arange(S, device="cuda")
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window))
+        library = lambda: sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    ref = plain().float()
+    lib_err = (library().reshape(BHq, S, D).float() - ref).abs().max().item()
+    del ref
+    # Query-key pairs under the mask, each 2 D multiply-adds (Q K^T, P V).
+    w = min(window, S)
+    pairs = BHq * (w * (w + 1) // 2 + (S - w) * w)
+    elems = 2 * q.numel() + k.numel() + v.numel()
+    t = dict(ms=cuda_ms(kernel, warmup=2, reps=10),
+             device_ms=profiled_device_ms(kernel, reps=3),
+             plain_ms=cuda_ms(plain, warmup=1, reps=3),
+             plain_device_ms=profiled_device_ms(plain, reps=2),
+             library_ms=cuda_ms(library, warmup=3, reps=20),
+             library_device_ms=profiled_device_ms(library, reps=5),
+             library=name, max_abs_err=err, library_err=lib_err,
+             shape=[BHq, S, D], group=group, window=window,
+             fp32_bound=bound(2 * elems, 4 * pairs * D),
+             **bound(2 * elems, 4 * pairs * D, BF16_OPS_PER_S))
+    print(f"  timing flash at [{BHq}, {S}, {D}] bf16 group {group}, window "
+          f"{window}: scalar kernel {t['ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['device_ms'])}; max|d| vs plain {err:.3e}), plain "
+          f"{t['plain_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['plain_device_ms'])}), {name} "
+          f"{t['library_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['library_device_ms'])}; max|d| vs plain "
+          f"{lib_err:.3e}), bound {t['bound_ms'] * 1e3:.2f} us "
+          f"({t['bound_by']}: {t['nops'] / 1e9:.2f} GFLOP at the bf16 "
+          f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB; at the float32 "
+          f"rate {t['fp32_bound']['bound_ms'] * 1e3:.2f} us)", flush=True)
     return t
 
 
@@ -1464,7 +1552,8 @@ def phase_lm_kernels(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import attention
     print("== phase 6: flash attention and SSD scan kernels vs plain "
-          "versions on the card", flush=True)
+          "versions on the card (flash also at the gemma models' D 256 "
+          "bf16 prefill shapes)", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
     worst = dict(flash=0.0, flash_sm90=0.0, ssd=0.0, ssd_sm90=0.0)
     # test_flash_attention_sweep's six shapes, ragged S = 1000 (GQA,
@@ -1500,6 +1589,10 @@ def phase_lm_kernels(dev) -> dict:
         worst["flash"] = max(worst["flash"], check("flash GQA", err,
                                                    GQA_ATOL))
     flash_t = {D: flash_timing(D, seed=40 + D) for D in (128, 64)}
+    gemma_t = {}
+    for i, (model, BHq, group, window) in enumerate(GEMMA_FLASH):
+        gemma_t[model] = gemma_flash_timing(BHq, group, window, seed=50 + i)
+        worst["flash"] = max(worst["flash"], gemma_t[model]["max_abs_err"])
     # test_ssd_scan_sweep's three shapes and a ragged S in float32 (the
     # scalar kernel); the card tests' bf16 shapes (the wgmma kernel: ragged
     # S, G 1 and 2 over 8 heads, chunks of 64 to 256 and one longer than S,
@@ -1537,7 +1630,7 @@ def phase_lm_kernels(dev) -> dict:
         ssd_t[b] = ssd_timing(args, L=256)
         worst["ssd"] = max(worst["ssd"], ssd_t[b]["scalar_raw_err"])
     check_refusal()
-    return dict(worst=worst, flash=flash_t, ssd=ssd_t)
+    return dict(worst=worst, flash=flash_t, gemma_flash=gemma_t, ssd=ssd_t)
 
 
 def check_refusal() -> None:
@@ -1578,39 +1671,53 @@ def check_refusal() -> None:
 
 def lm_params(cfg, gen, seed):
     """The port's init drawn from ``gen`` (on its device), with the
-    Mamba-2 mixers' conv and SSM scalars from ``draw_live_mixer`` (the
-    reference's zero conv would feed the SSD exact zeros)."""
-    from repro_torch.models import ssm
+    Mamba-2 mixers' conv and SSM scalars from ``draw_live_mixer`` and the
+    RG-LRU blocks' conv, gate biases and decay from ``draw_live_block``
+    (the reference's zero convs would feed both recurrences exact
+    zeros)."""
+    from repro_torch.models import rglru, ssm
     from repro_torch.models.model import Model
     params = Model(cfg).init(gen)
+    rng = np.random.default_rng(seed)
     if cfg.ssm:
-        rng = np.random.default_rng(seed)
-        for lp in params["layers"]:
-            for k, v in ssm.draw_live_mixer(rng, cfg).items():
-                old = lp["mixer"][k]
-                lp["mixer"][k] = torch.from_numpy(v).to(old.device, old.dtype)
+        mixers = [(lp["mixer"], ssm.draw_live_mixer) for lp in
+                  params["layers"]]
+    else:
+        recs = [g[n] for g in params.get("groups", []) for n in ("rec1",
+                                                                 "rec2")]
+        mixers = [(lp["mixer"], rglru.draw_live_block)
+                  for lp in recs + params.get("tail", [])]
+    for mixer, draw in mixers:
+        for k, v in draw(rng, cfg).items():
+            old = mixer[k]
+            mixer[k] = torch.from_numpy(v).to(old.device, old.dtype)
     return params
 
 
 @contextlib.contextmanager
 def scan_recorder():
-    """Record max |y| of every SSD scan the model runs (kernel or plain)."""
+    """Record max |y| of every SSD scan and every RG-LRU scan the model
+    runs (kernel or plain): yields dict(ssd=[...], rglru=[...])."""
     from repro_torch.kernels.ssd_scan import ops as sops
-    from repro_torch.models import ssm
-    seen = []
-    saved = (sops.ssd_scan, ssm.ssd_chunked)
+    from repro_torch.models import rglru, ssm
+    seen = dict(ssd=[], rglru=[])
+    targets = [(sops, "ssd_scan", "ssd"), (ssm, "ssd_chunked", "ssd"),
+               (rglru, "rglru_scan", "rglru")]
+    saved = [getattr(mod, name) for mod, name, _ in targets]
 
-    def wrap(fn):
+    def wrap(fn, key):
         def rec(*args, **kw):
             y, st = fn(*args, **kw)
-            seen.append(y.float().abs().max().item())
+            seen[key].append(y.float().abs().max().item())
             return y, st
         return rec
-    sops.ssd_scan, ssm.ssd_chunked = wrap(saved[0]), wrap(saved[1])
+    for (mod, name, key), fn in zip(targets, saved):
+        setattr(mod, name, wrap(fn, key))
     try:
         yield seen
     finally:
-        sops.ssd_scan, ssm.ssd_chunked = saved
+        for (mod, name, _), fn in zip(targets, saved):
+            setattr(mod, name, fn)
 
 
 def serve_logits(model, params, toks, stream, device) -> list:
@@ -1632,38 +1739,59 @@ def serve_logits(model, params, toks, stream, device) -> list:
     return out
 
 
+def n_recurrent(cfg) -> int:
+    """RG-LRU layers of a griffin stack (0 for the other families)."""
+    if cfg.family != "griffin":
+        return 0
+    return 2 * (cfg.n_layers // 3) + cfg.n_layers % 3
+
+
 def phase_lm_parity(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models.model import Model, to_device
     from repro_torch.runtime.serve_loop import Server
-    print("== phase 7: LM serving, card vs CPU (full width, depth 2, "
-          "float32)", flush=True)
+    print("== phase 7: LM serving, card vs CPU (full width, float32; depth "
+          + ", ".join(f"{a} {d}" for a, d in PARITY_DEPTH.items()) + ")",
+          flush=True)
     out = {}
     for arch in ARCHS:
-        cfg = get_config(arch).replace(n_layers=2, dtype="float32",
+        cfg = get_config(arch).replace(n_layers=PARITY_DEPTH[arch],
+                                       dtype="float32",
                                        param_dtype="float32")
         model = Model(cfg)
         t0 = time.perf_counter()
-        host_params = lm_params(cfg, torch.Generator().manual_seed(0), 7)
-        card_params = to_device(host_params, dev)
+        # Drawn on the card (seconds where the host's draw of a 262144-row
+        # embedding takes a minute), then copied: the same numbers on both.
+        card_params = lm_params(cfg, torch.Generator(device="cuda")
+                                .manual_seed(0), 7)
+        host_params = to_device(card_params, "cpu")
         init_s = time.perf_counter() - t0
         toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 320))
         fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
         sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+        rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
         with scan_recorder() as card_scans:
             card_tokens = Server(model, card_params).generate(
                 dict(tokens=toks), max_new=8)
         flash_launches = dict(fk.LAUNCHES_BY_VARIANT)
         ssd_launches = dict(sk.LAUNCHES_BY_VARIANT)
-        # float32 takes the scalar kernels: one call per layer's prefill.
-        want = dict(wgmma=0, scalar=0 if cfg.ssm else cfg.n_layers)
+        rglru_launches = dict(rk.LAUNCHES)
+        # float32 takes the scalar kernels: one call per attention or SSD
+        # layer's prefill, one fused RG-LRU launch per recurrent layer's.
+        n_rec = n_recurrent(cfg)
+        want = dict(wgmma=0,
+                    scalar=0 if cfg.ssm else cfg.n_layers - n_rec)
         want_ssd = dict(wgmma=0, scalar=cfg.n_layers if cfg.ssm else 0)
-        if flash_launches != want or ssd_launches != want_ssd:
+        want_rglru = dict(layer_fwd=n_rec, layer_bwd=0, fwd=0, bwd=0)
+        if (flash_launches, ssd_launches, rglru_launches) != (
+                want, want_ssd, want_rglru):
             fail(f"{arch}: float32 serving called the flash kernels "
-                 f"{flash_launches} (want {want}) and the SSD kernels "
-                 f"{ssd_launches} (want {want_ssd})")
+                 f"{flash_launches} (want {want}), the SSD kernels "
+                 f"{ssd_launches} (want {want_ssd}) and the RG-LRU "
+                 f"kernels {rglru_launches} (want {want_rglru})")
         with scan_recorder() as host_scans:
             host_tokens = Server(model, host_params, device="cpu").generate(
                 dict(tokens=toks), max_new=8)
@@ -1685,22 +1813,25 @@ def phase_lm_parity(dev) -> dict:
                      f"at step {t}")
             live &= same
         print(f"  {arch}: {model.param_count() / 1e9:.3f} B parameters at "
-              f"depth 2 (drawn on the CPU in {init_s:.1f} s); prompt "
-              f"(2, 320), 8 new tokens; card tokens {card_tokens.tolist()}; "
-              f"cpu tokens {host_tokens.tolist()}; max |d logits| card vs "
-              f"cpu per step {['%.2e' % e for e in errs]} (limit "
-              f"{LM_LOGITS_ATOL:.0e}); kernel calls in the card's "
-              f"generate: flash {flash_launches}, ssd {ssd_launches}",
-              flush=True)
+              f"depth {cfg.n_layers} (drawn on the card and copied in "
+              f"{init_s:.1f} s); prompt (2, 320), 8 new tokens; card tokens "
+              f"{card_tokens.tolist()}; cpu tokens {host_tokens.tolist()}; "
+              f"max |d logits| card vs cpu per step "
+              f"{['%.2e' % e for e in errs]} (limit {LM_LOGITS_ATOL:.0e}); "
+              f"kernel calls in the card's generate: flash {flash_launches},"
+              f" ssd {ssd_launches}, rglru {rglru_launches}", flush=True)
         check(f"{arch} logits card vs cpu", max(errs), LM_LOGITS_ATOL)
-        if cfg.ssm:
-            print(f"    SSD max |y| per scan: card "
-                  f"{['%.3e' % s for s in card_scans]}, cpu "
-                  f"{['%.3e' % s for s in host_scans]}", flush=True)
-            if not card_scans or min(card_scans + host_scans) <= 0.0:
-                fail(f"{arch}: the SSD carried zeros")
+        for key, on in (("ssd", cfg.ssm), ("rglru", n_rec > 0)):
+            if not on:
+                continue
+            print(f"    {key} max |y| per scan: card "
+                  f"{['%.3e' % v for v in card_scans[key]]}, cpu "
+                  f"{['%.3e' % v for v in host_scans[key]]}", flush=True)
+            if not card_scans[key] or not host_scans[key] or min(
+                    card_scans[key] + host_scans[key]) <= 0.0:
+                fail(f"{arch}: the {key} recurrence carried zeros")
         out[arch] = dict(max_logits_err=max(errs), flash=flash_launches,
-                         ssd=ssd_launches,
+                         ssd=ssd_launches, rglru=rglru_launches,
                          tokens_equal=bool(np.array_equal(card_tokens,
                                                           host_tokens)))
         del card_params, host_params
@@ -1710,14 +1841,19 @@ def phase_lm_parity(dev) -> dict:
 
 @contextlib.contextmanager
 def plain_call_counter():
-    """Count calls of the two kernels' plain versions on the model path."""
+    """Count calls of the kernels' plain versions on the model path: the
+    flash and SSD kernels' and the RG-LRU wrappers' CPU branches (the
+    fused layer's and the scan's, which ``models.rglru.rglru_scan`` takes
+    on a CPU tensor)."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as rops
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.models import attention, ssm
     calls = collections.Counter()
     targets = [(attention, "blocked_attention"),
                (fops, "flash_attention_bh_ref"), (ssm, "ssd_chunked"),
-               (sops, "ssd_ref")]
+               (sops, "ssd_ref"), (rops, "rglru_layer_ref"),
+               (rops, "rglru_scan_ref")]
     saved = [getattr(mod, name) for mod, name in targets]
 
     def wrap(fn, name):
@@ -1735,15 +1871,15 @@ def plain_call_counter():
 
 
 def prefill_profile(model, params, toks) -> dict:
-    """The profiler's device time of one prefill, by kernel name, and the
-    host wall around it."""
+    """The profiler's device time of one prefill, by kernel name, the host
+    wall around it, and whether its last logits are finite."""
     from torch.profiler import ProfilerActivity, profile
     t = torch.as_tensor(toks, dtype=torch.int64, device="cuda")
     with torch.inference_mode():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.prefill(params, dict(tokens=t))
+            logits, _ = model.prefill(params, dict(tokens=t))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     by_name = {ev.key: ev.self_device_time_total / 1e3
@@ -1758,16 +1894,19 @@ def prefill_profile(model, params, toks) -> dict:
                 ("flash_attention", ("flash_fwd<",)),
                 ("ssd_scan_sm90", ("ssd_chunk_state", "ssd_state_pass",
                                    "ssd_chunk_scan")),
-                ("ssd_scan", ("ssd_fwd",)))}
+                ("ssd_scan", ("ssd_fwd",)),
+                ("rglru_layer_fwd", ("rglru_fwd_kernel<true",)),
+                ("rglru_scan_fwd", ("rglru_fwd_kernel<false",)))}
     return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6],
-                ours=ours)
+                ours=ours, finite=bool(torch.isfinite(logits).all()))
 
 
 def phase_lm_serve(dev) -> dict:
     import repro_torch.obs as obs
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_loop import Server
@@ -1794,23 +1933,30 @@ def phase_lm_serve(dev) -> dict:
             fk.LAUNCHES, sk.LAUNCHES = 0, 0
             fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
             sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+            rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
             with obs.capture() as reg:
                 tokens = server.generate(dict(tokens=toks), max_new=NEW)
             launches = dict(
                 flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES,
                 **{f"flash_{k}": n for k, n in fk.LAUNCHES_BY_VARIANT.items()},
-                **{f"ssd_{k}": n for k, n in sk.LAUNCHES_BY_VARIANT.items()})
+                **{f"ssd_{k}": n for k, n in sk.LAUNCHES_BY_VARIANT.items()},
+                **{f"rglru_{k}": n for k, n in rk.LAUNCHES.items()})
         peak = torch.cuda.max_memory_allocated()
         prefill_s = reg.hists["serve.prefill"].total
         decode_s = reg.hists["serve.decode"].total
-        # One kernel call per layer of the prefill, all on the tensor-core
-        # kernels (bf16: flash at D 128, SSD at P 64, N 128, L 256); none of
-        # the scalar ones.
-        n_attn = 0 if cfg.ssm else cfg.n_layers
+        # One kernel call per layer of the prefill: bf16 attention at D 128
+        # on the wgmma flash kernel, at D 256 on the scalar one; SSD at P
+        # 64, N 128, L 256 on the wgmma SSD kernel; the RG-LRU on the fused
+        # forward. None of the others.
+        n_rec = n_recurrent(cfg)
+        n_attn = 0 if cfg.ssm else cfg.n_layers - n_rec
         n_ssd = cfg.n_layers if cfg.ssm else 0
+        wgmma = fk.variant(cfg.compute_dtype, cfg.head_dim_) == "wgmma"
         want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
-                    flash_wgmma=n_attn, flash_scalar=0, ssd_wgmma=n_ssd,
-                    ssd_scalar=0)
+                    flash_wgmma=n_attn if wgmma else 0,
+                    flash_scalar=0 if wgmma else n_attn, ssd_wgmma=n_ssd,
+                    ssd_scalar=0, rglru_layer_fwd=n_rec, rglru_layer_bwd=0,
+                    rglru_fwd=0, rglru_bwd=0)
         prof = prefill_profile(model, params, toks)
         print(f"  {arch}: {model.param_count() / 1e9:.4f} B parameters, "
               f"{cfg.n_layers} layers, drawn on the card in {init_s:.1f} s; "
@@ -1835,6 +1981,8 @@ def phase_lm_serve(dev) -> dict:
         print(f"    first tokens: {tokens[:, :8].tolist()}", flush=True)
         if launches != want:
             fail(f"{arch}: launches {launches}, want {want}")
+        if not prof["finite"]:
+            fail(f"{arch}: the prefill's last logits are not finite")
         if sum(plain_calls.values()):
             fail(f"{arch}: the plain versions ran on the card's main path: "
                  f"{dict(plain_calls)}")
@@ -2530,7 +2678,9 @@ def main() -> None:
     for name, entry, replaces, path in (
             ("rglru_layer_fwd", "layer_fwd",
              "src/repro/kernels/rglru_scan/rglru_scan.py:49",
-             "every learned-forecaster forward of phase 5"),
+             "every learned-forecaster forward of phase 5; every "
+             "recurrent layer of recurrentgemma_2b's prefill, bf16 (phase "
+             "8), at griffin_shape"),
             ("rglru_layer_bwd", "layer_bwd",
              "src/repro/kernels/rglru_scan/ops.py:40",
              "every learned-forecaster training step of phase 5"),
@@ -2566,6 +2716,8 @@ def main() -> None:
             row.update(clamp_max_rel_err=scan["clamp_rel"])
         if entry == "layer_fwd":
             row["train_step"] = fc["step"]
+            row["launches_phase8"] = serve["recurrentgemma_2b"][
+                "launches"]["rglru_layer_fwd"]
         kernels.append(row)
     f128, f64 = lmk["flash"][128], lmk["flash"][64]
     flash = "src/repro/kernels/flash_attention/flash_attention.py:104"
@@ -2584,18 +2736,35 @@ def main() -> None:
             key: f64[key] for key in ("ms", "device_ms", "plain_ms",
                                       "library_ms", "bound_ms",
                                       "max_abs_err")})))
+    gemma = lmk["gemma_flash"]
+    local = gemma["gemma3_4b local"]
+    flash_keep = ("shape", "group", "window", "ms", "device_ms",
+                  "plain_ms", "plain_device_ms", "library", "library_ms",
+                  "library_device_ms", "bound_ms", "bound_by",
+                  "max_abs_err")
+    on_path = ("gemma3_4b", "recurrentgemma_2b")
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu", replaces=flash,
-        launches=parity["qwen2_1_5b"]["flash"]["scalar"],
-        max_abs_err=lmk["worst"]["flash"], ms=f128["scalar_ms"],
-        plain_ms=f128["plain_ms"],
-        bound_ms=f128["scalar_bound"]["bound_ms"],
-        device_ms=f128["scalar_device_ms"],
-        bound_by=f128["scalar_bound"]["bound_by"],
-        library_ms=f128["library_ms"], shape=[48, 2048, 128],
-        dtype="float32", launches_per_call=1,
-        main_path="qwen2_1_5b Server.generate, float32 at depth 2 (phase 7)"))
+        launches=sum(serve[a]["launches"]["flash_scalar"] for a in on_path),
+        launches_by_model={a: serve[a]["launches"]["flash_scalar"]
+                           for a in on_path},
+        launches_phase7={a: parity[a]["flash"]["scalar"] for a in ARCHS},
+        max_abs_err=lmk["worst"]["flash"], ms=local["ms"],
+        plain_ms=local["plain_ms"], bound_ms=local["bound_ms"],
+        device_ms=local["device_ms"], bound_by=local["bound_by"],
+        library_ms=local["library_ms"], library=local["library"],
+        shape=local["shape"], dtype="bfloat16", group=local["group"],
+        window=local["window"], launches_per_call=1,
+        main_path="gemma3_4b and recurrentgemma_2b Server.generate, bf16 "
+                  "(phase 8): one call an attention layer's prefill",
+        gemma_shapes={name: {f: t[f] for f in flash_keep}
+                      for name, t in gemma.items()},
+        qwen2_float32=dict(
+            shape=[48, 2048, 128], ms=f128["scalar_ms"],
+            device_ms=f128["scalar_device_ms"], plain_ms=f128["plain_ms"],
+            bound_ms=f128["scalar_bound"]["bound_ms"],
+            bound_by=f128["scalar_bound"]["bound_by"])))
     t, t1 = lmk["ssd"][4], lmk["ssd"][1]
     ssd = "src/repro/kernels/ssd_scan/ssd_scan.py:93"
     kernels.append(dict(

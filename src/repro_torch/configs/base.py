@@ -3,7 +3,8 @@
 port's LM serving path.
 
 The port runs the ``decoder`` family with dense-GQA attention or Mamba-2
-SSD mixers; ``list_archs()`` names the architectures it serves, and
+SSD mixers, the ``gemma3`` local/global family and the ``griffin``
+family; ``list_archs()`` names the architectures it serves, and
 ``get_config`` of any other reference architecture raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
@@ -95,7 +96,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_REGISTRY = ["qwen2_1_5b", "mamba2_2_7b"]
+ARCH_REGISTRY = ["qwen2_1_5b", "mamba2_2_7b", "gemma3_4b",
+                 "recurrentgemma_2b"]
 
 # Reference architectures the port does not run yet, and the ROADMAP item
 # (queue 1 item 2's later parts) that ports each.
@@ -104,10 +106,7 @@ _NOT_PORTED = {
     "deepseek_v2_236b": "MLA, MoE and first_dense (ROADMAP queue 1 item 2b)",
     "qwen2_72b": "weights sharded across cards, 145 GB in bf16 (ROADMAP "
                  "queue 1 item 3)",
-    "gemma3_4b": "the gemma3 local/global family (ROADMAP queue 1 item 2b)",
     "minicpm3_4b": "MLA (ROADMAP queue 1 item 2b)",
-    "recurrentgemma_2b": "the griffin family, RG-LRU decode and prefill "
-                         "(ROADMAP queue 1 item 2b)",
     "llama_3_2_vision_11b": "vision cross-attention (ROADMAP queue 1 item "
                             "2b)",
     "seamless_m4t_large_v2": "the encdec family (ROADMAP queue 1 item 2b)",

@@ -55,12 +55,13 @@ def learned_params_from_reference(tree, device="cpu") -> dict:
 def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
     """The reference LM's parameter values (the ``params`` of
     ``repro.models.Model.init``'s ``split_tree``, a nested dict of arrays
-    with the decoder stack under ``layers`` stacked on a leading layer
-    axis) as the port's tree: the same names and layouts (``[in, out]``,
-    ``[d, heads, head_dim]``), ``layers`` unstacked into a list of
-    per-layer dicts, each leaf in its own dtype on ``device``. A bfloat16
-    leaf (an ``ml_dtypes`` array, which ``torch.from_numpy`` rejects)
-    goes through float32, which holds it exactly."""
+    whose stacks are stacked on a leading axis: the decoder's ``layers``,
+    griffin's ``groups`` and ``tail``) as the port's tree: the same names
+    and layouts (``[in, out]``, ``[d, heads, head_dim]``), each stack
+    unstacked into a list of per-layer (per-group) dicts, each leaf in its
+    own dtype on ``device``. A bfloat16 leaf (an ``ml_dtypes`` array,
+    which ``torch.from_numpy`` rejects) goes through float32, which holds
+    it exactly."""
     transformer.check_supported(cfg)
 
     def leaf(value):
@@ -75,13 +76,18 @@ def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
             return {k: convert(v) for k, v in node.items()}
         return leaf(node)
 
-    stacked = convert(tree["layers"])
-
     def layer(node, i):
         if isinstance(node, dict):
             return {k: layer(v, i) for k, v in node.items()}
         return node[i].clone()
 
-    out = {k: convert(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    # The stacks and their lengths along the leading axis.
+    n_groups, rem = divmod(cfg.n_layers, 3)
+    stacks = (dict(groups=n_groups, tail=rem) if cfg.family == "griffin"
+              else dict(layers=cfg.n_layers))
+    out = {}
+    for k, v in tree.items():
+        node = convert(v)
+        out[k] = ([layer(node, i) for i in range(stacks[k])] if k in stacks
+                  else node)
     return out

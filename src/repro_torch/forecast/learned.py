@@ -57,6 +57,7 @@ import repro_torch.obs as obs
 from repro_torch.checkpoint import store
 from repro_torch.forecast import base
 from repro_torch.kernels.rglru_scan.ops import rglru_layer as kernel_layer
+from repro_torch.kernels.rglru_scan.ref import rglru_layer_ref
 from repro_torch.models import common, rglru
 from repro_torch.optim import adamw as _adamw
 from repro_torch.optim import cosine_schedule
@@ -115,9 +116,8 @@ def _recurrent_block(x, p, scan_impl: str):
     """Griffin recurrent block; ``kernel`` swaps only the gate math and the
     recurrence for the fused ``repro_torch.kernels.rglru_scan`` kernels,
     keeping everything around them identical."""
-    if scan_impl == "kernel":
-        return rglru.block_apply(x, p, layer=kernel_layer)
-    return rglru.block_apply(x, p)
+    layer = kernel_layer if scan_impl == "kernel" else rglru_layer_ref
+    return rglru.block_apply(x, p, layer=layer)[0]
 
 
 def _quantiles_from_windows(params, xw, horizon: int, period: int,

@@ -41,7 +41,8 @@ class _Layer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pre_r, pre_i, x, lam):
         y = _kernel.rglru_layer_fwd_cuda(pre_r, pre_i, x, lam)
-        ctx.save_for_backward(pre_r, pre_i, x, lam, y)
+        if any(ctx.needs_input_grad):     # not when serving
+            ctx.save_for_backward(pre_r, pre_i, x, lam, y)
         return y
 
     @staticmethod

@@ -85,20 +85,23 @@ def apply_norm(x, p, kind):
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP (SwiGLU)
+# Gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen, d_model, d_ff, dtype) -> dict:
-    """Draws in the order wi, wg, wo."""
+    """Draws in the order wi, wg, wo; either gate takes these weights."""
     return dict(wi=dense_init(gen, (d_model, d_ff), dtype=dtype),
                 wg=dense_init(gen, (d_model, d_ff), dtype=dtype),
                 wo=dense_init(gen, (d_ff, d_model), fan_in=d_ff,
                               dtype=dtype))
 
 
-def mlp_apply(x, p):
-    h = F.silu(x @ p["wi"].to(x.dtype)) * (x @ p["wg"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+def mlp_apply(x, p, gate="silu"):
+    """SwiGLU, or GeGLU with ``gate="gelu"``: ``jax.nn.gelu``'s default,
+    the tanh approximation."""
+    wi = x @ p["wi"].to(x.dtype)
+    act = F.silu(wi) if gate == "silu" else F.gelu(wi, approximate="tanh")
+    return (act * (x @ p["wg"].to(x.dtype))) @ p["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

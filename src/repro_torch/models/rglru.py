@@ -1,5 +1,5 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427) —
-the train path of ``repro/models/rglru.py``.
+the counterpart of ``repro/models/rglru.py``.
 
     r_t = sigmoid(W_a x_t + b_a)           recurrence gate
     i_t = sigmoid(W_x x_t + b_x)           input gate
@@ -7,46 +7,79 @@ the train path of ``repro/models/rglru.py``.
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 The block is in_x / in_gate projections -> conv1d(4) -> RG-LRU -> gated
-output projection. The RG-LRU after its two gate matmuls is a ``layer(pre_r,
-pre_i, x, lam)``: by default the plain gate math and sequential loop of
-``kernels/rglru_scan/ref.py`` (the reference uses an associative scan;
-both compute the same recurrence), or the fused kernel wrapper
-``kernels.rglru_scan.ops.rglru_layer``. Decode and prefill wait for the LM
-stack.
+output projection, in three modes: ``train``, ``prefill`` (also returns the
+decode cache) and ``decode`` (one step, O(1)). The RG-LRU after its two
+gate matmuls is a ``layer(pre_r, pre_i, x, lam)``. Over a sequence it is
+``rglru_scan``: on a CUDA tensor the fused kernel
+(``kernels.rglru_scan.ops.rglru_layer``, gate math and recurrence in one
+launch), on the CPU its plain version, a sequential loop (the reference
+uses an associative scan; both compute the same recurrence). The learned
+forecaster passes its own ``layer`` in train mode. Decode is plain
+PyTorch, as the reference's is plain jnp.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rglru_scan.ref import rglru_gates, rglru_layer_ref
+from repro_torch.kernels.rglru_scan import ops
+from repro_torch.kernels.rglru_scan.ref import rglru_gates
 from repro_torch.models.common import dense_init, zeros_init
 from repro_torch.models.ssm import _causal_conv
 
 
 def block_init(gen: torch.Generator, d_model: int, *, lru_width: int,
-               d_conv: int = 4) -> dict:
-    """The reference's parameter tree and layouts; the random draws come
+               d_conv: int = 4, dtype=torch.float32) -> dict:
+    """The reference's parameter tree, layouts and init (zero conv, gate
+    biases and lam; lam float32 whatever ``dtype``); the random draws come
     from ``gen`` in the order in_x, in_gate, w_a, w_x, out."""
+    dev = gen.device
     return dict(
-        in_x=dense_init(gen, (d_model, lru_width)),
-        in_gate=dense_init(gen, (d_model, lru_width)),
-        conv_w=zeros_init((d_conv, lru_width)),
-        conv_b=zeros_init((lru_width,)),
-        w_a=dense_init(gen, (lru_width, lru_width), fan_in=lru_width),
-        b_a=zeros_init((lru_width,)),
-        w_x=dense_init(gen, (lru_width, lru_width), fan_in=lru_width),
-        b_x=zeros_init((lru_width,)),
-        lam=zeros_init((lru_width,)),
-        out=dense_init(gen, (lru_width, d_model), fan_in=lru_width),
+        in_x=dense_init(gen, (d_model, lru_width), dtype=dtype),
+        in_gate=dense_init(gen, (d_model, lru_width), dtype=dtype),
+        conv_w=zeros_init((d_conv, lru_width), dtype, dev),
+        conv_b=zeros_init((lru_width,), dtype, dev),
+        w_a=dense_init(gen, (lru_width, lru_width), fan_in=lru_width,
+                       dtype=dtype),
+        b_a=zeros_init((lru_width,), dtype, dev),
+        w_x=dense_init(gen, (lru_width, lru_width), fan_in=lru_width,
+                       dtype=dtype),
+        b_x=zeros_init((lru_width,), dtype, dev),
+        lam=zeros_init((lru_width,), torch.float32, dev),
+        out=dense_init(gen, (lru_width, d_model), fan_in=lru_width,
+                       dtype=dtype),
     )
+
+
+def draw_live_block(rng: np.random.Generator, cfg) -> dict:
+    """The RG-LRU block parameters that ``block_init`` leaves at zero
+    (conv_w, conv_b, b_a, b_x, lam), drawn from ``rng`` at Griffin's
+    published scales: conv taps and bias uniform within 1/sqrt(d_conv),
+    lam such that a = exp(-8 softplus(lam)) is uniform in (0.9, 0.999) at
+    r = 1, gate biases N(0, 0.1^2). With the zero conv of ``block_init``
+    the recurrence carries exactly zero (silu(0) = 0); with these it
+    carries signal. Float32 numpy arrays under ``block_init``'s names, one
+    layer."""
+    W = cfg.lru_width
+    a = rng.uniform(0.9, 0.999, W)
+    sp = -np.log(a) / 8.0                 # softplus(lam)
+    out = dict(conv_w=rng.uniform(-0.5, 0.5, (4, W)),
+               conv_b=rng.uniform(-0.5, 0.5, W),
+               b_a=rng.normal(0.0, 0.1, W),
+               b_x=rng.normal(0.0, 0.1, W),
+               lam=sp + np.log(-np.expm1(-sp)))
+    return {k: v.astype(np.float32) for k, v in out.items()}
 
 
 def _layer_inputs(x, p):
     """(pre_r, pre_i, x, lam) of the recurrence: the two gate matmuls of
-    the reference's ``_gates``, in float32."""
-    xf = x.to(torch.float32)
-    return xf @ p["w_a"] + p["b_a"], xf @ p["w_x"] + p["b_x"], xf, p["lam"]
+    the reference's ``_gates``, in float32 (every gate weight and bias is
+    cast, as the reference casts them)."""
+    f32 = torch.float32
+    xf = x.to(f32)
+    return (xf @ p["w_a"].to(f32) + p["b_a"].to(f32),
+            xf @ p["w_x"].to(f32) + p["b_x"].to(f32), xf, p["lam"].to(f32))
 
 
 def _gates(x, p):
@@ -54,13 +87,48 @@ def _gates(x, p):
     return rglru_gates(*_layer_inputs(x, p))
 
 
-def block_apply(x, p, layer=rglru_layer_ref):
-    """Griffin recurrent block, train mode. ``layer(pre_r, pre_i, x, lam)``
-    is the gate math and the linear recurrence: the plain version by
-    default, the fused kernel wrapper when the learned forecaster passes
-    it; everything around it is the same."""
-    gate = F.gelu(x @ p["in_gate"], approximate="tanh")
-    u = x @ p["in_x"]
-    u, _ = _causal_conv(u, p["conv_w"], p["conv_b"])
-    y = layer(*_layer_inputs(u, p)).to(u.dtype)
-    return (y * gate) @ p["out"]
+def rglru_scan(x, p, h0=None):
+    """x: [B, S, W] -> (y in x's dtype, h_final [B, W] float32). Without
+    ``h0`` it is the fused layer (``ops.rglru_layer``: the kernel on a
+    CUDA tensor, the plain version on the CPU); with it, the carried state
+    is folded in as a virtual step 0 (a = 1, bx = h0), as the reference
+    does, and the recurrence over the gates is ``ops.rglru_scan``."""
+    if h0 is None:
+        h = ops.rglru_layer(*_layer_inputs(x, p))
+    else:
+        a, bx = _gates(x, p)
+        a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
+        bx = torch.cat([h0.to(torch.float32)[:, None], bx], dim=1)
+        h = ops.rglru_scan(a, bx)[:, 1:]
+    return h.to(x.dtype), h[:, -1]
+
+
+def rglru_step(x, p, h):
+    """x: [B, 1, W], h: [B, W] -> (y [B, 1, W], h_new in h's dtype)."""
+    a, bx = _gates(x, p)
+    h_new = a[:, 0] * h.to(torch.float32) + bx[:, 0]
+    return h_new[:, None].to(x.dtype), h_new.to(h.dtype)
+
+
+def block_apply(x, p, mode="train", cache=None, layer=None):
+    """Griffin recurrent block. mode: train | prefill (also returns
+    dict(conv [B, 3, W], state [B, W]) in x's dtype) | decode (cache: that
+    dict). ``layer(pre_r, pre_i, x, lam)``, when given, is the gate math
+    and recurrence of train mode (the learned forecaster passes the plain
+    version or the fused kernel wrapper); otherwise ``rglru_scan``'s."""
+    gate = F.gelu(x @ p["in_gate"].to(x.dtype), approximate="tanh")
+    u = x @ p["in_x"].to(x.dtype)
+    conv_state = cache["conv"] if mode == "decode" else None
+    u, conv_state = _causal_conv(u, p["conv_w"].to(x.dtype),
+                                 p["conv_b"].to(x.dtype), conv_state)
+    new_cache = None
+    if mode == "decode":
+        y, h = rglru_step(u, p, cache["state"])
+        new_cache = dict(conv=conv_state, state=h)
+    elif layer is not None:
+        y = layer(*_layer_inputs(u, p)).to(u.dtype)
+    else:
+        y, h = rglru_scan(u, p)
+        if mode == "prefill":
+            new_cache = dict(conv=conv_state, state=h.to(x.dtype))
+    return (y * gate) @ p["out"].to(x.dtype), new_cache

@@ -349,6 +349,125 @@ def test_wgmma_flash_kernel_matches_plain_on_card(card, D, causal, window,
                                rtol=BF16_RTOL)
 
 
+# gemma3-4b's prefill (B 4: 32 query heads over 16 kv heads; local window
+# 1024 and the global layers' BIG_WINDOW) and recurrentgemma-2b's (40 query
+# heads over 4 kv heads: MQA, window 2048).
+GEMMA_FLASH = [(32, 2, 1024), (32, 2, 1 << 30), (40, 10, 2048)]
+
+
+@pytest.mark.parametrize("BH,group,window", GEMMA_FLASH)
+def test_scalar_flash_kernel_at_gemma_shapes_on_card(card, BH, group,
+                                                     window):
+    """The scalar kernel in bf16 at D 256, S 2048, the gemma models'
+    per-call shapes, against the plain version: bf16 limit 2e-2 plus one
+    bf16 step, as for the wgmma kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator().manual_seed(BH + group)
+    S, D = 2048, 256
+    q = torch.randn((BH, S, D), generator=gen).to(card, torch.bfloat16)
+    k, v = (torch.randn((BH // group, S, D), generator=gen).to(
+        card, torch.bfloat16) for _ in range(2))
+    assert fb.variant(torch.bfloat16, D) == "scalar"
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    out = fops.flash_attention_bh(q, k, v, causal=True, window=window,
+                                  group=group)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"],
+                                          scalar=before["scalar"] + 1)
+    ref = flash_attention_bh_ref(q, k, v, causal=True, window=window,
+                                 group=group)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_griffin_block_prefill_goes_through_kernel_on_card(card, dtype):
+    """The RG-LRU block's prefill on the card (one ``rglru_layer_fwd``
+    launch) against the same block with the plain layer on the card; the
+    cache's state is the plain recurrence's last step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+    cfg = get_config("recurrentgemma_2b", reduced=True).replace(
+        lru_width=256)
+    gen = torch.Generator().manual_seed(5)
+    p = rglru.block_init(gen, 128, lru_width=256, dtype=dtype)
+    p.update({k: torch.from_numpy(v).to(p[k].dtype) for k, v in
+              rglru.draw_live_block(np.random.default_rng(5), cfg).items()})
+    p = {k: v.to(card) for k, v in p.items()}
+    x = torch.randn((2, 300, 128), generator=gen).to(card, dtype)
+    before = dict(scan_binding.LAUNCHES)
+    with torch.inference_mode():
+        out, cache = rglru.block_apply(x, p, mode="prefill")
+        torch.cuda.synchronize()
+        assert scan_binding.LAUNCHES == dict(
+            before, layer_fwd=before["layer_fwd"] + 1)
+        plain, _ = rglru.block_apply(x, p, mode="train",
+                                     layer=rglru_layer_ref)
+        h = rglru_layer_ref(*rglru._layer_inputs(
+            rglru._causal_conv(x @ p["in_x"], p["conv_w"], p["conv_b"])[0],
+            p))
+    atol = ATOL if dtype == torch.float32 else 2e-2
+    rtol = 0 if dtype == torch.float32 else BF16_RTOL
+    torch.testing.assert_close(out.float(), plain.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(cache["state"].float(),
+                               h[:, -1].to(dtype).float(), atol=atol,
+                               rtol=rtol)
+    assert float(h.abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("arch", ["gemma3_4b", "recurrentgemma_2b"])
+def test_gemma_server_on_card_goes_through_kernels(card, arch,
+                                                   monkeypatch):
+    """Reduced config, float32, live RG-LRU draws, weights drawn on the CPU
+    and copied: the card's prefill launches the flash kernel once per
+    attention layer and ``rglru_layer_fwd`` once per recurrent layer, calls
+    no plain version, and ``Server.generate`` gives the CPU's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import attention, rglru
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.runtime.serve_loop import Server
+    cfg = get_config(arch, reduced=True).replace(dtype="float32",
+                                                 param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    recs = [g[n] for g in params.get("groups", []) for n in ("rec1", "rec2")]
+    for lp in recs + params.get("tail", []):
+        lp["mixer"].update({k: torch.from_numpy(v) for k, v in
+                            rglru.draw_live_block(rng, cfg).items()})
+    n_rec = len(recs) + len(params.get("tail", []))
+    n_attn = cfg.n_layers - n_rec
+    plain = []
+    for mod, name in ((scan_ops, "rglru_layer_ref"),
+                      (scan_ops, "rglru_scan_ref"),
+                      (attention, "blocked_attention"),
+                      (fops, "flash_attention_bh_ref")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: (
+            plain.append(_n), _fn(*a, **kw))[1])
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 40))
+    card_params = to_device(params, card)
+    before = (fb.LAUNCHES, scan_binding.LAUNCHES["layer_fwd"])
+    with torch.inference_mode():
+        model.prefill(card_params, dict(tokens=torch.from_numpy(toks).to(
+            card)))
+    torch.cuda.synchronize()
+    assert (fb.LAUNCHES - before[0],
+            scan_binding.LAUNCHES["layer_fwd"] - before[1]) == (n_attn,
+                                                                 n_rec)
+    assert plain == []
+    out = Server(model, card_params).generate(dict(tokens=toks), max_new=4)
+    host = Server(model, params, device="cpu").generate(dict(tokens=toks),
+                                                        max_new=4)
+    np.testing.assert_array_equal(out, host)
+
+
 def test_flash_kernel_rejects_bad_inputs(card):
     from repro_torch.kernels.flash_attention import flash_attention as fb
     q = torch.zeros((4, 64, 64), device=card)

@@ -1,5 +1,6 @@
 """The port's LM serving path against the JAX package's, on the reduced
-``qwen2_1_5b`` and ``mamba2_2_7b`` configs: the reference's init carried
+``qwen2_1_5b``, ``mamba2_2_7b``, ``gemma3_4b`` and ``recurrentgemma_2b``
+configs: the reference's init carried
 across by ``convert.lm_params_from_reference``, then prefill logits and
 caches, every decode step and ``Server.generate``'s tokens compared in one
 process, in float32 (tight) and bfloat16 (the reference's own tolerance
@@ -9,7 +10,9 @@ The reference's Mamba-2 init zeroes the conv, so x, B and C reach the SSD
 as exact zeros and a comparison at that init proves nothing about the
 scan. Every Mamba-2 test here draws the mixer's conv and SSM scalars with
 ``models.ssm.draw_live_mixer`` (the same numbers on both sides) and
-asserts that the scan's output is nonzero.
+asserts that the scan's output is nonzero. The reference's RG-LRU init
+zeroes its conv the same way: every griffin test draws the blocks with
+``models.rglru.draw_live_block`` and asserts a nonzero recurrence.
 """
 import dataclasses
 
@@ -29,11 +32,11 @@ from repro.runtime.serve_loop import Server as JaxServer
 from repro.runtime.serve_loop import _splice as jax_splice
 from repro_torch.configs import get_config, list_archs
 from repro_torch.convert import lm_params_from_reference
-from repro_torch.models import attention, common, ssm, transformer
+from repro_torch.models import attention, common, rglru, ssm, transformer
 from repro_torch.models.model import Model
 from repro_torch.runtime.serve_loop import Server, _splice
 
-ARCHS = ["qwen2_1_5b", "mamba2_2_7b"]
+ARCHS = ["qwen2_1_5b", "mamba2_2_7b", "gemma3_4b", "recurrentgemma_2b"]
 # float32 on both sides; matmuls and reductions in other orders (XLA vs
 # PyTorch's CPU kernels) over at most 2 layers of width 64.
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -44,7 +47,8 @@ TIE_GAP = 0.15
 
 def _pair(arch, dtype, seed=0):
     """(jax cfg, jax model, jax params, port cfg, port model, port params)
-    with the reference's init on both sides; Mamba-2 mixers live."""
+    with the reference's init on both sides; Mamba-2 mixers and RG-LRU
+    blocks live."""
     jcfg = jax_get_config(arch, reduced=True).replace(dtype=dtype,
                                                       param_dtype=dtype)
     cfg = get_config(arch, reduced=True).replace(dtype=dtype,
@@ -59,6 +63,8 @@ def _pair(arch, dtype, seed=0):
             mixer[k] = jnp.asarray(np.stack([d[k] for d in draws]),
                                    mixer[k].dtype)
         jp = dict(jp, layers=dict(jp["layers"], mixer=mixer))
+    if cfg.family == "griffin":
+        jp = live_griffin(jp, cfg, np.random.default_rng(seed + 5))
     return jcfg, jm, jp, cfg, Model(cfg), lm_params_from_reference(jp, cfg)
 
 
@@ -67,17 +73,45 @@ def _tokens(cfg, B=2, S=20, seed=1):
         0, cfg.vocab, (B, S)).astype(np.int32)
 
 
+def live_griffin(jp, cfg, rng):
+    """The reference's griffin tree with every RG-LRU block's conv, gate
+    biases and lam drawn by ``draw_live_block`` (stacked per layer)."""
+    def live(layers):
+        n = layers["mixer"]["lam"].shape[0]
+        draws = [rglru.draw_live_block(rng, cfg) for _ in range(n)]
+        mixer = dict(layers["mixer"])
+        for k in draws[0]:
+            mixer[k] = jnp.asarray(np.stack([d[k] for d in draws]),
+                                   mixer[k].dtype)
+        return dict(layers, mixer=mixer)
+    g = jp["groups"]
+    out = dict(jp, groups=dict(g, rec1=live(g["rec1"]),
+                               rec2=live(g["rec2"])))
+    if "tail" in jp:
+        out["tail"] = live(jp["tail"])
+    return out
+
+
+def _recurrent(cfg) -> bool:
+    return bool(cfg.ssm) or cfg.family == "griffin"
+
+
 @pytest.fixture
 def scan_outputs(monkeypatch):
-    """Records max |y| of every plain SSD scan the port runs."""
+    """Records max |y| of every plain SSD scan and RG-LRU scan the port
+    runs."""
     seen = []
-    plain = ssm.ssd_chunked
 
-    def record(*args, **kw):
-        y, s = plain(*args, **kw)
-        seen.append(float(y.float().abs().max()))
-        return y, s
-    monkeypatch.setattr(ssm, "ssd_chunked", record)
+    def record(mod, name):
+        plain = getattr(mod, name)
+
+        def recorded(*args, **kw):
+            y, s = plain(*args, **kw)
+            seen.append(float(y.float().abs().max()))
+            return y, s
+        monkeypatch.setattr(mod, name, recorded)
+    record(ssm, "ssd_chunked")
+    record(rglru, "rglru_scan")
     return seen
 
 
@@ -163,15 +197,15 @@ def test_prefill_decode_and_generate_match_reference_f32(arch,
     jl, jbuilt = jm.prefill(jp, dict(tokens=jnp.asarray(toks)))
     pl, pbuilt = m.prefill(pp, dict(tokens=torch.from_numpy(toks).long()))
     np.testing.assert_allclose(_np(pl), _np(jl), **F32_TOL)
-    if cfg.ssm:
+    if _recurrent(cfg):
         assert scan_outputs and min(scan_outputs) > 1e-3
     # Prefill caches, layer by layer: (k, v) or dict(conv, state).
-    jrest = jbuilt[1]
-    for i, layer in enumerate(pbuilt[1]):
-        jl_i = jax.tree.map(lambda a: a[i], jrest)
-        for port_leaf, ref_leaf in zip(jax.tree.leaves(
-                layer, is_leaf=lambda t: isinstance(t, torch.Tensor)),
-                jax.tree.leaves(jl_i)):
+    for layer, jl_i in _layer_caches(cfg, pbuilt, jbuilt):
+        port_leaves = jax.tree.leaves(
+            layer, is_leaf=lambda t: isinstance(t, torch.Tensor))
+        ref_leaves = jax.tree.leaves(jl_i)
+        assert len(port_leaves) == len(ref_leaves)
+        for port_leaf, ref_leaf in zip(port_leaves, ref_leaves):
             np.testing.assert_allclose(_np(port_leaf), _np(ref_leaf),
                                        **F32_TOL)
 
@@ -192,6 +226,21 @@ def test_prefill_decode_and_generate_match_reference_f32(arch,
         pa, pcache = m.decode(pp, pcache, torch.from_numpy(tok).long(),
                               S + t)
         np.testing.assert_allclose(_np(pa), _np(ja), **F32_TOL)
+
+
+def _layer_caches(cfg, pbuilt, jbuilt):
+    """(port layer cache, reference layer cache) pairs: the reference's
+    stacks indexed along their leading axis. The decoder's cache is
+    (None, layers); griffin's (groups, tail)."""
+    def at(tree, i):
+        return jax.tree.map(lambda a: a[i], tree)
+    if cfg.family != "griffin":
+        return [(c, at(jbuilt[1], i)) for i, c in enumerate(pbuilt[1])]
+    pairs = [(grp[name], at(jbuilt[0][name], g))
+             for g, grp in enumerate(pbuilt[0])
+             for name in ("rec1", "rec2", "attn")]
+    return pairs + [(c, at(jbuilt[1], j))
+                    for j, c in enumerate(pbuilt[1] or [])]
 
 
 def _near_tie_ok(port, ref):
@@ -215,7 +264,7 @@ def test_generate_matches_reference_bf16(arch, scan_outputs):
     jl, jbuilt = jm.prefill(jp, dict(tokens=jnp.asarray(toks)))
     pl, pbuilt = m.prefill(pp, dict(tokens=torch.from_numpy(toks).long()))
     np.testing.assert_allclose(_np(pl), _np(jl), **BF16_TOL)
-    if cfg.ssm:
+    if _recurrent(cfg):
         assert scan_outputs and min(scan_outputs) > 1e-3
     ref_tokens = JaxServer(jm, jp).generate(dict(tokens=jnp.asarray(toks)),
                                             max_new=max_new)
@@ -246,8 +295,9 @@ def test_generate_matches_reference_bf16(arch, scan_outputs):
 def test_decode_matches_forward(arch, scan_outputs):
     """The port's own cache consistency, as the reference's
     test_decode_matches_forward, in float32 and with live Mamba-2 mixers
-    (so the SSD path carries signal): teacher-forced decode from a
-    prefilled cache reproduces the one-shot forward's logits."""
+    and RG-LRU blocks (so the recurrences carry signal): teacher-forced
+    decode from a prefilled cache reproduces the one-shot forward's
+    logits."""
     cfg = get_config(arch, reduced=True).replace(dtype="float32",
                                                  param_dtype="float32")
     m = Model(cfg)
@@ -257,11 +307,18 @@ def test_decode_matches_forward(arch, scan_outputs):
         for lp in params["layers"]:
             lp["mixer"].update({k: torch.from_numpy(v) for k, v in
                                 ssm.draw_live_mixer(rng, cfg).items()})
+    if cfg.family == "griffin":
+        rng = np.random.default_rng(9)
+        recs = [g[name] for g in params["groups"] for name in ("rec1",
+                                                               "rec2")]
+        for lp in recs + params.get("tail", []):
+            lp["mixer"].update({k: torch.from_numpy(v) for k, v in
+                                rglru.draw_live_block(rng, cfg).items()})
     B, S, extra = 2, 16, 4
     toks = torch.from_numpy(_tokens(cfg, B, S + extra, seed=3)).long()
     full, _ = transformer.apply(cfg, params, dict(tokens=toks), "train")
     _, built = m.prefill(params, dict(tokens=toks[:, :S]))
-    if cfg.ssm:
+    if _recurrent(cfg):
         assert min(scan_outputs) > 1e-3
     cache = _splice(m.init_cache(B, S + extra, "cpu"), built)
     for t in range(S, S + extra):
@@ -300,8 +357,8 @@ def test_convert_keeps_leaf_dtypes():
 def test_unported_paths_raise():
     cfg = get_config("qwen2_1_5b", reduced=True)
     for flag in (dict(n_experts=4, top_k=2), dict(mla=True),
-                 dict(first_dense=1), dict(embed_scale=True),
-                 dict(family="gemma3")):
+                 dict(first_dense=1), dict(family="vision"),
+                 dict(family="encdec")):
         with pytest.raises(NotImplementedError):
             Model(cfg.replace(**flag))
     x = torch.zeros((1, 4, cfg.d_model))

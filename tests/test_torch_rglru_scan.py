@@ -134,7 +134,8 @@ def test_gates_and_block_match_reference():
     y_r = np.asarray(ref_rglru.block_apply(jnp.asarray(x), ref_p)[0])
     scan_layer = lambda *args: ops.rglru_scan(*rglru_gates(*args))
     for layer in (rglru_layer_ref, ops.rglru_layer, scan_layer):
-        y = rglru.block_apply(torch.from_numpy(x), p, layer=layer)
+        y, cache = rglru.block_apply(torch.from_numpy(x), p, layer=layer)
+        assert cache is None
         np.testing.assert_allclose(y.numpy(), y_r, atol=1e-5)
 
 
