@@ -37,18 +37,19 @@ Builds the port's kernels from the sources in this checkout, then:
      fused kernels' launch counts against the training schedule, profiles
      one training step (device kernels, aten operations, wall), and runs
      ``forecaster="holtwinters"`` on the card once;
-  6. holds the flash-attention kernels (bf16 D 64/128 on wgmma tensor
-     cores; float32 and D 16/256 on the scalar kernel) and the SSD-scan
+  6. holds the flash-attention kernels (bf16 D 64/128/256 on wgmma tensor
+     cores; float32 and bf16 D 16 on the scalar kernel) and the SSD-scan
      kernels (bf16 P 64 on the chunk-parallel wgmma kernel; float32 and
      other shapes on the scalar kernel) against their plain versions on
      the card (the reference kernel tests' shapes, GQA, ragged lengths,
-     chunks of 64 to 256, the qwen2-1.5B and mamba2-2.7B prefill shapes,
-     the latter at B 4 and B 1, and the scalar flash kernel in bf16 at D
-     256 at the gemma models' per-call prefill shapes) and times them
-     beside the plain versions, their bounds and, for attention,
-     ``scaled_dot_product_attention``; the two SSD kernels on the same bf16
-     inputs; and checks that both refuse an input that requires grad
-     under grad (they are forward-only);
+     windows, non-causal, chunks of 64 to 256, the qwen2-1.5B and
+     mamba2-2.7B prefill shapes, the latter at B 4 and B 1, and the gemma
+     models' per-call D 256 prefill shapes, where the scalar flash kernel
+     is held and timed on the same bf16 inputs as the yardstick it was)
+     and times them beside the plain versions, their bounds and, for
+     attention, ``scaled_dot_product_attention``; the two SSD kernels on
+     the same bf16 inputs; and checks that both refuse an input that
+     requires grad under grad (they are forward-only);
   7. serves qwen2-1.5B and mamba2-2.7B at depth 2, gemma3-4B at depth 6
      (five local layers, one global) and recurrentgemma-2B at depth 4 (one
      group of two RG-LRU layers and a local attention layer, then one
@@ -58,11 +59,11 @@ Builds the port's kernels from the sources in this checkout, then:
   8. serves all four at full depth in bf16 on the card (B 4, prompt 2048,
      32 new tokens), reports prefill tokens/s, decode ms per step, peak
      memory and the profiled prefill's busy share, and checks the kernel
-     calls of each prefill (one wgmma flash call a layer for qwen2-1.5B,
-     one wgmma SSD call a layer for mamba2-2.7B, one scalar flash call an
-     attention layer for gemma3-4B and recurrentgemma-2B and one fused
-     RG-LRU launch a recurrent layer for the latter) and that no plain
-     version ran;
+     calls of each prefill (one wgmma flash call an attention layer for
+     qwen2-1.5B at D 128 and gemma3-4B and recurrentgemma-2B at D 256, one
+     wgmma SSD call a layer for mamba2-2.7B, one fused RG-LRU launch a
+     recurrent layer for recurrentgemma-2B, no scalar flash call) and that
+     no plain version ran;
   9. runs the paper's comparison on the cell of phases 3 and 5, built by
      the port's scenario registry, through a serial ``ExperimentPlan`` of
      policy specs (the six §5 rule schedulers, ``waterwise[backend=fused]``
@@ -1287,8 +1288,9 @@ def flash_case(BH, S, D, causal, window, dtype, group, seed):
 def flash_timing(D: int, seed: int) -> dict:
     """At the qwen2-1.5B prefill shape ([48, 2048, D] bf16, group 6,
     causal): the wgmma kernel, the scalar kernel on the same inputs in
-    float32, the plain version and scaled_dot_product_attention, by CUDA
-    events and by the profiler, beside each kernel's bound."""
+    float32 (held to the plain version there), the plain version and
+    scaled_dot_product_attention, each in both types, by CUDA events and
+    by the profiler, beside each kernel's bound."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bh_ref
@@ -1303,16 +1305,23 @@ def flash_timing(D: int, seed: int) -> dict:
     scalar = lambda: fk.flash_attention_bh_cuda(q32, k32, v32, causal=True,
                                                 group=group)
     plain = lambda: flash_attention_bh_ref(q, k, v, causal=True, group=group)
-    q4, k4, v4 = (t.view(4, -1, S, D) for t in (q, k, v))
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True)
+    plain32 = lambda: flash_attention_bh_ref(q32, k32, v32, causal=True,
+                                             group=group)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = lambda: sdpa(*(t.view(4, -1, S, D) for t in (q, k, v)),
+                           is_causal=True, enable_gqa=True)
+    library32 = lambda: sdpa(*(t.view(4, -1, S, D) for t in (q32, k32, v32)),
+                             is_causal=True, enable_gqa=True)
     ref = plain().float()
     err = (kernel().float() - ref).abs().max().item()
     lib_err = (library().reshape(BHq, S, D).float() - ref).abs().max().item()
     check("flash attention (wgmma) at the timed shape", err,
           FLASH_ATOL[torch.bfloat16])
+    ref32 = plain32()
+    scalar_err = (scalar() - ref32).abs().max().item()
+    check("flash attention (scalar, float32) at the timed shape",
+          scalar_err, FLASH_ATOL[torch.float32])
+    del ref, ref32
     pairs = BHq * S * (S + 1) // 2             # the causal triangle
     elems = q.numel() + k.numel() + v.numel() + q.numel()
     t = dict(ms=cuda_ms(kernel, warmup=5, reps=50),
@@ -1321,29 +1330,36 @@ def flash_timing(D: int, seed: int) -> dict:
              scalar_device_ms=profiled_device_ms(scalar, reps=2),
              plain_ms=cuda_ms(plain, warmup=2, reps=5),
              plain_device_ms=profiled_device_ms(plain, reps=2),
+             plain32_ms=cuda_ms(plain32, warmup=2, reps=5),
              library_ms=cuda_ms(library, warmup=5, reps=50),
              library_device_ms=profiled_device_ms(library, reps=10),
-             max_abs_err=err, library_err=lib_err,
+             library32_ms=cuda_ms(library32, warmup=3, reps=20),
+             library32_device_ms=profiled_device_ms(library32, reps=5),
+             max_abs_err=err, library_err=lib_err, scalar_err=scalar_err,
              scalar_bound=bound(4 * elems, 4 * pairs * D),
              **bound(2 * elems, 4 * pairs * D, BF16_OPS_PER_S))
     print(f"  timing flash at [48, 2048, {D}] group 6, causal: wgmma kernel "
           f"(bf16) {t['ms'] * 1e3:.2f} us (device "
           f"{fmt_us(t['device_ms'])}; max|d| vs plain {err:.3e}), scalar "
           f"kernel (float32) {t['scalar_ms'] * 1e3:.2f} us (device "
-          f"{fmt_us(t['scalar_device_ms'])}; bound "
+          f"{fmt_us(t['scalar_device_ms'])}; max|d| vs plain "
+          f"{scalar_err:.3e}; bound "
           f"{t['scalar_bound']['bound_ms'] * 1e3:.2f} us at the float32 "
           f"rate), plain {t['plain_ms'] * 1e3:.2f} us (device "
-          f"{fmt_us(t['plain_device_ms'])}), SDPA "
+          f"{fmt_us(t['plain_device_ms'])}; float32 "
+          f"{t['plain32_ms'] * 1e3:.2f} us), SDPA "
           f"{t['library_ms'] * 1e3:.2f} us (device "
           f"{fmt_us(t['library_device_ms'])}; max|d| vs plain "
-          f"{lib_err:.3e}), bound {t['bound_ms'] * 1e3:.2f} us "
+          f"{lib_err:.3e}; float32 {t['library32_ms'] * 1e3:.2f} us, "
+          f"device {fmt_us(t['library32_device_ms'])}), bound "
+          f"{t['bound_ms'] * 1e3:.2f} us "
           f"({t['bound_by']}: {t['nops'] / 1e9:.2f} GFLOP at the bf16 "
           f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB)", flush=True)
     return t
 
 
 # The gemma models' per-call flash shapes at B 4, S 2048, D 256 in bf16,
-# which the scalar kernel takes: gemma3-4B's 32 query heads over 16 kv
+# which the wgmma kernel takes: gemma3-4B's 32 query heads over 16 kv
 # heads on its 29 local layers (window 1024) and on its 5 global ones (the
 # reference's BIG_WINDOW, 1 << 30: the causal mask at any S below it);
 # recurrentgemma-2B's 40 over 4 (MQA, group 10) at window 2048, on its 8
@@ -1356,8 +1372,10 @@ GEMMA_FLASH = (("gemma3_4b local", 32, 2, 1024),
 def gemma_flash_timing(BHq: int, group: int, window: int, seed: int
                        ) -> dict:
     """At a gemma prefill shape ([BHq, 2048, 256] bf16, causal, ``window``):
-    holds the scalar kernel against the plain version (``flash_case``),
-    then times the kernel, the plain version and
+    holds the wgmma kernel against the plain version (``flash_case``) and
+    the scalar kernel, launched directly on the same inputs as the
+    yardstick it was on this path, too; then times the wgmma kernel, the
+    scalar kernel, the plain version and
     ``scaled_dot_product_attention(enable_gqa=True)`` (causal, or with an
     explicit boolean window mask where the window is shorter than S) by
     CUDA events and by the profiler, beside the function's bound at the
@@ -1369,10 +1387,10 @@ def gemma_flash_timing(BHq: int, group: int, window: int, seed: int
     S, D = 2048, 256
     err, (q, k, v) = flash_case(BHq, S, D, True, window, torch.bfloat16,
                                 group, seed)
-    kernel = lambda: fk.flash_attention_bh_cuda(q, k, v, causal=True,
-                                                window=window, group=group)
-    plain = lambda: flash_attention_bh_ref(q, k, v, causal=True,
-                                           window=window, group=group)
+    args = dict(causal=True, window=window, group=group)
+    kernel = lambda: fk.flash_attention_bh_cuda(q, k, v, **args)
+    scalar = lambda: fk._launch("scalar", q, k, v, scale=None, **args)
+    plain = lambda: flash_attention_bh_ref(q, k, v, **args)
     q4, k4, v4 = (t.view(4, -1, S, D) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if window >= S:
@@ -1385,25 +1403,35 @@ def gemma_flash_timing(BHq: int, group: int, window: int, seed: int
                 & (pos[:, None] - pos[None, :] < window))
         library = lambda: sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)
     ref = plain().float()
+    scalar_err = (scalar().float() - ref).abs().max().item()
+    print(f"  flash BH={BHq} S={S} D={D} window={window} bf16 group={group} "
+          f"(the scalar kernel, launched directly): max|do|="
+          f"{scalar_err:.3e}", flush=True)
+    check("flash attention (scalar) at a gemma shape", scalar_err,
+          FLASH_ATOL[torch.bfloat16])
     lib_err = (library().reshape(BHq, S, D).float() - ref).abs().max().item()
     del ref
     # Query-key pairs under the mask, each 2 D multiply-adds (Q K^T, P V).
     w = min(window, S)
     pairs = BHq * (w * (w + 1) // 2 + (S - w) * w)
     elems = 2 * q.numel() + k.numel() + v.numel()
-    t = dict(ms=cuda_ms(kernel, warmup=2, reps=10),
-             device_ms=profiled_device_ms(kernel, reps=3),
+    t = dict(ms=cuda_ms(kernel, warmup=5, reps=50),
+             device_ms=profiled_device_ms(kernel, reps=10),
+             scalar_ms=cuda_ms(scalar, warmup=1, reps=5),
+             scalar_device_ms=profiled_device_ms(scalar, reps=2),
              plain_ms=cuda_ms(plain, warmup=1, reps=3),
              plain_device_ms=profiled_device_ms(plain, reps=2),
              library_ms=cuda_ms(library, warmup=3, reps=20),
              library_device_ms=profiled_device_ms(library, reps=5),
-             library=name, max_abs_err=err, library_err=lib_err,
-             shape=[BHq, S, D], group=group, window=window,
-             fp32_bound=bound(2 * elems, 4 * pairs * D),
+             library=name, max_abs_err=err, scalar_err=scalar_err,
+             library_err=lib_err, shape=[BHq, S, D], group=group,
+             window=window, fp32_bound=bound(2 * elems, 4 * pairs * D),
              **bound(2 * elems, 4 * pairs * D, BF16_OPS_PER_S))
     print(f"  timing flash at [{BHq}, {S}, {D}] bf16 group {group}, window "
-          f"{window}: scalar kernel {t['ms'] * 1e3:.2f} us (device "
-          f"{fmt_us(t['device_ms'])}; max|d| vs plain {err:.3e}), plain "
+          f"{window}: wgmma kernel {t['ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['device_ms'])}; max|d| vs plain {err:.3e}), scalar "
+          f"kernel {t['scalar_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['scalar_device_ms'])}), plain "
           f"{t['plain_ms'] * 1e3:.2f} us (device "
           f"{fmt_us(t['plain_device_ms'])}), {name} "
           f"{t['library_ms'] * 1e3:.2f} us (device "
@@ -1553,13 +1581,14 @@ def phase_lm_kernels(dev) -> dict:
     from repro_torch.models import attention
     print("== phase 6: flash attention and SSD scan kernels vs plain "
           "versions on the card (flash also at the gemma models' D 256 "
-          "bf16 prefill shapes)", flush=True)
+          "bf16 prefill shapes, beside the scalar kernel it replaced "
+          "there)", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
     worst = dict(flash=0.0, flash_sm90=0.0, ssd=0.0, ssd_sm90=0.0)
     # test_flash_attention_sweep's six shapes, ragged S = 1000 (GQA,
-    # sliding, full), then the qwen2-1.5B prefill shape (B 4, S 2048) and
-    # the same at D 64. bf16 at D 64 and 128 takes the wgmma kernel, the
-    # rest the scalar one.
+    # sliding, full; at D 256 in bf16 with groups 1, 2 and 10), then the
+    # qwen2-1.5B prefill shape (B 4, S 2048) and the same at D 64. bf16 at
+    # D 64, 128 and 256 takes the wgmma kernel, the rest the scalar one.
     for i, case in enumerate([
             (4, 256, 64, True, 0, f32, 1), (2, 512, 128, True, 0, f32, 1),
             (2, 256, 64, False, 0, f32, 1), (2, 512, 64, True, 100, f32, 1),
@@ -1568,6 +1597,11 @@ def phase_lm_kernels(dev) -> dict:
             (12, 1000, 64, True, 300, bf16, 6),
             (4, 1000, 64, False, 0, bf16, 2),
             (6, 1000, 128, False, 0, bf16, 6),
+            (2, 1000, 256, True, 300, bf16, 1),
+            (4, 1000, 256, True, 300, bf16, 2),
+            (10, 1000, 256, True, 300, bf16, 10),
+            (4, 1000, 256, False, 0, bf16, 2),
+            (2, 1000, 256, True, 0, bf16, 1),
             (48, 2048, 64, True, 0, bf16, 6),
             (48, 2048, 128, True, 0, bf16, 6)]):
         err, _ = flash_case(*case, seed=i)
@@ -1591,8 +1625,12 @@ def phase_lm_kernels(dev) -> dict:
     flash_t = {D: flash_timing(D, seed=40 + D) for D in (128, 64)}
     gemma_t = {}
     for i, (model, BHq, group, window) in enumerate(GEMMA_FLASH):
-        gemma_t[model] = gemma_flash_timing(BHq, group, window, seed=50 + i)
-        worst["flash"] = max(worst["flash"], gemma_t[model]["max_abs_err"])
+        gemma_t[model] = t = gemma_flash_timing(BHq, group, window,
+                                                seed=50 + i)
+        worst["flash_sm90"] = max(worst["flash_sm90"], t["max_abs_err"])
+        worst["flash"] = max(worst["flash"], t["scalar_err"])
+    worst["flash"] = max(worst["flash"], flash_t[128]["scalar_err"],
+                         flash_t[64]["scalar_err"])
     # test_ssd_scan_sweep's three shapes and a ragged S in float32 (the
     # scalar kernel); the card tests' bf16 shapes (the wgmma kernel: ragged
     # S, G 1 and 2 over 8 heads, chunks of 64 to 256 and one longer than S,
@@ -1945,13 +1983,17 @@ def phase_lm_serve(dev) -> dict:
         prefill_s = reg.hists["serve.prefill"].total
         decode_s = reg.hists["serve.decode"].total
         # One kernel call per layer of the prefill: bf16 attention at D 128
-        # on the wgmma flash kernel, at D 256 on the scalar one; SSD at P
-        # 64, N 128, L 256 on the wgmma SSD kernel; the RG-LRU on the fused
-        # forward. None of the others.
+        # (qwen2) and D 256 (the gemma models) on the wgmma flash kernel;
+        # SSD at P 64, N 128, L 256 on the wgmma SSD kernel; the RG-LRU on
+        # the fused forward. None of the others, the scalar flash kernel
+        # included.
         n_rec = n_recurrent(cfg)
         n_attn = 0 if cfg.ssm else cfg.n_layers - n_rec
         n_ssd = cfg.n_layers if cfg.ssm else 0
         wgmma = fk.variant(cfg.compute_dtype, cfg.head_dim_) == "wgmma"
+        if n_attn and not wgmma:
+            fail(f"{arch}: bf16 attention at D {cfg.head_dim_} does not "
+                 f"take the wgmma flash kernel")
         want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
                     flash_wgmma=n_attn if wgmma else 0,
                     flash_scalar=0 if wgmma else n_attn, ssd_wgmma=n_ssd,
@@ -2739,32 +2781,48 @@ def main() -> None:
     gemma = lmk["gemma_flash"]
     local = gemma["gemma3_4b local"]
     flash_keep = ("shape", "group", "window", "ms", "device_ms",
-                  "plain_ms", "plain_device_ms", "library", "library_ms",
-                  "library_device_ms", "bound_ms", "bound_by",
-                  "max_abs_err")
+                  "scalar_ms", "scalar_device_ms", "plain_ms",
+                  "plain_device_ms", "library", "library_ms",
+                  "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
+                  "scalar_err")
     on_path = ("gemma3_4b", "recurrentgemma_2b")
     kernels.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu", replaces=flash,
-        launches=sum(serve[a]["launches"]["flash_scalar"] for a in on_path),
-        launches_by_model={a: serve[a]["launches"]["flash_scalar"]
+        name="flash_attention_sm90_d256", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        replaces=flash,
+        launches=sum(serve[a]["launches"]["flash_wgmma"] for a in on_path),
+        launches_by_model={a: serve[a]["launches"]["flash_wgmma"]
                            for a in on_path},
-        launches_phase7={a: parity[a]["flash"]["scalar"] for a in ARCHS},
-        max_abs_err=lmk["worst"]["flash"], ms=local["ms"],
-        plain_ms=local["plain_ms"], bound_ms=local["bound_ms"],
-        device_ms=local["device_ms"], bound_by=local["bound_by"],
-        library_ms=local["library_ms"], library=local["library"],
-        shape=local["shape"], dtype="bfloat16", group=local["group"],
-        window=local["window"], launches_per_call=1,
+        max_abs_err=max(t["max_abs_err"] for t in gemma.values()),
+        ms=local["ms"], plain_ms=local["plain_ms"],
+        bound_ms=local["bound_ms"], device_ms=local["device_ms"],
+        bound_by=local["bound_by"], library_ms=local["library_ms"],
+        library=local["library"], shape=local["shape"], dtype="bfloat16",
+        group=local["group"], window=local["window"], launches_per_call=1,
+        scalar_same_inputs_ms=local["scalar_ms"],
         main_path="gemma3_4b and recurrentgemma_2b Server.generate, bf16 "
                   "(phase 8): one call an attention layer's prefill",
         gemma_shapes={name: {f: t[f] for f in flash_keep}
-                      for name, t in gemma.items()},
-        qwen2_float32=dict(
-            shape=[48, 2048, 128], ms=f128["scalar_ms"],
-            device_ms=f128["scalar_device_ms"], plain_ms=f128["plain_ms"],
-            bound_ms=f128["scalar_bound"]["bound_ms"],
-            bound_by=f128["scalar_bound"]["bound_by"])))
+                      for name, t in gemma.items()}))
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu", replaces=flash,
+        launches=sum(parity[a]["flash"]["scalar"] for a in ARCHS),
+        launches_by_model={a: parity[a]["flash"]["scalar"] for a in ARCHS},
+        max_abs_err=lmk["worst"]["flash"], ms=f128["scalar_ms"],
+        device_ms=f128["scalar_device_ms"], plain_ms=f128["plain32_ms"],
+        bound_ms=f128["scalar_bound"]["bound_ms"],
+        bound_by=f128["scalar_bound"]["bound_by"],
+        library_ms=f128["library32_ms"],
+        library_device_ms=f128["library32_device_ms"],
+        library="SDPA causal (enable_gqa), float32",
+        shape=[48, 2048, 128], dtype="float32", group=6,
+        launches_per_call=1,
+        main_path="Server.generate in float32 (phase 7): one call an "
+                  "attention layer's prefill",
+        gemma_bf16_was={name: {f: t[f] for f in (
+            "shape", "scalar_ms", "scalar_device_ms", "scalar_err")}
+            for name, t in gemma.items()}))
     t, t1 = lmk["ssd"][4], lmk["ssd"][1]
     ssd = "src/repro/kernels/ssd_scan/ssd_scan.py:93"
     kernels.append(dict(

@@ -8,6 +8,9 @@ repository root on the machine with the card:
         # the redesigned sources)
     python3 kernel_probe.py sinkhorn  # annealed launch vs iteration loop
     python3 kernel_probe.py flash     # wgmma flash kernel vs plain, SDPA
+    python3 kernel_probe.py flash256  # its D 256 instantiation: small
+                                      # shapes by column chunk, then the
+                                      # gemma shapes beside the scalar one
     python3 kernel_probe.py ssd       # wgmma SSD kernel vs scalar and plain
     python3 kernel_probe.py rglru     # fused and scan-only RG-LRU vs plain
     python3 kernel_probe.py alloc     # host time of the fused backward's
@@ -124,6 +127,55 @@ def flash() -> None:
               f"{cuda_ms(kernel, 5, 50) * 1e3:.1f} us (max|d| vs plain "
               f"{err:.3e}), SDPA {cuda_ms(sdpa, 5, 50) * 1e3:.1f} us",
               flush=True)
+    flash256()
+
+
+# The gemma prefills' D 256 calls (B 4, S 2048): (label, BHq, group,
+# window), as chip_smoke.GEMMA_FLASH.
+GEMMA_FLASH = (("gemma3_4b local", 32, 2, 1024),
+               ("gemma3_4b global", 32, 2, 1 << 30),
+               ("recurrentgemma_2b", 40, 10, 2048))
+
+
+def flash256() -> None:
+    """The wgmma kernel at D 256: small shapes first, with the error of
+    each 64-column chunk of the output (a misread V chunk shows as one
+    chunk off), then the gemma shapes, timed beside the scalar kernel on
+    the same inputs and SDPA."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    for BH, S, causal, window, group in ((2, 64, False, 0, 1),
+                                         (4, 200, True, 0, 2),
+                                         (10, 1000, True, 300, 10)):
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        q = torch.randn((BH, S, 256), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((BH // group, S, 256), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        args = dict(causal=causal, window=window, group=group)
+        d = (fb.flash_attention_bh_cuda(q, k, v, **args).float()
+             - flash_attention_bh_ref(q, k, v, **args).float()).abs()
+        torch.cuda.synchronize()
+        by_chunk = d.view(BH, S, 4, 64).amax((0, 1, 3)).tolist()
+        print(f"D 256 BH {BH} S {S} causal {causal} window {window} group "
+              f"{group}: max|d| by 64-column chunk "
+              f"{[f'{x:.2e}' for x in by_chunk]}", flush=True)
+    for label, BHq, group, window in GEMMA_FLASH:
+        gen = torch.Generator(device="cuda").manual_seed(BHq + group)
+        q = torch.randn((BHq, 2048, 256), generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn((BHq // group, 2048, 256), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        args = dict(causal=True, window=window, group=group)
+        kernel = lambda: fb.flash_attention_bh_cuda(q, k, v, **args)
+        scalar = lambda: fb._launch("scalar", q, k, v, scale=None, **args)
+        ref = flash_attention_bh_ref(q, k, v, **args).float()
+        err = (kernel().float() - ref).abs().max().item()
+        serr = (scalar().float() - ref).abs().max().item()
+        print(f"{label} [{BHq}, 2048, 256] group {group} window {window}: "
+              f"wgmma {cuda_ms(kernel, 3, 20) * 1e3:.2f} us (max|d| "
+              f"{err:.3e}), scalar {cuda_ms(scalar, 1, 3) * 1e3:.2f} us "
+              f"(max|d| {serr:.3e})", flush=True)
 
 
 def ssd() -> None:
@@ -375,24 +427,36 @@ def ab(other: str) -> None:
         return ab_rglru(lib)
     lib.flash_attention_fwd_sm90.argtypes = ([ptr] * 4 + [i32] * 7
                                              + [ctypes.c_float, ptr])
-    for D in (128, 64):
-        q, k, v = flash_inputs(D)
+    cases = [(f"D {D}", 48, D, 6, 0) for D in (128, 64)] + [
+        (label, BHq, 256, group, window)
+        for label, BHq, group, window in GEMMA_FLASH]
+    for label, BHq, D, group, window in cases:
+        gen = torch.Generator(device="cuda").manual_seed(BHq + D)
+        q = torch.randn((BHq, 2048, D), generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn((BHq // group, 2048, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
         o = torch.empty_like(q)
         scale = float(np.float32(1 / np.sqrt(D)))
 
         def theirs():
             err = lib.flash_attention_fwd_sm90(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 48,
-                2048, 2048, D, 6, 1, 0, scale,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BHq,
+                2048, 2048, D, group, 1, window, scale,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed: {err}")
             return o
         ours = lambda: fb.flash_attention_bh_cuda(q, k, v, causal=True,
-                                                  group=6)
+                                                  window=window, group=group)
+        try:
+            theirs()
+        except RuntimeError as e:        # an older build without this D
+            print(f"{label}: the other build refuses it ({e})", flush=True)
+            continue
         same = (ours().float() - theirs().float()).abs().max().item()
         t = [cuda_ms(f, 5, 50) * 1e3 for f in (theirs, ours, ours, theirs)]
-        print(f"D {D}: us (other, built, built, other) "
+        print(f"{label}: us (other, built, built, other) "
               f"{[round(x, 2) for x in t]}; max|d| between them "
               f"{same:.3e}", flush=True)
 
@@ -404,8 +468,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     stage = sys.argv[1] if len(sys.argv) > 1 else "flash"
-    stages = dict(sinkhorn=sinkhorn, flash=flash, ssd=ssd, rglru=rglru,
-                  alloc=alloc)
+    stages = dict(sinkhorn=sinkhorn, flash=flash, flash256=flash256, ssd=ssd,
+                  rglru=rglru, alloc=alloc)
     if stage == "ab" and len(sys.argv) == 3:
         ab(sys.argv[2])
     elif stage == "steps" and len(sys.argv) <= 3:

@@ -1,10 +1,16 @@
 """Checkpointing with atomic commit — the on-disk format of
 ``repro/checkpoint/store.py``: one ``step-N/state.npz`` (tree paths joined
 by ``/`` -> arrays) plus a JSON ``manifest.json``. A checkpoint the
-reference saved loads here, and the other way round.
+reference saved loads here. One the port saved loads in the reference,
+except where it holds a bf16 leaf: the reference's restore casts the saved
+``|V2`` bytes with ``astype``, which numpy refuses.
 
-Trees are nested dicts whose leaves are tensors or numpy arrays; keys are
-flattened in sorted order, as ``jax.tree_util`` flattens a dict.
+Trees are nested dicts, lists and tuples whose leaves are tensors or numpy
+arrays, flattened as ``jax.tree_util`` flattens them: dict keys in sorted
+order, sequences in index order, a list index joining the path as its
+decimal string (``layers/0/w``). A bf16 leaf is stored as its raw 2-byte
+patterns, numpy dtype ``|V2``: the bytes the reference writes for an
+``ml_dtypes`` bfloat16 array.
 ``AsyncCheckpointer`` commits in a background thread (training never
 blocks on disk) with at most one commit in flight. The reference's
 resharding restore (its ``shardings`` argument) waits for mesh and
@@ -24,24 +30,48 @@ import torch
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:         # numpy has no bfloat16
+            return leaf.contiguous().view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+def _map_leaves(fn, tree, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``, walked in
+    ``jax.tree_util``'s order (dict keys sorted, sequences in index
+    order); dicts, lists and tuples keep their kind."""
     if isinstance(tree, dict):
-        flat = {}
-        for k in sorted(tree):
-            flat.update(_flatten(tree[k], f"{prefix}{k}/"))
-        return flat
-    return {prefix[:-1]: tree}
+        return {k: _map_leaves(fn, tree[k], f"{prefix}{k}/")
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
+def _flatten(tree) -> Dict[str, Any]:
+    flat = {}
+    _map_leaves(lambda key, leaf: flat.update({key: leaf}), tree)
+    return flat
+
+
+def _spec(leaf):
+    """(shape, numpy dtype as stored) of a leaf, without copying it off its
+    device."""
+    if isinstance(leaf, torch.Tensor):
+        dtype = (np.dtype("V2") if leaf.dtype == torch.bfloat16
+                 else torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+        return tuple(leaf.shape), dtype
+    leaf = np.asarray(leaf)
+    return leaf.shape, leaf.dtype
 
 
 def checkpoint_bytes(tree) -> int:
     """Size of the movable state — feeds Job.package_bytes in the
     scheduler."""
-    return sum(int(v.nbytes) for v in map(_to_numpy,
-                                           _flatten(tree).values()))
+    return sum(int(np.prod(shape)) * dtype.itemsize
+               for shape, dtype in map(_spec, _flatten(tree).values()))
 
 
 def save_checkpoint(directory: str, step: int, tree,
@@ -75,21 +105,29 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore_checkpoint(directory: str, step: int, target_tree) -> Any:
     """Restore into ``target_tree``'s structure: each leaf comes back as a
-    numpy array of the target leaf's shape and dtype."""
+    numpy array of the target leaf's shape and dtype, except that a bf16
+    target leaf comes back as a bf16 CPU tensor, bit for bit the saved
+    ``|V2`` patterns. A saved dtype that does not cast exactly (numpy's
+    ``safe`` rule) to the target's raises, naming the key."""
     path = os.path.join(directory, f"step-{step}", "state.npz")
     data = np.load(path)
 
     def load(key, leaf):
         arr = data[key]
-        want = _to_numpy(leaf)
-        assert arr.shape == want.shape, (key, arr.shape, want.shape)
-        return arr.astype(want.dtype)
+        shape, want = _spec(leaf)
+        if arr.shape != shape:
+            raise ValueError(f"{key}: saved shape {arr.shape}, "
+                             f"target {shape}")
+        if arr.dtype != want and (arr.dtype.kind == "V" or want.kind == "V"
+                                  or not np.can_cast(arr.dtype, want,
+                                                     "safe")):
+            raise TypeError(f"{key}: saved dtype {arr.dtype} does not cast "
+                            f"exactly to the target's {leaf.dtype}")
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return arr.astype(want)
 
-    def walk(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: walk(tree[k], f"{prefix}{k}/") for k in tree}
-        return load(prefix[:-1], tree)
-    return walk(target_tree)
+    return _map_leaves(load, target_tree)
 
 
 class AsyncCheckpointer:
@@ -109,7 +147,7 @@ class AsyncCheckpointer:
         if step % self.every:
             return False
         self.wait()                       # at most one in flight
-        host_tree = _map_leaves(lambda x: np.array(_to_numpy(x)), tree)
+        host_tree = _map_leaves(lambda _, x: np.array(_to_numpy(x)), tree)
 
         def work():
             save_checkpoint(self.directory, step, host_tree, extra)
@@ -123,9 +161,3 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-
-
-def _map_leaves(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    return fn(tree)

@@ -1,12 +1,12 @@
 // Flash attention (forward) on Hopper's tensor cores, bf16 in and out,
-// head dim 64 or 128: wgmma for both products, TMA for every tile, one
-// producer warp and two consumer warpgroups per CTA (sm_90a).
+// head dim 64, 128 or 256: wgmma for both products, TMA for every tile,
+// one producer warp and two consumer warpgroups per CTA (sm_90a).
 //
 // Replaces: repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_bh (the Pallas TPU kernel, `_kernel`), for bf16 inputs
-// with D in {64, 128}; float32 inputs and D in {16, 256} keep the scalar
-// kernel of flash_attention.cu. For each query head h and query row i, with
-// kv head h / group:
+// with D in {64, 128, 256}; float32 inputs, and bf16 at D 16, keep the
+// scalar kernel of flash_attention.cu. For each query head h and query row
+// i, with kv head h / group:
 //
 //   o_i = sum_j softmax_j(scale * q_i . k_j + mask_ij) v_j
 //
@@ -17,7 +17,11 @@
 // D 128, causal) the two products are 51.5 GFLOP over the causal triangle:
 // 52 us at the bf16 tensor-core peak (989 TFLOP/s, H100 SXM data sheet,
 // 700 W); q, k, v read once and o written once are 59 MB, 18 us at
-// 3.35 TB/s. Operations bound it, so the products must run on wgmma.
+// 3.35 TB/s. At D 256 (the gemma prefills, B 4, S 2048): gemma3-4B's 32 q
+// heads over 16 kv heads are 51.6 GFLOP under its 1024-key window (52 us)
+// and 68.7 GFLOP causal on its global layers (70 us), with 101 MB (30 us);
+// recurrentgemma-2B's 40 over 4 (window 2048 = S) 85.9 GFLOP (87 us), 101
+// MB. Operations bound every one, so the products must run on wgmma.
 //
 // Design.
 //   * Persistent CTAs: one per SM (fewer if there are fewer items), each
@@ -29,35 +33,45 @@
 //     Staying resident, a CTA loads the next item's Q and first K and V
 //     tiles while it finishes the current one, where a fresh CTA would
 //     wait for them.
+//   * Tile traits by D (`Tiles<D>`): BK keys a kv tile, STAGES in the kv
+//     ring. D 64/128: BK 128, 3 stages. D 256: BK 64, 2 stages, K released
+//     apart from V (below).
 //   * Three warpgroups. Warpgroup 2 is the producer: after `setmaxnreg` has
 //     cut it to 24 registers, one thread issues TMA loads
 //     (cp.async.bulk.tensor.3d, completion on an mbarrier) of each item's Q
 //     (single-buffered: it waits for both consumers' `q_empty`) and of the
-//     K and V tiles (BK = 128 keys) into a ring of STAGES = 3 stages that
-//     runs on across items, waiting on each stage's `empty` barrier before
-//     it reuses it. K and V have barriers of their own, so S = Q K^T starts
-//     before V lands.
+//     K and V tiles into the ring of STAGES stages that runs on across
+//     items, waiting on each stage's `empty` barrier before it reuses it.
+//     K and V have barriers of their own, so S = Q K^T starts before V
+//     lands. At D 256 a stage's K has its own `k_empty` too, arrived on as
+//     soon as S = Q K^T has read it: with two stages, K of tile t + 1 then
+//     loads while tile t - 1's V is still in use, where one release per
+//     stage held it back until both warpgroups had finished O += P V of
+//     tile t - 1 (8-15 % of the gemma calls' time, kernel_probe.py ab).
 //     Warpgroups 0 and 1 are consumers (240 registers each), 64 query rows
 //     apiece: wgmma's M.
 //   * Tensor maps are 3-D (D, S, heads) views of the contiguous [BH, S, D]
 //     tensors, so a tile never crosses into the next head: rows past Sq or
 //     Skv are filled with zeros by TMA. Boxes are 64 columns (128 bytes)
-//     wide with the 128-byte swizzle; a D = 128 row is two such boxes, kept
-//     as two [rows][64] column chunks. The wgmma descriptors use the same
+//     wide with the 128-byte swizzle; a row of D columns is D / 64 such
+//     boxes, kept as D / 64 [rows][64] column chunks (a D 256 tile takes
+//     four box loads a tensor). The wgmma descriptors use the same
 //     swizzle: Q and K are K-major (D contiguous; SBO = 1024 bytes between
 //     8-row groups, a 16-column k step advances the start by 32 bytes
 //     inside a chunk), V is MN-major for the second product (transposed B;
-//     LBO = the chunk stride, SBO = 1024 bytes, a 16-key k step advances
-//     by 16 rows).
-//   * S = Q K^T: D / 16 wgmma.m64n128k16 (bf16 from shared memory, float32
-//     accumulator, 64 floats a thread). The online softmax runs on that
+//     LBO = the chunk stride BK * 128 bytes, so one wgmma of N = D reads
+//     all D / 64 chunks in order; SBO = 1024 bytes, a 16-key k step
+//     advances by 16 rows).
+//   * S = Q K^T: D / 16 wgmma.m64n{BK}k16 (bf16 from shared memory, float32
+//     accumulator, BK / 2 floats a thread). The online softmax runs on that
 //     accumulator in registers: a thread holds two rows, each spread over
 //     the 4 threads of a quad, so a row max is two __shfl_xor_sync steps;
 //     the row sum stays per thread until the end.
 //   * O += P V: P is rounded to bf16 in registers and fed as wgmma's A
 //     operand from registers (the accumulator's layout of a 16-key slice is
-//     the A fragment's), 128 / 16 wgmma.m64n{D}k16 with V from shared
-//     memory; O (D / 2 floats a thread) is rescaled in registers.
+//     the A fragment's), BK / 16 wgmma.m64n{D}k16 with V from shared
+//     memory (at D 256, N 256: wgmma's widest); O (D / 2 floats a thread)
+//     is rescaled in registers.
 //   * Software pipeline within a warpgroup: each step issues tile t's
 //     S = Q K^T and tile t - 1's O += P V back to back, waits for the
 //     first only, and runs tile t's softmax on the CUDA cores (exp2 on the
@@ -67,11 +81,26 @@
 //     them take turns at issuing their products, so one's softmax
 //     overlaps the other's wgmmas.
 //   * Masking. Whole kv tiles dead under the TPU kernel's liveness rule
-//     (flash_attention.py:48-53, at this kernel's 128 x 128 tiles) are
+//     (flash_attention.py:48-53, at this kernel's 128 x BK tiles) are
 //     never loaded; within a consumer's 64 rows only tiles on the causal
 //     diagonal, on the window's edge or past Skv are masked element-wise.
+//     gemma3's global layers pass the reference's BIG_WINDOW (2^30):
+//     `q0 - window - BK + 1` and `qp - kp < window` stay in int32.
 //   * Output: acc / max(l, 1e-30), rounded to bf16 and stored straight from
 //     registers; rows past Sq are not stored.
+//
+// Budget at D 256. Shared memory: Q 128 x 256 x 2 = 65,536 B, K and V
+// 2 stages x 2 x 64 x 256 x 2 = 131,072 B, 10 barriers 80 B and the 1,024 B
+// swizzle alignment: 197,712 B of a block's 232,448. Registers: a consumer
+// holds O (128 floats), tile t's S (32), tile t - 1's P fragments (16) and
+// the row statistics under the 240 that setmaxnreg gives it. ptxas (CUDA
+// 12.8, `kernel_probe.py ptxas flash_attention_sm90`) gives every
+// instantiation 168 registers a thread at launch (the cap of 384 threads
+// at one CTA an SM, raised for the consumers by setmaxnreg) and 0 bytes of
+// spill stores and loads. FA-3's 80-key tile also fits (230,480 B) and
+// ran 2-4 % faster on the gemma shapes (kernel_probe.py ab, NVIDIA H100
+// 80GB HBM3, 700 W); the 64-key tile is kept: it needs no n80 product and
+// leaves no ragged kv tile at S 2048.
 //
 // Numbers. q and k enter the first product as the bf16 values they are;
 // their products are exact and summed in float32, and S is scaled in
@@ -101,15 +130,32 @@ namespace {
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LOG2E = 1.44269504088896340736f;
 constexpr int BQ = 128;        // query rows per CTA
-constexpr int BK = 128;        // keys per kv tile
-constexpr int STAGES = 3;      // kv ring depth
 constexpr int CONSUMERS = 2;   // consumer warpgroups, 64 rows each
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int CHUNK = 64;      // bf16 columns of one 128-byte swizzled row
 constexpr int ROW_BYTES = 128;
 
+// Tile traits by head dim: BK keys per kv tile, a kv ring of STAGES, and
+// whether a stage's K is released apart from its V (SPLIT). At D 256 two
+// stages of 64 keys are what fits beside Q (the header's budget).
+template <int D>
+struct Tiles {
+  static constexpr int BK = 128;
+  static constexpr int STAGES = 3;
+  static constexpr bool SPLIT = false;
+};
+template <>
+struct Tiles<256> {
+  static constexpr int BK = 64;
+  static constexpr int STAGES = 2;
+  static constexpr bool SPLIT = true;
+};
+
 template <int D>
 struct Layout {
+  static constexpr int BK = Tiles<D>::BK;
+  static constexpr int STAGES = Tiles<D>::STAGES;
+  static constexpr bool SPLIT = Tiles<D>::SPLIT;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;   // one K or V stage
   static constexpr int Q_OFF = 0;
@@ -117,9 +163,11 @@ struct Layout {
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   // q_full, q_empty, k_full[STAGES], v_full[STAGES], empty[STAGES]
-  static constexpr int BARS = 2 + 3 * STAGES;
+  // (+ k_empty[STAGES] where SPLIT: empty then releases V alone)
+  static constexpr int BARS = 2 + (SPLIT ? 4 : 3) * STAGES;
   // + 1024: the dynamic base is aligned up to the swizzle's 1024 bytes.
   static constexpr int SMEM = BAR_OFF + 8 * BARS + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block has");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -216,6 +264,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// d[0:32] (+)= A[64 x 16] . B[64 x 16]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[0:64] (+)= A[64 x 16] . B[128 x 16]^T, both K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                                uint64_t db, int accumulate) {
@@ -289,6 +356,51 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[0:128] += A[64 x 16] (registers) . B[16 x 256], B MN-major in shared
+// memory (four 64-column chunks, LBO apart)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db);
@@ -304,25 +416,49 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64],
                                               uint64_t db) {
   wgmma_rs_n128(acc, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&acc)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n256(acc, a, db);
+}
+
+// One k-step of S = Q K^T over a BK-key tile.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[BK / 2], uint64_t da,
+                                         uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&sc)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  wgmma_ss_n64(sc, da, db, accumulate);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&sc)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  wgmma_ss_n128(sc, da, db, accumulate);
+}
 
 // S = Q K^T for one warpgroup's 64 rows: D / 16 wgmma k-steps, committed
-// as one group (the caller fences and waits).
-template <int D>
+// as one group (the caller fences and waits). A row of Q or K is D / 64
+// swizzled column chunks; four k-steps walk one chunk.
+template <int D, int BK = Tiles<D>::BK>
 __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_wg,
                                          uint32_t k_st) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t chunk = kk / 4, col = (kk % 4) * 32;
-    wgmma_ss_n128(sc, sw128_desc(q_wg + chunk * BQ * ROW_BYTES + col, 16, 1024),
-                  sw128_desc(k_st + chunk * BK * ROW_BYTES + col, 16, 1024),
-                  kk > 0);
+    wgmma_qk<BK>(sc,
+                 sw128_desc(q_wg + chunk * BQ * ROW_BYTES + col, 16, 1024),
+                 sw128_desc(k_st + chunk * BK * ROW_BYTES + col, 16, 1024),
+                 kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P V for one warpgroup: BK / 16 wgmma k-steps, V MN-major, committed
-// as one group.
-template <int D>
+// O += P V for one warpgroup: BK / 16 wgmma k-steps, V MN-major (its D / 64
+// column chunks LBO = BK * ROW_BYTES apart, read by one wgmma of N = D),
+// committed as one group.
+template <int D, int BK = Tiles<D>::BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_st) {
@@ -339,6 +475,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // and the thread's partial row sums l of its two rows, leaves P (float32)
 // in `sc`, and returns in alpha the factor by which the output rows must
 // be rescaled.
+template <int BK>
 __device__ __forceinline__ void softmax_step(
     float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
     bool masked, int k0, int row_lo, int col_in, int Skv, int causal,
@@ -379,6 +516,7 @@ __device__ __forceinline__ void softmax_step(
 // P (float32, the accumulator's layout) to bf16 wgmma A fragments: 16-key
 // slice kk holds n8 blocks 2 kk (registers 0, 1: rows lo, hi) and 2 kk + 1
 // (registers 2, 3).
+template <int BK>
 __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
                                        uint32_t (&pa)[BK / 16][4]) {
 #pragma unroll
@@ -394,6 +532,7 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
 
 // The live kv tiles [t0, t1) of the q tile at q0: the TPU kernel's
 // whole-tile liveness rule at BQ x BK tiles.
+template <int BK>
 __device__ __forceinline__ void kv_tiles(int q0, int Skv, int causal,
                                          int window, int& t0, int& t1) {
   t1 = (Skv + BK - 1) / BK;
@@ -422,6 +561,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
                __nv_bfloat16* __restrict__ o, int BH, int Sq, int Skv,
                int group, int causal, int window, float scale_log2) {
   using L = Layout<D>;
+  constexpr int BK = L::BK, STAGES = L::STAGES;
   constexpr int CH = D / CHUNK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -433,6 +573,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
   auto k_full = [&](int s) { return q_full + 8u * (2 + s); };
   auto v_full = [&](int s) { return q_full + 8u * (2 + STAGES + s); };
   auto empty = [&](int s) { return q_full + 8u * (2 + 2 * STAGES + s); };
+  auto k_empty = [&](int s) { return q_full + 8u * (2 + 3 * STAGES + s); };
 
   // Items are (q tile, head) pairs, heaviest q tiles first; the heads that
   // share a kv head sit side by side.
@@ -449,6 +590,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), CONSUMERS * 128);
+      if (L::SPLIT) mbar_init(k_empty(s), CONSUMERS * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -465,7 +607,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         if (it >= items) break;
         int bh, q0, t0, t1;
         decode(it, bh, q0);
-        kv_tiles(q0, Skv, causal, window, t0, t1);
+        kv_tiles<BK>(q0, Skv, causal, window, t0, t1);
         // Q is single-buffered: wait until both consumers are done with
         // the previous item's (their last S = Q K^T has completed).
         if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
@@ -476,11 +618,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         const int kvh = bh / group;
         for (int t = t0; t < t1; ++t, ++n) {
           const int s = n % STAGES;
-          mbar_wait(empty(s), ((n / STAGES) & 1) ^ 1);
+          const uint32_t free_parity = ((n / STAGES) & 1) ^ 1;
+          mbar_wait(L::SPLIT ? k_empty(s) : empty(s), free_parity);
           mbar_expect_tx(k_full(s), L::KV_BYTES);
           for (int c = 0; c < CH; ++c)
             tma_load(k_s + s * L::KV_BYTES + c * BK * ROW_BYTES, &k_map,
                      k_full(s), c * CHUNK, t * BK, kvh);
+          if (L::SPLIT) mbar_wait(empty(s), free_parity);
           mbar_expect_tx(v_full(s), L::KV_BYTES);
           for (int c = 0; c < CH; ++c)
             tma_load(v_s + s * L::KV_BYTES + c * BK * ROW_BYTES, &v_map,
@@ -511,7 +655,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       if (it >= items) break;
       int bh, q0, t0, t1;
       decode(it, bh, q0);
-      kv_tiles(q0, Skv, causal, window, t0, t1);
+      kv_tiles<BK>(q0, Skv, causal, window, t0, t1);
       const int qw = q0 + wg * 64;                        // my first row
       const int row_lo = qw + (tid / 32) * 16 + lane / 4;  // and row_lo + 8
       float acc[D / 2];
@@ -549,10 +693,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
           pass_turn();
           wgmma_wait<0>();
           fence_regs(sc);
+          if (L::SPLIT) mbar_arrive(k_empty(s));
           if (t1 - t0 == 1) mbar_arrive(q_empty);   // done with Q
-          softmax_step(sc, m, l, alpha, masked(t0 * BK), t0 * BK, row_lo,
-                       col_in, Skv, causal, window, scale_log2);
-          pack_p(sc, pa);
+          softmax_step<BK>(sc, m, l, alpha, masked(t0 * BK), t0 * BK,
+                           row_lo, col_in, Skv, causal, window, scale_log2);
+          pack_p<BK>(sc, pa);
         }
         for (int t = t0 + 1; t < t1; ++t) {
           const int j = n + t - t0, s = j % STAGES, sp = (j - 1) % STAGES;
@@ -570,14 +715,15 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
           pass_turn();
           wgmma_wait<1>();               // S of tile t is in
           fence_regs(sc);
+          if (L::SPLIT) mbar_arrive(k_empty(s));
           if (t == t1 - 1) mbar_arrive(q_empty);    // done with Q
-          softmax_step(sc, m, l, alpha, masked(t * BK), t * BK, row_lo,
-                       col_in, Skv, causal, window, scale_log2);
+          softmax_step<BK>(sc, m, l, alpha, masked(t * BK), t * BK,
+                           row_lo, col_in, Skv, causal, window, scale_log2);
           wgmma_wait<0>();               // O += P V of tile t - 1 is in
           fence_regs(acc);
           fence_regs(pa);
           mbar_arrive(empty(sp));
-          pack_p(sc, pa);
+          pack_p<BK>(sc, pa);
         }
         const int j = n + t1 - 1 - t0, s = j % STAGES;
 #pragma unroll
@@ -680,6 +826,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
            cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   int err = make_map(&q_map, q, D, Sq, BH, BQ);
+  constexpr int BK = Tiles<D>::BK;
   if (err == 0) err = make_map(&k_map, k, D, Skv, BH / group, BK);
   if (err == 0) err = make_map(&v_map, v, D, Skv, BH / group, BK);
   if (err != 0) return err;
@@ -708,7 +855,7 @@ extern "C" {
 
 // o [BH, Sq, D] from q [BH, Sq, D] and k, v [BH / group, Skv, D], all
 // bfloat16, contiguous, 16-byte aligned, on the current device; D in
-// {64, 128}. causal and window as in the reference (window 0: none).
+// {64, 128, 256}. causal and window as in the reference (window 0: none).
 // Launches on `stream`; returns 0 on success, a CUDA error code, or
 // 10000 (no cuTensorMapEncodeTiled) / 20000 + CUresult (a tensor map was
 // refused).
@@ -722,6 +869,8 @@ int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
     case 64: return launch<64>(q, k, v, o, BH, Sq, Skv, group, causal,
                                window, scale, stream);
     case 128: return launch<128>(q, k, v, o, BH, Sq, Skv, group, causal,
+                                 window, scale, stream);
+    case 256: return launch<256>(q, k, v, o, BH, Sq, Skv, group, causal,
                                  window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,15 +3,18 @@
 Two kernels replace the Pallas TPU kernel ``repro/kernels/flash_attention/
 flash_attention.py::flash_attention_bh``, chosen by ``variant(dtype, D)``:
 
-  ``wgmma``   bf16 with D in (64, 128): ``csrc/flash_attention_sm90.cu``,
-              both products on the tensor cores (wgmma), Q, K and V staged
-              by TMA — the LM prefill's path;
-  ``scalar``  float32, and D in (16, 256): ``csrc/flash_attention.cu``,
-              scalar float32 FMAs.
+  ``wgmma``   bf16 with D in (64, 128, 256):
+              ``csrc/flash_attention_sm90.cu``, both products on the tensor
+              cores (wgmma), Q, K and V staged by TMA — the LM prefills'
+              path (qwen2-1.5B at D 128, the gemma models at D 256);
+  ``scalar``  float32 at every D, and bf16 at D 16:
+              ``csrc/flash_attention.cu``, scalar float32 FMAs.
 
 See the notes at the top of the CUDA sources for the designs and what
 bounds them. Neither falls back on the other: a call the chosen kernel
-does not take raises.
+does not take raises. ``_launch("scalar", ...)`` also takes bf16 at D
+64-256; timing code uses it to hold the wgmma kernel beside the scalar
+one on the same inputs, and no model path reaches it.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"wgmma": 0, "scalar": 0}
 
 HEAD_DIMS = (16, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # TMA reads from 16-byte aligned global addresses only.
 TMA_ALIGN = 16
@@ -100,6 +103,16 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return kind
 
 
+def _refuse_grad(q, k, v) -> None:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention_bh_cuda is forward-only: an input requires "
+            "grad, and its output would carry no gradient. Training "
+            "through the attention kernels is ROADMAP queue 1 item [3]; "
+            "call it under torch.no_grad() or with detached inputs")
+
+
 def flash_attention_bh_cuda(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: int = 0, scale=None,
@@ -109,18 +122,22 @@ def flash_attention_bh_cuda(q: torch.Tensor, k: torch.Tensor,
     ``h // group``; ``scale`` defaults to 1/sqrt(D) (the scalar kernel
     applies it to q in float32, the wgmma kernel to the float32 scores).
     Forward only: raises when grad is enabled and an input requires it."""
-    global LAUNCHES
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention_bh_cuda is forward-only: an input requires "
-            "grad, and its output would carry no gradient. Training "
-            "through the attention kernels is ROADMAP queue 1 item [3]; "
-            "call it under torch.no_grad() or with detached inputs")
+    _refuse_grad(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     kind = check_inputs(q, k, v, group=group, window=window)
+    return _launch(kind, q, k, v, causal=causal, window=window, scale=scale,
+                   group=group)
+
+
+def _launch(kind: str, q, k, v, *, causal: bool, window: int, scale,
+            group: int) -> torch.Tensor:
+    """One call of the ``kind`` kernel on CUDA inputs that ``check_inputs``
+    passed. The scalar kernel takes every such call, so timing code may
+    hand it a call the wgmma kernel would take."""
+    global LAUNCHES
+    _refuse_grad(q, k, v)
     BH, Sq, D = q.shape
     Skv = k.shape[1]
     scale = float(np.float32(scale if scale is not None

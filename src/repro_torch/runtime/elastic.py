@@ -61,12 +61,15 @@ class FailureInjector:
 
 
 def _like(restored, state):
-    """``restored`` (numpy leaves) in ``state``'s leaf types: a tensor leaf
-    comes back as a tensor on that leaf's device."""
+    """``restored`` (numpy leaves, and bf16 CPU tensors where the state is
+    bf16) in ``state``'s leaf types: a tensor leaf comes back as a tensor on
+    that leaf's device; dicts, lists and tuples keep their kind."""
     if isinstance(state, dict):
         return {k: _like(restored[k], state[k]) for k in state}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_like(r, s) for r, s in zip(restored, state))
     if isinstance(state, torch.Tensor):
-        return torch.from_numpy(restored).to(state.device)
+        return torch.as_tensor(restored).to(state.device)
     return restored
 
 
@@ -76,7 +79,8 @@ def run_elastic(state, step_fn: Callable, batch_fn: Callable, *,
                 watchdog: Optional[StepWatchdog] = None,
                 max_restarts: int = 10) -> Dict:
     """Run ``num_steps`` of ``state = step_fn(state, batch, step)`` with
-    checkpoint/restart. ``state`` is a nested dict of tensors or arrays.
+    checkpoint/restart. ``state`` is a tree of dicts, lists and tuples
+    whose leaves are tensors or arrays.
     Returns dict(state, restarts, steps_run). Unlike the reference, it
     takes no ``shardings``: re-sharding on restore waits for mesh and
     sharding (ROADMAP queue 1 item [3])."""

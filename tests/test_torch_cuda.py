@@ -349,31 +349,90 @@ def test_wgmma_flash_kernel_matches_plain_on_card(card, D, causal, window,
                                rtol=BF16_RTOL)
 
 
+@pytest.mark.parametrize("group", [1, 2, 10])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 300),
+                                           (False, 0)])
+def test_wgmma_flash_kernel_at_d256_matches_plain_on_card(card, causal,
+                                                          window, group):
+    """The tensor-core kernel's D 256 instantiation (64-key tiles, two
+    stages) against the plain version at Sq = Skv = 1000 (ragged for both
+    its 128-row q tiles and its 64-key kv tiles): causal, sliding and full
+    masks, groups 1, 2 and 10 (recurrentgemma's MQA); bf16 limit 2e-2 plus
+    one bf16 step."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator().manual_seed(256 + group + window)
+    BH, S, D = 2 * group, 1000, 256
+    q = torch.randn((BH, S, D), generator=gen).to(card, torch.bfloat16)
+    k, v = (torch.randn((BH // group, S, D), generator=gen).to(
+        card, torch.bfloat16) for _ in range(2))
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    out = fops.flash_attention_bh(q, k, v, causal=causal, window=window,
+                                  group=group)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
+                                          scalar=before["scalar"])
+    ref = flash_attention_bh_ref(q, k, v, causal=causal, window=window,
+                                 group=group)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=BF16_RTOL)
+
+
 # gemma3-4b's prefill (B 4: 32 query heads over 16 kv heads; local window
 # 1024 and the global layers' BIG_WINDOW) and recurrentgemma-2b's (40 query
 # heads over 4 kv heads: MQA, window 2048).
 GEMMA_FLASH = [(32, 2, 1024), (32, 2, 1 << 30), (40, 10, 2048)]
 
 
-@pytest.mark.parametrize("BH,group,window", GEMMA_FLASH)
-def test_scalar_flash_kernel_at_gemma_shapes_on_card(card, BH, group,
-                                                     window):
-    """The scalar kernel in bf16 at D 256, S 2048, the gemma models'
-    per-call shapes, against the plain version: bf16 limit 2e-2 plus one
-    bf16 step, as for the wgmma kernel."""
-    from repro_torch.kernels.flash_attention import flash_attention as fb
-    from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.flash_attention.ref import \
-        flash_attention_bh_ref
+def _gemma_inputs(card, BH, group):
     gen = torch.Generator().manual_seed(BH + group)
     S, D = 2048, 256
     q = torch.randn((BH, S, D), generator=gen).to(card, torch.bfloat16)
     k, v = (torch.randn((BH // group, S, D), generator=gen).to(
         card, torch.bfloat16) for _ in range(2))
-    assert fb.variant(torch.bfloat16, D) == "scalar"
+    return q, k, v
+
+
+@pytest.mark.parametrize("BH,group,window", GEMMA_FLASH)
+def test_wgmma_flash_kernel_at_gemma_shapes_on_card(card, BH, group,
+                                                    window):
+    """bf16 at D 256, S 2048, the gemma models' per-call shapes, takes the
+    wgmma kernel (one launch, no scalar one) and agrees with the plain
+    version: bf16 limit 2e-2 plus one bf16 step."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    q, k, v = _gemma_inputs(card, BH, group)
+    assert fb.variant(torch.bfloat16, 256) == "wgmma"
     before = dict(fb.LAUNCHES_BY_VARIANT)
     out = fops.flash_attention_bh(q, k, v, causal=True, window=window,
                                   group=group)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
+                                          scalar=before["scalar"])
+    ref = flash_attention_bh_ref(q, k, v, causal=True, window=window,
+                                 group=group)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("BH,group,window", GEMMA_FLASH)
+def test_scalar_flash_kernel_at_gemma_shapes_on_card(card, BH, group,
+                                                     window):
+    """The scalar kernel, launched directly (no model path reaches it in
+    bf16 at D 256 now), at the gemma models' per-call shapes: the
+    yardstick the wgmma kernel is timed beside stays held to the plain
+    version, bf16 limit 2e-2 plus one bf16 step."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    q, k, v = _gemma_inputs(card, BH, group)
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    out = fb._launch("scalar", q, k, v, causal=True, window=window,
+                     scale=None, group=group)
     torch.cuda.synchronize()
     assert fb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"],
                                           scalar=before["scalar"] + 1)
@@ -482,6 +541,14 @@ def test_flash_kernel_rejects_bad_inputs(card):
                                    group=2)
     with pytest.raises(ValueError, match="contiguous"):
         fb.flash_attention_bh_cuda(q.transpose(1, 2), q, q)
+    # The wgmma kernel's TMA loads need 16-byte aligned bases, at D 256 too.
+    flat = torch.zeros(2 * 32 * 256 + 4, dtype=torch.bfloat16, device=card)
+    shifted = flat[4:].view(2, 32, 256)
+    q256 = torch.zeros((2, 32, 256), dtype=torch.bfloat16, device=card)
+    before = fb.LAUNCHES
+    with pytest.raises(ValueError, match="aligned"):
+        fb.flash_attention_bh_cuda(q256, shifted, q256)
+    assert fb.LAUNCHES == before
 
 
 @pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype", [

@@ -71,21 +71,36 @@ def test_plain_matches_blocked_attention_gqa(G):
                                        block_kv=128), ref, 3e-5)
 
 
-@pytest.mark.parametrize("BH,S,D,causal,window,group,bq", [
-    (2, 64, 16, True, 0, 1, 32),
-    (4, 64, 32, True, 24, 2, 16),
+# The first two keep their original ids; the D 256 cases are the head dim
+# of the gemma models' calls, which the wgmma kernel now takes in bf16:
+# group 2 with a window, and MQA (one kv head for four query heads).
+@pytest.mark.parametrize("BH,S,D,causal,window,group,bq,dtype", [
+    pytest.param(2, 64, 16, True, 0, 1, 32, "float32",
+                 id="2-64-16-True-0-1-32"),
+    pytest.param(4, 64, 32, True, 24, 2, 16, "float32",
+                 id="4-64-32-True-24-2-16"),
+    (4, 128, 256, True, 48, 2, 64, "float32"),
+    (4, 128, 256, True, 48, 2, 64, "bfloat16"),
+    (4, 128, 256, True, 0, 4, 32, "float32"),
+    (4, 128, 256, True, 0, 4, 32, "bfloat16"),
 ])
-def test_plain_matches_pallas_interpret(BH, S, D, causal, window, group, bq):
+def test_plain_matches_pallas_interpret(BH, S, D, causal, window, group, bq,
+                                        dtype):
+    """The port's plain version (directly and through ``ops``' CPU branch)
+    against the Pallas kernel in interpret mode: float32 within 2e-5 (sums
+    in other orders), bf16 within the reference kernel tests' 2e-2 (both
+    compute in float32 and round the output to bf16 on their own)."""
     rng = np.random.default_rng(2)
-    qj, qt = _pair(rng.standard_normal((BH, S, D)), "float32")
-    kj, kt = _pair(rng.standard_normal((BH // group, S, D)), "float32")
-    vj, vt = _pair(rng.standard_normal((BH // group, S, D)), "float32")
+    qj, qt = _pair(rng.standard_normal((BH, S, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((BH // group, S, D)), dtype)
+    vj, vt = _pair(rng.standard_normal((BH // group, S, D)), dtype)
     ref = flash_attention_bh(qj, kj, vj, causal=causal, window=window,
                              bq=bq, bk=bq, group=group, interpret=True)
+    assert ref.dtype == JDT[dtype]
     _close(ops.flash_attention_bh(qt, kt, vt, causal=causal, window=window,
-                                  group=group), ref, 2e-5)
+                                  group=group), ref, ATOL[dtype])
     _close(flash_attention_bh_ref(qt, kt, vt, causal=causal, window=window,
-                                  group=group), ref, 2e-5)
+                                  group=group), ref, ATOL[dtype])
 
 
 @pytest.mark.parametrize("kind,window", [("causal", 0), ("sliding", 24)])
@@ -157,10 +172,10 @@ def test_wrapper_raises_off_cpu_and_cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 64, 128, 256])
 def test_variant_choice(dtype, D):
-    """bf16 at D 64 and 128 takes the wgmma kernel; float32, and D 16 and
-    256, keep the scalar kernel."""
+    """bf16 at D 64, 128 and 256 takes the wgmma kernel; float32 at every
+    D, and bf16 at D 16, keep the scalar kernel."""
     from repro_torch.kernels.flash_attention import flash_attention as fb
-    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256)
             else "scalar")
     assert fb.variant(dtype, D) == want
     q = torch.zeros((2, 8, D), dtype=dtype)
@@ -195,6 +210,13 @@ def test_cuda_wrapper_refusals():
     assert shifted.is_contiguous()
     with pytest.raises(ValueError, match="aligned"):
         fb.check_inputs(shifted, q, q)
+    # At D 256 too (the gemma models' head dim), on k as on q.
+    q256 = torch.zeros((2, 32, 256), dtype=torch.bfloat16)
+    flat = torch.zeros(2 * 32 * 256 + 4, dtype=torch.bfloat16)
+    shifted = flat[4:].view(2, 32, 256)          # 8 bytes off alignment
+    assert fb.check_inputs(q256, q256, q256) == "wgmma"
+    with pytest.raises(ValueError, match="k must be 16-byte aligned"):
+        fb.check_inputs(q256, shifted, q256)
     # The scalar kernel reads with plain loads: no alignment demand.
     flat32 = torch.zeros(4 * 64 * 64 + 1)
     shifted32 = flat32[1:].view(4, 64, 64)       # 4 bytes off alignment
