@@ -45,25 +45,42 @@ Builds the port's kernels from the sources in this checkout, then:
      windows, non-causal, chunks of 64 to 256, the qwen2-1.5B and
      mamba2-2.7B prefill shapes, the latter at B 4 and B 1, and the gemma
      models' per-call D 256 prefill shapes, where the scalar flash kernel
-     is held and timed on the same bf16 inputs as the yardstick it was)
-     and times them beside the plain versions, their bounds and, for
-     attention, ``scaled_dot_product_attention``; the two SSD kernels on
-     the same bf16 inputs; and checks that both refuse an input that
+     is held and timed on the same bf16 inputs as the yardstick it was;
+     the flash wrapper's new call shapes: MLA's unequal head dims
+     zero-padded to D 128 and 256, non-causal calls with Sq != Skv under
+     GQA, in both types, and the five newer models' prefill calls at B 4,
+     S 2048 — minicpm3-4B's and DeepSeek-V2's MLA, DBRX, the vision
+     model's self- and cross-attention to 4096 image tokens, SeamlessM4T's
+     encoder, cross- and self-attention) and times them beside the plain
+     versions, their bounds and, for attention,
+     ``scaled_dot_product_attention``; the two SSD kernels on the same
+     bf16 inputs; checks that a causal or sliding prefill attention with
+     Sq != Skv raises, and that both kernels refuse an input that
      requires grad under grad (they are forward-only);
   7. serves qwen2-1.5B and mamba2-2.7B at depth 2, gemma3-4B at depth 6
-     (five local layers, one global) and recurrentgemma-2B at depth 4 (one
+     (five local layers, one global), recurrentgemma-2B at depth 4 (one
      group of two RG-LRU layers and a local attention layer, then one
-     RG-LRU layer), all at full width in float32, through
-     ``Server.generate`` on the card and on the CPU (the same weights) and
-     compares logits and tokens;
-  8. serves all four at full depth in bf16 on the card (B 4, prompt 2048,
-     32 new tokens), reports prefill tokens/s, decode ms per step, peak
-     memory and the profiled prefill's busy share, and checks the kernel
-     calls of each prefill (one wgmma flash call an attention layer for
-     qwen2-1.5B at D 128 and gemma3-4B and recurrentgemma-2B at D 256, one
+     RG-LRU layer), minicpm3-4B at depth 2, DeepSeek-V2 at depth 2 (its
+     dense layer and one MoE layer), DBRX at depth 1, llama-3.2-vision-11B
+     at depth 5 (one cross layer with live gates and four decoder layers;
+     4096 image tokens) and SeamlessM4T-large-v2 at 1 + 1 layers (400
+     frames), all at full width in float32, through ``Server.generate`` on
+     the card and on the CPU (the same weights) and compares logits and
+     tokens, with one scalar flash call per prefill attention and no call
+     of a plain version in the card's generate;
+  8. serves all nine in bf16 on the card (B 4, prompt 2048, 32 new
+     tokens; full depth but DeepSeek-V2 cut to its dense layer and six MoE
+     layers and DBRX to eight layers, to fit one card; 2048 frames and
+     4096 image tokens), reports prefill tokens/s, decode ms per step,
+     peak memory and the profiled prefill's busy share, and checks the
+     kernel calls of each prefill (one wgmma flash call per prefill
+     attention, counted by padded head dim and causality: D 128 for
+     qwen2-1.5B, DBRX, the vision model and minicpm3-4B's MLA, D 256 for
+     the gemma models and DeepSeek-V2's MLA, D 64 for SeamlessM4T; one
      wgmma SSD call a layer for mamba2-2.7B, one fused RG-LRU launch a
-     recurrent layer for recurrentgemma-2B, no scalar flash call) and that
-     no plain version ran;
+     recurrent layer for recurrentgemma-2B, no scalar flash call), that
+     no plain version ran and that the vision model's cross layers change
+     its logits;
   9. runs the paper's comparison on the cell of phases 3 and 5, built by
      the port's scenario registry, through a serial ``ExperimentPlan`` of
      policy specs (the six §5 rule schedulers, ``waterwise[backend=fused]``
@@ -101,9 +118,11 @@ Builds the port's kernels from the sources in this checkout, then:
      in batch — records equal, no task started before a predecessor ended.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
-SSM scalars and the RG-LRU blocks' conv, gate biases and decay are drawn
-live (``models.ssm.draw_live_mixer``, ``models.rglru.draw_live_block``),
-since the reference's zero convs would feed both recurrences exact zeros.
+SSM scalars, the RG-LRU blocks' conv, gate biases and decay and the vision
+cross layers' gates are drawn live (``models.ssm.draw_live_mixer``,
+``models.rglru.draw_live_block``, ``models.transformer.draw_live_gates``),
+since the reference's zero convs would feed both recurrences exact zeros
+and its zero gates make every cross layer the identity.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -999,7 +1018,9 @@ def phase_scan(dev) -> dict:
     for shape in ((64, 48, 16), (16, 48, 16), GRIFFIN):
         pre_r, pre_i, x, lam, gy = layer_inputs(*shape, dev, seed=3)
         n, W = pre_r.numel(), shape[-1]
-        reps = 3 if shape == GRIFFIN else 200
+        # The plain versions at griffin's shape take seconds a call: one
+        # warm-up and one timed call each.
+        reps = 1 if shape == GRIFFIN else 200
         # Forward: pre_r, pre_i, x, lam in, y out.
         timings[("layer_fwd", shape)] = time_kernel(
             lambda: rk.rglru_layer_fwd_cuda(pre_r, pre_i, x, lam),
@@ -1226,6 +1247,13 @@ BF16_OPS_PER_S = 989e12
 # tolerances (float32 2e-5, bf16 2e-2); the model-layout GQA wrapper
 # against the blocked twin, 3e-5 as in test_flash_attention_gqa.
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# ... and, relative to the output, RMS(d) / RMS(plain): where Skv is long
+# and the mask full, an output element is ~sqrt(e / Skv) (0.026 at 4096),
+# so FLASH_ATOL alone is as large as what it compares. bf16's output
+# rounding alone reads ~1e-3; a mis-scaled padded launch or a dropped kv
+# tile reads 1e-1 or more (``model_flash_timing`` launches both and fails
+# if the limit would pass them).
+FLASH_RRMS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 GQA_ATOL = 3e-5
 # SSD scan, kernel vs plain chunked version: the reference's 2e-3; in bf16
 # both round their float32 results to bf16 on their own, so one bf16 step
@@ -1242,19 +1270,52 @@ LM_LOGITS_ATOL = 1e-3
 # test_decode_matches_forward rule (the other device's logit of the token
 # chosen is within 0.15 of its max).
 TIE_GAP = 0.15
-ARCHS = ("qwen2_1_5b", "mamba2_2_7b", "gemma3_4b", "recurrentgemma_2b")
+ARCHS = ("qwen2_1_5b", "mamba2_2_7b", "gemma3_4b", "recurrentgemma_2b",
+         "minicpm3_4b", "deepseek_v2_236b", "dbrx_132b",
+         "llama_3_2_vision_11b", "seamless_m4t_large_v2")
 # Phase 7's depths: the smallest that hold every kind of layer. gemma3-4B's
 # 6 is five local layers and one global; recurrentgemma-2B's 4 is one
 # group (two RG-LRU layers, one local attention layer) and a one-layer
-# tail.
+# tail; DeepSeek-V2's 2 its dense layer and one MoE layer; the vision
+# model's 5 one group (a cross layer and four decoder layers);
+# SeamlessM4T's 1 one decoder layer after one encoder layer.
 PARITY_DEPTH = dict(qwen2_1_5b=2, mamba2_2_7b=2, gemma3_4b=6,
-                    recurrentgemma_2b=4)
+                    recurrentgemma_2b=4, minicpm3_4b=2, deepseek_v2_236b=2,
+                    dbrx_132b=1, llama_3_2_vision_11b=5,
+                    seamless_m4t_large_v2=1)
+# Phase 8's depth cuts, to fit one card in bf16: DeepSeek-V2 keeps its
+# dense layer and six MoE layers (a MoE layer is 3.97 B parameters, 7.9
+# GB), DBRX eight layers (3.26 B, 6.5 GB each). The others run at full
+# depth.
+SERVE_DEPTH = dict(deepseek_v2_236b=7, dbrx_132b=8)
+# Phase 7's encoder frames (Sq != Skv in the cross-attention) and phase
+# 8's; vision's patches are the config's n_img_tokens (4096).
+PARITY_FRAMES, SERVE_FRAMES = 400, 2048
 
 
 def check(name: str, err: float, limit: float) -> float:
     if not np.isfinite(err) or err > limit:
         fail(f"{name}: max |d| {err:.3e} beyond {limit:.1e}")
     return err
+
+
+def flash_diff(out, ref) -> tuple:
+    """(max |d|, RMS(d) / RMS(ref)) of two same-shaped outputs, in
+    float32."""
+    d = out.float() - ref.float()
+    rel = d.square().mean().sqrt() / ref.float().square().mean().sqrt()
+    return d.abs().max().item(), rel.item()
+
+
+def hold_flash(name: str, out, ref, dtype) -> tuple:
+    """Holds ``out`` to the plain version's ``ref`` within FLASH_ATOL and
+    FLASH_RRMS; returns (max |d|, relative RMS)."""
+    err, rel = flash_diff(out, ref)
+    check(name, err, FLASH_ATOL[dtype])
+    if not np.isfinite(rel) or rel > FLASH_RRMS[dtype]:
+        fail(f"{name}: RMS(d) / RMS(plain) {rel:.3e} beyond "
+             f"{FLASH_RRMS[dtype]:.1e}")
+    return err, rel
 
 
 def flash_case(BH, S, D, causal, window, dtype, group, seed):
@@ -1275,13 +1336,13 @@ def flash_case(BH, S, D, causal, window, dtype, group, seed):
                                   group=group)
     ref = flash_attention_bh_ref(q, k, v, causal=causal, window=window,
                                  group=group)
-    err = (out.float() - ref.float()).abs().max().item()
+    err, rel = flash_diff(out, ref)
     print(f"  flash BH={BH} S={S} D={D} causal={causal} window={window} "
           f"{str(dtype)[6:]} group={group} ({kind} kernel): "
-          f"max|do|={err:.3e}", flush=True)
+          f"max|do|={err:.3e}, rel RMS {rel:.3e}", flush=True)
     if fk.LAUNCHES_BY_VARIANT != {**before, kind: before[kind] + 1}:
         fail(f"flash attention did not launch its {kind} kernel once")
-    check("flash attention", err, FLASH_ATOL[dtype])
+    hold_flash("flash attention", out, ref, dtype)
     return err, (q, k, v)
 
 
@@ -1440,6 +1501,198 @@ def gemma_flash_timing(BHq: int, group: int, window: int, seed: int
           f"({t['bound_by']}: {t['nops'] / 1e9:.2f} GFLOP at the bf16 "
           f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB; at the float32 "
           f"rate {t['fp32_bound']['bound_ms'] * 1e3:.2f} us)", flush=True)
+    return t
+
+
+# The new models' per-call prefill shapes at B 4, S 2048 in bf16 (the
+# prompt of phase 8), in the model's layout: (name, Hq, Hkv, Sq, Skv, D_qk,
+# D_v, causal). MLA (minicpm3-4B 96/64, DeepSeek-V2 192/128) goes through
+# the flash wrapper's zero-padded entry at D 128 and 256; DBRX's GQA 48
+# over 8 at D 128; llama-3.2-vision's self-attention (32 over 8) and its
+# cross-attention to 4096 image tokens (non-causal, Sq != Skv);
+# SeamlessM4T's encoder and decoder cross-attention (non-causal, 16 heads
+# at D 64, 2048 frames) and its causal decoder self-attention.
+MODEL_FLASH = (("minicpm3_4b mla", 40, 40, 2048, 2048, 96, 64, True),
+               ("deepseek_v2_236b mla", 128, 128, 2048, 2048, 192, 128,
+                True),
+               ("dbrx_132b", 48, 8, 2048, 2048, 128, 128, True),
+               ("llama_3_2_vision_11b self", 32, 8, 2048, 2048, 128, 128,
+                True),
+               ("llama_3_2_vision_11b cross", 32, 8, 2048, 4096, 128, 128,
+                False),
+               ("seamless_m4t_large_v2 encoder, cross", 16, 16, 2048, 2048,
+                64, 64, False),
+               ("seamless_m4t_large_v2 self", 16, 16, 2048, 2048, 64, 64,
+                True))
+
+
+def model_flash_case(B, Hq, Hkv, Sq, Skv, D, Dv, causal, dtype, seed):
+    """The model-layout wrapper (``ops.flash_attention``: heads first,
+    zero-padded where D != Dv or D is not a kernel head dim) against the
+    plain version on the unpadded inputs, at MLA's numpy scale where
+    D != Dv; checks one launch of the kernel ``variant`` takes at the
+    padded D. Returns (max |d|, relative RMS, inputs, scale, kind)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    G = Hq // Hkv
+    q = torch.randn((B, Sq, Hkv, G, D), generator=gen,
+                    device="cuda").to(dtype)
+    k = torch.randn((B, Skv, Hkv, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, Hkv, Dv), generator=gen,
+                    device="cuda").to(dtype)
+    scale = 1.0 / np.sqrt(D) if D != Dv else None
+    kind = fk.variant(dtype, fops.padded_dim(D, Dv))
+    before = dict(fk.LAUNCHES_BY_VARIANT)
+    out = fops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if fk.LAUNCHES_BY_VARIANT != {**before, kind: before[kind] + 1}:
+        fail(f"the flash wrapper did not launch its {kind} kernel once at "
+             f"D {D}/{Dv}")
+    bh = model_to_bh(q, k, v)
+    ref = flash_attention_bh_ref(*bh, causal=causal, scale=scale, group=G)
+    out = out_to_bh(out)
+    err, rel = flash_diff(out, ref)
+    print(f"  flash (model layout) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
+          f"Skv={Skv} D={D}/{Dv} causal={causal} {str(dtype)[6:]} "
+          f"({kind} kernel at D {fops.padded_dim(D, Dv)}): max|do|="
+          f"{err:.3e}, rel RMS {rel:.3e}", flush=True)
+    hold_flash("flash attention (model layout)", out, ref, dtype)
+    return err, rel, (q, k, v), scale, kind
+
+
+def out_to_bh(o):
+    """The wrapper's [B, Sq, Kh, G, Dv] output -> [BH, Sq, Dv]."""
+    return o.permute(0, 2, 3, 1, 4).reshape(-1, o.shape[1], o.shape[-1])
+
+
+def flash_mutants(q, k, v, causal, scale, ref) -> dict:
+    """What the hold reads on launches that are wrong on purpose, against
+    the plain version's ``ref`` of the sound call: where the head dims are
+    padded, the launch at the padded D's own scale (the unpadded D's scale
+    dropped); where the mask is full, the launch with the last kv tile (128
+    keys) left out. Fails if FLASH_RRMS would pass one. Returns
+    {mutant: (max |d|, relative RMS)}."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    D, Dv = k.shape[-1], v.shape[-1]
+    Dp = fops.padded_dim(D, Dv)
+    runs = {}
+    if Dp != D:
+        runs[f"scale 1/sqrt({Dp})"] = lambda: fops.flash_attention(
+            q, k, v, causal=causal, scale=1.0 / np.sqrt(Dp))
+    if not causal:
+        runs["last kv tile dropped"] = lambda: fops.flash_attention(
+            q, k[:, :-128], v[:, :-128], causal=False, scale=scale)
+    out = {}
+    for name, run in runs.items():
+        out[name] = flash_diff(out_to_bh(run()), ref)
+        print(f"  mutant ({name}): max|do|={out[name][0]:.3e}, rel RMS "
+              f"{out[name][1]:.3e} (limits {FLASH_ATOL[q.dtype]:.1e}, "
+              f"{FLASH_RRMS[q.dtype]:.1e})", flush=True)
+        if not out[name][1] > FLASH_RRMS[q.dtype]:
+            fail(f"the flash hold would pass a launch with {name}")
+    return out
+
+
+def model_to_bh(q, k, v):
+    """Model layout -> the kernel's [BH, S, D], contiguous, unpadded."""
+    B, Sq, Hkv, G, D = q.shape
+    return (q.permute(0, 2, 3, 1, 4).reshape(B * Hkv * G, Sq, D)
+            .contiguous(),
+            k.permute(0, 2, 1, 3).reshape(B * Hkv, k.shape[1], D)
+            .contiguous(),
+            v.permute(0, 2, 1, 3).reshape(B * Hkv, v.shape[1], v.shape[-1])
+            .contiguous())
+
+
+def flash_kernel_device_ms(fn, reps: int = 10):
+    """The profiler's device ms per call of ``fn()`` in the flash kernels
+    alone (``flash_fwd``), and in every kernel it launches (the wrapper's
+    layout and padding copies too): (kernel, all) or (None, None)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if str(ev.device_type).endswith("CUDA")
+           and ev.self_device_time_total > 0]
+    total = sum(ev.self_device_time_total for ev in evs) / reps / 1e3
+    flash = sum(ev.self_device_time_total for ev in evs
+                if "flash_fwd" in ev.key) / reps / 1e3
+    return (flash or None, total or None)
+
+
+def model_flash_timing(name, Hq, Hkv, Sq, Skv, D, Dv, causal, seed) -> dict:
+    """At a new model's prefill call shape (B 4, bf16): holds the wrapper
+    against the plain version (``model_flash_case``), then times the
+    wrapper (layout and padding copies included) by CUDA events, the
+    flash kernel alone and the whole call by the profiler, the plain
+    version, and ``scaled_dot_product_attention(enable_gqa=True)`` on the
+    unpadded inputs (MLA's D_v != D_qk included, where SDPA takes it; else
+    on the inputs padded as the wrapper pads them), beside the function's
+    bound: the unmasked query-key pairs, 2 (D_qk + D_v) flops each, at the
+    bf16 tensor-core rate, or q, k, v and o once at the HBM rate."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    B, G = 4, Hq // Hkv
+    err, rel, (q, k, v), scale, kind = model_flash_case(
+        B, Hq, Hkv, Sq, Skv, D, Dv, causal, torch.bfloat16, seed)
+    Dp = fops.padded_dim(D, Dv)
+    kernel = lambda: fops.flash_attention(q, k, v, causal=causal,
+                                          scale=scale)
+    bh = model_to_bh(q, k, v)
+    plain = lambda: flash_attention_bh_ref(*bh, causal=causal, scale=scale,
+                                           group=G)
+    mutants = flash_mutants(q, k, v, causal, scale, plain())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.view(B, -1, t.shape[1], t.shape[2]) for t in bh)
+    kw = dict(is_causal=causal, enable_gqa=True,
+              scale=float(scale) if scale is not None else None)
+    library = lambda: sdpa(q4, k4, v4, **kw)
+    took = "unpadded"
+    try:
+        lib_out = library()
+    except RuntimeError:
+        # SDPA refused D_v != D_qk: pad as the wrapper pads.
+        q4, k4, v4 = (torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
+                      for t in (q4, k4, v4))
+        library = lambda: sdpa(q4, k4, v4, **kw)[..., :Dv]
+        took = f"padded to D {Dp}"
+        lib_out = library()
+    ref = plain().float()
+    lib_err = (lib_out.reshape(-1, Sq, Dv).float() - ref).abs().max().item()
+    del ref, lib_out
+    pairs = B * Hq * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * Hq * Sq * Dv)
+    kernel_dev, call_dev = flash_kernel_device_ms(kernel)
+    t = dict(name=name, shape=dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
+                                   D=D, Dv=Dv, causal=causal),
+             padded_D=Dp, kernel=kind,
+             ms=cuda_ms(kernel, warmup=5, reps=30),
+             device_ms=kernel_dev, call_device_ms=call_dev,
+             plain_ms=cuda_ms(plain, warmup=1, reps=3),
+             library_ms=cuda_ms(library, warmup=3, reps=20),
+             library_device_ms=profiled_device_ms(library, reps=5),
+             library=f"SDPA ({took})", max_abs_err=err, rel_rms=rel,
+             mutants=mutants, library_err=lib_err,
+             padded_gflop=2 * pairs * 2 * Dp / 1e9,
+             **bound(nbytes, 2 * pairs * (D + Dv), BF16_OPS_PER_S))
+    print(f"  timing flash, {name}: wrapper {t['ms'] * 1e3:.2f} us "
+          f"(flash kernel on the device {fmt_us(t['device_ms'])}, whole "
+          f"call {fmt_us(t['call_device_ms'])}; {kind} at D {Dp}), plain "
+          f"{t['plain_ms'] * 1e3:.2f} us, SDPA ({took}) "
+          f"{t['library_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['library_device_ms'])}; max|d| vs plain "
+          f"{lib_err:.3e}), bound {t['bound_ms'] * 1e3:.2f} us "
+          f"({t['bound_by']}: {t['nops'] / 1e9:.2f} GFLOP at the bf16 "
+          f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB; the padded "
+          f"launch does {t['padded_gflop']:.2f} GFLOP)", flush=True)
     return t
 
 
@@ -1631,6 +1884,27 @@ def phase_lm_kernels(dev) -> dict:
         worst["flash"] = max(worst["flash"], t["scalar_err"])
     worst["flash"] = max(worst["flash"], flash_t[128]["scalar_err"],
                          flash_t[64]["scalar_err"])
+    # The new call shapes at small sizes in both types: MLA's padded
+    # entry (float32 on the scalar kernel, bf16 on wgmma), non-causal
+    # calls with Sq != Skv under GQA at D 64 and 128, a ragged padded D.
+    for i, case in enumerate([
+            (2, 4, 4, 1000, 1000, 96, 64, True, f32),
+            (1, 4, 4, 1000, 1000, 192, 128, True, f32),
+            (2, 4, 4, 1000, 1000, 96, 64, True, bf16),
+            (1, 4, 4, 1000, 1000, 192, 128, True, bf16),
+            (2, 8, 2, 300, 1000, 64, 64, False, f32),
+            (2, 8, 2, 1000, 130, 128, 128, False, f32),
+            (2, 8, 2, 300, 1000, 64, 64, False, bf16),
+            (2, 8, 2, 1000, 130, 128, 128, False, bf16),
+            (1, 6, 3, 777, 777, 40, 40, True, bf16)]):
+        err, _, _, _, kind = model_flash_case(*case, seed=60 + i)
+        key = "flash_sm90" if kind == "wgmma" else "flash"
+        worst[key] = max(worst[key], err)
+    check_masked_refusal()
+    model_t = {}
+    for i, (name, *shape) in enumerate(MODEL_FLASH):
+        model_t[name] = t = model_flash_timing(name, *shape, seed=70 + i)
+        worst["flash_sm90"] = max(worst["flash_sm90"], t["max_abs_err"])
     # test_ssd_scan_sweep's three shapes and a ragged S in float32 (the
     # scalar kernel); the card tests' bf16 shapes (the wgmma kernel: ragged
     # S, G 1 and 2 over 8 heads, chunks of 64 to 256 and one longer than S,
@@ -1668,7 +1942,29 @@ def phase_lm_kernels(dev) -> dict:
         ssd_t[b] = ssd_timing(args, L=256)
         worst["ssd"] = max(worst["ssd"], ssd_t[b]["scalar_raw_err"])
     check_refusal()
-    return dict(worst=worst, flash=flash_t, gemma_flash=gemma_t, ssd=ssd_t)
+    return dict(worst=worst, flash=flash_t, gemma_flash=gemma_t, ssd=ssd_t,
+                model_flash=model_t)
+
+
+def check_masked_refusal() -> None:
+    """A causal or sliding prefill attention with Sq != Skv raises and
+    launches nothing: the kernel's mask puts q and kv positions both at
+    0."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.models import attention
+    q = torch.zeros((1, 64, 2, 2, 64), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((1, 100, 2, 64), dtype=torch.bfloat16, device="cuda")
+    before = fk.LAUNCHES
+    for kind in ("causal", "sliding"):
+        try:
+            attention.prefill_attention(q, k, k, kind=kind, window=16)
+        except ValueError:
+            continue
+        fail(f"a {kind} prefill attention with Sq != Skv ran")
+    if fk.LAUNCHES != before:
+        fail("a refused prefill attention launched a kernel")
+    print("  a causal or sliding prefill attention with Sq != Skv raises "
+          "(no launch)", flush=True)
 
 
 def check_refusal() -> None:
@@ -1709,27 +2005,65 @@ def check_refusal() -> None:
 
 def lm_params(cfg, gen, seed):
     """The port's init drawn from ``gen`` (on its device), with the
-    Mamba-2 mixers' conv and SSM scalars from ``draw_live_mixer`` and the
+    Mamba-2 mixers' conv and SSM scalars from ``draw_live_mixer``, the
     RG-LRU blocks' conv, gate biases and decay from ``draw_live_block``
-    (the reference's zero convs would feed both recurrences exact
-    zeros)."""
-    from repro_torch.models import rglru, ssm
+    and the vision cross layers' gates from ``draw_live_gates`` (the
+    reference's zero convs would feed both recurrences exact zeros, and
+    its zero gates make every cross layer the identity)."""
+    from repro_torch.models import rglru, ssm, transformer
     from repro_torch.models.model import Model
     params = Model(cfg).init(gen)
     rng = np.random.default_rng(seed)
     if cfg.ssm:
-        mixers = [(lp["mixer"], ssm.draw_live_mixer) for lp in
-                  params["layers"]]
-    else:
-        recs = [g[n] for g in params.get("groups", []) for n in ("rec1",
-                                                                 "rec2")]
-        mixers = [(lp["mixer"], rglru.draw_live_block)
+        mixers = [(lp["mixer"], lambda r: ssm.draw_live_mixer(r, cfg))
+                  for lp in params["layers"]]
+    elif cfg.family == "griffin":
+        recs = [g[n] for g in params["groups"] for n in ("rec1", "rec2")]
+        mixers = [(lp["mixer"], lambda r: rglru.draw_live_block(r, cfg))
                   for lp in recs + params.get("tail", [])]
+    elif cfg.family == "vision":
+        mixers = [(g["cross"], transformer.draw_live_gates)
+                  for g in params["groups"]]
+    else:
+        mixers = []
     for mixer, draw in mixers:
-        for k, v in draw(rng, cfg).items():
+        for k, v in draw(rng).items():
             old = mixer[k]
             mixer[k] = torch.from_numpy(v).to(old.device, old.dtype)
     return params
+
+
+def lm_inputs(cfg, B: int, n_frames: int, seed: int) -> dict:
+    """The non-token inputs, standard normal on the card from ``seed``:
+    ``frames`` [B, n_frames, d] (encdec) or ``patches`` [B, n_img_tokens,
+    d] (vision), in the compute dtype; {} for the other families."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = {"encdec": ("frames", n_frames),
+             "vision": ("patches", cfg.n_img_tokens)}.get(cfg.family)
+    if shape is None:
+        return {}
+    return {shape[0]: torch.randn((B, shape[1], cfg.d_model), generator=gen,
+                                  device="cuda").to(cfg.compute_dtype)}
+
+
+def dead_gates(params) -> dict:
+    """A shallow copy of a vision tree with every cross layer's gates
+    zero (the reference's init)."""
+    groups = [dict(g, cross=dict(g["cross"], **{
+        k: torch.zeros_like(g["cross"][k]) for k in ("gate_attn",
+                                                     "gate_mlp")}))
+        for g in params["groups"]]
+    return dict(params, groups=groups)
+
+
+def gates_matter(model, params, toks, extra) -> float:
+    """Max |d last logits| of one prefill with the live gates against one
+    with zero gates: the cross layers must change the logits."""
+    t = torch.as_tensor(toks, dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        live, _ = model.prefill(params, dict(tokens=t, **extra))
+        dead, _ = model.prefill(dead_gates(params), dict(tokens=t, **extra))
+    return (live.float() - dead.float()).abs().max().item()
 
 
 @contextlib.contextmanager
@@ -1758,15 +2092,18 @@ def scan_recorder():
             setattr(mod, name, fn)
 
 
-def serve_logits(model, params, toks, stream, device) -> list:
-    """Prefill ``toks`` then decode along ``stream`` (teacher forced):
-    the [B, V] logits of every step, as float32 numpy."""
+def serve_logits(model, params, toks, stream, device, extra=None) -> list:
+    """Prefill ``toks`` (with ``extra``: frames or patches) then decode
+    along ``stream`` (teacher forced): the [B, V] logits of every step, as
+    float32 numpy."""
     from repro_torch.runtime.serve_loop import _splice
+    extra = {k: v.to(device) for k, v in (extra or {}).items()}
     with torch.inference_mode():
         t = torch.as_tensor(toks, dtype=torch.int64, device=device)
         B, S = t.shape
-        cache = model.init_cache(B, S + stream.shape[1], device)
-        last, built = model.prefill(params, dict(tokens=t))
+        cache = model.init_cache(B, S + stream.shape[1], device,
+                                 **model.cache_lengths(extra))
+        last, built = model.prefill(params, dict(tokens=t, **extra))
         cache = _splice(cache, built)
         out = [last.float().cpu().numpy()]
         for i in range(stream.shape[1] - 1):
@@ -1784,6 +2121,50 @@ def n_recurrent(cfg) -> int:
     return 2 * (cfg.n_layers // 3) + cfg.n_layers % 3
 
 
+def flash_calls(cfg) -> collections.Counter:
+    """The flash-kernel calls of one prefill by (variant, padded D,
+    causal): one per attention layer (sliding windows are causal calls),
+    the vision groups' cross layers (non-causal), encdec's encoder layers
+    (non-causal), decoder self- (causal) and cross-attentions
+    (non-causal); MLA's at the padded D of D_qk and D_v."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    D = (fops.padded_dim(cfg.d_nope + cfg.d_rope, cfg.d_v) if cfg.mla
+         else fops.padded_dim(cfg.head_dim_, cfg.head_dim_))
+    kind = fk.variant(cfg.compute_dtype, D)
+    calls = collections.Counter()
+    if cfg.ssm:
+        return calls
+    if cfg.family == "vision":
+        n_groups = cfg.n_layers // cfg.cross_every
+        calls[(kind, D, True)] = n_groups * (cfg.cross_every - 1)
+        calls[(kind, D, False)] = n_groups
+    elif cfg.family == "encdec":
+        calls[(kind, D, False)] = cfg.enc_layers + cfg.n_layers
+        calls[(kind, D, True)] = cfg.n_layers
+    else:
+        calls[(kind, D, True)] = cfg.n_layers - n_recurrent(cfg)
+    return calls
+
+
+@contextlib.contextmanager
+def flash_call_recorder():
+    """Record every flash-kernel launch by (variant, D, causal): wraps the
+    binding's ``_launch``, which every launch goes through."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    seen = collections.Counter()
+    launch = fk._launch
+
+    def recorded(kind, q, *args, **kw):
+        seen[(kind, q.shape[-1], bool(kw["causal"]))] += 1
+        return launch(kind, q, *args, **kw)
+    fk._launch = recorded
+    try:
+        yield seen
+    finally:
+        fk._launch = launch
+
+
 def phase_lm_parity(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fk
@@ -1792,13 +2173,17 @@ def phase_lm_parity(dev) -> dict:
     from repro_torch.models.model import Model, to_device
     from repro_torch.runtime.serve_loop import Server
     print("== phase 7: LM serving, card vs CPU (full width, float32; depth "
-          + ", ".join(f"{a} {d}" for a, d in PARITY_DEPTH.items()) + ")",
-          flush=True)
+          + ", ".join(f"{a} {d}" for a, d in PARITY_DEPTH.items())
+          + f"; seamless with one encoder layer and {PARITY_FRAMES} "
+          "frames)", flush=True)
     out = {}
     for arch in ARCHS:
-        cfg = get_config(arch).replace(n_layers=PARITY_DEPTH[arch],
-                                       dtype="float32",
+        start = time.perf_counter()
+        depth = PARITY_DEPTH[arch]
+        cfg = get_config(arch).replace(n_layers=depth, dtype="float32",
                                        param_dtype="float32")
+        if cfg.family == "encdec":
+            cfg = cfg.replace(enc_layers=depth)
         model = Model(cfg)
         t0 = time.perf_counter()
         # Drawn on the card (seconds where the host's draw of a 262144-row
@@ -1808,34 +2193,44 @@ def phase_lm_parity(dev) -> dict:
         host_params = to_device(card_params, "cpu")
         init_s = time.perf_counter() - t0
         toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 320))
+        extra = lm_inputs(cfg, 2, PARITY_FRAMES, seed=5)
+        host_extra = {k: v.cpu() for k, v in extra.items()}
         fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
         sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
         rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
-        with scan_recorder() as card_scans:
+        with scan_recorder() as card_scans, \
+                flash_call_recorder() as shapes, \
+                plain_call_counter() as plain_calls:
             card_tokens = Server(model, card_params).generate(
-                dict(tokens=toks), max_new=8)
+                dict(tokens=toks, **extra), max_new=8)
         flash_launches = dict(fk.LAUNCHES_BY_VARIANT)
         ssd_launches = dict(sk.LAUNCHES_BY_VARIANT)
         rglru_launches = dict(rk.LAUNCHES)
-        # float32 takes the scalar kernels: one call per attention or SSD
-        # layer's prefill, one fused RG-LRU launch per recurrent layer's.
+        # float32 takes the scalar kernels: one flash call per prefill
+        # attention (flash_calls), one SSD call per SSD layer's prefill,
+        # one fused RG-LRU launch per recurrent layer's.
         n_rec = n_recurrent(cfg)
-        want = dict(wgmma=0,
-                    scalar=0 if cfg.ssm else cfg.n_layers - n_rec)
+        want_shapes = flash_calls(cfg)
+        want = dict(wgmma=0, scalar=sum(want_shapes.values()))
         want_ssd = dict(wgmma=0, scalar=cfg.n_layers if cfg.ssm else 0)
         want_rglru = dict(layer_fwd=n_rec, layer_bwd=0, fwd=0, bwd=0)
+        if sum(plain_calls.values()):
+            fail(f"{arch}: the plain versions ran in the card's float32 "
+                 f"generate: {dict(plain_calls)}")
         if (flash_launches, ssd_launches, rglru_launches) != (
-                want, want_ssd, want_rglru):
+                want, want_ssd, want_rglru) or +shapes != +want_shapes:
             fail(f"{arch}: float32 serving called the flash kernels "
-                 f"{flash_launches} (want {want}), the SSD kernels "
-                 f"{ssd_launches} (want {want_ssd}) and the RG-LRU "
-                 f"kernels {rglru_launches} (want {want_rglru})")
+                 f"{flash_launches} by (variant, D, causal) "
+                 f"{dict(shapes)} (want {want}, {dict(want_shapes)}), the "
+                 f"SSD kernels {ssd_launches} (want {want_ssd}) and the "
+                 f"RG-LRU kernels {rglru_launches} (want {want_rglru})")
         with scan_recorder() as host_scans:
             host_tokens = Server(model, host_params, device="cpu").generate(
-                dict(tokens=toks), max_new=8)
-        card_steps = serve_logits(model, card_params, toks, host_tokens, dev)
+                dict(tokens=toks, **host_extra), max_new=8)
+        card_steps = serve_logits(model, card_params, toks, host_tokens, dev,
+                                  extra)
         host_steps = serve_logits(model, host_params, toks, host_tokens,
-                                  "cpu")
+                                  "cpu", host_extra)
         errs = [float(np.abs(a - b).max()) for a, b in zip(card_steps,
                                                            host_steps)]
         live = np.ones(2, bool)
@@ -1856,8 +2251,9 @@ def phase_lm_parity(dev) -> dict:
               f"{card_tokens.tolist()}; cpu tokens {host_tokens.tolist()}; "
               f"max |d logits| card vs cpu per step "
               f"{['%.2e' % e for e in errs]} (limit {LM_LOGITS_ATOL:.0e}); "
-              f"kernel calls in the card's generate: flash {flash_launches},"
-              f" ssd {ssd_launches}, rglru {rglru_launches}", flush=True)
+              f"kernel calls in the card's generate: flash {flash_launches} "
+              f"(by variant, D, causal {dict(shapes)}), ssd {ssd_launches}, "
+              f"rglru {rglru_launches}", flush=True)
         check(f"{arch} logits card vs cpu", max(errs), LM_LOGITS_ATOL)
         for key, on in (("ssd", cfg.ssm), ("rglru", n_rec > 0)):
             if not on:
@@ -1868,11 +2264,20 @@ def phase_lm_parity(dev) -> dict:
             if not card_scans[key] or not host_scans[key] or min(
                     card_scans[key] + host_scans[key]) <= 0.0:
                 fail(f"{arch}: the {key} recurrence carried zeros")
+        gates = None
+        if cfg.family == "vision":
+            gates = gates_matter(model, card_params, toks, extra)
+            print(f"    live cross-layer gates move the last logits by "
+                  f"{gates:.3e} against zero gates", flush=True)
+            if not gates > 1e-3:
+                fail(f"{arch}: the cross layers do not change the logits")
         out[arch] = dict(max_logits_err=max(errs), flash=flash_launches,
-                         ssd=ssd_launches, rglru=rglru_launches,
+                         flash_shapes=dict(shapes), ssd=ssd_launches,
+                         rglru=rglru_launches, gates_effect=gates,
                          tokens_equal=bool(np.array_equal(card_tokens,
-                                                          host_tokens)))
-        del card_params, host_params
+                                                          host_tokens)),
+                         wall_s=time.perf_counter() - start)
+        del card_params, host_params, extra, host_extra
         torch.cuda.empty_cache()
     return out
 
@@ -1908,7 +2313,7 @@ def plain_call_counter():
             setattr(mod, name, fn)
 
 
-def prefill_profile(model, params, toks) -> dict:
+def prefill_profile(model, params, toks, extra) -> dict:
     """The profiler's device time of one prefill, by kernel name, the host
     wall around it, and whether its last logits are finite."""
     from torch.profiler import ProfilerActivity, profile
@@ -1917,7 +2322,7 @@ def prefill_profile(model, params, toks) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            logits, _ = model.prefill(params, dict(tokens=t))
+            logits, _ = model.prefill(params, dict(tokens=t, **extra))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     by_name = {ev.key: ev.self_device_time_total / 1e3
@@ -1948,12 +2353,18 @@ def phase_lm_serve(dev) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_loop import Server
-    print("== phase 8: LM serving at full depth on the card (bf16, B 4, "
-          "prompt 2048, 32 new tokens)", flush=True)
+    print("== phase 8: LM serving on the card (bf16, B 4, prompt 2048, 32 "
+          "new tokens; full depth but "
+          + ", ".join(f"{a} {d} layers" for a, d in SERVE_DEPTH.items())
+          + f"; {SERVE_FRAMES} frames, the vision config's image tokens)",
+          flush=True)
     B, S, NEW = 4, 2048, 32
     out = {}
     for arch in ARCHS:
+        start = time.perf_counter()
         cfg = get_config(arch)
+        if arch in SERVE_DEPTH:
+            cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
         model = Model(cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1961,19 +2372,23 @@ def phase_lm_serve(dev) -> dict:
                            8)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
         toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, S))
+        extra = lm_inputs(cfg, B, SERVE_FRAMES, seed=6)
+        batch = dict(tokens=toks, **extra)
         server = Server(model, params)
         # Warm-up at the measured shapes, so the allocator's pool and the
         # libraries' handles are set up outside the measured run.
-        server.generate(dict(tokens=toks), max_new=2)
+        server.generate(batch, max_new=2)
         torch.cuda.reset_peak_memory_stats()
-        with plain_call_counter() as plain_calls:
+        with plain_call_counter() as plain_calls, \
+                flash_call_recorder() as shapes:
             fk.LAUNCHES, sk.LAUNCHES = 0, 0
             fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
             sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
             rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
             with obs.capture() as reg:
-                tokens = server.generate(dict(tokens=toks), max_new=NEW)
+                tokens = server.generate(batch, max_new=NEW)
             launches = dict(
                 flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES,
                 **{f"flash_{k}": n for k, n in fk.LAUNCHES_BY_VARIANT.items()},
@@ -1982,26 +2397,29 @@ def phase_lm_serve(dev) -> dict:
         peak = torch.cuda.max_memory_allocated()
         prefill_s = reg.hists["serve.prefill"].total
         decode_s = reg.hists["serve.decode"].total
-        # One kernel call per layer of the prefill: bf16 attention at D 128
-        # (qwen2) and D 256 (the gemma models) on the wgmma flash kernel;
-        # SSD at P 64, N 128, L 256 on the wgmma SSD kernel; the RG-LRU on
-        # the fused forward. None of the others, the scalar flash kernel
-        # included.
+        # One kernel call per prefill attention (flash_calls: bf16 at
+        # D 64, 128 and 256, MLA's padded to 128 or 256, on the wgmma
+        # flash kernel), per SSD layer (P 64, N 128, L 256 on the wgmma
+        # SSD kernel) and per RG-LRU layer (the fused forward). None of
+        # the others, the scalar flash kernel included.
         n_rec = n_recurrent(cfg)
-        n_attn = 0 if cfg.ssm else cfg.n_layers - n_rec
+        want_shapes = flash_calls(cfg)
+        n_attn = sum(want_shapes.values())
         n_ssd = cfg.n_layers if cfg.ssm else 0
-        wgmma = fk.variant(cfg.compute_dtype, cfg.head_dim_) == "wgmma"
-        if n_attn and not wgmma:
-            fail(f"{arch}: bf16 attention at D {cfg.head_dim_} does not "
+        if any(kind != "wgmma" for kind, _, _ in +want_shapes):
+            fail(f"{arch}: bf16 attention {dict(want_shapes)} does not "
                  f"take the wgmma flash kernel")
         want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
-                    flash_wgmma=n_attn if wgmma else 0,
-                    flash_scalar=0 if wgmma else n_attn, ssd_wgmma=n_ssd,
+                    flash_wgmma=n_attn, flash_scalar=0, ssd_wgmma=n_ssd,
                     ssd_scalar=0, rglru_layer_fwd=n_rec, rglru_layer_bwd=0,
                     rglru_fwd=0, rglru_bwd=0)
-        prof = prefill_profile(model, params, toks)
+        prof = prefill_profile(model, params, toks, extra)
+        gates = (gates_matter(model, params, toks, extra)
+                 if cfg.family == "vision" else None)
         print(f"  {arch}: {model.param_count() / 1e9:.4f} B parameters, "
-              f"{cfg.n_layers} layers, drawn on the card in {init_s:.1f} s; "
+              f"{cfg.n_layers} layers"
+              + (f" (+{cfg.enc_layers} encoder)" if cfg.enc_layers else "")
+              + f", drawn on the card in {init_s:.1f} s; "
               f"prefill {prefill_s * 1e3:.1f} ms = "
               f"{B * S / prefill_s:.0f} tokens/s; decode "
               f"{decode_s / (NEW - 1) * 1e3:.2f} ms per token of each "
@@ -2009,7 +2427,9 @@ def phase_lm_serve(dev) -> dict:
               f"{decode_s * 1e3:.1f} ms = "
               f"{B * (NEW - 1) / decode_s:.1f} tokens/s); peak memory "
               f"{peak / 2 ** 30:.2f} GiB; launches {launches} (want {want}); "
-              f"plain-version calls {dict(plain_calls)}", flush=True)
+              f"flash calls by (variant, D, causal) {dict(shapes)} (want "
+              f"{dict(+want_shapes)}); plain-version calls "
+              f"{dict(plain_calls)}", flush=True)
         print(f"    one profiled prefill: wall {prof['wall_ms']:.1f} ms, "
               f"device {prof['device_ms']:.1f} ms (busy "
               f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); the "
@@ -2020,22 +2440,31 @@ def phase_lm_serve(dev) -> dict:
               + "; top kernels (device ms): " + "; ".join(
                   f"{name[:60]} {ms:.2f}" for name, ms in prof["top"]),
               flush=True)
-        print(f"    first tokens: {tokens[:, :8].tolist()}", flush=True)
-        if launches != want:
-            fail(f"{arch}: launches {launches}, want {want}")
+        print(f"    first tokens: {tokens[:, :8].tolist()}"
+              + ("" if gates is None else
+                 f"; live cross-layer gates move the last logits by "
+                 f"{gates:.3e} against zero gates"), flush=True)
+        if launches != want or +shapes != +want_shapes:
+            fail(f"{arch}: launches {launches} by shape {dict(shapes)}, "
+                 f"want {want} by shape {dict(+want_shapes)}")
         if not prof["finite"]:
             fail(f"{arch}: the prefill's last logits are not finite")
         if sum(plain_calls.values()):
             fail(f"{arch}: the plain versions ran on the card's main path: "
                  f"{dict(plain_calls)}")
+        if gates is not None and not gates > 1e-3:
+            fail(f"{arch}: the cross layers do not change the logits")
         if tokens.shape != (B, NEW) or tokens.min() < 0 or \
                 tokens.max() >= cfg.vocab:
             fail(f"{arch}: tokens out of range {tokens.min()}.."
                  f"{tokens.max()} or shape {tokens.shape}")
-        out[arch] = dict(launches=launches, prefill_s=prefill_s,
-                         decode_s=decode_s, peak_bytes=peak,
-                         params=model.param_count(), profile=prof)
-        del params, server
+        out[arch] = dict(launches=launches, flash_shapes=dict(shapes),
+                         prefill_s=prefill_s, decode_s=decode_s,
+                         peak_bytes=peak, params=model.param_count(),
+                         layers=cfg.n_layers, profile=prof,
+                         gates_effect=gates,
+                         wall_s=time.perf_counter() - start)
+        del params, server, extra, batch
         torch.cuda.empty_cache()
     return out
 
@@ -2763,21 +3192,43 @@ def main() -> None:
         kernels.append(row)
     f128, f64 = lmk["flash"][128], lmk["flash"][64]
     flash = "src/repro/kernels/flash_attention/flash_attention.py:104"
+
+    def wgmma_by_model(dims):
+        """Phase 8's wgmma flash launches at head dims ``dims``, by
+        model."""
+        counts = {a: sum(n for (kind, D, _), n in serve[a][
+            "flash_shapes"].items() if kind == "wgmma" and D in dims)
+            for a in ARCHS}
+        return {a: n for a, n in counts.items() if n}
+
+    def model_shapes(dims):
+        return {name: {f: t[f] for f in (
+            "shape", "padded_D", "ms", "device_ms", "call_device_ms",
+            "plain_ms", "library", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "padded_gflop", "max_abs_err")}
+            for name, t in lmk["model_flash"].items()
+            if t["padded_D"] in dims}
+    by_model = wgmma_by_model((64, 128))
     kernels.append(dict(
         name="flash_attention_sm90", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
-        replaces=flash,
-        launches=serve["qwen2_1_5b"]["launches"]["flash_wgmma"],
+        replaces=flash, launches=sum(by_model.values()),
+        launches_by_model=by_model,
         max_abs_err=lmk["worst"]["flash_sm90"], ms=f128["ms"],
         plain_ms=f128["plain_ms"], bound_ms=f128["bound_ms"],
         device_ms=f128["device_ms"], plain_device_ms=f128["plain_device_ms"],
         bound_by=f128["bound_by"], library_ms=f128["library_ms"],
         shape=[48, 2048, 128], dtype="bfloat16", launches_per_call=1,
-        main_path="qwen2_1_5b Server.generate, bf16 (phase 8)",
+        main_path="Server.generate, bf16 (phase 8): one call a prefill "
+                  "attention of qwen2_1_5b, minicpm3_4b (MLA padded to "
+                  "D 128), dbrx_132b, llama_3_2_vision_11b (self and "
+                  "cross) and seamless_m4t_large_v2 (D 64: encoder, self, "
+                  "cross)",
         d64=dict(shape=[48, 2048, 64], **{
             key: f64[key] for key in ("ms", "device_ms", "plain_ms",
                                       "library_ms", "bound_ms",
-                                      "max_abs_err")})))
+                                      "max_abs_err")}),
+        model_shapes=model_shapes((64, 128))))
     gemma = lmk["gemma_flash"]
     local = gemma["gemma3_4b local"]
     flash_keep = ("shape", "group", "window", "ms", "device_ms",
@@ -2785,14 +3236,12 @@ def main() -> None:
                   "plain_device_ms", "library", "library_ms",
                   "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
                   "scalar_err")
-    on_path = ("gemma3_4b", "recurrentgemma_2b")
+    by_model = wgmma_by_model((256,))
     kernels.append(dict(
         name="flash_attention_sm90_d256", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
-        replaces=flash,
-        launches=sum(serve[a]["launches"]["flash_wgmma"] for a in on_path),
-        launches_by_model={a: serve[a]["launches"]["flash_wgmma"]
-                           for a in on_path},
+        replaces=flash, launches=sum(by_model.values()),
+        launches_by_model=by_model,
         max_abs_err=max(t["max_abs_err"] for t in gemma.values()),
         ms=local["ms"], plain_ms=local["plain_ms"],
         bound_ms=local["bound_ms"], device_ms=local["device_ms"],
@@ -2800,10 +3249,12 @@ def main() -> None:
         library=local["library"], shape=local["shape"], dtype="bfloat16",
         group=local["group"], window=local["window"], launches_per_call=1,
         scalar_same_inputs_ms=local["scalar_ms"],
-        main_path="gemma3_4b and recurrentgemma_2b Server.generate, bf16 "
-                  "(phase 8): one call an attention layer's prefill",
+        main_path="gemma3_4b, recurrentgemma_2b and deepseek_v2_236b "
+                  "(MLA padded to D 256) Server.generate, bf16 (phase 8): "
+                  "one call an attention layer's prefill",
         gemma_shapes={name: {f: t[f] for f in flash_keep}
-                      for name, t in gemma.items()}))
+                      for name, t in gemma.items()},
+        model_shapes=model_shapes((256,))))
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu", replaces=flash,
@@ -2818,8 +3269,8 @@ def main() -> None:
         library="SDPA causal (enable_gqa), float32",
         shape=[48, 2048, 128], dtype="float32", group=6,
         launches_per_call=1,
-        main_path="Server.generate in float32 (phase 7): one call an "
-                  "attention layer's prefill",
+        main_path="Server.generate in float32 (phase 7): one call a "
+                  "prefill attention (MLA's padded to D 128 or 256)",
         gemma_bf16_was={name: {f: t[f] for f in (
             "shape", "scalar_ms", "scalar_device_ms", "scalar_err")}
             for name, t in gemma.items()}))

@@ -2,11 +2,13 @@
 (``repro/configs/base.py``), with the same fields and defaults, for the
 port's LM serving path.
 
-The port runs the ``decoder`` family with dense-GQA attention or Mamba-2
-SSD mixers, the ``gemma3`` local/global family and the ``griffin``
-family; ``list_archs()`` names the architectures it serves, and
-``get_config`` of any other reference architecture raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The port runs every family of the reference: ``decoder`` (dense-GQA or
+MLA attention, Mamba-2 SSD mixers, dense or MoE MLPs, leading dense
+layers), ``gemma3``, ``griffin``, ``vision`` and ``encdec``;
+``list_archs()`` names the architectures it serves, and ``get_config``
+of the one reference architecture it does not (``qwen2_72b``, whose
+weights must be sharded across cards) raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -96,20 +98,17 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_REGISTRY = ["qwen2_1_5b", "mamba2_2_7b", "gemma3_4b",
-                 "recurrentgemma_2b"]
+ARCH_REGISTRY = [
+    "dbrx_132b", "deepseek_v2_236b", "seamless_m4t_large_v2", "qwen2_1_5b",
+    "gemma3_4b", "minicpm3_4b", "recurrentgemma_2b", "llama_3_2_vision_11b",
+    "mamba2_2_7b",
+]
 
 # Reference architectures the port does not run yet, and the ROADMAP item
-# (queue 1 item 2's later parts) that ports each.
+# that ports each.
 _NOT_PORTED = {
-    "dbrx_132b": "MoE (ROADMAP queue 1 item 2b)",
-    "deepseek_v2_236b": "MLA, MoE and first_dense (ROADMAP queue 1 item 2b)",
     "qwen2_72b": "weights sharded across cards, 145 GB in bf16 (ROADMAP "
                  "queue 1 item 3)",
-    "minicpm3_4b": "MLA (ROADMAP queue 1 item 2b)",
-    "llama_3_2_vision_11b": "vision cross-attention (ROADMAP queue 1 item "
-                            "2b)",
-    "seamless_m4t_large_v2": "the encdec family (ROADMAP queue 1 item 2b)",
 }
 
 

@@ -55,13 +55,15 @@ def learned_params_from_reference(tree, device="cpu") -> dict:
 def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
     """The reference LM's parameter values (the ``params`` of
     ``repro.models.Model.init``'s ``split_tree``, a nested dict of arrays
-    whose stacks are stacked on a leading axis: the decoder's ``layers``,
-    griffin's ``groups`` and ``tail``) as the port's tree: the same names
-    and layouts (``[in, out]``, ``[d, heads, head_dim]``), each stack
-    unstacked into a list of per-layer (per-group) dicts, each leaf in its
-    own dtype on ``device``. A bfloat16 leaf (an ``ml_dtypes`` array,
-    which ``torch.from_numpy`` rejects) goes through float32, which holds
-    it exactly."""
+    whose stacks are stacked on a leading axis: the decoder's
+    ``dense_layers`` and ``layers``, griffin's ``groups`` and ``tail``,
+    vision's ``groups`` with each group's ``selfs`` stacked again inside,
+    encdec's ``enc_layers`` and ``layers``) as the port's tree: the same
+    names and layouts (``[in, out]``, ``[d, heads, head_dim]``), each
+    stack unstacked into a list of per-layer (per-group) dicts, each leaf
+    in its own dtype on ``device``. A bfloat16 leaf (an ``ml_dtypes``
+    array, which ``torch.from_numpy`` rejects) goes through float32, which
+    holds it exactly."""
     transformer.check_supported(cfg)
 
     def leaf(value):
@@ -81,13 +83,25 @@ def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
             return {k: layer(v, i) for k, v in node.items()}
         return node[i].clone()
 
+    def unstack(node, n):
+        return [layer(node, i) for i in range(n)]
+
     # The stacks and their lengths along the leading axis.
-    n_groups, rem = divmod(cfg.n_layers, 3)
-    stacks = (dict(groups=n_groups, tail=rem) if cfg.family == "griffin"
-              else dict(layers=cfg.n_layers))
+    if cfg.family == "griffin":
+        n_groups, rem = divmod(cfg.n_layers, 3)
+        stacks = dict(groups=n_groups, tail=rem)
+    elif cfg.family == "vision":
+        stacks = dict(groups=cfg.n_layers // cfg.cross_every)
+    elif cfg.family == "encdec":
+        stacks = dict(enc_layers=cfg.enc_layers, layers=cfg.n_layers)
+    else:
+        stacks = dict(dense_layers=cfg.first_dense,
+                      layers=cfg.n_layers - cfg.first_dense)
     out = {}
     for k, v in tree.items():
         node = convert(v)
-        out[k] = ([layer(node, i) for i in range(stacks[k])] if k in stacks
-                  else node)
+        out[k] = unstack(node, stacks[k]) if k in stacks else node
+    if cfg.family == "vision":
+        for group in out["groups"]:
+            group["selfs"] = unstack(group["selfs"], cfg.cross_every - 1)
     return out

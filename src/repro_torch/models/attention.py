@@ -1,11 +1,13 @@
 """Multi-head attention with grouped query heads — the counterpart of
 ``repro/models/attention.py``.
 
-Prefill self-attention (kind ``causal`` or ``sliding``, positions
-``arange(S)``) runs the hand-written flash-attention kernel
-(``kernels/flash_attention``) on a CUDA tensor, in the place where the TPU
-ran the Pallas kernel; on the CPU it runs the plain blocked twin
-``blocked_attention`` below, so the CPU tests compare like with like.
+Every prefill attention — causal or sliding self-attention, the
+bidirectional encoder (kind ``full``), cross-attention to image or
+encoder K/V (kind ``full``, Sq ≠ Skv) and MLA's (q/k and v of unequal
+head dims) — goes through ``prefill_attention``: the hand-written
+flash-attention kernel (``kernels/flash_attention``) on a CUDA tensor, in
+the place where the TPU ran the Pallas kernel, and the plain blocked twin
+``blocked_attention`` on the CPU, so the CPU tests compare like with like.
 Decode attention (one query against the cache) and the projections are
 plain PyTorch, as the reference leaves them to XLA.
 
@@ -32,7 +34,9 @@ NEG_INF = -2.0e38
 
 def init(gen, d_model, n_heads, n_kv, head_dim, *, qkv_bias=False,
          dtype=torch.float32) -> dict:
-    """QKV + output projections, drawn in the order wq, wk, wv, wo."""
+    """QKV + output projections, drawn in the order wq, wk, wv, wo. K/V
+    read a stream of width ``d_model`` (cross-attention's too: every
+    config's image patches and encoder frames come at that width)."""
     p = dict(
         wq=dense_init(gen, (d_model, n_heads, head_dim), dtype=dtype),
         wk=dense_init(gen, (d_model, n_kv, head_dim), dtype=dtype),
@@ -111,13 +115,15 @@ def _weak_scale(q, scale: float):
 
 
 def _scaled_f32(q, softmax_scale):
-    """q * scale as float32, with the reference's promotion: its default
-    scale ``1 / np.sqrt(D)`` is a numpy float64, which promotes q to
-    float32 before the product; a Python float given as
-    ``softmax_scale`` is weakly typed and scales in q's dtype."""
+    """q * scale as float32, with the reference's promotion: a numpy
+    floating scale — its default ``1 / np.sqrt(D)`` (``softmax_scale``
+    None) and MLA's ``1 / np.sqrt(d_nope + d_rope)`` — is strongly typed,
+    so q goes to float32 before the product with the float32 scale; a
+    Python float is weakly typed and scales in q's dtype."""
     if softmax_scale is None:
-        return q.to(torch.float32) * float(np.float32(1.0 / np.sqrt(
-            q.shape[-1])))
+        softmax_scale = 1.0 / np.sqrt(q.shape[-1])
+    if isinstance(softmax_scale, np.floating):
+        return q.to(torch.float32) * float(np.float32(softmax_scale))
     return _weak_scale(q, softmax_scale).to(torch.float32)
 
 
@@ -202,49 +208,72 @@ def update_cache(cache_k, cache_v, k_new, v_new, pos):
 # Full module forward (used by transformer.py)
 # ---------------------------------------------------------------------------
 
-def _self_attention(q, k, v, positions, kind, window, block_kv,
-                    softmax_scale):
-    """Prefill self-attention: the flash kernel on a CUDA tensor, the
-    blocked twin on the CPU."""
+def prefill_attention(q, k, v, *, kind="causal", window=0, block_kv=1024,
+                      softmax_scale=None):
+    """Every prefill attention: q [B, Sq, Kh, G, D]; k [B, Skv, Kh, D];
+    v [B, Skv, Kh, Dv] (Dv may differ from D: MLA), at q positions
+    ``arange(Sq)`` and kv positions ``arange(Skv)`` on every device. On a
+    CUDA tensor the flash kernel, causal unless ``kind`` is ``"full"`` and
+    windowed only for ``"sliding"``; on the CPU ``blocked_attention`` at
+    those positions. The kernel's mask puts q and kv positions both at 0,
+    so a causal or sliding call with Sq ≠ Skv raises (on either device)
+    rather than mis-masks. The scale: a numpy float (MLA's) goes to the
+    kernel, which applies it in float32 as the reference promotes; a
+    Python float scales q in its own dtype first, as the reference
+    does."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if kind not in ("causal", "sliding", "full"):
+        raise ValueError(kind)
+    if kind != "full" and Sq != Skv:
+        raise ValueError(
+            f"a {kind} prefill attention needs Sq == Skv (q and kv "
+            f"positions both from 0), got Sq {Sq}, Skv {Skv}")
     if q.device.type != "cuda":
-        return blocked_attention(q, k, v, positions, positions, kind=kind,
-                                 window=window, block_kv=block_kv,
-                                 softmax_scale=softmax_scale)
-    scale = None
-    if softmax_scale is not None:
-        # Scale in q's dtype, as the model path does for a Python float.
+        return blocked_attention(
+            q, k, v, torch.arange(Sq, device=q.device),
+            torch.arange(Skv, device=q.device), kind=kind, window=window,
+            block_kv=block_kv, softmax_scale=softmax_scale)
+    scale = softmax_scale
+    if softmax_scale is not None and not isinstance(softmax_scale,
+                                                    np.floating):
         q, scale = _weak_scale(q, softmax_scale), 1.0
-    return flash_ops.flash_attention(q, k, v, causal=True,
-                                     window=window if kind == "sliding"
-                                     else 0, scale=scale)
+    return flash_ops.flash_attention(
+        q, k, v, causal=kind != "full",
+        window=window if kind == "sliding" else 0, scale=scale)
 
 
 def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
-          rope_theta=10000.0, block_kv=1024, softmax_scale=None, cache=None,
-          decode_pos=None):
-    """One self-attention sub-layer. Returns (out, kv).
+          rope_theta=10000.0, block_kv=1024, kv_x=None, kv_positions=None,
+          softmax_scale=None, cache=None, decode_pos=None):
+    """One attention sub-layer. Returns (out, kv).
 
-    Train/prefill (cache=None): x is [B, S, d] at positions ``arange(S)``;
-    returns the projected (k, v), which the prefill keeps as its cache.
-    Decode (cache=(k, v), decode_pos set): x is [B, 1, d]; writes this
-    token's K/V at ``decode_pos`` and attends [0, decode_pos]; returns the
-    cache. Cross-attention (``kv_x``) is not ported yet.
+    Train/prefill (cache=None): x is [B, S, d] at positions
+    ``arange(S)`` (the mask's; ``positions`` feeds RoPE); ``kv_x`` ≠ None
+    makes it cross-attention (K/V projected from ``kv_x``, RoPE at
+    ``kv_positions``; kind should be ``"full"``). Returns the projected
+    (k, v): a self-attention prefill keeps them as its cache, a
+    cross-attention as its static one.
+    Decode (cache=(k, v), decode_pos set): x is [B, 1, d].
+    Self-attention writes this token's K/V at ``decode_pos`` and attends
+    [0, decode_pos]; kind ``"full"`` (cross-attention) attends the static
+    (encoder or image) cache without writing it. Returns the cache.
     """
-    if kind not in ("causal", "sliding"):
-        raise NotImplementedError(
-            f"attention kind {kind!r}: only self-attention (causal, "
-            "sliding) is ported (cross-attention: ROADMAP queue 1 item 2b)")
     G = n_heads // n_kv
     q = project_q(x, p, rope_theta, positions)
     B, Sq = q.shape[:2]
     q = q.reshape(B, Sq, n_kv, G, -1)
-    k, v = project_kv(x, p, rope_theta, positions)
     if cache is None:
-        out = _self_attention(q, k, v, positions, kind, window, block_kv,
-                              softmax_scale)
-        kv = (k, v)
+        src = x if kv_x is None else kv_x
+        kv_pos = positions if kv_positions is None else kv_positions
+        kv = project_kv(src, p, rope_theta, kv_pos)
+        out = prefill_attention(q, *kv, kind=kind, window=window,
+                                block_kv=block_kv,
+                                softmax_scale=softmax_scale)
     else:
-        kv = update_cache(*cache, k, v, decode_pos)
+        kv = cache
+        if kind != "full":
+            k, v = project_kv(x, p, rope_theta, positions)
+            kv = update_cache(*cache, k, v, decode_pos)
         out = decode_attention(q, *kv, decode_pos, kind=kind, window=window,
                                softmax_scale=softmax_scale)
     out = out.reshape(B, Sq, n_heads, -1)

@@ -1,0 +1,115 @@
+"""Multi-head Latent Attention (DeepSeek-V2, MiniCPM3) — the counterpart
+of ``repro/models/mla.py``.
+
+KV is compressed into a low-rank latent c_kv (kv_lora) plus one shared
+RoPE key head (d_rope). The prefill expands the latent to per-head K/V
+(MHA: Kh = H, G = 1) and runs the prefill attention of
+``models/attention.py``: the flash kernel on a CUDA tensor, which takes
+q/k at D_qk = d_nope + d_rope and v at d_v by zero-padding both to one of
+its head dims (``kernels/flash_attention/ops.py``), and the plain blocked
+attention on the CPU. Decode uses the absorbed form over the compressed
+cache [B, S, kv_lora] + [B, S, d_rope] (W^UK folded into the query, W^UV
+into the output), in plain PyTorch, as the reference leaves it to XLA.
+
+RoPE runs at the default base 1e4 in both places, as the reference calls
+it without the config's ``rope_theta``. The softmax scale is the
+reference's ``1 / np.sqrt(d_nope + d_rope)``, a numpy float64, which
+promotes a bf16 q to float32 before the product (``attention._scaled_f32``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention, common
+from repro_torch.models.attention import _project
+from repro_torch.models.common import apply_norm, dense_init, norm_init
+
+
+def init(gen, d_model, n_heads, *, q_lora, kv_lora, d_nope, d_rope, d_v,
+         dtype=torch.float32) -> dict:
+    """Draws in the order wkv_a, wkv_b_k, wkv_b_v, wo, then wq_a and wq_b
+    (or wq without a query latent)."""
+    dev = gen.device
+    p = dict(
+        wkv_a=dense_init(gen, (d_model, kv_lora + d_rope), dtype=dtype),
+        kv_norm=norm_init(kv_lora, "rmsnorm", dtype, dev),
+        wkv_b_k=dense_init(gen, (kv_lora, n_heads, d_nope), dtype=dtype),
+        wkv_b_v=dense_init(gen, (kv_lora, n_heads, d_v), dtype=dtype),
+        wo=dense_init(gen, (n_heads, d_v, d_model), fan_in=n_heads * d_v,
+                      dtype=dtype),
+    )
+    if q_lora:
+        p["wq_a"] = dense_init(gen, (d_model, q_lora), dtype=dtype)
+        p["q_norm"] = norm_init(q_lora, "rmsnorm", dtype, dev)
+        p["wq_b"] = dense_init(gen, (q_lora, n_heads, d_nope + d_rope),
+                               dtype=dtype)
+    else:
+        p["wq"] = dense_init(gen, (d_model, n_heads, d_nope + d_rope),
+                             dtype=dtype)
+    return p
+
+
+def _queries(x, p, d_nope, positions):
+    if "wq_a" in p:
+        cq = apply_norm(x @ p["wq_a"].to(x.dtype), p["q_norm"], "rmsnorm")
+        q = _project(cq, p["wq_b"])
+    else:
+        q = _project(x, p["wq"])
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    return q_nope, common.apply_rope(q_rope, positions)
+
+
+def latent(x, p, kv_lora, positions):
+    """(c_kv [B, S, kv_lora], k_rope [B, S, d_rope]): the decode cache's
+    entries for ``x`` at ``positions``."""
+    ckr = x @ p["wkv_a"].to(x.dtype)
+    c_kv, k_rope = ckr[..., :kv_lora], ckr[..., kv_lora:]
+    c_kv = apply_norm(c_kv, p["kv_norm"], "rmsnorm")
+    k_rope = common.apply_rope(k_rope[:, :, None, :], positions)[:, :, 0]
+    return c_kv, k_rope
+
+
+def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
+          positions, block_kv=1024, cache=None, decode_pos=None):
+    """Returns (out, cache). Prefill (cache=None): x [B, S, d] at positions
+    ``arange(S)``; the cache returned is the latents (c_kv, k_rope) it
+    computed, which the reference recomputes to the same values. Decode
+    (cache=(c_kv [B, Smax, kv_lora], k_rope [B, Smax, d_rope])): x
+    [B, 1, d]; writes this token's latents at ``decode_pos`` in place and
+    attends [0, decode_pos]."""
+    B, Sq, _ = x.shape
+    scale = 1.0 / np.sqrt(d_nope + d_rope)            # a numpy float64
+    q_nope, q_rope = _queries(x, p, d_nope, positions)
+    c_new, r_new = latent(x, p, kv_lora, positions)
+
+    if cache is None:
+        k_nope = _project(c_new, p["wkv_b_k"])
+        v = _project(c_new, p["wkv_b_v"])
+        k = torch.cat([k_nope, r_new[:, :, None, :].expand(
+            B, Sq, n_heads, d_rope)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = attention.prefill_attention(
+            q[:, :, :, None, :], k, v, kind="causal", block_kv=block_kv,
+            softmax_scale=scale)[:, :, :, 0]
+        new_cache = (c_new, r_new)
+    else:
+        cc, cr = cache
+        cc[:, decode_pos:decode_pos + 1] = c_new.to(cc.dtype)
+        cr[:, decode_pos:decode_pos + 1] = r_new.to(cr.dtype)
+        # Absorbed attention over the compressed cache.
+        dt = x.dtype
+        q_lat = torch.einsum("bshk,lhk->bshl", q_nope,
+                             p["wkv_b_k"].to(dt))          # [B,1,H,kv_lora]
+        s = (torch.einsum("bshl,btl->bhst", q_lat, cc.to(dt))
+             + torch.einsum("bshk,btk->bhst", q_rope, cr.to(dt)))
+        s = attention._scaled_f32(s, scale)
+        kv_pos = torch.arange(cc.shape[1], device=x.device)
+        s = torch.where(kv_pos <= decode_pos, s,
+                        torch.full_like(s, attention.NEG_INF))
+        w = torch.softmax(s, dim=-1).to(dt)
+        o_lat = torch.einsum("bhst,btl->bshl", w, cc.to(dt))
+        out = torch.einsum("bshl,lhv->bshv", o_lat, p["wkv_b_v"].to(dt))
+        new_cache = (cc, cr)
+
+    return attention.project_out(out, p), new_cache

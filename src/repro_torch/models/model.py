@@ -1,7 +1,8 @@
 """Model facade: init, parameter count, prefill, decode and the decode
-cache — the counterpart of ``repro/models/model.py`` for the port's
-``decoder``, ``gemma3`` and ``griffin`` families (KV caches for attention,
-conv + state caches for Mamba-2 and the RG-LRU)."""
+cache — the counterpart of ``repro/models/model.py`` for every family
+(KV caches for attention, latent caches for MLA, conv + state caches for
+Mamba-2 and the RG-LRU, static image and encoder K/V for cross-attention).
+"""
 from __future__ import annotations
 
 import torch
@@ -30,21 +31,42 @@ class Model:
         norm = d if cfg.norm == "rmsnorm" else 2 * d
         n = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2) + norm
         q, kv = cfg.n_heads * cfg.head_dim_, cfg.n_kv * cfg.head_dim_
-        attn = (2 * norm + 2 * d * q + 2 * d * kv + 3 * d * cfg.d_ff
-                + ((q + 2 * kv) if cfg.qkv_bias else 0))
+        attn = 2 * d * q + 2 * d * kv + ((q + 2 * kv) if cfg.qkv_bias else 0)
+        mlp = lambda f: 3 * d * f                                # noqa
+        if cfg.mla:
+            H, dqk = cfg.n_heads, cfg.d_nope + cfg.d_rope
+            attn = (d * (cfg.kv_lora + cfg.d_rope) + cfg.kv_lora
+                    + cfg.kv_lora * H * (cfg.d_nope + cfg.d_v)
+                    + H * cfg.d_v * d
+                    + (d * cfg.q_lora + cfg.q_lora + cfg.q_lora * H * dqk
+                       if cfg.q_lora else d * H * dqk))
+        layer = 2 * norm + attn + mlp(cfg.d_ff)
         if cfg.family == "griffin":
             W = cfg.lru_width
-            rec = 2 * norm + 3 * d * W + 2 * W * W + 8 * W + 3 * d * cfg.d_ff
+            rec = 2 * norm + 3 * d * W + 2 * W * W + 8 * W + mlp(cfg.d_ff)
             n_groups, rem = divmod(cfg.n_layers, 3)
-            return n + n_groups * (2 * rec + attn) + rem * rec
+            return n + n_groups * (2 * rec + layer) + rem * rec
+        if cfg.family == "vision":
+            per = cfg.cross_every
+            cross = layer + 2                                    # gates
+            return n + cfg.n_layers // per * (cross + (per - 1) * layer)
+        if cfg.family == "encdec":
+            dec = 3 * norm + 2 * attn + mlp(cfg.d_ff)
+            return n + cfg.enc_layers * layer + norm + cfg.n_layers * dec
         if cfg.ssm:
             H = cfg.d_inner // cfg.ssm_head_dim
             conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-            layer = (norm + d * (cfg.d_inner + conv_dim + H) + 5 * conv_dim
-                     + 3 * H + cfg.d_inner + cfg.d_inner * d)
+            rest = (norm + d * (cfg.d_inner + conv_dim + H) + 5 * conv_dim
+                    + 3 * H + cfg.d_inner + cfg.d_inner * d)
+        elif cfg.n_experts:
+            E = cfg.n_experts
+            rest = (2 * norm + attn + d * E + E * mlp(cfg.d_ff)
+                    + (mlp(cfg.d_ff * cfg.n_shared) if cfg.n_shared else 0))
         else:
-            layer = attn
-        return n + cfg.n_layers * layer
+            rest = layer
+        dense = 2 * norm + attn + mlp(cfg.dense_d_ff or cfg.d_ff)
+        return (n + cfg.first_dense * dense
+                + (cfg.n_layers - cfg.first_dense) * rest)
 
     # -- steps ----------------------------------------------------------------
 
@@ -62,23 +84,40 @@ class Model:
 
     # -- cache ----------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_seq: int, device) -> tuple:
-        """Zero decode cache in the compute dtype on ``device``: (k, v) of
-        [B, max_seq, n_kv, head_dim] per attention layer; dict(conv
-        [B, 3, conv_dim], state [B, H, P, N]) per Mamba-2 layer; dict(conv
-        [B, 3, lru_width], state [B, lru_width]) per RG-LRU layer. For
-        ``decoder`` and ``gemma3`` it is ``(None, [per-layer cache])``; for
-        ``griffin`` ``(groups, tail)``: a list of dict(rec1, rec2, attn)
-        and a list of recurrent caches, or None without a tail."""
+    def cache_lengths(self, batch) -> dict:
+        """``init_cache``'s cross-cache lengths for a prefill ``batch``, as
+        the reference's ``Server`` sizes them: ``src_len`` the frames'
+        length (encdec, else 0), ``n_img`` the config's
+        ``n_img_tokens``."""
+        cfg = self.cfg
+        return dict(src_len=(batch["frames"].shape[1]
+                             if cfg.family == "encdec" else 0),
+                    n_img=cfg.n_img_tokens)
+
+    def init_cache(self, batch: int, max_seq: int, device, *,
+                   src_len: int = 0, n_img: int = 0):
+        """Zero decode cache in the compute dtype on ``device``, in the
+        reference's layouts unstacked: (k, v) of [B, max_seq, n_kv,
+        head_dim] per attention layer; (c_kv [B, max_seq, kv_lora], k_rope
+        [B, max_seq, d_rope]) per MLA layer; dict(conv [B, 3, conv_dim],
+        state [B, H, P, N]) per Mamba-2 layer; dict(conv [B, 3, lru_width],
+        state [B, lru_width]) per RG-LRU layer. For ``decoder`` and
+        ``gemma3`` it is ``(dense, rest)``, per-layer lists (``dense`` None
+        without leading dense layers); for ``griffin`` ``(groups, tail)``:
+        a list of dict(rec1, rec2, attn) and a list of recurrent caches, or
+        None without a tail; for ``vision`` a list per group of dict(img=
+        (k, v) of [B, n_img, n_kv, head_dim], selfs=[...]); for
+        ``encdec`` a list per decoder layer of dict(self=(k, v), cross=
+        (k, v) of [B, src_len, n_kv, head_dim])."""
         cfg = self.cfg
         dt = cfg.compute_dtype
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=dt, device=device)
 
-        def kv():
-            return (zeros(batch, max_seq, cfg.n_kv, cfg.head_dim_),
-                    zeros(batch, max_seq, cfg.n_kv, cfg.head_dim_))
+        def kv(length=max_seq):
+            return (zeros(batch, length, cfg.n_kv, cfg.head_dim_),
+                    zeros(batch, length, cfg.n_kv, cfg.head_dim_))
 
         if cfg.family == "griffin":
             def rec():
@@ -88,15 +127,28 @@ class Model:
             groups = [dict(rec1=rec(), rec2=rec(), attn=kv())
                       for _ in range(n_groups)]
             return (groups, [rec() for _ in range(rem)] if rem else None)
+        if cfg.family == "vision":
+            per = cfg.cross_every
+            return [dict(img=kv(n_img), selfs=[kv() for _ in range(per - 1)])
+                    for _ in range(cfg.n_layers // per)]
+        if cfg.family == "encdec":
+            return [dict(self=kv(), cross=kv(src_len))
+                    for _ in range(cfg.n_layers)]
         if cfg.ssm:
             conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
             H = cfg.d_inner // cfg.ssm_head_dim
             layer = lambda: dict(conv=zeros(batch, 3, conv_dim),   # noqa
                                  state=zeros(batch, H, cfg.ssm_head_dim,
                                              cfg.ssm_state))
+        elif cfg.mla:
+            layer = lambda: (zeros(batch, max_seq, cfg.kv_lora),  # noqa
+                             zeros(batch, max_seq, cfg.d_rope))
         else:
             layer = kv
-        return (None, [layer() for _ in range(cfg.n_layers)])
+        dense = ([layer() for _ in range(cfg.first_dense)]
+                 if cfg.first_dense else None)
+        return (dense, [layer() for _ in range(cfg.n_layers
+                                               - cfg.first_dense)])
 
 
 def to_device(tree, device):

@@ -1,55 +1,57 @@
-"""Architecture assembly — the ``decoder``, ``gemma3`` and ``griffin``
-families of ``repro/models/transformer.py`` in three modes: ``train``
-(logits, no cache; forward only), ``prefill`` (logits + built cache) and
-``decode`` (one token in, cache updated).
+"""Architecture assembly — every family of ``repro/models/transformer.py``
+in three modes: ``train`` (logits, no cache; forward only), ``prefill``
+(logits + built cache) and ``decode`` (one token in, cache updated).
 
-- ``decoder``: dense-GQA attention or Mamba-2 SSD mixers, SwiGLU MLPs.
+- ``decoder``: dense-GQA attention, MLA (``models/mla.py``) or Mamba-2
+  SSD mixers; SwiGLU MLPs or MoE (``models/moe.py``); ``first_dense``
+  leading dense-MLP layers (``dense_layers``, width ``dense_d_ff``) ahead
+  of ``layers``.
 - ``gemma3``: the decoder stack with a 5:1 local:global pattern (every
   ``attn_every``-th layer global): local layers attend a sliding window of
   ``window`` at RoPE base ``rope_theta``, global ones the reference's
   ``BIG_WINDOW`` at ``rope_theta_global``.
 - ``griffin``: groups of (RG-LRU, RG-LRU, local MQA attention) layers,
   then a tail of ``n_layers mod 3`` RG-LRU layers, with GeGLU MLPs.
+- ``vision``: groups of one tanh-gated cross-attention layer (to K/V
+  projected from ``batch["patches"]``, no RoPE) and ``cross_every - 1``
+  decoder layers.
+- ``encdec``: a bidirectional encoder over ``batch["frames"]`` (``enc_norm``
+  after it), then decoder layers of causal self-attention,
+  cross-attention to the encoder memory and an MLP.
 
 ``embed_scale`` multiplies the embeddings by sqrt(d_model) rounded to the
 compute dtype, as the reference does.
 
 The reference scans over layer-stacked parameters (``lax.scan``); here a
 Python loop walks lists of per-layer (or per-group) parameter dicts, and
-the cache holds lists of per-layer caches. MoE, MLA, ``first_dense`` and
-the vision and encdec families raise ``NotImplementedError``.
+the cache holds lists of per-layer caches.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
-from repro_torch.models import attention, rglru, ssm
+from repro_torch.models import attention, mla, moe, rglru, ssm
 from repro_torch.models.common import (apply_norm, embed_tokens,
                                        embedding_init, logits_from_hidden,
-                                       mlp_apply, mlp_init, norm_init)
+                                       mlp_apply, mlp_init, norm_init,
+                                       zeros_init)
 
-FAMILIES = ("decoder", "gemma3", "griffin")
+FAMILIES = ("decoder", "gemma3", "griffin", "vision", "encdec")
 # gemma3's global layers: a sliding window wider than any sequence (the
 # reference's BIG_WINDOW), so the mask is the causal one.
 BIG_WINDOW = 1 << 30
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run."""
-    missing = []
+    """Raise ``NotImplementedError`` for a family the port does not run."""
     if cfg.family not in FAMILIES:
-        missing.append(f"family {cfg.family!r}")
-    for flag in ("mla", "n_experts", "first_dense"):
-        if getattr(cfg, flag):
-            missing.append(flag)
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "queue 1 item 2b); the port runs the decoder family with "
-            "attention or SSM mixers, gemma3 and griffin")
+            f"{cfg.name}: family {cfg.family!r} is not a family of the "
+            f"reference; the port runs {', '.join(FAMILIES)}")
 
 
 def embed_scale(d_model: int, dtype: torch.dtype) -> torch.Tensor:
@@ -74,7 +76,16 @@ def attention_args(cfg, i: int) -> tuple:
 # Init
 # ---------------------------------------------------------------------------
 
-def decoder_layer_init(cfg, gen) -> dict:
+def _attn_init(cfg, gen) -> dict:
+    return attention.init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                          cfg.head_dim_, qkv_bias=cfg.qkv_bias,
+                          dtype=cfg.params_dtype)
+
+
+def decoder_layer_init(cfg, gen, use_moe: bool = False,
+                       d_ff: int = 0) -> dict:
+    """A decoder layer: norm, mixer (SSM, MLA or attention), norm, MLP
+    (MoE when ``use_moe``; a dense one of width ``d_ff or cfg.d_ff``)."""
     dt, dev = cfg.params_dtype, gen.device
     p = dict(ln1=norm_init(cfg.d_model, cfg.norm, dt, dev))
     if cfg.ssm:
@@ -83,11 +94,18 @@ def decoder_layer_init(cfg, gen) -> dict:
             head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
             d_state=cfg.ssm_state, dtype=dt)
         return p
-    p["attn"] = attention.init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                               cfg.head_dim_, qkv_bias=cfg.qkv_bias,
-                               dtype=dt)
+    if cfg.mla:
+        p["attn"] = mla.init(gen, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
+                             kv_lora=cfg.kv_lora, d_nope=cfg.d_nope,
+                             d_rope=cfg.d_rope, d_v=cfg.d_v, dtype=dt)
+    else:
+        p["attn"] = _attn_init(cfg, gen)
     p["ln2"] = norm_init(cfg.d_model, cfg.norm, dt, dev)
-    p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+    if use_moe:
+        p["mlp"] = moe.init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            n_shared=cfg.n_shared, dtype=dt)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, d_ff or cfg.d_ff, dt)
     return p
 
 
@@ -100,13 +118,57 @@ def rec_layer_init(cfg, gen) -> dict:
                 mlp=mlp_init(gen, cfg.d_model, cfg.d_ff, dt))
 
 
+def cross_layer_init(cfg, gen) -> dict:
+    """Gated cross-attention layer (llama-3.2-vision style). The gates are
+    zero, as in the reference, so at init the layer is the identity:
+    ``draw_live_gates`` gives a check something to see."""
+    dt, dev = cfg.params_dtype, gen.device
+    return dict(ln1=norm_init(cfg.d_model, cfg.norm, dt, dev),
+                cross=_attn_init(cfg, gen),
+                gate_attn=zeros_init((1,), dt, dev),
+                ln2=norm_init(cfg.d_model, cfg.norm, dt, dev),
+                mlp=mlp_init(gen, cfg.d_model, cfg.d_ff, dt),
+                gate_mlp=zeros_init((1,), dt, dev))
+
+
+def draw_live_gates(rng: np.random.Generator) -> dict:
+    """The two gates a cross layer's init leaves at zero (gate_attn,
+    gate_mlp), drawn uniform in (0.5, 1), so tanh(gate) is 0.46-0.76: with
+    the zero gates of ``cross_layer_init`` the layer adds exactly nothing,
+    and a wrong cross-attention would pass any comparison. Float32 numpy
+    arrays of shape (1,) under the init's names, one layer."""
+    return {k: rng.uniform(0.5, 1.0, (1,)).astype(np.float32)
+            for k in ("gate_attn", "gate_mlp")}
+
+
+def encdec_dec_layer_init(cfg, gen) -> dict:
+    dt, dev = cfg.params_dtype, gen.device
+    return dict(ln1=norm_init(cfg.d_model, cfg.norm, dt, dev),
+                self=_attn_init(cfg, gen),
+                ln2=norm_init(cfg.d_model, cfg.norm, dt, dev),
+                cross=_attn_init(cfg, gen),
+                ln3=norm_init(cfg.d_model, cfg.norm, dt, dev),
+                mlp=mlp_init(gen, cfg.d_model, cfg.d_ff, dt))
+
+
+def encoder_layer_init(cfg, gen) -> dict:
+    dt, dev = cfg.params_dtype, gen.device
+    return dict(ln1=norm_init(cfg.d_model, cfg.norm, dt, dev),
+                attn=_attn_init(cfg, gen),
+                ln2=norm_init(cfg.d_model, cfg.norm, dt, dev),
+                mlp=mlp_init(gen, cfg.d_model, cfg.d_ff, dt))
+
+
 def init(cfg, gen: torch.Generator) -> Dict[str, Any]:
     """Full parameter tree on ``gen``'s device: ``embed``, ``final_norm``
-    and, for ``decoder`` and ``gemma3``, ``layers``, a list of per-layer
-    dicts; for ``griffin``, ``groups``, a list of dict(rec1, rec2, attn),
-    and ``tail``, a list of recurrent layers (absent when n_layers is a
-    multiple of 3). The reference's layouts; draws in the order embedding,
-    then layer by layer."""
+    and, for ``decoder`` and ``gemma3``, ``layers`` (a list of per-layer
+    dicts) after ``dense_layers`` where ``first_dense``; for ``griffin``,
+    ``groups``, a list of dict(rec1, rec2, attn), and ``tail``, a list of
+    recurrent layers (absent when n_layers is a multiple of 3); for
+    ``vision``, ``groups``, a list of dict(cross, selfs=[decoder layers]);
+    for ``encdec``, ``enc_layers``, ``enc_norm`` and ``layers``. The
+    reference's layouts with its stacks unstacked into lists; draws in the
+    order embedding, then layer by layer."""
     check_supported(cfg)
     params = dict(
         embed=embedding_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -121,9 +183,26 @@ def init(cfg, gen: torch.Generator) -> Dict[str, Any]:
                             for _ in range(n_groups)]
         if rem:
             params["tail"] = [rec_layer_init(cfg, gen) for _ in range(rem)]
-    else:
-        params["layers"] = [decoder_layer_init(cfg, gen)
+    elif cfg.family == "vision":
+        per = cfg.cross_every
+        params["groups"] = [
+            dict(cross=cross_layer_init(cfg, gen),
+                 selfs=[decoder_layer_init(cfg, gen) for _ in range(per - 1)])
+            for _ in range(cfg.n_layers // per)]
+    elif cfg.family == "encdec":
+        params["enc_layers"] = [encoder_layer_init(cfg, gen)
+                                for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = norm_init(cfg.d_model, cfg.norm,
+                                       cfg.params_dtype, gen.device)
+        params["layers"] = [encdec_dec_layer_init(cfg, gen)
                             for _ in range(cfg.n_layers)]
+    else:
+        if cfg.first_dense:
+            params["dense_layers"] = [
+                decoder_layer_init(cfg, gen, d_ff=cfg.dense_d_ff)
+                for _ in range(cfg.first_dense)]
+        params["layers"] = [decoder_layer_init(cfg, gen, cfg.n_experts > 0)
+                            for _ in range(cfg.n_layers - cfg.first_dense)]
     return params
 
 
@@ -132,24 +211,35 @@ def init(cfg, gen: torch.Generator) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def decoder_layer_apply(cfg, p, x, positions, mode, cache, decode_pos,
-                        i: int = 0):
+                        i: int = 0, use_moe: bool = False):
     """Layer ``i`` of a decoder stack, or griffin's attention layer."""
     h = apply_norm(x, p["ln1"], cfg.norm)
     if cfg.ssm:
         mix, new_cache = ssm.block_apply(h, p["mixer"], cfg, mode=mode,
                                          cache=cache, chunk=cfg.ssd_chunk)
         return x + mix, new_cache
-    kind, window, theta = attention_args(cfg, i)
-    mix, kv = attention.apply(
-        h, p["attn"], n_kv=cfg.n_kv, n_heads=cfg.n_heads,
-        positions=positions, kind=kind, window=window, rope_theta=theta,
-        block_kv=cfg.block_kv, softmax_scale=cfg.softmax_scale,
-        cache=cache if mode == "decode" else None, decode_pos=decode_pos)
+    if cfg.mla:
+        mix, new_cache = mla.apply(
+            h, p["attn"], n_heads=cfg.n_heads, q_lora=cfg.q_lora,
+            kv_lora=cfg.kv_lora, d_nope=cfg.d_nope, d_rope=cfg.d_rope,
+            d_v=cfg.d_v, positions=positions, block_kv=cfg.block_kv,
+            cache=cache if mode == "decode" else None, decode_pos=decode_pos)
+    else:
+        kind, window, theta = attention_args(cfg, i)
+        mix, new_cache = attention.apply(
+            h, p["attn"], n_kv=cfg.n_kv, n_heads=cfg.n_heads,
+            positions=positions, kind=kind, window=window, rope_theta=theta,
+            block_kv=cfg.block_kv, softmax_scale=cfg.softmax_scale,
+            cache=cache if mode == "decode" else None, decode_pos=decode_pos)
     x = x + mix
     h2 = apply_norm(x, p["ln2"], cfg.norm)
-    gate = "gelu" if cfg.family == "griffin" else "silu"
-    return x + mlp_apply(h2, p["mlp"], gate=gate), \
-        (kv if mode != "train" else None)
+    if use_moe:
+        y = moe.apply(h2, p["mlp"], top_k=cfg.top_k, n_experts=cfg.n_experts,
+                      capacity_factor=cfg.moe_capacity_factor)
+    else:
+        y = mlp_apply(h2, p["mlp"],
+                      gate="gelu" if cfg.family == "griffin" else "silu")
+    return x + y, (new_cache if mode != "train" else None)
 
 
 def rec_layer_apply(cfg, p, x, mode, cache):
@@ -160,6 +250,30 @@ def rec_layer_apply(cfg, p, x, mode, cache):
     x = x + mix
     h2 = apply_norm(x, p["ln2"], cfg.norm)
     return x + mlp_apply(h2, p["mlp"], gate="gelu"), new_cache
+
+
+def _cross_attend(cfg, p, h, positions, memory=None, cache=None):
+    """Cross-attention of ``h`` to static K/V (image or encoder memory),
+    no RoPE, kind ``full``: in prefill K/V are projected from ``memory``;
+    in decode ``cache`` is read and never written. Returns (out, (k, v)),
+    the second the static cross cache."""
+    return attention.apply(h, p, n_kv=cfg.n_kv, n_heads=cfg.n_heads,
+                           positions=positions, kind="full",
+                           rope_theta=None, block_kv=cfg.block_kv,
+                           kv_x=memory, cache=cache,
+                           decode_pos=None if cache is None else 0)
+
+
+def cross_layer_apply(cfg, p, x, positions, patches=None, cache=None):
+    """Gated cross-attention to static image K/V (from ``patches`` in
+    prefill, ``cache`` in decode), then a gated MLP. Returns (x, (k, v))."""
+    h = apply_norm(x, p["ln1"], cfg.norm)
+    mix, img_kv = _cross_attend(cfg, p["cross"], h, positions, patches,
+                                cache)
+    x = x + torch.tanh(p["gate_attn"].to(x.dtype)) * mix
+    h2 = apply_norm(x, p["ln2"], cfg.norm)
+    return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * mlp_apply(
+        h2, p["mlp"]), img_kv
 
 
 def _griffin_stack(cfg, params, x, positions, mode, cache, decode_pos):
@@ -182,11 +296,107 @@ def _griffin_stack(cfg, params, x, positions, mode, cache, decode_pos):
     return x, (gout, tout or None)
 
 
+def _decoder_stack(cfg, params, x, positions, mode, cache, decode_pos):
+    """``dense_layers`` (if any), then ``layers``. The cache is
+    ``(dense, rest)``: lists of per-layer caches, ``dense`` None without
+    leading dense layers — the reference's pair unstacked."""
+    c_dense, c_rest = cache if cache is not None else (None, None)
+    dense = None
+    if cfg.first_dense:
+        dense = []
+        for i, lp in enumerate(params["dense_layers"]):
+            x, c = decoder_layer_apply(
+                cfg, lp, x, positions, mode,
+                c_dense[i] if c_dense is not None else None, decode_pos, i)
+            dense.append(c)
+    rest = []
+    for i, lp in enumerate(params["layers"]):
+        x, c = decoder_layer_apply(
+            cfg, lp, x, positions, mode,
+            c_rest[i] if c_rest is not None else None, decode_pos, i,
+            use_moe=cfg.n_experts > 0)
+        rest.append(c)
+    return x, (dense, rest)
+
+
+def _vision_stack(cfg, params, batch, x, positions, mode, cache,
+                  decode_pos):
+    """Per group: the cross layer over image K/V (projected from
+    ``batch["patches"]`` in prefill, read from the cache in decode), then
+    the group's decoder layers. The cache is a list of dict(img=(k, v),
+    selfs=[per-layer cache])."""
+    patches = (None if mode == "decode" else
+               batch["patches"].to(cfg.compute_dtype))
+    out = []
+    for g, gp in enumerate(params["groups"]):
+        gc = cache[g] if cache is not None else None
+        x, img_kv = cross_layer_apply(
+            cfg, gp["cross"], x, positions, patches,
+            gc["img"] if mode == "decode" else None)
+        selfs = []
+        for i, lp in enumerate(gp["selfs"]):
+            x, c = decoder_layer_apply(
+                cfg, lp, x, positions, mode,
+                gc["selfs"][i] if gc is not None else None, decode_pos, i)
+            selfs.append(c)
+        out.append(dict(img=img_kv, selfs=selfs))
+    return x, out
+
+
+def encode(cfg, params, frames):
+    """Bidirectional encoder over frame embeddings [B, S_src, d] (RoPE at
+    ``rope_theta``), then ``enc_norm``: the decoder's cross-attention
+    memory."""
+    x = frames.to(cfg.compute_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params["enc_layers"]:
+        h = apply_norm(x, lp["ln1"], cfg.norm)
+        mix, _ = attention.apply(h, lp["attn"], n_kv=cfg.n_kv,
+                                 n_heads=cfg.n_heads, positions=positions,
+                                 kind="full", rope_theta=cfg.rope_theta,
+                                 block_kv=cfg.block_kv)
+        x = x + mix
+        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        x = x + mlp_apply(h2, lp["mlp"])
+    return apply_norm(x, params["enc_norm"], cfg.norm)
+
+
+def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
+                  decode_pos):
+    """The encoder (not in decode), then per decoder layer: causal
+    self-attention, cross-attention to the memory, MLP. The cache is a
+    list of dict(self=(k, v), cross=(k, v))."""
+    memory = None if mode == "decode" else encode(cfg, params,
+                                                  batch["frames"])
+    out = []
+    for i, lp in enumerate(params["layers"]):
+        cc = cache[i] if cache is not None else None
+        h = apply_norm(x, lp["ln1"], cfg.norm)
+        mix, kv = attention.apply(
+            h, lp["self"], n_kv=cfg.n_kv, n_heads=cfg.n_heads,
+            positions=positions, kind="causal", rope_theta=cfg.rope_theta,
+            block_kv=cfg.block_kv,
+            cache=cc["self"] if mode == "decode" else None,
+            decode_pos=decode_pos)
+        x = x + mix
+        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        mix, cross_kv = _cross_attend(
+            cfg, lp["cross"], h2, positions, memory,
+            cc["cross"] if mode == "decode" else None)
+        x = x + mix
+        h3 = apply_norm(x, lp["ln3"], cfg.norm)
+        x = x + mlp_apply(h3, lp["mlp"])
+        out.append(dict(self=kv, cross=cross_kv))
+    return x, out
+
+
 def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
     """Returns (logits, new_cache). batch: tokens [B, S] (int64 on the
-    parameters' device). The cache is ``(None, [per-layer cache])`` for
-    ``decoder`` and ``gemma3`` (the reference's ``(dense, rest)`` pair
-    with no dense layers) and ``(groups, tail)`` for ``griffin``."""
+    parameters' device), and ``frames`` [B, S_src, d] (encdec) or
+    ``patches`` [B, n_img, d] (vision) outside decode. The cache is
+    ``(dense, rest)`` for ``decoder`` and ``gemma3`` (dense None without
+    leading dense layers), ``(groups, tail)`` for ``griffin``, and a list
+    per group (vision) or per decoder layer (encdec)."""
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
@@ -205,15 +415,15 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
     if cfg.family == "griffin":
         x, new_cache = _griffin_stack(cfg, params, x, positions, mode,
                                       cache, decode_pos)
+    elif cfg.family == "vision":
+        x, new_cache = _vision_stack(cfg, params, batch, x, positions, mode,
+                                     cache, decode_pos)
+    elif cfg.family == "encdec":
+        x, new_cache = _encdec_stack(cfg, params, batch, x, positions, mode,
+                                     cache, decode_pos)
     else:
-        layer_caches = cache[1] if cache is not None else None
-        new = []
-        for i, lp in enumerate(params["layers"]):
-            c = layer_caches[i] if layer_caches is not None else None
-            x, c = decoder_layer_apply(cfg, lp, x, positions, mode, c,
-                                       decode_pos, i)
-            new.append(c)
-        new_cache = (None, new)
+        x, new_cache = _decoder_stack(cfg, params, x, positions, mode, cache,
+                                      decode_pos)
     if mode == "train":
         new_cache = None
 

@@ -31,19 +31,27 @@ class Server:
         self.decode_step = make_decode_step(model)
 
     def generate(self, batch: Dict, max_new: int = 16) -> np.ndarray:
-        """batch["tokens"]: [B, S] integer prompts (numpy or a tensor).
-        Returns the [B, max_new] greedy tokens as int32. Spans
-        ``serve.prefill`` (to the first token, synchronized) and
-        ``serve.decode`` (the other max_new - 1 steps, to the tokens on the
-        host) time the two phases when ``repro_torch.obs`` is on."""
+        """batch["tokens"]: [B, S] integer prompts (numpy or a tensor);
+        ``frames`` [B, S_src, d] (encdec) or ``patches`` [B, n_img, d]
+        (vision), numpy or tensors, go to the prefill, and the cross
+        caches take the lengths ``Model.cache_lengths`` gives. Returns the
+        [B, max_new] greedy tokens as int32. Spans ``serve.prefill`` (to
+        the first token, synchronized) and ``serve.decode`` (the other
+        max_new - 1 steps, to the tokens on the host) time the two phases
+        when ``repro_torch.obs`` is on."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
                                  dtype=torch.int64).to(self.device)
         B, S = tokens.shape
+        inputs = dict(tokens=tokens)
+        for key in ("frames", "patches"):
+            if batch.get(key) is not None:
+                inputs[key] = torch.as_tensor(batch[key]).to(self.device)
+        lengths = self.model.cache_lengths(inputs)
         with torch.inference_mode():
             with obs.span("serve.prefill", batch=B, prompt=S):
-                cache = self.model.init_cache(B, S + max_new, self.device)
-                last_logits, built = self.prefill_step(
-                    self.params, dict(tokens=tokens))
+                cache = self.model.init_cache(B, S + max_new, self.device,
+                                              **lengths)
+                last_logits, built = self.prefill_step(self.params, inputs)
                 cache = _splice(cache, built)
                 tok = torch.argmax(last_logits, dim=-1)[:, None]
                 if self.device.type == "cuda":

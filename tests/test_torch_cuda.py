@@ -1048,3 +1048,172 @@ def test_warm_round_on_card_makes_one_adaptive_launch(card):
         np.testing.assert_array_equal(res.assign, ref.assign)
     assert len(ws.cold_iters) == len(ws.warm_iters) == 1
     assert ws.warm_iters[0] < ws.cold_iters[0]
+
+
+# Flash outputs held relative to their size too, RMS(d) / RMS(plain): a
+# non-causal output element over Skv keys is ~sqrt(e / Skv), so the
+# absolute limits alone pass a mis-scaled or short launch (chip_smoke.py's
+# FLASH_RRMS).
+FLASH_RRMS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_rms(got, ref):
+    d = got.float() - ref.float()
+    return float(d.square().mean().sqrt() / ref.float().square().mean()
+                 .sqrt())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,D,Dv", [(1, 40, 96, 64), (1, 32, 192, 128)])
+def test_padded_flash_entry_matches_plain_on_card(card, B, H, D, Dv,
+                                                  dtype):
+    """MLA's unequal head dims (minicpm3 96/64, DeepSeek-V2 192/128) at
+    S 1000 through the model-layout wrapper: zero-padded to D 128 or 256,
+    one launch of the kernel ``variant`` picks for the padded D (wgmma in
+    bf16, scalar in float32), against the plain version on the unpadded
+    inputs at MLA's numpy scale."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    S = 1000
+    gen = torch.Generator().manual_seed(D)
+    q = torch.randn((B, S, H, 1, D), generator=gen).to(card, dtype)
+    k = torch.randn((B, S, H, D), generator=gen).to(card, dtype)
+    v = torch.randn((B, S, H, Dv), generator=gen).to(card, dtype)
+    scale = 1.0 / np.sqrt(D)
+    Dp = fops.padded_dim(D, Dv)
+    kind = fb.variant(dtype, Dp)
+    assert kind == ("wgmma" if dtype == torch.bfloat16 else "scalar")
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    out = fops.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == {**before, kind: before[kind] + 1}
+    assert out.shape == (B, S, H, 1, Dv)
+    ref = attention_ref(q[:, :, :, 0].transpose(1, 2).reshape(-1, S, D),
+                        k.transpose(1, 2).reshape(-1, S, D),
+                        v.transpose(1, 2).reshape(-1, S, Dv), causal=True,
+                        scale=scale)
+    got = out[:, :, :, 0].transpose(1, 2).reshape(-1, S, Dv)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                               rtol=0 if dtype == torch.float32
+                               else BF16_RTOL)
+    assert _rel_rms(got, ref) < FLASH_RRMS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Sq,Skv,group", [(300, 1000, 4), (1000, 130, 2)])
+def test_noncausal_unequal_lengths_match_plain_on_card(card, Sq, Skv, group,
+                                                       D, dtype):
+    """Cross-attention's call: non-causal, Sq != Skv, GQA, on the kernel
+    ``variant`` picks (wgmma in bf16, scalar in float32)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator().manual_seed(Sq + D)
+    BHkv = 3
+    q = torch.randn((BHkv * group, Sq, D), generator=gen).to(card, dtype)
+    k, v = (torch.randn((BHkv, Skv, D), generator=gen).to(card, dtype)
+            for _ in range(2))
+    kind = fb.variant(dtype, D)
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    out = fops.flash_attention_bh(q, k, v, causal=False, group=group)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == {**before, kind: before[kind] + 1}
+    ref = flash_attention_bh_ref(q, k, v, causal=False, group=group)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=0 if dtype == torch.float32
+                               else BF16_RTOL)
+    assert _rel_rms(out, ref) < FLASH_RRMS[dtype]
+
+
+def test_masked_prefill_with_unequal_lengths_is_refused_on_card(card):
+    """A causal or sliding prefill attention with Sq != Skv raises and
+    launches nothing (the kernel's mask puts both positions at 0)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.models import attention
+    q = torch.zeros((1, 64, 2, 2, 64), dtype=torch.bfloat16, device=card)
+    k = torch.zeros((1, 100, 2, 64), dtype=torch.bfloat16, device=card)
+    before = fb.LAUNCHES
+    for kind in ("causal", "sliding"):
+        with pytest.raises(ValueError, match="Sq == Skv"):
+            attention.prefill_attention(q, k, k, kind=kind, window=16)
+    assert fb.LAUNCHES == before
+
+
+def _prefill_attention_calls(cfg) -> int:
+    """Flash calls of one prefill: one per attention layer, the vision
+    groups' cross layers and encdec's encoder and cross-attentions too."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    if cfg.family == "vision":
+        return cfg.n_layers // cfg.cross_every * cfg.cross_every
+    return cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "dbrx_132b",
+                                  "deepseek_v2_236b", "llama_3_2_vision_11b",
+                                  "seamless_m4t_large_v2"])
+def test_new_arch_server_on_card_goes_through_kernels(card, arch,
+                                                      monkeypatch):
+    """Reduced config in bf16 (head dim 64 where it is not MLA's, so that
+    every call is one the wgmma kernel takes; MLA's 24/16 pads to 64),
+    weights drawn on the CPU and copied, vision gates live: the card's
+    prefill makes one wgmma flash call per prefill attention and calls no
+    plain version; its logits agree with the CPU's within the bf16
+    tolerance, and ``Server.generate`` runs with frames or patches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.runtime.serve_loop import Server
+    cfg = get_config(arch, reduced=True)
+    if not cfg.mla:
+        cfg = cfg.replace(head_dim=64)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    for g in params.get("groups", []):
+        g["cross"].update({k: torch.from_numpy(v).to(cfg.params_dtype)
+                           for k, v in transformer.draw_live_gates(
+                               rng).items()})
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = rng.standard_normal((2, 30, cfg.d_model)).astype(
+            np.float32)
+    if cfg.family == "vision":
+        extra["patches"] = rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (2, 40))
+    plain = []
+    for mod, name in ((attention, "blocked_attention"),
+                      (fops, "flash_attention_bh_ref")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: (
+            plain.append(_n), _fn(*a, **kw))[1])
+    card_params = to_device(params, card)
+    batch = dict(tokens=torch.from_numpy(toks).to(card),
+                 **{k: torch.from_numpy(v).to(card)
+                    for k, v in extra.items()})
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    with torch.inference_mode():
+        logits, _ = model.prefill(card_params, batch)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == {
+        "wgmma": before["wgmma"] + _prefill_attention_calls(cfg),
+        "scalar": before["scalar"]}
+    assert plain == []
+    monkeypatch.undo()
+    with torch.inference_mode():
+        host, _ = model.prefill(params, dict(
+            tokens=torch.from_numpy(toks),
+            **{k: torch.from_numpy(v) for k, v in extra.items()}))
+    torch.testing.assert_close(logits.float().cpu(), host.float(),
+                               atol=0.15, rtol=0.1)
+    out = Server(model, card_params).generate(dict(tokens=toks, **extra),
+                                              max_new=4)
+    assert out.shape == (2, 4) and out.min() >= 0 and out.max() < cfg.vocab

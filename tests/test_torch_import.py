@@ -21,7 +21,8 @@ def test_main_path_imports_without_jax_or_reference():
     """With jax blocked: import the main paths of the slices, then run one
     learned-forecaster forward, one Holt-Winters fit, a two-cell plan
     built from spec strings (serial, then two seeds through the ``device``
-    executor), one reduced-config LM prefill per architecture and a small
+    executor), one reduced-config LM prefill per architecture family
+    (MLA, MoE, leading dense layers, vision and encdec too) and a small
     workflow cell streamed through the warm-started service on the CPU."""
     code = (
         "import sys\n"
@@ -62,11 +63,19 @@ def test_main_path_imports_without_jax_or_reference():
         "import repro_torch.kernels.ssd_scan.ops\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models.model import Model\n"
-        "for arch in ('qwen2_1_5b', 'mamba2_2_7b'):\n"
+        "for arch in ('qwen2_1_5b', 'mamba2_2_7b', 'minicpm3_4b', "
+        "'dbrx_132b', 'deepseek_v2_236b', 'llama_3_2_vision_11b', "
+        "'seamless_m4t_large_v2'):\n"
         "    m = Model(get_config(arch, reduced=True))\n"
         "    p = m.init(torch.Generator().manual_seed(0))\n"
         "    t = torch.zeros((2, 12), dtype=torch.long)\n"
-        "    logits, cache = m.prefill(p, dict(tokens=t))\n"
+        "    b = dict(tokens=t)\n"
+        "    if m.cfg.family == 'encdec':\n"
+        "        b['frames'] = torch.ones((2, 7, m.cfg.d_model))\n"
+        "    if m.cfg.family == 'vision':\n"
+        "        b['patches'] = torch.ones((2, m.cfg.n_img_tokens, "
+        "m.cfg.d_model))\n"
+        "    logits, cache = m.prefill(p, b)\n"
         "    assert logits.shape == (2, m.cfg.padded_vocab)\n"
         "    assert torch.isfinite(logits.float()).all()\n"
         "import repro_torch.serve, repro_torch.workflows\n"
@@ -109,7 +118,10 @@ def test_port_sources_never_import_jax_or_reference():
             "kernels/rglru_scan/ops.py", "configs/base.py",
             "configs/qwen2_1_5b.py", "configs/mamba2_2_7b.py",
             "models/attention.py", "models/transformer.py",
-            "models/model.py", "runtime/serve_loop.py",
+            "models/model.py", "models/mla.py", "models/moe.py",
+            "configs/minicpm3_4b.py", "configs/deepseek_v2_236b.py",
+            "configs/dbrx_132b.py", "configs/llama_3_2_vision_11b.py",
+            "configs/seamless_m4t_large_v2.py", "runtime/serve_loop.py",
             "runtime/train_loop.py", "kernels/flash_attention/ops.py",
             "kernels/flash_attention/flash_attention.py",
             "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ssd_scan.py",

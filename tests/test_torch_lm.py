@@ -1,6 +1,7 @@
 """The port's LM serving path against the JAX package's, on the reduced
 ``qwen2_1_5b``, ``mamba2_2_7b``, ``gemma3_4b`` and ``recurrentgemma_2b``
-configs: the reference's init carried
+configs (configs and parameter counts for all nine ported archs): the
+reference's init carried
 across by ``convert.lm_params_from_reference``, then prefill logits and
 caches, every decode step and ``Server.generate``'s tokens compared in one
 process, in float32 (tight) and bfloat16 (the reference's own tolerance
@@ -37,6 +38,12 @@ from repro_torch.models.model import Model
 from repro_torch.runtime.serve_loop import Server, _splice
 
 ARCHS = ["qwen2_1_5b", "mamba2_2_7b", "gemma3_4b", "recurrentgemma_2b"]
+# Every arch the port serves: the reference's but qwen2_72b, in its
+# registry's order (the newer five are held in test_torch_lm_mla_moe.py
+# and test_torch_lm_cross.py).
+ALL_ARCHS = ["dbrx_132b", "deepseek_v2_236b", "seamless_m4t_large_v2",
+             "qwen2_1_5b", "gemma3_4b", "minicpm3_4b", "recurrentgemma_2b",
+             "llama_3_2_vision_11b", "mamba2_2_7b"]
 # float32 on both sides; matmuls and reductions in other orders (XLA vs
 # PyTorch's CPU kernels) over at most 2 layers of width 64.
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -121,8 +128,9 @@ def _np(t):
 
 
 def test_configs_match_reference():
-    assert list_archs() == tuple(ARCHS)
-    for arch in ARCHS:
+    assert list_archs() == tuple(ALL_ARCHS)
+    assert set(jax_list_archs()) - set(ALL_ARCHS) == {"qwen2_72b"}
+    for arch in ALL_ARCHS:
         for reduced in (False, True):
             assert dataclasses.asdict(get_config(arch, reduced)) == \
                 dataclasses.asdict(jax_get_config(arch, reduced))
@@ -130,16 +138,17 @@ def test_configs_match_reference():
         assert cfg.compute_dtype == torch.bfloat16
         assert cfg.params_dtype == torch.bfloat16
         assert cfg.padded_vocab == jax_get_config(arch).padded_vocab
-    for arch in set(jax_list_archs()) - set(ARCHS):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
+        get_config("qwen2_72b")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_param_count_matches_reference(arch):
     n = Model(get_config(arch)).param_count()
     assert n == JaxModel(jax_get_config(arch)).param_count()
     cfg = get_config(arch, reduced=True)
+    assert Model(cfg).param_count() == JaxModel(
+        jax_get_config(arch, reduced=True)).param_count()
     params = Model(cfg).init(torch.Generator().manual_seed(0))
 
     def count(t):
@@ -355,15 +364,19 @@ def test_convert_keeps_leaf_dtypes():
 
 
 def test_unported_paths_raise():
+    """Only qwen2_72b is left (its weights must be sharded across cards,
+    ROADMAP [3]); a family the reference does not have raises; a causal
+    prefill attention with Sq != Skv raises rather than mis-masks."""
+    with pytest.raises(NotImplementedError, match="item 3"):
+        get_config("qwen2_72b", reduced=True)
     cfg = get_config("qwen2_1_5b", reduced=True)
-    for flag in (dict(n_experts=4, top_k=2), dict(mla=True),
-                 dict(first_dense=1), dict(family="vision"),
-                 dict(family="encdec")):
-        with pytest.raises(NotImplementedError):
-            Model(cfg.replace(**flag))
+    with pytest.raises(NotImplementedError, match="family"):
+        Model(cfg.replace(family="rwkv"))
     x = torch.zeros((1, 4, cfg.d_model))
     p = attention.init(torch.Generator().manual_seed(0), cfg.d_model,
                        cfg.n_heads, cfg.n_kv, cfg.head_dim_)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
+    with pytest.raises(ValueError, match="Sq == Skv"):
         attention.apply(x, p, n_kv=cfg.n_kv, n_heads=cfg.n_heads,
-                        positions=torch.arange(4), kind="full")
+                        positions=torch.arange(4), kind="causal",
+                        kv_x=torch.zeros((1, 6, cfg.d_model)),
+                        kv_positions=torch.arange(6))
