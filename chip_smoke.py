@@ -46,13 +46,17 @@ Builds the port's kernels from the sources in this checkout, then:
      mamba2-2.7B prefill shapes, the latter at B 4 and B 1, and the gemma
      models' per-call D 256 prefill shapes, where the scalar flash kernel
      is held and timed on the same bf16 inputs as the yardstick it was;
-     the flash wrapper's new call shapes: MLA's unequal head dims
-     zero-padded to D 128 and 256, non-causal calls with Sq != Skv under
-     GQA, in both types, and the five newer models' prefill calls at B 4,
-     S 2048 — minicpm3-4B's and DeepSeek-V2's MLA, DBRX, the vision
-     model's self- and cross-attention to 4096 image tokens, SeamlessM4T's
-     encoder, cross- and self-attention) and times them beside the plain
-     versions, their bounds and, for attention,
+     the flash wrapper on the model layout, which the wgmma kernel reads
+     and writes in place: MLA's unequal head dims on the wgmma kernel's
+     own (96, 64) and (192, 128) instantiations in bf16 (zero-padded to
+     D 128 and 256 for the scalar kernel in float32), non-causal calls
+     with Sq != Skv under GQA, in both types, and the five newer models'
+     prefill calls at B 4, S 2048 — minicpm3-4B's and DeepSeek-V2's MLA,
+     DBRX, the vision model's self- and cross-attention to 4096 image
+     tokens, SeamlessM4T's encoder, cross- and self-attention — with
+     mutants the holds must catch: MLA's RoPE columns dropped, MLA at
+     1/sqrt(D_v), a non-causal call's last kv tile dropped) and times
+     them beside the plain versions, their bounds and, for attention,
      ``scaled_dot_product_attention``; the two SSD kernels on the same
      bf16 inputs; checks that a causal or sliding prefill attention with
      Sq != Skv raises, and that both kernels refuse an input that
@@ -74,9 +78,10 @@ Builds the port's kernels from the sources in this checkout, then:
      4096 image tokens), reports prefill tokens/s, decode ms per step,
      peak memory and the profiled prefill's busy share, and checks the
      kernel calls of each prefill (one wgmma flash call per prefill
-     attention, counted by padded head dim and causality: D 128 for
-     qwen2-1.5B, DBRX, the vision model and minicpm3-4B's MLA, D 256 for
-     the gemma models and DeepSeek-V2's MLA, D 64 for SeamlessM4T; one
+     attention, counted by (D_qk, D_v) and causality: 128 for qwen2-1.5B,
+     DBRX and the vision model, 256 for the gemma models, 64 for
+     SeamlessM4T, (96, 64) for minicpm3-4B's MLA and (192, 128) for
+     DeepSeek-V2's; one
      wgmma SSD call a layer for mamba2-2.7B, one fused RG-LRU launch a
      recurrent layer for recurrentgemma-2B, no scalar flash call), that
      no plain version ran and that the vision model's cross layers change
@@ -1250,9 +1255,10 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # ... and, relative to the output, RMS(d) / RMS(plain): where Skv is long
 # and the mask full, an output element is ~sqrt(e / Skv) (0.026 at 4096),
 # so FLASH_ATOL alone is as large as what it compares. bf16's output
-# rounding alone reads ~1e-3; a mis-scaled padded launch or a dropped kv
-# tile reads 1e-1 or more (``model_flash_timing`` launches both and fails
-# if the limit would pass them).
+# rounding alone reads ~1e-3; an MLA call at the wrong scale or without
+# its RoPE columns, or a dropped kv tile, reads 1e-1 or more
+# (``model_flash_timing`` launches them and fails if the limit would pass
+# one).
 FLASH_RRMS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 GQA_ATOL = 3e-5
 # SSD scan, kernel vs plain chunked version: the reference's 2e-3; in bf16
@@ -1506,9 +1512,8 @@ def gemma_flash_timing(BHq: int, group: int, window: int, seed: int
 
 # The new models' per-call prefill shapes at B 4, S 2048 in bf16 (the
 # prompt of phase 8), in the model's layout: (name, Hq, Hkv, Sq, Skv, D_qk,
-# D_v, causal). MLA (minicpm3-4B 96/64, DeepSeek-V2 192/128) goes through
-# the flash wrapper's zero-padded entry at D 128 and 256; DBRX's GQA 48
-# over 8 at D 128; llama-3.2-vision's self-attention (32 over 8) and its
+# D_v, causal). MLA (minicpm3-4B 96/64, DeepSeek-V2 192/128) on the wgmma
+# kernel's own instantiations; DBRX's GQA 48 over 8 at D 128; llama-3.2-vision's self-attention (32 over 8) and its
 # cross-attention to 4096 image tokens (non-causal, Sq != Skv);
 # SeamlessM4T's encoder and decoder cross-attention (non-causal, 16 heads
 # at D 64, 2048 frames) and its causal decoder self-attention.
@@ -1527,12 +1532,12 @@ MODEL_FLASH = (("minicpm3_4b mla", 40, 40, 2048, 2048, 96, 64, True),
 
 
 def model_flash_case(B, Hq, Hkv, Sq, Skv, D, Dv, causal, dtype, seed):
-    """The model-layout wrapper (``ops.flash_attention``: heads first,
-    zero-padded where D != Dv or D is not a kernel head dim) against the
-    plain version on the unpadded inputs, at MLA's numpy scale where
-    D != Dv; checks one launch of the kernel ``variant`` takes at the
-    padded D. Returns (max |d|, relative RMS, inputs, scale, kind)."""
-    from repro_torch.kernels.flash_attention import flash_attention as fk
+    """The model-layout wrapper (``ops.flash_attention``: the wgmma kernel
+    reading q, k and v in place at its (D, Dv) pairs, else heads first and
+    zero-padded) against the plain version on the unpadded inputs, at
+    MLA's numpy scale where D != Dv; checks one launch of the kernel
+    ``kernel_call`` names, keyed by (variant, D_qk, D_v). Returns (max
+    |d|, relative RMS, inputs, scale, (variant, D_qk, D_v))."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bh_ref
@@ -1544,22 +1549,22 @@ def model_flash_case(B, Hq, Hkv, Sq, Skv, D, Dv, causal, dtype, seed):
     v = torch.randn((B, Skv, Hkv, Dv), generator=gen,
                     device="cuda").to(dtype)
     scale = 1.0 / np.sqrt(D) if D != Dv else None
-    kind = fk.variant(dtype, fops.padded_dim(D, Dv))
-    before = dict(fk.LAUNCHES_BY_VARIANT)
-    out = fops.flash_attention(q, k, v, causal=causal, scale=scale)
-    if fk.LAUNCHES_BY_VARIANT != {**before, kind: before[kind] + 1}:
-        fail(f"the flash wrapper did not launch its {kind} kernel once at "
-             f"D {D}/{Dv}")
+    call = fops.kernel_call(dtype, D, Dv)
+    with flash_call_recorder() as seen:
+        out = fops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if dict(seen) != {(*call, causal): 1}:
+        fail(f"the flash wrapper at D {D}/{Dv} launched {dict(seen)} by "
+             f"(variant, D_qk, D_v, causal), want one {call}")
     bh = model_to_bh(q, k, v)
     ref = flash_attention_bh_ref(*bh, causal=causal, scale=scale, group=G)
     out = out_to_bh(out)
     err, rel = flash_diff(out, ref)
     print(f"  flash (model layout) B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
           f"Skv={Skv} D={D}/{Dv} causal={causal} {str(dtype)[6:]} "
-          f"({kind} kernel at D {fops.padded_dim(D, Dv)}): max|do|="
-          f"{err:.3e}, rel RMS {rel:.3e}", flush=True)
+          f"({call[0]} kernel at {call[1]}/{call[2]}): max|do|={err:.3e}, "
+          f"rel RMS {rel:.3e}", flush=True)
     hold_flash("flash attention (model layout)", out, ref, dtype)
-    return err, rel, (q, k, v), scale, kind
+    return err, rel, (q, k, v), scale, call
 
 
 def out_to_bh(o):
@@ -1567,20 +1572,23 @@ def out_to_bh(o):
     return o.permute(0, 2, 3, 1, 4).reshape(-1, o.shape[1], o.shape[-1])
 
 
-def flash_mutants(q, k, v, causal, scale, ref) -> dict:
+def flash_mutants(q, k, v, causal, scale, ref, d_nope=None) -> dict:
     """What the hold reads on launches that are wrong on purpose, against
-    the plain version's ``ref`` of the sound call: where the head dims are
-    padded, the launch at the padded D's own scale (the unpadded D's scale
-    dropped); where the mask is full, the launch with the last kv tile (128
-    keys) left out. Fails if FLASH_RRMS would pass one. Returns
-    {mutant: (max |d|, relative RMS)}."""
+    the plain version's ``ref`` of the sound call: at MLA's unequal head
+    dims, the call with the RoPE columns dropped (q and k cut to their
+    first ``d_nope`` columns, a strided view, at the same scale) and the
+    call at 1/sqrt(D_v) instead of 1/sqrt(D_qk); where the mask is full,
+    the call with the last kv tile (128 keys) left out. Fails if
+    FLASH_RRMS would pass one. Returns {mutant: (max |d|, relative
+    RMS)}."""
     from repro_torch.kernels.flash_attention import ops as fops
     D, Dv = k.shape[-1], v.shape[-1]
-    Dp = fops.padded_dim(D, Dv)
     runs = {}
-    if Dp != D:
-        runs[f"scale 1/sqrt({Dp})"] = lambda: fops.flash_attention(
-            q, k, v, causal=causal, scale=1.0 / np.sqrt(Dp))
+    if D != Dv:
+        runs["RoPE columns dropped"] = lambda: fops.flash_attention(
+            q[..., :d_nope], k[..., :d_nope], v, causal=causal, scale=scale)
+        runs[f"scale 1/sqrt({Dv})"] = lambda: fops.flash_attention(
+            q, k, v, causal=causal, scale=1.0 / np.sqrt(Dv))
     if not causal:
         runs["last kv tile dropped"] = lambda: fops.flash_attention(
             q, k[:, :-128], v[:, :-128], causal=False, scale=scale)
@@ -1629,27 +1637,31 @@ def flash_kernel_device_ms(fn, reps: int = 10):
 
 def model_flash_timing(name, Hq, Hkv, Sq, Skv, D, Dv, causal, seed) -> dict:
     """At a new model's prefill call shape (B 4, bf16): holds the wrapper
-    against the plain version (``model_flash_case``), then times the
-    wrapper (layout and padding copies included) by CUDA events, the
-    flash kernel alone and the whole call by the profiler, the plain
-    version, and ``scaled_dot_product_attention(enable_gqa=True)`` on the
-    unpadded inputs (MLA's D_v != D_qk included, where SDPA takes it; else
-    on the inputs padded as the wrapper pads them), beside the function's
-    bound: the unmasked query-key pairs, 2 (D_qk + D_v) flops each, at the
-    bf16 tensor-core rate, or q, k, v and o once at the HBM rate."""
+    against the plain version (``model_flash_case``) and its mutants
+    (``flash_mutants``), then times the wrapper (the kernel reading and
+    writing the model layout in place: no copy) by CUDA events, the flash
+    kernel alone and the whole call by the profiler, the plain version,
+    and ``scaled_dot_product_attention(enable_gqa=True)`` on heads-first
+    copies of the unpadded inputs (MLA's D_v != D_qk included, where SDPA
+    takes it; else on the inputs padded to ``padded_dim``), beside the
+    function's bound: the unmasked query-key pairs, 2 (D_qk + D_v) flops
+    each, at the bf16 tensor-core rate, or q, k, v and o once at the HBM
+    rate."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bh_ref
     B, G = 4, Hq // Hkv
-    err, rel, (q, k, v), scale, kind = model_flash_case(
+    err, rel, (q, k, v), scale, call = model_flash_case(
         B, Hq, Hkv, Sq, Skv, D, Dv, causal, torch.bfloat16, seed)
-    Dp = fops.padded_dim(D, Dv)
+    kind = call[0]
     kernel = lambda: fops.flash_attention(q, k, v, causal=causal,
                                           scale=scale)
     bh = model_to_bh(q, k, v)
     plain = lambda: flash_attention_bh_ref(*bh, causal=causal, scale=scale,
                                            group=G)
-    mutants = flash_mutants(q, k, v, causal, scale, plain())
+    d_nope = get_config(name.split()[0]).d_nope if D != Dv else None
+    mutants = flash_mutants(q, k, v, causal, scale, plain(), d_nope)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4, k4, v4 = (t.view(B, -1, t.shape[1], t.shape[2]) for t in bh)
     kw = dict(is_causal=causal, enable_gqa=True,
@@ -1659,7 +1671,8 @@ def model_flash_timing(name, Hq, Hkv, Sq, Skv, D, Dv, causal, seed) -> dict:
     try:
         lib_out = library()
     except RuntimeError:
-        # SDPA refused D_v != D_qk: pad as the wrapper pads.
+        # SDPA refused D_v != D_qk: pad to one head dim.
+        Dp = fops.padded_dim(D, Dv)
         q4, k4, v4 = (torch.nn.functional.pad(t, (0, Dp - t.shape[-1]))
                       for t in (q4, k4, v4))
         library = lambda: sdpa(q4, k4, v4, **kw)[..., :Dv]
@@ -1673,7 +1686,7 @@ def model_flash_timing(name, Hq, Hkv, Sq, Skv, D, Dv, causal, seed) -> dict:
     kernel_dev, call_dev = flash_kernel_device_ms(kernel)
     t = dict(name=name, shape=dict(B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv,
                                    D=D, Dv=Dv, causal=causal),
-             padded_D=Dp, kernel=kind,
+             kernel_dims=list(call[1:]), kernel=kind,
              ms=cuda_ms(kernel, warmup=5, reps=30),
              device_ms=kernel_dev, call_device_ms=call_dev,
              plain_ms=cuda_ms(plain, warmup=1, reps=3),
@@ -1681,18 +1694,17 @@ def model_flash_timing(name, Hq, Hkv, Sq, Skv, D, Dv, causal, seed) -> dict:
              library_device_ms=profiled_device_ms(library, reps=5),
              library=f"SDPA ({took})", max_abs_err=err, rel_rms=rel,
              mutants=mutants, library_err=lib_err,
-             padded_gflop=2 * pairs * 2 * Dp / 1e9,
              **bound(nbytes, 2 * pairs * (D + Dv), BF16_OPS_PER_S))
     print(f"  timing flash, {name}: wrapper {t['ms'] * 1e3:.2f} us "
           f"(flash kernel on the device {fmt_us(t['device_ms'])}, whole "
-          f"call {fmt_us(t['call_device_ms'])}; {kind} at D {Dp}), plain "
+          f"call {fmt_us(t['call_device_ms'])}; {kind} at "
+          f"{call[1]}/{call[2]}), plain "
           f"{t['plain_ms'] * 1e3:.2f} us, SDPA ({took}) "
           f"{t['library_ms'] * 1e3:.2f} us (device "
           f"{fmt_us(t['library_device_ms'])}; max|d| vs plain "
           f"{lib_err:.3e}), bound {t['bound_ms'] * 1e3:.2f} us "
           f"({t['bound_by']}: {t['nops'] / 1e9:.2f} GFLOP at the bf16 "
-          f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB; the padded "
-          f"launch does {t['padded_gflop']:.2f} GFLOP)", flush=True)
+          f"tensor-core rate, {t['nbytes'] / 1e6:.2f} MB)", flush=True)
     return t
 
 
@@ -1884,9 +1896,10 @@ def phase_lm_kernels(dev) -> dict:
         worst["flash"] = max(worst["flash"], t["scalar_err"])
     worst["flash"] = max(worst["flash"], flash_t[128]["scalar_err"],
                          flash_t[64]["scalar_err"])
-    # The new call shapes at small sizes in both types: MLA's padded
-    # entry (float32 on the scalar kernel, bf16 on wgmma), non-causal
-    # calls with Sq != Skv under GQA at D 64 and 128, a ragged padded D.
+    # The new call shapes at small sizes in both types: MLA's head dims
+    # (float32 padded for the scalar kernel, bf16 on wgmma's own (96, 64)
+    # and (192, 128)), non-causal calls with Sq != Skv under GQA at D 64
+    # and 128, a ragged head dim padded to 64.
     for i, case in enumerate([
             (2, 4, 4, 1000, 1000, 96, 64, True, f32),
             (1, 4, 4, 1000, 1000, 192, 128, True, f32),
@@ -1897,8 +1910,8 @@ def phase_lm_kernels(dev) -> dict:
             (2, 8, 2, 300, 1000, 64, 64, False, bf16),
             (2, 8, 2, 1000, 130, 128, 128, False, bf16),
             (1, 6, 3, 777, 777, 40, 40, True, bf16)]):
-        err, _, _, _, kind = model_flash_case(*case, seed=60 + i)
-        key = "flash_sm90" if kind == "wgmma" else "flash"
+        err, _, _, _, call = model_flash_case(*case, seed=60 + i)
+        key = "flash_sm90" if call[0] == "wgmma" else "flash"
         worst[key] = max(worst[key], err)
     check_masked_refusal()
     model_t = {}
@@ -2122,42 +2135,42 @@ def n_recurrent(cfg) -> int:
 
 
 def flash_calls(cfg) -> collections.Counter:
-    """The flash-kernel calls of one prefill by (variant, padded D,
-    causal): one per attention layer (sliding windows are causal calls),
-    the vision groups' cross layers (non-causal), encdec's encoder layers
-    (non-causal), decoder self- (causal) and cross-attentions
-    (non-causal); MLA's at the padded D of D_qk and D_v."""
-    from repro_torch.kernels.flash_attention import flash_attention as fk
+    """The flash-kernel calls of one prefill by (variant, D_qk, D_v,
+    causal) as ``kernel_call`` serves them: one per attention layer
+    (sliding windows are causal calls), the vision groups' cross layers
+    (non-causal), encdec's encoder layers (non-causal), decoder self-
+    (causal) and cross-attentions (non-causal); MLA's at (d_nope + d_rope,
+    d_v)."""
     from repro_torch.kernels.flash_attention import ops as fops
-    D = (fops.padded_dim(cfg.d_nope + cfg.d_rope, cfg.d_v) if cfg.mla
-         else fops.padded_dim(cfg.head_dim_, cfg.head_dim_))
-    kind = fk.variant(cfg.compute_dtype, D)
+    D, Dv = ((cfg.d_nope + cfg.d_rope, cfg.d_v) if cfg.mla
+             else (cfg.head_dim_, cfg.head_dim_))
+    call = fops.kernel_call(cfg.compute_dtype, D, Dv)
     calls = collections.Counter()
     if cfg.ssm:
         return calls
     if cfg.family == "vision":
         n_groups = cfg.n_layers // cfg.cross_every
-        calls[(kind, D, True)] = n_groups * (cfg.cross_every - 1)
-        calls[(kind, D, False)] = n_groups
+        calls[(*call, True)] = n_groups * (cfg.cross_every - 1)
+        calls[(*call, False)] = n_groups
     elif cfg.family == "encdec":
-        calls[(kind, D, False)] = cfg.enc_layers + cfg.n_layers
-        calls[(kind, D, True)] = cfg.n_layers
+        calls[(*call, False)] = cfg.enc_layers + cfg.n_layers
+        calls[(*call, True)] = cfg.n_layers
     else:
-        calls[(kind, D, True)] = cfg.n_layers - n_recurrent(cfg)
+        calls[(*call, True)] = cfg.n_layers - n_recurrent(cfg)
     return calls
 
 
 @contextlib.contextmanager
 def flash_call_recorder():
-    """Record every flash-kernel launch by (variant, D, causal): wraps the
-    binding's ``_launch``, which every launch goes through."""
+    """Record every flash-kernel launch by (variant, D_qk, D_v, causal):
+    wraps the binding's ``_launch``, which every launch goes through."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     seen = collections.Counter()
     launch = fk._launch
 
-    def recorded(kind, q, *args, **kw):
-        seen[(kind, q.shape[-1], bool(kw["causal"]))] += 1
-        return launch(kind, q, *args, **kw)
+    def recorded(kind, q, k, v, **kw):
+        seen[(kind, q.shape[-1], v.shape[-1], bool(kw["causal"]))] += 1
+        return launch(kind, q, k, v, **kw)
     fk._launch = recorded
     try:
         yield seen
@@ -2398,15 +2411,15 @@ def phase_lm_serve(dev) -> dict:
         prefill_s = reg.hists["serve.prefill"].total
         decode_s = reg.hists["serve.decode"].total
         # One kernel call per prefill attention (flash_calls: bf16 at
-        # D 64, 128 and 256, MLA's padded to 128 or 256, on the wgmma
-        # flash kernel), per SSD layer (P 64, N 128, L 256 on the wgmma
+        # D 64, 128 and 256, MLA's at (96, 64) and (192, 128), on the
+        # wgmma flash kernel), per SSD layer (P 64, N 128, L 256 on the wgmma
         # SSD kernel) and per RG-LRU layer (the fused forward). None of
         # the others, the scalar flash kernel included.
         n_rec = n_recurrent(cfg)
         want_shapes = flash_calls(cfg)
         n_attn = sum(want_shapes.values())
         n_ssd = cfg.n_layers if cfg.ssm else 0
-        if any(kind != "wgmma" for kind, _, _ in +want_shapes):
+        if any(kind != "wgmma" for kind, *_ in +want_shapes):
             fail(f"{arch}: bf16 attention {dict(want_shapes)} does not "
                  f"take the wgmma flash kernel")
         want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
@@ -3194,21 +3207,21 @@ def main() -> None:
     flash = "src/repro/kernels/flash_attention/flash_attention.py:104"
 
     def wgmma_by_model(dims):
-        """Phase 8's wgmma flash launches at head dims ``dims``, by
+        """Phase 8's wgmma flash launches at (D_qk, D_v) in ``dims``, by
         model."""
-        counts = {a: sum(n for (kind, D, _), n in serve[a][
-            "flash_shapes"].items() if kind == "wgmma" and D in dims)
+        counts = {a: sum(n for (kind, D, Dv, _), n in serve[a][
+            "flash_shapes"].items() if kind == "wgmma" and (D, Dv) in dims)
             for a in ARCHS}
         return {a: n for a, n in counts.items() if n}
 
     def model_shapes(dims):
         return {name: {f: t[f] for f in (
-            "shape", "padded_D", "ms", "device_ms", "call_device_ms",
+            "shape", "kernel_dims", "ms", "device_ms", "call_device_ms",
             "plain_ms", "library", "library_ms", "library_device_ms",
-            "bound_ms", "bound_by", "padded_gflop", "max_abs_err")}
+            "bound_ms", "bound_by", "max_abs_err", "rel_rms")}
             for name, t in lmk["model_flash"].items()
-            if t["padded_D"] in dims}
-    by_model = wgmma_by_model((64, 128))
+            if tuple(t["kernel_dims"]) in dims}
+    by_model = wgmma_by_model(((64, 64), (128, 128)))
     kernels.append(dict(
         name="flash_attention_sm90", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -3220,15 +3233,14 @@ def main() -> None:
         bound_by=f128["bound_by"], library_ms=f128["library_ms"],
         shape=[48, 2048, 128], dtype="bfloat16", launches_per_call=1,
         main_path="Server.generate, bf16 (phase 8): one call a prefill "
-                  "attention of qwen2_1_5b, minicpm3_4b (MLA padded to "
-                  "D 128), dbrx_132b, llama_3_2_vision_11b (self and "
-                  "cross) and seamless_m4t_large_v2 (D 64: encoder, self, "
-                  "cross)",
+                  "attention of qwen2_1_5b, dbrx_132b, llama_3_2_vision_11b "
+                  "(self and cross) and seamless_m4t_large_v2 (D 64: "
+                  "encoder, self, cross), reading the model layout in place",
         d64=dict(shape=[48, 2048, 64], **{
             key: f64[key] for key in ("ms", "device_ms", "plain_ms",
                                       "library_ms", "bound_ms",
                                       "max_abs_err")}),
-        model_shapes=model_shapes((64, 128))))
+        model_shapes=model_shapes(((64, 64), (128, 128)))))
     gemma = lmk["gemma_flash"]
     local = gemma["gemma3_4b local"]
     flash_keep = ("shape", "group", "window", "ms", "device_ms",
@@ -3236,7 +3248,7 @@ def main() -> None:
                   "plain_device_ms", "library", "library_ms",
                   "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
                   "scalar_err")
-    by_model = wgmma_by_model((256,))
+    by_model = wgmma_by_model(((256, 256),))
     kernels.append(dict(
         name="flash_attention_sm90_d256", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -3249,12 +3261,30 @@ def main() -> None:
         library=local["library"], shape=local["shape"], dtype="bfloat16",
         group=local["group"], window=local["window"], launches_per_call=1,
         scalar_same_inputs_ms=local["scalar_ms"],
-        main_path="gemma3_4b, recurrentgemma_2b and deepseek_v2_236b "
-                  "(MLA padded to D 256) Server.generate, bf16 (phase 8): "
-                  "one call an attention layer's prefill",
+        main_path="gemma3_4b and recurrentgemma_2b Server.generate, bf16 "
+                  "(phase 8): one call an attention layer's prefill",
         gemma_shapes={name: {f: t[f] for f in flash_keep}
-                      for name, t in gemma.items()},
-        model_shapes=model_shapes((256,))))
+                      for name, t in gemma.items()}))
+    mla_dims = ((96, 64), (192, 128))
+    by_model = wgmma_by_model(mla_dims)
+    mla = model_shapes(mla_dims)
+    mini = lmk["model_flash"]["minicpm3_4b mla"]
+    kernels.append(dict(
+        name="flash_attention_sm90_mla", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        replaces=flash, launches=sum(by_model.values()),
+        launches_by_model=by_model,
+        max_abs_err=max(t["max_abs_err"] for t in mla.values()),
+        ms=mini["ms"], plain_ms=mini["plain_ms"], bound_ms=mini["bound_ms"],
+        device_ms=mini["device_ms"], bound_by=mini["bound_by"],
+        library_ms=mini["library_ms"], library=mini["library"],
+        shape=mini["shape"], dtype="bfloat16", launches_per_call=1,
+        instantiations=["flash_fwd_sm90<96, 64>", "flash_fwd_sm90<192, 128>"],
+        mutants={name: lmk["model_flash"][name]["mutants"] for name in mla},
+        main_path="minicpm3_4b (96, 64) and deepseek_v2_236b (192, 128) "
+                  "Server.generate, bf16 (phase 8): one call an MLA layer's "
+                  "prefill, unpadded, reading the model layout in place",
+        model_shapes=mla))
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu", replaces=flash,
@@ -3270,7 +3300,8 @@ def main() -> None:
         shape=[48, 2048, 128], dtype="float32", group=6,
         launches_per_call=1,
         main_path="Server.generate in float32 (phase 7): one call a "
-                  "prefill attention (MLA's padded to D 128 or 256)",
+                  "prefill attention, heads first (MLA's padded to D 128 or "
+                  "256)",
         gemma_bf16_was={name: {f: t[f] for f in (
             "shape", "scalar_ms", "scalar_device_ms", "scalar_err")}
             for name, t in gemma.items()}))

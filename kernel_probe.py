@@ -11,6 +11,10 @@ repository root on the machine with the card:
     python3 kernel_probe.py flash256  # its D 256 instantiation: small
                                       # shapes by column chunk, then the
                                       # gemma shapes beside the scalar one
+    python3 kernel_probe.py mla       # its MLA instantiations (96/64,
+                                      # 192/128): small shapes by column
+                                      # chunk, strided views, then the
+                                      # minicpm3 / DeepSeek-V2 prefill calls
     python3 kernel_probe.py ssd       # wgmma SSD kernel vs scalar and plain
     python3 kernel_probe.py rglru     # fused and scan-only RG-LRU vs plain
     python3 kernel_probe.py alloc     # host time of the fused backward's
@@ -22,7 +26,9 @@ repository root on the machine with the card:
         # the built flash_attention_sm90.cu, ssd_scan_sm90.cu or
         # rglru_scan.cu (by OTHER.cu's entry points) against OTHER.cu
         # (another version of it, e.g. ``git show REV:src/repro_torch/
-        # csrc/rglru_scan.cu``) on the same inputs, timed in turns
+        # csrc/rglru_scan.cu``) on the same inputs, timed in turns; a
+        # flash source with the older [BH, S, D] entry is fed heads-first
+        # copies of the model-layout inputs the built kernel reads
 
 Times are CUDA events over back-to-back calls; every stage prints the
 card's name first.
@@ -69,7 +75,8 @@ def ptxas(*names) -> None:
         print(f"{name}: nvcc rc {r.returncode}")
         print("\n".join(line for line in r.stderr.splitlines()
                         if "Used" in line or "spill" in line
-                        or "C75" in line or "error" in line))
+                        or "Compiling entry" in line or "C75" in line
+                        or "error" in line))
 
 
 def sinkhorn() -> None:
@@ -176,6 +183,71 @@ def flash256() -> None:
               f"wgmma {cuda_ms(kernel, 3, 20) * 1e3:.2f} us (max|d| "
               f"{err:.3e}), scalar {cuda_ms(scalar, 1, 3) * 1e3:.2f} us "
               f"(max|d| {serr:.3e})", flush=True)
+
+
+# MLA's prefill calls at B 4, S 2048, causal: (label, heads, D_qk, D_v).
+MLA_FLASH = (("minicpm3_4b", 40, 96, 64), ("deepseek_v2_236b", 128, 192, 128))
+
+
+def mla() -> None:
+    """The wgmma kernel's MLA instantiations on the model layout: small
+    shapes with the error of each 64-column chunk of the output (GQA,
+    ragged, non-causal, windowed), strided views against their contiguous
+    copies (bitwise), then the two prefill calls, timed beside SDPA on the
+    same views and the function's bound."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    for B, S, Hq, Hkv, D, Dv, causal, window in (
+            (2, 300, 4, 4, 96, 64, True, 0), (1, 1000, 4, 2, 96, 64, True, 300),
+            (2, 130, 2, 2, 96, 64, False, 0), (1, 1000, 4, 4, 192, 128, True, 0),
+            (2, 200, 4, 2, 192, 128, False, 0),
+            (1, 1000, 2, 2, 192, 128, True, 300)):
+        gen = torch.Generator(device="cuda").manual_seed(S + D)
+        q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, S, Hkv, Dv), generator=gen,
+                        device="cuda").bfloat16()
+        scale = 1.0 / np.sqrt(D)
+        args = dict(causal=causal, window=window, scale=scale)
+        out = fb.flash_attention_cuda(q, k, v, **args)
+        ref = flash_attention_ref(q.view(B, S, Hkv, Hq // Hkv, D), k, v,
+                                  **args).reshape(B, S, Hq, Dv)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        by_chunk = d.view(-1, Dv // 64, 64).amax((0, 2)).tolist()
+        print(f"MLA {D}/{Dv} B {B} S {S} {Hq} over {Hkv} causal {causal} "
+              f"window {window}: max|d| by 64-column chunk "
+              f"{[f'{x:.2e}' for x in by_chunk]}", flush=True)
+        wide = torch.randn((B, S, 2 * Hq, D + 64), generator=gen,
+                           device="cuda").bfloat16()
+        qs = wide[:, :, ::2, 32:32 + D]            # strided: no copy
+        same = torch.equal(fb.flash_attention_cuda(qs, k, v, **args),
+                           fb.flash_attention_cuda(qs.contiguous(), k, v,
+                                                   **args))
+        print(f"  a strided q view {tuple(qs.stride())} equals its "
+              f"contiguous copy bitwise: {same}", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, H, D, Dv in MLA_FLASH:
+        gen = torch.Generator(device="cuda").manual_seed(H)
+        q, k = (torch.randn((4, 2048, H, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        v = torch.randn((4, 2048, H, Dv), generator=gen,
+                        device="cuda").bfloat16()
+        scale = 1.0 / np.sqrt(D)
+        kernel = lambda: fb.flash_attention_cuda(q, k, v, causal=True,
+                                                 scale=scale)
+        library = lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), is_causal=True,
+                               scale=float(scale))
+        err = (kernel().float() - library().transpose(1, 2).float()).abs()
+        flops = 2 * 4 * H * 2048 * 2049 // 2 * (D + Dv)
+        t = [cuda_ms(f, 5, 30) * 1e3 for f in (kernel, library, library,
+                                               kernel)]
+        print(f"{label} MLA [4, 2048, {H}, {D}/{Dv}] causal: us (kernel, "
+              f"SDPA, SDPA, kernel) {[round(x, 2) for x in t]}; max|d| vs "
+              f"SDPA {err.max().item():.3e}; bound "
+              f"{flops / 989e12 * 1e6:.2f} us ({flops / 1e9:.2f} GFLOP)",
+              flush=True)
 
 
 def ssd() -> None:
@@ -412,53 +484,101 @@ def ab_rglru(lib) -> None:
                   f"{same:.3e}", flush=True)
 
 
+# The wgmma flash kernel's A/B cases at B 4, S 2048: (label, Hq, Hkv, D,
+# Dv, Skv, causal, window): qwen2-1.5B's 12 over 2 at D 128 and 64, the
+# gemma prefills' D 256 calls, and, against a source that has them, MLA's
+# and the newer models' calls (chip_smoke.MODEL_FLASH).
+AB_FLASH = [(f"D {D}", 12, 2, D, D, 2048, True, 0) for D in (128, 64)] + [
+    (label, BHq // 4, BHq // 4 // group, 256, 256, 2048, True, window)
+    for label, BHq, group, window in GEMMA_FLASH] + [
+    (f"{label} MLA", H, H, D, Dv, 2048, True, 0)
+    for label, H, D, Dv in MLA_FLASH] + [
+    ("dbrx_132b", 48, 8, 128, 128, 2048, True, 0),
+    ("llama_3_2_vision_11b self", 32, 8, 128, 128, 2048, True, 0),
+    ("llama_3_2_vision_11b cross", 32, 8, 128, 128, 4096, False, 0),
+    ("seamless_m4t_large_v2 encoder, cross", 16, 16, 64, 64, 2048, False, 0),
+    ("seamless_m4t_large_v2 self", 16, 16, 64, 64, 2048, True, 0)]
+
+
+def ab_flash(lib) -> None:
+    """The built flash kernel, reading the model layout [B, S, H, D] in
+    place, against another build of its source on the same inputs: one
+    with the older [BH, S, D] entry (``flash_attention_fwd_sm90``) is fed
+    contiguous heads-first copies, made once outside the timing, at the
+    square causal cases it takes; one with the strided entry reads what
+    the built one reads. Prints max |d| (0 where only the addressing or
+    the order of work items changed) and both kernels' times."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    old = hasattr(lib, "flash_attention_fwd_sm90")
+    if old:
+        lib.flash_attention_fwd_sm90.argtypes = ([ptr] * 4 + [i32] * 7
+                                                 + [ctypes.c_float, ptr])
+    else:
+        lib.flash_attention_fwd_sm90_strided.argtypes = (
+            [ptr] * 4 + [i32] * 7 + [ptr, i32, i32, ctypes.c_float, ptr])
+    B, S = 4, 2048
+    for label, Hq, Hkv, D, Dv, Skv, causal, window in AB_FLASH:
+        if old and (D != Dv or Skv != S or not causal):
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(Hq + D)
+        q = torch.randn((B, S, Hq, D), generator=gen,
+                        device="cuda").bfloat16()
+        k = torch.randn((B, Skv, Hkv, D), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((B, Skv, Hkv, Dv), generator=gen,
+                        device="cuda").bfloat16()
+        scale = float(np.float32(1 / np.sqrt(D)))
+        stream = lambda: torch.cuda.current_stream().cuda_stream
+        if old:
+            qh, kh, vh = (t.transpose(1, 2).reshape(-1, S, D).contiguous()
+                          for t in (q, k, v))
+            oh = torch.empty_like(qh)
+
+            def theirs():
+                err = lib.flash_attention_fwd_sm90(
+                    qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+                    oh.data_ptr(), B * Hq, S, S, D, Hq // Hkv, 1, window,
+                    scale, stream())
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+                return oh.view(B, Hq, S, D).transpose(1, 2)
+        else:
+            o2 = q.new_empty((B, S, Hq, Dv))
+            strides = (ctypes.c_int64 * 12)(*(
+                s for t in (q, k, v, o2) for s in fb._strides(t)))
+
+            def theirs():
+                err = lib.flash_attention_fwd_sm90_strided(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
+                    B, S, Skv, Hq, Hkv, D, Dv, strides, int(causal), window,
+                    scale, stream())
+                if err:
+                    raise RuntimeError(f"launch failed: {err}")
+                return o2
+        ours = lambda: fb.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+        diff = (ours().float() - theirs().float()).abs().max().item()
+        t = [cuda_ms(f, 5, 50) * 1e3 for f in (theirs, ours, ours, theirs)]
+        print(f"{label} [B {B}, {S} x {Skv}, {Hq} over {Hkv}, {D}/{Dv}] "
+              f"causal {causal} window {window}: us (other"
+              f"{' on heads-first copies' if old else ''}, built, built, "
+              f"other) {[round(x, 2) for x in t]}; max|d| between them "
+              f"{diff:.3e}", flush=True)
+
+
 def ab(other: str) -> None:
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention as fb
     out = _build.BUILD_DIR / "probe-other.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     other], check=True)
     lib = ctypes.CDLL(str(out))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if hasattr(lib, "ssd_scan_fwd_sm90"):
         return ab_ssd(lib)
     if hasattr(lib, "rglru_scan_fwd"):
         return ab_rglru(lib)
-    lib.flash_attention_fwd_sm90.argtypes = ([ptr] * 4 + [i32] * 7
-                                             + [ctypes.c_float, ptr])
-    cases = [(f"D {D}", 48, D, 6, 0) for D in (128, 64)] + [
-        (label, BHq, 256, group, window)
-        for label, BHq, group, window in GEMMA_FLASH]
-    for label, BHq, D, group, window in cases:
-        gen = torch.Generator(device="cuda").manual_seed(BHq + D)
-        q = torch.randn((BHq, 2048, D), generator=gen,
-                        device="cuda").bfloat16()
-        k, v = (torch.randn((BHq // group, 2048, D), generator=gen,
-                            device="cuda").bfloat16() for _ in range(2))
-        o = torch.empty_like(q)
-        scale = float(np.float32(1 / np.sqrt(D)))
-
-        def theirs():
-            err = lib.flash_attention_fwd_sm90(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BHq,
-                2048, 2048, D, group, 1, window, scale,
-                torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"launch failed: {err}")
-            return o
-        ours = lambda: fb.flash_attention_bh_cuda(q, k, v, causal=True,
-                                                  window=window, group=group)
-        try:
-            theirs()
-        except RuntimeError as e:        # an older build without this D
-            print(f"{label}: the other build refuses it ({e})", flush=True)
-            continue
-        same = (ours().float() - theirs().float()).abs().max().item()
-        t = [cuda_ms(f, 5, 50) * 1e3 for f in (theirs, ours, ours, theirs)]
-        print(f"{label}: us (other, built, built, other) "
-              f"{[round(x, 2) for x in t]}; max|d| between them "
-              f"{same:.3e}", flush=True)
+    return ab_flash(lib)
 
 
 def main() -> None:
@@ -468,8 +588,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     stage = sys.argv[1] if len(sys.argv) > 1 else "flash"
-    stages = dict(sinkhorn=sinkhorn, flash=flash, flash256=flash256, ssd=ssd,
-                  rglru=rglru, alloc=alloc)
+    stages = dict(sinkhorn=sinkhorn, flash=flash, flash256=flash256, mla=mla,
+                  ssd=ssd, rglru=rglru, alloc=alloc)
     if stage == "ab" and len(sys.argv) == 3:
         ab(sys.argv[2])
     elif stage == "steps" and len(sys.argv) <= 3:

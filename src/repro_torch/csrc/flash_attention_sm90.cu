@@ -1,17 +1,26 @@
-// Flash attention (forward) on Hopper's tensor cores, bf16 in and out,
-// head dim 64, 128 or 256: wgmma for both products, TMA for every tile,
+// Flash attention (forward) on Hopper's tensor cores, bf16 in and out, at
+// head dims (D_qk, D_v) of (64, 64), (128, 128), (256, 256) and MLA's
+// (96, 64) and (192, 128): wgmma for both products, TMA for every tile,
 // one producer warp and two consumer warpgroups per CTA (sm_90a).
 //
 // Replaces: repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_bh (the Pallas TPU kernel, `_kernel`), for bf16 inputs
-// with D in {64, 128, 256}; float32 inputs, and bf16 at D 16, keep the
-// scalar kernel of flash_attention.cu. For each query head h and query row
-// i, with kv head h / group:
+// at those head dims; float32 inputs, and bf16 at D 16, keep the scalar
+// kernel of flash_attention.cu. For each query head h and query row i,
+// with kv head h / group:
 //
 //   o_i = sum_j softmax_j(scale * q_i . k_j + mask_ij) v_j
 //
 // where mask_ij is 0 where key j is visible to query i (j < Skv; causal:
-// j <= i; sliding: also i - j < window) and NEG_INF = -2e38 elsewhere.
+// j <= i; sliding: also i - j < window) and NEG_INF = -2e38 elsewhere. v's
+// head dim may differ from q's and k's (MLA: q and k carry d_nope + d_rope
+// columns, v d_v; reference repro/models/mla.py, scale 1 / sqrt(D_qk)).
+//
+// Layout. q [B, Sq, Hq, D_qk], k [B, Skv, Hkv, D_qk], v [B, Skv, Hkv, D_v]
+// and o [B, Sq, Hq, D_v] are read and written where the caller has them,
+// at any batch, row and head strides that are multiples of 16 bytes (the
+// model's own layout, a strided view of it, or heads-first [BH, S, D] as
+// batch 1 with a head stride of S * D): no copy before or after.
 //
 // Bound. At qwen2-1.5B prefill (B 4, S 2048, 12 q heads over 2 kv heads,
 // D 128, causal) the two products are 51.5 GFLOP over the causal triangle:
@@ -21,57 +30,77 @@
 // heads over 16 kv heads are 51.6 GFLOP under its 1024-key window (52 us)
 // and 68.7 GFLOP causal on its global layers (70 us), with 101 MB (30 us);
 // recurrentgemma-2B's 40 over 4 (window 2048 = S) 85.9 GFLOP (87 us), 101
-// MB. Operations bound every one, so the products must run on wgmma.
+// MB. MLA (B 4, S 2048, causal, one kv head a q head): minicpm3-4B's 40
+// heads at (96, 64) are 107.4 GFLOP (109 us), 210 MB (63 us); DeepSeek-
+// V2's 128 at (192, 128) 687.5 GFLOP (695 us), 1342 MB (401 us).
+// Operations bound every one, so the products must run on wgmma.
 //
 // Design.
 //   * Persistent CTAs: one per SM (fewer if there are fewer items), each
-//     walking work items (q head, q tile of BQ = 128 rows). Items are
-//     ordered heaviest causal q tile first, the heads that share a kv head
-//     side by side, and dealt to the CTAs in snake order (forwards, then
-//     backwards, round by round), which balances the causal work about as
-//     well as the hardware's dynamic scheduling of one CTA per item did.
-//     Staying resident, a CTA loads the next item's Q and first K and V
-//     tiles while it finishes the current one, where a fresh CTA would
-//     wait for them.
-//   * Tile traits by D (`Tiles<D>`): BK keys a kv tile, STAGES in the kv
-//     ring. D 64/128: BK 128, 3 stages. D 256: BK 64, 2 stages, K released
-//     apart from V (below).
+//     walking work items (batch and q head, q tile of BQ = 128 rows). Where
+//     every head's K and V fit in L2 together, items are ordered heaviest
+//     causal q tile first, the heads that share a kv head side by side,
+//     and dealt to the CTAs in snake order (forwards, then backwards,
+//     round by round), which balances the causal work about as well as
+//     the hardware's dynamic scheduling of one CTA per item did. Where
+//     they do not (the launcher compares their bytes with the card's L2
+//     size), that order has each round take one q tile of every head, so
+//     K and V come from device memory once per q tile: at DeepSeek-V2's
+//     MLA (671 MB of K and V) 2.2 ms a call against 1.5 ms with pairs of
+//     q tiles, t and nq - 1 - t (the same causal work in every pair),
+//     dealt head by head, both tiles of a pair to one CTA, so that the
+//     CTAs at work share a few heads' K and V (kernel_probe.py ab, NVIDIA
+//     H100 80GB HBM3, 700 W; where K and V fit, pairs ran up to 17 %
+//     slower for want of balance). The order changes no item's
+//     arithmetic. Staying resident, a CTA loads the next item's Q and
+//     first K and V tiles while it finishes the current one, where a
+//     fresh CTA would wait for them.
+//   * Tile traits by head dims (`Tiles<D_qk, D_v>`): BK keys a kv tile,
+//     STAGES in the kv ring. (64, 64), (128, 128), (96, 64): BK 128, 3
+//     stages. (256, 256): BK 64, 2 stages; (192, 128): BK 128, 2 stages;
+//     both with K released apart from V (below). BK 64 and 3 stages at
+//     (192, 128), and BK 64 at (96, 64), ran within 2 % of these
+//     (kernel_probe.py ab, NVIDIA H100 80GB HBM3, 700 W).
 //   * Three warpgroups. Warpgroup 2 is the producer: after `setmaxnreg` has
 //     cut it to 24 registers, one thread issues TMA loads
-//     (cp.async.bulk.tensor.3d, completion on an mbarrier) of each item's Q
+//     (cp.async.bulk.tensor.4d, completion on an mbarrier) of each item's Q
 //     (single-buffered: it waits for both consumers' `q_empty`) and of the
 //     K and V tiles into the ring of STAGES stages that runs on across
 //     items, waiting on each stage's `empty` barrier before it reuses it.
 //     K and V have barriers of their own, so S = Q K^T starts before V
-//     lands. At D 256 a stage's K has its own `k_empty` too, arrived on as
-//     soon as S = Q K^T has read it: with two stages, K of tile t + 1 then
+//     lands. With two stages a stage's K has its own `k_empty` too,
+//     arrived on as soon as S = Q K^T has read it: K of tile t + 1 then
 //     loads while tile t - 1's V is still in use, where one release per
 //     stage held it back until both warpgroups had finished O += P V of
 //     tile t - 1 (8-15 % of the gemma calls' time, kernel_probe.py ab).
 //     Warpgroups 0 and 1 are consumers (240 registers each), 64 query rows
 //     apiece: wgmma's M.
-//   * Tensor maps are 3-D (D, S, heads) views of the contiguous [BH, S, D]
-//     tensors, so a tile never crosses into the next head: rows past Sq or
-//     Skv are filled with zeros by TMA. Boxes are 64 columns (128 bytes)
-//     wide with the 128-byte swizzle; a row of D columns is D / 64 such
-//     boxes, kept as D / 64 [rows][64] column chunks (a D 256 tile takes
-//     four box loads a tensor). The wgmma descriptors use the same
+//   * Tensor maps are 4-D, (columns, heads, rows, batch) over the caller's
+//     element strides, with boxes of 64 columns x 1 head x BQ or BK rows
+//     x 1 batch, so a tile never crosses into another head or batch: rows
+//     past Sq or Skv, and columns past D_qk, are filled with zeros by TMA.
+//     Boxes are 64 columns (128 bytes) wide with the 128-byte swizzle; a
+//     row of Q or K is ceil(D_qk / 64) such boxes and a row of V D_v / 64,
+//     kept as [rows][64] column chunks (a D 256 tile takes four box loads
+//     a tensor). At D_qk 96 the second chunk's columns 96-127 are zero fill
+//     that the k loop never reaches. The wgmma descriptors use the same
 //     swizzle: Q and K are K-major (D contiguous; SBO = 1024 bytes between
 //     8-row groups, a 16-column k step advances the start by 32 bytes
 //     inside a chunk), V is MN-major for the second product (transposed B;
-//     LBO = the chunk stride BK * 128 bytes, so one wgmma of N = D reads
-//     all D / 64 chunks in order; SBO = 1024 bytes, a 16-key k step
+//     LBO = the chunk stride BK * 128 bytes, so one wgmma of N = D_v reads
+//     all D_v / 64 chunks in order; SBO = 1024 bytes, a 16-key k step
 //     advances by 16 rows).
-//   * S = Q K^T: D / 16 wgmma.m64n{BK}k16 (bf16 from shared memory, float32
-//     accumulator, BK / 2 floats a thread). The online softmax runs on that
-//     accumulator in registers: a thread holds two rows, each spread over
-//     the 4 threads of a quad, so a row max is two __shfl_xor_sync steps;
-//     the row sum stays per thread until the end.
+//   * S = Q K^T: D_qk / 16 wgmma.m64n{BK}k16 (bf16 from shared memory,
+//     float32 accumulator, BK / 2 floats a thread): six at D_qk 96, twelve
+//     at 192. The online softmax runs on that accumulator in registers: a
+//     thread holds two rows, each spread over the 4 threads of a quad, so
+//     a row max is two __shfl_xor_sync steps; the row sum stays per thread
+//     until the end.
 //   * O += P V: P is rounded to bf16 in registers and fed as wgmma's A
 //     operand from registers (the accumulator's layout of a 16-key slice is
-//     the A fragment's), BK / 16 wgmma.m64n{D}k16 with V from shared
-//     memory (at D 256, N 256: wgmma's widest); O (D / 2 floats a thread)
-//     is rescaled in registers.
+//     the A fragment's), BK / 16 wgmma.m64n{D_v}k16 with V from shared
+//     memory (at D_v 256, N 256: wgmma's widest); O (D_v / 2 floats a
+//     thread) is rescaled in registers.
 //   * Software pipeline within a warpgroup: each step issues tile t's
 //     S = Q K^T and tile t - 1's O += P V back to back, waits for the
 //     first only, and runs tile t's softmax on the CUDA cores (exp2 on the
@@ -83,36 +112,56 @@
 //   * Masking. Whole kv tiles dead under the TPU kernel's liveness rule
 //     (flash_attention.py:48-53, at this kernel's 128 x BK tiles) are
 //     never loaded; within a consumer's 64 rows only tiles on the causal
-//     diagonal, on the window's edge or past Skv are masked element-wise.
+//     diagonal, on the window's edge or past Skv are masked element-wise,
+//     by a softmax instantiation of their own (MASK_APART): with the mask's
+//     integer arithmetic compiled into the one softmax, calls took up to
+//     9 % more (none at D 256; kernel_probe.py ab, NVIDIA H100 80GB HBM3,
+//     700 W). The D 256 tiles keep the one softmax (registers).
 //     gemma3's global layers pass the reference's BIG_WINDOW (2^30):
 //     `q0 - window - BK + 1` and `qp - kp < window` stay in int32.
 //   * Output: acc / max(l, 1e-30), rounded to bf16 and stored straight from
-//     registers; rows past Sq are not stored.
+//     registers at o's strides; rows past Sq are not stored. The quotient
+//     takes one correctly rounded reciprocal a row and a Markstein
+//     correction an element (`quotient`), bit for bit the IEEE division it
+//     replaced, which a clock64-instrumented build found to be the larger
+//     part of an item's epilogue. With the softmax split
+//     above, up to 13 % off a call, 1 % at recurrentgemma-2B's
+//     (kernel_probe.py ab, NVIDIA H100 80GB HBM3, 700 W; max |d| 0
+//     against the parent at every shape).
 //
-// Budget at D 256. Shared memory: Q 128 x 256 x 2 = 65,536 B, K and V
-// 2 stages x 2 x 64 x 256 x 2 = 131,072 B, 10 barriers 80 B and the 1,024 B
-// swizzle alignment: 197,712 B of a block's 232,448. Registers: a consumer
-// holds O (128 floats), tile t's S (32), tile t - 1's P fragments (16) and
-// the row statistics under the 240 that setmaxnreg gives it. ptxas (CUDA
-// 12.8, `kernel_probe.py ptxas flash_attention_sm90`) gives every
-// instantiation 168 registers a thread at launch (the cap of 384 threads
-// at one CTA an SM, raised for the consumers by setmaxnreg) and 0 bytes of
-// spill stores and loads. FA-3's 80-key tile also fits (230,480 B) and
-// ran 2-4 % faster on the gemma shapes (kernel_probe.py ab, NVIDIA H100
-// 80GB HBM3, 700 W); the 64-key tile is kept: it needs no n80 product and
-// leaves no ragged kv tile at S 2048.
+// Budgets. Shared memory at (256, 256): Q 128 x 256 x 2 = 65,536 B, K and
+// V 2 stages x 2 x 64 x 256 x 2 = 131,072 B, 10 barriers 80 B and the
+// 1,024 B swizzle alignment: 197,712 B of a block's 232,448. At (192,
+// 128): Q 128 x 192 x 2 = 49,152 B, 2 stages of K (49,152 B) and V
+// (32,768 B), 80 B, 1,024 B: 214,096 B (three such stages do not fit). At
+// (96, 64): Q 32,768 B (two chunks, the second half zero fill), 3 stages
+// of K (32,768 B) and V (16,384 B), 11 barriers 88 B, 1,024 B: 181,336 B.
+// Registers: a consumer holds O (D_v / 2 floats: 128 at D_v 256), tile
+// t's S (BK / 2), tile t - 1's P fragments (BK / 4) and the row
+// statistics under the 240 that setmaxnreg gives it. ptxas (CUDA 12.8,
+// `kernel_probe.py ptxas flash_attention_sm90`) gives all five
+// instantiations 168 registers a thread at launch (the cap of 384 threads
+// at one CTA an SM, raised for the consumers by setmaxnreg), and 0 bytes of
+// spill stores and loads to all but (192, 128), which spills 12 bytes
+// (48 bytes of loads) for its second softmax (`Tiles`). FA-3's 80-key
+// tile also fits at D 256 (230,480
+// B) and ran 2-4 % faster on the gemma shapes (kernel_probe.py ab, NVIDIA
+// H100 80GB HBM3, 700 W); the 64-key tile is kept: it needs no n80
+// product and leaves no ragged kv tile at S 2048.
 //
 // Numbers. q and k enter the first product as the bf16 values they are;
 // their products are exact and summed in float32, and S is scaled in
 // float32 afterwards (by scale * log2(e), so that the softmax runs on
-// ex2.approx, whose ~2 ulp are far below P's bf16 rounding). The Pallas
-// kernel's `q.astype(f32) * scale` followed by an f32 dot on the TPU's
-// matrix unit at default precision rounds the scaled q to bf16 instead.
-// P is rounded to bf16 for the second product, as FA-2/3 do; its row sum
-// is taken in float32 before rounding. The finite NEG_INF is kept (applied
-// after scaling): a row whose first live tile is fully masked accumulates
-// exp2(0) = 1 terms, wiped by alpha = 0 when its first visible key
-// arrives, as in the reference. Built without --use_fast_math.
+// ex2.approx, whose ~2 ulp are far below P's bf16 rounding): MLA's scale
+// is 1 / sqrt(D_qk), applied to the float32 scores as the reference's
+// numpy float64 promotes them. The Pallas kernel's `q.astype(f32) * scale`
+// followed by an f32 dot on the TPU's matrix unit at default precision
+// rounds the scaled q to bf16 instead. P is rounded to bf16 for the
+// second product, as FA-2/3 do; its row sum is taken in float32 before
+// rounding. The finite NEG_INF is kept (applied after scaling): a row
+// whose first live tile is fully masked accumulates exp2(0) = 1 terms,
+// wiped by alpha = 0 when its first visible key arrives, as in the
+// reference. Built without --use_fast_math.
 //
 // The tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, reached through the runtime's
@@ -135,38 +184,59 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int CHUNK = 64;      // bf16 columns of one 128-byte swizzled row
 constexpr int ROW_BYTES = 128;
 
-// Tile traits by head dim: BK keys per kv tile, a kv ring of STAGES, and
-// whether a stage's K is released apart from its V (SPLIT). At D 256 two
-// stages of 64 keys are what fits beside Q (the header's budget).
-template <int D>
+// Tile traits by head dims (DQK: q and k, DV: v): BK keys per kv tile, a
+// kv ring of STAGES, whether a stage's K is released apart from its V
+// (SPLIT), and whether unmasked tiles take a softmax instantiation without
+// the mask (MASK_APART). At D 256 two stages of 64 keys are what fits
+// beside Q; at (192, 128) two stages of 128 keys (the header's budgets).
+// At both the second softmax makes ptxas spill 12 bytes a thread; at D 256
+// it saved nothing (kernel_probe.py ab), so it is left out there, while at
+// (192, 128) DeepSeek-V2's call ran 3-12 % faster with it all the same.
+template <int DQK, int DV>
 struct Tiles {
   static constexpr int BK = 128;
   static constexpr int STAGES = 3;
   static constexpr bool SPLIT = false;
+  static constexpr bool MASK_APART = true;
 };
 template <>
-struct Tiles<256> {
+struct Tiles<256, 256> {
   static constexpr int BK = 64;
   static constexpr int STAGES = 2;
   static constexpr bool SPLIT = true;
+  static constexpr bool MASK_APART = false;
+};
+template <>
+struct Tiles<192, 128> {
+  static constexpr int BK = 128;
+  static constexpr int STAGES = 2;
+  static constexpr bool SPLIT = true;
+  static constexpr bool MASK_APART = true;
 };
 
-template <int D>
+// Shared memory. A row of Q or K is QK_CHUNKS 64-column chunks (at D_qk 96
+// the second chunk's columns 96-127 are TMA's zero fill, never read), a row
+// of V is DV / 64; each tile is kept chunk by chunk, [rows][64].
+template <int DQK, int DV>
 struct Layout {
-  static constexpr int BK = Tiles<D>::BK;
-  static constexpr int STAGES = Tiles<D>::STAGES;
-  static constexpr bool SPLIT = Tiles<D>::SPLIT;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;   // one K or V stage
+  static constexpr int BK = Tiles<DQK, DV>::BK;
+  static constexpr int STAGES = Tiles<DQK, DV>::STAGES;
+  static constexpr bool SPLIT = Tiles<DQK, DV>::SPLIT;
+  static constexpr int QK_CHUNKS = (DQK + CHUNK - 1) / CHUNK;
+  static constexpr int V_CHUNKS = DV / CHUNK;
+  static constexpr int Q_BYTES = BQ * QK_CHUNKS * ROW_BYTES;
+  static constexpr int K_BYTES = BK * QK_CHUNKS * ROW_BYTES;   // a K stage
+  static constexpr int V_BYTES = BK * V_CHUNKS * ROW_BYTES;    // a V stage
   static constexpr int Q_OFF = 0;
   static constexpr int K_OFF = Q_OFF + Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
   // q_full, q_empty, k_full[STAGES], v_full[STAGES], empty[STAGES]
   // (+ k_empty[STAGES] where SPLIT: empty then releases V alone)
   static constexpr int BARS = 2 + (SPLIT ? 4 : 3) * STAGES;
   // + 1024: the dynamic base is aligned up to the swizzle's 1024 bytes.
   static constexpr int SMEM = BAR_OFF + 8 * BARS + 1024;
+  static_assert(DQK % 16 == 0 && DV % CHUNK == 0, "unsupported head dims");
   static_assert(SMEM <= 232448, "more shared memory than a block has");
 };
 
@@ -206,14 +276,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// One box of a 4-D (D, heads, rows, batch) map: columns [col, col + 64) of
+// rows [row, row + box rows) of one head of one batch.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int head) {
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(head)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
       : "memory");
 }
 
@@ -438,14 +510,15 @@ __device__ __forceinline__ void wgmma_qk<128>(float (&sc)[64], uint64_t da,
   wgmma_ss_n128(sc, da, db, accumulate);
 }
 
-// S = Q K^T for one warpgroup's 64 rows: D / 16 wgmma k-steps, committed
-// as one group (the caller fences and waits). A row of Q or K is D / 64
-// swizzled column chunks; four k-steps walk one chunk.
-template <int D, int BK = Tiles<D>::BK>
+// S = Q K^T for one warpgroup's 64 rows: DQK / 16 wgmma k-steps, committed
+// as one group (the caller fences and waits). A row of Q or K is a run of
+// swizzled 64-column chunks; four k-steps walk one chunk (at DQK 96 the
+// sixth step ends halfway through the second, before its zero fill).
+template <int DQK, int BK>
 __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_wg,
                                          uint32_t k_st) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t chunk = kk / 4, col = (kk % 4) * 32;
     wgmma_qk<BK>(sc,
                  sw128_desc(q_wg + chunk * BQ * ROW_BYTES + col, 16, 1024),
@@ -455,38 +528,39 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_wg,
   wgmma_commit();
 }
 
-// O += P V for one warpgroup: BK / 16 wgmma k-steps, V MN-major (its D / 64
-// column chunks LBO = BK * ROW_BYTES apart, read by one wgmma of N = D),
+// O += P V for one warpgroup: BK / 16 wgmma k-steps, V MN-major (its DV / 64
+// column chunks LBO = BK * ROW_BYTES apart, read by one wgmma of N = DV),
 // committed as one group.
-template <int D, int BK = Tiles<D>::BK>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+template <int DV, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[DV / 2],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_st) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv<D>(acc, pa[kk],
-                sw128_desc(v_st + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
+    wgmma_pv<DV>(acc, pa[kk],
+                 sw128_desc(v_st + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
   wgmma_commit();
 }
 
 // One kv tile's online-softmax step on the score accumulator, in place.
 // Element 4j + e of `sc` is row row_lo + 8 (e / 2), key k0 + 8 j + col_in +
-// e % 2. Scales (by scale * log2 e) and masks, updates the running max m
-// and the thread's partial row sums l of its two rows, leaves P (float32)
-// in `sc`, and returns in alpha the factor by which the output rows must
-// be rescaled.
-template <int BK>
+// e % 2. Scales (by scale * log2 e) and, where MASKED and `masked`, masks,
+// updates the running max m and the thread's partial row sums l of its two
+// rows,
+// leaves P (float32) in `sc`, and returns in alpha the factor by which the
+// output rows must be rescaled.
+template <int BK, bool MASKED>
 __device__ __forceinline__ void softmax_step(
     float (&sc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    bool masked, int k0, int row_lo, int col_in, int Skv, int causal,
-    int window, float scale_log2) {
+    int k0, int row_lo, int col_in, int Skv, int causal, int window,
+    float scale_log2, bool masked) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = sc[4 * j + e] * scale_log2;
-      if (masked) {
+      if (MASKED && masked) {
         const int kp = k0 + 8 * j + col_in + (e & 1);
         const int qp = row_lo + 8 * (e >> 1);
         bool ok = kp < Skv;
@@ -511,6 +585,16 @@ __device__ __forceinline__ void softmax_step(
     sc[i] = ex2(sc[i] - m[(i >> 1) & 1]);
     l[(i >> 1) & 1] += sc[i];
   }
+}
+
+// a / b, correctly rounded, from y = 1 / b correctly rounded (Markstein's
+// theorem): q = a y is within an ulp of a / b, the FMA gives its residual
+// r exactly, and q + r y rounds to a / b wherever a / b is a normal float
+// or 0 (an output here is a weighted mean of bf16 values; b is in [1e-30,
+// Skv]). One reciprocal a row replaces an IEEE division an element.
+__device__ __forceinline__ float quotient(float a, float b, float y) {
+  const float q = __fmul_rn(a, y);
+  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
 }
 
 // P (float32, the accumulator's layout) to bf16 wgmma A fragments: 16-key
@@ -553,16 +637,18 @@ __device__ __forceinline__ int item_of(int r, int c, int G) {
   return r * G + ((r & 1) ? G - 1 - c : c);
 }
 
-template <int D>
+// o [B, Sq, Hq, DV] at element strides (o_sb, o_ss, o_sh), unit column
+// stride; q, k and v come in through their tensor maps.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
-               __nv_bfloat16* __restrict__ o, int BH, int Sq, int Skv,
-               int group, int causal, int window, float scale_log2) {
-  using L = Layout<D>;
+               __nv_bfloat16* __restrict__ o, int64_t o_sb, int64_t o_ss,
+               int64_t o_sh, int B, int Hq, int Sq, int Skv, int group,
+               int causal, int window, float scale_log2, int by_pairs) {
+  using L = Layout<DQK, DV>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
-  constexpr int CH = D / CHUNK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base + L::Q_OFF;
@@ -575,12 +661,36 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
   auto empty = [&](int s) { return q_full + 8u * (2 + 2 * STAGES + s); };
   auto k_empty = [&](int s) { return q_full + 8u * (2 + 3 * STAGES + s); };
 
-  // Items are (q tile, head) pairs, heaviest q tiles first; the heads that
-  // share a kv head sit side by side.
-  const int nq = (Sq + BQ - 1) / BQ, items = nq * BH;
-  auto decode = [&](int it, int& bh, int& q0) {
-    bh = it % BH;
-    q0 = (nq - 1 - it / BH) * BQ;
+  // Work item j of this CTA, a (batch, head, q tile): returns 1 and sets
+  // (b, h, q0), or 0 past its last item, or -1 for no item (skipped).
+  // Heads that share a kv head sit side by side in both orders.
+  const int BH = B * Hq;
+  const int nq = (Sq + BQ - 1) / BQ, half = (nq + 1) / 2;
+  const int G = gridDim.x, cta = blockIdx.x;
+  auto decode = [&](int j, int& b, int& h, int& q0) -> int {
+    int bh, qt;
+    if (by_pairs) {
+      // Pair p of head bh is q tiles nq - 1 - p and p (as much causal
+      // work as any other pair), both taken by one CTA, heavier first;
+      // pairs are dealt head by head, so the CTAs at work share few
+      // heads' K and V and those stay in L2. An odd nq's middle tile has
+      // no partner.
+      const int P = (j >> 1) * G + cta;
+      if (P >= BH * half) return 0;
+      bh = P / half;
+      const int p = P % half;
+      qt = (j & 1) ? p : nq - 1 - p;
+      if ((j & 1) && qt == nq - 1 - p) return -1;
+    } else {
+      const int it = item_of(j, cta, G);
+      if (it >= nq * BH) return 0;
+      bh = it % BH;
+      qt = nq - 1 - it / BH;
+    }
+    b = bh / Hq;
+    h = bh % Hq;
+    q0 = qt * BQ;
+    return 1;
   };
 
   if (threadIdx.x == 0) {
@@ -602,33 +712,34 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == CONSUMERS * 128) {
       int n = 0;                          // kv tiles loaded so far
-      for (int r = 0;; ++r) {
-        const int it = item_of(r, blockIdx.x, gridDim.x);
-        if (it >= items) break;
-        int bh, q0, t0, t1;
-        decode(it, bh, q0);
+      for (int j = 0, r = -1;; ++j) {
+        int b, h, q0, t0, t1;
+        const int got = decode(j, b, h, q0);
+        if (got == 0) break;
+        if (got < 0) continue;
+        ++r;                              // items loaded so far, less one
         kv_tiles<BK>(q0, Skv, causal, window, t0, t1);
         // Q is single-buffered: wait until both consumers are done with
         // the previous item's (their last S = Q K^T has completed).
         if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
         mbar_expect_tx(q_full, L::Q_BYTES);
-        for (int c = 0; c < CH; ++c)
-          tma_load(q_s + c * BQ * ROW_BYTES, &q_map, q_full, c * CHUNK, q0,
-                   bh);
-        const int kvh = bh / group;
+        for (int c = 0; c < L::QK_CHUNKS; ++c)
+          tma_load(q_s + c * BQ * ROW_BYTES, &q_map, q_full, c * CHUNK, h,
+                   q0, b);
+        const int kvh = h / group;
         for (int t = t0; t < t1; ++t, ++n) {
           const int s = n % STAGES;
           const uint32_t free_parity = ((n / STAGES) & 1) ^ 1;
           mbar_wait(L::SPLIT ? k_empty(s) : empty(s), free_parity);
-          mbar_expect_tx(k_full(s), L::KV_BYTES);
-          for (int c = 0; c < CH; ++c)
-            tma_load(k_s + s * L::KV_BYTES + c * BK * ROW_BYTES, &k_map,
-                     k_full(s), c * CHUNK, t * BK, kvh);
+          mbar_expect_tx(k_full(s), L::K_BYTES);
+          for (int c = 0; c < L::QK_CHUNKS; ++c)
+            tma_load(k_s + s * L::K_BYTES + c * BK * ROW_BYTES, &k_map,
+                     k_full(s), c * CHUNK, kvh, t * BK, b);
           if (L::SPLIT) mbar_wait(empty(s), free_parity);
-          mbar_expect_tx(v_full(s), L::KV_BYTES);
-          for (int c = 0; c < CH; ++c)
-            tma_load(v_s + s * L::KV_BYTES + c * BK * ROW_BYTES, &v_map,
-                     v_full(s), c * CHUNK, t * BK, kvh);
+          mbar_expect_tx(v_full(s), L::V_BYTES);
+          for (int c = 0; c < L::V_CHUNKS; ++c)
+            tma_load(v_s + s * L::V_BYTES + c * BK * ROW_BYTES, &v_map,
+                     v_full(s), c * CHUNK, kvh, t * BK, b);
         }
       }
     }
@@ -650,23 +761,33 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
     };
     int n = 0;                            // kv tiles consumed so far
-    for (int r = 0;; ++r) {
-      const int it = item_of(r, blockIdx.x, gridDim.x);
-      if (it >= items) break;
-      int bh, q0, t0, t1;
-      decode(it, bh, q0);
+    for (int j = 0, r = -1;; ++j) {
+      int b, h, q0, t0, t1;
+      const int got = decode(j, b, h, q0);
+      if (got == 0) break;
+      if (got < 0) continue;
+      ++r;                                // items taken so far, less one
       kv_tiles<BK>(q0, Skv, causal, window, t0, t1);
       const int qw = q0 + wg * 64;                        // my first row
       const int row_lo = qw + (tid / 32) * 16 + lane / 4;  // and row_lo + 8
-      float acc[D / 2];
+      float acc[DV / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
       // Only tiles on the causal diagonal, on the window's edge or past
       // Skv are masked element-wise (uniform over the warpgroup).
-      auto masked = [&](int k0) {
-        return k0 + BK > Skv || (causal && k0 + BK - 1 > qw) ||
-               (window && qw + 63 - k0 >= window);
+      // Where MASK_APART, the mask's arithmetic is compiled into a second
+      // instantiation, so that the unmasked tiles' softmax carries none
+      // of it.
+      auto softmax = [&](float (&sc)[BK / 2], int k0) {
+        const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > qw) ||
+                            (window && qw + 63 - k0 >= window);
+        if (Tiles<DQK, DV>::MASK_APART && !masked)
+          softmax_step<BK, false>(sc, m, l, alpha, k0, row_lo, col_in, Skv,
+                                  causal, window, scale_log2, false);
+        else
+          softmax_step<BK, true>(sc, m, l, alpha, k0, row_lo, col_in, Skv,
+                                 causal, window, scale_log2, masked);
       };
 
       // Software pipeline over the item's kv tiles (kv tile t is the ring's
@@ -681,7 +802,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       mbar_wait(q_full, r & 1);
       if (t0 < t1) {
         uint32_t pa[BK / 16][4];
-        float alpha[2];
         if (wg == 1) pass_turn();
         {
           float sc[BK / 2];
@@ -689,14 +809,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
           mbar_wait(k_full(s), (n / STAGES) & 1);
           take_turn();
           wgmma_fence();
-          issue_qk<D>(sc, q_wg, k_s + s * L::KV_BYTES);
+          issue_qk<DQK, BK>(sc, q_wg, k_s + s * L::K_BYTES);
           pass_turn();
           wgmma_wait<0>();
           fence_regs(sc);
           if (L::SPLIT) mbar_arrive(k_empty(s));
           if (t1 - t0 == 1) mbar_arrive(q_empty);   // done with Q
-          softmax_step<BK>(sc, m, l, alpha, masked(t0 * BK), t0 * BK,
-                           row_lo, col_in, Skv, causal, window, scale_log2);
+          softmax(sc, t0 * BK);
           pack_p<BK>(sc, pa);
         }
         for (int t = t0 + 1; t < t1; ++t) {
@@ -705,20 +824,19 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
           mbar_wait(k_full(s), (j / STAGES) & 1);
           mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);
 #pragma unroll
-          for (int i2 = 0; i2 < D / 2; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
+          for (int i2 = 0; i2 < DV / 2; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
           fence_regs(acc);
           fence_regs(pa);
           take_turn();
           wgmma_fence();
-          issue_qk<D>(sc, q_wg, k_s + s * L::KV_BYTES);
-          issue_pv<D>(acc, pa, v_s + sp * L::KV_BYTES);
+          issue_qk<DQK, BK>(sc, q_wg, k_s + s * L::K_BYTES);
+          issue_pv<DV, BK>(acc, pa, v_s + sp * L::V_BYTES);
           pass_turn();
           wgmma_wait<1>();               // S of tile t is in
           fence_regs(sc);
           if (L::SPLIT) mbar_arrive(k_empty(s));
           if (t == t1 - 1) mbar_arrive(q_empty);    // done with Q
-          softmax_step<BK>(sc, m, l, alpha, masked(t * BK), t * BK,
-                           row_lo, col_in, Skv, causal, window, scale_log2);
+          softmax(sc, t * BK);
           wgmma_wait<0>();               // O += P V of tile t - 1 is in
           fence_regs(acc);
           fence_regs(pa);
@@ -727,13 +845,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         }
         const int j = n + t1 - 1 - t0, s = j % STAGES;
 #pragma unroll
-        for (int i2 = 0; i2 < D / 2; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
+        for (int i2 = 0; i2 < DV / 2; ++i2) acc[i2] *= alpha[(i2 >> 1) & 1];
         mbar_wait(v_full(s), (j / STAGES) & 1);
         fence_regs(acc);
         fence_regs(pa);
         take_turn();
         wgmma_fence();
-        issue_pv<D>(acc, pa, v_s + s * L::KV_BYTES);
+        issue_pv<DV, BK>(acc, pa, v_s + s * L::V_BYTES);
         if (wg == 0) pass_turn();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -744,24 +862,25 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         mbar_arrive(q_empty);
       }
 
-      float den[2];
+      float den[2], inv[2];
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
         l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
         den[rr] = fmaxf(l[rr], 1e-30f);
+        inv[rr] = __frcp_rn(den[rr]);
       }
-      __nv_bfloat16* oh = o + static_cast<size_t>(bh) * Sq * D;
+      __nv_bfloat16* oh = o + b * o_sb + h * o_sh;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int row = row_lo + 8 * rr;
         if (row >= Sq) continue;
-        __nv_bfloat16* orow = oh + static_cast<size_t>(row) * D + col_in;
+        __nv_bfloat16* orow = oh + row * o_ss + col_in;
 #pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
+        for (int jj = 0; jj < DV / 8; ++jj) {
           const __nv_bfloat162 v = __floats2bfloat162_rn(
-              acc[4 * jj + 2 * rr] / den[rr],
-              acc[4 * jj + 2 * rr + 1] / den[rr]);
+              quotient(acc[4 * jj + 2 * rr], den[rr], inv[rr]),
+              quotient(acc[4 * jj + 2 * rr + 1], den[rr], inv[rr]));
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) = v;
         }
       }
@@ -799,53 +918,71 @@ EncodeTiled encode_tiled() {
 constexpr int NO_ENCODER = 10000;
 constexpr int ENCODE_FAILED = 20000;
 
-// A [heads, rows, D] bf16 tensor as a 3-D map, boxes of 64 columns x
-// box_rows rows x 1 head, 128-byte swizzle, out-of-bounds rows read as 0.
-int make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
-             int box_rows) {
+// A bf16 tensor [batch, rows, heads, cols] at element strides (sb, ss, sh)
+// and unit column stride as a 4-D map over (cols, heads, rows, batch),
+// boxes of 64 columns x 1 head x box_rows rows x 1 batch, 128-byte swizzle;
+// rows past `rows` and columns past `cols` read as 0. A box never crosses
+// into another head or batch, whatever the strides.
+int make_map(CUtensorMap* map, const void* ptr, int cols, int heads,
+             int rows, int batch, const int64_t* strides, int box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return NO_ENCODER;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {CHUNK, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {CHUNK, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + static_cast<int>(r);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int Sq, int Skv, int group, int causal, int window, float scale,
-           cudaStream_t stream) {
+// strides: (batch, row, head) element strides of q, k, v and o, in turn.
+template <int DQK, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int Hq, int Hkv, const int64_t* strides,
+           int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int BK = Tiles<DQK, DV>::BK;
   CUtensorMap q_map, k_map, v_map;
-  int err = make_map(&q_map, q, D, Sq, BH, BQ);
-  constexpr int BK = Tiles<D>::BK;
-  if (err == 0) err = make_map(&k_map, k, D, Skv, BH / group, BK);
-  if (err == 0) err = make_map(&v_map, v, D, Skv, BH / group, BK);
+  int err = make_map(&q_map, q, DQK, Hq, Sq, B, strides, BQ);
+  if (err == 0) err = make_map(&k_map, k, DQK, Hkv, Skv, B, strides + 3, BK);
+  if (err == 0) err = make_map(&v_map, v, DV, Hkv, Skv, B, strides + 6, BK);
   if (err != 0) return err;
-  const int smem = Layout<D>::SMEM;
+  const int smem = Layout<DQK, DV>::SMEM;
   cudaError_t cerr = cudaFuncSetAttribute(
-      flash_fwd_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_sm90<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  static int sms = 0;                   // one persistent CTA per SM
+  static int sms = 0, l2 = 0;           // one persistent CTA per SM
   if (sms == 0) {
     int dev = 0;
     if ((cerr = cudaGetDevice(&dev)) != cudaSuccess ||
         (cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev)) != cudaSuccess)
+                                       dev)) != cudaSuccess ||
+        (cerr = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev)) !=
+            cudaSuccess)
       return static_cast<int>(cerr);
   }
-  const int items = BH * ((Sq + BQ - 1) / BQ);
-  flash_fwd_sm90<D><<<items < sms ? items : sms, THREADS, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), BH, Sq, Skv,
-      group, causal, window, scale * LOG2E);
+  // Where every head's K and V together outgrow L2, the heaviest-first
+  // order (each round a q tile of every head) reads them from device
+  // memory once per q tile; pairs of q tiles dealt head by head read them
+  // about once in all.
+  const double kv_bytes = 2.0 * B * Hkv * Skv * (DQK + DV);
+  const int by_pairs = kv_bytes > l2;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int units = B * Hq * (by_pairs ? (nq + 1) / 2 : nq);
+  flash_fwd_sm90<DQK, DV><<<units < sms ? units : sms, THREADS, smem,
+                            stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), strides[9],
+      strides[10], strides[11], B, Hq, Sq, Skv, Hq / Hkv, causal, window,
+      scale * LOG2E, by_pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -853,27 +990,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
 
 extern "C" {
 
-// o [BH, Sq, D] from q [BH, Sq, D] and k, v [BH / group, Skv, D], all
-// bfloat16, contiguous, 16-byte aligned, on the current device; D in
-// {64, 128, 256}. causal and window as in the reference (window 0: none).
-// Launches on `stream`; returns 0 on success, a CUDA error code, or
-// 10000 (no cuTensorMapEncodeTiled) / 20000 + CUresult (a tensor map was
+// o [B, Sq, Hq, Dv] from q [B, Sq, Hq, Dqk], k [B, Skv, Hkv, Dqk] and v
+// [B, Skv, Hkv, Dv], all bfloat16 on the current device, each at the
+// (batch, row, head) element strides in `strides` (q, k, v, o: 12 values)
+// with unit column stride; bases 16-byte aligned and q, k, v strides
+// multiples of 8 elements (TMA's 16 bytes). Query head h reads kv head
+// h / (Hq / Hkv). (Dqk, Dv) in {(64, 64), (128, 128), (256, 256), (96, 64),
+// (192, 128)}. causal and window as in the reference (window 0: none).
+// Launches on `stream`; returns 0 on success, a CUDA error code, or 10000
+// (no cuTensorMapEncodeTiled) / 20000 + CUresult (a tensor map was
 // refused).
-int flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
-                             void* o, int BH, int Sq, int Skv, int D,
-                             int group, int causal, int window, float scale,
-                             cudaStream_t stream) {
-  if (group < 1 || BH % group != 0 || Sq < 1 || Skv < 1 || BH < 1)
+int flash_attention_fwd_sm90_strided(const void* q, const void* k,
+                                     const void* v, void* o, int B, int Sq,
+                                     int Skv, int Hq, int Hkv, int Dqk,
+                                     int Dv, const int64_t* strides,
+                                     int causal, int window, float scale,
+                                     cudaStream_t stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64: return launch<64>(q, k, v, o, BH, Sq, Skv, group, causal,
-                               window, scale, stream);
-    case 128: return launch<128>(q, k, v, o, BH, Sq, Skv, group, causal,
-                                 window, scale, stream);
-    case 256: return launch<256>(q, k, v, o, BH, Sq, Skv, group, causal,
-                                 window, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define FLASH_DIMS(DQK, DV)                                                 \
+  if (Dqk == DQK && Dv == DV)                                               \
+    return launch<DQK, DV>(q, k, v, o, B, Sq, Skv, Hq, Hkv, strides, causal, \
+                           window, scale, stream);
+  FLASH_DIMS(64, 64)
+  FLASH_DIMS(128, 128)
+  FLASH_DIMS(256, 256)
+  FLASH_DIMS(96, 64)
+  FLASH_DIMS(192, 128)
+#undef FLASH_DIMS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

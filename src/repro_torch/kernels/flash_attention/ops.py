@@ -1,29 +1,29 @@
 """Public wrapper for the flash-attention kernel, on the model's layout.
 
 ``flash_attention`` takes q [B, Sq, Kh, G, D], k [B, Skv, Kh, D] and v
-[B, Skv, Kh, Dv] (``models/attention.py``), flattens heads into the
-kernel's BH axis (query head ``(b, kh, g)`` reads kv head ``(b, kh)``, so
-the kernel's group is G) and, on a CUDA tensor, launches the kernel
-(``flash_attention.py``), raising on what it does not take; on a CPU
-tensor it takes the plain version (``ref.py``). There is no other path.
+[B, Skv, Kh, Dv] (``models/attention.py``); query head ``(kh, g)`` reads
+kv head ``kh``. On a CPU tensor it takes the plain version (``ref.py``),
+unpadded; on a CUDA tensor it launches the kernel ``kernel_call`` names,
+raising on what that kernel does not take. There is no other path.
 
-Head dims the kernels do not take as they are — v's D unlike q's and k's
-(MLA: D_qk 96 / D_v 64 for MiniCPM3, 192 / 128 for DeepSeek-V2), or a D
-not in ``HEAD_DIMS`` — are zero-padded to ``padded_dim``: zero columns
+The wgmma kernel (bf16 at the (D, Dv) pairs of ``WGMMA_DIMS``: 64, 128
+and 256 square, MLA's 96/64 and 192/128) reads q, k and v where they lie
+and writes o in the model's layout: q is viewed as [B, Sq, Kh·G, D], and
+no copy or permute is made. Every other call — float32 (the scalar
+kernel), or bf16 at head dims with no instantiation of their own — puts
+heads first in one copy, zero-padded to ``padded_dim``: zero columns
 appended to q and k leave every q·k unchanged, and zero columns appended
 to v give output columns that are sliced off, so one launch at the padded
 D computes the reference's function exactly, given the scale of the
-unpadded D (1/sqrt(D_qk) unless the caller names one). The cost is the
-padded work: (2 Dp) / (D_qk + D_v) times the products the function needs,
-1.6x at both MLA shapes, plus one copy of q, k and v into the padded
-layout (which the unpadded path makes anyway to put heads first).
+unpadded D (1/sqrt(D) unless the caller names one).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
-from repro_torch.kernels.flash_attention.ref import flash_attention_bh_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bh_ref,
+                                                     flash_attention_ref)
 
 
 def padded_dim(D: int, Dv: int) -> int:
@@ -34,6 +34,16 @@ def padded_dim(D: int, Dv: int) -> int:
             return Dp
     raise ValueError(f"head dims {D} (q, k) and {Dv} (v): no flash kernel "
                      f"takes a head dim above {_kernel.HEAD_DIMS[-1]}")
+
+
+def kernel_call(dtype, D: int, Dv: int) -> tuple:
+    """(variant, D_qk, D_v) of the launch that serves a CUDA call at head
+    dims (D, Dv): the wgmma kernel at them where it has an instantiation,
+    else the kernel ``variant`` picks at ``padded_dim(D, Dv)``, square."""
+    if _kernel.variant(dtype, D, Dv) == "wgmma":
+        return "wgmma", D, Dv
+    Dp = padded_dim(D, Dv)
+    return _kernel.variant(dtype, Dp), Dp, Dp
 
 
 def _heads_first(t, Dp: int):
@@ -50,7 +60,8 @@ def _heads_first(t, Dp: int):
 
 def flash_attention_bh(q, k, v, *, causal=True, window=0, scale=None,
                        group=1):
-    """q: [BHq, Sq, D]; k, v: [BHkv, Skv, D] -> [BHq, Sq, D]."""
+    """q: [BHq, Sq, D]; k: [BHkv, Skv, D]; v: [BHkv, Skv, Dv] ->
+    [BHq, Sq, Dv]."""
     if q.device.type == "cuda":
         return _kernel.flash_attention_bh_cuda(
             q, k, v, causal=causal, window=window, scale=scale, group=group)
@@ -62,13 +73,27 @@ def flash_attention_bh(q, k, v, *, causal=True, window=0, scale=None,
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     """q: [B, Sq, Kh, G, D]; k: [B, Skv, Kh, D]; v: [B, Skv, Kh, Dv] ->
-    [B, Sq, Kh, G, Dv]. Heads are put first and padded to
-    ``padded_dim(D, Dv)`` in one copy; one launch of the kernel
-    ``variant`` picks for the padded D (on a CPU tensor the plain version
-    on the same padded inputs)."""
+    [B, Sq, Kh, G, Dv]. ``scale`` defaults to 1/sqrt(D)."""
     B, Sq, Kh, G, D = q.shape
     Dv = v.shape[-1]
-    Dp = padded_dim(D, Dv)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    call = kernel_call(q.dtype, D, Dv)
+    if call == ("wgmma", D, Dv):
+        try:
+            qh = q.view(B, Sq, Kh * G, D)
+        except RuntimeError as err:
+            raise ValueError(
+                f"q's kv-head and group dims must merge into one head dim "
+                f"without a copy for the wgmma kernel, got strides "
+                f"{q.stride()}") from err
+        o = _kernel.flash_attention_cuda(qh, k, v, causal=causal,
+                                         window=window, scale=scale)
+        return o.view(B, Sq, Kh, G, Dv)
+    Dp = call[1]
     if Dp != D:
         scale = scale if scale is not None else 1.0 / np.sqrt(D)
     o = flash_attention_bh(*(_heads_first(t, Dp) for t in (q, k, v)),

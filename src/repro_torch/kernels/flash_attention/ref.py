@@ -10,8 +10,8 @@ NEG_INF = -2.0e38
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
-    """q: [BH, Sq, D]; k, v: [BH, Skv, D] (kv heads already expanded).
-    float32 softmax attention over the whole score matrix."""
+    """q: [BH, Sq, D]; k: [BH, Skv, D]; v: [BH, Skv, Dv] (kv heads already
+    expanded). float32 softmax attention over the whole score matrix."""
     BH, Sq, D = q.shape
     Skv = k.shape[1]
     scale = scale if scale is not None else 1.0 / np.sqrt(D)
@@ -33,8 +33,24 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
 
 def flash_attention_bh_ref(q, k, v, *, causal=True, window=0, scale=None,
                            group=1):
-    """The kernel's function on its layout: q [BHq, Sq, D], k and v
-    [BHkv, Skv, D], head ``h`` attending kv head ``h // group``."""
+    """The kernel's function on its layout: q [BHq, Sq, D], k [BHkv, Skv,
+    D] and v [BHkv, Skv, Dv], head ``h`` attending kv head ``h //
+    group``."""
     k = k.repeat_interleave(group, dim=0)
     v = v.repeat_interleave(group, dim=0)
     return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """The kernel's function on the model layout, unpadded: q [B, Sq, Kh,
+    G, D], k [B, Skv, Kh, D], v [B, Skv, Kh, Dv] -> [B, Sq, Kh, G, Dv], at
+    any strides; query head ``(kh, g)`` attends kv head ``kh``."""
+    B, Sq, Kh, G, D = q.shape
+    Skv, Dv = k.shape[1], v.shape[-1]
+    o = attention_ref(q.permute(0, 2, 3, 1, 4).reshape(-1, Sq, D),
+                      k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                      .reshape(-1, Skv, D),
+                      v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                      .reshape(-1, Skv, Dv),
+                      causal=causal, window=window, scale=scale)
+    return o.view(B, Kh, G, Sq, Dv).permute(0, 3, 1, 2, 4)

@@ -1065,13 +1065,12 @@ def _rel_rms(got, ref):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,D,Dv", [(1, 40, 96, 64), (1, 32, 192, 128)])
-def test_padded_flash_entry_matches_plain_on_card(card, B, H, D, Dv,
-                                                  dtype):
+def test_mla_flash_entry_matches_plain_on_card(card, B, H, D, Dv, dtype):
     """MLA's unequal head dims (minicpm3 96/64, DeepSeek-V2 192/128) at
-    S 1000 through the model-layout wrapper: zero-padded to D 128 or 256,
-    one launch of the kernel ``variant`` picks for the padded D (wgmma in
-    bf16, scalar in float32), against the plain version on the unpadded
-    inputs at MLA's numpy scale."""
+    S 1000 through the model-layout wrapper: in bf16 one launch of the
+    wgmma kernel's own (D, Dv) instantiation on the unpadded inputs where
+    they lie, in float32 one launch of the scalar kernel at the padded D;
+    against the plain version at MLA's numpy scale."""
     from repro_torch.kernels.flash_attention import flash_attention as fb
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -1081,9 +1080,10 @@ def test_padded_flash_entry_matches_plain_on_card(card, B, H, D, Dv,
     k = torch.randn((B, S, H, D), generator=gen).to(card, dtype)
     v = torch.randn((B, S, H, Dv), generator=gen).to(card, dtype)
     scale = 1.0 / np.sqrt(D)
-    Dp = fops.padded_dim(D, Dv)
-    kind = fb.variant(dtype, Dp)
-    assert kind == ("wgmma" if dtype == torch.bfloat16 else "scalar")
+    kind, Dk, Dvk = fops.kernel_call(dtype, D, Dv)
+    assert (kind, Dk, Dvk) == (("wgmma", D, Dv) if dtype == torch.bfloat16
+                               else ("scalar",) + (fops.padded_dim(D, Dv),)
+                               * 2)
     before = dict(fb.LAUNCHES_BY_VARIANT)
     out = fops.flash_attention(q, k, v, causal=True, scale=scale)
     torch.cuda.synchronize()
@@ -1099,6 +1099,120 @@ def test_padded_flash_entry_matches_plain_on_card(card, B, H, D, Dv,
                                rtol=0 if dtype == torch.float32
                                else BF16_RTOL)
     assert _rel_rms(got, ref) < FLASH_RRMS[dtype]
+
+
+def _model_layout(card, B, S, Kh, G, D, Dv, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, Kh, G, D), generator=gen).to(card, torch.bfloat16)
+    k = torch.randn((B, S, Kh, D), generator=gen).to(card, torch.bfloat16)
+    v = torch.randn((B, S, Kh, Dv), generator=gen).to(card, torch.bfloat16)
+    return q, k, v
+
+
+@pytest.mark.parametrize("Kh,G,D,Dv", [(2, 6, 128, 128), (4, 1, 96, 64),
+                                       (2, 1, 192, 128)])
+def test_model_layout_call_runs_only_the_flash_kernel_on_card(card, Kh, G,
+                                                              D, Dv):
+    """A bf16 wgmma call on the model layout makes no copy of q, k or v
+    and no permute of o: the profiler sees one device kernel a call, the
+    flash kernel, and nothing else (no copy, fill or permute)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fops
+    q, k, v = _model_layout(card, 2, 512, Kh, G, D, Dv, seed=D + G)
+    fops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    kernels = [(ev.key, ev.count) for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")
+               and ev.self_device_time_total > 0]
+    assert len(kernels) == 1, kernels
+    name, count = kernels[0]
+    assert "flash_fwd_sm90" in name and count == 3, kernels
+
+
+@pytest.mark.parametrize("D,Dv", [(96, 64), (192, 128), (128, 128)])
+def test_strided_view_matches_contiguous_on_card(card, D, Dv):
+    """The wgmma kernel reads a strided view where it lies (q every other
+    head of a wider tensor, k and v column slices of one fused kv row, as
+    a fused projection would leave them) and gives its contiguous copy's
+    output bit for bit, one launch each."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    gen = torch.Generator().manual_seed(D)
+    B, S, Kh = 2, 300, 4
+    wide_q = torch.randn((B, S, 2 * Kh, 1, D + 64), generator=gen).to(
+        card, torch.bfloat16)
+    kv = torch.randn((B, S, Kh, D + Dv), generator=gen).to(card,
+                                                           torch.bfloat16)
+    q = wide_q[:, :, ::2, :, 32:32 + D]
+    k, v = kv[..., :D], kv[..., D:]
+    assert not (q.is_contiguous() or k.is_contiguous()
+                or v.is_contiguous())
+    before = fb.LAUNCHES_BY_VARIANT["wgmma"]
+    out = fops.flash_attention(q, k, v, causal=True)
+    same = fops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT["wgmma"] == before + 2
+    assert torch.equal(out, same)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 300),
+                                           (False, 0)])
+def test_pair_order_matches_plain_and_head_subsets_on_card(card, causal,
+                                                           window):
+    """Where every head's K and V together outgrow L2 (64 heads at MLA's
+    (192, 128) over 3900 keys: 160 MB) the kernel deals pairs of q tiles
+    head by head (31 tiles: the middle one has no partner). Held to the
+    plain version on a few heads, and bit for bit to the same heads run
+    alone (8 heads, 20 MB: the heaviest-first order), since every work
+    item is computed whole by one CTA either way."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator().manual_seed(3900 + window)
+    B, S, H, D, Dv = 1, 3900, 64, 192, 128
+    q, k = (torch.randn((B, S, H, D), generator=gen).to(card, torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((B, S, H, Dv), generator=gen).to(card, torch.bfloat16)
+    args = dict(causal=causal, window=window, scale=1.0 / np.sqrt(D))
+    out = fb.flash_attention_cuda(q, k, v, **args)
+    few = fb.flash_attention_cuda(q[:, :, :8], k[:, :, :8], v[:, :, :8],
+                                  **args)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :, :8], few)
+    heads = slice(56, 64)
+    ref = attention_ref(*(t[0, :, heads].transpose(0, 1)
+                          for t in (q, k, v)), **args)
+    got = out[0, :, heads].transpose(0, 1)
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=BF16_RTOL)
+    assert _rel_rms(got, ref) < FLASH_RRMS[torch.bfloat16]
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 300),
+                                           (False, 0)])
+@pytest.mark.parametrize("Kh,G,D", [(2, 6, 64), (2, 6, 128), (2, 2, 256)])
+def test_model_layout_is_bitwise_the_heads_first_call_on_card(
+        card, Kh, G, D, causal, window):
+    """At D 64, 128 and 256 the model-layout call (the kernel reading q, k
+    and v in place, writing o in place) equals the same call through
+    contiguous heads-first copies ([BH, S, D], read as batch 1 with a head
+    stride of S·D) bit for bit: only the addressing differs."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, S = 2, 1000
+    q, k, v = _model_layout(card, B, S, Kh, G, D, D, seed=D + G + window)
+    args = dict(causal=causal, window=window)
+    out = fops.flash_attention(q, k, v, **args)
+    bh = fops.flash_attention_bh(
+        q.permute(0, 2, 3, 1, 4).reshape(-1, S, D).contiguous(),
+        k.transpose(1, 2).reshape(-1, S, D).contiguous(),
+        v.transpose(1, 2).reshape(-1, S, D).contiguous(), group=G, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(out.permute(0, 2, 3, 1, 4).reshape(-1, S, D), bh)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

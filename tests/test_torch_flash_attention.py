@@ -237,3 +237,116 @@ def test_kernel_wrapper_refuses_autograd():
         fb.flash_attention_bh_cuda(k, k, q)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         fb.flash_attention_bh_cuda(q, k, k)
+
+
+# MLA's unequal head dims (minicpm3-4B 96/64, DeepSeek-V2 192/128), on the
+# wgmma kernel's own instantiations since they were padded no more.
+MLA_DIMS = [(96, 64), (192, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,Dv", MLA_DIMS)
+def test_mla_model_layout_matches_reference(D, Dv, dtype):
+    """``ops.flash_attention`` on the model layout at MLA's head dims, S 130
+    (ragged against 128-row tiles), at MLA's numpy scale 1/sqrt(D): against
+    the reference's blocked attention, and against its Pallas kernel in
+    interpret mode on heads-first inputs zero-padded to 128 or 256 (it
+    takes one head dim) at the unpadded scale. float32 within 3e-5 (sums in
+    other orders), bf16 within the reference kernel tests' 2e-2."""
+    rng = np.random.default_rng(D)
+    B, S, Kh, G = 2, 130, 3, 1
+    qj, qt = _pair(rng.standard_normal((B, S, Kh, G, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((B, S, Kh, D)), dtype)
+    vj, vt = _pair(rng.standard_normal((B, S, Kh, Dv)), dtype)
+    scale = 1.0 / np.sqrt(D)
+    atol = 3e-5 if dtype == "float32" else 2e-2
+    out = ops.flash_attention(qt, kt, vt, causal=True, scale=scale)
+    assert out.shape == (B, S, Kh, G, Dv) and out.dtype == TDT[dtype]
+    ref = jattn.blocked_attention(qj, kj, vj, jnp.arange(S), jnp.arange(S),
+                                  softmax_scale=scale, block_kv=64)
+    _close(out, ref, atol)
+    Dp = ops.padded_dim(D, Dv)
+
+    def padded(a):                       # [B, S, Kh, (G,) d] -> [BH, S, Dp]
+        a = jnp.moveaxis(a, 1, -2).reshape(-1, S, a.shape[-1])
+        return jnp.pad(a, ((0, 0), (0, 0), (0, Dp - a.shape[-1])))
+    pallas = flash_attention_bh(padded(qj), padded(kj), padded(vj),
+                                causal=True, scale=scale, interpret=True)
+    got = out[:, :, :, 0].transpose(1, 2).reshape(-1, S, Dv)
+    _close(got, np.asarray(pallas, np.float32)[..., :Dv], atol)
+
+
+@pytest.mark.parametrize("Dv", [16, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 64, 96, 128, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_variant_table(dtype, D, Dv):
+    """bf16 at (64, 64), (128, 128), (256, 256), (96, 64) and (192, 128)
+    takes the wgmma kernel at those dims, reading the model layout; every
+    other pair goes heads first, padded to ``padded_dim``, to the kernel
+    ``variant`` picks there (bf16 at a padded 64-256 is wgmma again)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    native = dtype == torch.bfloat16 and (D, Dv) in (
+        (64, 64), (128, 128), (256, 256), (96, 64), (192, 128))
+    assert fb.variant(dtype, D, Dv) == ("wgmma" if native else "scalar")
+    Dp = max(D, Dv) if max(D, Dv) in (16, 64, 128, 256) else {
+        96: 128, 192: 256}[max(D, Dv)]
+    want = (("wgmma", D, Dv) if native else
+            ("wgmma" if dtype == torch.bfloat16 and Dp > 16 else "scalar",
+             Dp, Dp))
+    assert ops.kernel_call(dtype, D, Dv) == want
+
+
+def test_model_layout_refusals():
+    """The wgmma kernel reads the model layout where it lies, so
+    ``check_inputs`` refuses a view TMA cannot read rather than copying
+    it: a head dim that is not contiguous, a stride that is not a positive
+    16-byte multiple (a broadcast head among them); and an unequal pair
+    with no instantiation, and the model layout in float32 (the scalar
+    kernel takes heads-first [BH, S, D] only)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    bf = torch.bfloat16
+    q = torch.zeros((2, 8, 4, 96), dtype=bf)
+    k = torch.zeros((2, 8, 4, 96), dtype=bf)
+    v = torch.zeros((2, 8, 4, 64), dtype=bf)
+    assert fb.check_inputs(q, k, v) == "wgmma"
+    wide = torch.zeros((2, 8, 8, 160), dtype=bf)
+    assert fb.check_inputs(wide[:, :, ::2, 32:128], k, v) == "wgmma"
+    with pytest.raises(ValueError, match="head dims 128 .* and 64"):
+        fb.check_inputs(*(torch.zeros((2, 8, 4, d), dtype=bf)
+                          for d in (128, 128, 64)))
+    with pytest.raises(ValueError, match="contiguous in its head dim"):
+        fb.check_inputs(torch.zeros((2, 8, 4, 192), dtype=bf)[..., ::2], k,
+                        v)
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        fb.check_inputs(q, torch.zeros((2, 8, 4, 100), dtype=bf)[..., :96],
+                        v)
+    with pytest.raises(ValueError, match="16-byte multiples"):
+        fb.check_inputs(q, k, torch.zeros((2, 8, 1, 64),
+                                          dtype=bf).expand(2, 8, 4, 64))
+    with pytest.raises(ValueError, match="scalar kernel takes"):
+        fb.check_inputs(*(t.float() for t in (q, q, q)))
+    with pytest.raises(ValueError, match="batch"):
+        fb.check_inputs(q, k[:1], v[:1])
+    with pytest.raises(ValueError, match="group"):
+        fb.check_inputs(q, k[:, :, :3], v[:, :, :3])
+
+
+@pytest.mark.parametrize("D,Dv", MLA_DIMS + [(128, 128)])
+def test_strided_view_matches_contiguous_copy(D, Dv):
+    """A strided model-layout view (q every other head of a wider tensor,
+    k and v offset columns of wider rows) gives the output of its
+    contiguous copy on the CPU."""
+    rng = np.random.default_rng(7)
+    B, S, Kh = 2, 70, 2
+    wide_q = torch.from_numpy(rng.standard_normal(
+        (B, S, 2 * Kh, 1, D + 32)).astype(np.float32))
+    wide_kv = torch.from_numpy(rng.standard_normal(
+        (B, S, Kh, D + Dv + 16)).astype(np.float32))
+    q = wide_q[:, :, ::2, :, 16:16 + D]
+    k, v = wide_kv[..., 8:8 + D], wide_kv[..., 8 + D:8 + D + Dv]
+    assert not (q.is_contiguous() or k.is_contiguous()
+                or v.is_contiguous())
+    out = ops.flash_attention(q, k, v, causal=True)
+    same = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    torch.testing.assert_close(out, same, rtol=0, atol=0)

@@ -6,8 +6,9 @@ reference's init carried across by ``convert.lm_params_from_reference``.
 
 Also the pieces one by one: ``moe.apply`` (with a capacity factor that
 drops assignments), ``mla.apply`` in prefill and in absorbed decode, the
-flash wrapper's padded entry for MLA's unequal head dims (on the CPU,
-through its plain version), and the float32 promotion of a numpy scale.
+flash wrapper on MLA's unequal head dims (on the CPU, through its plain
+version; which launch serves them on the card), and the float32 promotion
+of a numpy scale.
 
 The helpers at the top serve ``test_torch_lm_cross.py`` too: a reference
 tree and its conversion for any arch (the vision family's cross-layer
@@ -392,10 +393,11 @@ def test_scale_promotion_matches_reference_bf16(scale):
 
 @pytest.mark.parametrize("D,Dv,G", [(96, 64, 1), (192, 128, 1), (96, 64, 2)])
 def test_padded_flash_entry_matches_reference(D, Dv, G):
-    """MLA's unequal head dims through the flash wrapper on CPU tensors:
-    zero-padded to the kernel head dim (128 or 256), the plain version,
-    sliced back to Dv, at the scale of the unpadded D — the reference's
-    blocked attention with MLA's numpy scale."""
+    """MLA's unequal head dims through the flash wrapper on CPU tensors
+    (the plain version, unpadded) at the scale of D_qk, given or by
+    default — the reference's blocked attention with MLA's numpy scale;
+    and the head dim the card's float32 calls are padded to (128 or 256:
+    the scalar kernel takes one head dim)."""
     assert fops.padded_dim(D, Dv) == (128 if D <= 128 else 256)
     rng = np.random.default_rng(D)
     B, S, Kh = 2, 40, 3
@@ -414,6 +416,26 @@ def test_padded_flash_entry_matches_reference(D, Dv, G):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
     with pytest.raises(ValueError, match="above 256"):
         fops.padded_dim(320, 64)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "deepseek_v2_236b"])
+def test_mla_prefill_takes_its_own_wgmma_instantiation(arch, reduced):
+    """The launch that serves an MLA prefill's attention on the card: in
+    bf16 at the published configs the wgmma kernel at (D_qk, D_v) itself,
+    96/64 and 192/128, unpadded; in float32 the scalar kernel at the
+    padded head dim; the reduced configs' 24/16, which has no
+    instantiation, padded to the wgmma kernel's D 64."""
+    cfg = get_config(arch, reduced=reduced)
+    D, Dv = cfg.d_nope + cfg.d_rope, cfg.d_v
+    if reduced:
+        assert fops.kernel_call(torch.bfloat16, D, Dv) == ("wgmma", 64, 64)
+        return
+    assert (D, Dv) == {"minicpm3_4b": (96, 64),
+                       "deepseek_v2_236b": (192, 128)}[arch]
+    assert fops.kernel_call(torch.bfloat16, D, Dv) == ("wgmma", D, Dv)
+    Dp = fops.padded_dim(D, Dv)
+    assert fops.kernel_call(torch.float32, D, Dv) == ("scalar", Dp, Dp)
 
 
 # ---------------------------------------------------------------------------
