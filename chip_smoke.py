@@ -59,8 +59,9 @@ Builds the port's kernels from the sources in this checkout, then:
      them beside the plain versions, their bounds and, for attention,
      ``scaled_dot_product_attention``; the two SSD kernels on the same
      bf16 inputs; checks that a causal or sliding prefill attention with
-     Sq != Skv raises, and that both kernels refuse an input that
-     requires grad under grad (they are forward-only);
+     Sq != Skv raises, that both kernels' launchers refuse an input that
+     requires grad under grad (they are forward-only), and that their
+     public wrappers carry its gradient;
   7. serves qwen2-1.5B and mamba2-2.7B at depth 2, gemma3-4B at depth 6
      (five local layers, one global), recurrentgemma-2B at depth 4 (one
      group of two RG-LRU layers and a local attention layer, then one
@@ -121,6 +122,22 @@ Builds the port's kernels from the sources in this checkout, then:
      drop-oldest admission queue — every shed job accounted; (c) a
      workflow (DAG) cell under ``waterwise[backend=fused]``, streamed and
      in batch — records equal, no task started before a predecessor ended.
+ 12. LM training through ``make_train_step`` (AdamW, remat "full"): (a)
+     one float32 step of qwen2-1.5B at depth 2, recurrentgemma-2B at depth
+     3 and mamba2-2.7B at depth 2 (full width, B 2, S 256) on the card
+     and on the CPU from the same weights and tokens — loss, grad_norm,
+     first moments and updates compared; (b) qwen2-1.5B at full width and
+     depth in bf16, 6 steps of ``SyntheticTokens`` at global batch 8 x
+     2048 in two microbatches at AdamW's default schedule — every later
+     step's loss below the first's, exactly 112 wgmma
+     flash launches a step, the plain versions only inside the wrappers'
+     backwards; step wall, tokens/s, 6 N tokens/s against the bf16 peak,
+     peak memory, the plain backwards' device time, a profiled step's busy
+     share and top kernels; (c) one bf16 step each of recurrentgemma-2B
+     (6 layers), mamba2-2.7B (4), minicpm3-4B (2) and SeamlessM4T (1 + 1,
+     400 frames) at B 2, S 2048 — exact launch counts of the D 256 flash,
+     the fused RG-LRU pair, the wgmma SSD, MLA's (96, 64) flash and the
+     D 64 flash, every gradient leaf finite and not all zero.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars, the RG-LRU blocks' conv, gate biases and decay and the vision
@@ -1981,9 +1998,10 @@ def check_masked_refusal() -> None:
 
 
 def check_refusal() -> None:
-    """The flash and SSD kernels are forward-only: with grad enabled and an
-    input that requires grad, both wrappers raise and launch nothing; under
-    no_grad the same inputs run."""
+    """The flash and SSD kernels' launchers are forward-only: with grad
+    enabled and an input that requires grad, both raise and launch
+    nothing; under no_grad the same inputs run. The public wrappers
+    (``ops``) take those inputs under grad and return gradients."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2012,8 +2030,29 @@ def check_refusal() -> None:
         for call in calls.values():
             call()
     torch.cuda.synchronize()
-    print("  flash and SSD kernels refuse an input that requires grad "
-          "under grad (no launch) and run it under no_grad", flush=True)
+    # The public wrappers carry the gradient: one kernel launch forward,
+    # the plain version's gradient backward (no launch).
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    before = (fk.LAUNCHES, sk.LAUNCHES)
+    o = fops.flash_attention_bh(q, k, v, group=2)
+    y, _ = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    after = (fk.LAUNCHES, sk.LAUNCHES)
+    gq, = torch.autograd.grad(o.square().sum(), q)
+    gdt, = torch.autograd.grad(y.square().sum(), dt)
+    torch.cuda.synchronize()
+    if after != (before[0] + 1, before[1] + 1) or (
+            fk.LAUNCHES, sk.LAUNCHES) != after:
+        fail(f"the wrappers launched {after} forward (from {before}) and "
+             f"{(fk.LAUNCHES, sk.LAUNCHES)} after the backward")
+    for name, g in (("flash q", gq), ("SSD dt", gdt)):
+        if not (torch.isfinite(g).all() and g.abs().max().item() > 0):
+            fail(f"the {name} gradient through the wrapper is not finite "
+                 f"and nonzero")
+    print("  flash and SSD kernels' launchers refuse an input that "
+          "requires grad under grad (no launch) and run it under no_grad; "
+          "the public wrappers carry its gradient (one launch forward, "
+          "none backward)", flush=True)
 
 
 def lm_params(cfg, gen, seed):
@@ -2300,13 +2339,16 @@ def plain_call_counter():
     """Count calls of the kernels' plain versions on the model path: the
     flash and SSD kernels' and the RG-LRU wrappers' CPU branches (the
     fused layer's and the scan's, which ``models.rglru.rglru_scan`` takes
-    on a CPU tensor)."""
+    on a CPU tensor); the blocked online softmax counts wherever it is
+    called from (the model's CPU branch, the flash backward)."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.rglru_scan import ops as rops
     from repro_torch.kernels.ssd_scan import ops as sops
     from repro_torch.models import attention, ssm
     calls = collections.Counter()
-    targets = [(attention, "blocked_attention"),
+    targets = [(attention, "online_softmax_attention"),
+               (fref, "online_softmax_attention"),
                (fops, "flash_attention_bh_ref"), (ssm, "ssd_chunked"),
                (sops, "ssd_ref"), (rops, "rglru_layer_ref"),
                (rops, "rglru_scan_ref")]
@@ -3043,6 +3085,433 @@ def phase_serve(tele, jobs, cap, device=None, days: float = 0.05,
                 rounds=len(cold) + len(warm))
 
 
+# --- LM training (phase 12) ---------------------------------------------------
+
+# (a) card vs CPU, float32, published widths, one AdamW step at B 2, S 256:
+# the smallest depths that hold every kind of layer (recurrentgemma-2B's 3
+# is one group: two RG-LRU layers and a local attention layer).
+TRAIN_PARITY = dict(qwen2_1_5b=2, recurrentgemma_2b=3, mamba2_2_7b=2)
+TRAIN_PARITY_SHAPE = (2, 256)
+# One float32 step, card vs CPU (the card's scalar flash and SSD kernels,
+# its fused RG-LRU pair and cuBLAS against the CPU's plain versions and
+# BLAS): the loss and grad_norm within 1e-4 relative; each first moment
+# (0.1 x the clipped gradient) within 1e-3 of its leaf's largest entry;
+# each parameter's update within 3 lr (|u| <= 1 + weight decay · |p|: an
+# entry whose gradient is as small as its float32 error may step the
+# other way), and within 1e-2 lr on all but 1e-3 of the entries.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_MU_REL = 1e-3
+TRAIN_DELTA_REL, TRAIN_DELTA_FRAC = 1e-2, 1e-3
+# (b) the slice: qwen2-1.5B at full width and depth in bf16, remat "full"
+# as published; global batch 8 at S 2048 in two microbatches of 4 (phase
+# 8's prefill shape), 6 steps of SyntheticTokens(vocab, 2048, 8, seed=0),
+# AdamW at its defaults, the reference's (``adamw()``: 100 warmup steps to
+# 3e-4, as its dry run trains). Every later step's loss must be below the
+# first's. (Without the warmup, at a peak of 1e-4 or 1e-3 from the first
+# step, the loss jumps at the third or fourth step on the card;
+# ``train_probe.py`` holds that against float32 on the card and the CPU.)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = (
+    "qwen2_1_5b", 8, 2048, 2, 6)
+# H100 SXM dense bf16 peak (NVIDIA data sheet, 700 W).
+BF16_OPS_PER_S = 989e12
+# (c) one bf16 step each, published widths, cut depth, B 2 at S 2048: the
+# other kernel paths of training (griffin's fused RG-LRU forward and
+# backward and the D 256 flash, Mamba-2's wgmma SSD, MLA's (96, 64)
+# flash, and SeamlessM4T's D 64 flash, non-causal over 400 frames).
+TRAIN_PATHS = dict(recurrentgemma_2b=6, mamba2_2_7b=4, minicpm3_4b=2,
+                   seamless_m4t_large_v2=1)
+TRAIN_PATH_SHAPE = (2, 2048)
+
+
+def train_counts(cfg, grad_accum: int) -> tuple:
+    """(flash calls by (variant, D_qk, D_v, causal), SSD calls, RG-LRU
+    launches) of one ``make_train_step`` under remat "full": every
+    layer's forward runs twice (the step's and the backward's recompute),
+    each RG-LRU layer's backward once, for each microbatch."""
+    flash = collections.Counter({k: 2 * grad_accum * n
+                                 for k, n in flash_calls(cfg).items()})
+    ssd = 2 * grad_accum * cfg.n_layers if cfg.ssm else 0
+    n_rec = n_recurrent(cfg)
+    return flash, ssd, dict(layer_fwd=2 * grad_accum * n_rec,
+                            layer_bwd=grad_accum * n_rec, fwd=0, bwd=0)
+
+
+def token_batch(cfg, B: int, S: int, device, seed: int = 0,
+                frames: int = PARITY_FRAMES) -> dict:
+    """Step ``seed`` of ``SyntheticTokens(vocab, S, B)`` on ``device``, with
+    frames (encdec) or patches (vision) standard normal from the seed."""
+    from repro_torch.data import SyntheticTokens
+    batch = SyntheticTokens(cfg.vocab, S, B, seed=seed,
+                            device=str(device)).batch(0)
+    extra = lm_inputs(cfg, B, frames, seed)
+    batch.update({k: v.to(device) for k, v in extra.items()})
+    return batch
+
+
+def reset_lm_launches() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    fk.LAUNCHES, sk.LAUNCHES = 0, 0
+    fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+    sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+    rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
+
+
+def read_lm_launches() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    return dict(flash=dict(fk.LAUNCHES_BY_VARIANT),
+                ssd=dict(sk.LAUNCHES_BY_VARIANT), rglru=dict(rk.LAUNCHES))
+
+
+@contextlib.contextmanager
+def plain_backwards():
+    """Count and time the flash and SSD wrappers' backwards (each ``ops``
+    module's ``plain_vjp``: the plain version's gradient) by CUDA events
+    around each: yields (a Counter of calls, flash_backward and
+    ssd_backward; the list of (start, end) event pairs)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    calls, pairs = collections.Counter(), []
+    targets = ((fops, "flash_backward"), (sops, "ssd_backward"))
+    saved = [mod.plain_vjp for mod, _ in targets]
+
+    def wrap(fn, key):
+        def timed(*args, **kw):
+            calls[key] += 1
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0.record()
+            out = fn(*args, **kw)
+            t1.record()
+            pairs.append((t0, t1))
+            return out
+        return timed
+    for (mod, key), fn in zip(targets, saved):
+        mod.plain_vjp = wrap(fn, key)
+    try:
+        yield calls, pairs
+    finally:
+        for (mod, _), fn in zip(targets, saved):
+            mod.plain_vjp = fn
+
+
+def expect_plain(cfg, plain: collections.Counter, bwd: collections.Counter,
+                 grad_accum: int, where: str) -> None:
+    """On the card the plain versions run only inside the wrappers'
+    backwards: one blocked attention per attention call's backward, one
+    chunked SSD per SSD layer's, each microbatch; nothing else."""
+    n_attn = sum(flash_calls(cfg).values()) * grad_accum
+    n_ssd = cfg.n_layers * grad_accum if cfg.ssm else 0
+    want_bwd = collections.Counter(flash_backward=n_attn,
+                                   ssd_backward=n_ssd)
+    want_plain = collections.Counter(online_softmax_attention=n_attn,
+                                     ssd_ref=n_ssd)
+    if +bwd != +want_bwd or +plain != +want_plain:
+        fail(f"{where}: plain versions {dict(plain)} from backwards "
+             f"{dict(bwd)}, want {dict(+want_plain)} from "
+             f"{dict(+want_bwd)} (no plain forward on the card)")
+
+
+def check_train_launches(cfg, got: dict, shapes, grad_accum: int,
+                         where: str) -> None:
+    want_shapes, n_ssd, rglru = train_counts(cfg, grad_accum)
+    by_kind = collections.Counter()
+    for (kind, *_), n in want_shapes.items():
+        by_kind[kind] += n
+    ssd_kind = "wgmma" if cfg.compute_dtype == torch.bfloat16 else "scalar"
+    want = dict(flash=dict(wgmma=by_kind["wgmma"], scalar=by_kind["scalar"]),
+                ssd={**dict(wgmma=0, scalar=0), ssd_kind: n_ssd},
+                rglru=rglru)
+    if got != want or +shapes != +want_shapes:
+        fail(f"{where}: launches {got} by (variant, D_qk, D_v, causal) "
+             f"{dict(shapes)}, want {want} by {dict(+want_shapes)}")
+
+
+def live_leaves(state) -> None:
+    """Every first moment (0.1 x the clipped gradient) finite and not all
+    zero."""
+    from repro_torch.optim.adamw import tree_leaves
+    for i, m in enumerate(tree_leaves(state.mu)):
+        if not torch.isfinite(m).all():
+            fail(f"gradient leaf {i} {tuple(m.shape)} is not finite")
+        if m.numel() > 1 and not m.abs().max().item() > 0:
+            fail(f"gradient leaf {i} {tuple(m.shape)} is all zero")
+
+
+def train_parity(arch: str, depth: int, dev) -> dict:
+    """(a): one float32 AdamW step on the card and on the CPU from the same
+    weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.train_loop import make_train_step
+    start = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=depth, dtype="float32",
+                                   param_dtype="float32")
+    model = Model(cfg)
+    B, S = TRAIN_PARITY_SHAPE
+    card_params = lm_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(0), 9)
+    host_params = to_device(card_params, "cpu")
+    opt = adamw()
+    lr = opt.lr(1)
+    step = make_train_step(model, opt)
+    batch = token_batch(cfg, B, S, dev, seed=1)
+    reset_lm_launches()
+    with flash_call_recorder() as shapes, plain_call_counter() as plain, \
+            plain_backwards() as (bwd, _):
+        card = step(card_params, opt.init(card_params), batch)
+        torch.cuda.synchronize()
+    launches = read_lm_launches()
+    check_train_launches(cfg, launches, shapes, 1, f"{arch} (a)")
+    expect_plain(cfg, plain, bwd, 1, f"{arch} (a)")
+    live_leaves(card[1])
+    host = step(host_params, opt.init(host_params),
+                {k: v.cpu() for k, v in batch.items()})
+    loss_err, gn_err = (abs(card[2][k].item() - host[2][k].item())
+                        / abs(host[2][k].item()) for k in ("loss",
+                                                           "grad_norm"))
+    if not loss_err <= TRAIN_LOSS_RTOL or not gn_err <= TRAIN_LOSS_RTOL:
+        fail(f"{arch} (a): loss {card[2]['loss'].item()} vs "
+             f"{host[2]['loss'].item()}, grad_norm "
+             f"{card[2]['grad_norm'].item()} vs "
+             f"{host[2]['grad_norm'].item()}: beyond {TRAIN_LOSS_RTOL}")
+    mu_err = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                 for a, b in zip(tree_leaves(card[1].mu),
+                                 tree_leaves(host[1].mu))
+                 if b.abs().max().item() > 0)
+    check(f"{arch} (a) first moments, relative to each leaf's max",
+          mu_err, TRAIN_MU_REL)
+    worst, off, n = 0.0, 0, 0
+    for a, b in zip(tree_leaves(card[0]), tree_leaves(host[0])):
+        d = (a.cpu() - b).abs()
+        worst = max(worst, d.max().item())
+        off += int((d > TRAIN_DELTA_REL * lr).sum())
+        n += d.numel()
+    check(f"{arch} (a) parameter updates", worst, 3 * lr)
+    if off > TRAIN_DELTA_FRAC * n:
+        fail(f"{arch} (a): {off} of {n} updates differ by more than "
+             f"{TRAIN_DELTA_REL} lr")
+    out = dict(loss=card[2]["loss"].item(),
+               cpu_loss=host[2]["loss"].item(), loss_rel_err=loss_err,
+               grad_norm=card[2]["grad_norm"].item(), grad_norm_rel_err=gn_err,
+               mu_rel_err=mu_err, update_max_err=worst, lr=lr,
+               updates_off=off, n_params=n, launches=launches,
+               flash_shapes=dict(shapes), plain=dict(plain),
+               backward_plain=dict(bwd),
+               wall_s=time.perf_counter() - start)
+    print(f"  (a) {arch} depth {depth}, float32, B {B}, S {S}: loss card "
+          f"{out['loss']:.6f} cpu {out['cpu_loss']:.6f} (rel "
+          f"{loss_err:.1e}), grad_norm {out['grad_norm']:.5f} (rel "
+          f"{gn_err:.1e}), first moments within {mu_err:.1e} of each "
+          f"leaf's max, updates within {worst:.1e} (lr {lr:.1e}; {off} of "
+          f"{n} beyond {TRAIN_DELTA_REL} lr); launches {launches}; plain "
+          f"versions {dict(plain)} from backwards {dict(bwd)}; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def train_profile(step, params, state, batch) -> tuple:
+    """One profiled step: (params, state, dict(wall_ms, device_ms, top,
+    ours)), the port's kernels' device ms by name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {ev.key: ev.self_device_time_total / 1e3
+               for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")
+               and ev.self_device_time_total > 0}
+    ours = {label: sum(ms for name, ms in by_name.items()
+                       if any(key in name for key in keys))
+            for label, keys in (
+                ("flash_attention_sm90", ("flash_fwd_sm90",)),
+                ("flash_attention", ("flash_fwd<",)),
+                ("ssd_scan_sm90", ("ssd_chunk_state", "ssd_state_pass",
+                                   "ssd_chunk_scan")),
+                ("rglru_layer_fwd", ("rglru_fwd_kernel<true",)),
+                ("rglru_layer_bwd", ("rglru_bwd_kernel<true",)))}
+    return params, state, dict(
+        wall_ms=wall * 1e3, device_ms=sum(by_name.values()), ours=ours,
+        top=sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
+        loss=met["loss"].item())
+
+
+def train_slice(dev) -> dict:
+    """(b): qwen2-1.5B at full width and depth, bf16, 6 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step
+    start = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    if cfg.remat != "full" or cfg.compute_dtype != torch.bfloat16:
+        fail(f"{TRAIN_ARCH}: remat {cfg.remat}, dtype {cfg.dtype}; the "
+             f"slice trains the published bf16, remat 'full' config")
+    model = Model(cfg)
+    n_params = model.param_count()
+    params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       10)
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(model, opt, grad_accum=TRAIN_ACCUM)
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, walls, plain_ms, per_step = [], [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        reset_lm_launches()
+        with flash_call_recorder() as shapes, \
+                plain_call_counter() as plain, \
+                plain_backwards() as (bwd, pairs):
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        plain_ms.append(sum(a.elapsed_time(b) for a, b in pairs))
+        launches = read_lm_launches()
+        check_train_launches(cfg, launches, shapes, TRAIN_ACCUM,
+                             f"{TRAIN_ARCH} step {i + 1}")
+        expect_plain(cfg, plain, bwd, TRAIN_ACCUM,
+                     f"{TRAIN_ARCH} step {i + 1}")
+        losses.append(met["loss"].item())
+        gnorms.append(met["grad_norm"].item())
+        per_step.append((launches, dict(shapes)))
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = float(np.median(walls[1:]))
+    plain_med = float(np.median(plain_ms[1:]))
+    # One more step, profiled (device kernels, busy share).
+    params, state, prof = train_profile(step, params, state,
+                                        data.batch(TRAIN_STEPS))
+    out = dict(
+        arch=TRAIN_ARCH, params=n_params, layers=cfg.n_layers,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, grad_accum=TRAIN_ACCUM,
+        losses=losses, grad_norms=gnorms, step_walls_s=walls,
+        median_step_s=med, tokens_per_s=tokens / med,
+        model_flops_share=6 * n_params * tokens / med / BF16_OPS_PER_S,
+        peak_bytes=peak, launches=per_step[-1][0],
+        flash_shapes=per_step[-1][1],
+        plain_backward_ms=plain_ms, plain_backward_median_ms=plain_med,
+        plain_backward_calls=sum(bwd.values()), profile=prof,
+        wall_s=time.perf_counter() - start)
+    print(f"  (b) {TRAIN_ARCH}: {n_params / 1e9:.4f} B parameters, "
+          f"{cfg.n_layers} layers, bf16, remat {cfg.remat}; global batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} microbatches; "
+          f"loss by step {['%.4f' % v for v in losses]}; grad_norm "
+          f"{['%.3f' % v for v in gnorms]}; step walls "
+          f"{['%.3f' % v for v in walls]} s; median of steps 2-"
+          f"{TRAIN_STEPS} {med * 1e3:.1f} ms = {tokens / med:.0f} tokens/s; "
+          f"6 N tokens/s = {out['model_flops_share'] * 100:.2f} % of "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches a step {per_step[-1][0]} "
+          f"(flash by (variant, D_qk, D_v, causal) {per_step[-1][1]})",
+          flush=True)
+    print(f"    plain attention backwards: {sum(bwd.values())} calls a "
+          f"step, median {plain_med:.1f} ms of device time (steps 2-"
+          f"{TRAIN_STEPS}) in the median step of {med * 1e3:.1f} ms wall "
+          f"({plain_med / (med * 1e3) * 100:.1f} %)", flush=True)
+    print(f"    one profiled step: wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']:.1f} ms (busy "
+          f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); the port's "
+          "kernels (device ms, share): " + ", ".join(
+              f"{k} {ms:.2f} ({ms / prof['device_ms'] * 100:.1f} %)"
+              for k, ms in prof["ours"].items() if ms)
+          + "; top kernels (device ms): " + "; ".join(
+              f"{name[:60]} {ms:.1f}" for name, ms in prof["top"]),
+          flush=True)
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        fail(f"{TRAIN_ARCH}: loss {losses}, grad_norm {gnorms}")
+    if not max(losses[1:]) < losses[0]:
+        fail(f"{TRAIN_ARCH}: a later step's loss is not below the "
+             f"first's: {losses}")
+    live_leaves(state)
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_path(arch: str, depth: int, dev) -> dict:
+    """(c): one bf16 step at published width and cut depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import make_train_step
+    start = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=depth)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(enc_layers=depth)
+    model = Model(cfg)
+    params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       11)
+    opt = adamw()
+    step = make_train_step(model, opt)
+    B, S = TRAIN_PATH_SHAPE
+    batch = token_batch(cfg, B, S, dev, seed=2)
+    torch.cuda.synchronize()
+    reset_lm_launches()
+    with flash_call_recorder() as shapes, plain_call_counter() as plain, \
+            plain_backwards() as (bwd, _):
+        t0 = time.perf_counter()
+        params, state, met = step(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_lm_launches()
+    check_train_launches(cfg, launches, shapes, 1, f"{arch} (c)")
+    expect_plain(cfg, plain, bwd, 1, f"{arch} (c)")
+    if not np.isfinite(met["loss"].item()):
+        fail(f"{arch} (c): loss {met['loss'].item()}")
+    live_leaves(state)
+    # A second step, its plain backwards timed by events.
+    with plain_backwards() as (_, pairs):
+        t0 = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    plain_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    out = dict(loss=met["loss"].item(), grad_norm=met["grad_norm"].item(),
+               launches=launches, flash_shapes=dict(shapes),
+               step_wall_s=wall, second_step_wall_s=wall2,
+               plain_backward_ms=plain_ms, wall_s=time.perf_counter() - start)
+    print(f"  (c) {arch} depth {depth}"
+          + (f" (+{cfg.enc_layers} encoder, {PARITY_FRAMES} frames)"
+             if cfg.enc_layers else "")
+          + f", bf16, B {B}, S {S}: loss {out['loss']:.4f}, grad_norm "
+          f"{out['grad_norm']:.4f}; first step {wall * 1e3:.1f} ms "
+          f"(allocations included), second {wall2 * 1e3:.1f} ms, of it "
+          f"{plain_ms:.1f} ms of device time in {len(pairs)} plain "
+          f"backwards ({plain_ms / (wall2 * 1e3) * 100:.1f} %); launches "
+          f"{launches}; flash calls {dict(shapes)}; plain versions "
+          f"{dict(plain)} from backwards {dict(bwd)}", flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(dev) -> dict:
+    print("== phase 12: LM training — (a) card vs CPU in float32 ("
+          + ", ".join(f"{a} depth {d}" for a, d in TRAIN_PARITY.items())
+          + f"; B, S {TRAIN_PARITY_SHAPE}), (b) {TRAIN_ARCH} at full width "
+          f"and depth in bf16 ({TRAIN_STEPS} steps, global batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, grad_accum {TRAIN_ACCUM}), (c) "
+          + ", ".join(f"{a} depth {d}" for a, d in TRAIN_PATHS.items())
+          + f" in bf16 (B, S {TRAIN_PATH_SHAPE})", flush=True)
+    parity = {a: train_parity(a, d, dev) for a, d in TRAIN_PARITY.items()}
+    torch.cuda.empty_cache()
+    slice_ = train_slice(dev)
+    paths = {a: train_path(a, d, dev) for a, d in TRAIN_PATHS.items()}
+    return dict(parity=parity, slice=slice_, paths=paths)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device available")
@@ -3088,6 +3557,7 @@ def main() -> None:
         cmp9 = timed("phase 9", phase_comparison, e2e, fc)
         b10 = timed("phase 10", phase_batched, e2e, cmp9)
         srv = timed("phase 11", phase_serve, *e2e["cell"])
+        train = timed("phase 12", phase_lm_train, dev)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     reactive9 = cmp9["launches"]["waterwise[backend=fused]"]["_launches"]
@@ -3337,6 +3807,34 @@ def main() -> None:
         bf16_inputs_ms=t["scalar_ms"],
         main_path="mamba2_2_7b Server.generate, float32 at depth 2 "
                   "(phase 7)"))
+    # Each kernel's launches on phase 12's training runs: (a)'s and (c)'s
+    # one step each, (b)'s last step.
+    runs = {f"{a} (a)": r for a, r in train["parity"].items()}
+    runs[f"{TRAIN_ARCH} (b), a step"] = train["slice"]
+    runs.update({f"{a} (c)": r for a, r in train["paths"].items()})
+
+    def flash_pick(kind, dims=None):
+        return lambda r: sum(
+            n for (k, D, Dv, _), n in r["flash_shapes"].items()
+            if k == kind and (dims is None or (D, Dv) in dims))
+
+    def launch_pick(group, entry):
+        return lambda r: r["launches"][group][entry]
+    picks = dict(
+        flash_attention_sm90=flash_pick("wgmma", ((64, 64), (128, 128))),
+        flash_attention_sm90_d256=flash_pick("wgmma", ((256, 256),)),
+        flash_attention_sm90_mla=flash_pick("wgmma", mla_dims),
+        flash_attention=flash_pick("scalar"),
+        ssd_scan_sm90=launch_pick("ssd", "wgmma"),
+        ssd_scan=launch_pick("ssd", "scalar"),
+        rglru_layer_fwd=launch_pick("rglru", "layer_fwd"),
+        rglru_layer_bwd=launch_pick("rglru", "layer_bwd"),
+        rglru_scan_fwd=launch_pick("rglru", "fwd"),
+        rglru_scan_bwd=launch_pick("rglru", "bwd"))
+    for row in kernels:
+        pick = picks.get(row["name"])
+        row["launches_train"] = {} if pick is None else {
+            name: pick(r) for name, r in runs.items() if pick(r)}
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

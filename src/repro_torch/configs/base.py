@@ -1,11 +1,13 @@
 """ModelConfig: the reference's declarative architecture description
 (``repro/configs/base.py``), with the same fields and defaults, for the
-port's LM serving path.
+port's LM serving and training paths, and the reference's step shapes
+(``ShapeSpec``, ``SHAPES``).
 
 The port runs every family of the reference: ``decoder`` (dense-GQA or
 MLA attention, Mamba-2 SSD mixers, dense or MoE MLPs, leading dense
 layers), ``gemma3``, ``griffin``, ``vision`` and ``encdec``;
-``list_archs()`` names the architectures it serves, and ``get_config``
+``list_archs()`` names the architectures it serves and trains, and
+``get_config``
 of the one reference architecture it does not (``qwen2_72b``, whose
 weights must be sharded across cards) raises ``NotImplementedError``
 naming the ROADMAP item that ports it.
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -98,6 +100,22 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
 ARCH_REGISTRY = [
     "dbrx_132b", "deepseek_v2_236b", "seamless_m4t_large_v2", "qwen2_1_5b",
     "gemma3_4b", "minicpm3_4b", "recurrentgemma_2b", "llama_3_2_vision_11b",
@@ -107,8 +125,9 @@ ARCH_REGISTRY = [
 # Reference architectures the port does not run yet, and the ROADMAP item
 # that ports each.
 _NOT_PORTED = {
-    "qwen2_72b": "weights sharded across cards, 145 GB in bf16 (ROADMAP "
-                 "queue 1 item 3)",
+    "qwen2_72b": "weights sharded across cards, 145 GB in bf16: the "
+                 "sharding slice, runtime/sharding.py (ROADMAP queue 1 "
+                 "item 3)",
 }
 
 

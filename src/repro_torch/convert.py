@@ -1,8 +1,9 @@
 """Carry the JAX package's state into the port.
 
 For this system data plays the role of weights: telemetry and job traces,
-the learned forecaster's parameters, and the LM serving path's model
-parameters.
+the learned forecaster's parameters, and the LM path's model parameters
+(and gradient trees, which have the parameters' structure), carried both
+ways.
 These functions read the reference's objects field by field, by the names
 of the port's dataclasses, so they need no import of the reference package
 (any object with those attributes converts).
@@ -52,6 +53,20 @@ def learned_params_from_reference(tree, device="cpu") -> dict:
     return torch.from_numpy(np.array(tree, np.float32)).to(device)
 
 
+def _lm_stacks(cfg) -> dict:
+    """The stacks of an LM tree and their lengths along the reference's
+    leading axis."""
+    if cfg.family == "griffin":
+        n_groups, rem = divmod(cfg.n_layers, 3)
+        return dict(groups=n_groups, tail=rem)
+    if cfg.family == "vision":
+        return dict(groups=cfg.n_layers // cfg.cross_every)
+    if cfg.family == "encdec":
+        return dict(enc_layers=cfg.enc_layers, layers=cfg.n_layers)
+    return dict(dense_layers=cfg.first_dense,
+                layers=cfg.n_layers - cfg.first_dense)
+
+
 def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
     """The reference LM's parameter values (the ``params`` of
     ``repro.models.Model.init``'s ``split_tree``, a nested dict of arrays
@@ -86,17 +101,7 @@ def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
     def unstack(node, n):
         return [layer(node, i) for i in range(n)]
 
-    # The stacks and their lengths along the leading axis.
-    if cfg.family == "griffin":
-        n_groups, rem = divmod(cfg.n_layers, 3)
-        stacks = dict(groups=n_groups, tail=rem)
-    elif cfg.family == "vision":
-        stacks = dict(groups=cfg.n_layers // cfg.cross_every)
-    elif cfg.family == "encdec":
-        stacks = dict(enc_layers=cfg.enc_layers, layers=cfg.n_layers)
-    else:
-        stacks = dict(dense_layers=cfg.first_dense,
-                      layers=cfg.n_layers - cfg.first_dense)
+    stacks = _lm_stacks(cfg)
     out = {}
     for k, v in tree.items():
         node = convert(v)
@@ -104,4 +109,38 @@ def lm_params_from_reference(tree, cfg, device="cpu") -> dict:
     if cfg.family == "vision":
         for group in out["groups"]:
             group["selfs"] = unstack(group["selfs"], cfg.cross_every - 1)
+    return out
+
+
+def lm_params_to_reference(tree, cfg) -> dict:
+    """The inverse of ``lm_params_from_reference``: the port's LM tree (of
+    parameters, gradients or optimizer moments) as the reference's, each
+    list of per-layer (per-group) dicts stacked on a leading axis (vision's
+    ``selfs`` inside each group first), as float32 numpy arrays (a bf16
+    leaf is exact in float32)."""
+    transformer.check_supported(cfg)
+
+    def leaf(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return leaf(node)
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    stacks = _lm_stacks(cfg)
+    out = {}
+    for k, v in tree.items():
+        if k not in stacks:
+            out[k] = convert(v)
+            continue
+        layers = [convert(lp) for lp in v]
+        if cfg.family == "vision":
+            layers = [dict(g, selfs=stack(g["selfs"])) for g in layers]
+        out[k] = stack(layers)
     return out

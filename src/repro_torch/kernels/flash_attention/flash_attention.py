@@ -173,10 +173,11 @@ def _refuse_grad(q, k, v) -> None:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
-            "flash_attention_bh_cuda is forward-only: an input requires "
-            "grad, and its output would carry no gradient. Training "
-            "through the attention kernels is ROADMAP queue 1 item [3]; "
-            "call it under torch.no_grad() or with detached inputs")
+            "the flash kernels' launchers are forward-only: an input "
+            "requires grad, and their output would carry no gradient. "
+            "ops.flash_attention and ops.flash_attention_bh carry it (the "
+            "kernel forward, the plain version's backward); call those, or "
+            "this under torch.no_grad() or with detached inputs")
 
 
 def _on_card(q, k, v) -> None:
@@ -195,7 +196,7 @@ def flash_attention_bh_cuda(q: torch.Tensor, k: torch.Tensor,
     ``h`` attends kv head ``h // group``; ``scale`` defaults to 1/sqrt(D)
     (the scalar kernel applies it to q in float32, the wgmma kernel to the
     float32 scores). Forward only: raises when grad is enabled and an
-    input requires it."""
+    input requires it (``ops.flash_attention_bh`` differentiates)."""
     _on_card(q, k, v)
     kind = check_inputs(q, k, v, group=group, window=window)
     return _launch(kind, q, k, v, causal=causal, window=window, scale=scale,

@@ -6,6 +6,14 @@ kv head ``kh``. On a CPU tensor it takes the plain version (``ref.py``),
 unpadded; on a CUDA tensor it launches the kernel ``kernel_call`` names,
 raising on what that kernel does not take. There is no other path.
 
+Both wrappers are differentiable. On the CPU autograd goes through the
+plain version. On a CUDA tensor each is a ``torch.autograd.Function``:
+the forward is the kernel, one launch a call, saving q, k and v; the
+backward is the gradient of the plain blocked version
+(``ref.flash_attention_blocked``, kv blocks of ``block_kv``, each
+checkpointed) recomputed from them. That is the algorithm the reference
+differentiates: its TPU kernel has no backward.
+
 The wgmma kernel (bf16 at the (D, Dv) pairs of ``WGMMA_DIMS``: 64, 128
 and 256 square, MLA's 96/64 and 192/128) reads q, k and v where they lie
 and writes o in the model's layout: q is viewed as [B, Sq, Kh·G, D], and
@@ -19,11 +27,16 @@ unpadded D (1/sqrt(D) unless the caller names one).
 """
 from __future__ import annotations
 
-import numpy as np
+import functools
 
+import numpy as np
+import torch
+
+from repro_torch.kernels import plain_vjp
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
-from repro_torch.kernels.flash_attention.ref import (flash_attention_bh_ref,
-                                                     flash_attention_ref)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bh_blocked, flash_attention_bh_ref,
+    flash_attention_blocked, flash_attention_ref)
 
 
 def padded_dim(D: int, Dv: int) -> int:
@@ -58,29 +71,46 @@ def _heads_first(t, Dp: int):
     return out.view(-1, S, Dp)
 
 
+class _Flash(torch.autograd.Function):
+    """Forward: ``kernel(q, k, v, **kw)``; backward: the gradient of
+    ``plain(q, k, v, **kw)`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, kw, q, k, v):
+        o = kernel(q, k, v, **kw)
+        if any(ctx.needs_input_grad):      # not when serving
+            ctx.save_for_backward(q, k, v)
+            ctx.plain = functools.partial(plain, **kw)
+        return o
+
+    @staticmethod
+    def backward(ctx, go):
+        return (None, None, None,
+                *plain_vjp(ctx.plain, ctx.saved_tensors, go))
+
+
+def _device_type(q) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    return q.device.type
+
+
 def flash_attention_bh(q, k, v, *, causal=True, window=0, scale=None,
                        group=1):
     """q: [BHq, Sq, D]; k: [BHkv, Skv, D]; v: [BHkv, Skv, Dv] ->
     [BHq, Sq, Dv]."""
-    if q.device.type == "cuda":
-        return _kernel.flash_attention_bh_cuda(
-            q, k, v, causal=causal, window=window, scale=scale, group=group)
-    if q.device.type != "cpu":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
-    return flash_attention_bh_ref(q, k, v, causal=causal, window=window,
-                                  scale=scale, group=group)
+    kw = dict(causal=causal, window=window, scale=scale, group=group)
+    if _device_type(q) == "cpu":
+        return flash_attention_bh_ref(q, k, v, **kw)
+    return _Flash.apply(_kernel.flash_attention_bh_cuda,
+                        flash_attention_bh_blocked, kw, q, k, v)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
-    """q: [B, Sq, Kh, G, D]; k: [B, Skv, Kh, D]; v: [B, Skv, Kh, Dv] ->
-    [B, Sq, Kh, G, Dv]. ``scale`` defaults to 1/sqrt(D)."""
+def _flash_cuda(q, k, v, *, causal, window, scale):
+    """The model layout on the card: one launch of the kernel
+    ``kernel_call`` names."""
     B, Sq, Kh, G, D = q.shape
     Dv = v.shape[-1]
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
     call = kernel_call(q.dtype, D, Dv)
     if call == ("wgmma", D, Dv):
         try:
@@ -96,7 +126,21 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     Dp = call[1]
     if Dp != D:
         scale = scale if scale is not None else 1.0 / np.sqrt(D)
-    o = flash_attention_bh(*(_heads_first(t, Dp) for t in (q, k, v)),
-                           causal=causal, window=window, scale=scale,
-                           group=G)
+    o = _kernel.flash_attention_bh_cuda(
+        *(_heads_first(t, Dp) for t in (q, k, v)), causal=causal,
+        window=window, scale=scale, group=G)
     return o[..., :Dv].reshape(B, Kh, G, Sq, Dv).permute(0, 3, 1, 2, 4)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    block_kv=1024):
+    """q: [B, Sq, Kh, G, D]; k: [B, Skv, Kh, D]; v: [B, Skv, Kh, Dv] ->
+    [B, Sq, Kh, G, Dv]. ``scale`` defaults to 1/sqrt(D); ``block_kv`` is
+    the backward's kv block (the model's ``cfg.block_kv``)."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if _device_type(q) == "cpu":
+        return flash_attention_ref(q, k, v, **kw)
+    return _Flash.apply(
+        _flash_cuda,
+        functools.partial(flash_attention_blocked, block_kv=block_kv),
+        kw, q, k, v)

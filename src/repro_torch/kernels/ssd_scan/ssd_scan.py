@@ -142,15 +142,17 @@ def _launch(kind: str, x, dt, A, Bm, Cm, L: int):
     """One call of the ``kind`` kernel on inputs ``check_inputs`` passed,
     with chunks of L rows. The scalar kernel takes every such call, so
     timing code may hand it a call the wgmma kernel would take. Forward
-    only: raises when grad is enabled and an input requires it."""
+    only: raises when grad is enabled and an input requires it
+    (``ops.ssd_scan`` differentiates)."""
     global LAUNCHES
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, Bm, Cm)):
         raise RuntimeError(
-            "the SSD scan kernels are forward-only: an input requires grad, "
-            "and the outputs would carry no gradient. Training through the "
-            "SSD kernels is ROADMAP queue 1 item [3]; call them under "
-            "torch.no_grad() or with detached inputs")
+            "the SSD scan kernels' launchers are forward-only: an input "
+            "requires grad, and the outputs would carry no gradient. "
+            "ops.ssd_scan carries it (the kernel forward, the plain "
+            "version's backward); call that, or this under torch.no_grad() "
+            "or with detached inputs")
     b, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     dev = x.device

@@ -8,6 +8,8 @@ head dims) — goes through ``prefill_attention``: the hand-written
 flash-attention kernel (``kernels/flash_attention``) on a CUDA tensor, in
 the place where the TPU ran the Pallas kernel, and the plain blocked twin
 ``blocked_attention`` on the CPU, so the CPU tests compare like with like.
+In training the kernel's wrapper returns the gradient of that blocked
+twin, which checkpoints each kv block as the reference does.
 Decode attention (one query against the cache) and the projections are
 plain PyTorch, as the reference leaves them to XLA.
 
@@ -16,16 +18,14 @@ Kh = kv heads, G = query-group fan-out (n_heads = Kh·G).
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import (
+    NEG_INF, mask_bias, online_softmax_attention)
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, zeros_init
-
-NEG_INF = -2.0e38
 
 
 # ---------------------------------------------------------------------------
@@ -88,25 +88,8 @@ def project_out(o, p):
 
 
 # ---------------------------------------------------------------------------
-# Masking and scaling
+# Scaling
 # ---------------------------------------------------------------------------
-
-def mask_bias(q_pos, kv_pos, kind: str, window: int):
-    """Additive mask bias [Sq, bk] from position vectors."""
-    qp = q_pos[:, None]
-    kp = kv_pos[None, :]
-    valid = kp >= 0                                   # KV padding
-    if kind == "causal":
-        valid = valid & (kp <= qp)
-    elif kind == "sliding":
-        valid = valid & (kp <= qp) & (qp - kp < window)
-    elif kind == "full":
-        pass
-    else:
-        raise ValueError(kind)
-    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
-    return torch.where(valid, zero, torch.full_like(zero, NEG_INF))
-
 
 def _weak_scale(q, scale: float):
     """q * scale as JAX computes it for a weakly typed Python float: the
@@ -133,41 +116,15 @@ def _scaled_f32(q, softmax_scale):
 
 def blocked_attention(q, k, v, q_pos, kv_pos, *, kind="causal", window=0,
                       block_kv=1024, softmax_scale=None):
-    """Online-softmax attention, KV visited in blocks.
+    """Online-softmax attention, KV visited in blocks
+    (``online_softmax_attention``, each block checkpointed under grad), q
+    scaled with the reference's promotion (``_scaled_f32``).
 
     q: [B, Sq, Kh, G, D]; k, v: [B, Skv, Kh, D]. Returns [B, Sq, Kh, G, D].
     """
-    B, Sq, Kh, G, D = q.shape
-    Skv, Dv = k.shape[1], v.shape[-1]
-    bk = min(block_kv, Skv)
-    nblk = math.ceil(Skv / bk)
-    pad = nblk * bk - Skv
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
-
-    qf = _scaled_f32(q, softmax_scale)
-    acc = torch.zeros((B, Kh, G, Sq, Dv), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, Kh, G, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Kh, G, Sq), dtype=torch.float32, device=q.device)
-    for i in range(nblk):
-        kc = k[:, i * bk:(i + 1) * bk].to(torch.float32)
-        vc = v[:, i * bk:(i + 1) * bk].to(torch.float32)
-        pc = kv_pos[i * bk:(i + 1) * bk]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc)
-        s = s + mask_bias(q_pos, pc, kind, window)[None, None, None]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p_ = torch.exp(s - m_new[..., None])
-        l = l * alpha + p_.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
-                                                    p_, vc)
-        m = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)         # [B,Sq,Kh,G,D]
+    return online_softmax_attention(
+        _scaled_f32(q, softmax_scale), k, v, q_pos, kv_pos, kind=kind,
+        window=window, block_kv=block_kv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +171,9 @@ def prefill_attention(q, k, v, *, kind="causal", window=0, block_kv=1024,
     v [B, Skv, Kh, Dv] (Dv may differ from D: MLA), at q positions
     ``arange(Sq)`` and kv positions ``arange(Skv)`` on every device. On a
     CUDA tensor the flash kernel, causal unless ``kind`` is ``"full"`` and
-    windowed only for ``"sliding"``; on the CPU ``blocked_attention`` at
-    those positions. The kernel's mask puts q and kv positions both at 0,
+    windowed only for ``"sliding"`` (under grad its wrapper's backward is
+    ``blocked_attention``'s gradient at ``block_kv``); on the CPU
+    ``blocked_attention`` at those positions. The kernel's mask puts q and kv positions both at 0,
     so a causal or sliding call with Sq ≠ Skv raises (on either device)
     rather than mis-masks. The scale: a numpy float (MLA's) goes to the
     kernel, which applies it in float32 as the reference promotes; a
@@ -239,7 +197,8 @@ def prefill_attention(q, k, v, *, kind="causal", window=0, block_kv=1024,
         q, scale = _weak_scale(q, softmax_scale), 1.0
     return flash_ops.flash_attention(
         q, k, v, causal=kind != "full",
-        window=window if kind == "sliding" else 0, scale=scale)
+        window=window if kind == "sliding" else 0, scale=scale,
+        block_kv=block_kv)
 
 
 def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,

@@ -1,7 +1,7 @@
 """Shared model building blocks — the counterpart of
 ``repro/models/common.py``: truncated-normal and fan-in-scaled inits,
-RMS and layer norm, the gated MLP, RoPE, and the token embedding and
-logits head over a padded vocabulary.
+RMS and layer norm, the gated MLP, RoPE, the token embedding and
+logits head over a padded vocabulary, and the training loss.
 
 Parameters are plain tensors in the reference's layouts (a dense weight is
 ``[in, out]`` and applied as ``x @ W``; attention weights keep
@@ -160,3 +160,12 @@ def logits_from_hidden(h, p, true_vocab, dtype):
         logits = h @ table.to(dtype)
     iota = torch.arange(logits.shape[-1], device=logits.device)
     return logits.masked_fill(iota >= true_vocab, -1e9)
+
+
+def softmax_xent(logits, labels):
+    """Mean cross-entropy in float32. labels: integer, logits' leading
+    shape."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)

@@ -1,13 +1,19 @@
-"""Model facade: init, parameter count, prefill, decode and the decode
-cache — the counterpart of ``repro/models/model.py`` for every family
-(KV caches for attention, latent caches for MLA, conv + state caches for
-Mamba-2 and the RG-LRU, static image and encoder K/V for cross-attention).
+"""Model facade: init, parameter count, the training loss, prefill,
+decode, the decode cache and step inputs — the counterpart of
+``repro/models/model.py`` for every family (KV caches for attention,
+latent caches for MLA, conv + state caches for Mamba-2 and the RG-LRU,
+static image and encoder K/V for cross-attention). The logical axes the
+reference attaches to caches and inputs come with sharding, which the port
+does not have yet (ROADMAP queue 1 item 3).
 """
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import torch
 
 from repro_torch.models import transformer
+from repro_torch.models.common import softmax_xent
 
 
 class Model:
@@ -69,6 +75,14 @@ class Model:
                 + (cfg.n_layers - cfg.first_dense) * rest)
 
     # -- steps ----------------------------------------------------------------
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy (float32) of ``batch``: tokens
+        and labels [B, S] integer tensors on the parameters' device, and
+        ``frames`` or ``patches`` as ``prefill`` takes them. Train mode:
+        each layer under ``cfg.remat``."""
+        logits, _ = transformer.apply(self.cfg, params, batch, "train")
+        return softmax_xent(logits, batch["labels"])
 
     def prefill(self, params, batch):
         logits, cache = transformer.apply(self.cfg, params, batch, "prefill")
@@ -149,6 +163,45 @@ class Model:
                  if cfg.first_dense else None)
         return (dense, [layer() for _ in range(cfg.n_layers
                                                - cfg.first_dense)])
+
+
+    # -- step inputs ------------------------------------------------------------
+
+    def make_inputs(self, shape, device, enc_ctx: int = 4096
+                    ) -> Dict[str, Any]:
+        """Zero step inputs of a ``ShapeSpec`` on ``device``: train
+        {tokens, labels [, frames | patches]}, prefill {tokens [, frames |
+        patches]}, decode {tokens [B, 1], cache} (an ``init_cache`` of
+        ``seq_len`` positions, ``enc_ctx`` encoder positions for encdec).
+        Tokens are int64; frames [B, S, d] and patches [B, n_img_tokens,
+        d] in the compute dtype."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        dt = cfg.compute_dtype
+
+        def tok(s):
+            return torch.zeros((B, s), dtype=torch.int64, device=device)
+        out: Dict[str, Any] = {}
+        if shape.kind in ("train", "prefill"):
+            out["tokens"] = tok(S)
+            if shape.kind == "train":
+                out["labels"] = tok(S)
+            if cfg.family == "encdec":
+                out["frames"] = torch.zeros((B, S, cfg.d_model), dtype=dt,
+                                            device=device)
+            if cfg.family == "vision":
+                out["patches"] = torch.zeros(
+                    (B, cfg.n_img_tokens, cfg.d_model), dtype=dt,
+                    device=device)
+        elif shape.kind == "decode":
+            out["tokens"] = tok(1)
+            out["cache"] = self.init_cache(
+                B, S, device,
+                src_len=enc_ctx if cfg.family == "encdec" else 0,
+                n_img=cfg.n_img_tokens)
+        else:
+            raise ValueError(f"unknown shape kind {shape.kind!r}")
+        return out
 
 
 def to_device(tree, device):

@@ -103,3 +103,14 @@ def apply(x, p, *, top_k, n_experts, capacity_factor=1.25):
         out = out + common.mlp_apply(x, p["shared"])
     return out
 
+
+
+def aux_load_balance_loss(logits, ids, n_experts, top_k):
+    """Switch-style auxiliary load-balancing loss over T tokens: router
+    logits [T, E], expert ids [T, k]. ``Model.loss`` does not add it, as
+    the reference's does not."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    me = probs.mean(dim=0)                                    # [E]
+    one_hot = torch.nn.functional.one_hot(ids.long(), n_experts).sum(1)
+    ce = one_hot.to(torch.float32).mean(dim=0) / top_k
+    return n_experts * torch.sum(me * ce)

@@ -1,6 +1,7 @@
 """Architecture assembly — every family of ``repro/models/transformer.py``
-in three modes: ``train`` (logits, no cache; forward only), ``prefill``
-(logits + built cache) and ``decode`` (one token in, cache updated).
+in three modes: ``train`` (logits, no cache; differentiable, each layer's
+body under ``cfg.remat``), ``prefill`` (logits + built cache) and
+``decode`` (one token in, cache updated).
 
 - ``decoder``: dense-GQA attention, MLA (``models/mla.py``) or Mamba-2
   SSD mixers; SwiGLU MLPs or MoE (``models/moe.py``); ``first_dense``
@@ -24,15 +25,24 @@ compute dtype, as the reference does.
 
 The reference scans over layer-stacked parameters (``lax.scan``); here a
 Python loop walks lists of per-layer (or per-group) parameter dicts, and
-the cache holds lists of per-layer caches.
+the cache holds lists of per-layer caches. Where the reference
+rematerializes a scan body in train mode (``_maybe_remat``), the port
+checkpoints the same body (``_remat``: a decoder or encoder layer,
+griffin's group and tail layer, vision's group and each of its decoder
+layers): ``remat="full"`` saves nothing and recomputes the body in the
+backward, ``"dots"`` saves the matmuls' outputs (the reference's
+``checkpoint_dots``), ``"none"`` keeps every activation.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, mla, moe, rglru, ssm
 from repro_torch.models.common import (apply_norm, embed_tokens,
@@ -70,6 +80,26 @@ def attention_args(cfg, i: int) -> tuple:
         return "sliding", max(cfg.window, 1), cfg.rope_theta
     return ("sliding" if cfg.window else "causal"), cfg.window, \
         cfg.rope_theta
+
+
+# The outputs ``remat="dots"`` saves: every matmul (einsums lower to bmm).
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default]
+_REMATS = ("none", "dots", "full")
+
+
+def _remat(cfg, mode, fn, *args):
+    """``fn(*args)``, checkpointed by ``cfg.remat`` when training under
+    grad (the reference's ``_maybe_remat``)."""
+    if cfg.remat not in _REMATS:
+        raise ValueError(f"remat must be one of {_REMATS}, got "
+                         f"{cfg.remat!r}")
+    if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=(
+            functools.partial(create_selective_checkpoint_contexts, _DOTS)))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -281,17 +311,22 @@ def _griffin_stack(cfg, params, x, positions, mode, cache, decode_pos):
     of dict(rec1, rec2, attn) and a list of recurrent caches (None without
     a tail), the reference's ``(gout, tout)`` unstacked."""
     gcache, tcache = cache if cache is not None else (None, None)
-    gout, tout = [], []
-    for g, gp in enumerate(params["groups"]):
-        gc = gcache[g] if gcache is not None else {}
+
+    def group(x, gp, gc):
         x, c1 = rec_layer_apply(cfg, gp["rec1"], x, mode, gc.get("rec1"))
         x, c2 = rec_layer_apply(cfg, gp["rec2"], x, mode, gc.get("rec2"))
         x, ca = decoder_layer_apply(cfg, gp["attn"], x, positions, mode,
                                     gc.get("attn"), decode_pos)
-        gout.append(dict(rec1=c1, rec2=c2, attn=ca))
+        return x, dict(rec1=c1, rec2=c2, attn=ca)
+
+    gout, tout = [], []
+    for g, gp in enumerate(params["groups"]):
+        x, c = _remat(cfg, mode, group, x, gp,
+                      gcache[g] if gcache is not None else {})
+        gout.append(c)
     for j, lp in enumerate(params.get("tail", ())):
-        x, c = rec_layer_apply(cfg, lp, x, mode,
-                               tcache[j] if tcache is not None else None)
+        x, c = _remat(cfg, mode, rec_layer_apply, cfg, lp, x, mode,
+                      tcache[j] if tcache is not None else None)
         tout.append(c)
     return x, (gout, tout or None)
 
@@ -305,16 +340,16 @@ def _decoder_stack(cfg, params, x, positions, mode, cache, decode_pos):
     if cfg.first_dense:
         dense = []
         for i, lp in enumerate(params["dense_layers"]):
-            x, c = decoder_layer_apply(
-                cfg, lp, x, positions, mode,
-                c_dense[i] if c_dense is not None else None, decode_pos, i)
+            x, c = _remat(cfg, mode, decoder_layer_apply, cfg, lp, x,
+                          positions, mode,
+                          c_dense[i] if c_dense is not None else None,
+                          decode_pos, i)
             dense.append(c)
     rest = []
     for i, lp in enumerate(params["layers"]):
-        x, c = decoder_layer_apply(
-            cfg, lp, x, positions, mode,
-            c_rest[i] if c_rest is not None else None, decode_pos, i,
-            use_moe=cfg.n_experts > 0)
+        x, c = _remat(cfg, mode, decoder_layer_apply, cfg, lp, x, positions,
+                      mode, c_rest[i] if c_rest is not None else None,
+                      decode_pos, i, cfg.n_experts > 0)
         rest.append(c)
     return x, (dense, rest)
 
@@ -327,29 +362,37 @@ def _vision_stack(cfg, params, batch, x, positions, mode, cache,
     selfs=[per-layer cache])."""
     patches = (None if mode == "decode" else
                batch["patches"].to(cfg.compute_dtype))
-    out = []
-    for g, gp in enumerate(params["groups"]):
-        gc = cache[g] if cache is not None else None
+
+    def group(x, gp, gc):
         x, img_kv = cross_layer_apply(
             cfg, gp["cross"], x, positions, patches,
             gc["img"] if mode == "decode" else None)
         selfs = []
         for i, lp in enumerate(gp["selfs"]):
-            x, c = decoder_layer_apply(
-                cfg, lp, x, positions, mode,
-                gc["selfs"][i] if gc is not None else None, decode_pos, i)
+            x, c = _remat(cfg, mode, decoder_layer_apply, cfg, lp, x,
+                          positions, mode,
+                          gc["selfs"][i] if gc is not None else None,
+                          decode_pos, i)
             selfs.append(c)
-        out.append(dict(img=img_kv, selfs=selfs))
+        return x, (dict(img=img_kv, selfs=selfs) if mode != "train"
+                   else None)
+
+    out = []
+    for g, gp in enumerate(params["groups"]):
+        x, c = _remat(cfg, mode, group, x, gp,
+                      cache[g] if cache is not None else None)
+        out.append(c)
     return x, out
 
 
-def encode(cfg, params, frames):
+def encode(cfg, params, frames, mode="prefill"):
     """Bidirectional encoder over frame embeddings [B, S_src, d] (RoPE at
     ``rope_theta``), then ``enc_norm``: the decoder's cross-attention
-    memory."""
+    memory. Each layer is checkpointed in ``train`` mode."""
     x = frames.to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in params["enc_layers"]:
+
+    def layer(x, lp):
         h = apply_norm(x, lp["ln1"], cfg.norm)
         mix, _ = attention.apply(h, lp["attn"], n_kv=cfg.n_kv,
                                  n_heads=cfg.n_heads, positions=positions,
@@ -357,7 +400,10 @@ def encode(cfg, params, frames):
                                  block_kv=cfg.block_kv)
         x = x + mix
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        x = x + mlp_apply(h2, lp["mlp"])
+        return x + mlp_apply(h2, lp["mlp"])
+
+    for lp in params["enc_layers"]:
+        x = _remat(cfg, mode, layer, x, lp)
     return apply_norm(x, params["enc_norm"], cfg.norm)
 
 
@@ -367,10 +413,9 @@ def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
     self-attention, cross-attention to the memory, MLP. The cache is a
     list of dict(self=(k, v), cross=(k, v))."""
     memory = None if mode == "decode" else encode(cfg, params,
-                                                  batch["frames"])
-    out = []
-    for i, lp in enumerate(params["layers"]):
-        cc = cache[i] if cache is not None else None
+                                                  batch["frames"], mode)
+
+    def layer(x, lp, cc):
         h = apply_norm(x, lp["ln1"], cfg.norm)
         mix, kv = attention.apply(
             h, lp["self"], n_kv=cfg.n_kv, n_heads=cfg.n_heads,
@@ -386,7 +431,14 @@ def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
         x = x + mix
         h3 = apply_norm(x, lp["ln3"], cfg.norm)
         x = x + mlp_apply(h3, lp["mlp"])
-        out.append(dict(self=kv, cross=cross_kv))
+        return x, (dict(self=kv, cross=cross_kv) if mode != "train"
+                   else None)
+
+    out = []
+    for i, lp in enumerate(params["layers"]):
+        x, c = _remat(cfg, mode, layer, x, lp,
+                      cache[i] if cache is not None else None)
+        out.append(c)
     return x, out
 
 

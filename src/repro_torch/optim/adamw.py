@@ -1,5 +1,6 @@
 """AdamW with cosine schedule and global-norm clipping — the formula of
-``repro/optim/adamw.py``, on parameter trees (nested dicts of tensors).
+``repro/optim/adamw.py``, on parameter trees (nested dicts, lists and
+tuples of tensors: the forecaster's float32 tree, an LM's bf16 one).
 
 Not ``torch.optim.AdamW``: the reference evaluates the learning rate at the
 incremented step (so warmup starts at 2/warmup), uses beta2 = 0.95, clips
@@ -17,17 +18,24 @@ import torch
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts (all trees of one shape)."""
+    """``fn`` over the leaves of nested dicts, lists and tuples (all trees
+    of one shape)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """Leaves in the reference's order (dict keys sorted, depth first)."""
+    """Leaves in the reference's order (dict keys sorted, sequences in
+    index order, depth first)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
@@ -39,6 +47,8 @@ def tree_unflatten(tree, leaves) -> Any:
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
         return next(it)
     return build(tree)
 

@@ -17,7 +17,8 @@ testable on the CPU:
 The reference's restore re-shards every leaf onto the current mesh, so a
 job can resume on another mesh shape. The port restores each tensor leaf
 onto the device its leaf in the running state lies on; re-sharding on
-restore waits for mesh and sharding (ROADMAP queue 1 item [3]).
+restore waits for mesh and sharding, the sharding slice (ROADMAP queue 1
+item [3]).
 """
 from __future__ import annotations
 

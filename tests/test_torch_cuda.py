@@ -208,9 +208,11 @@ def test_fused_layer_rejects_bad_inputs(card):
 
 
 def test_forward_only_kernels_refuse_grad_on_card(card):
-    """The flash and SSD kernels have no backward: with grad enabled and an
-    input that requires grad they raise and launch nothing, where they
-    once returned an output without a grad_fn; under no_grad they run."""
+    """The flash and SSD kernels' raw launchers have no backward: with
+    grad enabled and an input that requires grad they raise and launch
+    nothing, where they once returned an output without a grad_fn; under
+    no_grad they run (the public wrappers carry the gradient: see
+    ``test_*_wrapper_carries_gradient_on_card``)."""
     from repro_torch.kernels.flash_attention import flash_attention as fb
     from repro_torch.kernels.ssd_scan import ssd_scan as sb
     q, k, v = (torch.randn((n, 128, 64), device=card) for n in (2, 1, 1))
@@ -232,6 +234,168 @@ def test_forward_only_kernels_refuse_grad_on_card(card):
             call()
     torch.cuda.synchronize()
     assert (fb.LAUNCHES, sb.LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+# (dtype, D_qk, D_v, causal, Sq, Skv): every wgmma instantiation, causal
+# and (D 64) non-causal with Sq != Skv, and the scalar float32 kernel on the
+# heads-first path.
+GRAD_FLASH = [
+    (torch.bfloat16, 64, 64, True, 160, 160),
+    (torch.bfloat16, 64, 64, False, 96, 160),
+    (torch.bfloat16, 128, 128, True, 160, 160),
+    (torch.bfloat16, 256, 256, True, 160, 160),
+    (torch.bfloat16, 96, 64, True, 160, 160),
+    (torch.bfloat16, 192, 128, True, 160, 160),
+    (torch.float32, 64, 64, True, 160, 160),
+]
+
+
+@pytest.mark.parametrize("dtype,D,Dv,causal,Sq,Skv", GRAD_FLASH)
+def test_flash_wrapper_carries_gradient_on_card(card, dtype, D, Dv, causal,
+                                                Sq, Skv):
+    """``ops.flash_attention`` under grad: the forward is one kernel launch,
+    its output within the kernel-vs-plain limits; the backward launches
+    nothing, and its gradients (the blocked plain version's, kv blocks of
+    64) equal autograd through the plain version within the same limits.
+    The raw launchers still refuse the same inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator().manual_seed(D + Dv + Sq)
+    B, Kh, G = 2, 2, 2
+    inputs = [torch.randn(s, generator=gen).to(card, dtype) for s in (
+        (B, Sq, Kh, G, D), (B, Skv, Kh, D), (B, Skv, Kh, Dv))]
+    w = torch.randn((B, Sq, Kh, G, Dv), generator=gen).to(card, dtype)
+
+    def run(fn):
+        live = [t.clone().requires_grad_(True) for t in inputs]
+        out = fn(*live)
+        return [out.detach(), *torch.autograd.grad((out * w).sum(), live)]
+    kw = dict(causal=causal)
+    before = fb.LAUNCHES
+    got = run(lambda q, k, v: fops.flash_attention(q, k, v, block_kv=64,
+                                                   **kw))
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    want = run(lambda q, k, v: flash_attention_ref(q, k, v, **kw))
+    f32 = dtype == torch.float32
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(),
+                                   atol=2e-5 if f32 else 2e-2,
+                                   rtol=1e-5 if f32 else BF16_RTOL)
+    q = inputs[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fb.flash_attention_cuda(q.flatten(2, 3), *inputs[1:], **kw)
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype", [
+    (2, 192, 4, 64, 2, 64, 64, torch.bfloat16),
+    (2, 100, 4, 16, 2, 8, 32, torch.float32),
+])
+def test_ssd_wrapper_carries_gradient_on_card(card, b, S, H, P, G, N, chunk,
+                                              dtype):
+    """``ops.ssd_scan`` under grad on the wgmma (bf16 P 64) and scalar
+    (float32) kernels: one call forward, none backward; y, the final state
+    and the five gradients equal autograd through the plain chunked
+    version within the file's SSD limits. The raw launcher still refuses
+    the same inputs."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    gen = torch.Generator().manual_seed(S + P)
+    x = torch.randn((b, S, H, P), generator=gen).to(card, dtype)
+    dt = (torch.rand((b, S, H), generator=gen) * 0.5 + 0.1).to(card)
+    A = (-torch.rand(H, generator=gen) - 0.2).to(card)
+    Bm, Cm = (torch.randn((b, S, G, N), generator=gen).to(card, dtype)
+              for _ in range(2))
+    wy = torch.randn((b, S, H, P), generator=gen).to(card)
+    ws = torch.randn((b, H, P, N), generator=gen).to(card)
+
+    def run(fn):
+        live = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        y, st = fn(*live)
+        loss = (y.float() * wy).sum() + (st.float() * ws).sum()
+        return [y.detach(), st.detach(), *torch.autograd.grad(loss, live)]
+    kind = sb.variant(dtype, P, N, chunk)
+    before = dict(sb.LAUNCHES_BY_VARIANT)
+    got = run(lambda *t: sops.ssd_scan(*t, chunk=chunk))
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES_BY_VARIANT == {**before, kind: before[kind] + 1}
+    want = run(lambda *t: ssd_ref(*t, chunk=chunk))
+    rtol = 0 if dtype == torch.float32 else BF16_RTOL
+    for a, b_ in zip(got, want):
+        assert a.dtype == b_.dtype and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b_.float(), atol=2e-3,
+                                   rtol=rtol)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        sb.ssd_scan_cuda(x, dt.clone().requires_grad_(True), A, Bm, Cm,
+                         chunk=chunk)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("qwen2_1_5b", dict(head_dim=64)),
+    ("mamba2_2_7b", dict(ssm_head_dim=64, ssm_state=64, ssd_chunk=64)),
+    ("recurrentgemma_2b", dict(n_layers=3, head_dim=64)),
+])
+def test_bf16_train_step_runs_through_kernels_on_card(card, arch, over):
+    """A 2-layer (griffin: one group) bf16 ``make_train_step`` with
+    grad_accum=2 at S 128 on the card, remat "full": the wgmma flash, the
+    wgmma SSD and the fused RG-LRU kernels launch; the loss, grad_norm,
+    every first moment (the clipped gradients) and every updated
+    parameter are finite, and the moments are not all zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.train_loop import make_train_step
+    cfg = get_config(arch, reduced=True).replace(remat="full", **over)
+    if cfg.ssm:
+        cfg = cfg.replace(d_inner=2 * cfg.ssm_head_dim)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    # Live recurrences: the init's zero convs would carry zeros and leave
+    # the SSM and RG-LRU scalars without a gradient.
+    rng = np.random.default_rng(0)
+    if cfg.ssm:
+        mixers = [(lp["mixer"], ssm.draw_live_mixer)
+                  for lp in params["layers"]]
+    else:
+        mixers = [(g[n]["mixer"], rglru.draw_live_block)
+                  for g in params.get("groups", []) for n in ("rec1", "rec2")]
+    for mixer, draw in mixers:
+        for k, v in draw(rng, cfg).items():
+            mixer[k] = torch.from_numpy(v).to(card, mixer[k].dtype)
+    opt = adamw()
+    step = make_train_step(model, opt, grad_accum=2)
+    batch = SyntheticTokens(cfg.vocab, 128, 4).batch(0)
+    before = (dict(fb.LAUNCHES_BY_VARIANT), dict(sb.LAUNCHES_BY_VARIANT),
+              dict(scan_binding.LAUNCHES))
+    params, state, met = step(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    flash = fb.LAUNCHES_BY_VARIANT["wgmma"] - before[0]["wgmma"]
+    ssd = sb.LAUNCHES_BY_VARIANT["wgmma"] - before[1]["wgmma"]
+    rglru = {k: scan_binding.LAUNCHES[k] - before[2][k]
+             for k in ("layer_fwd", "layer_bwd")}
+    # Forward and remat recompute, for each of two microbatches.
+    if cfg.ssm:
+        assert (flash, ssd) == (0, 4 * cfg.n_layers)
+    elif cfg.family == "griffin":
+        assert (flash, ssd) == (4, 0)
+        assert rglru == dict(layer_fwd=8, layer_bwd=4)
+    else:
+        assert (flash, ssd) == (4 * cfg.n_layers, 0)
+    assert fb.LAUNCHES_BY_VARIANT["scalar"] == before[0]["scalar"]
+    assert np.isfinite(float(met["loss"])) and np.isfinite(
+        float(met["grad_norm"]))
+    for t in tree_leaves(state.mu) + tree_leaves(params):
+        assert torch.isfinite(t.float()).all()
+    assert all(float(t.abs().max()) > 0 for t in tree_leaves(state.mu)
+               if t.numel() > 1)
 
 
 def test_learned_forecaster_trains_through_kernels_on_card(card):

@@ -224,14 +224,17 @@ def test_cuda_wrapper_refusals():
 
 
 def test_kernel_wrapper_refuses_autograd():
-    """The flash kernels are forward-only: with grad enabled and an input
-    that requires grad the wrapper raises before any device check or
-    launch (a CPU tensor reaches the refusal here); under no_grad it goes
-    on to its device check, which refuses a CPU tensor."""
+    """The flash kernels' launchers are forward-only (the public wrappers
+    carry the gradient, ``tests/test_torch_train.py``): with grad enabled
+    and an input that requires grad the launcher raises, naming those
+    wrappers, before any device check or launch (a CPU tensor reaches the
+    refusal here); under no_grad it goes on to its device check, which
+    refuses a CPU tensor."""
     from repro_torch.kernels.flash_attention import flash_attention as fb
     q = torch.zeros((2, 8, 16), requires_grad=True)
     k = torch.zeros((2, 8, 16))
-    with pytest.raises(RuntimeError, match=r"forward-only.*\[3\]"):
+    with pytest.raises(RuntimeError,
+                       match=r"forward-only.*ops\.flash_attention"):
         fb.flash_attention_bh_cuda(q, k, k)
     with pytest.raises(RuntimeError, match="forward-only"):
         fb.flash_attention_bh_cuda(k, k, q)

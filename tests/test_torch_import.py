@@ -80,6 +80,7 @@ def test_main_path_imports_without_jax_or_reference():
         "    assert torch.isfinite(logits.float()).all()\n"
         "import repro_torch.serve, repro_torch.workflows\n"
         "import repro_torch.runtime.elastic\n"
+        "import repro_torch.data, repro_torch.optim.compression\n"
         "from repro_torch.serve import DecisionLoop, ReplayArrivals\n"
         "from repro_torch.sim.engine import EventSimulator\n"
         "from repro_torch.sim.scenarios import get_scenario\n"
@@ -134,11 +135,22 @@ def test_port_sources_never_import_jax_or_reference():
             "serve/__init__.py", "serve/arrivals.py", "serve/loop.py",
             "workflows/__init__.py", "workflows/spec.py",
             "workflows/cpath.py", "workflows/generators.py",
-            "workflows/ingest.py", "runtime/elastic.py"} <= names
+            "workflows/ingest.py", "runtime/elastic.py",
+            "data/pipeline.py", "optim/compression.py"} <= names
     cu = {p.name for p in (SRC / "repro_torch" / "csrc").glob("*.cu")}
     assert {"flash_attention.cu", "ssd_scan.cu"} <= cu
     hits = [(str(p), m.group(0).strip()) for p in files
             for m in _FORBIDDEN.finditer(p.read_text())]
+    assert hits == []
+
+
+def test_card_scripts_never_import_jax_or_reference():
+    """The scripts run on the card (``chip_smoke.py``, ``kernel_probe.py``,
+    ``train_probe.py``) import neither JAX nor the reference package."""
+    root = SRC.parent
+    hits = [(name, m.group(0).strip())
+            for name in ("chip_smoke.py", "kernel_probe.py", "train_probe.py")
+            for m in _FORBIDDEN.finditer((root / name).read_text())]
     assert hits == []
 
 

@@ -264,10 +264,11 @@ def test_live_mixer_draw_makes_the_scan_carry_signal(monkeypatch):
 
 
 def test_kernel_launch_refuses_autograd():
-    """The SSD kernels are forward-only: ``_launch``, which the model's
-    path and the timing paths both reach, raises with grad enabled and any
-    input that requires grad, before it builds or launches (CPU tensors
-    reach the refusal here)."""
+    """The SSD kernels' launcher is forward-only (``ops.ssd_scan`` carries
+    the gradient, ``tests/test_torch_train.py``): ``_launch``, which the
+    model's path and the timing paths both reach, raises with grad enabled
+    and any input that requires grad, naming that wrapper, before it
+    builds or launches (CPU tensors reach the refusal here)."""
     b, S, H, P, G, N = 1, 8, 2, 16, 1, 8
     x = torch.zeros((b, S, H, P))
     dt = torch.zeros((b, S, H))
@@ -276,5 +277,6 @@ def test_kernel_launch_refuses_autograd():
     for i in range(5):
         args = [x, dt, A, Bm, Bm.clone()]
         args[i] = args[i].clone().requires_grad_(True)
-        with pytest.raises(RuntimeError, match=r"forward-only.*\[3\]"):
+        with pytest.raises(RuntimeError,
+                           match=r"forward-only.*ops\.ssd_scan"):
             binding._launch("scalar", *args, S)
