@@ -138,6 +138,18 @@ Builds the port's kernels from the sources in this checkout, then:
      400 frames) at B 2, S 2048 — exact launch counts of the D 256 flash,
      the fused RG-LRU pair, the wgmma SSD, MLA's (96, 64) flash and the
      D 64 flash, every gradient leaf finite and not all zero.
+ 13. distribution: (a) qwen2-72B at full width, its depth cut to 16 of 80
+     layers, served in bf16 as phase 8 serves (B 4, prompt 2048, 32 new
+     tokens) — exactly 16 wgmma flash launches a prefill at 64 query
+     heads over 8 kv heads, the first call held against the plain
+     version, prefill tokens/s, decode ms a token, peak memory; (b) the
+     sharded ``make_train_step`` on a one-rank NCCL process group and a
+     (1, 1) ("data", "model") mesh — qwen2-1.5B at depth 2 in float32,
+     every parameter and moment a DTensor on the card, loss, grad_norm and
+     every leaf bitwise the unsharded step's, phase 12(a)'s launches, and
+     a checkpoint of the sharded state restored onto the mesh bit for
+     bit; (c) the dry run's per-device bytes of qwen2-72B train_4k on the
+     16x16 and 2x16x16 production meshes.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars, the RG-LRU blocks' conv, gate biases and decay and the vision
@@ -2401,126 +2413,135 @@ def prefill_profile(model, params, toks, extra) -> dict:
 
 
 def phase_lm_serve(dev) -> dict:
-    import repro_torch.obs as obs
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention as fk
-    from repro_torch.kernels.rglru_scan import rglru_scan as rk
-    from repro_torch.kernels.ssd_scan import ssd_scan as sk
-    from repro_torch.models.model import Model
-    from repro_torch.runtime.serve_loop import Server
     print("== phase 8: LM serving on the card (bf16, B 4, prompt 2048, 32 "
           "new tokens; full depth but "
           + ", ".join(f"{a} {d} layers" for a, d in SERVE_DEPTH.items())
           + f"; {SERVE_FRAMES} frames, the vision config's image tokens)",
           flush=True)
-    B, S, NEW = 4, 2048, 32
     out = {}
     for arch in ARCHS:
-        start = time.perf_counter()
         cfg = get_config(arch)
         if arch in SERVE_DEPTH:
             cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
-        model = Model(cfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                           8)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, S))
-        extra = lm_inputs(cfg, B, SERVE_FRAMES, seed=6)
-        batch = dict(tokens=toks, **extra)
-        server = Server(model, params)
-        # Warm-up at the measured shapes, so the allocator's pool and the
-        # libraries' handles are set up outside the measured run.
-        server.generate(batch, max_new=2)
-        torch.cuda.reset_peak_memory_stats()
-        with plain_call_counter() as plain_calls, \
-                flash_call_recorder() as shapes:
-            fk.LAUNCHES, sk.LAUNCHES = 0, 0
-            fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
-            sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
-            rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
-            with obs.capture() as reg:
-                tokens = server.generate(batch, max_new=NEW)
-            launches = dict(
-                flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES,
-                **{f"flash_{k}": n for k, n in fk.LAUNCHES_BY_VARIANT.items()},
-                **{f"ssd_{k}": n for k, n in sk.LAUNCHES_BY_VARIANT.items()},
-                **{f"rglru_{k}": n for k, n in rk.LAUNCHES.items()})
-        peak = torch.cuda.max_memory_allocated()
-        prefill_s = reg.hists["serve.prefill"].total
-        decode_s = reg.hists["serve.decode"].total
-        # One kernel call per prefill attention (flash_calls: bf16 at
-        # D 64, 128 and 256, MLA's at (96, 64) and (192, 128), on the
-        # wgmma flash kernel), per SSD layer (P 64, N 128, L 256 on the wgmma
-        # SSD kernel) and per RG-LRU layer (the fused forward). None of
-        # the others, the scalar flash kernel included.
-        n_rec = n_recurrent(cfg)
-        want_shapes = flash_calls(cfg)
-        n_attn = sum(want_shapes.values())
-        n_ssd = cfg.n_layers if cfg.ssm else 0
-        if any(kind != "wgmma" for kind, *_ in +want_shapes):
-            fail(f"{arch}: bf16 attention {dict(want_shapes)} does not "
-                 f"take the wgmma flash kernel")
-        want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
-                    flash_wgmma=n_attn, flash_scalar=0, ssd_wgmma=n_ssd,
-                    ssd_scalar=0, rglru_layer_fwd=n_rec, rglru_layer_bwd=0,
-                    rglru_fwd=0, rglru_bwd=0)
-        prof = prefill_profile(model, params, toks, extra)
-        gates = (gates_matter(model, params, toks, extra)
-                 if cfg.family == "vision" else None)
-        print(f"  {arch}: {model.param_count() / 1e9:.4f} B parameters, "
-              f"{cfg.n_layers} layers"
-              + (f" (+{cfg.enc_layers} encoder)" if cfg.enc_layers else "")
-              + f", drawn on the card in {init_s:.1f} s; "
-              f"prefill {prefill_s * 1e3:.1f} ms = "
-              f"{B * S / prefill_s:.0f} tokens/s; decode "
-              f"{decode_s / (NEW - 1) * 1e3:.2f} ms per token of each "
-              f"sequence (one step of {B} tokens; {NEW - 1} steps in "
-              f"{decode_s * 1e3:.1f} ms = "
-              f"{B * (NEW - 1) / decode_s:.1f} tokens/s); peak memory "
-              f"{peak / 2 ** 30:.2f} GiB; launches {launches} (want {want}); "
-              f"flash calls by (variant, D, causal) {dict(shapes)} (want "
-              f"{dict(+want_shapes)}); plain-version calls "
-              f"{dict(plain_calls)}", flush=True)
-        print(f"    one profiled prefill: wall {prof['wall_ms']:.1f} ms, "
-              f"device {prof['device_ms']:.1f} ms (busy "
-              f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); the "
-              "port's kernels (device ms, share of device time): "
-              + ", ".join(
-                  f"{k} {ms:.2f} ({ms / prof['device_ms'] * 100:.1f} %)"
-                  for k, ms in prof["ours"].items())
-              + "; top kernels (device ms): " + "; ".join(
-                  f"{name[:60]} {ms:.2f}" for name, ms in prof["top"]),
-              flush=True)
-        print(f"    first tokens: {tokens[:, :8].tolist()}"
-              + ("" if gates is None else
-                 f"; live cross-layer gates move the last logits by "
-                 f"{gates:.3e} against zero gates"), flush=True)
-        if launches != want or +shapes != +want_shapes:
-            fail(f"{arch}: launches {launches} by shape {dict(shapes)}, "
-                 f"want {want} by shape {dict(+want_shapes)}")
-        if not prof["finite"]:
-            fail(f"{arch}: the prefill's last logits are not finite")
-        if sum(plain_calls.values()):
-            fail(f"{arch}: the plain versions ran on the card's main path: "
-                 f"{dict(plain_calls)}")
-        if gates is not None and not gates > 1e-3:
-            fail(f"{arch}: the cross layers do not change the logits")
-        if tokens.shape != (B, NEW) or tokens.min() < 0 or \
-                tokens.max() >= cfg.vocab:
-            fail(f"{arch}: tokens out of range {tokens.min()}.."
-                 f"{tokens.max()} or shape {tokens.shape}")
-        out[arch] = dict(launches=launches, flash_shapes=dict(shapes),
-                         prefill_s=prefill_s, decode_s=decode_s,
-                         peak_bytes=peak, params=model.param_count(),
-                         layers=cfg.n_layers, profile=prof,
-                         gates_effect=gates,
-                         wall_s=time.perf_counter() - start)
-        del params, server, extra, batch
-        torch.cuda.empty_cache()
+        out[arch] = serve_arch(arch, cfg)
+    return out
+
+
+def serve_arch(arch: str, cfg, B: int = 4, S: int = 2048,
+               NEW: int = 32) -> dict:
+    """One model of phase 8 (and 13(a)) through ``Server.generate`` in
+    bf16 on the card: a warm-up, then one measured generate whose kernel
+    launches must be exactly one wgmma call per prefill attention, SSD or
+    recurrent layer, with no plain version on the path."""
+    import repro_torch.obs as obs
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import Server
+    start = time.perf_counter()
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       8)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, S))
+    extra = lm_inputs(cfg, B, SERVE_FRAMES, seed=6)
+    batch = dict(tokens=toks, **extra)
+    server = Server(model, params)
+    # Warm-up at the measured shapes, so the allocator's pool and the
+    # libraries' handles are set up outside the measured run.
+    server.generate(batch, max_new=2)
+    torch.cuda.reset_peak_memory_stats()
+    with plain_call_counter() as plain_calls, \
+            flash_call_recorder() as shapes:
+        fk.LAUNCHES, sk.LAUNCHES = 0, 0
+        fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+        sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+        rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
+        with obs.capture() as reg:
+            tokens = server.generate(batch, max_new=NEW)
+        launches = dict(
+            flash_attention=fk.LAUNCHES, ssd_scan=sk.LAUNCHES,
+            **{f"flash_{k}": n for k, n in fk.LAUNCHES_BY_VARIANT.items()},
+            **{f"ssd_{k}": n for k, n in sk.LAUNCHES_BY_VARIANT.items()},
+            **{f"rglru_{k}": n for k, n in rk.LAUNCHES.items()})
+    peak = torch.cuda.max_memory_allocated()
+    prefill_s = reg.hists["serve.prefill"].total
+    decode_s = reg.hists["serve.decode"].total
+    # One kernel call per prefill attention (flash_calls: bf16 at
+    # D 64, 128 and 256, MLA's at (96, 64) and (192, 128), on the
+    # wgmma flash kernel), per SSD layer (P 64, N 128, L 256 on the wgmma
+    # SSD kernel) and per RG-LRU layer (the fused forward). None of
+    # the others, the scalar flash kernel included.
+    n_rec = n_recurrent(cfg)
+    want_shapes = flash_calls(cfg)
+    n_attn = sum(want_shapes.values())
+    n_ssd = cfg.n_layers if cfg.ssm else 0
+    if any(kind != "wgmma" for kind, *_ in +want_shapes):
+        fail(f"{arch}: bf16 attention {dict(want_shapes)} does not "
+             f"take the wgmma flash kernel")
+    want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
+                flash_wgmma=n_attn, flash_scalar=0, ssd_wgmma=n_ssd,
+                ssd_scalar=0, rglru_layer_fwd=n_rec, rglru_layer_bwd=0,
+                rglru_fwd=0, rglru_bwd=0)
+    prof = prefill_profile(model, params, toks, extra)
+    gates = (gates_matter(model, params, toks, extra)
+             if cfg.family == "vision" else None)
+    print(f"  {arch}: {model.param_count() / 1e9:.4f} B parameters, "
+          f"{cfg.n_layers} layers"
+          + (f" (+{cfg.enc_layers} encoder)" if cfg.enc_layers else "")
+          + f", drawn on the card in {init_s:.1f} s; "
+          f"prefill {prefill_s * 1e3:.1f} ms = "
+          f"{B * S / prefill_s:.0f} tokens/s; decode "
+          f"{decode_s / (NEW - 1) * 1e3:.2f} ms per token of each "
+          f"sequence (one step of {B} tokens; {NEW - 1} steps in "
+          f"{decode_s * 1e3:.1f} ms = "
+          f"{B * (NEW - 1) / decode_s:.1f} tokens/s); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {launches} (want {want}); "
+          f"flash calls by (variant, D, causal) {dict(shapes)} (want "
+          f"{dict(+want_shapes)}); plain-version calls "
+          f"{dict(plain_calls)}", flush=True)
+    print(f"    one profiled prefill: wall {prof['wall_ms']:.1f} ms, "
+          f"device {prof['device_ms']:.1f} ms (busy "
+          f"{prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); the "
+          "port's kernels (device ms, share of device time): "
+          + ", ".join(
+              f"{k} {ms:.2f} ({ms / prof['device_ms'] * 100:.1f} %)"
+              for k, ms in prof["ours"].items())
+          + "; top kernels (device ms): " + "; ".join(
+              f"{name[:60]} {ms:.2f}" for name, ms in prof["top"]),
+          flush=True)
+    print(f"    first tokens: {tokens[:, :8].tolist()}"
+          + ("" if gates is None else
+             f"; live cross-layer gates move the last logits by "
+             f"{gates:.3e} against zero gates"), flush=True)
+    if launches != want or +shapes != +want_shapes:
+        fail(f"{arch}: launches {launches} by shape {dict(shapes)}, "
+             f"want {want} by shape {dict(+want_shapes)}")
+    if not prof["finite"]:
+        fail(f"{arch}: the prefill's last logits are not finite")
+    if sum(plain_calls.values()):
+        fail(f"{arch}: the plain versions ran on the card's main path: "
+             f"{dict(plain_calls)}")
+    if gates is not None and not gates > 1e-3:
+        fail(f"{arch}: the cross layers do not change the logits")
+    if tokens.shape != (B, NEW) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab:
+        fail(f"{arch}: tokens out of range {tokens.min()}.."
+             f"{tokens.max()} or shape {tokens.shape}")
+    out = dict(launches=launches, flash_shapes=dict(shapes),
+                     prefill_s=prefill_s, decode_s=decode_s,
+                     peak_bytes=peak, params=model.param_count(),
+                     layers=cfg.n_layers, profile=prof,
+                     gates_effect=gates,
+                     wall_s=time.perf_counter() - start)
+    del params, server, extra, batch
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3512,6 +3533,202 @@ def phase_lm_train(dev) -> dict:
     return dict(parity=parity, slice=slice_, paths=paths)
 
 
+# --- Distribution (phase 13) --------------------------------------------------
+
+# (a) qwen2-72B at full width in bf16, its depth cut to 16 of 80 layers to
+# fit one card (the embedding and the untied head 2 x 153,600 x 8192, a
+# layer about 0.878 B parameters: 16.56 B, 33 GB), served as phase 8
+# serves (B 4, prompt 2048, 32 new tokens): one wgmma flash call a layer
+# at [B 4, 64 query heads over 8 kv heads, 2048, 128], causal.
+DIST_ARCH, DIST_DEPTH = "qwen2_72b", 16
+# (b) the sharded train step on a one-rank NCCL process group and a (1, 1)
+# ("data", "model") mesh: phase 12(a)'s qwen2-1.5B (full width, depth 2,
+# float32, B 2 x 256), bitwise against the unsharded step (at one rank
+# every gather and reduction is the identity).
+SHARDED_ARCH, SHARDED_DEPTH = "qwen2_1_5b", 2
+
+
+@contextlib.contextmanager
+def first_flash_call():
+    """Copies of the first model-layout flash call's q, k, v, keywords and
+    output (the wrapper's ``_flash_cuda``, which launches the kernel)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    seen = {}
+    inner = fops._flash_cuda
+
+    def capture(q, k, v, **kw):
+        o = inner(q, k, v, **kw)
+        if not seen:
+            seen.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=dict(kw),
+                        out=o.clone())
+        return o
+    fops._flash_cuda = capture
+    try:
+        yield seen
+    finally:
+        fops._flash_cuda = inner
+
+
+def serve_qwen2_72b() -> dict:
+    """(a): phase 8's run of qwen2-72B at 16 layers, its first flash call
+    held against the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    cfg = get_config(DIST_ARCH).replace(n_layers=DIST_DEPTH)
+    with first_flash_call() as first:
+        out = serve_arch(DIST_ARCH, cfg)
+    want = (4, 2048, cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim_)
+    if tuple(first["q"].shape) != want or not first["kw"]["causal"]:
+        fail(f"{DIST_ARCH}: first flash call q {tuple(first['q'].shape)} "
+             f"{first['kw']}, want {want} causal")
+    ref = flash_attention_ref(first["q"], first["k"], first["v"],
+                              **first["kw"])
+    err, rel = hold_flash(f"{DIST_ARCH} (a) first flash call", first["out"],
+                          ref, torch.bfloat16)
+    print(f"  (a) {DIST_ARCH} first flash call q {want} (group "
+          f"{want[3]}): max |d| {err:.3e}, RMS(d) / RMS(plain) {rel:.3e} "
+          f"against the plain version", flush=True)
+    del first, ref
+    torch.cuda.empty_cache()
+    return dict(out, flash_max_abs_err=err, flash_rel_rms=rel,
+                flash_shape=list(want))
+
+
+def sharded_world1(dev, workdir: str) -> dict:
+    """(b): one sharded ``make_train_step`` on a one-rank NCCL mesh against
+    the unsharded step on the same weights and tokens; then a checkpoint
+    of the sharded state restored onto the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import (make_train_step,
+                                                shard_train_state)
+    start = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(workdir, "nccl-init"),
+        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config(SHARDED_ARCH).replace(
+            n_layers=SHARDED_DEPTH, dtype="float32", param_dtype="float32")
+        model = Model(cfg)
+        B, S = TRAIN_PARITY_SHAPE
+        params = lm_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(0), 9)
+        batch = token_batch(cfg, B, S, dev, seed=1)
+        opt = adamw()
+        where = f"{SHARDED_ARCH} (13b)"
+        reset_lm_launches()
+        with flash_call_recorder() as shapes:
+            t0 = time.perf_counter()
+            ref = make_train_step(model, opt)(params, opt.init(params),
+                                              batch)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        check_train_launches(cfg, read_lm_launches(), shapes, 1,
+                             where + " unsharded")
+        sp, so = shard_train_state(model, params, opt, mesh)
+        step = make_train_step(model, opt, mesh=mesh)
+        reset_lm_launches()
+        with flash_call_recorder() as shapes:
+            t0 = time.perf_counter()
+            new, state, met = step(sp, so, batch)
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t0
+        launches = read_lm_launches()
+        check_train_launches(cfg, launches, shapes, 1, where + " sharded")
+        for t in tree_leaves((new, state.mu, state.nu)):
+            if not sharding.is_dtensor(t) or t.device.type != "cuda":
+                fail(f"{where}: a state leaf is {type(t).__name__} on "
+                     f"{t.device}, not a DTensor on the card")
+        pairs = list(zip(tree_leaves((new, state.mu, state.nu)),
+                         tree_leaves((ref[0], ref[1].mu, ref[1].nu))))
+        same = sum(torch.equal(a.to_local(), b) for a, b in pairs)
+        same += sum(torch.equal(met[k], ref[2][k])
+                    for k in ("loss", "grad_norm"))
+        worst = max(((a.to_local() - b).abs().max()
+                     / b.abs().max().clamp(min=1e-30)).item()
+                    for a, b in pairs)
+        if same != len(pairs) + 2:
+            print(f"  (b) NOT bitwise: {len(pairs) + 2 - same} of "
+                  f"{len(pairs) + 2} leaves and metrics differ, worst "
+                  f"{worst:.3e} relative", flush=True)
+            check(f"{where} sharded vs unsharded, relative", worst, 1e-7)
+        ckpt = os.path.join(workdir, "sharded-ckpt")
+        tree = dict(params=new, mu=state.mu, nu=state.nu)
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, 1, tree)
+        places = tree_map(lambda t: (t.device_mesh, t.placements), new)
+        back = restore_checkpoint(ckpt, 1, tree, dict(
+            params=places, mu=places, nu=places))
+        ckpt_s = time.perf_counter() - t0
+        restored = sum(torch.equal(a.to_local(), b.to_local())
+                       and a.placements == b.placements
+                       for a, b in zip(tree_leaves(back), tree_leaves(tree)))
+        if restored != len(tree_leaves(tree)):
+            fail(f"{where}: {len(tree_leaves(tree)) - restored} leaves of "
+                 f"the restored checkpoint differ from the saved state")
+        shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    out = dict(loss=met["loss"].item(), grad_norm=met["grad_norm"].item(),
+               bitwise=same == len(pairs) + 2, leaves=len(pairs),
+               worst_rel=worst, launches=launches,
+               flash_shapes=dict(shapes), unsharded_s=plain_s,
+               sharded_s=sharded_s, checkpoint_s=ckpt_s,
+               wall_s=time.perf_counter() - start)
+    print(f"  (b) {SHARDED_ARCH} depth {SHARDED_DEPTH}, float32, B {B}, S "
+          f"{S} on a (1, 1) NCCL mesh: loss {out['loss']:.6f}, grad_norm "
+          f"{out['grad_norm']:.5f}; sharded step "
+          + ("bitwise" if out["bitwise"] else f"within {worst:.2e}")
+          + f" the unsharded one ({len(pairs)} parameter and moment leaves,"
+          f" every one a DTensor on the card); step {sharded_s * 1e3:.1f} "
+          f"ms sharded, {plain_s * 1e3:.1f} ms unsharded (first calls); "
+          f"launches {launches}; checkpoint of the sharded state saved and "
+          f"restored onto the mesh bit for bit in {ckpt_s:.1f} s; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def dryrun_train_4k() -> dict:
+    """(c): the dry run's per-device bytes of qwen2-72B train_4k on the
+    production meshes, on the host."""
+    from repro_torch.launch.dryrun import DEVICE_BYTES, build_cell
+    out = {}
+    for multi_pod in (False, True):
+        c = build_cell(DIST_ARCH, "train_4k", multi_pod)
+        m = c["memory"]
+        if m["param_bytes"] != 728_530_944:
+            fail(f"dry run: {m['param_bytes']} parameter bytes per device "
+                 f"on {c['mesh']}, want 728530944")
+        print(f"  (c) dry run {DIST_ARCH} train_4k on {c['mesh']} "
+              f"({c['chips']} devices): per device parameters "
+              f"{m['param_bytes']} B, AdamW state {m['opt_state_bytes']} "
+              f"B, inputs {m['input_bytes']} B, grad_accum "
+              f"{c['grad_accum']}: {m['state_bytes'] / 1e9:.3f} GB beside "
+              f"an H100's {DEVICE_BYTES / 1e9:.0f} GB", flush=True)
+        out["pod2" if multi_pod else "pod1"] = c
+    return out
+
+
+def phase_distribution(dev, workdir: str) -> dict:
+    print(f"== phase 13: distribution — (a) {DIST_ARCH} at full width, "
+          f"{DIST_DEPTH} of 80 layers, bf16, served (B 4, prompt 2048, 32 "
+          f"new tokens), (b) the sharded train step on a one-rank NCCL "
+          f"mesh ({SHARDED_ARCH} depth {SHARDED_DEPTH}, float32), (c) the "
+          f"dry run of {DIST_ARCH} train_4k", flush=True)
+    serve = serve_qwen2_72b()
+    sharded = sharded_world1(dev, workdir)
+    return dict(serve=serve, sharded=sharded, dryrun=dryrun_train_4k())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device available")
@@ -3558,6 +3775,7 @@ def main() -> None:
         b10 = timed("phase 10", phase_batched, e2e, cmp9)
         srv = timed("phase 11", phase_serve, *e2e["cell"])
         train = timed("phase 12", phase_lm_train, dev)
+        dist13 = timed("phase 13", phase_distribution, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     reactive9 = cmp9["launches"]["waterwise[backend=fused]"]["_launches"]
@@ -3692,20 +3910,27 @@ def main() -> None:
             for name, t in lmk["model_flash"].items()
             if tuple(t["kernel_dims"]) in dims}
     by_model = wgmma_by_model(((64, 64), (128, 128)))
+    by_model[f"{DIST_ARCH} (phase 13)"] = dist13["serve"]["launches"][
+        "flash_wgmma"]
     kernels.append(dict(
         name="flash_attention_sm90", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces=flash, launches=sum(by_model.values()),
         launches_by_model=by_model,
-        max_abs_err=lmk["worst"]["flash_sm90"], ms=f128["ms"],
+        max_abs_err=max(lmk["worst"]["flash_sm90"],
+                        dist13["serve"]["flash_max_abs_err"]), ms=f128["ms"],
         plain_ms=f128["plain_ms"], bound_ms=f128["bound_ms"],
         device_ms=f128["device_ms"], plain_device_ms=f128["plain_device_ms"],
         bound_by=f128["bound_by"], library_ms=f128["library_ms"],
         shape=[48, 2048, 128], dtype="bfloat16", launches_per_call=1,
-        main_path="Server.generate, bf16 (phase 8): one call a prefill "
-                  "attention of qwen2_1_5b, dbrx_132b, llama_3_2_vision_11b "
-                  "(self and cross) and seamless_m4t_large_v2 (D 64: "
-                  "encoder, self, cross), reading the model layout in place",
+        main_path="Server.generate, bf16 (phases 8 and 13): one call a "
+                  "prefill attention of qwen2_1_5b, dbrx_132b, "
+                  "llama_3_2_vision_11b (self and cross), "
+                  "seamless_m4t_large_v2 (D 64: encoder, self, cross) and "
+                  "qwen2_72b (group 8), reading the model layout in place",
+        qwen2_72b=dict(shape=dist13["serve"]["flash_shape"],
+                       max_abs_err=dist13["serve"]["flash_max_abs_err"],
+                       rel_rms=dist13["serve"]["flash_rel_rms"]),
         d64=dict(shape=[48, 2048, 64], **{
             key: f64[key] for key in ("ms", "device_ms", "plain_ms",
                                       "library_ms", "bound_ms",
@@ -3831,6 +4056,7 @@ def main() -> None:
         rglru_layer_bwd=launch_pick("rglru", "layer_bwd"),
         rglru_scan_fwd=launch_pick("rglru", "fwd"),
         rglru_scan_bwd=launch_pick("rglru", "bwd"))
+    runs[f"{SHARDED_ARCH} (13b), the sharded step"] = dist13["sharded"]
     for row in kernels:
         pick = picks.get(row["name"])
         row["launches_train"] = {} if pick is None else {

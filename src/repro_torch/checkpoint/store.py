@@ -12,9 +12,15 @@ decimal string (``layers/0/w``). A bf16 leaf is stored as its raw 2-byte
 patterns, numpy dtype ``|V2``: the bytes the reference writes for an
 ``ml_dtypes`` bfloat16 array.
 ``AsyncCheckpointer`` commits in a background thread (training never
-blocks on disk) with at most one commit in flight. The reference's
-resharding restore (its ``shardings`` argument) waits for mesh and
-sharding (ROADMAP queue 1 item [3]).
+blocks on disk) with at most one commit in flight.
+
+A sharded tree (DTensor leaves, ``runtime/sharding.py``) is saved in the
+same format: every rank gathers each leaf's full array (a collective, so
+every rank calls ``save_checkpoint``), rank 0 alone writes, and the ranks
+meet at a barrier after the commit. ``restore_checkpoint(...,
+shardings=...)`` re-shards each leaf onto a target mesh, which may differ
+from the mesh that saved: every rank reads the file and keeps its own
+block.
 """
 from __future__ import annotations
 
@@ -27,8 +33,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.runtime import sharding
+
 
 def _to_numpy(leaf) -> np.ndarray:
+    if sharding.is_dtensor(leaf):
+        leaf = sharding.gather_tree(leaf)
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:         # numpy has no bfloat16
@@ -74,8 +84,36 @@ def checkpoint_bytes(tree) -> int:
                for shape, dtype in map(_spec, _flatten(tree).values()))
 
 
+def _collective(tree) -> bool:
+    """Whether ``tree`` holds DTensor leaves (every rank saves it)."""
+    return any(sharding.is_dtensor(x) for x in _flatten(tree).values())
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
+
+
 def save_checkpoint(directory: str, step: int, tree,
                     extra: Optional[Dict] = None) -> str:
+    """Write ``tree`` as ``directory/step-N`` (atomic rename). A tree with
+    DTensor leaves is gathered on every rank and written by rank 0."""
+    if _collective(tree):
+        host = _map_leaves(lambda _, x: _to_numpy(x), tree)
+        final = os.path.join(directory, f"step-{step}")
+        if _rank() == 0:
+            _write(directory, step, host, extra)
+        _barrier()
+        return final
+    return _write(directory, step, tree, extra)
+
+
+def _write(directory: str, step: int, tree, extra) -> str:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp-{step}")
     final = os.path.join(directory, f"step-{step}")
@@ -103,12 +141,19 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, target_tree) -> Any:
+def restore_checkpoint(directory: str, step: int, target_tree,
+                       shardings=None, mesh=None) -> Any:
     """Restore into ``target_tree``'s structure: each leaf comes back as a
     numpy array of the target leaf's shape and dtype, except that a bf16
     target leaf comes back as a bf16 CPU tensor, bit for bit the saved
     ``|V2`` patterns. A saved dtype that does not cast exactly (numpy's
-    ``safe`` rule) to the target's raises, naming the key."""
+    ``safe`` rule) to the target's raises, naming the key.
+
+    ``shardings`` (the target tree's structure) re-shards every leaf: a
+    leaf of ``(mesh, placements)``, or a spec (``runtime/sharding.py``)
+    with ``mesh`` given, places it as a DTensor on that mesh, on the
+    mesh's device type; ``None`` at a leaf leaves it as above. A DTensor
+    target leaf's shape is its global shape."""
     path = os.path.join(directory, f"step-{step}", "state.npz")
     data = np.load(path)
 
@@ -127,7 +172,38 @@ def restore_checkpoint(directory: str, step: int, target_tree) -> Any:
             return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         return arr.astype(want)
 
-    return _map_leaves(load, target_tree)
+    restored = _map_leaves(load, target_tree)
+    if shardings is None:
+        return restored
+    return _map_leaves(lambda key, arr: _place(arr, _at(shardings, key),
+                                                mesh), restored)
+
+
+def _at(tree, key: str):
+    """The node of ``tree`` at a ``/``-joined path (list indices as
+    decimal strings)."""
+    for part in key.split("/") if key else ():
+        tree = tree[part] if isinstance(tree, dict) else tree[int(part)]
+    return tree
+
+
+def _place(arr, target, mesh):
+    """``arr`` (restored) as a DTensor by ``target``: (mesh, placements),
+    or a spec on ``mesh``; None leaves it."""
+    if target is None:
+        return arr
+    if sharding.is_axes(target):
+        if mesh is None:
+            raise ValueError("restoring by specs needs the mesh")
+        target_mesh, spec = mesh, target
+    else:
+        target_mesh, places = target
+        spec = sharding.spec_of(places, target_mesh)
+    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(arr))
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    t = t.to(target_mesh.device_type)
+    return sharding.shard_leaf(t, spec, target_mesh)
 
 
 class AsyncCheckpointer:
@@ -141,16 +217,22 @@ class AsyncCheckpointer:
         self.directory = directory
         self.every = every
         self._thread: Optional[threading.Thread] = None
+        self._collective = False
         self.saved_steps = []
 
     def maybe_save(self, step: int, tree, extra=None) -> bool:
+        """A sharded tree is gathered here, on every rank (a collective);
+        rank 0's thread writes it, and ``wait`` then holds every rank at
+        a barrier until the commit is on disk."""
         if step % self.every:
             return False
         self.wait()                       # at most one in flight
+        self._collective = _collective(tree)
         host_tree = _map_leaves(lambda _, x: np.array(_to_numpy(x)), tree)
 
         def work():
-            save_checkpoint(self.directory, step, host_tree, extra)
+            if not self._collective or _rank() == 0:
+                _write(self.directory, step, host_tree, extra)
             self.saved_steps.append(step)
 
         self._thread = threading.Thread(target=work, daemon=True)
@@ -161,3 +243,5 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+            if self._collective:
+                _barrier()

@@ -6,11 +6,11 @@ port's LM serving and training paths, and the reference's step shapes
 The port runs every family of the reference: ``decoder`` (dense-GQA or
 MLA attention, Mamba-2 SSD mixers, dense or MoE MLPs, leading dense
 layers), ``gemma3``, ``griffin``, ``vision`` and ``encdec``;
-``list_archs()`` names the architectures it serves and trains, and
-``get_config``
-of the one reference architecture it does not (``qwen2_72b``, whose
-weights must be sharded across cards) raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+``list_archs()`` names the ten reference architectures, all of which it
+serves and trains, in the reference's registry order. ``qwen2_72b``'s
+bf16 weights (145.5 GB) do not fit one 80 GB card: whole, it runs only
+sharded across ranks (``runtime/sharding.py``); on one card it runs with
+its depth cut.
 """
 from __future__ import annotations
 
@@ -96,6 +96,12 @@ class ModelConfig:
     def params_dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k cell (the reference's rule)."""
+        return self.family in ("griffin",) or self.ssm or (
+            self.family == "gemma3")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -117,27 +123,15 @@ SHAPES: Dict[str, ShapeSpec] = {
 
 
 ARCH_REGISTRY = [
-    "dbrx_132b", "deepseek_v2_236b", "seamless_m4t_large_v2", "qwen2_1_5b",
-    "gemma3_4b", "minicpm3_4b", "recurrentgemma_2b", "llama_3_2_vision_11b",
-    "mamba2_2_7b",
+    "dbrx_132b", "deepseek_v2_236b", "seamless_m4t_large_v2", "qwen2_72b",
+    "qwen2_1_5b", "gemma3_4b", "minicpm3_4b", "recurrentgemma_2b",
+    "llama_3_2_vision_11b", "mamba2_2_7b",
 ]
-
-# Reference architectures the port does not run yet, and the ROADMAP item
-# that ports each.
-_NOT_PORTED = {
-    "qwen2_72b": "weights sharded across cards, 145 GB in bf16: the "
-                 "sharding slice, runtime/sharding.py (ROADMAP queue 1 "
-                 "item 3)",
-}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     """Load ``repro_torch/configs/<arch>.py`` (dashes normalized)."""
     mod_name = arch.replace("-", "_").replace(".", "_")
-    if mod_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: it needs {_NOT_PORTED[mod_name]}; "
-            f"ported archs: {', '.join(ARCH_REGISTRY)}")
     if mod_name not in ARCH_REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; ported archs: "
                        f"{', '.join(ARCH_REGISTRY)}")

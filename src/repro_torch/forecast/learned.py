@@ -94,15 +94,17 @@ def init_params(seed: int, d_model: int, horizon: int, device=None) -> dict:
     recurrent state plus the final seasonal anomaly."""
     gen = torch.Generator().manual_seed(int(seed))
     n_out = horizon * len(TRAIN_QUANTILES)
-    params = dict(
-        inp=common.dense_init(gen, (2, d_model), fan_in=2),
-        inp_b=common.zeros_init((d_model,)),
+    tree = dict(
+        inp=common.dense_init(gen, (2, d_model), ("embed", "mlp"),
+                              fan_in=2),
+        inp_b=common.zeros_init((d_model,), ("mlp",)),
         block=rglru.block_init(gen, d_model, lru_width=d_model,
                                d_conv=_D_CONV),
-        norm=common.zeros_init((d_model,)),
-        head=common.zeros_init((d_model + 1, n_out)),
-        head_b=common.zeros_init((n_out,)),
+        norm=common.zeros_init((d_model,), ("embed_nosplit",)),
+        head=common.zeros_init((d_model + 1, n_out), ("mlp", "embed")),
+        head_b=common.zeros_init((n_out,), ("embed",)),
     )
+    params, _ = common.split_tree(tree)
     params["block"]["conv_w"][-1] = 1.0
     # Outer-quantile biases start at -+0.25 sigma so the untrained band has
     # width (the q50 point forecast stays exactly seasonal-naive).

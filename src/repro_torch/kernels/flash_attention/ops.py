@@ -32,7 +32,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import plain_vjp
+from repro_torch.kernels import plain_vjp, refuse_dtensors
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bh_blocked, flash_attention_bh_ref,
@@ -99,6 +99,7 @@ def flash_attention_bh(q, k, v, *, causal=True, window=0, scale=None,
                        group=1):
     """q: [BHq, Sq, D]; k: [BHkv, Skv, D]; v: [BHkv, Skv, Dv] ->
     [BHq, Sq, Dv]."""
+    refuse_dtensors("flash_attention_bh", q, k, v)
     kw = dict(causal=causal, window=window, scale=scale, group=group)
     if _device_type(q) == "cpu":
         return flash_attention_bh_ref(q, k, v, **kw)
@@ -137,6 +138,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     """q: [B, Sq, Kh, G, D]; k: [B, Skv, Kh, D]; v: [B, Skv, Kh, Dv] ->
     [B, Sq, Kh, G, Dv]. ``scale`` defaults to 1/sqrt(D); ``block_kv`` is
     the backward's kv block (the model's ``cfg.block_kv``)."""
+    refuse_dtensors("flash_attention", q, k, v)
     kw = dict(causal=causal, window=window, scale=scale)
     if _device_type(q) == "cpu":
         return flash_attention_ref(q, k, v, **kw)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_dtensors
 from repro_torch.kernels.rglru_scan import rglru_scan as _kernel
 from repro_torch.kernels.rglru_scan.ref import (rglru_layer_ref,
                                                 rglru_scan_bwd_ref,
@@ -56,6 +57,7 @@ def rglru_layer(pre_r: torch.Tensor, pre_i: torch.Tensor, x: torch.Tensor,
     """pre_r, pre_i, x: [B, S, W] float32; lam: [W] -> y [B, S, W], the
     recurrence over ``ref.rglru_gates(pre_r, pre_i, x, lam)``.
     Differentiable in all four."""
+    refuse_dtensors("rglru_layer", pre_r, pre_i, x, lam)
     if _device_type(pre_r) == "cuda":
         return _Layer.apply(pre_r, pre_i, x, lam)
     return rglru_layer_ref(pre_r, pre_i, x, lam)
@@ -87,4 +89,5 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor, *, chunk: int = 128):
     parity with the reference and ignored: the kernels choose their own
     chunks (``rglru_scan.chunk_for``) and take any S."""
     del chunk
+    refuse_dtensors("rglru_scan", a, bx)
     return _Scan.apply(a, bx)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import ctypes
 
+from repro_torch.kernels import refuse_dtensors
 from repro_torch.kernels.sinkhorn import sinkhorn
 from repro_torch.kernels.sinkhorn.ref import (sinkhorn_iteration_ref,
                                               sinkhorn_solve_adaptive_ref,
@@ -21,6 +22,7 @@ def sinkhorn_iteration(C, f, g, log_a, log_b, eps):
     a CPU tensor takes the plain version. The ``f`` argument is unused —
     the update recomputes it from g — but kept for signature parity with
     ref.py, as in the reference wrapper."""
+    refuse_dtensors("sinkhorn_iteration", C, f, g, log_a, log_b)
     if C.device.type == "cuda":
         return sinkhorn.sinkhorn_iteration_cuda(C, g, log_a, log_b, eps)
     if C.device.type != "cpu":
@@ -47,6 +49,7 @@ def sinkhorn_solve(C, log_a, log_b, table, iters):
     """The annealed solve: ``iters`` iterations at each eps of ``table`` from
     f = g = 0. A CUDA tensor makes one launch of the annealed kernel (and
     raises on what it does not take); a CPU tensor takes the plain loop."""
+    refuse_dtensors("sinkhorn_solve", C, log_a, log_b)
     if C.device.type == "cuda":
         return sinkhorn.sinkhorn_solve_cuda(C, log_a, log_b, table, iters)
     if C.device.type != "cpu":
@@ -60,6 +63,7 @@ def sinkhorn_solve_batched(C, log_a, log_b, table, iters):
     launches when the cells cannot all be co-resident; raises on what it
     does not take); a CPU tensor takes the plain loop over the cell axis.
     Each cell's (f, g) equals ``sinkhorn_solve`` on that cell."""
+    refuse_dtensors("sinkhorn_solve_batched", C, log_a, log_b)
     if C.device.type == "cuda":
         return sinkhorn.sinkhorn_solve_batched_cuda(C, log_a, log_b, table,
                                                     iters)
@@ -75,6 +79,7 @@ def sinkhorn_solve_adaptive(C, log_a, log_b, g0, tol, table, iters):
     tensor makes one launch of the adaptive kernel (and raises on what it
     does not take); a CPU tensor takes the plain loop. Returns (f, g,
     iterations used as a 0-d int32 tensor)."""
+    refuse_dtensors("sinkhorn_solve_adaptive", C, log_a, log_b, g0)
     if C.device.type == "cuda":
         return sinkhorn.sinkhorn_solve_adaptive_cuda(C, log_a, log_b, g0, tol,
                                                      table, iters)

@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import plain_vjp
+from repro_torch.kernels import plain_vjp, refuse_dtensors
 from repro_torch.kernels.ssd_scan import ssd_scan as _kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
@@ -42,6 +42,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=256):
     """x [b,S,H,P], dt [b,S,H], A [H], Bm/Cm [b,S,G,N] ->
     (y [b,S,H,P], final state [b,H,P,N]) in x's dtype; chunks of
     ``min(chunk, S)`` rows."""
+    refuse_dtensors("ssd_scan", x, dt, A, Bm, Cm)
     if x.device.type == "cuda":
         return _Scan.apply(chunk, x, dt, A, Bm, Cm)
     if x.device.type != "cpu":

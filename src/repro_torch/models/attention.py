@@ -34,21 +34,29 @@ from repro_torch.models.common import dense_init, zeros_init
 
 def init(gen, d_model, n_heads, n_kv, head_dim, *, qkv_bias=False,
          dtype=torch.float32) -> dict:
-    """QKV + output projections, drawn in the order wq, wk, wv, wo. K/V
-    read a stream of width ``d_model`` (cross-attention's too: every
-    config's image patches and encoder frames come at that width)."""
+    """QKV + output projections (P leaves), drawn in the order wq, wk,
+    wv, wo. K/V read a stream of width ``d_model`` (cross-attention's
+    too: every config's image patches and encoder frames come at that
+    width)."""
     p = dict(
-        wq=dense_init(gen, (d_model, n_heads, head_dim), dtype=dtype),
-        wk=dense_init(gen, (d_model, n_kv, head_dim), dtype=dtype),
-        wv=dense_init(gen, (d_model, n_kv, head_dim), dtype=dtype),
+        wq=dense_init(gen, (d_model, n_heads, head_dim),
+                      ("embed", "heads", "head_dim"), dtype),
+        wk=dense_init(gen, (d_model, n_kv, head_dim),
+                      ("embed", "kv_heads", "head_dim"), dtype),
+        wv=dense_init(gen, (d_model, n_kv, head_dim),
+                      ("embed", "kv_heads", "head_dim"), dtype),
         wo=dense_init(gen, (n_heads, head_dim, d_model),
-                      fan_in=n_heads * head_dim, dtype=dtype),
+                      ("heads", "head_dim", "embed"), dtype,
+                      fan_in=n_heads * head_dim),
     )
     if qkv_bias:
         dev = gen.device
-        p["bq"] = zeros_init((n_heads, head_dim), dtype, dev)
-        p["bk"] = zeros_init((n_kv, head_dim), dtype, dev)
-        p["bv"] = zeros_init((n_kv, head_dim), dtype, dev)
+        p["bq"] = zeros_init((n_heads, head_dim), ("heads", "head_dim"),
+                             dtype, dev)
+        p["bk"] = zeros_init((n_kv, head_dim), ("kv_heads", "head_dim"),
+                             dtype, dev)
+        p["bv"] = zeros_init((n_kv, head_dim), ("kv_heads", "head_dim"),
+                             dtype, dev)
     return p
 
 

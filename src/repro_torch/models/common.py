@@ -1,19 +1,35 @@
 """Shared model building blocks — the counterpart of
-``repro/models/common.py``: truncated-normal and fan-in-scaled inits,
-RMS and layer norm, the gated MLP, RoPE, the token embedding and
-logits head over a padded vocabulary, and the training loss.
+``repro/models/common.py``: parameters with their logical axes,
+truncated-normal and fan-in-scaled inits, RMS and layer norm, the gated
+MLP, RoPE, the token embedding and logits head over a padded vocabulary,
+and the training loss.
 
-Parameters are plain tensors in the reference's layouts (a dense weight is
+Parameter convention
+--------------------
+Init functions return trees whose leaves are ``P(value, axes)``: the
+tensor together with its *logical* sharding axes (e.g. ("embed", "heads",
+"head_dim")), the reference's names. ``split_tree`` separates them into
+(values, axes); ``runtime/sharding.py`` resolves the axes to mesh specs
+and DTensor placements. Value and axes are made in one call, so the two
+trees cannot drift. The port keeps per-layer lists where the reference
+stacks layers, so the reference's leading ``"layers"`` axis is not on the
+port's leaves.
+
+Values are plain tensors in the reference's layouts (a dense weight is
 ``[in, out]`` and applied as ``x @ W``; attention weights keep
 ``[d, heads, head_dim]``). ``jax.random`` cannot be reproduced, so inits
 draw from a seeded ``torch.Generator``: on the CPU by default, so the same
 seed gives the same parameters on the card and on the CPU; or on the card,
 with a generator on the card, where a model is too large to draw on the
-host (the card's draw is its own stream of numbers).
+host (the card's draw is its own stream of numbers). ``META`` stands in
+for a generator on the meta device: every init then returns meta tensors
+of the right shapes and dtypes, draws nothing and allocates nothing
+(``Model.abstract_params``).
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -23,6 +39,54 @@ _TN_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
 _TN_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
 
 
+class P:
+    """A parameter (or cache, or input) leaf: tensor + logical axes, one
+    name per dimension."""
+    __slots__ = ("value", "axes")
+
+    def __init__(self, value, axes: Tuple[str, ...]):
+        axes = tuple(axes)
+        if len(axes) != value.dim():
+            raise ValueError(f"axes {axes} do not name the {value.dim()} "
+                             f"dimensions of a {tuple(value.shape)} leaf")
+        self.value = value
+        self.axes = axes
+
+    def __repr__(self):
+        return f"P({tuple(self.value.shape)}, {self.axes})"
+
+
+def is_param(x) -> bool:
+    return isinstance(x, P)
+
+
+def split_tree(tree):
+    """(values, axes) from a tree of P leaves: nested dicts, lists and
+    tuples keep their kind; None stays None in both."""
+    if isinstance(tree, P):
+        return tree.value, tree.axes
+    if isinstance(tree, dict):
+        pairs = {k: split_tree(v) for k, v in tree.items()}
+        return ({k: v for k, (v, _) in pairs.items()},
+                {k: a for k, (_, a) in pairs.items()})
+    if isinstance(tree, (list, tuple)):
+        pairs = [split_tree(v) for v in tree]
+        return (type(tree)(v for v, _ in pairs),
+                type(tree)(a for _, a in pairs))
+    if tree is None:
+        return None, None
+    raise TypeError(f"not a P leaf: {type(tree).__name__}")
+
+
+class _MetaGenerator:
+    """The stand-in for a generator on the meta device (``torch`` has
+    none): inits that get it return meta tensors and draw nothing."""
+    device = torch.device("meta")
+
+
+META = _MetaGenerator()
+
+
 def trunc_normal(gen: torch.Generator, shape, scale: float,
                  dtype=torch.float32) -> torch.Tensor:
     """``scale`` times a standard normal truncated to [-2, 2] (the
@@ -30,7 +94,9 @@ def trunc_normal(gen: torch.Generator, shape, scale: float,
     the generator's device, returned in ``dtype``. On the CPU the draw is
     float64; on the card it is float32 (a 2.7 B-parameter model would
     otherwise spend minutes of host erfinv and a float64 temporary per
-    embedding)."""
+    embedding). With ``META``, an empty meta tensor."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     wide = torch.float64 if gen.device.type == "cpu" else torch.float32
     u = torch.rand(shape, generator=gen, dtype=wide, device=gen.device)
     x = math.sqrt(2.0) * torch.erfinv(2.0 * (_TN_LO + u * (_TN_HI - _TN_LO))
@@ -38,19 +104,19 @@ def trunc_normal(gen: torch.Generator, shape, scale: float,
     return (scale * x.clamp(-2.0, 2.0)).to(dtype)
 
 
-def dense_init(gen: torch.Generator, shape, fan_in=None,
-               dtype=torch.float32) -> torch.Tensor:
+def dense_init(gen: torch.Generator, shape, axes, dtype=torch.float32,
+               fan_in=None) -> P:
     """Fan-in-scaled init (the MaxText default)."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    return trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype)
+    return P(trunc_normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype), axes)
 
 
-def zeros_init(shape, dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=device)
+def zeros_init(shape, axes, dtype=torch.float32, device=None) -> P:
+    return P(torch.zeros(shape, dtype=dtype, device=device), axes)
 
 
-def ones_init(shape, dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.ones(shape, dtype=dtype, device=device)
+def ones_init(shape, axes, dtype=torch.float32, device=None) -> P:
+    return P(torch.ones(shape, dtype=dtype, device=device), axes)
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -73,9 +139,10 @@ def layer_norm(x, scale, bias, eps=1e-5):
 
 def norm_init(d, kind, dtype, device=None) -> dict:
     if kind == "rmsnorm":
-        return dict(scale=zeros_init((d,), dtype, device))
-    return dict(scale=ones_init((d,), dtype, device),
-                bias=zeros_init((d,), dtype, device))
+        return dict(scale=zeros_init((d,), ("embed_nosplit",), dtype,
+                                     device))
+    return dict(scale=ones_init((d,), ("embed_nosplit",), dtype, device),
+                bias=zeros_init((d,), ("embed_nosplit",), dtype, device))
 
 
 def apply_norm(x, p, kind):
@@ -90,10 +157,10 @@ def apply_norm(x, p, kind):
 
 def mlp_init(gen, d_model, d_ff, dtype) -> dict:
     """Draws in the order wi, wg, wo; either gate takes these weights."""
-    return dict(wi=dense_init(gen, (d_model, d_ff), dtype=dtype),
-                wg=dense_init(gen, (d_model, d_ff), dtype=dtype),
-                wo=dense_init(gen, (d_ff, d_model), fan_in=d_ff,
-                              dtype=dtype))
+    return dict(wi=dense_init(gen, (d_model, d_ff), ("embed", "mlp"), dtype),
+                wg=dense_init(gen, (d_model, d_ff), ("embed", "mlp"), dtype),
+                wo=dense_init(gen, (d_ff, d_model), ("mlp", "embed"), dtype,
+                              fan_in=d_ff))
 
 
 def mlp_apply(x, p, gate="silu"):
@@ -139,10 +206,12 @@ def pad_vocab(vocab: int, multiple: int = 2048) -> int:
 
 def embedding_init(gen, vocab_padded, d_model, dtype, tied=True) -> dict:
     # 1/sqrt(d) rows keep tied logits ~unit-scale at init.
-    out = dict(tokens=trunc_normal(gen, (vocab_padded, d_model),
-                                   1.0 / math.sqrt(d_model), dtype))
+    out = dict(tokens=P(trunc_normal(gen, (vocab_padded, d_model),
+                                     1.0 / math.sqrt(d_model), dtype),
+                        ("vocab", "embed")))
     if not tied:
-        out["head"] = dense_init(gen, (d_model, vocab_padded), dtype=dtype)
+        out["head"] = dense_init(gen, (d_model, vocab_padded),
+                                 ("embed", "vocab"), dtype)
     return out
 
 

@@ -32,21 +32,26 @@ def init(gen, d_model, n_heads, *, q_lora, kv_lora, d_nope, d_rope, d_v,
     (or wq without a query latent)."""
     dev = gen.device
     p = dict(
-        wkv_a=dense_init(gen, (d_model, kv_lora + d_rope), dtype=dtype),
+        wkv_a=dense_init(gen, (d_model, kv_lora + d_rope),
+                         ("embed", "mla_latent"), dtype),
         kv_norm=norm_init(kv_lora, "rmsnorm", dtype, dev),
-        wkv_b_k=dense_init(gen, (kv_lora, n_heads, d_nope), dtype=dtype),
-        wkv_b_v=dense_init(gen, (kv_lora, n_heads, d_v), dtype=dtype),
-        wo=dense_init(gen, (n_heads, d_v, d_model), fan_in=n_heads * d_v,
-                      dtype=dtype),
+        wkv_b_k=dense_init(gen, (kv_lora, n_heads, d_nope),
+                           ("mla_latent", "heads", "head_dim"), dtype),
+        wkv_b_v=dense_init(gen, (kv_lora, n_heads, d_v),
+                           ("mla_latent", "heads", "head_dim"), dtype),
+        wo=dense_init(gen, (n_heads, d_v, d_model),
+                      ("heads", "head_dim", "embed"), dtype,
+                      fan_in=n_heads * d_v),
     )
     if q_lora:
-        p["wq_a"] = dense_init(gen, (d_model, q_lora), dtype=dtype)
+        p["wq_a"] = dense_init(gen, (d_model, q_lora),
+                               ("embed", "mla_latent"), dtype)
         p["q_norm"] = norm_init(q_lora, "rmsnorm", dtype, dev)
         p["wq_b"] = dense_init(gen, (q_lora, n_heads, d_nope + d_rope),
-                               dtype=dtype)
+                               ("mla_latent", "heads", "head_dim"), dtype)
     else:
         p["wq"] = dense_init(gen, (d_model, n_heads, d_nope + d_rope),
-                             dtype=dtype)
+                             ("embed", "heads", "head_dim"), dtype)
     return p
 
 

@@ -1,10 +1,15 @@
-"""Model facade: init, parameter count, the training loss, prefill,
-decode, the decode cache and step inputs — the counterpart of
-``repro/models/model.py`` for every family (KV caches for attention,
-latent caches for MLA, conv + state caches for Mamba-2 and the RG-LRU,
-static image and encoder K/V for cross-attention). The logical axes the
-reference attaches to caches and inputs come with sharding, which the port
-does not have yet (ROADMAP queue 1 item 3).
+"""Model facade: init, abstract parameters with their logical axes, the
+parameter count, the training loss, prefill, decode, the decode cache and
+step inputs — the counterpart of ``repro/models/model.py`` for every
+family (KV caches for attention, latent caches for MLA, conv + state
+caches for Mamba-2 and the RG-LRU, static image and encoder K/V for
+cross-attention).
+
+Every parameter, cache and input leaf is built once, as ``P(value,
+axes)`` with the reference's logical axes: ``init``, ``init_cache`` and
+``make_inputs`` return the values, ``abstract_params``, ``cache_axes``
+and ``abstract_inputs`` the same trees on the meta device with their
+axes, and ``runtime/sharding.py`` resolves the axes to mesh placements.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import transformer
-from repro_torch.models.common import softmax_xent
+from repro_torch.models.common import META, P, split_tree, softmax_xent
 
 
 class Model:
@@ -27,52 +32,19 @@ class Model:
         """Parameters drawn from ``gen`` on its device (the reference's
         init: zero biases, zero conv and SSM scalars); ``to_device`` moves
         them."""
-        return transformer.init(self.cfg, gen)
+        return split_tree(transformer.init(self.cfg, gen))[0]
+
+    def abstract_params(self):
+        """(meta-tensor tree, logical-axes tree) of ``init``'s tree: the
+        shapes and dtypes, and each leaf's axes, with nothing drawn or
+        allocated."""
+        return split_tree(transformer.init(self.cfg, META))
 
     def param_count(self) -> int:
-        """Parameters of the tree ``init`` builds, from the shapes alone
-        (nothing is allocated)."""
-        cfg = self.cfg
-        d = cfg.d_model
-        norm = d if cfg.norm == "rmsnorm" else 2 * d
-        n = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2) + norm
-        q, kv = cfg.n_heads * cfg.head_dim_, cfg.n_kv * cfg.head_dim_
-        attn = 2 * d * q + 2 * d * kv + ((q + 2 * kv) if cfg.qkv_bias else 0)
-        mlp = lambda f: 3 * d * f                                # noqa
-        if cfg.mla:
-            H, dqk = cfg.n_heads, cfg.d_nope + cfg.d_rope
-            attn = (d * (cfg.kv_lora + cfg.d_rope) + cfg.kv_lora
-                    + cfg.kv_lora * H * (cfg.d_nope + cfg.d_v)
-                    + H * cfg.d_v * d
-                    + (d * cfg.q_lora + cfg.q_lora + cfg.q_lora * H * dqk
-                       if cfg.q_lora else d * H * dqk))
-        layer = 2 * norm + attn + mlp(cfg.d_ff)
-        if cfg.family == "griffin":
-            W = cfg.lru_width
-            rec = 2 * norm + 3 * d * W + 2 * W * W + 8 * W + mlp(cfg.d_ff)
-            n_groups, rem = divmod(cfg.n_layers, 3)
-            return n + n_groups * (2 * rec + layer) + rem * rec
-        if cfg.family == "vision":
-            per = cfg.cross_every
-            cross = layer + 2                                    # gates
-            return n + cfg.n_layers // per * (cross + (per - 1) * layer)
-        if cfg.family == "encdec":
-            dec = 3 * norm + 2 * attn + mlp(cfg.d_ff)
-            return n + cfg.enc_layers * layer + norm + cfg.n_layers * dec
-        if cfg.ssm:
-            H = cfg.d_inner // cfg.ssm_head_dim
-            conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-            rest = (norm + d * (cfg.d_inner + conv_dim + H) + 5 * conv_dim
-                    + 3 * H + cfg.d_inner + cfg.d_inner * d)
-        elif cfg.n_experts:
-            E = cfg.n_experts
-            rest = (2 * norm + attn + d * E + E * mlp(cfg.d_ff)
-                    + (mlp(cfg.d_ff * cfg.n_shared) if cfg.n_shared else 0))
-        else:
-            rest = layer
-        dense = 2 * norm + attn + mlp(cfg.dense_d_ff or cfg.d_ff)
-        return (n + cfg.first_dense * dense
-                + (cfg.n_layers - cfg.first_dense) * rest)
+        """Parameters of the tree ``init`` builds, from
+        ``abstract_params``."""
+        shapes, _ = self.abstract_params()
+        return sum(t.numel() for t in tree_tensors(shapes))
 
     # -- steps ----------------------------------------------------------------
 
@@ -123,47 +95,71 @@ class Model:
         (k, v) of [B, n_img, n_kv, head_dim], selfs=[...]); for
         ``encdec`` a list per decoder layer of dict(self=(k, v), cross=
         (k, v) of [B, src_len, n_kv, head_dim])."""
+        return split_tree(self._cache_tree(batch, max_seq, device,
+                                           src_len, n_img))[0]
+
+    def cache_axes(self, batch: int, max_seq: int, *, src_len: int = 0,
+                   n_img: int = 0):
+        """(meta-tensor tree, logical-axes tree) of ``init_cache``'s tree
+        (the reference's axes: ``cache_batch``, ``cache_seq``,
+        ``cache_img``, ``kv_heads``, ``mla_latent``, ``rope_dim``,
+        ``conv``, ``conv_channels`` ...), with nothing allocated."""
+        return split_tree(self._cache_tree(batch, max_seq, "meta", src_len,
+                                           n_img))
+
+    def _cache_tree(self, batch, max_seq, device, src_len, n_img):
         cfg = self.cfg
         dt = cfg.compute_dtype
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=dt, device=device)
+        def zeros(axes, *shape):
+            return P(torch.zeros(shape, dtype=dt, device=device), axes)
 
-        def kv(length=max_seq):
-            return (zeros(batch, length, cfg.n_kv, cfg.head_dim_),
-                    zeros(batch, length, cfg.n_kv, cfg.head_dim_))
+        def kv(length=max_seq, seq="cache_seq"):
+            axes = ("cache_batch", seq, "kv_heads", "head_dim")
+            return (zeros(axes, batch, length, cfg.n_kv, cfg.head_dim_),
+                    zeros(axes, batch, length, cfg.n_kv, cfg.head_dim_))
 
         if cfg.family == "griffin":
             def rec():
-                return dict(conv=zeros(batch, 3, cfg.lru_width),
-                            state=zeros(batch, cfg.lru_width))
+                return dict(conv=zeros(("cache_batch", "conv", "mlp"),
+                                       batch, 3, cfg.lru_width),
+                            state=zeros(("cache_batch", "mlp"), batch,
+                                        cfg.lru_width))
             n_groups, rem = divmod(cfg.n_layers, 3)
             groups = [dict(rec1=rec(), rec2=rec(), attn=kv())
                       for _ in range(n_groups)]
             return (groups, [rec() for _ in range(rem)] if rem else None)
         if cfg.family == "vision":
             per = cfg.cross_every
-            return [dict(img=kv(n_img), selfs=[kv() for _ in range(per - 1)])
+            return [dict(img=kv(n_img, "cache_img"),
+                         selfs=[kv() for _ in range(per - 1)])
                     for _ in range(cfg.n_layers // per)]
         if cfg.family == "encdec":
-            return [dict(self=kv(), cross=kv(src_len))
+            return [dict(self=kv(), cross=kv(src_len, "cache_img"))
                     for _ in range(cfg.n_layers)]
         if cfg.ssm:
             conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
             H = cfg.d_inner // cfg.ssm_head_dim
-            layer = lambda: dict(conv=zeros(batch, 3, conv_dim),   # noqa
-                                 state=zeros(batch, H, cfg.ssm_head_dim,
-                                             cfg.ssm_state))
+
+            def layer():
+                return dict(
+                    conv=zeros(("cache_batch", "conv", "conv_channels"),
+                               batch, 3, conv_dim),
+                    state=zeros(("cache_batch", "heads", "head_dim",
+                                 "ssm_state"), batch, H, cfg.ssm_head_dim,
+                                cfg.ssm_state))
         elif cfg.mla:
-            layer = lambda: (zeros(batch, max_seq, cfg.kv_lora),  # noqa
-                             zeros(batch, max_seq, cfg.d_rope))
+            def layer():
+                return (zeros(("cache_batch", "cache_seq", "mla_latent"),
+                              batch, max_seq, cfg.kv_lora),
+                        zeros(("cache_batch", "cache_seq", "rope_dim"),
+                              batch, max_seq, cfg.d_rope))
         else:
             layer = kv
         dense = ([layer() for _ in range(cfg.first_dense)]
                  if cfg.first_dense else None)
         return (dense, [layer() for _ in range(cfg.n_layers
                                                - cfg.first_dense)])
-
 
     # -- step inputs ------------------------------------------------------------
 
@@ -175,33 +171,53 @@ class Model:
         ``seq_len`` positions, ``enc_ctx`` encoder positions for encdec).
         Tokens are int64; frames [B, S, d] and patches [B, n_img_tokens,
         d] in the compute dtype."""
+        return split_tree(self._input_tree(shape, device, enc_ctx))[0]
+
+    def abstract_inputs(self, shape, enc_ctx: int = 4096):
+        """(meta-tensor tree, logical-axes tree) of ``make_inputs``'s tree
+        (tokens ``act_batch, act_seq``; frames and patches ``act_batch,
+        act_seq | act_img, act_embed``; the cache's as ``cache_axes``)."""
+        return split_tree(self._input_tree(shape, "meta", enc_ctx))
+
+    def _input_tree(self, shape, device, enc_ctx):
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         dt = cfg.compute_dtype
 
         def tok(s):
-            return torch.zeros((B, s), dtype=torch.int64, device=device)
+            return P(torch.zeros((B, s), dtype=torch.int64, device=device),
+                     ("act_batch", "act_seq"))
         out: Dict[str, Any] = {}
         if shape.kind in ("train", "prefill"):
             out["tokens"] = tok(S)
             if shape.kind == "train":
                 out["labels"] = tok(S)
             if cfg.family == "encdec":
-                out["frames"] = torch.zeros((B, S, cfg.d_model), dtype=dt,
-                                            device=device)
+                out["frames"] = P(torch.zeros((B, S, cfg.d_model), dtype=dt,
+                                              device=device),
+                                  ("act_batch", "act_seq", "act_embed"))
             if cfg.family == "vision":
-                out["patches"] = torch.zeros(
+                out["patches"] = P(torch.zeros(
                     (B, cfg.n_img_tokens, cfg.d_model), dtype=dt,
-                    device=device)
+                    device=device), ("act_batch", "act_img", "act_embed"))
         elif shape.kind == "decode":
             out["tokens"] = tok(1)
-            out["cache"] = self.init_cache(
-                B, S, device,
-                src_len=enc_ctx if cfg.family == "encdec" else 0,
-                n_img=cfg.n_img_tokens)
+            out["cache"] = self._cache_tree(
+                B, S, device, enc_ctx if cfg.family == "encdec" else 0,
+                cfg.n_img_tokens)
         else:
             raise ValueError(f"unknown shape kind {shape.kind!r}")
         return out
+
+
+def tree_tensors(tree) -> list:
+    """The tensor leaves of a tree of dicts, lists and tuples (None
+    skipped), depth first."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_tensors(v)]
+    return [] if tree is None else [tree]
 
 
 def to_device(tree, device):

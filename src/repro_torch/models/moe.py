@@ -34,11 +34,14 @@ def init(gen, d_model, d_ff, n_experts, *, n_shared=0, shared_d_ff=None,
     """Draws in the order router, wi, wg, wo, shared. The expert weights'
     fan-in is their leading axis, n_experts, as the reference's
     ``dense_init`` takes it."""
-    p = dict(router=dense_init(gen, (d_model, n_experts), dtype=dtype),
-             wi=dense_init(gen, (n_experts, d_model, d_ff), dtype=dtype),
-             wg=dense_init(gen, (n_experts, d_model, d_ff), dtype=dtype),
-             wo=dense_init(gen, (n_experts, d_ff, d_model), fan_in=d_ff,
-                           dtype=dtype))
+    p = dict(router=dense_init(gen, (d_model, n_experts),
+                               ("embed", "experts"), dtype),
+             wi=dense_init(gen, (n_experts, d_model, d_ff),
+                           ("experts", "embed", "mlp"), dtype),
+             wg=dense_init(gen, (n_experts, d_model, d_ff),
+                           ("experts", "embed", "mlp"), dtype),
+             wo=dense_init(gen, (n_experts, d_ff, d_model),
+                           ("experts", "mlp", "embed"), dtype, fan_in=d_ff))
     if n_shared:
         p["shared"] = common.mlp_init(gen, d_model,
                                       shared_d_ff or d_ff * n_shared, dtype)

@@ -31,24 +31,25 @@ from repro_torch.models.ssm import _causal_conv
 
 def block_init(gen: torch.Generator, d_model: int, *, lru_width: int,
                d_conv: int = 4, dtype=torch.float32) -> dict:
-    """The reference's parameter tree, layouts and init (zero conv, gate
-    biases and lam; lam float32 whatever ``dtype``); the random draws come
-    from ``gen`` in the order in_x, in_gate, w_a, w_x, out."""
+    """The reference's parameter tree (P leaves), layouts and init (zero
+    conv, gate biases and lam; lam float32 whatever ``dtype``); the random
+    draws come from ``gen`` in the order in_x, in_gate, w_a, w_x, out."""
     dev = gen.device
     return dict(
-        in_x=dense_init(gen, (d_model, lru_width), dtype=dtype),
-        in_gate=dense_init(gen, (d_model, lru_width), dtype=dtype),
-        conv_w=zeros_init((d_conv, lru_width), dtype, dev),
-        conv_b=zeros_init((lru_width,), dtype, dev),
-        w_a=dense_init(gen, (lru_width, lru_width), fan_in=lru_width,
-                       dtype=dtype),
-        b_a=zeros_init((lru_width,), dtype, dev),
-        w_x=dense_init(gen, (lru_width, lru_width), fan_in=lru_width,
-                       dtype=dtype),
-        b_x=zeros_init((lru_width,), dtype, dev),
-        lam=zeros_init((lru_width,), torch.float32, dev),
-        out=dense_init(gen, (lru_width, d_model), fan_in=lru_width,
-                       dtype=dtype),
+        in_x=dense_init(gen, (d_model, lru_width), ("embed", "mlp"), dtype),
+        in_gate=dense_init(gen, (d_model, lru_width), ("embed", "mlp"),
+                           dtype),
+        conv_w=zeros_init((d_conv, lru_width), ("conv", "mlp"), dtype, dev),
+        conv_b=zeros_init((lru_width,), ("mlp",), dtype, dev),
+        w_a=dense_init(gen, (lru_width, lru_width), ("mlp", "mlp_in"),
+                       dtype, fan_in=lru_width),
+        b_a=zeros_init((lru_width,), ("mlp",), dtype, dev),
+        w_x=dense_init(gen, (lru_width, lru_width), ("mlp", "mlp_in"),
+                       dtype, fan_in=lru_width),
+        b_x=zeros_init((lru_width,), ("mlp",), dtype, dev),
+        lam=zeros_init((lru_width,), ("mlp",), torch.float32, dev),
+        out=dense_init(gen, (lru_width, d_model), ("mlp", "embed"), dtype,
+                       fan_in=lru_width),
     )
 
 

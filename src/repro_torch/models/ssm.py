@@ -103,24 +103,24 @@ def ssd_step(x, dt, A, Bm, Cm, state):
 
 def block_init(gen, d_model, *, d_inner, head_dim, n_groups, d_state,
                d_conv=4, dtype=torch.float32) -> dict:
-    """The reference's parameter tree and init: the conv and the SSM
-    scalars start at zero (A_log 0, D 1), so the SSD carries zeros until
-    trained; draws in the order in_proj, out_proj."""
+    """The reference's parameter tree (P leaves) and init: the conv and
+    the SSM scalars start at zero (A_log 0, D 1), so the SSD carries zeros
+    until trained; draws in the order in_proj, out_proj."""
     H = d_inner // head_dim
     conv_dim = d_inner + 2 * n_groups * d_state
     dev = gen.device
     return dict(
         in_proj=dense_init(gen, (d_model,
                                  2 * d_inner + 2 * n_groups * d_state + H),
-                           dtype=dtype),
-        conv_w=zeros_init((d_conv, conv_dim), dtype, dev),
-        conv_b=zeros_init((conv_dim,), dtype, dev),
-        A_log=zeros_init((H,), torch.float32, dev),
-        D=ones_init((H,), torch.float32, dev),
-        dt_bias=zeros_init((H,), torch.float32, dev),
-        norm_scale=zeros_init((d_inner,), dtype, dev),
-        out_proj=dense_init(gen, (d_inner, d_model), fan_in=d_inner,
-                            dtype=dtype),
+                           ("embed", "mlp"), dtype),
+        conv_w=zeros_init((d_conv, conv_dim), ("conv", "mlp"), dtype, dev),
+        conv_b=zeros_init((conv_dim,), ("mlp",), dtype, dev),
+        A_log=zeros_init((H,), ("heads_nosplit",), torch.float32, dev),
+        D=ones_init((H,), ("heads_nosplit",), torch.float32, dev),
+        dt_bias=zeros_init((H,), ("heads_nosplit",), torch.float32, dev),
+        norm_scale=zeros_init((d_inner,), ("mlp",), dtype, dev),
+        out_proj=dense_init(gen, (d_inner, d_model), ("mlp", "embed"),
+                            dtype, fan_in=d_inner),
     )
 
 

@@ -32,6 +32,13 @@ griffin's group and tail layer, vision's group and each of its decoder
 layers): ``remat="full"`` saves nothing and recomputes the body in the
 backward, ``"dots"`` saves the matmuls' outputs (the reference's
 ``checkpoint_dots``), ``"none"`` keeps every activation.
+
+Under the sharded train step (``runtime/train_loop.py`` with a mesh) the
+parameters come as ``runtime.sharding.ShardedLeaf`` blocks: each layer
+gathers its own inside its checkpointed body (``_remat``), so the gathered
+copy is not kept for the backward, and the embedding and norms at the
+top. ``constrain`` pins the activations at the embedding and the logits
+to their logical axes, as the reference does.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, mla, moe, rglru, ssm
+from repro_torch.runtime import sharding
 from repro_torch.models.common import (apply_norm, embed_tokens,
                                        embedding_init, logits_from_hidden,
                                        mlp_apply, mlp_init, norm_init,
@@ -88,12 +96,33 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 _REMATS = ("none", "dots", "full")
 
 
+def constrain(x, axes):
+    """The reference's ``with_sharding_constraint`` by logical axes at the
+    embedding and the logits. A no-op outside the sharded train step.
+    Inside it, ``x`` holds this rank's rows of the microbatch, split over
+    ``act_batch``'s mesh axes: checked against the layout here. The other
+    dimensions stay whole on every rank in this slice (tensor-parallel
+    compute on ``model`` is ROADMAP queue 1); a layout whose rules would
+    split the sequence (the reference's fall-through to ``act_seq`` where
+    the batch does not divide) raises."""
+    layout = sharding.current_layout()
+    if layout is None:
+        return x
+    return sharding.check_rows(x, axes, layout)
+
+
 def _remat(cfg, mode, fn, *args):
     """``fn(*args)``, checkpointed by ``cfg.remat`` when training under
-    grad (the reference's ``_maybe_remat``)."""
+    grad (the reference's ``_maybe_remat``). Sharded parameters among the
+    arguments are gathered inside the checkpointed body."""
     if cfg.remat not in _REMATS:
         raise ValueError(f"remat must be one of {_REMATS}, got "
                          f"{cfg.remat!r}")
+    if sharding.current_layout() is not None:
+        body = fn
+
+        def fn(*a):
+            return body(*sharding.materialize(a))
     if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     if cfg.remat == "dots":
@@ -155,10 +184,10 @@ def cross_layer_init(cfg, gen) -> dict:
     dt, dev = cfg.params_dtype, gen.device
     return dict(ln1=norm_init(cfg.d_model, cfg.norm, dt, dev),
                 cross=_attn_init(cfg, gen),
-                gate_attn=zeros_init((1,), dt, dev),
+                gate_attn=zeros_init((1,), ("scalar",), dt, dev),
                 ln2=norm_init(cfg.d_model, cfg.norm, dt, dev),
                 mlp=mlp_init(gen, cfg.d_model, cfg.d_ff, dt),
-                gate_mlp=zeros_init((1,), dt, dev))
+                gate_mlp=zeros_init((1,), ("scalar",), dt, dev))
 
 
 def draw_live_gates(rng: np.random.Generator) -> dict:
@@ -198,7 +227,9 @@ def init(cfg, gen: torch.Generator) -> Dict[str, Any]:
     ``vision``, ``groups``, a list of dict(cross, selfs=[decoder layers]);
     for ``encdec``, ``enc_layers``, ``enc_norm`` and ``layers``. The
     reference's layouts with its stacks unstacked into lists; draws in the
-    order embedding, then layer by layer."""
+    order embedding, then layer by layer. Leaves are ``P(value, axes)``
+    with the reference's logical axes (``common.split_tree`` separates
+    them); ``gen`` may be ``common.META``."""
     check_supported(cfg)
     params = dict(
         embed=embedding_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -452,10 +483,15 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
     check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
+    if sharding.current_layout() is not None:
+        params = dict(params, **sharding.materialize(
+            {k: v for k, v in params.items()
+             if k in ("embed", "final_norm", "enc_norm")}))
     dtype = cfg.compute_dtype
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(tokens, params["embed"], dtype)
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     if cfg.embed_scale:
         x = x * embed_scale(cfg.d_model, dtype)
     if mode == "decode":
@@ -480,5 +516,6 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
         new_cache = None
 
     x = apply_norm(x, params["final_norm"], cfg.norm)
-    return logits_from_hidden(x, params["embed"], cfg.vocab, dtype), \
+    logits = logits_from_hidden(x, params["embed"], cfg.vocab, dtype)
+    return constrain(logits, ("act_batch", "act_seq", "act_vocab")), \
         new_cache

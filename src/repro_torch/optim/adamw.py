@@ -7,6 +7,13 @@ incremented step (so warmup starts at 2/warmup), uses beta2 = 0.95, clips
 the gradients' global norm before the moments, and decays every leaf
 inside the update. The scalar schedule is computed in float32, as the
 reference's traced schedule is.
+
+Trees of DTensors (the sharded train step's parameters, gradients and
+moments, ``runtime/train_loop.py``) work too: the moments mirror the
+parameters' placements, the update runs on each rank's local blocks, and
+the global norm sums each leaf's squares over the mesh axes the leaf is
+sharded on, so every shard counts once. The step counter is a Python
+integer, the same on every rank (replicated).
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.runtime.sharding import is_dtensor
 
 
 def tree_map(fn, tree, *rest):
@@ -75,12 +84,55 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
     return lr
 
 
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def as_placed(local, ref):
+    """``local`` (a block) as a DTensor laid out as ``ref`` where ``ref``
+    is a DTensor, else ``local`` as it is."""
+    if not is_dtensor(ref):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
+
+
+def _global_sum_of_squares(leaves) -> torch.Tensor:
+    """sum(g ** 2) over every leaf in float32; a DTensor leaf's local
+    squares summed over the mesh dimensions it is sharded on (one
+    all-reduce per such set of dimensions), its replicas counted once."""
+    groups, order = {}, []
+    for g in leaves:
+        key = ()
+        if is_dtensor(g):
+            key = tuple(i for i, p in enumerate(g.placements)
+                        if p.is_shard())
+            mesh = g.device_mesh
+        part = torch.sum(torch.square(_local(g).to(torch.float32)))
+        if key not in groups:
+            order.append(key)
+            groups[key] = [part, mesh if key else None]
+        else:
+            groups[key][0] = groups[key][0] + part
+    total = 0
+    for key in order:
+        part, mesh = groups[key]
+        if key:
+            import torch.distributed as dist
+            for i in key:
+                dist.all_reduce(part, group=mesh.get_group(i))
+        total = total + part
+    return total
+
+
 def clip_by_global_norm(grads, max_norm: float):
     leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in leaves))
+    gn = torch.sqrt(_global_sum_of_squares(leaves))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
+    return tree_map(lambda g: as_placed((_local(g) * scale).to(g.dtype), g),
+                    grads), gn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +145,9 @@ class adamw:
     clip_norm: float = 1.0
 
     def init(self, params) -> AdamWState:
-        z = lambda p: torch.zeros_like(p, dtype=torch.float32)
+        def z(p):
+            return as_placed(
+                torch.zeros_like(_local(p), dtype=torch.float32), p)
         return AdamWState(step=0, mu=tree_map(z, params),
                           nu=tree_map(z, params))
 
@@ -102,18 +156,22 @@ class adamw:
         grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
         step = state.step + 1
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(torch.float32),
-                      state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2)
-                      * torch.square(g.to(torch.float32)), state.nu, grads)
+        mu = tree_map(lambda m, g: as_placed(
+            b1 * _local(m) + (1 - b1) * _local(g).to(torch.float32), m),
+            state.mu, grads)
+        nu = tree_map(lambda v, g: as_placed(
+            b2 * _local(v) + (1 - b2)
+            * torch.square(_local(g).to(torch.float32)), v),
+            state.nu, grads)
         c1 = float(1 - _f32(b1) ** _f32(step))
         c2 = float(1 - _f32(b2) ** _f32(step))
         lr = self.lr(step)
 
-        def upd(p, m, v):
+        def upd(p_, m, v):
+            p, m, v = _local(p_), _local(m), _local(v)
             u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
             u = u + self.weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr * u).to(p.dtype)
+            return as_placed((p.to(torch.float32) - lr * u).to(p.dtype), p_)
 
         new_params = tree_map(upd, params, mu, nu)
         return new_params, AdamWState(step=step, mu=mu, nu=nu), gnorm

@@ -14,11 +14,11 @@ testable on the CPU:
   run_elastic       the restart loop: run → (maybe) crash → restore → rerun,
                     preserving exactly-once step accounting.
 
-The reference's restore re-shards every leaf onto the current mesh, so a
-job can resume on another mesh shape. The port restores each tensor leaf
-onto the device its leaf in the running state lies on; re-sharding on
-restore waits for mesh and sharding, the sharding slice (ROADMAP queue 1
-item [3]).
+The restore re-shards every leaf onto the current mesh where
+``shardings`` says how (``checkpoint.restore_checkpoint``), so a job can
+resume on another mesh shape, as the reference's does; otherwise each
+tensor leaf comes back onto the device its leaf in the running state lies
+on.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     restore_checkpoint)
+from repro_torch.runtime.sharding import is_dtensor
 
 
 class StepWatchdog:
@@ -69,6 +70,8 @@ def _like(restored, state):
         return {k: _like(restored[k], state[k]) for k in state}
     if isinstance(state, (list, tuple)):
         return type(state)(_like(r, s) for r, s in zip(restored, state))
+    if isinstance(restored, torch.Tensor) and is_dtensor(restored):
+        return restored
     if isinstance(state, torch.Tensor):
         return torch.as_tensor(restored).to(state.device)
     return restored
@@ -76,15 +79,16 @@ def _like(restored, state):
 
 def run_elastic(state, step_fn: Callable, batch_fn: Callable, *,
                 num_steps: int, ckpt_dir: str, ckpt_every: int = 10,
-                injector: Optional[FailureInjector] = None,
+                shardings=None, injector: Optional[FailureInjector] = None,
                 watchdog: Optional[StepWatchdog] = None,
                 max_restarts: int = 10) -> Dict:
     """Run ``num_steps`` of ``state = step_fn(state, batch, step)`` with
     checkpoint/restart. ``state`` is a tree of dicts, lists and tuples
-    whose leaves are tensors or arrays.
-    Returns dict(state, restarts, steps_run). Unlike the reference, it
-    takes no ``shardings``: re-sharding on restore waits for mesh and
-    sharding (ROADMAP queue 1 item [3])."""
+    whose leaves are tensors, DTensors or arrays; ``shardings`` (as
+    ``restore_checkpoint`` takes it: (mesh, placements) leaves) places
+    each restored leaf on the current mesh. With DTensor leaves every rank
+    runs this loop in step, with the same failures.
+    Returns dict(state, restarts, steps_run)."""
     ckpt = AsyncCheckpointer(ckpt_dir, every=ckpt_every)
     restarts = 0
     step = 0
@@ -108,8 +112,8 @@ def run_elastic(state, step_fn: Callable, batch_fn: Callable, *,
             ckpt.wait()
             last = latest_step(ckpt_dir)
             if last is not None:
-                state = _like(restore_checkpoint(ckpt_dir, last, state),
-                              state)
+                state = _like(restore_checkpoint(ckpt_dir, last, state,
+                                                 shardings), state)
                 step = last
             else:
                 step = 0

@@ -613,10 +613,12 @@ def test_griffin_block_prefill_goes_through_kernel_on_card(card, dtype):
     cache's state is the plain recurrence's last step."""
     from repro_torch.configs import get_config
     from repro_torch.models import rglru
+    from repro_torch.models.common import split_tree
     cfg = get_config("recurrentgemma_2b", reduced=True).replace(
         lru_width=256)
     gen = torch.Generator().manual_seed(5)
-    p = rglru.block_init(gen, 128, lru_width=256, dtype=dtype)
+    p, _ = split_tree(rglru.block_init(gen, 128, lru_width=256,
+                                       dtype=dtype))
     p.update({k: torch.from_numpy(v).to(p[k].dtype) for k, v in
               rglru.draw_live_block(np.random.default_rng(5), cfg).items()})
     p = {k: v.to(card) for k, v in p.items()}
@@ -1495,3 +1497,146 @@ def test_new_arch_server_on_card_goes_through_kernels(card, arch,
     out = Server(model, card_params).generate(dict(tokens=toks, **extra),
                                               max_new=4)
     assert out.shape == (2, 4) and out.min() >= 0 and out.max() < cfg.vocab
+
+
+# -- distribution: the sharded path on a one-rank NCCL mesh -------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL process group (file rendezvous) and its (1, 1)
+    ("data", "model") mesh on the card, torn down after this file."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    path = tmp_path_factory.mktemp("nccl") / "init"
+    dist.init_process_group("nccl", init_method=f"file://{path}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_world1_sharded_step_is_bitwise_on_card(nccl_mesh):
+    """Reduced qwen2-72B in float32 on the card: the sharded step on the
+    one-rank mesh gives the unsharded step's loss, grad_norm, parameters
+    and moments bit for bit (every gather and reduction is the identity),
+    its state DTensors on the card, with the same flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.sharding import is_dtensor
+    from repro_torch.runtime.train_loop import (make_train_step,
+                                                shard_train_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2_72b", reduced=True).replace(
+        dtype="float32", param_dtype="float32", block_kv=8)
+    model = Model(cfg)
+    params = to_device(model.init(torch.Generator().manual_seed(0)), "cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 21),
+                         generator=torch.Generator().manual_seed(1))
+    batch = dict(tokens=toks[:, :-1].cuda(), labels=toks[:, 1:].cuda())
+    opt = adamw(lr=lambda s: 1e-2)
+    for ga in (1, 2):
+        before = dict(fb.LAUNCHES_BY_VARIANT)
+        ref = make_train_step(model, opt, grad_accum=ga)(
+            params, opt.init(params), batch)
+        mid = dict(fb.LAUNCHES_BY_VARIANT)
+        sp, so = shard_train_state(model, params, opt, nccl_mesh)
+        new, state, met = make_train_step(model, opt, grad_accum=ga,
+                                          mesh=nccl_mesh)(sp, so, batch)
+        torch.cuda.synchronize()
+        after = dict(fb.LAUNCHES_BY_VARIANT)
+        assert {k: mid[k] - before[k] for k in mid} == \
+            {k: after[k] - mid[k] for k in mid}
+        assert mid["scalar"] - before["scalar"] == 2 * ga
+        assert torch.equal(met["loss"], ref[2]["loss"])
+        assert torch.equal(met["grad_norm"], ref[2]["grad_norm"])
+        for a, b in zip(tree_leaves((new, state.mu, state.nu)),
+                        tree_leaves((ref[0], ref[1].mu, ref[1].nu))):
+            assert is_dtensor(a) and a.device.type == "cuda"
+            assert torch.equal(a.to_local(), b)
+
+
+def test_qwen2_72b_layer_flash_group8_matches_plain_on_card(card,
+                                                            monkeypatch):
+    """One qwen2-72B decoder layer at full width (d 8192, 64 query heads
+    over 8 kv heads, head dim 128) in bf16: its prefill makes one wgmma
+    flash launch at group 8, held against the plain version on the same
+    q, k and v within phase 8's limits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import transformer
+    from repro_torch.models.common import split_tree
+    cfg = get_config("qwen2_72b").replace(n_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lp, _ = split_tree(transformer.decoder_layer_init(cfg, gen))
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    seen = {}
+    inner = fops._flash_cuda
+
+    def capture(q, k, v, **kw):
+        o = inner(q, k, v, **kw)
+        seen.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=kw, o=o)
+        return o
+    monkeypatch.setattr(fops, "_flash_cuda", capture)
+    before = dict(fb.LAUNCHES_BY_VARIANT)
+    with torch.inference_mode():
+        y, _ = transformer.decoder_layer_apply(
+            cfg, lp, x, torch.arange(512, device="cuda"), "prefill", None,
+            None)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES_BY_VARIANT == dict(before,
+                                          wgmma=before["wgmma"] + 1)
+    assert tuple(seen["q"].shape) == (1, 512, 8, 8, 128)
+    assert seen["kw"]["causal"] and torch.isfinite(y).all()
+    ref = flash_attention_ref(seen["q"], seen["k"], seen["v"], **seen["kw"])
+    d = seen["o"].float() - ref.float()
+    assert d.abs().max().item() <= 2e-2
+    assert (d.square().mean().sqrt()
+            / ref.float().square().mean().sqrt()).item() <= 1e-2
+
+
+def test_kernel_wrappers_refuse_dtensors_on_card(nccl_mesh):
+    """Every kernel wrapper refuses a DTensor on the card with a
+    ``TypeError`` naming it, before any launch."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    rep = [Replicate(), Replicate()]
+
+    def dt(*shape, dtype=torch.bfloat16):
+        return distribute_tensor(torch.zeros(shape, dtype=dtype,
+                                             device="cuda"), nccl_mesh, rep)
+    q, kv = dt(1, 64, 2, 2, 128), dt(1, 64, 2, 128)
+    w = dt(1, 64, 16, dtype=torch.float32)
+    C = dt(64, 6, dtype=torch.float32)
+    calls = [lambda: fops.flash_attention(q, kv, kv),
+             lambda: fops.flash_attention_bh(dt(4, 64, 128), dt(2, 64, 128),
+                                             dt(2, 64, 128), group=2),
+             lambda: sops.ssd_scan(dt(1, 64, 2, 64), dt(1, 64, 2),
+                                   dt(2), dt(1, 64, 1, 64), dt(1, 64, 1, 64)),
+             lambda: rops.rglru_layer(w, w, w, dt(16, dtype=torch.float32)),
+             lambda: rops.rglru_scan(w, w),
+             lambda: ops.sinkhorn_solve(C, dt(64, dtype=torch.float32),
+                                        dt(6, dtype=torch.float32), [0.5],
+                                        1)]
+    before = (dict(fb.LAUNCHES_BY_VARIANT), dict(scan_binding.LAUNCHES),
+              sinkhorn.LAUNCHES)
+    for call in calls:
+        with pytest.raises(TypeError, match="DTensor"):
+            call()
+    torch.cuda.synchronize()
+    assert (dict(fb.LAUNCHES_BY_VARIANT), dict(scan_binding.LAUNCHES),
+            sinkhorn.LAUNCHES) == before

@@ -1,0 +1,595 @@
+"""The sharded path on four gloo ranks on the CPU, against the port's
+unsharded step and the reference.
+
+Each test writes its inputs under ``tmp_path``, then runs this file as a
+script (``python tests/test_torch_distributed.py CASE DIR``) under its own
+time limit: the script spawns four ranks that meet by ``file://``
+rendezvous in ``DIR`` (no TCP port), run the case and leave their results
+in ``DIR`` for the test to compare. The ranks import neither jax nor the
+JAX package; the reference side (its train step, its device blocks, its
+checkpoint restore) runs in this test process, or for the device blocks
+in a JAX subprocess with four host devices.
+
+- ``train``: one float32 sharded step of reduced qwen2-72B and reduced
+  DBRX (experts over ``model``) on meshes (2, 2) ("data", "model") and
+  (2, 2, 1) ("pod", "data", "model"), at grad_accum 1 and 2, against the
+  unsharded step on the same rank and the reference's jitted step; the
+  same in float64; and int8 compression against its quantisation bound.
+- ``state``: each rank's blocks against the reference's
+  ``devices_indices_map``; a checkpoint saved on (2, 2) restored onto
+  (4, 1), (1, 4) and no mesh, and through the reference's restore;
+  ``run_elastic`` with injected failures against a clean run; the kernel
+  wrappers refusing DTensors; the layouts that must raise.
+"""
+import datetime
+import json
+import os
+import signal
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "src")
+WORLD = 4
+# Per spawned run: rank start-up (~8 s for four), the work (~40 s alone),
+# and a margin for the other test workers sharing the cores.
+RUN_TIMEOUT_S = 240
+ARCHS = ("qwen2_72b", "dbrx_132b")
+MESHES = {"2x2": ((2, 2), ("data", "model")),
+          "2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
+# Sharded against unsharded (float32): loss, grad_norm, and each leaf of
+# the first moments and of the second moments' square roots (both linear
+# in the gradient) within 1e-6 of the leaf's largest entry (the sums over
+# ranks add in another order); the parameters through their updates, by
+# test_torch_train's UPDATE_* limits (a first AdamW step divides each
+# gradient by its own magnitude, so an entry whose gradient is rounding
+# noise near eps, e.g. the key bias's, steps by a different fraction of
+# lr; logged as a near-tie in ROADMAP queue 3). In float64 that noise is
+# 1e-9 times smaller and the parameters themselves are held to 1e-6.
+SHARD_RTOL = 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The ranks (no jax here)
+# ---------------------------------------------------------------------------
+
+def _init(rank: int, run_dir: str):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(run_dir, 'rendezvous')}",
+        rank=rank, world_size=WORLD,
+        timeout=datetime.timedelta(seconds=RUN_TIMEOUT_S))
+
+
+def _mesh(shape, names):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def _np_tree(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return [t.detach().double().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t) for t in tree_leaves(tree)]
+
+
+def _rank_train(rank: int, run_dir: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import (make_train_step,
+                                                shard_train_state)
+    _init(rank, run_dir)
+    inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
+    out = {}
+    for arch in ARCHS:
+        params, batch = inputs[arch]["params"], inputs[arch]["batch"]
+        for dtype in ("float32", "float64"):
+            cfg = get_config(arch, reduced=True).replace(
+                dtype=dtype, param_dtype=dtype, block_kv=8)
+            model = Model(cfg)
+            p = tree_map(lambda t: t.to(getattr(torch, dtype)), params)
+            opt = adamw(lr=lambda s: inputs["lr"])
+            refs = {ga: make_train_step(model, opt, grad_accum=ga)(
+                p, opt.init(p), batch) for ga in (1, 2)}
+            for mname, (shape, names) in MESHES.items():
+                mesh = _mesh(shape, names)
+                for ga, ref in refs.items():
+                    key = f"{arch}/{dtype}/{mname}/{ga}"
+                    sp, so = shard_train_state(model, p, opt, mesh)
+                    new, st, met = make_train_step(
+                        model, opt, grad_accum=ga, mesh=mesh)(sp, so, batch)
+                    out[key] = dict(
+                        loss=met["loss"].item(),
+                        grad_norm=met["grad_norm"].item(),
+                        ref_loss=ref[2]["loss"].item(),
+                        ref_grad_norm=ref[2]["grad_norm"].item(),
+                        params=_np_tree(sharding.gather_tree(new)),
+                        mu=_np_tree(sharding.gather_tree(st.mu)),
+                        nu=_np_tree(sharding.gather_tree(st.nu)),
+                        ref_params=_np_tree(ref[0]),
+                        ref_mu=_np_tree(ref[1].mu),
+                        ref_nu=_np_tree(ref[1].nu),
+                        sharded=sum(any(q.is_shard() for q in t.placements)
+                                    for t in _leaves(sp)),
+                        leaves=len(_leaves(sp)))
+                    if dtype == "float32" and ga == 1:
+                        gen = torch.Generator().manual_seed(100 + rank)
+                        new, st, met = make_train_step(
+                            model, opt, mesh=mesh, compress="int8")(
+                            sp, so, batch, gen)
+                        out[key + "/int8"] = dict(
+                            grad_norm=met["grad_norm"].item(),
+                            mu=_np_tree(sharding.gather_tree(st.mu)))
+    if rank == 0:
+        np.save(os.path.join(run_dir, "train.npy"), out, allow_pickle=True)
+
+
+def _leaves(tree):
+    from repro_torch.optim.adamw import tree_leaves
+    return tree_leaves(tree)
+
+
+def _rank_state(rank: int, run_dir: str):
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.sinkhorn import ops as kops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWState, tree_map
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.elastic import FailureInjector, run_elastic
+    from repro_torch.runtime.train_loop import (make_train_step,
+                                                shard_train_state)
+    _init(rank, run_dir)
+    inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
+    out = dict(blocks={}, raised={})
+
+    # Blocks of each case's arange tensor on this rank.
+    for i, (shape, names, tshape, spec) in enumerate(inputs["block_cases"]):
+        mesh = _mesh(tuple(shape), tuple(names))
+        spec = tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+        full = torch.arange(int(np.prod(tshape)),
+                            dtype=torch.float32).reshape(tshape)
+        dt = sharding.shard_leaf(full, spec, mesh)
+        coords = sharding.coordinates(mesh)
+        out["blocks"][i] = dict(coords=coords, local=dt.to_local().numpy(),
+                                placements=[str(p) for p in dt.placements],
+                                full_back=bool(torch.equal(
+                                    sharding.gather_tree(dt), full)))
+        # distribute_tensor (scatter from rank 0) gives the same block
+        ref = distribute_tensor(full, mesh, sharding.placements(spec, mesh))
+        out["blocks"][i]["distribute_equal"] = bool(torch.equal(
+            ref.to_local(), dt.to_local()))
+
+    cfg = get_config("qwen2_72b", reduced=True).replace(
+        dtype="float32", param_dtype="float32", block_kv=8)
+    model = Model(cfg)
+    params, batch = inputs["params"], inputs["batch"]
+    opt = adamw(lr=lambda s: 1e-2)
+    mesh22 = make_host_mesh(model=2)
+    # constraint: a whole tensor's block by logical axes
+    rows = batch["tokens"]
+    spec = sharding.spec_for(("act_batch", "act_seq"), rows.shape, mesh22)
+    out["constraint"] = dict(spec=spec, equal=torch.equal(
+        sharding.constraint(rows, ("act_batch", "act_seq"), mesh22),
+        sharding.shard_leaf(rows, spec, mesh22).to_local()))
+    sp, so = shard_train_state(model, params, opt, mesh22)
+    step = make_train_step(model, opt, mesh=mesh22)
+    sp, so, _ = step(sp, so, batch)
+    state = dict(params=sp, mu=so.mu, nu=so.nu)
+    ckpt = os.path.join(run_dir, "ckpt")
+    save_checkpoint(ckpt, 1, state)
+    full_state = sharding.gather_tree(state)
+    if rank == 0:
+        torch.save(full_state, os.path.join(run_dir, "saved_state.pt"))
+    _, axes = model.abstract_params()
+    restored = {}
+    for name, shape in (("4x1", (4, 1)), ("1x4", (1, 4))):
+        mesh = _mesh(shape, ("data", "model"))
+        specs = sharding.tree_specs(axes, params, mesh)
+        target = dict(params=specs, mu=specs, nu=specs)
+        shardings = sharding.map_axes(
+            lambda spec, t: (mesh, sharding.placements(spec, mesh)),
+            target, dict(params=params, mu=params, nu=params))
+        by_placement = restore_checkpoint(ckpt, 1, state, shardings)
+        by_spec = restore_checkpoint(ckpt, 1, state, target, mesh=mesh)
+        restored[name] = all(
+            torch.equal(a, b) for tree in (by_placement, by_spec)
+            for a, b in zip(_leaves(sharding.gather_tree(tree)),
+                            _leaves(full_state)))
+        restored[name + "_placed"] = [
+            str(t.placements) for t in _leaves(by_placement)][:3]
+    plain = restore_checkpoint(ckpt, 1, full_state)
+    restored["none"] = all(np.array_equal(a, b.numpy()) for a, b in zip(
+        _leaves(plain), _leaves(full_state)))
+    out["restored"] = restored
+
+    # run_elastic: failures after steps 3 and 5, checkpoints every 2.
+    def step_fn(st, b, i):
+        p, o, _ = step(st["params"], AdamWState(int(st["step"]), st["mu"],
+                                                st["nu"]), b)
+        return dict(params=p, mu=o.mu, nu=o.nu,
+                    step=torch.tensor(o.step))
+
+    def batch_fn(i):
+        g = torch.Generator().manual_seed(1000 + i)
+        toks = torch.randint(0, cfg.vocab, (4, 21), generator=g)
+        return dict(tokens=toks[:, :-1], labels=toks[:, 1:])
+    sp, so = shard_train_state(model, params, opt, mesh22)
+    start = dict(params=sp, mu=so.mu, nu=so.nu, step=torch.tensor(0))
+    specs = sharding.tree_specs(axes, params, mesh22)
+    place = sharding.map_axes(
+        lambda spec, t: (mesh22, sharding.placements(spec, mesh22)),
+        specs, params)
+    shardings = dict(params=place, mu=place, nu=place, step=None)
+    clean = run_elastic(start, step_fn, batch_fn, num_steps=5,
+                        ckpt_dir=os.path.join(run_dir, "clean"),
+                        ckpt_every=2, shardings=shardings)
+    faulty = run_elastic(start, step_fn, batch_fn, num_steps=5,
+                         ckpt_dir=os.path.join(run_dir, "faulty"),
+                         ckpt_every=2, shardings=shardings,
+                         injector=FailureInjector(fail_after_steps=(3, 5)))
+    a, b = (sharding.gather_tree(r["state"]) for r in (clean, faulty))
+    out["elastic"] = dict(
+        restarts=faulty["restarts"], steps_run=faulty["steps_run"],
+        clean_steps=clean["steps_run"],
+        equal=all(torch.equal(x, y) for x, y in zip(_leaves(a),
+                                                     _leaves(b))),
+        dtensor=all(sharding.is_dtensor(t) for t in _leaves(
+            faulty["state"]["params"])))
+
+    # Kernel wrappers refuse DTensors (before any CPU fallback).
+    q = distribute_tensor(torch.zeros(2, 8, 2, 1, 16), mesh22,
+                          [Replicate(), Replicate()])
+    kv = distribute_tensor(torch.zeros(2, 8, 2, 16), mesh22,
+                           [Shard(0), Replicate()])
+    bh = distribute_tensor(torch.zeros(4, 8, 16), mesh22,
+                           [Shard(0), Replicate()])
+    w = distribute_tensor(torch.zeros(2, 8, 4), mesh22,
+                          [Replicate(), Replicate()])
+    calls = dict(
+        flash_attention=lambda: fops.flash_attention(q, kv, kv),
+        flash_attention_bh=lambda: fops.flash_attention_bh(bh, bh, bh),
+        ssd_scan=lambda: sops.ssd_scan(kv, w, w, kv, kv),
+        rglru_layer=lambda: rops.rglru_layer(w, w, w, w),
+        rglru_scan=lambda: rops.rglru_scan(w, w),
+        sinkhorn_solve=lambda: kops.sinkhorn_solve(w, w, w, [1.0], 1))
+    for name, call in calls.items():
+        try:
+            call()
+            out["raised"][name] = "no error"
+        except TypeError as e:
+            out["raised"][name] = "DTensor" if "DTensor" in str(e) else \
+                str(e)
+    # No quiet fallbacks: too few ranks for the production mesh, and a
+    # batch that would shard the sequence.
+    try:
+        make_production_mesh()
+        out["raised"]["production_mesh"] = "no error"
+    except RuntimeError as e:
+        out["raised"]["production_mesh"] = str(e)
+    mesh41 = _mesh((4, 1), ("data", "model"))
+    sp41, so41 = shard_train_state(model, params, opt, mesh41)
+    try:
+        make_train_step(model, opt, mesh=mesh41)(
+            sp41, so41, {k: v[:2] for k, v in batch.items()})
+        out["raised"]["sequence"] = "no error"
+    except NotImplementedError as e:
+        out["raised"]["sequence"] = str(e)
+    out["world"] = dist.get_world_size()
+    if rank == 0:
+        np.save(os.path.join(run_dir, "state_meta.npy"),
+                {k: v for k, v in out.items() if k != "blocks"},
+                allow_pickle=True)
+    np.save(os.path.join(run_dir, f"blocks-{rank}.npy"), out["blocks"],
+            allow_pickle=True)
+
+
+CASES = dict(train=_rank_train, state=_rank_state)
+
+
+def _entry(rank, case, run_dir):
+    CASES[case](rank, run_dir)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def main(argv):
+    import torch.multiprocessing as mp
+    case, run_dir = argv
+    mp.spawn(_entry, args=(case, run_dir), nprocs=WORLD, join=True)
+
+
+# ---------------------------------------------------------------------------
+# The tests (this process has jax)
+# ---------------------------------------------------------------------------
+
+def _spawn(case: str, run_dir) -> None:
+    """Runs ``case`` on four ranks under RUN_TIMEOUT_S; the whole process
+    group is killed if it overruns."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             case, str(run_dir)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=RUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        pytest.fail(f"{case}: four gloo ranks did not finish in "
+                    f"{RUN_TIMEOUT_S} s:\n{log.decode()[-4000:]}")
+    assert proc.returncode == 0, log.decode()[-6000:]
+
+
+def _moments_close(r) -> None:
+    for a, b in zip(r["mu"], r["ref_mu"]):
+        assert _rel(a, b) <= SHARD_RTOL, ("mu", a.shape)
+    for a, b in zip(r["nu"], r["ref_nu"]):
+        assert _rel(np.sqrt(a), np.sqrt(b)) <= SHARD_RTOL, ("nu", a.shape)
+
+
+def _rel(a, b) -> float:
+    scale = np.abs(b).max()
+    return float(np.abs(a - b).max() / scale) if scale > 0 else float(
+        np.abs(a).max())
+
+
+@pytest.fixture(scope="module")
+def train_run(tmp_path_factory):
+    """The ``train`` case on four ranks, and the inputs it took: the
+    reference's reduced-config init (train_pair) and a B 4 batch."""
+    from test_torch_train import STEP_LR, train_batch, train_pair
+    run_dir = tmp_path_factory.mktemp("train")
+    inputs = dict(lr=STEP_LR)
+    pairs = {}
+    for arch in ARCHS:
+        jm, jp, m, pp = train_pair(arch, block_kv=8)
+        jb, pb = train_batch(m.cfg, B=4)
+        inputs[arch] = dict(params=pp, batch=pb)
+        pairs[arch] = (jm, jp, m, pp, jb, pb)
+    torch.save(inputs, os.path.join(run_dir, "inputs.pt"))
+    _spawn("train", run_dir)
+    out = np.load(os.path.join(run_dir, "train.npy"),
+                  allow_pickle=True).item()
+    return out, pairs
+
+
+_REFERENCE_STEPS = {}
+
+
+def _reference_step(arch, ga, jm, jp, jb):
+    """(params, metrics) of the reference's jitted step at STEP_LR, once
+    per (arch, grad_accum)."""
+    if (arch, ga) not in _REFERENCE_STEPS:
+        import jax
+        from repro.optim import adamw as jadamw
+        from repro.runtime import train_loop as jtrain_loop
+        from test_torch_train import STEP_LR
+        jopt = jadamw(lr=lambda s: STEP_LR)
+        jnew, _, jmet = jax.jit(jtrain_loop.make_train_step(
+            jm, jopt, grad_accum=ga))(jp, jopt.init(jp), jb,
+                                      jax.random.PRNGKey(0))
+        _REFERENCE_STEPS[arch, ga] = (jnew, jmet)
+    return _REFERENCE_STEPS[arch, ga]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_step_matches_unsharded_and_reference(train_run, arch,
+                                                      mesh):
+    """At grad_accum 1 and 2: loss and grad_norm within SHARD_RTOL of the
+    unsharded step, every moment leaf within SHARD_RTOL of its largest
+    entry, the updates within test_torch_train's limits; the sharded
+    parameters' updates within the same limits of the reference's jitted
+    step; in float64 the parameters themselves within SHARD_RTOL. Most
+    leaves are sharded (the test would not see a wrong reduction on
+    replicated leaves alone)."""
+    import jax
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    from test_torch_train import LOSS_RTOL, assert_same_update
+    out, pairs = train_run
+    jm, jp, m, pp, jb, pb = pairs[arch]
+    old = [t.double().numpy() for t in tree_leaves(pp)]
+    for ga in (1, 2):
+        r = out[f"{arch}/float32/{mesh}/{ga}"]
+        assert r["sharded"] >= r["leaves"] // 2, (r["sharded"],
+                                                   r["leaves"])
+        assert abs(r["loss"] - r["ref_loss"]) <= SHARD_RTOL * r["ref_loss"]
+        assert abs(r["grad_norm"] - r["ref_grad_norm"]) <= \
+            SHARD_RTOL * r["ref_grad_norm"]
+        _moments_close(r)
+        assert_same_update(old, r["params"], r["ref_params"])
+        jnew, jmet = _reference_step(arch, ga, jm, jp, jb)
+        np.testing.assert_allclose(r["loss"], float(jmet["loss"]),
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(r["grad_norm"], float(jmet["grad_norm"]),
+                                   rtol=LOSS_RTOL)
+        ported = tree_unflatten(pp, [torch.from_numpy(a) for a in
+                                     r["params"]])
+        assert_same_update(jax.tree.leaves(jp), jax.tree.leaves(
+            lm_params_to_reference(ported, m.cfg)), jax.tree.leaves(jnew))
+        r64 = out[f"{arch}/float64/{mesh}/{ga}"]
+        # (the loss and the norms compute in float32 whatever the dtype)
+        assert abs(r64["loss"] - r64["ref_loss"]) <= \
+            SHARD_RTOL * r64["ref_loss"]
+        _moments_close(r64)
+        for a, b in zip(r64["params"], r64["ref_params"]):
+            assert _rel(a, b) <= SHARD_RTOL, a.shape
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_int8_compression_within_quantisation_bound(train_run, arch,
+                                                            mesh):
+    """int8 rounding draws differ per shard, so the compressed step is
+    held to the bound: each first moment (0.1 × the clipped gradient)
+    within one quantum of its leaf (1/127 of the leaf's largest entry,
+    which bounds every shard's scale) plus the change of the clip factor,
+    of the exact step's."""
+    out, _ = train_run
+    exact = out[f"{arch}/float32/{mesh}/1"]
+    q = out[f"{arch}/float32/{mesh}/1/int8"]
+    c = min(1.0, 1.0 / exact["ref_grad_norm"])
+    cq = min(1.0, 1.0 / q["grad_norm"])
+    moved = 0
+    for a, b in zip(q["mu"], exact["ref_mu"]):
+        top = np.abs(b).max()
+        bound = top * (cq / c) / 127 * 1.001 + np.abs(b) * abs(cq / c - 1)
+        assert np.all(np.abs(a - b) <= bound + 1e-12), a.shape
+        moved += int(np.any(a != b))
+    assert moved > 0
+
+
+@pytest.fixture(scope="module")
+def state_run(tmp_path_factory):
+    from test_torch_train import train_batch, train_pair
+    run_dir = tmp_path_factory.mktemp("state")
+    _, _, m, pp = train_pair("qwen2_72b", block_kv=8)
+    _, pb = train_batch(m.cfg, B=4)
+    inputs = dict(params=pp, batch=pb, block_cases=BLOCK_CASES)
+    torch.save(inputs, os.path.join(run_dir, "inputs.pt"))
+    _spawn("state", run_dir)
+    meta = np.load(os.path.join(run_dir, "state_meta.npy"),
+                   allow_pickle=True).item()
+    blocks = [np.load(os.path.join(run_dir, f"blocks-{r}.npy"),
+                      allow_pickle=True).item() for r in range(WORLD)]
+    return run_dir, meta, blocks, m, pp
+
+
+# (mesh shape, names, tensor shape, spec): reduced qwen2-72B's leaves on
+# (2, 2), and the nested ("pod", "data") batch split on (2, 2, 1).
+BLOCK_CASES = [
+    ((2, 2), ("data", "model"), (64, 4, 16), ("data", "model", None)),
+    ((2, 2), ("data", "model"), (2048, 64), ("model", "data")),
+    ((2, 2), ("data", "model"), (4, 16, 64), ("model", None, "data")),
+    ((2, 2), ("data", "model"), (64,), (None,)),
+    ((2, 2, 1), ("pod", "data", "model"), (8, 6), (("pod", "data"), None)),
+    ((2, 2, 1), ("pod", "data", "model"), (4, 20), (("pod", "data"), None)),
+    ((2, 2, 1), ("pod", "data", "model"), (6, 8), (None, ("pod", "data"))),
+]
+
+_JAX_BLOCKS = """
+import json, sys
+from repro.launch.devices import set_host_platform_device_count
+set_host_platform_device_count(4)
+import jax, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
+out = []
+for shape, names, tshape, spec in json.loads(sys.argv[1]):
+    spec = [tuple(e) if isinstance(e, list) else e for e in spec]
+    devs = np.array(jax.devices()).reshape(shape)
+    mesh = Mesh(devs, tuple(names))
+    idx = NamedSharding(mesh, PartitionSpec(*spec)).devices_indices_map(
+        tuple(tshape))
+    case = []
+    for d, slices in idx.items():
+        coords = [int(c) for c in np.argwhere(devs == d)[0]]
+        case.append([coords, [[s.start or 0, tshape[i] if s.stop is None
+                               else s.stop] for i, s in enumerate(slices)]])
+    out.append(case)
+print(json.dumps(out))
+"""
+
+
+def test_shards_equal_the_reference_device_blocks(state_run):
+    """Each rank's local block equals the block the reference's
+    ``NamedSharding.devices_indices_map`` gives the device at the same
+    mesh coordinates (JAX with four host devices, in a subprocess), for
+    parameter layouts on (2, 2) and the nested ("pod", "data") split on
+    (2, 2, 1); ``distribute_tensor`` gives the same blocks, and the
+    gather gives the tensor back; ``constraint`` cuts a whole batch's
+    block by its logical axes."""
+    _, meta, blocks, _, _ = state_run
+    assert meta["constraint"] == dict(spec=("data", None), equal=True)
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", _JAX_BLOCKS,
+                          json.dumps(BLOCK_CASES)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    ref = json.loads(res.stdout.strip().splitlines()[-1])
+    for i, (shape, names, tshape, _) in enumerate(BLOCK_CASES):
+        full = np.arange(int(np.prod(tshape)),
+                         dtype=np.float32).reshape(tshape)
+        by_coords = {tuple(c): tuple(slice(a, b) for a, b in sl)
+                     for c, sl in ref[i]}
+        assert len(by_coords) == WORLD
+        for r in range(WORLD):
+            b = blocks[r][i]
+            coords = tuple(b["coords"][n] for n in names)
+            np.testing.assert_array_equal(b["local"],
+                                          full[by_coords[coords]])
+            assert b["full_back"] and b["distribute_equal"]
+
+
+def test_checkpoint_restores_bitwise_onto_other_meshes(state_run):
+    """Saved from (2, 2) in the reference's format (one writer, full
+    arrays): restored onto (4, 1) and (1, 4), by placements and by specs,
+    and with no mesh, bit for bit; its float32 leaves through the
+    reference's ``restore_checkpoint`` too."""
+    import jax
+    from repro.checkpoint import restore_checkpoint as jrestore
+    run_dir, meta, _, _, _ = state_run
+    assert meta["restored"]["4x1"] and meta["restored"]["1x4"]
+    assert meta["restored"]["none"]
+    assert "Shard" in "".join(meta["restored"]["4x1_placed"])
+    saved = torch.load(os.path.join(run_dir, "saved_state.pt"))
+    target = jax.tree.map(lambda t: np.zeros(tuple(t.shape), np.float32),
+                          saved, is_leaf=lambda t: isinstance(
+                              t, torch.Tensor))
+    got = jrestore(os.path.join(run_dir, "ckpt"), 1, target)
+    from repro_torch.optim.adamw import tree_leaves
+    want = [t.numpy() for t in tree_leaves(saved)]
+    assert [np.asarray(a) for a in jax.tree.leaves(got)] and all(
+        np.array_equal(np.asarray(a), b)
+        for a, b in zip(jax.tree.leaves(got), want))
+
+
+def test_elastic_restart_on_the_mesh_equals_a_clean_run(state_run):
+    """``run_elastic`` with failures after steps 3 and 5 (checkpoints every
+    2, restored onto the mesh through ``shardings``: steps 3 and 5 run
+    twice) ends bitwise equal to a clean run, its state still
+    DTensors."""
+    _, meta, _, _, _ = state_run
+    e = meta["elastic"]
+    assert e["restarts"] == 2 and e["clean_steps"] == 5
+    assert e["steps_run"] == 5 + 2       # steps 3 and 5 rerun
+    assert e["equal"] and e["dtensor"]
+
+
+def test_no_quiet_fallbacks_across_ranks(state_run):
+    """Every kernel wrapper refuses a DTensor; the production mesh on four
+    ranks raises; a batch of 2 on four data ranks (whose rules would shard
+    the sequence) raises naming the ROADMAP item."""
+    _, meta, _, _, _ = state_run
+    assert meta["world"] == WORLD
+    assert set(meta["raised"]) >= {"flash_attention", "flash_attention_bh",
+                                   "ssd_scan", "rglru_layer", "rglru_scan",
+                                   "sinkhorn_solve"}
+    for name in ("flash_attention", "flash_attention_bh", "ssd_scan",
+                 "rglru_layer", "rglru_scan", "sinkhorn_solve"):
+        assert meta["raised"][name] == "DTensor", (name,
+                                                   meta["raised"][name])
+    assert "256 ranks" in meta["raised"]["production_mesh"]
+    assert "ROADMAP" in meta["raised"]["sequence"]
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -38,12 +38,13 @@ from repro_torch.models.model import Model
 from repro_torch.runtime.serve_loop import Server, _splice
 
 ARCHS = ["qwen2_1_5b", "mamba2_2_7b", "gemma3_4b", "recurrentgemma_2b"]
-# Every arch the port serves: the reference's but qwen2_72b, in its
+# Every arch the port serves: all ten of the reference's, in its
 # registry's order (the newer five are held in test_torch_lm_mla_moe.py
-# and test_torch_lm_cross.py).
+# and test_torch_lm_cross.py, qwen2_72b in test_torch_sharding.py and
+# test_torch_distributed.py).
 ALL_ARCHS = ["dbrx_132b", "deepseek_v2_236b", "seamless_m4t_large_v2",
-             "qwen2_1_5b", "gemma3_4b", "minicpm3_4b", "recurrentgemma_2b",
-             "llama_3_2_vision_11b", "mamba2_2_7b"]
+             "qwen2_72b", "qwen2_1_5b", "gemma3_4b", "minicpm3_4b",
+             "recurrentgemma_2b", "llama_3_2_vision_11b", "mamba2_2_7b"]
 # float32 on both sides; matmuls and reductions in other orders (XLA vs
 # PyTorch's CPU kernels) over at most 2 layers of width 64.
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -129,7 +130,7 @@ def _np(t):
 
 def test_configs_match_reference():
     assert list_archs() == tuple(ALL_ARCHS)
-    assert set(jax_list_archs()) - set(ALL_ARCHS) == {"qwen2_72b"}
+    assert jax_list_archs() == tuple(ALL_ARCHS)
     for arch in ALL_ARCHS:
         for reduced in (False, True):
             assert dataclasses.asdict(get_config(arch, reduced)) == \
@@ -138,8 +139,9 @@ def test_configs_match_reference():
         assert cfg.compute_dtype == torch.bfloat16
         assert cfg.params_dtype == torch.bfloat16
         assert cfg.padded_vocab == jax_get_config(arch).padded_vocab
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        get_config("qwen2_72b")
+        assert cfg.sub_quadratic == jax_get_config(arch).sub_quadratic
+    assert dataclasses.asdict(get_config("qwen2_72b")) == \
+        dataclasses.asdict(jax_get_config("qwen2_72b"))
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
@@ -364,17 +366,18 @@ def test_convert_keeps_leaf_dtypes():
 
 
 def test_unported_paths_raise():
-    """Only qwen2_72b is left (its weights must be sharded across cards,
-    ROADMAP [3]); a family the reference does not have raises; a causal
+    """No reference arch is left (qwen2_72b's reduced config is the
+    reference's); a family the reference does not have raises; a causal
     prefill attention with Sq != Skv raises rather than mis-masks."""
-    with pytest.raises(NotImplementedError, match="item 3"):
-        get_config("qwen2_72b", reduced=True)
+    assert dataclasses.asdict(get_config("qwen2_72b", reduced=True)) == \
+        dataclasses.asdict(jax_get_config("qwen2_72b", reduced=True))
     cfg = get_config("qwen2_1_5b", reduced=True)
     with pytest.raises(NotImplementedError, match="family"):
         Model(cfg.replace(family="rwkv"))
     x = torch.zeros((1, 4, cfg.d_model))
-    p = attention.init(torch.Generator().manual_seed(0), cfg.d_model,
-                       cfg.n_heads, cfg.n_kv, cfg.head_dim_)
+    p, _ = common.split_tree(attention.init(
+        torch.Generator().manual_seed(0), cfg.d_model, cfg.n_heads,
+        cfg.n_kv, cfg.head_dim_))
     with pytest.raises(ValueError, match="Sq == Skv"):
         attention.apply(x, p, n_kv=cfg.n_kv, n_heads=cfg.n_heads,
                         positions=torch.arange(4), kind="causal",

@@ -239,14 +239,15 @@ def test_live_mixer_draw_makes_the_scan_carry_signal(monkeypatch):
     scan; ``draw_live_mixer`` gives a Mamba-2 block whose scan output is
     nonzero."""
     from repro_torch.configs import get_config
-    from repro_torch.models.common import dense_init
+    from repro_torch.models.common import dense_init, split_tree
     cfg = get_config("mamba2_2_7b", reduced=True).replace(
         dtype="float32", param_dtype="float32")
     gen = torch.Generator().manual_seed(0)
-    p = ssm.block_init(gen, cfg.d_model, d_inner=cfg.d_inner,
-                       head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
-                       d_state=cfg.ssm_state)
-    x = dense_init(gen, (2, 24, cfg.d_model), fan_in=1)
+    p, _ = split_tree(ssm.block_init(
+        gen, cfg.d_model, d_inner=cfg.d_inner, head_dim=cfg.ssm_head_dim,
+        n_groups=cfg.ssm_groups, d_state=cfg.ssm_state))
+    x = dense_init(gen, (2, 24, cfg.d_model),
+                   ("act_batch", "act_seq", "act_embed"), fan_in=1).value
     seen = []
     plain = ssm.ssd_chunked
 

@@ -464,8 +464,17 @@ def test_make_inputs_matches_reference(arch):
 
 
 def test_qwen2_72b_still_raises_naming_the_sharding_slice():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        get_config("qwen2_72b")
+    """qwen2_72b is ported; what still raises is its sharded step without
+    a process group to shard over, and the production mesh on too few
+    ranks, each naming what it needs."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime.sharding import MeshShape
+    m = Model(get_config("qwen2_72b", reduced=True))
+    with pytest.raises(RuntimeError, match="process group"):
+        make_train_step(m, adamw(), mesh=MeshShape(("data", "model"),
+                                                   (2, 2)))
+    with pytest.raises(RuntimeError, match="256 ranks"):
+        make_production_mesh()
 
 
 # -- the flash and SSD wrappers' gradients ------------------------------------
