@@ -148,8 +148,17 @@ Builds the port's kernels from the sources in this checkout, then:
      every parameter and moment a DTensor on the card, loss, grad_norm and
      every leaf bitwise the unsharded step's, phase 12(a)'s launches, and
      a checkpoint of the sharded state restored onto the mesh bit for
-     bit; (c) the dry run's per-device bytes of qwen2-72B train_4k on the
-     16x16 and 2x16x16 production meshes.
+     bit; (d) on the same mesh, the sharded ``make_prefill_step`` /
+     ``make_decode_step`` (parameters and caches as DTensors placed by
+     their logical axes) of qwen2-1.5B at full depth, mamba2-2.7B at 4
+     layers and recurrentgemma-2B at 3, bf16, B 4, prompt 2048, 32 new
+     tokens — the prefill logits and every token bitwise the unsharded
+     steps', the same kernel launches (28 wgmma flash calls a qwen2-1.5B
+     prefill, the wgmma SSD, ``rglru_layer_fwd``), no plain version;
+     (c) the dry run of qwen2-72B train_4k on the 16x16 and 2x16x16
+     production meshes: per-device bytes, and per-device FLOPs, bytes,
+     collectives and roofline at 2 of 80 layers from ``python -m
+     repro_torch.launch.dryrun`` over a fake process group.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars, the RG-LRU blocks' conv, gate biases and decay and the vision
@@ -3546,6 +3555,20 @@ DIST_ARCH, DIST_DEPTH = "qwen2_72b", 16
 # float32, B 2 x 256), bitwise against the unsharded step (at one rank
 # every gather and reduction is the identity).
 SHARDED_ARCH, SHARDED_DEPTH = "qwen2_1_5b", 2
+# (d) the sharded serving steps (make_prefill_step / make_decode_step with
+# the mesh) on the same one-rank mesh, bf16, B 4, prompt 2048, 32 new
+# tokens: qwen2-1.5B at full depth (28 wgmma flash launches a prefill),
+# mamba2-2.7B at 4 layers (the wgmma SSD) and recurrentgemma-2B at 3 (two
+# fused RG-LRU layers and flash at D 256), each bitwise against its
+# unsharded steps (prefill logits, every token) with the same launches.
+SERVE_SHARDED = dict(qwen2_1_5b=None, mamba2_2_7b=4, recurrentgemma_2b=3)
+# (c) the dry run's costs of qwen2-72B train_4k at 2 of 80 layers on both
+# production meshes, counted over a fake process group in a subprocess of
+# `python -m repro_torch.launch.dryrun`: per device and step, 1.4307e15
+# FLOPs as this count gives them on the CPU (one microbatch x grad_accum
+# 16), held within DRYRUN_RTOL (another torch may decompose an op
+# otherwise).
+DRYRUN_DEPTH, DRYRUN_FLOPS, DRYRUN_RTOL = 2, 1430739505643520, 1e-2
 
 
 @contextlib.contextmanager
@@ -3594,13 +3617,26 @@ def serve_qwen2_72b() -> dict:
                 flash_shape=list(want))
 
 
-def sharded_world1(dev, workdir: str) -> dict:
-    """(b): one sharded ``make_train_step`` on a one-rank NCCL mesh against
-    the unsharded step on the same weights and tokens; then a checkpoint
-    of the sharded state restored onto the mesh."""
+@contextlib.contextmanager
+def one_rank_mesh(workdir: str):
+    """A one-rank NCCL process group (file rendezvous in ``workdir``) and
+    its (1, 1) ("data", "model") mesh, destroyed on exit."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(workdir, "nccl-init"),
+        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
 
+
+def sharded_world1(dev, workdir: str, mesh) -> dict:
+    """(b): one sharded ``make_train_step`` on the one-rank NCCL mesh
+    against the unsharded step on the same weights and tokens; then a
+    checkpoint of the sharded state restored onto the mesh."""
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -3610,74 +3646,66 @@ def sharded_world1(dev, workdir: str) -> dict:
     from repro_torch.runtime.train_loop import (make_train_step,
                                                 shard_train_state)
     start = time.perf_counter()
-    dist.init_process_group(
-        "nccl", init_method="file://" + os.path.join(workdir, "nccl-init"),
-        world_size=1, rank=0, device_id=torch.device("cuda", 0))
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
-        cfg = get_config(SHARDED_ARCH).replace(
-            n_layers=SHARDED_DEPTH, dtype="float32", param_dtype="float32")
-        model = Model(cfg)
-        B, S = TRAIN_PARITY_SHAPE
-        params = lm_params(cfg, torch.Generator(device="cuda")
-                           .manual_seed(0), 9)
-        batch = token_batch(cfg, B, S, dev, seed=1)
-        opt = adamw()
-        where = f"{SHARDED_ARCH} (13b)"
-        reset_lm_launches()
-        with flash_call_recorder() as shapes:
-            t0 = time.perf_counter()
-            ref = make_train_step(model, opt)(params, opt.init(params),
-                                              batch)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-        check_train_launches(cfg, read_lm_launches(), shapes, 1,
-                             where + " unsharded")
-        sp, so = shard_train_state(model, params, opt, mesh)
-        step = make_train_step(model, opt, mesh=mesh)
-        reset_lm_launches()
-        with flash_call_recorder() as shapes:
-            t0 = time.perf_counter()
-            new, state, met = step(sp, so, batch)
-            torch.cuda.synchronize()
-            sharded_s = time.perf_counter() - t0
-        launches = read_lm_launches()
-        check_train_launches(cfg, launches, shapes, 1, where + " sharded")
-        for t in tree_leaves((new, state.mu, state.nu)):
-            if not sharding.is_dtensor(t) or t.device.type != "cuda":
-                fail(f"{where}: a state leaf is {type(t).__name__} on "
-                     f"{t.device}, not a DTensor on the card")
-        pairs = list(zip(tree_leaves((new, state.mu, state.nu)),
-                         tree_leaves((ref[0], ref[1].mu, ref[1].nu))))
-        same = sum(torch.equal(a.to_local(), b) for a, b in pairs)
-        same += sum(torch.equal(met[k], ref[2][k])
-                    for k in ("loss", "grad_norm"))
-        worst = max(((a.to_local() - b).abs().max()
-                     / b.abs().max().clamp(min=1e-30)).item()
-                    for a, b in pairs)
-        if same != len(pairs) + 2:
-            print(f"  (b) NOT bitwise: {len(pairs) + 2 - same} of "
-                  f"{len(pairs) + 2} leaves and metrics differ, worst "
-                  f"{worst:.3e} relative", flush=True)
-            check(f"{where} sharded vs unsharded, relative", worst, 1e-7)
-        ckpt = os.path.join(workdir, "sharded-ckpt")
-        tree = dict(params=new, mu=state.mu, nu=state.nu)
+    cfg = get_config(SHARDED_ARCH).replace(
+        n_layers=SHARDED_DEPTH, dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    B, S = TRAIN_PARITY_SHAPE
+    params = lm_params(cfg, torch.Generator(device="cuda")
+                       .manual_seed(0), 9)
+    batch = token_batch(cfg, B, S, dev, seed=1)
+    opt = adamw()
+    where = f"{SHARDED_ARCH} (13b)"
+    reset_lm_launches()
+    with flash_call_recorder() as shapes:
         t0 = time.perf_counter()
-        save_checkpoint(ckpt, 1, tree)
-        places = tree_map(lambda t: (t.device_mesh, t.placements), new)
-        back = restore_checkpoint(ckpt, 1, tree, dict(
-            params=places, mu=places, nu=places))
-        ckpt_s = time.perf_counter() - t0
-        restored = sum(torch.equal(a.to_local(), b.to_local())
-                       and a.placements == b.placements
-                       for a, b in zip(tree_leaves(back), tree_leaves(tree)))
-        if restored != len(tree_leaves(tree)):
-            fail(f"{where}: {len(tree_leaves(tree)) - restored} leaves of "
-                 f"the restored checkpoint differ from the saved state")
-        shutil.rmtree(ckpt, ignore_errors=True)
-    finally:
-        dist.destroy_process_group()
+        ref = make_train_step(model, opt)(params, opt.init(params),
+                                          batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    check_train_launches(cfg, read_lm_launches(), shapes, 1,
+                         where + " unsharded")
+    sp, so = shard_train_state(model, params, opt, mesh)
+    step = make_train_step(model, opt, mesh=mesh)
+    reset_lm_launches()
+    with flash_call_recorder() as shapes:
+        t0 = time.perf_counter()
+        new, state, met = step(sp, so, batch)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    launches = read_lm_launches()
+    check_train_launches(cfg, launches, shapes, 1, where + " sharded")
+    for t in tree_leaves((new, state.mu, state.nu)):
+        if not sharding.is_dtensor(t) or t.device.type != "cuda":
+            fail(f"{where}: a state leaf is {type(t).__name__} on "
+                 f"{t.device}, not a DTensor on the card")
+    pairs = list(zip(tree_leaves((new, state.mu, state.nu)),
+                     tree_leaves((ref[0], ref[1].mu, ref[1].nu))))
+    same = sum(torch.equal(a.to_local(), b) for a, b in pairs)
+    same += sum(torch.equal(met[k], ref[2][k])
+                for k in ("loss", "grad_norm"))
+    worst = max(((a.to_local() - b).abs().max()
+                 / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in pairs)
+    if same != len(pairs) + 2:
+        print(f"  (b) NOT bitwise: {len(pairs) + 2 - same} of "
+              f"{len(pairs) + 2} leaves and metrics differ, worst "
+              f"{worst:.3e} relative", flush=True)
+        check(f"{where} sharded vs unsharded, relative", worst, 1e-7)
+    ckpt = os.path.join(workdir, "sharded-ckpt")
+    tree = dict(params=new, mu=state.mu, nu=state.nu)
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, 1, tree)
+    places = tree_map(lambda t: (t.device_mesh, t.placements), new)
+    back = restore_checkpoint(ckpt, 1, tree, dict(
+        params=places, mu=places, nu=places))
+    ckpt_s = time.perf_counter() - t0
+    restored = sum(torch.equal(a.to_local(), b.to_local())
+                   and a.placements == b.placements
+                   for a, b in zip(tree_leaves(back), tree_leaves(tree)))
+    if restored != len(tree_leaves(tree)):
+        fail(f"{where}: {len(tree_leaves(tree)) - restored} leaves of "
+             f"the restored checkpoint differ from the saved state")
+    shutil.rmtree(ckpt, ignore_errors=True)
     out = dict(loss=met["loss"].item(), grad_norm=met["grad_norm"].item(),
                bitwise=same == len(pairs) + 2, leaves=len(pairs),
                worst_rel=worst, launches=launches,
@@ -3697,9 +3725,125 @@ def sharded_world1(dev, workdir: str) -> dict:
     return out
 
 
-def dryrun_train_4k() -> dict:
+def serve_sharded(arch: str, depth, dev, mesh) -> dict:
+    """(d): one model served through ``make_prefill_step`` /
+    ``make_decode_step`` unsharded and then with the one-rank mesh
+    (parameters and cache as DTensors placed by their logical axes), bf16,
+    B 4, prompt 2048, 32 new tokens: the prefill logits and every token
+    bitwise, the kernel launches equal and exactly phase 8's, no plain
+    version on the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.serve_loop import _splice
+    from repro_torch.runtime.train_loop import (make_decode_step,
+                                                make_prefill_step,
+                                                shard_serve_state)
+    B, S, NEW = 4, 2048, 32
+    cfg = get_config(arch)
+    if depth:
+        cfg = cfg.replace(n_layers=depth)
+    model = Model(cfg)
+    params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(0), 8)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (B, S))).to(dev)
+
+    def locals_(tree):
+        return [t.to_local() if hasattr(t, "to_local") else t
+                for t in tree_leaves(tree) if t is not None]
+
+    def run(prefill, decode, params, cache):
+        with torch.inference_mode():
+            logits, built = prefill(params, dict(tokens=toks))
+            _splice(locals_(cache), locals_(built))
+            tok, out = torch.argmax(logits, dim=-1)[:, None], []
+            out.append(tok)
+            for i in range(NEW - 1):
+                tok, _, cache = decode(params, cache, tok, S + i)
+                out.append(tok)
+            torch.cuda.synchronize()
+        return logits, torch.cat(out, dim=1)
+
+    runs = {}
+    # In turns, so the second of each is timed warm.
+    for name in ("unsharded", "sharded", "unsharded again",
+                 "sharded again"):
+        cache = model.init_cache(B, S + NEW, dev)
+        if name.startswith("sharded"):
+            p, cache = shard_serve_state(model, params, cache, mesh)
+            steps = (make_prefill_step(model, mesh),
+                     make_decode_step(model, mesh))
+        else:
+            p, steps = params, (make_prefill_step(model),
+                                make_decode_step(model))
+        reset_lm_launches()
+        with plain_call_counter() as plain, \
+                flash_call_recorder() as shapes:
+            t0 = time.perf_counter()
+            logits, tokens = run(*steps, p, cache)
+            wall = time.perf_counter() - t0
+        runs[name] = dict(logits=logits, tokens=tokens, wall_s=wall,
+                          launches=read_lm_launches(),
+                          flash_shapes=dict(shapes), plain=dict(plain))
+        del cache, p
+    ref, got = runs["unsharded"], runs["sharded"]
+    n_attn = sum(flash_calls(cfg).values())
+    want = dict(flash=dict(wgmma=n_attn, scalar=0),
+                ssd=dict(wgmma=cfg.n_layers if cfg.ssm else 0, scalar=0),
+                rglru=dict(layer_fwd=n_recurrent(cfg), layer_bwd=0, fwd=0,
+                           bwd=0))
+    where = f"{arch} (13d)"
+    for name, r in runs.items():
+        if r["launches"] != want or r["flash_shapes"] != dict(
+                +flash_calls(cfg)):
+            fail(f"{where} {name}: launches {r['launches']} by shape "
+                 f"{r['flash_shapes']}, want {want}")
+        if sum(r["plain"].values()):
+            fail(f"{where} {name}: plain versions ran on the card's main "
+                 f"path: {r['plain']}")
+    bitwise = (torch.equal(got["logits"], ref["logits"])
+               and torch.equal(got["tokens"], ref["tokens"]))
+    if not bitwise:
+        fail(f"{where}: the sharded steps differ from the unsharded: "
+             f"prefill logits max |d| "
+             f"{(got['logits'] - ref['logits']).abs().max().item():.3e}, "
+             f"{int((got['tokens'] != ref['tokens']).sum())} tokens")
+    for name in ("unsharded again", "sharded again"):
+        if not torch.equal(runs[name]["tokens"], ref["tokens"]):
+            fail(f"{where}: {name}: the tokens differ from the first run")
+    if not bool(torch.isfinite(ref["logits"]).all()):
+        fail(f"{where}: the prefill's last logits are not finite")
+    print(f"  (d) {arch} depth {cfg.n_layers}, bf16, B {B}, prompt {S}, "
+          f"{NEW} new tokens on the (1, 1) mesh: prefill logits and all "
+          f"{NEW} tokens bitwise the unsharded steps'; launches "
+          f"{got['launches']} (flash by shape {got['flash_shapes']}), "
+          f"no plain version; prefill + {NEW - 1} decode steps in turns "
+          f"(host clock, synchronized): unsharded {ref['wall_s']:.3f}, "
+          f"sharded {got['wall_s']:.3f}, unsharded "
+          f"{runs['unsharded again']['wall_s']:.3f}, sharded "
+          f"{runs['sharded again']['wall_s']:.3f} s; first tokens "
+          f"{ref['tokens'][0, :8].tolist()}", flush=True)
+    out = dict(launches=got["launches"], flash_shapes=got["flash_shapes"],
+               bitwise=bitwise, layers=cfg.n_layers,
+               walls_s={k: r["wall_s"] for k, r in runs.items()})
+    del runs, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_sharded_world1(dev, mesh) -> dict:
+    start = time.perf_counter()
+    out = {a: serve_sharded(a, d, dev, mesh)
+           for a, d in SERVE_SHARDED.items()}
+    print(f"  (d) {time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
+def dryrun_train_4k(workdir: str) -> dict:
     """(c): the dry run's per-device bytes of qwen2-72B train_4k on the
-    production meshes, on the host."""
+    production meshes, on the host; then its costs at DRYRUN_DEPTH layers
+    through ``python -m repro_torch.launch.dryrun`` (a fake process group
+    of 256 and 512 ranks, in a process of its own)."""
     from repro_torch.launch.dryrun import DEVICE_BYTES, build_cell
     out = {}
     for multi_pod in (False, True):
@@ -3715,6 +3859,43 @@ def dryrun_train_4k() -> dict:
               f"{c['grad_accum']}: {m['state_bytes'] / 1e9:.3f} GB beside "
               f"an H100's {DEVICE_BYTES / 1e9:.0f} GB", flush=True)
         out["pod2" if multi_pod else "pod1"] = c
+    start = time.perf_counter()
+    dest = os.path.join(workdir, "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DIST_ARCH, "--shape", "train_4k", "--both-meshes", "--out", dest,
+         "--force", "--override", f"cfg_n_layers={DRYRUN_DEPTH}"],
+        env=env, capture_output=True, text=True, timeout=300)
+    if res.returncode != 0 or "FAIL" in res.stdout:
+        fail(f"dry run costs: rc {res.returncode}\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    costs = {}
+    for tag, multi_pod in (("pod1", False), ("pod2", True)):
+        path = os.path.join(dest, f"{DIST_ARCH}.train_4k.{tag}.baseline"
+                                  f".json")
+        with open(path) as f:
+            c = json.load(f)
+        coll, r = c["collectives"], c["roofline"]
+        if not (c["flops_per_device"] > 0 and c["bytes_per_device"] > 0
+                and coll["total"] > 0 and c["counted_microbatches"] == 1):
+            fail(f"dry run costs {tag}: {c}")
+        check(f"dry run {tag} flops_per_device, relative",
+              abs(c["flops_per_device"] / DRYRUN_FLOPS - 1), DRYRUN_RTOL)
+        print(f"  (c) costs at {DRYRUN_DEPTH} of 80 layers on {c['mesh']}: "
+              f"per device and step {c['flops_per_device']:.6e} FLOPs, "
+              f"{c['bytes_per_device']:.6e} B (unfused), collectives "
+              f"{coll['total']:.6e} B (all-reduce {coll['all-reduce']:.6e},"
+              f" all-gather {coll['all-gather']:.6e}); roofline compute "
+              f"{r['t_compute']:.4f} s, memory {r['t_memory']:.4f} s, "
+              f"collective {r['t_collective']:.4f} s: {r['dominant']}; "
+              f"counted in {c['count_s']:.1f} s", flush=True)
+        costs[tag] = {k: c[k] for k in (
+            "flops_per_device", "bytes_per_device", "collectives",
+            "roofline", "count_s")}
+    out["costs"] = costs
+    print(f"  (c) costs subprocess {time.perf_counter() - start:.1f} s",
+          flush=True)
     return out
 
 
@@ -3722,11 +3903,17 @@ def phase_distribution(dev, workdir: str) -> dict:
     print(f"== phase 13: distribution — (a) {DIST_ARCH} at full width, "
           f"{DIST_DEPTH} of 80 layers, bf16, served (B 4, prompt 2048, 32 "
           f"new tokens), (b) the sharded train step on a one-rank NCCL "
-          f"mesh ({SHARDED_ARCH} depth {SHARDED_DEPTH}, float32), (c) the "
-          f"dry run of {DIST_ARCH} train_4k", flush=True)
+          f"mesh ({SHARDED_ARCH} depth {SHARDED_DEPTH}, float32), (d) the "
+          f"sharded prefill and decode steps on it ("
+          + ", ".join(f"{a} depth {d or 'full'}"
+                      for a, d in SERVE_SHARDED.items())
+          + f", bf16), (c) the dry run of {DIST_ARCH} train_4k", flush=True)
     serve = serve_qwen2_72b()
-    sharded = sharded_world1(dev, workdir)
-    return dict(serve=serve, sharded=sharded, dryrun=dryrun_train_4k())
+    with one_rank_mesh(workdir) as mesh:
+        sharded = sharded_world1(dev, workdir, mesh)
+        served = serve_sharded_world1(dev, mesh)
+    return dict(serve=serve, sharded=sharded, served=served,
+                dryrun=dryrun_train_4k(workdir))
 
 
 def main() -> None:
@@ -4061,6 +4248,10 @@ def main() -> None:
         pick = picks.get(row["name"])
         row["launches_train"] = {} if pick is None else {
             name: pick(r) for name, r in runs.items() if pick(r)}
+        # Each kernel's launches in phase 13(d)'s sharded serving runs.
+        row["launches_phase13d"] = {} if pick is None else {
+            name: pick(r) for name, r in dist13["served"].items()
+            if pick(r)}
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

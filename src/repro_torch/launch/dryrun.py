@@ -1,35 +1,65 @@
-"""The multi-pod dry run as accounting — the counterpart of
+"""The multi-pod dry run: what one device holds, computes, moves and sends
+in every (arch × shape × mesh) cell — the counterpart of
 ``repro/launch/dryrun.py``.
 
-For each (arch × shape × mesh) cell it builds the port's parameter,
-AdamW-state, input and decode-cache trees on the meta device (nothing is
-drawn or allocated, and no process group is needed), resolves each leaf's
-logical axes on the production mesh's shape by the rules of
-``runtime/sharding.py`` (the cell's variant applied), and counts the
-bytes one device holds. Results go to one JSON file per cell, in the
-reference's layout.
+``build_cell`` builds the port's parameter, AdamW-state, input and
+decode-cache trees on the meta device (nothing drawn or allocated, no
+process group), resolves each leaf's logical axes on the production
+mesh's shape by the rules of ``runtime/sharding.py`` (the cell's variant
+applied), and counts the bytes one device holds (``memory``).
 
-What it does not port: the reference lowers and compiles each cell with
-XLA and reads ``cost_analysis`` (FLOPs, bytes accessed),
-``memory_analysis`` (temporaries, peak) and the partitioned HLO
-(``collective_bytes``, ``f32_widened_stack_bytes``). Those are XLA's, so
-their keys (``flops_per_device``, ``bytes_per_device``, ``collectives``,
-``cost_analysis``, ``roofline``, ``memory.temp_bytes`` ...) are left out
-here rather than written as zero. Collective bytes and FLOPs by
-``CommDebugMode`` / ``FlopCounterMode`` over a fake process group are
-queued in ROADMAP queue 1.
+``run_cell`` then runs the cell's step once, as the cards would run it,
+on rank 0 of a fake process group of the mesh's size (``FakeStore`` and
+the ``"fake"`` backend: collectives return at once) with every tensor a
+fake one (``FakeTensorMode``: shapes and dtypes, no storage), and counts
+what that rank does:
+
+  * ``flops_per_device``: ``FlopCounterMode``'s total — the matmuls and
+    attention products of the port's CPU path (the kernels' plain
+    versions, which compute every masked block); elementwise work is not
+    counted (XLA's ``cost_analysis``, the reference's figure, counts it,
+    and counts a ``lax.scan`` body once: ROADMAP queue 3).
+  * ``bytes_per_device``: the operand and result bytes of every aten op
+    (views and allocations excluded), unfused: an upper bound on device
+    memory traffic (``bytes_model`` says so).
+  * ``collectives``: the result bytes of every ``c10d`` op under the
+    reference's ring model (all-reduce 2× its bytes, the others 1×), in
+    the reference's five kinds plus ``total``.
+  * ``roofline``: ``t_compute``, ``t_memory`` and ``t_collective`` and
+    the ``dominant`` one, at the rates written into the cell as ``hw``.
+
+A train cell runs one microbatch (``counted_microbatches`` 1) and
+multiplies its counts by ``grad_accum``; the accumulation, the gradient
+averaging and the AdamW update are counted once. The steps are
+``make_train_step(mesh=)``'s parts and ``make_prefill_step`` /
+``make_decode_step(mesh=)``; a decode cell decodes position ``seq_len -
+1``. A variant whose rules would split an activation's sequence or
+embedding (``act2d``, ``seqpar``, ``seqpar_seqshard``) raises
+``NotImplementedError`` (ROADMAP queue 1), and ``main`` prints it as a
+FAIL line; no cost is written as zero. Peak activation memory is not
+counted (ROADMAP queue 1).
+
+One process holds one default process group: ``run_cell`` refuses to
+start where one is live, and tears down only its own.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2_72b --shape train_4k
   python -m repro_torch.launch.dryrun --all --both-meshes
+  python -m repro_torch.launch.dryrun --arch qwen2_72b --shape train_4k \
+      --override cfg_n_layers=2        # run_cell's overrides, JSON values
+  python -m repro_torch.launch.dryrun --all --both-meshes --memory-only
 """
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
 import time
 import traceback
 from typing import Dict, Optional
+
+import torch
 
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.launch.mesh import production_mesh_shape
@@ -38,6 +68,10 @@ from repro_torch.runtime import sharding
 
 # An H100 SXM's device memory, for the fit beside each cell's bytes.
 DEVICE_BYTES = 80e9
+# The roofline's rates, per device: an H100 SXM's dense bf16 peak and HBM
+# rate (NVIDIA's data sheet), and one 400 Gb/s NDR port per card (both
+# production axes cross nodes of 8 cards).
+HW = dict(peak_flops=989e12, hbm_bw=3.35e12, link_bw=50e9)
 
 
 def _grad_accum_for(cfg, shape, data_ways: int = 16) -> int:
@@ -90,6 +124,40 @@ def _device_bytes(tree, axes, mesh, rules, dtype_bytes=None) -> int:
     return sum(tree_tensors(sharding.map_axes(leaf, axes, tree)))
 
 
+def _cell(arch: str, shape_name: str, multi_pod: bool, variant: str,
+          overrides: Optional[Dict]):
+    """(config, shape, mesh shape, rules, overrides) of one cell. Besides
+    the reference's overrides (``grad_accum``, ``compress``, ``rules``,
+    ``cfg_<field>``): ``reduced`` (the arch's reduced config), ``mesh``
+    ((sizes), (names)) in place of the production mesh, ``seq_len`` and
+    ``global_batch`` in place of the shape's, and
+    ``count_every_microbatch`` (a train cell's every microbatch run and
+    counted)."""
+    if variant not in VARIANTS:
+        raise KeyError(f"unknown variant {variant!r}; the variants: "
+                       f"{', '.join(VARIANTS)}")
+    ov = dict(VARIANTS[variant])
+    ov.update(overrides or {})
+    shape = SHAPES[shape_name]
+    shape = dataclasses.replace(shape, **{
+        k: int(ov[k]) for k in ("seq_len", "global_batch") if k in ov})
+    cfg = get_config(arch, reduced=bool(ov.get("reduced")))
+    cfg_over = {k[4:]: v for k, v in ov.items() if k.startswith("cfg_")}
+    if cfg_over:
+        cfg = cfg.replace(**cfg_over)
+    rules = dict(sharding.DEFAULT_RULES)
+    rules.update(ov.get("rules", {}))
+    if shape_name == "long_500k" and not cfg.sub_quadratic:
+        raise SkipCell(f"{arch} is pure full-attention; long_500k skipped "
+                       f"per assignment (sub-quadratic archs only)")
+    if "mesh" in ov:
+        sizes, names = ov["mesh"]
+        mesh = sharding.MeshShape(tuple(names), tuple(sizes))
+    else:
+        mesh = production_mesh_shape(multi_pod=multi_pod)
+    return cfg, shape, mesh, rules, ov
+
+
 def build_cell(arch: str, shape_name: str, multi_pod: bool,
                variant: str = "baseline",
                overrides: Optional[Dict] = None) -> Dict:
@@ -97,21 +165,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     shape: parameters, AdamW state (train), inputs, decode caches, the
     grad-accum count and the parameter count."""
     t0 = time.time()
-    shape = SHAPES[shape_name]
-    cfg = get_config(arch)
-    ov = dict(VARIANTS.get(variant, {}))
-    ov.update(overrides or {})
-    cfg_over = {k[4:]: v for k, v in ov.items() if k.startswith("cfg_")}
-    if cfg_over:
-        cfg = cfg.replace(**cfg_over)
-    rules = dict(sharding.DEFAULT_RULES)
-    rules.update(ov.get("rules", {}))
-
-    if shape_name == "long_500k" and not cfg.sub_quadratic:
-        raise SkipCell(f"{arch} is pure full-attention; long_500k skipped "
-                       f"per assignment (sub-quadratic archs only)")
-
-    mesh = production_mesh_shape(multi_pod=multi_pod)
+    cfg, shape, mesh, rules, ov = _cell(arch, shape_name, multi_pod,
+                                        variant, overrides)
     model = Model(cfg)
     pshapes, paxes = model.abstract_params()
     inputs, in_axes = model.abstract_inputs(shape)
@@ -139,9 +194,219 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Counting what a device computes, moves and sends
+# ---------------------------------------------------------------------------
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+# c10d ops by the reference's collective kinds.
+_C10D = {"allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+         "allgather_": "all-gather", "_allgather_base_": "all-gather",
+         "allgather_coalesced_": "all-gather",
+         "allgather_into_tensor_coalesced_": "all-gather",
+         "reduce_scatter_": "reduce-scatter",
+         "_reduce_scatter_base_": "reduce-scatter",
+         "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+         "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+         "send": "collective-permute", "recv_": "collective-permute"}
+# Ops that move no data besides the views: allocations (the bytes count
+# the writes that fill them) and _unsafe_view (a view its schema does not
+# mark as one).
+_NO_TRAFFIC = ("empty", "empty_like", "empty_strided", "_unsafe_view")
+
+
+@dataclasses.dataclass
+class Costs:
+    """What one device does in a counted region: FLOPs, bytes of aten
+    operands and results, and collective bytes by kind."""
+    flops: int = 0
+    bytes: int = 0
+    collectives: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {k: 0.0 for k in KINDS})
+
+    def __add__(self, other: "Costs") -> "Costs":
+        return Costs(self.flops + other.flops, self.bytes + other.bytes,
+                     {k: self.collectives[k] + other.collectives[k]
+                      for k in KINDS})
+
+    def __mul__(self, n: int) -> "Costs":
+        return Costs(self.flops * n, self.bytes * n,
+                     {k: v * n for k, v in self.collectives.items()})
+
+
+def _nbytes(tree) -> int:
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _traffic_mode(costs: Costs):
+    """A dispatch mode adding every op's bytes into ``costs``: aten ops'
+    operands and results (views and allocations excluded), and ``c10d``
+    collectives' result bytes by kind (all-reduce twice: a ring sends and
+    receives each byte about twice)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Traffic(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if func.namespace == "c10d":
+                kind = _C10D.get(func._opname)
+                if kind is None:
+                    raise NotImplementedError(
+                        f"the dry run has no collective kind for "
+                        f"{func.name()}")
+                costs.collectives[kind] += (2 if kind == "all-reduce"
+                                            else 1) * _nbytes(args[0])
+            elif not (func.is_view or func._opname in _NO_TRAFFIC):
+                costs.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+            return out
+    return Traffic()
+
+
+def count(fn, *args):
+    """(``fn(*args)``, its ``Costs``): FLOPs by ``FlopCounterMode``, bytes
+    and collectives by ``_traffic_mode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    costs = Costs()
+    with FlopCounterMode(display=False) as flops, _traffic_mode(costs):
+        out = fn(*args)
+    costs.flops = int(flops.get_total_flops())
+    return out, costs
+
+
+def fake_tree(tree):
+    """A tree of meta tensors as tensors of the current ``FakeTensorMode``
+    on the CPU (same shapes and dtypes, no storage)."""
+    if isinstance(tree, dict):
+        return {k: fake_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fake_tree(v) for v in tree)
+    if tree is None:
+        return None
+    return torch.empty(tree.shape, dtype=tree.dtype)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A fake default process group of ``world_size`` ranks at rank 0,
+    torn down on exit. Refuses to start where a group is live."""
+    import torch.distributed as dist
+    # Importing the module registers the "fake" backend.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(
+            "the dry run needs its own fake process group and a process "
+            "group is already live; run it in a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _step_costs(model, shape, mesh, ov, grad_accum):
+    """(Costs of the cell's step on rank 0, microbatches counted), under
+    fake tensors on the live fake group's ``mesh``."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop
+    pshapes, _ = model.abstract_params()
+    inputs, _ = model.abstract_inputs(shape)
+    params, batch = fake_tree(pshapes), fake_tree(inputs)
+    if shape.kind == "train":
+        opt = adamw()
+        sp, so = train_loop.shard_train_state(model, params, opt, mesh)
+        compress = ov.get("compress")
+        gen = torch.Generator() if compress else None
+        if ov.get("count_every_microbatch"):
+            step = train_loop.make_train_step(
+                model, opt, grad_accum=grad_accum, compress=compress,
+                mesh=mesh)
+            return count(step, sp, so, batch, gen)[1], grad_accum
+        parts = train_loop.train_parts(model, opt, compress, mesh)
+        live, c_live = count(parts.live, sp)
+        n = shape.global_batch // grad_accum
+        (loss, grads), c_mb = count(parts.grads, live,
+                                    {k: v[:n] for k, v in batch.items()})
+        (_, acc), c_acc = count(train_loop.accumulate,
+                                lambda live_, mb: (loss, grads), live,
+                                batch, grad_accum)
+        _, c_fin = count(parts.finish, sp, so, acc, gen)
+        return c_live + c_mb * grad_accum + c_acc + c_fin, 1
+    with torch.no_grad():
+        if shape.kind == "prefill":
+            sp, _ = train_loop.shard_serve_state(model, params, None, mesh)
+            step = train_loop.make_prefill_step(model, mesh)
+            return count(step, sp, batch)[1], None
+        cache = batch.pop("cache")
+        sp, sc = train_loop.shard_serve_state(model, params, cache, mesh)
+        step = train_loop.make_decode_step(model, mesh)
+        return count(step, sp, sc, batch["tokens"],
+                     shape.seq_len - 1)[1], None
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             variant: str = "baseline",
+             overrides: Optional[Dict] = None) -> Dict:
+    """``build_cell``'s figures, then the cell's step run once on rank 0
+    of a fake process group of the mesh's size under fake tensors:
+    ``flops_per_device``, ``bytes_per_device``, ``collectives``,
+    ``roofline`` and ``hw`` in the reference's layout (train cells: one
+    microbatch counted and multiplied by ``grad_accum``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    res = build_cell(arch, shape_name, multi_pod, variant, overrides)
+    cfg, shape, mesh_shape, rules, ov = _cell(arch, shape_name, multi_pod,
+                                              variant, overrides)
+    model = Model(cfg)
+    t0 = time.time()
+    with fake_group(mesh_shape.size), sharding.rule_overrides(
+            ov.get("rules")):
+        mesh = init_device_mesh("cpu", mesh_shape.sizes,
+                                mesh_dim_names=mesh_shape.axis_names)
+        with FakeTensorMode():
+            costs, micro = _step_costs(model, shape, mesh, ov,
+                                       res.get("grad_accum", 1))
+    coll = dict(costs.collectives, total=sum(costs.collectives.values()))
+    t = dict(compute=costs.flops / HW["peak_flops"],
+             memory=costs.bytes / HW["hbm_bw"],
+             collective=coll["total"] / HW["link_bw"])
+    res.update(
+        flops_per_device=float(costs.flops),
+        bytes_per_device=float(costs.bytes),
+        bytes_model="unfused: the operand and result bytes of every aten "
+                    "op (views and allocations excluded), an upper bound "
+                    "on device memory traffic",
+        flops_model="FlopCounterMode over the port's CPU path (the "
+                    "kernels' plain versions); matmuls and attention "
+                    "products only",
+        collectives=coll,
+        roofline=dict(t_compute=t["compute"], t_memory=t["memory"],
+                      t_collective=t["collective"],
+                      dominant=max(t, key=t.get)),
+        hw=dict(HW, device="NVIDIA H100 SXM (data sheet), bf16 dense"),
+        count_s=round(time.time() - t0, 3))
+    if micro is not None:
+        res["counted_microbatches"] = micro
+    if shape.kind == "decode":
+        res["decode_pos"] = shape.seq_len - 1
+    return res
+
+
 def cell_path(out_dir, arch, shape_name, multi_pod, variant):
     tag = "pod2" if multi_pod else "pod1"
     return os.path.join(out_dir, f"{arch}.{shape_name}.{tag}.{variant}.json")
+
+
+def _override(text: str):
+    key, _, value = text.partition("=")
+    try:
+        return key, json.loads(value)
+    except json.JSONDecodeError:
+        return key, value
 
 
 def main(argv=None):
@@ -154,14 +419,22 @@ def main(argv=None):
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--override", action="append", default=[],
+                    type=_override, metavar="KEY=JSON",
+                    help="run_cell's overrides, e.g. cfg_n_layers=2")
+    ap.add_argument("--memory-only", action="store_true",
+                    help="build_cell's per-device bytes alone (seconds "
+                         "for the sweep; the costs take minutes)")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
+    overrides = dict(args.override) or None
 
     archs = list_archs() if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     meshes = ([False, True] if args.both_meshes else [args.multi_pod])
     cells = [(a, s, mp) for a in archs for s in shapes for mp in meshes]
 
+    t_sweep = time.time()
     for a, s, mp in cells:
         path = cell_path(args.out, a, s, mp, args.variant)
         if os.path.exists(path) and not args.force:
@@ -169,7 +442,8 @@ def main(argv=None):
             continue
         tag = "pod2" if mp else "pod1"
         try:
-            res = build_cell(a, s, mp, args.variant)
+            res = (build_cell if args.memory_only else run_cell)(
+                a, s, mp, args.variant, overrides)
             with open(path, "w") as f:
                 json.dump(res, f, indent=1)
             m = res["memory"]
@@ -183,6 +457,15 @@ def main(argv=None):
                   + f" inputs {m['input_bytes'] / 1e6:9.3f} MB"
                   f" state {m['state_bytes'] / 1e9:8.3f} GB of "
                   f"{DEVICE_BYTES / 1e9:.0f}", flush=True)
+            if "roofline" in res:
+                r, c = res["roofline"], res["collectives"]
+                print(f"        flops {res['flops_per_device']:.4e} bytes "
+                      f"{res['bytes_per_device']:.4e} collectives "
+                      f"{c['total']:.4e} (ar {c['all-reduce']:.3e} ag "
+                      f"{c['all-gather']:.3e}) Tc={r['t_compute']:.3e} "
+                      f"Tm={r['t_memory']:.3e} Tx={r['t_collective']:.3e} "
+                      f"dom={r['dominant']} ({res['count_s']:.1f} s)",
+                      flush=True)
         except SkipCell as e:
             with open(path, "w") as f:
                 json.dump(dict(arch=a, shape=s, multi_pod=mp, skipped=True,
@@ -192,6 +475,8 @@ def main(argv=None):
             print(f"FAIL    {a:24s} {s:12s} {tag}: {type(e).__name__}: {e}",
                   flush=True)
             traceback.print_exc(limit=6)
+    print(f"sweep of {len(cells)} cells: {time.time() - t_sweep:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ the place where the TPU ran the Pallas kernel, and the plain blocked twin
 In training the kernel's wrapper returns the gradient of that blocked
 twin, which checkpoints each kv block as the reference does.
 Decode attention (one query against the cache) and the projections are
-plain PyTorch, as the reference leaves them to XLA.
+plain PyTorch, as the reference leaves them to XLA. In a sharded decode
+whose cache is split by sequence (``runtime/sharding.py``), each rank
+attends its segment of the cache and the segments' partial softmaxes are
+combined across ranks (``combine_segments``).
 
 Shapes (canonical): q [B, Sq, Kh, G, D]; k, v [B, Skv, Kh, D] where
 Kh = kv heads, G = query-group fan-out (n_heads = Kh·G).
@@ -26,6 +29,7 @@ from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, mask_bias, online_softmax_attention)
 from repro_torch.models import common
 from repro_torch.models.common import dense_init, zeros_init
+from repro_torch.runtime import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -140,12 +144,18 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, kind="causal", window=0,
 # ---------------------------------------------------------------------------
 
 def decode_attention(q, cache_k, cache_v, pos, *, kind="causal", window=0,
-                     softmax_scale=None):
+                     softmax_scale=None, segment=None):
     """q: [B, 1, Kh, G, D]; cache_k/v: [B, Smax, Kh, D]; pos: int — the
     position being generated. The cache already holds this token's own K/V
-    at index ``pos``. ``full`` kind attends the whole cache."""
+    at index ``pos``. ``full`` kind attends the whole cache.
+
+    ``segment`` (``runtime.sharding.Segment``, in a sharded decode whose
+    cache is split by sequence): the cache holds positions ``[start,
+    start + length)`` only, and the ranks holding the others combine
+    their partial softmaxes (``combine_segments``)."""
     Smax = cache_k.shape[1]
-    kv_pos = torch.arange(Smax, device=q.device)
+    start = 0 if segment is None else segment.start
+    kv_pos = start + torch.arange(Smax, device=q.device)
     if kind == "full":
         valid = torch.ones((Smax,), dtype=torch.bool, device=q.device)
     else:
@@ -155,15 +165,48 @@ def decode_attention(q, cache_k, cache_v, pos, *, kind="causal", window=0,
     s = torch.einsum("bqhgd,bkhd->bhgqk", _scaled_f32(q, softmax_scale),
                      cache_k.to(torch.float32))
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p_ = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bhgqd", p_, cache_v.to(torch.float32))
+    if segment is None:
+        p_ = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bhgqd", p_,
+                           cache_v.to(torch.float32))
+    else:
+        out = combine_segments(s, valid, lambda p_: torch.einsum(
+            "bhgqk,bkhd->bhgqd", p_, cache_v.to(torch.float32)), segment)
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-def update_cache(cache_k, cache_v, k_new, v_new, pos):
+def combine_segments(s, valid, values, segment):
+    """softmax(s) applied to the values across the ranks that hold the
+    cache's segments (split-K decoding): s [..., k] float32 scores of this
+    rank's segment, ``valid`` [k] its positions in the mask, ``values(p)``
+    the unnormalised float32 output of weights p [..., k] (a trailing
+    value dimension). Each rank takes its row max m over its valid
+    positions, its sum l and output o; M is the all-reduced max and the
+    result sum(o e^(m-M)) / sum(l e^(m-M)). A segment with no valid
+    position (past ``pos``, or outside a sliding window) has m = -inf
+    and weight 0; the owner of ``pos`` always has one, so M is finite and
+    no NaN arises."""
+    m = torch.where(valid, s, torch.full_like(s, -torch.inf)).amax(
+        -1, keepdim=True)
+    p_ = torch.where(valid, torch.exp(s - torch.where(
+        torch.isfinite(m), m, torch.zeros_like(m))), torch.zeros_like(s))
+    big = segment.all_reduce(m.clone(), "max")
+    w = torch.exp(m - big)
+    ol = segment.all_reduce(torch.cat(
+        [values(p_) * w, p_.sum(-1, keepdim=True) * w], dim=-1), "sum")
+    return ol[..., :-1] / ol[..., -1:]
+
+
+def update_cache(cache_k, cache_v, k_new, v_new, pos, segment=None):
     """Write [B, 1, Kh, D] new KV at position ``pos``, in place (the
     reference returns updated copies; the port's caches are owned by the
-    caller's decode loop, so writing in place saves a copy per step)."""
+    caller's decode loop, so writing in place saves a copy per step).
+    With a ``segment`` (a sequence-split cache) only the rank that holds
+    ``pos`` writes, at its offset in the segment."""
+    if segment is not None:
+        if not segment.owns(pos):
+            return cache_k, cache_v
+        pos = pos - segment.start
     cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
     cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
     return cache_k, cache_v
@@ -237,11 +280,12 @@ def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
                                 block_kv=block_kv,
                                 softmax_scale=softmax_scale)
     else:
-        kv = cache
-        if kind != "full":
+        kv, segment = cache, None
+        if kind != "full":      # static cross caches are never split
+            segment = sharding.cache_segment(cache[0].shape[1])
             k, v = project_kv(x, p, rope_theta, positions)
-            kv = update_cache(*cache, k, v, decode_pos)
+            kv = update_cache(*cache, k, v, decode_pos, segment)
         out = decode_attention(q, *kv, decode_pos, kind=kind, window=window,
-                               softmax_scale=softmax_scale)
+                               softmax_scale=softmax_scale, segment=segment)
     out = out.reshape(B, Sq, n_heads, -1)
     return project_out(out, p), kv

@@ -9,7 +9,9 @@ q/k at D_qk = d_nope + d_rope and v at d_v by zero-padding both to one of
 its head dims (``kernels/flash_attention/ops.py``), and the plain blocked
 attention on the CPU. Decode uses the absorbed form over the compressed
 cache [B, S, kv_lora] + [B, S, d_rope] (W^UK folded into the query, W^UV
-into the output), in plain PyTorch, as the reference leaves it to XLA.
+into the output), in plain PyTorch, as the reference leaves it to XLA;
+over a cache split by sequence it combines the segments across ranks as
+``attention.decode_attention`` does.
 
 RoPE runs at the default base 1e4 in both places, as the reference calls
 it without the config's ``rope_theta``. The softmax scale is the
@@ -24,6 +26,7 @@ import torch
 from repro_torch.models import attention, common
 from repro_torch.models.attention import _project
 from repro_torch.models.common import apply_norm, dense_init, norm_init
+from repro_torch.runtime import sharding
 
 
 def init(gen, d_model, n_heads, *, q_lora, kv_lora, d_nope, d_rope, d_v,
@@ -100,8 +103,8 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
         new_cache = (c_new, r_new)
     else:
         cc, cr = cache
-        cc[:, decode_pos:decode_pos + 1] = c_new.to(cc.dtype)
-        cr[:, decode_pos:decode_pos + 1] = r_new.to(cr.dtype)
+        seg = sharding.cache_segment(cc.shape[1])
+        attention.update_cache(cc, cr, c_new, r_new, decode_pos, seg)
         # Absorbed attention over the compressed cache.
         dt = x.dtype
         q_lat = torch.einsum("bshk,lhk->bshl", q_nope,
@@ -110,10 +113,18 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
              + torch.einsum("bshk,btk->bhst", q_rope, cr.to(dt)))
         s = attention._scaled_f32(s, scale)
         kv_pos = torch.arange(cc.shape[1], device=x.device)
-        s = torch.where(kv_pos <= decode_pos, s,
-                        torch.full_like(s, attention.NEG_INF))
-        w = torch.softmax(s, dim=-1).to(dt)
-        o_lat = torch.einsum("bhst,btl->bshl", w, cc.to(dt))
+        if seg is not None:
+            kv_pos = kv_pos + seg.start
+        valid = kv_pos <= decode_pos
+        s = torch.where(valid, s, torch.full_like(s, attention.NEG_INF))
+        if seg is None:
+            w = torch.softmax(s, dim=-1).to(dt)
+            o_lat = torch.einsum("bhst,btl->bshl", w, cc.to(dt))
+        else:
+            o_lat = attention.combine_segments(
+                s, valid, lambda w: torch.einsum(
+                    "bhst,btl->bhsl", w, cc.to(torch.float32)),
+                seg).permute(0, 2, 1, 3).to(dt)
         out = torch.einsum("bshl,lhv->bshv", o_lat, p["wkv_b_v"].to(dt))
         new_cache = (cc, cr)
 

@@ -33,12 +33,15 @@ layers): ``remat="full"`` saves nothing and recomputes the body in the
 backward, ``"dots"`` saves the matmuls' outputs (the reference's
 ``checkpoint_dots``), ``"none"`` keeps every activation.
 
-Under the sharded train step (``runtime/train_loop.py`` with a mesh) the
+Under the sharded steps (``runtime/train_loop.py`` with a mesh) the
 parameters come as ``runtime.sharding.ShardedLeaf`` blocks: each layer
 gathers its own inside its checkpointed body (``_remat``), so the gathered
 copy is not kept for the backward, and the embedding and norms at the
-top. ``constrain`` pins the activations at the embedding and the logits
-to their logical axes, as the reference does.
+top. In decode the caches come as ``runtime.sharding.CacheBlock`` blocks
+through the same hook: a layer gathers the ``model`` splits of its cache,
+and writes back the rank's block of what it leaves. ``constrain`` pins
+the activations at the embedding and the logits to their logical axes,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -98,13 +101,13 @@ _REMATS = ("none", "dots", "full")
 
 def constrain(x, axes):
     """The reference's ``with_sharding_constraint`` by logical axes at the
-    embedding and the logits. A no-op outside the sharded train step.
-    Inside it, ``x`` holds this rank's rows of the microbatch, split over
+    embedding and the logits. A no-op outside the sharded steps. Inside
+    them, ``x`` holds this rank's rows of the batch, split over
     ``act_batch``'s mesh axes: checked against the layout here. The other
     dimensions stay whole on every rank in this slice (tensor-parallel
     compute on ``model`` is ROADMAP queue 1); a layout whose rules would
     split the sequence (the reference's fall-through to ``act_seq`` where
-    the batch does not divide) raises."""
+    the batch does not divide) or the embedding raises."""
     layout = sharding.current_layout()
     if layout is None:
         return x
@@ -113,8 +116,10 @@ def constrain(x, axes):
 
 def _remat(cfg, mode, fn, *args):
     """``fn(*args)``, checkpointed by ``cfg.remat`` when training under
-    grad (the reference's ``_maybe_remat``). Sharded parameters among the
-    arguments are gathered inside the checkpointed body."""
+    grad (the reference's ``_maybe_remat``). Sharded parameters and cache
+    blocks among the arguments are gathered inside the checkpointed body;
+    in decode the rank's block of the cache ``fn`` returns (its result's
+    second item) is written back."""
     if cfg.remat not in _REMATS:
         raise ValueError(f"remat must be one of {_REMATS}, got "
                          f"{cfg.remat!r}")
@@ -122,7 +127,10 @@ def _remat(cfg, mode, fn, *args):
         body = fn
 
         def fn(*a):
-            return body(*sharding.materialize(a))
+            out = body(*sharding.materialize(a))
+            if mode == "decode":
+                sharding.write_back(a, out)
+            return out
     if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     if cfg.remat == "dots":

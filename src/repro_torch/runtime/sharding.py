@@ -33,9 +33,17 @@ The rest is PyTorch's idiom:
     its spec (``distribute_tensor``); ``gather_tree`` the inverse.
   * ``constraint(x, axes, mesh)`` — the local block of a full tensor.
   * ``ShardedLeaf`` / ``materialize`` and ``activation_layout`` — the
-    sharded train step's gather of a layer's parameters just before use,
-    whose backward sums the gradient over the batch's mesh axes and
+    sharded steps' gather of a layer's parameters just before use, whose
+    backward (training) sums the gradient over the batch's mesh axes and
     averages it as the global-batch loss is (``runtime/train_loop.py``).
+  * ``CacheBlock`` / ``write_back`` / ``place_cache`` and ``Segment`` —
+    the sharded serving steps' caches. A leaf split over ``model`` (by
+    ``kv_heads``, ``heads``, ``mlp`` or ``conv_channels``) is gathered
+    before its layer uses it, and the layer writes back only the rank's
+    own block (storage only, like the parameters). A leaf split by
+    ``cache_seq`` is never gathered: each rank keeps its segment of
+    positions, only the owner of the decoded position writes it, and
+    decode attention combines the segments (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -351,12 +359,16 @@ def _gather(local: torch.Tensor, placements_, mesh) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Layout:
-    """How the sharded train step lays activations out: the mesh, the
-    global rows of one microbatch and the mesh axes its rows are split
-    over (``act_batch``'s resolution)."""
+    """How a sharded step lays activations out: the mesh, the global rows
+    of one microbatch (or serving batch) and the mesh axes its rows are
+    split over (``act_batch``'s resolution); in decode, the mesh axes the
+    caches' ``cache_seq`` is split over and its global length (empty and
+    0 when the caches hold every position)."""
     mesh: object
     global_batch: int
     batch_axes: Tuple[str, ...]
+    seq_axes: Tuple[str, ...] = ()
+    seq_len: int = 0
 
     @property
     def batch_ways(self) -> int:
@@ -387,30 +399,38 @@ def batch_axes(global_batch: int, mesh, rules=None) -> Tuple[str, ...]:
                            rules)[0])
 
 
-def refuse_sequence_sharding(what: str, shape, spec) -> None:
-    """Raise where a layout would shard anything but the batch rows (the
-    reference's fall-through to ``act_seq`` when the batch does not
-    divide, or a variant's ``act_embed`` / ``act_seq`` rules): the sharded
-    step computes whole rows, and never replicates such a layout
-    quietly."""
-    if any(e is not None for e in spec[1:]):
+# Activation axes a sharded step may leave whole where the rules would
+# split them: the logits' vocabulary is computed whole on every rank
+# (vocab-parallel logits are tensor-parallel compute, ROADMAP queue 1).
+_WHOLE_OK = ("act_vocab",)
+
+
+def refuse_sequence_sharding(what: str, axes, shape, spec) -> None:
+    """Raise where an activation's layout would split anything but its
+    batch rows: its sequence (the reference's fall-through to ``act_seq``
+    when the batch does not divide, or the ``seqpar`` variants) or its
+    embedding (``act2d``). The sharded steps compute whole rows, and never
+    replicate such a layout quietly. A cache's ``cache_seq`` is not an
+    activation: the serving steps split it (``Segment``)."""
+    split = [a for a, e in zip(axes[1:], spec[1:])
+             if e is not None and a not in _WHOLE_OK]
+    if split:
         raise NotImplementedError(
             f"{what} {tuple(shape)} resolves to {spec}: beyond its batch "
-            f"rows it would be sharded, which waits for sequence sharding "
-            f"and tensor-parallel compute (ROADMAP queue 1, the "
-            f"distribution items)")
+            f"rows it would be sharded ({', '.join(split)}), which waits "
+            f"for sequence sharding of activations and tensor-parallel "
+            f"compute (ROADMAP queue 1, the distribution items)")
 
 
 def check_rows(x, axes, layout: Layout):
-    """``x``, an activation of this rank's rows of the microbatch, checked
+    """``x``, an activation of this rank's rows of the batch, checked
     against ``layout``: its logical ``axes`` on the global shape must
     split the batch rows over the layout's axes and nothing else
-    (``refuse_sequence_sharding``); the dimensions past the sequence stay
-    whole on every rank in this slice, whatever the rules say of them
-    (tensor-parallel compute is ROADMAP queue 1)."""
+    (``refuse_sequence_sharding``; the logits' vocabulary stays whole on
+    every rank in this slice, whatever the rules say of it)."""
     shape = (layout.global_batch,) + tuple(x.shape[1:])
     spec = spec_for(axes, shape, layout.mesh)
-    refuse_sequence_sharding(f"activation {tuple(axes)}", shape, spec[:2])
+    refuse_sequence_sharding(f"activation {tuple(axes)}", axes, shape, spec)
     want = layout.global_batch // layout.batch_ways
     if _names(spec[0]) != layout.batch_axes or x.shape[0] != want:
         raise ValueError(f"activation rows {x.shape[0]} over "
@@ -464,16 +484,187 @@ class _GatherParam(torch.autograd.Function):
         return grad, None, None
 
 
+class CacheBlock:
+    """A cache leaf's local block as a serving step hands it to the model:
+    this rank's rows, of a dimension split over ``model`` its block, of a
+    ``cache_seq`` split its segment; with its logical ``axes`` and
+    placements. ``materialize`` gathers the ``model`` splits just before
+    the layer uses it; ``write_back`` stores the rank's block of what the
+    layer leaves."""
+    __slots__ = ("local", "axes", "placements", "mesh")
+
+    def __init__(self, local, axes, placements_, mesh):
+        self.local, self.axes, self.placements, self.mesh = (
+            local, tuple(axes), tuple(placements_), mesh)
+
+    def gathered(self) -> list:
+        """Per mesh dimension, the placement ``materialize`` gathers: the
+        splits of dimensions past the rows other than ``cache_seq``."""
+        return [p if p.is_shard() and p.dim > 0
+                and self.axes[p.dim] != "cache_seq" else None
+                for p in self.placements]
+
+
+def _gather_block(b: CacheBlock) -> torch.Tensor:
+    from torch.distributed.tensor import Replicate
+    parts = b.gathered()
+    if not any(parts):
+        return b.local
+    return _gather(b.local, [p or Replicate() for p in parts], b.mesh)
+
+
+def _blocks_in(tree) -> bool:
+    if isinstance(tree, CacheBlock):
+        return True
+    if isinstance(tree, dict):
+        return any(_blocks_in(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_blocks_in(v) for v in tree)
+    return False
+
+
+def write_back(args, out) -> None:
+    """After a layer (or a group of layers) has run in decode on the
+    gathered caches ``materialize`` made of the ``CacheBlock`` leaves of
+    ``args``: the rank's block of each new cache leaf in ``out[1]`` (the
+    layer's (x, cache) result) stored in place into its block, where the
+    layer did not write the block itself."""
+    caches = [a for a in args if _blocks_in(a)]
+    if not caches:
+        return
+    if len(caches) > 1:
+        raise ValueError("a layer takes one cache tree")
+
+    def put(b, new):
+        if isinstance(b, CacheBlock):
+            if new is b.local:
+                return
+            spec = [None] * new.dim()
+            for name, p in zip(b.mesh.mesh_dim_names, b.gathered()):
+                if p is not None:
+                    spec[p.dim] = _names(spec[p.dim]) + (name,)
+            b.local.copy_(new[local_slices(spec, new.shape,
+                                           mesh_sizes(b.mesh),
+                                           coordinates(b.mesh))])
+        elif isinstance(b, dict):
+            for k in b:
+                put(b[k], new[k])
+        elif isinstance(b, (list, tuple)):
+            for x, y in zip(b, new):
+                put(x, y)
+    put(caches[0], out[1])
+
+
+def cache_blocks(cache, axes, layout: Layout):
+    """(the ``CacheBlock`` tree of a DTensor cache tree laid out by its
+    logical ``axes``, ``layout`` with the caches' ``cache_seq`` split).
+    Each leaf's placements must be its axes' on the mesh, and its rows the
+    layout's."""
+    seq = set()
+
+    def block(ax, t):
+        if not is_dtensor(t):
+            raise TypeError("with a mesh the decode cache must be DTensors "
+                            "(train_loop.shard_serve_state)")
+        spec = _pad(spec_of(t.placements, t.device_mesh), t.dim())
+        want = spec_for(ax, t.shape, layout.mesh)
+        if spec != want:
+            raise ValueError(f"a cache leaf {tuple(t.shape)} {ax} is placed "
+                             f"{spec}; its axes resolve to {want}")
+        if _names(spec[0]) != layout.batch_axes:
+            raise ValueError(f"cache rows over {_names(spec[0])}, the "
+                             f"tokens' over {layout.batch_axes}")
+        if "cache_seq" in ax:
+            d = ax.index("cache_seq")
+            seq.add((_names(spec[d]), t.shape[d]))
+        return CacheBlock(t.to_local(), ax, t.placements, t.device_mesh)
+    blocks = map_axes(block, axes, cache)
+    if len(seq) > 1:
+        raise ValueError(f"caches split by sequence in more than one way: "
+                         f"{sorted(seq)}")
+    if seq:
+        names, length = seq.pop()
+        if names:
+            layout = dataclasses.replace(layout, seq_axes=names,
+                                         seq_len=length)
+    return blocks, layout
+
+
+def place_cache(cache, axes, layout: Layout):
+    """The cache a prefill built for this rank's rows as DTensors placed by
+    its logical ``axes`` at the global batch: each rank keeps its block of
+    the dimensions past the rows (of a ``cache_seq`` split, its segment)."""
+    sizes, coords = mesh_sizes(layout.mesh), coordinates(layout.mesh)
+
+    def leaf(ax, t):
+        shape = (layout.global_batch,) + tuple(t.shape[1:])
+        spec = spec_for(ax, shape, layout.mesh)
+        if _names(spec[0]) != layout.batch_axes:
+            raise ValueError(f"cache rows over {_names(spec[0])}, the "
+                             f"batch's over {layout.batch_axes}")
+        idx = (slice(None),) + local_slices(spec, shape, sizes, coords)[1:]
+        return _from_local(t[idx].contiguous(), layout.mesh,
+                           placements(spec, layout.mesh), shape)
+    return map_axes(leaf, axes, cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """This rank's segment of a cache split by ``cache_seq``: positions
+    ``[start, start + length)`` of the sequence, split over mesh ``axes``
+    (nested major-to-minor)."""
+    start: int
+    length: int
+    axes: Tuple[str, ...]
+    mesh: object
+
+    def owns(self, pos: int) -> bool:
+        return self.start <= pos < self.start + self.length
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` reduced in place by ``op`` ("max" or "sum") over the ranks
+        holding the other segments."""
+        import torch.distributed as dist
+        names = list(self.mesh.mesh_dim_names)
+        red = dict(max=dist.ReduceOp.MAX, sum=dist.ReduceOp.SUM)[op]
+        for name in self.axes:
+            dist.all_reduce(t, op=red, group=self.mesh.get_group(
+                names.index(name)))
+        return t
+
+
+def cache_segment(length: int) -> Optional[Segment]:
+    """The segment a self-attention cache of ``length`` local positions
+    holds under the current decode layout, or None where the caches hold
+    every position (no layout, or ``cache_seq`` not split)."""
+    layout = _LAYOUT
+    if layout is None or not layout.seq_axes:
+        return None
+    sizes, coords = mesh_sizes(layout.mesh), coordinates(layout.mesh)
+    n, idx = _blocks((layout.seq_axes,), sizes, coords)[0]
+    if length * n != layout.seq_len:
+        raise ValueError(f"a cache segment of {length} positions; the "
+                         f"layout splits {layout.seq_len} {n} ways")
+    return Segment(idx * length, length, layout.seq_axes, layout.mesh)
+
+
 def materialize(tree):
     """``tree`` with each ``ShardedLeaf`` gathered to its full parameter
-    (differentiably, through ``_GatherParam``); other leaves as they are.
-    Without an ``activation_layout`` the tree comes back untouched."""
+    (under grad differentiably, through ``_GatherParam``; a leaf no mesh
+    dimension splits comes back as its block) and each ``CacheBlock`` to
+    its tensor with the ``model`` splits gathered (its rows and
+    ``cache_seq`` segment as they are); other leaves as they are. Without
+    an ``activation_layout`` the tree comes back untouched."""
     layout = _LAYOUT
     if layout is None:
         return tree
 
     def leaf(x):
         if isinstance(x, ShardedLeaf):
-            return _GatherParam.apply(x.local, x, layout)
+            if torch.is_grad_enabled():
+                return _GatherParam.apply(x.local, x, layout)
+            return _gather(x.local, x.placements, x.mesh)
+        if isinstance(x, CacheBlock):
+            return _gather_block(x)
         return x
     return _tree_map(leaf, tree)

@@ -7,19 +7,27 @@ gradient compression, then the AdamW update), ``make_prefill_step`` and
 Without a mesh the parameters are a plain tree (``Model.init``'s nested
 dicts and lists of tensors) on one device; gradients come from
 ``torch.autograd.grad``. With ``mesh`` (a ``DeviceMesh`` with named
-dimensions, over an initialised process group) the state lives sharded:
-parameters and AdamW moments are DTensors placed by the parameters'
-logical axes (``runtime/sharding.py``), each rank takes its ``act_batch``
-rows of each microbatch, each layer gathers its parameters just before use
-inside its remat, and each gradient comes back to its parameter's
-placement, summed over the batch's mesh axes and averaged as the
-global-batch loss is. Ranks along ``model`` compute the same rows: the
-``model`` axis shards storage only; tensor-parallel compute on it, and
-sequence sharding, are ROADMAP queue 1's next distribution items.
+dimensions, over an initialised process group) the state lives sharded,
+placed by its logical axes (``runtime/sharding.py``): parameters and
+AdamW moments (``shard_train_state``), parameters and decode caches
+(``shard_serve_state``) are DTensors. Every step takes the global batch,
+the same on every rank; each rank computes its ``act_batch`` rows, and
+each layer gathers its parameters (and, in decode, the ``model`` splits
+of its cache) just before use. In training each gradient comes back to
+its parameter's placement, summed over the batch's mesh axes and averaged
+as the global-batch loss is. A decode cache split by ``cache_seq`` (batch
+1 at long context, the reference's sequence-parallel layout) stays split:
+decode attention combines its segments across ranks
+(``models/attention.py``).
+
+Ranks along ``model`` compute the same rows: the axis shards storage
+only, and the gathers go when tensor-parallel compute comes (ROADMAP
+queue 1, [3b]). A layout that would split an activation's sequence or
+embedding raises (``sharding.refuse_sequence_sharding``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,31 +52,57 @@ def make_train_step(model, opt, *, grad_accum: int = 1,
     (``shard_train_state``) and ``batch`` the global batch, the same on
     every rank; the loss returned is the global batch's. int8 compression
     rounds each rank's gradient blocks with its own draws."""
-    if compress not in (None, "int8"):
-        raise ValueError(f"compress must be None or 'int8', got "
-                         f"{compress!r}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if mesh is not None:
-        return _sharded_train_step(model, opt, grad_accum, compress, mesh)
-
-    def grads_of(live, batch):
-        loss = model.loss(live, batch)
-        return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
+    parts = train_parts(model, opt, compress, mesh)
 
     def train_step(params, opt_state, batch, gen=None):
-        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        loss, grads = _accumulate(grads_of, live, batch, grad_accum)
-        grads = tree_unflatten(params, grads)
-        if compress == "int8":
-            grads = compression.int8_roundtrip(grads, gen)
-        params, opt_state, gnorm = opt.update(grads, opt_state, params)
+        live = parts.live(params)
+        loss, grads = accumulate(parts.grads, live, batch, grad_accum)
+        params, opt_state, gnorm = parts.finish(params, opt_state, grads,
+                                                gen)
         return params, opt_state, dict(loss=loss, grad_norm=gnorm)
 
     return train_step
 
 
-def _accumulate(grads_of, live, batch, grad_accum: int):
+class TrainParts(NamedTuple):
+    """A train step in three parts (``make_train_step`` runs them in
+    turn; the dry run counts each on its own): ``live(params)`` the
+    parameters as the loss takes them, ``grads(live, microbatch)`` ->
+    (loss, gradient leaves), ``finish(params, opt_state, gradient leaves,
+    gen)`` -> (params, opt_state, grad_norm): compression and the
+    update."""
+    live: object
+    grads: object
+    finish: object
+
+
+def train_parts(model, opt, compress: Optional[str] = None,
+                mesh=None) -> TrainParts:
+    if compress not in (None, "int8"):
+        raise ValueError(f"compress must be None or 'int8', got "
+                         f"{compress!r}")
+    if mesh is not None:
+        return _sharded_parts(model, opt, compress, mesh)
+
+    def live(params):
+        return tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+    def grads_of(live, batch):
+        loss = model.loss(live, batch)
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
+
+    def finish(params, opt_state, grads, gen=None):
+        grads = tree_unflatten(params, grads)
+        if compress == "int8":
+            grads = compression.int8_roundtrip(grads, gen)
+        return opt.update(grads, opt_state, params)
+
+    return TrainParts(live, grads_of, finish)
+
+
+def accumulate(grads_of, live, batch, grad_accum: int):
     """(loss, gradient leaves) of ``batch``: ``grads_of(live, batch)``, or
     with ``grad_accum > 1`` the mean over that many microbatches (leading
     rows) of their losses and float32 gradients."""
@@ -103,37 +137,85 @@ def shard_train_state(model, params, opt, mesh, rules=None):
     return sharded, opt.init(sharded)
 
 
-def _sharded_train_step(model, opt, grad_accum, compress, mesh):
+def shard_serve_state(model, params, cache, mesh, rules=None):
+    """(params, cache) of a full parameter tree and a full decode cache
+    (``Model.init_cache``; None for prefill alone), the same on every
+    rank, as DTensors on ``mesh`` placed by their logical axes: the
+    cache's rows over ``cache_batch``'s axes, its heads or channels over
+    ``model``, and at a batch the batch axes do not divide (long context)
+    its positions over ``cache_seq``'s."""
+    _, axes = model.abstract_params()
+    params = sharding.shard_tree(
+        params, sharding.tree_specs(axes, params, mesh, rules), mesh)
+    if cache is not None:
+        caxes = _cache_axes(model)
+        cache = sharding.shard_tree(
+            cache, sharding.tree_specs(caxes, cache, mesh, rules), mesh)
+    return params, cache
+
+
+def _cache_axes(model):
+    """The logical axes tree of every cache ``Model.init_cache`` (and a
+    prefill) builds: its structure and axes depend on no length."""
+    return model.cache_axes(1, 1, src_len=1, n_img=1)[1]
+
+
+def _need_group(what: str, mesh) -> None:
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
-            "make_train_step(mesh=...) needs an initialised process group "
-            "(torch.distributed.init_process_group) whose ranks make up "
-            "the mesh; without one, call it with mesh=None")
-    names = list(mesh.mesh_dim_names or ())
-    if not names:
+            f"{what}(mesh=...) needs an initialised process group "
+            f"(torch.distributed.init_process_group) whose ranks make up "
+            f"the mesh; without one, call it with mesh=None")
+    if not (mesh.mesh_dim_names or ()):
         raise ValueError("the mesh needs named dimensions (data, model, "
                          "and pod across pods)")
 
-    def local_rows(mb):
-        """This rank's rows of a microbatch, and the layout they make."""
-        kinds = dict(tokens="act_seq", labels="act_seq", frames="act_seq",
-                     patches="act_img")
-        n = next(iter(mb.values())).shape[0]
-        axes = sharding.batch_axes(n, mesh)
-        layout = sharding.Layout(mesh, n, axes)
-        out = {}
-        for k, v in mb.items():
-            logical = ("act_batch", kinds[k], "act_embed")[:v.dim()]
-            spec = sharding.spec_for(logical, v.shape, mesh)
-            sharding.refuse_sequence_sharding(f"input {k}", v.shape, spec)
-            out[k] = v[sharding.local_slices(
-                spec, v.shape, sharding.mesh_sizes(mesh),
-                sharding.coordinates(mesh))]
-        return out, layout
+
+# Logical axes of each input's dimensions past the rows.
+_INPUT_AXES = dict(tokens="act_seq", labels="act_seq", frames="act_seq",
+                   patches="act_img")
+
+
+def _local_rows(mesh, batch):
+    """This rank's rows of a (micro)batch of global rows, and the layout
+    they make; a layout that would split anything past the rows
+    raises."""
+    n = next(iter(batch.values())).shape[0]
+    layout = sharding.Layout(mesh, n, sharding.batch_axes(n, mesh))
+    out = {}
+    for k, v in batch.items():
+        logical = ("act_batch", _INPUT_AXES[k], "act_embed")[:v.dim()]
+        spec = sharding.spec_for(logical, v.shape, mesh)
+        sharding.refuse_sequence_sharding(f"input {k}", logical, v.shape,
+                                          spec)
+        out[k] = v[sharding.local_slices(
+            spec, v.shape, sharding.mesh_sizes(mesh),
+            sharding.coordinates(mesh))]
+    return out, layout
+
+
+def _sharded_leaves(params, requires_grad: bool):
+    from torch.distributed.tensor import DTensor
+    if not all(isinstance(p, DTensor) for p in tree_leaves(params)):
+        raise TypeError("with a mesh the parameters must be DTensors "
+                        "(shard_train_state / shard_serve_state)")
+
+    def leaf(p):
+        local = p.to_local().detach()
+        return sharding.ShardedLeaf(
+            local.requires_grad_(True) if requires_grad else local,
+            p.placements, p.device_mesh)
+    return tree_map(leaf, params)
+
+
+def _sharded_parts(model, opt, compress, mesh) -> TrainParts:
+    import torch.distributed as dist
+    _need_group("make_train_step", mesh)
+    names = list(mesh.mesh_dim_names)
 
     def grads_of(live, mb):
-        rows, layout = local_rows(mb)
+        rows, layout = _local_rows(mesh, mb)
         locals_ = [leaf.local for leaf in tree_leaves(live)]
         with sharding.activation_layout(layout):
             loss = model.loss(live, rows)
@@ -146,34 +228,60 @@ def _sharded_train_step(model, opt, grad_accum, compress, mesh):
             loss = loss / layout.batch_ways
         return loss, grads
 
-    def train_step(params, opt_state, batch, gen=None):
-        from torch.distributed.tensor import DTensor
-        if not all(isinstance(p, DTensor) for p in tree_leaves(params)):
-            raise TypeError("with a mesh the parameters must be DTensors "
-                            "(shard_train_state)")
-        live = tree_map(lambda p: sharding.ShardedLeaf(
-            p.to_local().detach().requires_grad_(True), p.placements,
-            p.device_mesh), params)
-        loss, grads = _accumulate(grads_of, live, batch, grad_accum)
+    def finish(params, opt_state, grads, gen=None):
         grads = tree_unflatten(params, grads)
         if compress == "int8":
             grads = compression.int8_roundtrip(grads, gen)
         grads = tree_map(as_placed, grads, params)
-        params, opt_state, gnorm = opt.update(grads, opt_state, params)
-        return params, opt_state, dict(loss=loss, grad_norm=gnorm)
+        return opt.update(grads, opt_state, params)
 
-    return train_step
-
-
-def make_prefill_step(model):
-    def prefill_step(params, batch):
-        return model.prefill(params, batch)
-    return prefill_step
+    return TrainParts(lambda params: _sharded_leaves(params, True),
+                      grads_of, finish)
 
 
-def make_decode_step(model):
-    def decode_step(params, cache, tokens, pos):
-        logits, cache = model.decode(params, cache, tokens, pos)
-        next_tok = torch.argmax(logits, dim=-1)[:, None]
-        return next_tok, logits, cache
-    return decode_step
+def make_prefill_step(model, mesh=None):
+    """``prefill_step(params, batch) -> (last logits, cache)``. With
+    ``mesh``: ``params`` a DTensor tree (``shard_serve_state``) and
+    ``batch`` the global batch, the same on every rank; the logits are
+    this rank's rows and the cache its blocks, as DTensors placed by the
+    cache's logical axes at the global batch."""
+    if mesh is None:
+        def prefill_step(params, batch):
+            return model.prefill(params, batch)
+        return prefill_step
+    _need_group("make_prefill_step", mesh)
+    axes = _cache_axes(model)
+
+    def sharded_prefill_step(params, batch):
+        live = _sharded_leaves(params, False)
+        rows, layout = _local_rows(mesh, batch)
+        with sharding.activation_layout(layout):
+            logits, cache = model.prefill(live, rows)
+        return logits, sharding.place_cache(cache, axes, layout)
+    return sharded_prefill_step
+
+
+def make_decode_step(model, mesh=None):
+    """``decode_step(params, cache, tokens, pos) -> (next tokens, logits,
+    cache)``. With ``mesh``: ``params`` and ``cache`` DTensor trees
+    (``shard_serve_state``, or a sharded prefill's cache spliced into
+    one) and ``tokens`` the global [B, 1], the same on every rank; the
+    tokens and logits returned are this rank's rows, and the cache's
+    blocks are written in place and returned."""
+    if mesh is None:
+        def decode_step(params, cache, tokens, pos):
+            logits, cache = model.decode(params, cache, tokens, pos)
+            next_tok = torch.argmax(logits, dim=-1)[:, None]
+            return next_tok, logits, cache
+        return decode_step
+    _need_group("make_decode_step", mesh)
+    axes = _cache_axes(model)
+
+    def sharded_decode_step(params, cache, tokens, pos):
+        live = _sharded_leaves(params, False)
+        rows, layout = _local_rows(mesh, dict(tokens=tokens))
+        blocks, layout = sharding.cache_blocks(cache, axes, layout)
+        with sharding.activation_layout(layout):
+            logits, _ = model.decode(live, blocks, rows["tokens"], pos)
+        return torch.argmax(logits, dim=-1)[:, None], logits, cache
+    return sharded_decode_step

@@ -20,6 +20,13 @@ in a JAX subprocess with four host devices.
   (4, 1), (1, 4) and no mesh, and through the reference's restore;
   ``run_elastic`` with injected failures against a clean run; the kernel
   wrappers refusing DTensors; the layouts that must raise.
+- ``serve``: the sharded prefill and decode steps of reduced qwen2-1.5B,
+  mamba2-2.7B, gemma3-4B and recurrentgemma-2B (float32) on (2, 2) and
+  (4, 1), bitwise against the unsharded steps, and against the
+  reference's steps; a batch-1 decode whose cache is split by sequence
+  over four ``data`` ranks (gemma3's local and global layers,
+  recurrentgemma's local attention) against the unsharded decode; the
+  activation layouts that must raise (``act2d``, ``seqpar``).
 """
 import datetime
 import json
@@ -299,7 +306,182 @@ def _rank_state(rank: int, run_dir: str):
             allow_pickle=True)
 
 
-CASES = dict(train=_rank_train, state=_rank_state)
+SERVE_ARCHS = ("qwen2_1_5b", "mamba2_2_7b", "gemma3_4b",
+               "recurrentgemma_2b")
+SERVE_MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
+# Batched serving: B rows, a prompt of S, the prefill's token and N decode
+# steps. The sequence-split decode: a prompt of SEQ_S, SEQ_N steps, the
+# cache's SEQ_S + SEQ_N positions in segments. Batch 1 on four data ranks
+# (gemma3's local and global layers, recurrentgemma's local attention):
+# four segments of 7, the decode positions 20-27 in the third and fourth;
+# the local window of 8 leaves the first segment with no valid position,
+# and the last holds only positions past 20 at first. Batch 2 on (2, 2)
+# under the ``seqshard`` variant (minicpm3's MLA latents): the rows over
+# data, two segments of 14 over model. Case: (mesh, batch, variant).
+SERVE_B, SERVE_S, SERVE_N = 4, 12, 8
+SEQ_CASES = dict(gemma3_4b=((4, 1), 1, "baseline"),
+                 recurrentgemma_2b=((4, 1), 1, "baseline"),
+                 minicpm3_4b=((2, 2), 2, "seqshard"))
+SEQ_S, SEQ_N = 20, 8
+# The sequence-split decode against the unsharded one (float32): its
+# softmax is combined across segments in another order.
+SEQ_ATOL = 1e-5
+
+
+def _gather_rows(t, mesh, rows: int):
+    """The global [rows, ...] tensor of this rank's rows (an all-gather
+    over the batch's mesh axes, innermost first)."""
+    import torch.distributed as dist
+    from repro_torch.runtime import sharding
+    names = list(mesh.mesh_dim_names)
+    for a in reversed(sharding.batch_axes(rows, mesh)):
+        i = names.index(a)
+        parts = [torch.empty_like(t) for _ in range(mesh.size(i))]
+        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(i))
+        t = torch.cat(parts, 0)
+    return t
+
+
+def _serve_unsharded(model, params, toks, length, steps):
+    """(prefill logits, [decode logits], tokens [B, steps + 1]) of the
+    unsharded steps from a cache of ``length`` positions."""
+    from repro_torch.runtime.serve_loop import _splice
+    from repro_torch.runtime.train_loop import (make_decode_step,
+                                                make_prefill_step)
+    S = toks.shape[1]
+    logits, built = make_prefill_step(model)(params, dict(tokens=toks))
+    cache = _splice(model.init_cache(toks.shape[0], length, "cpu"), built)
+    tok, out, steps_logits = logits.argmax(-1)[:, None], [], []
+    out.append(tok)
+    decode = make_decode_step(model)
+    for i in range(steps):
+        tok, lg, cache = decode(params, cache, tok, S + i)
+        out.append(tok)
+        steps_logits.append(lg)
+    return logits, steps_logits, torch.cat(out, 1)
+
+
+def _rank_serve(rank: int, run_dir: str):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.serve_loop import _splice
+    from repro_torch.runtime.train_loop import (make_decode_step,
+                                                make_prefill_step,
+                                                shard_serve_state)
+    from repro_torch.launch.dryrun import VARIANTS
+    _init(rank, run_dir)
+    inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
+    out = dict(batched={}, seq={}, raised={})
+    torch.set_grad_enabled(False)
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch, reduced=True).replace(dtype="float32",
+                                                     param_dtype="float32")
+        model = Model(cfg)
+        params, toks = inputs[arch]["params"], inputs[arch]["tokens"]
+        length = SERVE_S + SERVE_N + 1
+        whole = _serve_unsharded(model, params, toks, length, SERVE_N)
+        for mname, shape in SERVE_MESHES.items():
+            mesh = _mesh(shape, ("data", "model"))
+            sp, sc = shard_serve_state(model, params, model.init_cache(
+                SERVE_B, length, "cpu"), mesh)
+            logits, built = make_prefill_step(model, mesh)(
+                sp, dict(tokens=toks))
+            _splice([t.to_local() for t in _tensors(sc)],
+                    [t.to_local() for t in _tensors(built)])
+            tok = _gather_rows(logits.argmax(-1)[:, None], mesh, SERVE_B)
+            rows = sharding.local_slices(
+                sharding.spec_for(("act_batch",), (SERVE_B,), mesh),
+                (SERVE_B,), sharding.mesh_sizes(mesh),
+                sharding.coordinates(mesh))[0]
+            ref = _serve_unsharded(model, params, toks[rows], length,
+                                   SERVE_N)
+            same = [torch.equal(logits, ref[0])]
+            err = (logits - whole[0][rows]).abs().max().item()
+            toks_out, step_logits = [tok], []
+            decode = make_decode_step(model, mesh)
+            for i in range(SERVE_N):
+                nxt, lg, sc = decode(sp, sc, tok, SERVE_S + i)
+                same.append(torch.equal(lg, ref[1][i]))
+                err = max(err, (lg - whole[1][i][rows]).abs().max().item())
+                tok = _gather_rows(nxt, mesh, SERVE_B)
+                toks_out.append(tok)
+                step_logits.append(_gather_rows(lg, mesh, SERVE_B).numpy())
+            out["batched"][f"{arch}/{mname}"] = dict(
+                bitwise=all(same), steps=len(same), whole_max_abs=err,
+                tokens_equal=torch.equal(torch.cat(toks_out, 1), whole[2]),
+                split_cache=sum(any(p.is_shard() and p.dim > 0
+                                    for p in t.placements)
+                                for t in _tensors(sc)),
+                prefill=_gather_rows(logits, mesh, SERVE_B).numpy(),
+                decode=np.stack(step_logits),
+                tokens=torch.cat(toks_out, 1).numpy())
+    for arch, (shape, batch, variant) in SEQ_CASES.items():
+        cfg = get_config(arch, reduced=True).replace(dtype="float32",
+                                                     param_dtype="float32")
+        model = Model(cfg)
+        params, one = inputs[arch]["params"], inputs[arch]["tokens1"]
+        length = SEQ_S + SEQ_N
+        logits, built = make_prefill_step(model)(params, dict(tokens=one))
+        full = _splice(model.init_cache(batch, length, "cpu"), built)
+        ref_steps, ref_toks = [], [logits.argmax(-1)[:, None]]
+        cache = _clone(full)
+        decode = make_decode_step(model)
+        for i in range(SEQ_N):
+            t, lg, cache = decode(params, cache, ref_toks[-1], SEQ_S + i)
+            ref_steps.append(lg)
+            ref_toks.append(t)
+        mesh = _mesh(shape, ("data", "model"))
+        with sharding.rule_overrides(VARIANTS[variant].get("rules")):
+            sp, sc = shard_serve_state(model, params, _clone(full), mesh)
+            decode = make_decode_step(model, mesh)
+            tok, toks_out, err, finite = ref_toks[0], [ref_toks[0]], 0.0, True
+            for i in range(SEQ_N):
+                nxt, lg, sc = decode(sp, sc, tok, SEQ_S + i)
+                tok = _gather_rows(nxt, mesh, batch)
+                lg = _gather_rows(lg, mesh, batch)
+                toks_out.append(tok)
+                err = max(err, (lg - ref_steps[i]).abs().max().item())
+                finite = finite and bool(torch.isfinite(lg).all())
+        out["seq"][arch] = dict(
+            max_abs=err, finite=finite,
+            tokens_equal=torch.equal(torch.cat(toks_out, 1),
+                                     torch.cat(ref_toks, 1)),
+            placements=sorted({str(t.placements) for t in _tensors(sc)
+                               if t.dim() > 2}),
+            tokens=torch.cat(toks_out, 1).numpy())
+    # Activation layouts the steps refuse rather than replicate quietly.
+    cfg = get_config("qwen2_1_5b", reduced=True).replace(
+        dtype="float32", param_dtype="float32")
+    model = Model(cfg)
+    mesh = _mesh((2, 2), ("data", "model"))
+    params, toks = inputs["qwen2_1_5b"]["params"], \
+        inputs["qwen2_1_5b"]["tokens"]
+    for variant in ("act2d", "seqpar", "seqpar_seqshard"):
+        with sharding.rule_overrides(VARIANTS[variant]["rules"]):
+            sp, _ = shard_serve_state(model, params, None, mesh)
+            try:
+                make_prefill_step(model, mesh)(sp, dict(tokens=toks))
+                out["raised"][variant] = "no error"
+            except NotImplementedError as e:
+                out["raised"][variant] = str(e)
+    if rank == 0:
+        np.save(os.path.join(run_dir, "serve.npy"), out, allow_pickle=True)
+
+
+def _tensors(tree):
+    return [t for t in _leaves(tree) if t is not None]
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return None if tree is None else tree.clone()
+
+
+CASES = dict(train=_rank_train, state=_rank_state, serve=_rank_serve)
 
 
 def _entry(rank, case, run_dir):
@@ -589,6 +771,118 @@ def test_no_quiet_fallbacks_across_ranks(state_run):
                                                    meta["raised"][name])
     assert "256 ranks" in meta["raised"]["production_mesh"]
     assert "ROADMAP" in meta["raised"]["sequence"]
+
+
+@pytest.fixture(scope="module")
+def serve_run(tmp_path_factory):
+    """The ``serve`` case on four ranks, and the reference's side: each
+    arch's reduced float32 pair (live recurrences) and its prompts."""
+    from test_torch_lm import _pair
+    run_dir = tmp_path_factory.mktemp("serve")
+    inputs, pairs = {}, {}
+    for i, arch in enumerate(SERVE_ARCHS + ("minicpm3_4b",)):
+        _, jm, jp, cfg, m, pp = _pair(arch, "float32")
+        rng = np.random.default_rng(40 + i)
+        toks = rng.integers(0, cfg.vocab, (SERVE_B, SERVE_S))
+        one = rng.integers(0, cfg.vocab, (SEQ_CASES.get(
+            arch, (None, 1))[1], SEQ_S))
+        inputs[arch] = dict(params=pp, tokens=torch.from_numpy(toks),
+                            tokens1=torch.from_numpy(one))
+        pairs[arch] = (jm, jp, toks, one)
+    torch.save(inputs, os.path.join(run_dir, "inputs.pt"))
+    _spawn("serve", run_dir)
+    out = np.load(os.path.join(run_dir, "serve.npy"),
+                  allow_pickle=True).item()
+    return out, pairs
+
+
+def _reference_serve(jm, jp, toks, length, steps):
+    """(prefill logits, [decode logits], greedy tokens) of the reference's
+    ``make_prefill_step`` / ``make_decode_step``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.common import split_tree
+    from repro.runtime import train_loop as jtrain_loop
+    from repro.runtime.serve_loop import _splice as jax_splice
+    B, S = toks.shape
+    logits, built = jax.jit(jtrain_loop.make_prefill_step(jm))(
+        jp, dict(tokens=jnp.asarray(toks, jnp.int32)))
+    cache = jax_splice(split_tree(jm.init_cache(B, length))[0], built, S)
+    decode = jax.jit(jtrain_loop.make_decode_step(jm))
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)[:, None]
+    out, steps_logits = [np.asarray(tok)], []
+    for i in range(steps):
+        tok, lg, cache = decode(jp, cache, tok, S + i)
+        out.append(np.asarray(tok))
+        steps_logits.append(np.asarray(lg))
+    return np.asarray(logits), steps_logits, np.concatenate(out, 1)
+
+
+@pytest.mark.parametrize("mesh", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_serving_is_bitwise_and_matches_reference(serve_run, arch,
+                                                          mesh):
+    """Each rank's prefill logits and every decode step's logits bitwise
+    the unsharded steps' on its rows; against the unsharded steps on the
+    whole batch within SEQ_ATOL (the CPU's matmuls block by the number of
+    rows, so a row's last bit can move with the rows around it: mamba2's
+    one-row prefill on (4, 1) does) and the greedy tokens equal; on (2, 2)
+    cache leaves are split over ``model`` (gathered by each layer, written
+    back by block); the gathered logits and tokens within test_torch_lm's
+    float32 limits of the reference's steps."""
+    from test_torch_lm import F32_TOL
+    out, pairs = serve_run
+    r = out["batched"][f"{arch}/{mesh}"]
+    assert r["bitwise"] and r["steps"] == SERVE_N + 1
+    assert r["tokens_equal"] and r["whole_max_abs"] <= SEQ_ATOL
+    assert (r["split_cache"] > 0) == (mesh == "2x2"), r["split_cache"]
+    jm, jp, toks, _ = pairs[arch]
+    logits, steps, tokens = _reference_serve(
+        jm, jp, toks, SERVE_S + SERVE_N + 1, SERVE_N)
+    np.testing.assert_allclose(r["prefill"], logits, **F32_TOL)
+    np.testing.assert_array_equal(r["tokens"], tokens)
+    for port, ref in zip(r["decode"], steps):
+        np.testing.assert_allclose(port, ref, **F32_TOL)
+
+
+# Placements of the caches' leaves past two dimensions, by case: KV
+# [B, S, Kh, D] split by sequence over data (batch 1), the RG-LRU conv
+# tails [1, 3, W] whole; MLA's latents [B, S, L] by rows over data and by
+# sequence over model (``seqshard``).
+SEQ_PLACEMENTS = dict(
+    gemma3_4b=["(Shard(dim=1), Replicate())"],
+    recurrentgemma_2b=["(Replicate(), Replicate())",
+                       "(Shard(dim=1), Replicate())"],
+    minicpm3_4b=["(Shard(dim=0), Shard(dim=1))"])
+
+
+@pytest.mark.parametrize("arch", list(SEQ_CASES))
+def test_sequence_split_decode_matches_unsharded(serve_run, arch):
+    """Caches split by sequence (each rank a segment of positions, never
+    gathered): batch 1 on four ``data`` ranks, and minicpm3's MLA latents
+    over ``model`` under ``seqshard``. The decode's softmax is combined
+    across segments — segments holding no valid position (outside the
+    local window, past the position) included — within SEQ_ATOL of the
+    unsharded decode, finite, with the same greedy tokens, which are the
+    reference's."""
+    out, pairs = serve_run
+    r = out["seq"][arch]
+    assert r["placements"] == SEQ_PLACEMENTS[arch], r["placements"]
+    assert r["finite"] and r["max_abs"] <= SEQ_ATOL, r["max_abs"]
+    assert r["tokens_equal"]
+    jm, jp, _, one = pairs[arch]
+    _, _, tokens = _reference_serve(jm, jp, one, SEQ_S + SEQ_N, SEQ_N)
+    np.testing.assert_array_equal(r["tokens"], tokens)
+
+
+def test_serving_refuses_activation_splits(serve_run):
+    """``act2d`` (the embedding over ``model``) and ``seqpar`` (the
+    sequence over ``model``) raise naming ROADMAP queue 1 in the sharded
+    prefill, rather than replicate quietly."""
+    out, _ = serve_run
+    for variant in ("act2d", "seqpar", "seqpar_seqshard"):
+        msg = out["raised"][variant]
+        assert "ROADMAP queue 1" in msg, (variant, msg)
 
 
 if __name__ == "__main__":

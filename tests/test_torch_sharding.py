@@ -251,7 +251,10 @@ def test_dryrun_cells_grad_accum_and_skip_rule(tmp_path):
     archs × 3 shapes × 2 meshes + 3 sub-quadratic × long_500k × 2) and
     14 skipped; grad_accum follows the reference's rule (qwen2-72B 16 at
     train_4k, 2 at prefill_32k, as tests/test_dryrun_tools.py has it);
-    the cell for qwen2-72B train_4k holds the dry-run figures."""
+    the cell for qwen2-72B train_4k holds the dry-run figures. With
+    ``--memory-only`` (the per-device bytes in seconds; the costs of the
+    whole sweep take minutes, and tests/test_torch_dryrun.py counts them
+    on reduced cells) no cost key is written."""
     import json
     jax.devices()       # the backend is up before the reference's module
     from repro.launch import dryrun as jdryrun
@@ -263,7 +266,8 @@ def test_dryrun_cells_grad_accum_and_skip_rule(tmp_path):
     assert dryrun._grad_accum_for(q, SHAPES["train_4k"]) == 16
     assert dryrun._grad_accum_for(q, SHAPES["prefill_32k"]) == 2
     assert dryrun.VARIANTS == jdryrun.VARIANTS
-    dryrun.main(["--all", "--both-meshes", "--out", str(tmp_path)])
+    dryrun.main(["--all", "--both-meshes", "--memory-only", "--out",
+                 str(tmp_path)])
     cells = [json.load(open(p)) for p in tmp_path.glob("*.json")]
     assert len(cells) == 80
     skipped = [c for c in cells if c.get("skipped")]
