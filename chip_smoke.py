@@ -3564,11 +3564,23 @@ SHARDED_ARCH, SHARDED_DEPTH = "qwen2_1_5b", 2
 SERVE_SHARDED = dict(qwen2_1_5b=None, mamba2_2_7b=4, recurrentgemma_2b=3)
 # (c) the dry run's costs of qwen2-72B train_4k at 2 of 80 layers on both
 # production meshes, counted over a fake process group in a subprocess of
-# `python -m repro_torch.launch.dryrun`: per device and step, 1.4307e15
+# `python -m repro_torch.launch.dryrun`: per device and step, 9.0521e13
 # FLOPs as this count gives them on the CPU (one microbatch x grad_accum
-# 16), held within DRYRUN_RTOL (another torch may decompose an op
-# otherwise).
-DRYRUN_DEPTH, DRYRUN_FLOPS, DRYRUN_RTOL = 2, 1430739505643520, 1e-2
+# 16; attention, MLPs, embedding and logits tensor-parallel over the 16
+# model ranks), held within DRYRUN_RTOL (another torch may decompose an
+# op otherwise).
+DRYRUN_DEPTH, DRYRUN_FLOPS, DRYRUN_RTOL = 2, 90520730730496, 1e-2
+# (e) qwen2-72B whole (80 layers), bf16, as rank 0 of the dry run's fake
+# process group (``launch.dryrun.fake_group``: its collectives return at
+# once and move nothing) on a (1, 8) ("data", "model") mesh over the card:
+# one card's share of a tensor-parallel deployment on 8 cards (about 18.2
+# of the model's 145.5 GB), each leaf's rank-0 block drawn on the card
+# from a seed (no full tensor is ever built). A B 4 x 2048 prefill and
+# TP_NEW decode steps: one wgmma flash launch a layer on the rank's 8 q
+# heads over its 1 kv head, [4, 2048, 8, 128] group 8, no plain version.
+# The times are one rank's compute alone; its tokens are no result (the
+# gathered logits hold only this rank's vocabulary block).
+TP_ARCH, TP_MESH, TP_B, TP_S, TP_NEW = "qwen2_72b", (1, 8), 4, 2048, 32
 
 
 @contextlib.contextmanager
@@ -3899,6 +3911,230 @@ def dryrun_train_4k(workdir: str) -> dict:
     return out
 
 
+def tp_share(model, mesh, gen):
+    """The rank's blocks of ``model``'s parameters, drawn on ``gen``'s
+    device (normal, 1/sqrt(fan in); norms and biases zero), as DTensors
+    placed by their logical axes on ``mesh``: no full tensor is built."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.runtime import sharding
+    shapes, axes = model.abstract_params()
+    sizes = sharding.mesh_sizes(mesh)
+
+    def leaf(ax, t):
+        spec = sharding.spec_for(ax, t.shape, mesh)
+        local = sharding.local_shape(spec, t.shape, sizes)
+        if len(ax) == 1 or ax in (("heads", "head_dim"),
+                                  ("kv_heads", "head_dim")):
+            block = torch.zeros(local, dtype=t.dtype, device=gen.device)
+        else:
+            fan_in = (model.cfg.d_model if ax[0] == "vocab" else
+                      t.shape[0] * t.shape[1] if ax[0] == "heads"
+                      else t.shape[0])
+            block = torch.randn(local, generator=gen, device=gen.device,
+                                dtype=t.dtype) / float(np.sqrt(fan_in))
+        return DTensor.from_local(block, mesh,
+                                  sharding.placements(spec, mesh),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return sharding.map_axes(leaf, axes, shapes)
+
+
+def tp_cache(model, mesh, B: int, length: int, device="cuda"):
+    """The rank's zero blocks of the decode cache as DTensors."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.runtime import sharding
+    shapes, axes = model.cache_axes(B, length)
+    sizes = sharding.mesh_sizes(mesh)
+
+    def leaf(ax, t):
+        spec = sharding.spec_for(ax, t.shape, mesh)
+        block = torch.zeros(sharding.local_shape(spec, t.shape, sizes),
+                            dtype=t.dtype, device=device)
+        return DTensor.from_local(block, mesh,
+                                  sharding.placements(spec, mesh),
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    return sharding.map_axes(leaf, axes, shapes)
+
+
+@contextlib.contextmanager
+def local_logits():
+    """The rank's vocabulary block of every logits gather over ``model``
+    (``TensorParallel.gather``'s input): shape and finiteness."""
+    from repro_torch.runtime import sharding
+    seen = []
+    inner = sharding.TensorParallel.gather
+
+    def gather(self, x, dim):
+        seen.append((tuple(x.shape), bool(torch.isfinite(x).all())))
+        return inner(self, x, dim)
+    sharding.TensorParallel.gather = gather
+    try:
+        yield seen
+    finally:
+        sharding.TensorParallel.gather = inner
+
+
+def tp_profile(fn) -> dict:
+    """One call of ``fn`` under the profiler: host wall, device time, and
+    the device time by kind — the flash kernel, GEMMs (cuBLAS's and
+    CUTLASS's kernels) and the rest (elementwise, reductions, copies) —
+    with the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {ev.key: ev.self_device_time_total / 1e3
+               for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA")
+               and ev.self_device_time_total > 0}
+    kinds = collections.Counter()
+    for name, ms in by_name.items():
+        kinds["flash" if "flash_fwd_sm90" in name else
+              "gemm" if any(k in name.lower() for k in (
+                  "gemm", "nvjet", "cutlass", "xmma")) else "other"] += ms
+    return dict(wall_ms=wall * 1e3, device_ms=sum(by_name.values()),
+                by_kind=dict(kinds),
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+
+
+def tp_qwen2_72b(dev) -> dict:
+    """(e): qwen2-72B whole as one rank of an 8-way tensor-parallel
+    deployment (``TP_MESH``), through ``make_prefill_step`` /
+    ``make_decode_step(mesh=)``: the prefill (a second, warm one timed)
+    and TP_NEW decode steps, the rank's logits finite, 80 wgmma flash
+    launches at the rank's heads and no plain version; then that flash
+    call timed beside the plain version, SDPA and its bound."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.serve_loop import _splice
+    from repro_torch.runtime.train_loop import (make_decode_step,
+                                                make_prefill_step)
+    start = time.perf_counter()
+    cfg = get_config(TP_ARCH)
+    model = Model(cfg)
+    where = f"{TP_ARCH} (13e)"
+    ranks = TP_MESH[0] * TP_MESH[1]
+    heads, kv = cfg.n_heads // TP_MESH[1], cfg.n_kv // TP_MESH[1]
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (TP_B, TP_S))).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fake_group(ranks):
+        mesh = init_device_mesh("cuda", TP_MESH,
+                                mesh_dim_names=("data", "model"))
+        params = tp_share(model, mesh, torch.Generator(device="cuda")
+                          .manual_seed(0))
+        share = sum(t.to_local().numel() * t.to_local().element_size()
+                    for t in tree_leaves(params))
+        prefill = make_prefill_step(model, mesh)
+        decode = make_decode_step(model, mesh)
+
+        def locals_(tree):
+            return [t.to_local() for t in tree_leaves(tree)
+                    if t is not None]
+        walls, steps = [], []
+        with torch.inference_mode():
+            for turn in range(2):
+                cache = tp_cache(model, mesh, TP_B, TP_S + TP_NEW + 1)
+                reset_lm_launches()
+                with plain_call_counter() as plain, \
+                        flash_call_recorder() as shapes, \
+                        first_flash_call() as first, local_logits() as lg:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, built = prefill(params, dict(tokens=toks))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    _splice(locals_(cache), locals_(built))
+                    del built
+                    tok = torch.argmax(logits, dim=-1)[:, None]
+                    for i in range(TP_NEW if turn else 0):
+                        t0 = time.perf_counter()
+                        tok, _, cache = decode(params, cache, tok, TP_S + i)
+                        torch.cuda.synchronize()
+                        steps.append(time.perf_counter() - t0)
+                launches = read_lm_launches()
+                if turn == 0:
+                    prefill_launches = launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof = dict(prefill=tp_profile(
+                lambda: prefill(params, dict(tokens=toks))),
+                        decode=tp_profile(lambda: decode(
+                            params, cache, tok, TP_S + TP_NEW)))
+            del cache
+        q_shape = tuple(first["q"].shape)
+        ref = flash_attention_ref(first["q"], first["k"], first["v"],
+                                  **first["kw"])
+        err, rel = hold_flash(f"{where} first flash call", first["out"],
+                              ref, torch.bfloat16)
+        del first, ref, params
+    torch.cuda.empty_cache()
+    want_q = (TP_B, TP_S, kv, heads // kv, cfg.head_dim_)
+    if q_shape != want_q:
+        fail(f"{where}: flash q {q_shape}, want the rank's heads {want_q}")
+    want = dict(flash=dict(wgmma=cfg.n_layers, scalar=0),
+                ssd=dict(wgmma=0, scalar=0),
+                rglru=dict(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0))
+    if prefill_launches != want or launches != want:
+        fail(f"{where}: launches {prefill_launches} (prefill) and "
+             f"{launches} (prefill and decode), want {want}")
+    if dict(shapes) != {("wgmma", 128, 128, True): cfg.n_layers}:
+        fail(f"{where}: flash launches by shape {dict(shapes)}")
+    if sum(plain.values()):
+        fail(f"{where}: plain versions ran: {dict(plain)}")
+    vocab_rows = cfg.padded_vocab // TP_MESH[1]
+    if len(lg) != 1 + TP_NEW or any(
+            sh != (TP_B, vocab_rows) or not ok for sh, ok in lg):
+        fail(f"{where}: the rank's logits blocks {lg[:3]} ..., want "
+             f"{1 + TP_NEW} finite blocks of ({TP_B}, {vocab_rows})")
+    if tuple(logits.shape) != (TP_B, cfg.padded_vocab):
+        fail(f"{where}: gathered logits {tuple(logits.shape)}")
+    timing = model_flash_timing(f"{TP_ARCH} (13e) rank heads", heads, kv,
+                                TP_S, TP_S, cfg.head_dim_, cfg.head_dim_,
+                                True, 13)
+    decode_ms = float(np.mean(steps[1:])) * 1e3
+    out = dict(layers=cfg.n_layers, mesh=list(TP_MESH), share_bytes=share,
+               prefill_ms=walls[1] * 1e3, first_prefill_ms=walls[0] * 1e3,
+               tokens_per_s=TP_B * TP_S / walls[1], decode_ms=decode_ms,
+               first_decode_ms=steps[0] * 1e3, peak_gib=peak,
+               launches=launches, flash_launches=cfg.n_layers,
+               flash_shape=list(want_q), flash_max_abs_err=err,
+               flash_rel_rms=rel, flash_timing=timing, profile=prof,
+               wall_s=time.perf_counter() - start)
+    print(f"  (e) {TP_ARCH} whole ({cfg.n_layers} layers), bf16, as rank "
+          f"0 of {ranks} on a {TP_MESH} (data, model) mesh over the card "
+          f"(the fake process group's collectives return at once and move "
+          f"nothing: one rank's compute alone, its tokens no result); the "
+          f"rank's share {share / 1e9:.2f} GB drawn on the card: B {TP_B} "
+          f"x {TP_S} prefill {out['prefill_ms']:.1f} ms warm (first "
+          f"{out['first_prefill_ms']:.1f} ms), {out['tokens_per_s']:.0f} "
+          f"tokens/s; {TP_NEW} decode steps {decode_ms:.2f} ms a step "
+          f"(after the first, {out['first_decode_ms']:.1f} ms); peak "
+          f"{peak:.2f} GiB; launches {launches}: {cfg.n_layers} "
+          f"flash_fwd_sm90<128, 128> a prefill at q {list(want_q)} (the "
+          f"rank's {heads} q heads over {kv} kv head), no plain version; "
+          f"the first flash call vs the plain version max |d| {err:.3e}, "
+          f"RMS(d) / RMS(plain) {rel:.3e}; the rank's logits blocks "
+          f"finite; {out['wall_s']:.1f} s", flush=True)
+    for name, p in prof.items():
+        print(f"    (e) one profiled {name}: wall {p['wall_ms']:.1f} ms, "
+              f"device {p['device_ms']:.1f} ms (busy "
+              f"{p['device_ms'] / p['wall_ms'] * 100:.1f} %); by kind "
+              + ", ".join(f"{k} {ms:.1f} ms" for k, ms in
+                          sorted(p["by_kind"].items()))
+              + "; top: " + "; ".join(f"{n[:50]} {ms:.2f}"
+                                      for n, ms in p["top"]), flush=True)
+    return out
+
+
 def phase_distribution(dev, workdir: str) -> dict:
     print(f"== phase 13: distribution — (a) {DIST_ARCH} at full width, "
           f"{DIST_DEPTH} of 80 layers, bf16, served (B 4, prompt 2048, 32 "
@@ -3907,13 +4143,15 @@ def phase_distribution(dev, workdir: str) -> dict:
           f"sharded prefill and decode steps on it ("
           + ", ".join(f"{a} depth {d or 'full'}"
                       for a, d in SERVE_SHARDED.items())
-          + f", bf16), (c) the dry run of {DIST_ARCH} train_4k", flush=True)
+          + f", bf16), (e) {TP_ARCH} whole as one rank of {TP_MESH} "
+          f"tensor-parallel, (c) the dry run of {DIST_ARCH} train_4k",
+          flush=True)
     serve = serve_qwen2_72b()
     with one_rank_mesh(workdir) as mesh:
         sharded = sharded_world1(dev, workdir, mesh)
         served = serve_sharded_world1(dev, mesh)
     return dict(serve=serve, sharded=sharded, served=served,
-                dryrun=dryrun_train_4k(workdir))
+                tp=tp_qwen2_72b(dev), dryrun=dryrun_train_4k(workdir))
 
 
 def main() -> None:
@@ -4099,13 +4337,20 @@ def main() -> None:
     by_model = wgmma_by_model(((64, 64), (128, 128)))
     by_model[f"{DIST_ARCH} (phase 13)"] = dist13["serve"]["launches"][
         "flash_wgmma"]
+    tp13 = dist13["tp"]
+    by_model[f"{TP_ARCH} (13e, rank heads)"] = tp13["flash_launches"]
+    tp_flash = {f: tp13["flash_timing"][f] for f in (
+        "ms", "device_ms", "plain_ms", "library", "library_ms",
+        "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
+        "rel_rms")}
     kernels.append(dict(
         name="flash_attention_sm90", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces=flash, launches=sum(by_model.values()),
         launches_by_model=by_model,
         max_abs_err=max(lmk["worst"]["flash_sm90"],
-                        dist13["serve"]["flash_max_abs_err"]), ms=f128["ms"],
+                        dist13["serve"]["flash_max_abs_err"],
+                        tp13["flash_max_abs_err"]), ms=f128["ms"],
         plain_ms=f128["plain_ms"], bound_ms=f128["bound_ms"],
         device_ms=f128["device_ms"], plain_device_ms=f128["plain_device_ms"],
         bound_by=f128["bound_by"], library_ms=f128["library_ms"],
@@ -4114,10 +4359,15 @@ def main() -> None:
                   "prefill attention of qwen2_1_5b, dbrx_132b, "
                   "llama_3_2_vision_11b (self and cross), "
                   "seamless_m4t_large_v2 (D 64: encoder, self, cross) and "
-                  "qwen2_72b (group 8), reading the model layout in place",
+                  "qwen2_72b (group 8; phase 13(e) on one tensor-parallel "
+                  "rank's 8 q heads over its kv head), reading the model "
+                  "layout in place",
         qwen2_72b=dict(shape=dist13["serve"]["flash_shape"],
                        max_abs_err=dist13["serve"]["flash_max_abs_err"],
                        rel_rms=dist13["serve"]["flash_rel_rms"]),
+        qwen2_72b_rank_heads=dict(shape=tp13["flash_shape"],
+                                  launches=tp13["flash_launches"],
+                                  **tp_flash),
         d64=dict(shape=[48, 2048, 64], **{
             key: f64[key] for key in ("ms", "device_ms", "plain_ms",
                                       "library_ms", "bound_ms",

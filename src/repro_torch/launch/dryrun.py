@@ -16,15 +16,23 @@ what that rank does:
 
   * ``flops_per_device``: ``FlopCounterMode``'s total — the matmuls and
     attention products of the port's CPU path (the kernels' plain
-    versions, which compute every masked block); elementwise work is not
-    counted (XLA's ``cost_analysis``, the reference's figure, counts it,
-    and counts a ``lax.scan`` body once: ROADMAP queue 3).
+    versions, which compute every masked block) on the rank's heads, MLP
+    columns and vocabulary rows where the sub-layer computes
+    tensor-parallel over ``model``; elementwise work is not counted
+    (XLA's ``cost_analysis``, the reference's figure, counts it, and
+    counts a ``lax.scan`` body once: ROADMAP queue 3).
   * ``bytes_per_device``: the operand and result bytes of every aten op
     (views and allocations excluded), unfused: an upper bound on device
     memory traffic (``bytes_model`` says so).
   * ``collectives``: the result bytes of every ``c10d`` op under the
     reference's ring model (all-reduce 2× its bytes, the others 1×), in
-    the reference's five kinds plus ``total``.
+    the reference's five kinds plus ``total``: the parameters' gathers
+    (over ``data`` and ``pod``, and over ``model`` for the sub-layers
+    that gather whole), the gradients' sums over the batch axes, and the
+    tensor-parallel sub-layers' sums over ``model`` — each row-parallel
+    output's all-reduce, each column-parallel input's in the backward,
+    and the vocab-parallel loss's — with the gathers of the serving
+    steps' last logits.
   * ``roofline``: ``t_compute``, ``t_memory`` and ``t_collective`` and
     the ``dominant`` one, at the rates written into the cell as ``hw``.
 

@@ -16,6 +16,16 @@ whose cache is split by sequence (``runtime/sharding.py``), each rank
 attends its segment of the cache and the segments' partial softmaxes are
 combined across ranks (``combine_segments``).
 
+In a sharded step whose rules split the heads over ``model`` the
+sub-layer is tensor-parallel (``sharding.local_params``): each rank
+projects its q heads and the kv heads they read (column-parallel),
+attends them — through the flash kernel in prefill — and applies its
+rows of ``wo`` (row-parallel), and the sum over ``model`` follows. Where
+the kv heads do not divide ``model`` their weights are replicated and
+each rank slices the ones its q heads read before the product
+(``_Heads``); a rank whose q heads straddle two kv groups reads its kv
+heads by index, one a q head.
+
 Shapes (canonical): q [B, Sq, Kh, G, D]; k, v [B, Skv, Kh, D] where
 Kh = kv heads, G = query-group fan-out (n_heads = Kh·G).
 """
@@ -252,9 +262,61 @@ def prefill_attention(q, k, v, *, kind="causal", window=0, block_kv=1024,
         block_kv=block_kv)
 
 
+class _Heads:
+    """The q heads a rank computes and the kv heads they read: q heads
+    ``[start, start + n_q)`` of the layer's, over kv heads ``[lo, lo +
+    n)``; each kv head serves ``n_q // n`` consecutive q heads, or, where
+    the rank's q heads straddle kv groups unevenly, ``index`` (one kv
+    head a q head, counted from ``lo``) says which."""
+
+    def __init__(self, p, n_heads: int, n_kv: int, tp):
+        self.n_q, kv_held = p["wq"].shape[1], p["wk"].shape[1]
+        self.start = 0 if tp is None else tp.rank * self.n_q
+        self.index = None
+        if tp is None or kv_held != n_kv:
+            # every head, or the kv heads split over model with the q
+            # heads: the rank's own
+            self.lo = 0 if tp is None else tp.rank * kv_held
+            self.n = kv_held
+            return
+        group = n_heads // n_kv
+        kv = [(self.start + j) // group for j in range(self.n_q)]
+        self.lo, self.n = kv[0], kv[-1] - kv[0] + 1
+        if self.n_q % self.n or any(k - self.lo != j // (self.n_q // self.n)
+                                    for j, k in enumerate(kv)):
+            self.index = [k - self.lo for k in kv]
+
+    @property
+    def layout(self) -> tuple:
+        """(kv heads, group) of the rank's q as [B, S, kv, group, D]."""
+        if self.index is not None:
+            return self.n_q, 1
+        return self.n, self.n_q // self.n
+
+    def weights(self, p) -> dict:
+        """``p`` with the kv projections cut to the kv heads the rank
+        reads, where they hold more (replicated over ``model``)."""
+        if p["wk"].shape[1] == self.n:
+            return p
+        cut = slice(self.lo, self.lo + self.n)
+        out = dict(p, wk=p["wk"][:, cut], wv=p["wv"][:, cut])
+        if "bk" in p:
+            out.update(bk=p["bk"][cut], bv=p["bv"][cut])
+        return out
+
+    def select(self, t):
+        """The rank's kv heads of k or v [B, S, kv, D] holding them, or
+        every kv head; one a q head where ``index`` says so."""
+        if t.shape[2] != self.n:
+            t = t[:, :, self.lo:self.lo + self.n]
+        if self.index is None:
+            return t
+        return t[:, :, torch.tensor(self.index, device=t.device)]
+
+
 def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
           rope_theta=10000.0, block_kv=1024, kv_x=None, kv_positions=None,
-          softmax_scale=None, cache=None, decode_pos=None):
+          softmax_scale=None, cache=None, decode_pos=None, keep_kv=True):
     """One attention sub-layer. Returns (out, kv).
 
     Train/prefill (cache=None): x is [B, S, d] at positions
@@ -262,30 +324,61 @@ def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
     makes it cross-attention (K/V projected from ``kv_x``, RoPE at
     ``kv_positions``; kind should be ``"full"``). Returns the projected
     (k, v): a self-attention prefill keeps them as its cache, a
-    cross-attention as its static one.
+    cross-attention as its static one. ``keep_kv=False`` (train, the
+    encoder) says the caller drops them: a tensor-parallel rank then
+    projects only the kv heads its q heads read.
     Decode (cache=(k, v), decode_pos set): x is [B, 1, d].
     Self-attention writes this token's K/V at ``decode_pos`` and attends
     [0, decode_pos]; kind ``"full"`` (cross-attention) attends the static
     (encoder or image) cache without writing it. Returns the cache.
+
+    Tensor-parallel (``sharding.local_params``): the head counts come
+    from the rank's blocks; a cache split over ``model`` holds the rank's
+    kv heads, a replicated one every kv head (each rank writes them all
+    and reads its own). A decode cache split by sequence over ``model``
+    itself gathers q over ``model``, attends every head over the rank's
+    segment, combines the segments and keeps the rank's heads.
     """
-    G = n_heads // n_kv
+    p, tp = sharding.local_params(p)
+    if tp is not None:
+        x = tp.copy(x)
+        kv_x = None if kv_x is None else tp.copy(kv_x)
+    heads = _Heads(p, n_heads, n_kv, tp)
     q = project_q(x, p, rope_theta, positions)
     B, Sq = q.shape[:2]
-    q = q.reshape(B, Sq, n_kv, G, -1)
     if cache is None:
         src = x if kv_x is None else kv_x
         kv_pos = positions if kv_positions is None else kv_positions
-        kv = project_kv(src, p, rope_theta, kv_pos)
-        out = prefill_attention(q, *kv, kind=kind, window=window,
-                                block_kv=block_kv,
+        kv = project_kv(src, p if keep_kv else heads.weights(p), rope_theta,
+                        kv_pos)
+        out = prefill_attention(q.reshape(B, Sq, *heads.layout, -1),
+                                *map(heads.select, kv), kind=kind,
+                                window=window, block_kv=block_kv,
                                 softmax_scale=softmax_scale)
     else:
         kv, segment = cache, None
         if kind != "full":      # static cross caches are never split
             segment = sharding.cache_segment(cache[0].shape[1])
             k, v = project_kv(x, p, rope_theta, positions)
+            if k.shape[2] != cache[0].shape[2]:
+                # the cache holds every kv head and the rank its block of
+                # the weights: a cache split by sequence over model
+                k, v = tp.gather(k, 2), tp.gather(v, 2)
             kv = update_cache(*cache, k, v, decode_pos, segment)
-        out = decode_attention(q, *kv, decode_pos, kind=kind, window=window,
-                               softmax_scale=softmax_scale, segment=segment)
-    out = out.reshape(B, Sq, n_heads, -1)
-    return project_out(out, p), kv
+        if tp is not None and segment is not None and \
+                sharding.MODEL in segment.axes:
+            q = tp.gather(q, 2).reshape(B, Sq, n_kv, n_heads // n_kv, -1)
+            out = decode_attention(q, *kv, decode_pos, kind=kind,
+                                   window=window,
+                                   softmax_scale=softmax_scale,
+                                   segment=segment).reshape(
+                B, Sq, n_heads, -1)[:, :, heads.start:heads.start
+                                    + heads.n_q]
+        else:
+            out = decode_attention(q.reshape(B, Sq, *heads.layout, -1),
+                                   *map(heads.select, kv), decode_pos,
+                                   kind=kind, window=window,
+                                   softmax_scale=softmax_scale,
+                                   segment=segment)
+    out = project_out(out.reshape(B, Sq, heads.n_q, -1), p)
+    return (out if tp is None else tp.reduce(out)), kv

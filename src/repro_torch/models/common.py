@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime import sharding
+
 _TN_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
 _TN_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
 
@@ -165,10 +167,16 @@ def mlp_init(gen, d_model, d_ff, dtype) -> dict:
 
 def mlp_apply(x, p, gate="silu"):
     """SwiGLU, or GeGLU with ``gate="gelu"``: ``jax.nn.gelu``'s default,
-    the tanh approximation."""
+    the tanh approximation. In a sharded step whose rules split ``mlp``
+    over ``model``: ``wi`` and ``wg`` column-parallel on the rank's
+    columns, ``wo`` row-parallel, the sum over ``model`` after it."""
+    p, tp = sharding.local_params(p)
+    if tp is not None:
+        x = tp.copy(x)
     wi = x @ p["wi"].to(x.dtype)
     act = F.silu(wi) if gate == "silu" else F.gelu(wi, approximate="tanh")
-    return (act * (x @ p["wg"].to(x.dtype))) @ p["wo"].to(x.dtype)
+    out = (act * (x @ p["wg"].to(x.dtype))) @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 # ---------------------------------------------------------------------------
@@ -215,26 +223,71 @@ def embedding_init(gen, vocab_padded, d_model, dtype, tied=True) -> dict:
     return out
 
 
-def embed_tokens(tokens, p, dtype):
-    return p["tokens"].to(dtype)[tokens]
+def embed_tokens(tokens, p, dtype, tp=None):
+    """Each token's row of the table. Vocab-parallel with ``tp`` (the
+    table the rank's rows, ``sharding.local_params``): each rank looks up
+    the tokens in its range, zeros for the rest, and the sum over
+    ``model`` has every row once."""
+    table = p["tokens"].to(dtype)
+    if tp is None:
+        return table[tokens]
+    local = tokens - tp.rank * table.shape[0]
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    return tp.reduce(torch.where(mine[..., None], rows,
+                                 torch.zeros_like(rows)))
 
 
-def logits_from_hidden(h, p, true_vocab, dtype):
+def logits_from_hidden(h, p, true_vocab, dtype, tp=None):
     """Logits over the padded vocabulary, the padded tail set to -1e9 in
-    the compute dtype (out of the partition function)."""
+    the compute dtype (out of the partition function). With ``tp``: the
+    rank's vocabulary rows only (column-parallel), masked by their global
+    indices."""
     table = p.get("head")
+    if tp is not None:
+        h = tp.copy(h)
     if table is None:
         logits = h @ p["tokens"].to(dtype).T
     else:
         logits = h @ table.to(dtype)
     iota = torch.arange(logits.shape[-1], device=logits.device)
+    if tp is not None:
+        iota = iota + tp.rank * logits.shape[-1]
     return logits.masked_fill(iota >= true_vocab, -1e9)
 
 
-def softmax_xent(logits, labels):
+# The cross-entropy sums its exponentials over blocks of this many
+# vocabulary entries, then over the blocks: an order that does not depend
+# on how many ranks split the vocabulary, so the vocab-parallel loss (its
+# ranks all-gather the block sums, 1/64 of the logits) is bitwise the
+# unsharded one. A sum over ranks would round otherwise, and Adam's first
+# step carries that into every parameter whose gradient is near eps.
+XENT_BLOCK = 64
+
+
+def softmax_xent(logits, labels, tp=None):
     """Mean cross-entropy in float32. labels: integer, logits' leading
-    shape."""
+    shape. Vocab-parallel with ``tp`` (``logits`` the rank's block of the
+    vocabulary, in rank order): the max over ``model``, the sum of
+    exponentials from every rank's ``XENT_BLOCK`` sums, the label's logit
+    from the rank that holds it."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    big = logits.amax(-1, keepdim=True).detach()
+    if tp is not None:
+        big = tp.max(big)
+    e = torch.exp(logits - big)
+    n = e.shape[-1]
+    if n % XENT_BLOCK == 0:
+        e = e.unflatten(-1, (n // XENT_BLOCK, XENT_BLOCK)).sum(-1)
+    if tp is not None:
+        e = tp.gather(e, -1)
+    lse = big[..., 0] + torch.log(e.sum(-1))
+    local = labels.long()
+    if tp is not None:
+        local = local - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    if tp is not None:
+        ll = tp.reduce(torch.where(mine, ll, torch.zeros_like(ll)))
     return torch.mean(lse - ll)

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.common import META, P, split_tree, softmax_xent
+from repro_torch.runtime import sharding
 
 
 class Model:
@@ -40,6 +41,12 @@ class Model:
         allocated."""
         return split_tree(transformer.init(self.cfg, META))
 
+    def tensor_parallel_mask(self, params):
+        """``params``'s tree with True at the leaves of the sub-layers
+        that compute tensor-parallel over ``model`` in the sharded steps
+        (``transformer.tensor_parallel_mask``)."""
+        return transformer.tensor_parallel_mask(params)
+
     def param_count(self) -> int:
         """Parameters of the tree ``init`` builds, from
         ``abstract_params``."""
@@ -52,21 +59,27 @@ class Model:
         """Mean next-token cross-entropy (float32) of ``batch``: tokens
         and labels [B, S] integer tensors on the parameters' device, and
         ``frames`` or ``patches`` as ``prefill`` takes them. Train mode:
-        each layer under ``cfg.remat``."""
+        each layer under ``cfg.remat``. In a sharded step whose head
+        splits the vocabulary over ``model``, the loss is vocab-parallel
+        (``softmax_xent``'s ``tp``)."""
         logits, _ = transformer.apply(self.cfg, params, batch, "train")
-        return softmax_xent(logits, batch["labels"])
+        return softmax_xent(logits, batch["labels"],
+                            sharding.model_split(params["embed"]))
 
     def prefill(self, params, batch):
+        """(the last position's logits over the whole vocabulary, the
+        built cache)."""
         logits, cache = transformer.apply(self.cfg, params, batch, "prefill")
-        return logits[:, -1], cache
+        return _whole_vocab(logits[:, -1], params), cache
 
     def decode(self, params, cache, tokens, pos: int):
         """One token per row at position ``pos``; the KV caches are
-        written in place and returned."""
+        written in place and returned, with the logits over the whole
+        vocabulary."""
         logits, cache = transformer.apply(self.cfg, params,
                                           dict(tokens=tokens), "decode",
                                           cache=cache, decode_pos=pos)
-        return logits[:, 0], cache
+        return _whole_vocab(logits[:, 0], params), cache
 
     # -- cache ----------------------------------------------------------------
 
@@ -208,6 +221,14 @@ class Model:
         else:
             raise ValueError(f"unknown shape kind {shape.kind!r}")
         return out
+
+
+def _whole_vocab(logits, params):
+    """Logits the head computed over the rank's vocabulary rows (a sharded
+    step on a ``model`` axis that splits them) gathered over ``model``;
+    others as they are."""
+    tp = sharding.model_split(params["embed"])
+    return logits if tp is None else tp.gather(logits, -1)
 
 
 def tree_tensors(tree) -> list:

@@ -34,14 +34,20 @@ backward, ``"dots"`` saves the matmuls' outputs (the reference's
 ``checkpoint_dots``), ``"none"`` keeps every activation.
 
 Under the sharded steps (``runtime/train_loop.py`` with a mesh) the
-parameters come as ``runtime.sharding.ShardedLeaf`` blocks: each layer
-gathers its own inside its checkpointed body (``_remat``), so the gathered
-copy is not kept for the backward, and the embedding and norms at the
-top. In decode the caches come as ``runtime.sharding.CacheBlock`` blocks
-through the same hook: a layer gathers the ``model`` splits of its cache,
-and writes back the rank's block of what it leaves. ``constrain`` pins
-the activations at the embedding and the logits to their logical axes,
-as the reference does.
+parameters come as ``runtime.sharding.ShardedLeaf`` blocks, and each layer
+takes its own inside its checkpointed body (``_remat``), so no gathered
+copy is kept for the backward. The sub-layers that compute
+tensor-parallel over ``model`` (``tensor_parallel_mask``: the embedding
+and logits head, dense attention, dense MLPs) take their leaves as the
+rank's ``model`` block (``sharding.local_params``); the others (norms and
+gates, MLA, MoE's routed experts, the Mamba-2 and RG-LRU mixers) are
+gathered whole. In
+decode the caches come as ``runtime.sharding.CacheBlock`` blocks through
+the same hook: an attention cache's heads are read and written in place,
+other layers gather the ``model`` splits of their cache and write back
+the rank's block of what they leave. ``constrain`` pins the activations
+at the embedding and the logits to their logical axes, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -99,27 +105,56 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
 _REMATS = ("none", "dots", "full")
 
 
-def constrain(x, axes):
+def constrain(x, axes, vocab=None):
     """The reference's ``with_sharding_constraint`` by logical axes at the
     embedding and the logits. A no-op outside the sharded steps. Inside
     them, ``x`` holds this rank's rows of the batch, split over
-    ``act_batch``'s mesh axes: checked against the layout here. The other
-    dimensions stay whole on every rank in this slice (tensor-parallel
-    compute on ``model`` is ROADMAP queue 1); a layout whose rules would
-    split the sequence (the reference's fall-through to ``act_seq`` where
-    the batch does not divide) or the embedding raises."""
+    ``act_batch``'s mesh axes, and the logits (last dimension ``vocab``
+    whole) the rank's block of the vocabulary where ``act_vocab`` splits
+    it over ``model``: checked against the layout here. The sequence and
+    the embedding stay whole on every rank; a layout whose rules would
+    split them (the reference's fall-through to ``act_seq`` where the
+    batch does not divide, ``act2d``) raises."""
     layout = sharding.current_layout()
     if layout is None:
         return x
-    return sharding.check_rows(x, axes, layout)
+    shape = None
+    if vocab is not None:
+        shape = (layout.global_batch,) + tuple(x.shape[1:-1]) + (vocab,)
+    return sharding.check_rows(x, axes, layout, shape)
+
+
+def tensor_parallel_mask(tree):
+    """``tree`` (a parameter tree, any leaves) with True at the leaves of
+    the sub-layers that compute tensor-parallel over ``model`` in the
+    sharded steps, each of which takes them through
+    ``sharding.local_params``: the token embedding and logits head
+    (``embed``), every dense attention (self, cross and the encoder's: a
+    dict holding ``wq``, ``wk``, ``wv`` and ``wo``; not MLA's) and every
+    dense MLP (a dict of ``wi``, ``wg`` and ``wo``; an MoE's shared expert
+    too); False elsewhere: norms, gates, MLA, MoE's router and routed
+    experts and the Mamba-2 and RG-LRU mixers, which gather their leaves
+    whole (ROADMAP queue 1, [3b]'s remainder)."""
+    def walk(t, on):
+        if isinstance(t, dict):
+            on = on or {"wq", "wk", "wv", "wo"} <= t.keys() or \
+                set(t) == {"wi", "wg", "wo"}
+            return {k: walk(v, on) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, on) for v in t)
+        return on
+    return {k: walk(v, k == "embed") for k, v in tree.items()}
 
 
 def _remat(cfg, mode, fn, *args):
     """``fn(*args)``, checkpointed by ``cfg.remat`` when training under
     grad (the reference's ``_maybe_remat``). Sharded parameters and cache
-    blocks among the arguments are gathered inside the checkpointed body;
-    in decode the rank's block of the cache ``fn`` returns (its result's
-    second item) is written back."""
+    blocks among the arguments are taken inside the checkpointed body: the
+    tensor-parallel sub-layers' leaves as the rank's ``model`` blocks (by
+    the sub-layer, ``sharding.local_params``), the others gathered whole
+    here; in decode the rank's block of the cache ``fn`` returns (its
+    result's second item) is written back where the layer did not write it
+    in place."""
     if cfg.remat not in _REMATS:
         raise ValueError(f"remat must be one of {_REMATS}, got "
                          f"{cfg.remat!r}")
@@ -299,7 +334,8 @@ def decoder_layer_apply(cfg, p, x, positions, mode, cache, decode_pos,
             h, p["attn"], n_kv=cfg.n_kv, n_heads=cfg.n_heads,
             positions=positions, kind=kind, window=window, rope_theta=theta,
             block_kv=cfg.block_kv, softmax_scale=cfg.softmax_scale,
-            cache=cache if mode == "decode" else None, decode_pos=decode_pos)
+            cache=cache if mode == "decode" else None, decode_pos=decode_pos,
+            keep_kv=mode != "train")
     x = x + mix
     h2 = apply_norm(x, p["ln2"], cfg.norm)
     if use_moe:
@@ -321,24 +357,27 @@ def rec_layer_apply(cfg, p, x, mode, cache):
     return x + mlp_apply(h2, p["mlp"], gate="gelu"), new_cache
 
 
-def _cross_attend(cfg, p, h, positions, memory=None, cache=None):
+def _cross_attend(cfg, p, h, positions, memory=None, cache=None,
+                  keep_kv=True):
     """Cross-attention of ``h`` to static K/V (image or encoder memory),
     no RoPE, kind ``full``: in prefill K/V are projected from ``memory``;
     in decode ``cache`` is read and never written. Returns (out, (k, v)),
-    the second the static cross cache."""
+    the second the static cross cache (``keep_kv=False``: dropped)."""
     return attention.apply(h, p, n_kv=cfg.n_kv, n_heads=cfg.n_heads,
                            positions=positions, kind="full",
                            rope_theta=None, block_kv=cfg.block_kv,
                            kv_x=memory, cache=cache,
-                           decode_pos=None if cache is None else 0)
+                           decode_pos=None if cache is None else 0,
+                           keep_kv=keep_kv)
 
 
-def cross_layer_apply(cfg, p, x, positions, patches=None, cache=None):
+def cross_layer_apply(cfg, p, x, positions, patches=None, cache=None,
+                      keep_kv=True):
     """Gated cross-attention to static image K/V (from ``patches`` in
     prefill, ``cache`` in decode), then a gated MLP. Returns (x, (k, v))."""
     h = apply_norm(x, p["ln1"], cfg.norm)
     mix, img_kv = _cross_attend(cfg, p["cross"], h, positions, patches,
-                                cache)
+                                cache, keep_kv)
     x = x + torch.tanh(p["gate_attn"].to(x.dtype)) * mix
     h2 = apply_norm(x, p["ln2"], cfg.norm)
     return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * mlp_apply(
@@ -405,7 +444,7 @@ def _vision_stack(cfg, params, batch, x, positions, mode, cache,
     def group(x, gp, gc):
         x, img_kv = cross_layer_apply(
             cfg, gp["cross"], x, positions, patches,
-            gc["img"] if mode == "decode" else None)
+            gc["img"] if mode == "decode" else None, mode != "train")
         selfs = []
         for i, lp in enumerate(gp["selfs"]):
             x, c = _remat(cfg, mode, decoder_layer_apply, cfg, lp, x,
@@ -436,7 +475,7 @@ def encode(cfg, params, frames, mode="prefill"):
         mix, _ = attention.apply(h, lp["attn"], n_kv=cfg.n_kv,
                                  n_heads=cfg.n_heads, positions=positions,
                                  kind="full", rope_theta=cfg.rope_theta,
-                                 block_kv=cfg.block_kv)
+                                 block_kv=cfg.block_kv, keep_kv=False)
         x = x + mix
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
         return x + mlp_apply(h2, lp["mlp"])
@@ -461,12 +500,12 @@ def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
             positions=positions, kind="causal", rope_theta=cfg.rope_theta,
             block_kv=cfg.block_kv,
             cache=cc["self"] if mode == "decode" else None,
-            decode_pos=decode_pos)
+            decode_pos=decode_pos, keep_kv=mode != "train")
         x = x + mix
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
         mix, cross_kv = _cross_attend(
             cfg, lp["cross"], h2, positions, memory,
-            cc["cross"] if mode == "decode" else None)
+            cc["cross"] if mode == "decode" else None, mode != "train")
         x = x + mix
         h3 = apply_norm(x, lp["ln3"], cfg.norm)
         x = x + mlp_apply(h3, lp["mlp"])
@@ -484,7 +523,9 @@ def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
 def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
     """Returns (logits, new_cache). batch: tokens [B, S] (int64 on the
     parameters' device), and ``frames`` [B, S_src, d] (encdec) or
-    ``patches`` [B, n_img, d] (vision) outside decode. The cache is
+    ``patches`` [B, n_img, d] (vision) outside decode. In a sharded step
+    whose head splits the vocabulary over ``model`` the logits are the
+    rank's block of it. The cache is
     ``(dense, rest)`` for ``decoder`` and ``gemma3`` (dense None without
     leading dense layers), ``(groups, tail)`` for ``griffin``, and a list
     per group (vision) or per decoder layer (encdec)."""
@@ -494,11 +535,12 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
     if sharding.current_layout() is not None:
         params = dict(params, **sharding.materialize(
             {k: v for k, v in params.items()
-             if k in ("embed", "final_norm", "enc_norm")}))
+             if k in ("final_norm", "enc_norm")}))
+    embed, tp = sharding.local_params(params["embed"])
     dtype = cfg.compute_dtype
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed_tokens(tokens, params["embed"], dtype)
+    x = embed_tokens(tokens, embed, dtype, tp)
     x = constrain(x, ("act_batch", "act_seq", "act_embed"))
     if cfg.embed_scale:
         x = x * embed_scale(cfg.d_model, dtype)
@@ -524,6 +566,6 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
         new_cache = None
 
     x = apply_norm(x, params["final_norm"], cfg.norm)
-    logits = logits_from_hidden(x, params["embed"], cfg.vocab, dtype)
-    return constrain(logits, ("act_batch", "act_seq", "act_vocab")), \
-        new_cache
+    logits = logits_from_hidden(x, embed, cfg.vocab, dtype, tp)
+    return constrain(logits, ("act_batch", "act_seq", "act_vocab"),
+                     cfg.padded_vocab), new_cache

@@ -36,14 +36,27 @@ The rest is PyTorch's idiom:
     sharded steps' gather of a layer's parameters just before use, whose
     backward (training) sums the gradient over the batch's mesh axes and
     averages it as the global-batch loss is (``runtime/train_loop.py``).
+  * ``local_params`` and ``TensorParallel`` — tensor-parallel compute on
+    ``model`` (Megatron's): the sub-layers that take it (the token
+    embedding and logits head, dense attention, dense MLPs) gather their
+    leaves over the other axes only and keep the rank's ``model`` block
+    (its heads, MLP columns or vocabulary rows); ``copy`` (identity, its
+    backward an all-reduce over ``model``) stands before a column-parallel
+    product and ``reduce`` (an all-reduce, its backward the identity)
+    after a row-parallel one. The other sub-layers (MLA, MoE's experts,
+    the Mamba-2 and RG-LRU mixers: ROADMAP queue 1, [3b]'s remainder)
+    gather their leaves whole and compute the same rows on every
+    ``model`` rank.
   * ``CacheBlock`` / ``write_back`` / ``place_cache`` and ``Segment`` —
-    the sharded serving steps' caches. A leaf split over ``model`` (by
-    ``kv_heads``, ``heads``, ``mlp`` or ``conv_channels``) is gathered
+    the sharded serving steps' caches. An attention cache split over
+    ``model`` by ``kv_heads`` is the rank's heads, read and written in
+    place by its tensor-parallel attention. Another leaf split over
+    ``model`` (by ``heads``, ``mlp`` or ``conv_channels``) is gathered
     before its layer uses it, and the layer writes back only the rank's
-    own block (storage only, like the parameters). A leaf split by
-    ``cache_seq`` is never gathered: each rank keeps its segment of
-    positions, only the owner of the decoded position writes it, and
-    decode attention combines the segments (``models/attention.py``).
+    own block. A leaf split by ``cache_seq`` is never gathered: each rank
+    keeps its segment of positions, only the owner of the decoded
+    position writes it, and decode attention combines the segments
+    (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -399,89 +412,260 @@ def batch_axes(global_batch: int, mesh, rules=None) -> Tuple[str, ...]:
                            rules)[0])
 
 
-# Activation axes a sharded step may leave whole where the rules would
-# split them: the logits' vocabulary is computed whole on every rank
-# (vocab-parallel logits are tensor-parallel compute, ROADMAP queue 1).
-_WHOLE_OK = ("act_vocab",)
-
-
 def refuse_sequence_sharding(what: str, axes, shape, spec) -> None:
     """Raise where an activation's layout would split anything but its
-    batch rows: its sequence (the reference's fall-through to ``act_seq``
-    when the batch does not divide, or the ``seqpar`` variants) or its
-    embedding (``act2d``). The sharded steps compute whole rows, and never
-    replicate such a layout quietly. A cache's ``cache_seq`` is not an
-    activation: the serving steps split it (``Segment``)."""
+    batch rows and its vocabulary (the logits', over ``model``): its
+    sequence (the reference's fall-through to ``act_seq`` when the batch
+    does not divide, or the ``seqpar`` variants) or its embedding
+    (``act2d``). The sharded steps compute whole sequences and
+    embeddings, and never replicate such a layout quietly. A cache's
+    ``cache_seq`` is not an activation: the serving steps split it
+    (``Segment``)."""
     split = [a for a, e in zip(axes[1:], spec[1:])
-             if e is not None and a not in _WHOLE_OK]
+             if e is not None and a != "act_vocab"]
     if split:
         raise NotImplementedError(
             f"{what} {tuple(shape)} resolves to {spec}: beyond its batch "
             f"rows it would be sharded ({', '.join(split)}), which waits "
-            f"for sequence sharding of activations and tensor-parallel "
-            f"compute (ROADMAP queue 1, the distribution items)")
+            f"for sequence sharding of activations (ROADMAP queue 1, the "
+            f"distribution items)")
 
 
-def check_rows(x, axes, layout: Layout):
-    """``x``, an activation of this rank's rows of the batch, checked
-    against ``layout``: its logical ``axes`` on the global shape must
-    split the batch rows over the layout's axes and nothing else
-    (``refuse_sequence_sharding``; the logits' vocabulary stays whole on
-    every rank in this slice, whatever the rules say of it)."""
-    shape = (layout.global_batch,) + tuple(x.shape[1:])
+def check_rows(x, axes, layout: Layout, shape=None):
+    """``x``, this rank's block of an activation, checked against
+    ``layout``: its logical ``axes`` on the global ``shape`` (by default
+    the layout's rows and ``x``'s other dimensions) must split the batch
+    rows over the layout's axes, a vocabulary as the rules say (the
+    logits', over ``model``, where the head computes tensor-parallel), and
+    nothing else (``refuse_sequence_sharding``); ``x`` must be that
+    block's shape."""
+    if shape is None:
+        shape = (layout.global_batch,) + tuple(x.shape[1:])
     spec = spec_for(axes, shape, layout.mesh)
     refuse_sequence_sharding(f"activation {tuple(axes)}", axes, shape, spec)
-    want = layout.global_batch // layout.batch_ways
-    if _names(spec[0]) != layout.batch_axes or x.shape[0] != want:
-        raise ValueError(f"activation rows {x.shape[0]} over "
+    want = local_shape(spec, shape, mesh_sizes(layout.mesh))
+    if _names(spec[0]) != layout.batch_axes or tuple(x.shape) != want:
+        raise ValueError(f"activation rows {tuple(x.shape)} over "
                          f"{_names(spec[0])}, the layout's {want} over "
                          f"{layout.batch_axes}")
     return x
 
 
+MODEL = "model"
+
+
 class ShardedLeaf:
     """A parameter's local block (a leaf tensor requiring grad) and its
     placement: what the sharded step hands the model instead of the
-    parameter. ``materialize`` gathers it just before use."""
-    __slots__ = ("local", "placements", "mesh")
+    parameter. ``tp``: the leaf belongs to a sub-layer that computes
+    tensor-parallel (``local_params`` takes it; ``materialize`` leaves it
+    as it is). ``materialize`` gathers the others just before use."""
+    __slots__ = ("local", "placements", "mesh", "tp", "split_by")
 
-    def __init__(self, local, placements_, mesh):
-        self.local, self.placements, self.mesh = (local, tuple(placements_),
-                                                  mesh)
+    def __init__(self, local, placements_, mesh, tp: bool = False):
+        self.local, self.placements, self.mesh, self.tp = (
+            local, tuple(placements_), mesh, tp)
+        self.split_by = frozenset(n for n, p in zip(mesh.mesh_dim_names,
+                                                   self.placements)
+                                  if p.is_shard())
+
+    def splits_model(self) -> bool:
+        return MODEL in self.split_by
+
+
+def _without_model(placements_, mesh) -> tuple:
+    """``placements_`` with the ``model`` dimension's split dropped."""
+    from torch.distributed.tensor import Replicate
+    names = list(mesh.mesh_dim_names)
+    return tuple(Replicate() if n == MODEL else p
+                 for n, p in zip(names, placements_))
 
 
 class _GatherParam(torch.autograd.Function):
-    """Forward: the full parameter from its block. Backward: the full
-    gradient, which covers only this rank's rows of the batch, summed over
-    the batch's mesh axes and divided by their size (the loss is the mean
-    over the global batch), then this rank's block of it. Ranks along
-    other axes (``model``) computed the same rows, so their gradients are
-    not summed."""
+    """Forward: the parameter from its block, gathered over every mesh
+    dimension that splits it, or with ``keep_model`` over all but
+    ``model`` (the rank's block of a tensor-parallel sub-layer). Backward:
+    that gradient, which covers only this rank's rows of the batch, summed
+    over the batch's mesh axes and divided by their size (the loss is the
+    mean over the global batch), then this rank's block of it. Ranks
+    along ``model`` computed the same rows: a leaf they computed whole, or
+    split into their blocks, gets no sum over ``model``; a leaf of a
+    tensor-parallel sub-layer that the rules replicate over ``model``
+    (``wk`` / ``wv`` where the kv heads do not divide it) was used in part
+    by each rank (the kv heads of its q heads), so its gradient is summed
+    over ``model`` too."""
 
     @staticmethod
-    def forward(ctx, local, leaf: ShardedLeaf, layout: Layout):
-        ctx.leaf, ctx.layout = leaf, layout
-        if not any(p.is_shard() for p in leaf.placements):
+    def forward(ctx, local, leaf: ShardedLeaf, layout: Layout,
+                keep_model: bool):
+        placed = (_without_model(leaf.placements, leaf.mesh) if keep_model
+                  else leaf.placements)
+        ctx.leaf, ctx.layout, ctx.placed = leaf, layout, placed
+        ctx.partial = keep_model and not leaf.splits_model()
+        if not any(p.is_shard() for p in placed):
             return local.view_as(local)
-        return _gather(local, leaf.placements, leaf.mesh)
+        return _gather(local, placed, leaf.mesh)
 
     @staticmethod
     def backward(ctx, grad):
         import torch.distributed as dist
         leaf, layout = ctx.leaf, ctx.layout
         names = list(leaf.mesh.mesh_dim_names)
-        if layout.batch_ways > 1:
+        if layout.batch_ways > 1 or ctx.partial:
             grad = grad.clone(memory_format=torch.contiguous_format)
+        if layout.batch_ways > 1:
             for name in layout.batch_axes:
                 dist.all_reduce(grad, group=leaf.mesh.get_group(
                     names.index(name)))
             grad = grad / layout.batch_ways
-        spec = _pad(spec_of(leaf.placements, leaf.mesh), grad.dim())
+        if ctx.partial:
+            dist.all_reduce(grad, group=leaf.mesh.get_group(
+                names.index(MODEL)))
+        spec = _pad(spec_of(ctx.placed, leaf.mesh), grad.dim())
         if any(e is not None for e in spec):
             grad = grad[local_slices(spec, grad.shape,
                                      mesh_sizes(leaf.mesh),
                                      coordinates(leaf.mesh))]
-        return grad, None, None
+        return grad, None, None, None
+
+
+def _param(x: ShardedLeaf, layout: Layout, keep_model: bool):
+    if torch.is_grad_enabled():
+        return _GatherParam.apply(x.local, x, layout, keep_model)
+    if not x.split_by - ({MODEL} if keep_model else set()):
+        return x.local
+    return _gather(x.local, _without_model(x.placements, x.mesh)
+                   if keep_model else x.placements, x.mesh)
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; backward the gradient all-reduced over the group
+    (the input of a column-parallel product: each rank's columns gave a
+    part of its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum) over the group forward, identity backward (the
+    output of a row-parallel product: each rank's rows gave a part of it,
+    and every rank goes on with the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over ``model`` along ``dim`` forward; backward the
+    rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        import torch.distributed as dist
+        ctx.dim, ctx.tp, ctx.n = dim, tp, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(tp.size)]
+        dist.all_gather(parts, x, group=tp.group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The ``model`` axis as a tensor-parallel sub-layer sees it: this
+    rank's index on it, its size and its process group, and Megatron's
+    collectives over it."""
+    rank: int
+    size: int
+    group: object
+
+    def copy(self, x):
+        """Before a column-parallel product: identity; the backward sums
+        the input's gradient over ``model``."""
+        return _Copy.apply(x, self.group)
+
+    def reduce(self, x):
+        """After a row-parallel product: the sum over ``model``; the
+        backward passes the gradient on as it is."""
+        return _Reduce.apply(x, self.group)
+
+    def max(self, x):
+        """The elementwise maximum over ``model`` (no gradient)."""
+        import torch.distributed as dist
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+    def gather(self, x, dim: int):
+        """The ranks' blocks of ``x`` concatenated along ``dim`` in rank
+        order; the backward is the rank's block of the gradient (every
+        rank goes on with the whole)."""
+        return _Gather.apply(x, dim, self)
+
+
+def model_split(tree) -> Optional[TensorParallel]:
+    """The ``model`` axis's ``TensorParallel`` where a tensor-parallel
+    leaf (``ShardedLeaf.tp``) of ``tree`` is split over it, else None
+    (outside a sharded step, on a mesh whose ``model`` is 1, or where the
+    rules leave the sub-layer whole: heads, MLP columns or a vocabulary
+    that ``model`` does not divide)."""
+    for x in _leaves_of(tree):
+        if isinstance(x, ShardedLeaf) and x.tp and x.splits_model():
+            i = list(x.mesh.mesh_dim_names).index(MODEL)
+            return TensorParallel(coordinates(x.mesh)[MODEL],
+                                  x.mesh.size(i), x.mesh.get_group(i))
+    return None
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_of(v)]
+    return [tree]
+
+
+def local_params(tree):
+    """(a tensor-parallel sub-layer's parameters as this rank computes
+    them, the ``model`` axis's ``TensorParallel`` or None). Each
+    ``ShardedLeaf`` is gathered over the mesh axes other than ``model``
+    and keeps the rank's ``model`` block (a leaf the rules replicate over
+    ``model`` comes whole; its user takes its part, and its gradient is
+    summed over ``model``: ``_GatherParam``). Where no leaf is split over
+    ``model`` every leaf is gathered whole, as ``materialize`` does, and
+    the handle is None; so is it for plain tensors (the unsharded
+    steps)."""
+    layout = _LAYOUT
+    if layout is None:
+        return tree, None
+    tp = model_split(tree)
+
+    def leaf(x):
+        if isinstance(x, ShardedLeaf):
+            return _param(x, layout, tp is not None)
+        return x
+    return _tree_map(leaf, tree), tp
 
 
 class CacheBlock:
@@ -499,10 +683,13 @@ class CacheBlock:
 
     def gathered(self) -> list:
         """Per mesh dimension, the placement ``materialize`` gathers: the
-        splits of dimensions past the rows other than ``cache_seq``."""
+        splits of dimensions past the rows other than ``cache_seq`` and
+        ``kv_heads`` (an attention cache's heads are split over ``model``
+        only where the q heads are, and its tensor-parallel attention
+        reads and writes the rank's heads in place)."""
         return [p if p.is_shard() and p.dim > 0
-                and self.axes[p.dim] != "cache_seq" else None
-                for p in self.placements]
+                and self.axes[p.dim] not in ("cache_seq", "kv_heads")
+                else None for p in self.placements]
 
 
 def _gather_block(b: CacheBlock) -> torch.Tensor:
@@ -590,21 +777,54 @@ def cache_blocks(cache, axes, layout: Layout):
     return blocks, layout
 
 
-def place_cache(cache, axes, layout: Layout):
+def _shard_on(mesh, dim: int) -> list:
+    """Placements splitting tensor dimension ``dim`` over ``model``
+    alone."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(dim) if n == MODEL else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def place_cache(cache, axes, layout: Layout, full=None):
     """The cache a prefill built for this rank's rows as DTensors placed by
     its logical ``axes`` at the global batch: each rank keeps its block of
-    the dimensions past the rows (of a ``cache_seq`` split, its segment)."""
+    the dimensions past the rows (of a ``cache_seq`` split, its segment).
+    ``full``, the cache's meta tree at any lengths (``Model.cache_axes``),
+    gives each leaf's whole size of its dimensions past the rows other
+    than lengths: a dimension the prefill built as the rank's block
+    already (an attention's kv heads, computed tensor-parallel) is taken
+    as it is, or gathered over ``model`` where the layout keeps it
+    whole."""
     sizes, coords = mesh_sizes(layout.mesh), coordinates(layout.mesh)
+    whole = iter([x for x in _leaves_of(full) if x is not None]
+                 if full is not None else ())
 
     def leaf(ax, t):
-        shape = (layout.global_batch,) + tuple(t.shape[1:])
+        shape = [layout.global_batch] + list(t.shape[1:])
+        if full is not None:
+            m = next(whole)
+            for d, a in enumerate(ax):
+                if d and a not in ("cache_seq", "cache_img"):
+                    shape[d] = m.shape[d]
         spec = spec_for(ax, shape, layout.mesh)
         if _names(spec[0]) != layout.batch_axes:
             raise ValueError(f"cache rows over {_names(spec[0])}, the "
                              f"batch's over {layout.batch_axes}")
-        idx = (slice(None),) + local_slices(spec, shape, sizes, coords)[1:]
-        return _from_local(t[idx].contiguous(), layout.mesh,
-                           placements(spec, layout.mesh), shape)
+        for d in range(1, t.dim()):
+            if t.shape[d] != shape[d] and MODEL not in _names(spec[d]):
+                # built as the rank's block, kept whole by the layout (kv
+                # heads where a sequence split takes model): gathered
+                t = _gather(t, _shard_on(layout.mesh, d), layout.mesh)
+        sl = local_slices(spec, shape, sizes, coords)
+        block = t[(slice(None),) + tuple(
+            sl[d] if t.shape[d] == shape[d] else slice(None)
+            for d in range(1, t.dim()))]
+        want = local_shape(spec, shape, sizes)
+        if tuple(block.shape[1:]) != want[1:]:
+            raise ValueError(f"a cache leaf {tuple(t.shape)} {ax}: its "
+                             f"block {tuple(block.shape)} is not {want}")
+        return _from_local(block.contiguous(), layout.mesh,
+                           placements(spec, layout.mesh), tuple(shape))
     return map_axes(leaf, axes, cache)
 
 
@@ -651,19 +871,19 @@ def cache_segment(length: int) -> Optional[Segment]:
 def materialize(tree):
     """``tree`` with each ``ShardedLeaf`` gathered to its full parameter
     (under grad differentiably, through ``_GatherParam``; a leaf no mesh
-    dimension splits comes back as its block) and each ``CacheBlock`` to
-    its tensor with the ``model`` splits gathered (its rows and
-    ``cache_seq`` segment as they are); other leaves as they are. Without
-    an ``activation_layout`` the tree comes back untouched."""
+    dimension splits comes back as its block), except the tensor-parallel
+    ones (``ShardedLeaf.tp``), which their sub-layer takes through
+    ``local_params``; each ``CacheBlock`` to its tensor with the ``model``
+    splits gathered but its heads' (its rows and ``cache_seq`` segment as
+    they are); other leaves as they are. Without an
+    ``activation_layout`` the tree comes back untouched."""
     layout = _LAYOUT
     if layout is None:
         return tree
 
     def leaf(x):
         if isinstance(x, ShardedLeaf):
-            if torch.is_grad_enabled():
-                return _GatherParam.apply(x.local, x, layout)
-            return _gather(x.local, x.placements, x.mesh)
+            return x if x.tp else _param(x, layout, False)
         if isinstance(x, CacheBlock):
             return _gather_block(x)
         return x

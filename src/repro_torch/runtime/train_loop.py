@@ -12,18 +12,24 @@ placed by its logical axes (``runtime/sharding.py``): parameters and
 AdamW moments (``shard_train_state``), parameters and decode caches
 (``shard_serve_state``) are DTensors. Every step takes the global batch,
 the same on every rank; each rank computes its ``act_batch`` rows, and
-each layer gathers its parameters (and, in decode, the ``model`` splits
-of its cache) just before use. In training each gradient comes back to
-its parameter's placement, summed over the batch's mesh axes and averaged
-as the global-batch loss is. A decode cache split by ``cache_seq`` (batch
-1 at long context, the reference's sequence-parallel layout) stays split:
-decode attention combines its segments across ranks
-(``models/attention.py``).
+each layer gathers its parameters just before use. In training each
+gradient comes back to its parameter's placement, summed over the batch's
+mesh axes and averaged as the global-batch loss is. A decode cache split
+by ``cache_seq`` (batch 1 at long context, the reference's
+sequence-parallel layout) stays split: decode attention combines its
+segments across ranks (``models/attention.py``).
 
-Ranks along ``model`` compute the same rows: the axis shards storage
-only, and the gathers go when tensor-parallel compute comes (ROADMAP
-queue 1, [3b]). A layout that would split an activation's sequence or
-embedding raises (``sharding.refuse_sequence_sharding``).
+Ranks along ``model`` compute tensor-parallel where the rules split a
+sub-layer over it: the embedding, the logits and the loss over the rank's
+vocabulary rows, attention over its heads (the decode cache's heads read
+and written in place), the dense MLPs over its columns, each gathered
+over the other axes only (``sharding.local_params``). MLA, MoE's experts
+and the Mamba-2 and RG-LRU mixers gather their parameters (and, in decode, the
+``model`` splits of their caches) whole and compute the same rows on
+every ``model`` rank (ROADMAP queue 1, [3b]'s remainder). The steps'
+logits come back gathered over ``model``. A layout that would split an
+activation's sequence or embedding raises
+(``sharding.refuse_sequence_sharding``).
 """
 from __future__ import annotations
 
@@ -148,16 +154,17 @@ def shard_serve_state(model, params, cache, mesh, rules=None):
     params = sharding.shard_tree(
         params, sharding.tree_specs(axes, params, mesh, rules), mesh)
     if cache is not None:
-        caxes = _cache_axes(model)
+        _, caxes = _cache_axes(model)
         cache = sharding.shard_tree(
             cache, sharding.tree_specs(caxes, cache, mesh, rules), mesh)
     return params, cache
 
 
 def _cache_axes(model):
-    """The logical axes tree of every cache ``Model.init_cache`` (and a
-    prefill) builds: its structure and axes depend on no length."""
-    return model.cache_axes(1, 1, src_len=1, n_img=1)[1]
+    """(meta tree, logical axes tree) of every cache ``Model.init_cache``
+    (and a prefill) builds: its structure, its axes and the sizes of its
+    dimensions other than rows and lengths depend on no length."""
+    return model.cache_axes(1, 1, src_len=1, n_img=1)
 
 
 def _need_group(what: str, mesh) -> None:
@@ -195,18 +202,36 @@ def _local_rows(mesh, batch):
     return out, layout
 
 
-def _sharded_leaves(params, requires_grad: bool):
+def _sharded_leaves(model, params, requires_grad: bool):
+    """Each DTensor parameter as a ``ShardedLeaf`` of its local block,
+    flagged where its sub-layer computes tensor-parallel
+    (``Model.tensor_parallel_mask``)."""
     from torch.distributed.tensor import DTensor
     if not all(isinstance(p, DTensor) for p in tree_leaves(params)):
         raise TypeError("with a mesh the parameters must be DTensors "
                         "(shard_train_state / shard_serve_state)")
 
-    def leaf(p):
+    def leaf(p, tp):
         local = p.to_local().detach()
         return sharding.ShardedLeaf(
             local.requires_grad_(True) if requires_grad else local,
-            p.placements, p.device_mesh)
-    return tree_map(leaf, params)
+            p.placements, p.device_mesh, tp)
+    return tree_map(leaf, params, model.tensor_parallel_mask(params))
+
+
+def _serving_leaves(model):
+    """``live(params)``: the serving steps' ``ShardedLeaf`` tree of a
+    DTensor tree, built once per parameter tree object (a serving loop
+    passes the same tree every step; the blocks are views of its
+    DTensors, so values written into them in place are seen). A new tree
+    object builds anew."""
+    memo = [None, None]
+
+    def live(params):
+        if memo[0] is not params:
+            memo[:] = [params, _sharded_leaves(model, params, False)]
+        return memo[1]
+    return live
 
 
 def _sharded_parts(model, opt, compress, mesh) -> TrainParts:
@@ -235,7 +260,7 @@ def _sharded_parts(model, opt, compress, mesh) -> TrainParts:
         grads = tree_map(as_placed, grads, params)
         return opt.update(grads, opt_state, params)
 
-    return TrainParts(lambda params: _sharded_leaves(params, True),
+    return TrainParts(lambda params: _sharded_leaves(model, params, True),
                       grads_of, finish)
 
 
@@ -243,21 +268,21 @@ def make_prefill_step(model, mesh=None):
     """``prefill_step(params, batch) -> (last logits, cache)``. With
     ``mesh``: ``params`` a DTensor tree (``shard_serve_state``) and
     ``batch`` the global batch, the same on every rank; the logits are
-    this rank's rows and the cache its blocks, as DTensors placed by the
-    cache's logical axes at the global batch."""
+    this rank's rows over the whole vocabulary and the cache its blocks,
+    as DTensors placed by the cache's logical axes at the global batch."""
     if mesh is None:
         def prefill_step(params, batch):
             return model.prefill(params, batch)
         return prefill_step
     _need_group("make_prefill_step", mesh)
-    axes = _cache_axes(model)
+    full, axes = _cache_axes(model)
+    live = _serving_leaves(model)
 
     def sharded_prefill_step(params, batch):
-        live = _sharded_leaves(params, False)
         rows, layout = _local_rows(mesh, batch)
         with sharding.activation_layout(layout):
-            logits, cache = model.prefill(live, rows)
-        return logits, sharding.place_cache(cache, axes, layout)
+            logits, cache = model.prefill(live(params), rows)
+        return logits, sharding.place_cache(cache, axes, layout, full)
     return sharded_prefill_step
 
 
@@ -266,8 +291,9 @@ def make_decode_step(model, mesh=None):
     cache)``. With ``mesh``: ``params`` and ``cache`` DTensor trees
     (``shard_serve_state``, or a sharded prefill's cache spliced into
     one) and ``tokens`` the global [B, 1], the same on every rank; the
-    tokens and logits returned are this rank's rows, and the cache's
-    blocks are written in place and returned."""
+    tokens and logits returned are this rank's rows (the logits over the
+    whole vocabulary, so the argmax is the unsharded one's), and the
+    cache's blocks are written in place and returned."""
     if mesh is None:
         def decode_step(params, cache, tokens, pos):
             logits, cache = model.decode(params, cache, tokens, pos)
@@ -275,13 +301,21 @@ def make_decode_step(model, mesh=None):
             return next_tok, logits, cache
         return decode_step
     _need_group("make_decode_step", mesh)
-    axes = _cache_axes(model)
+    _, axes = _cache_axes(model)
+    live = _serving_leaves(model)
+    # The cache's blocks, built once per cache tree object and rows
+    # layout (a decode loop passes the tree it was given back; the blocks
+    # are views of its DTensors, written in place).
+    memo = [None, None, None]
 
     def sharded_decode_step(params, cache, tokens, pos):
-        live = _sharded_leaves(params, False)
         rows, layout = _local_rows(mesh, dict(tokens=tokens))
-        blocks, layout = sharding.cache_blocks(cache, axes, layout)
+        if memo[0] is not cache or memo[1] != layout:
+            memo[:] = [cache, layout,
+                       sharding.cache_blocks(cache, axes, layout)]
+        blocks, layout = memo[2]
         with sharding.activation_layout(layout):
-            logits, _ = model.decode(live, blocks, rows["tokens"], pos)
+            logits, _ = model.decode(live(params), blocks, rows["tokens"],
+                                     pos)
         return torch.argmax(logits, dim=-1)[:, None], logits, cache
     return sharded_decode_step

@@ -15,18 +15,30 @@ in a JAX subprocess with four host devices.
   (2, 2, 1) ("pod", "data", "model"), at grad_accum 1 and 2, against the
   unsharded step on the same rank and the reference's jitted step; the
   same in float64; and int8 compression against its quantisation bound.
+  Attention, MLPs, the embedding, the logits and the loss compute
+  tensor-parallel over ``model``. On (1, 4): reduced qwen2-72B, whose 2
+  kv heads are replicated over ``model`` and sliced by each rank, and a
+  straddling head layout (12 q heads over 3 kv heads: a rank's q heads
+  read two kv heads, by index).
 - ``state``: each rank's blocks against the reference's
   ``devices_indices_map``; a checkpoint saved on (2, 2) restored onto
   (4, 1), (1, 4) and no mesh, and through the reference's restore;
   ``run_elastic`` with injected failures against a clean run; the kernel
   wrappers refusing DTensors; the layouts that must raise.
 - ``serve``: the sharded prefill and decode steps of reduced qwen2-1.5B,
-  mamba2-2.7B, gemma3-4B and recurrentgemma-2B (float32) on (2, 2) and
-  (4, 1), bitwise against the unsharded steps, and against the
-  reference's steps; a batch-1 decode whose cache is split by sequence
-  over four ``data`` ranks (gemma3's local and global layers,
-  recurrentgemma's local attention) against the unsharded decode; the
-  activation layouts that must raise (``act2d``, ``seqpar``).
+  mamba2-2.7B, gemma3-4B and recurrentgemma-2B (float32) on (2, 2)
+  (tensor-parallel, within SHARD_RTOL) and (4, 1) (bitwise) against the
+  unsharded steps, and against the reference's steps; the same on (1, 4)
+  for reduced qwen2-72B and the straddling layout and on (2, 2) for
+  reduced SeamlessM4T (encoder, self- and cross-attention) and
+  llama-3.2-vision (cross-attention); a batch-1 decode whose cache is
+  split by sequence over four ``data`` ranks (gemma3's local and global
+  layers, recurrentgemma's local attention), and batch-2 decodes split by
+  sequence over ``model`` (``seqshard``: minicpm3's MLA latents, gemma3's
+  tensor-parallel attention), against the unsharded decode; the
+  parameter gathers over ``model`` of a prefill on (1, 4) (none for a
+  tensor-parallel sub-layer) and its sums over ``model``; the activation
+  layouts that must raise (``act2d``, ``seqpar``).
 """
 import datetime
 import json
@@ -58,6 +70,14 @@ MESHES = {"2x2": ((2, 2), ("data", "model")),
 # lr; logged as a near-tie in ROADMAP queue 3). In float64 that noise is
 # 1e-9 times smaller and the parameters themselves are held to 1e-6.
 SHARD_RTOL = 1e-6
+# Tensor-parallel train cases on (1, 4) ("data", "model"): (arch, config
+# overrides). Reduced qwen2-72B's 2 kv heads do not divide model 4: they
+# are replicated, each rank projects the one its q head reads, and two
+# ranks share each; 12 q heads over 3 kv heads put a rank's three q heads
+# across two kv heads (ranks 1 and 2).
+TP_MESH = (1, 4)
+TP_TRAIN = {"qwen2_72b": ("qwen2_72b", {}),
+            "straddle": ("qwen2_72b", dict(n_heads=12, n_kv=3))}
 
 
 # ---------------------------------------------------------------------------
@@ -84,49 +104,59 @@ def _np_tree(tree):
             else np.asarray(t) for t in tree_leaves(tree)]
 
 
+def _train_record(model, p, batch, mesh, opt, ga, ref):
+    """One sharded step of ``p`` on ``mesh`` beside the unsharded step's
+    result ``ref``: loss, grad_norm, parameters and moments gathered."""
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import (make_train_step,
+                                                shard_train_state)
+    sp, so = shard_train_state(model, p, opt, mesh)
+    new, st, met = make_train_step(model, opt, grad_accum=ga, mesh=mesh)(
+        sp, so, batch)
+    return dict(
+        loss=met["loss"].item(), grad_norm=met["grad_norm"].item(),
+        ref_loss=ref[2]["loss"].item(),
+        ref_grad_norm=ref[2]["grad_norm"].item(),
+        params=_np_tree(sharding.gather_tree(new)),
+        mu=_np_tree(sharding.gather_tree(st.mu)),
+        nu=_np_tree(sharding.gather_tree(st.nu)),
+        ref_params=_np_tree(ref[0]), ref_mu=_np_tree(ref[1].mu),
+        ref_nu=_np_tree(ref[1].nu),
+        sharded=sum(any(q.is_shard() for q in t.placements)
+                    for t in _leaves(sp)),
+        leaves=len(_leaves(sp))), (sp, so)
+
+
 def _rank_train(rank: int, run_dir: str):
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import tree_map
     from repro_torch.runtime import sharding
-    from repro_torch.runtime.train_loop import (make_train_step,
-                                                shard_train_state)
+    from repro_torch.runtime.train_loop import make_train_step
     _init(rank, run_dir)
     inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
     out = {}
-    for arch in ARCHS:
-        params, batch = inputs[arch]["params"], inputs[arch]["batch"]
+    cases = [(arch, arch, {}, MESHES, (1, 2)) for arch in ARCHS] + [
+        (name, arch, over, {"1x4": (TP_MESH, ("data", "model"))}, (1,))
+        for name, (arch, over) in TP_TRAIN.items()]
+    for name, arch, over, meshes, accums in cases:
+        params, batch = inputs[name]["params"], inputs[name]["batch"]
         for dtype in ("float32", "float64"):
             cfg = get_config(arch, reduced=True).replace(
-                dtype=dtype, param_dtype=dtype, block_kv=8)
+                dtype=dtype, param_dtype=dtype, block_kv=8, **over)
             model = Model(cfg)
             p = tree_map(lambda t: t.to(getattr(torch, dtype)), params)
             opt = adamw(lr=lambda s: inputs["lr"])
             refs = {ga: make_train_step(model, opt, grad_accum=ga)(
-                p, opt.init(p), batch) for ga in (1, 2)}
-            for mname, (shape, names) in MESHES.items():
+                p, opt.init(p), batch) for ga in accums}
+            for mname, (shape, names) in meshes.items():
                 mesh = _mesh(shape, names)
                 for ga, ref in refs.items():
-                    key = f"{arch}/{dtype}/{mname}/{ga}"
-                    sp, so = shard_train_state(model, p, opt, mesh)
-                    new, st, met = make_train_step(
-                        model, opt, grad_accum=ga, mesh=mesh)(sp, so, batch)
-                    out[key] = dict(
-                        loss=met["loss"].item(),
-                        grad_norm=met["grad_norm"].item(),
-                        ref_loss=ref[2]["loss"].item(),
-                        ref_grad_norm=ref[2]["grad_norm"].item(),
-                        params=_np_tree(sharding.gather_tree(new)),
-                        mu=_np_tree(sharding.gather_tree(st.mu)),
-                        nu=_np_tree(sharding.gather_tree(st.nu)),
-                        ref_params=_np_tree(ref[0]),
-                        ref_mu=_np_tree(ref[1].mu),
-                        ref_nu=_np_tree(ref[1].nu),
-                        sharded=sum(any(q.is_shard() for q in t.placements)
-                                    for t in _leaves(sp)),
-                        leaves=len(_leaves(sp)))
-                    if dtype == "float32" and ga == 1:
+                    key = f"{name}/{dtype}/{mname}/{ga}"
+                    out[key], (sp, so) = _train_record(model, p, batch,
+                                                       mesh, opt, ga, ref)
+                    if dtype == "float32" and ga == 1 and name in ARCHS:
                         gen = torch.Generator().manual_seed(100 + rank)
                         new, st, met = make_train_step(
                             model, opt, mesh=mesh, compress="int8")(
@@ -316,16 +346,39 @@ SERVE_MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
 # four segments of 7, the decode positions 20-27 in the third and fourth;
 # the local window of 8 leaves the first segment with no valid position,
 # and the last holds only positions past 20 at first. Batch 2 on (2, 2)
-# under the ``seqshard`` variant (minicpm3's MLA latents): the rows over
-# data, two segments of 14 over model. Case: (mesh, batch, variant).
+# under the ``seqshard`` variant: the rows over data, two segments of 14
+# over model — minicpm3's MLA latents, and gemma3's attention, whose q
+# heads are split over the same model axis (q gathered over it, every
+# head attended over the rank's segment, the rank's heads kept). Case:
+# (arch, mesh, batch, variant).
 SERVE_B, SERVE_S, SERVE_N = 4, 12, 8
-SEQ_CASES = dict(gemma3_4b=((4, 1), 1, "baseline"),
-                 recurrentgemma_2b=((4, 1), 1, "baseline"),
-                 minicpm3_4b=((2, 2), 2, "seqshard"))
+SEQ_CASES = dict(gemma3_4b=("gemma3_4b", (4, 1), 1, "baseline"),
+                 recurrentgemma_2b=("recurrentgemma_2b", (4, 1), 1,
+                                    "baseline"),
+                 minicpm3_4b=("minicpm3_4b", (2, 2), 2, "seqshard"),
+                 gemma3_4b_seqshard=("gemma3_4b", (2, 2), 2, "seqshard"))
 SEQ_S, SEQ_N = 20, 8
 # The sequence-split decode against the unsharded one (float32): its
 # softmax is combined across segments in another order.
 SEQ_ATOL = 1e-5
+# Tensor-parallel serving beyond SERVE_ARCHS: (arch, mesh, config
+# overrides); reduced qwen2-72B's kv heads replicated over model 4 (every
+# rank writes the whole decode cache and reads its q head's kv head), the
+# straddling layout of TP_TRAIN, and the cross-attention families on
+# (2, 2) (SeamlessM4T's encoder, self- and cross-attention,
+# llama-3.2-vision's gated cross layers; the kv heads split over model).
+TP_SERVE = {"qwen2_72b/1x4": ("qwen2_72b", TP_MESH, {}),
+            "straddle/1x4": ("qwen2_72b", TP_MESH,
+                             dict(n_heads=12, n_kv=3)),
+            "seamless_m4t_large_v2/2x2": ("seamless_m4t_large_v2", (2, 2),
+                                          {}),
+            "llama_3_2_vision_11b/2x2": ("llama_3_2_vision_11b", (2, 2),
+                                         {})}
+# The parameter gathers of a prefill on (1, 4): qwen2-72B's sub-layers are
+# all tensor-parallel; DBRX's experts, minicpm3's MLA, mamba2's mixers and
+# recurrentgemma's RG-LRU blocks are still gathered whole over model.
+GATHER_ARCHS = ("qwen2_72b", "dbrx_132b", "minicpm3_4b", "mamba2_2_7b",
+                "recurrentgemma_2b")
 
 
 def _gather_rows(t, mesh, rows: int):
@@ -342,15 +395,17 @@ def _gather_rows(t, mesh, rows: int):
     return t
 
 
-def _serve_unsharded(model, params, toks, length, steps):
+def _serve_unsharded(model, params, batch, length, steps):
     """(prefill logits, [decode logits], tokens [B, steps + 1]) of the
-    unsharded steps from a cache of ``length`` positions."""
+    unsharded steps on a prefill ``batch`` from a cache of ``length``
+    positions."""
     from repro_torch.runtime.serve_loop import _splice
     from repro_torch.runtime.train_loop import (make_decode_step,
                                                 make_prefill_step)
-    S = toks.shape[1]
-    logits, built = make_prefill_step(model)(params, dict(tokens=toks))
-    cache = _splice(model.init_cache(toks.shape[0], length, "cpu"), built)
+    B, S = batch["tokens"].shape
+    logits, built = make_prefill_step(model)(params, batch)
+    cache = _splice(model.init_cache(B, length, "cpu",
+                                     **model.cache_lengths(batch)), built)
     tok, out, steps_logits = logits.argmax(-1)[:, None], [], []
     out.append(tok)
     decode = make_decode_step(model)
@@ -359,6 +414,106 @@ def _serve_unsharded(model, params, toks, length, steps):
         out.append(tok)
         steps_logits.append(lg)
     return logits, steps_logits, torch.cat(out, 1)
+
+
+def _rel_t(a, b) -> float:
+    """max |a - b| over the largest |b| (0 where b is 0)."""
+    scale = b.abs().max().item()
+    return (a - b).abs().max().item() / scale if scale > 0 else 0.0
+
+
+def _rows(mesh, B: int) -> slice:
+    """This rank's rows of a batch of ``B``."""
+    from repro_torch.runtime import sharding
+    return sharding.local_slices(
+        sharding.spec_for(("act_batch",), (B,), mesh), (B,),
+        sharding.mesh_sizes(mesh), sharding.coordinates(mesh))[0]
+
+
+def _serve_sharded(model, params, batch, mesh, length, steps, whole,
+                   mine=None):
+    """The sharded prefill and ``steps`` decode steps of the global
+    ``batch`` on ``mesh``, beside the unsharded steps' ``whole`` run:
+    each rank's logits against this rank's rows of ``whole`` and, given
+    ``mine`` (the unsharded run on the rank's rows alone), bitwise and
+    relative against it; the gathered logits and greedy tokens."""
+    from repro_torch.runtime.serve_loop import _splice
+    from repro_torch.runtime.train_loop import (make_decode_step,
+                                                make_prefill_step,
+                                                shard_serve_state)
+    B, S = batch["tokens"].shape
+    sp, sc = shard_serve_state(model, params, model.init_cache(
+        B, length, "cpu", **model.cache_lengths(batch)), mesh)
+    logits, built = make_prefill_step(model, mesh)(sp, batch)
+    _splice([t.to_local() for t in _tensors(sc)],
+            [t.to_local() for t in _tensors(built)])
+    rows = _rows(mesh, B)
+    pairs = [(logits, whole[0][rows], None if mine is None else mine[0])]
+    tok = _gather_rows(logits.argmax(-1)[:, None], mesh, B)
+    toks_out, step_logits = [tok], []
+    decode = make_decode_step(model, mesh)
+    for i in range(steps):
+        nxt, lg, sc = decode(sp, sc, tok, S + i)
+        pairs.append((lg, whole[1][i][rows],
+                      None if mine is None else mine[1][i]))
+        tok = _gather_rows(nxt, mesh, B)
+        toks_out.append(tok)
+        step_logits.append(_gather_rows(lg, mesh, B).numpy())
+    out = dict(whole_rel=max(_rel_t(a, b) for a, b, _ in pairs),
+               whole_max_abs=max((a - b).abs().max().item()
+                                 for a, b, _ in pairs),
+               tokens_equal=torch.equal(torch.cat(toks_out, 1), whole[2]),
+               split_cache=sum(any(p.is_shard() and p.dim > 0
+                                   for p in t.placements)
+                               for t in _tensors(sc)),
+               prefill=_gather_rows(logits, mesh, B).numpy(),
+               decode=np.stack(step_logits),
+               tokens=torch.cat(toks_out, 1).numpy())
+    if mine is not None:
+        out.update(bitwise=all(torch.equal(a, c) for a, _, c in pairs),
+                   steps=len(pairs),
+                   rows_rel=max(_rel_t(a, c) for a, _, c in pairs))
+    return out
+
+
+def _prefill_gathers(model, params, toks, mesh) -> dict:
+    """One sharded prefill, with each parameter gather's bytes along
+    ``model`` (the result's, for a leaf split over it) summed by whether
+    the leaf's sub-layer is tensor-parallel, the bytes of every leaf
+    split over ``model`` by the same, and the sums over ``model``
+    (``TensorParallel.reduce``) the forward made."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import (make_prefill_step,
+                                                shard_serve_state)
+    sp, _ = shard_serve_state(model, params, None, mesh)
+    tp_of = {t.to_local().data_ptr(): bool(tp) for t, tp in zip(
+        tree_leaves(sp), tree_leaves(model.tensor_parallel_mask(sp)))}
+    split = dict(tp=0, whole=0)
+    for t in tree_leaves(sp):
+        if t.placements[-1].is_shard():
+            split["tp" if tp_of[t.to_local().data_ptr()] else "whole"] += \
+                t.numel() * t.element_size()
+    gathered, reduces = dict(tp=0, whole=0), [0]
+    inner_gather, inner_reduce = sharding._gather, sharding._Reduce.forward
+
+    def gather(local, placements_, mesh_):
+        out = inner_gather(local, placements_, mesh_)
+        if placements_[-1].is_shard():      # model, the last mesh axis
+            gathered["tp" if tp_of[local.data_ptr()] else "whole"] += \
+                out.numel() * out.element_size()
+        return out
+
+    def reduce(ctx, x, group):
+        reduces[0] += 1
+        return inner_reduce(ctx, x, group)
+    sharding._gather, sharding._Reduce.forward = gather, staticmethod(reduce)
+    try:
+        make_prefill_step(model, mesh)(sp, dict(tokens=toks))
+    finally:
+        sharding._gather = inner_gather
+        sharding._Reduce.forward = staticmethod(inner_reduce)
+    return dict(gathered=gathered, split=split, reduces=reduces[0])
 
 
 def _rank_serve(rank: int, run_dir: str):
@@ -372,55 +527,36 @@ def _rank_serve(rank: int, run_dir: str):
     from repro_torch.launch.dryrun import VARIANTS
     _init(rank, run_dir)
     inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
-    out = dict(batched={}, seq={}, raised={})
+    out = dict(batched={}, seq={}, raised={}, tp={}, gathers={})
     torch.set_grad_enabled(False)
+    length = SERVE_S + SERVE_N + 1
     for arch in SERVE_ARCHS:
         cfg = get_config(arch, reduced=True).replace(dtype="float32",
                                                      param_dtype="float32")
         model = Model(cfg)
         params, toks = inputs[arch]["params"], inputs[arch]["tokens"]
-        length = SERVE_S + SERVE_N + 1
-        whole = _serve_unsharded(model, params, toks, length, SERVE_N)
+        batch = dict(tokens=toks)
+        whole = _serve_unsharded(model, params, batch, length, SERVE_N)
         for mname, shape in SERVE_MESHES.items():
             mesh = _mesh(shape, ("data", "model"))
-            sp, sc = shard_serve_state(model, params, model.init_cache(
-                SERVE_B, length, "cpu"), mesh)
-            logits, built = make_prefill_step(model, mesh)(
-                sp, dict(tokens=toks))
-            _splice([t.to_local() for t in _tensors(sc)],
-                    [t.to_local() for t in _tensors(built)])
-            tok = _gather_rows(logits.argmax(-1)[:, None], mesh, SERVE_B)
-            rows = sharding.local_slices(
-                sharding.spec_for(("act_batch",), (SERVE_B,), mesh),
-                (SERVE_B,), sharding.mesh_sizes(mesh),
-                sharding.coordinates(mesh))[0]
-            ref = _serve_unsharded(model, params, toks[rows], length,
-                                   SERVE_N)
-            same = [torch.equal(logits, ref[0])]
-            err = (logits - whole[0][rows]).abs().max().item()
-            toks_out, step_logits = [tok], []
-            decode = make_decode_step(model, mesh)
-            for i in range(SERVE_N):
-                nxt, lg, sc = decode(sp, sc, tok, SERVE_S + i)
-                same.append(torch.equal(lg, ref[1][i]))
-                err = max(err, (lg - whole[1][i][rows]).abs().max().item())
-                tok = _gather_rows(nxt, mesh, SERVE_B)
-                toks_out.append(tok)
-                step_logits.append(_gather_rows(lg, mesh, SERVE_B).numpy())
-            out["batched"][f"{arch}/{mname}"] = dict(
-                bitwise=all(same), steps=len(same), whole_max_abs=err,
-                tokens_equal=torch.equal(torch.cat(toks_out, 1), whole[2]),
-                split_cache=sum(any(p.is_shard() and p.dim > 0
-                                    for p in t.placements)
-                                for t in _tensors(sc)),
-                prefill=_gather_rows(logits, mesh, SERVE_B).numpy(),
-                decode=np.stack(step_logits),
-                tokens=torch.cat(toks_out, 1).numpy())
-    for arch, (shape, batch, variant) in SEQ_CASES.items():
+            mine = _serve_unsharded(model, params, dict(
+                tokens=toks[_rows(mesh, SERVE_B)]), length, SERVE_N)
+            out["batched"][f"{arch}/{mname}"] = _serve_sharded(
+                model, params, batch, mesh, length, SERVE_N, whole, mine)
+    for name, (arch, shape, over) in TP_SERVE.items():
+        cfg = get_config(arch, reduced=True).replace(
+            dtype="float32", param_dtype="float32", **over)
+        model = Model(cfg)
+        params, batch = inputs[name]["params"], inputs[name]["batch"]
+        whole = _serve_unsharded(model, params, batch, length, SERVE_N)
+        out["tp"][name] = _serve_sharded(
+            model, params, batch, _mesh(shape, ("data", "model")), length,
+            SERVE_N, whole)
+    for name, (arch, shape, batch, variant) in SEQ_CASES.items():
         cfg = get_config(arch, reduced=True).replace(dtype="float32",
                                                      param_dtype="float32")
         model = Model(cfg)
-        params, one = inputs[arch]["params"], inputs[arch]["tokens1"]
+        params, one = inputs[arch]["params"], inputs[name]["tokens1"]
         length = SEQ_S + SEQ_N
         logits, built = make_prefill_step(model)(params, dict(tokens=one))
         full = _splice(model.init_cache(batch, length, "cpu"), built)
@@ -443,13 +579,20 @@ def _rank_serve(rank: int, run_dir: str):
                 toks_out.append(tok)
                 err = max(err, (lg - ref_steps[i]).abs().max().item())
                 finite = finite and bool(torch.isfinite(lg).all())
-        out["seq"][arch] = dict(
+        out["seq"][name] = dict(
             max_abs=err, finite=finite,
             tokens_equal=torch.equal(torch.cat(toks_out, 1),
                                      torch.cat(ref_toks, 1)),
             placements=sorted({str(t.placements) for t in _tensors(sc)
                                if t.dim() > 2}),
             tokens=torch.cat(toks_out, 1).numpy())
+    mesh = _mesh(TP_MESH, ("data", "model"))
+    for arch in GATHER_ARCHS:
+        model = Model(get_config(arch, reduced=True).replace(
+            dtype="float32", param_dtype="float32"))
+        out["gathers"][arch] = _prefill_gathers(
+            model, model.init(torch.Generator().manual_seed(0)),
+            inputs["qwen2_1_5b"]["tokens"], mesh)
     # Activation layouts the steps refuse rather than replicate quietly.
     cfg = get_config("qwen2_1_5b", reduced=True).replace(
         dtype="float32", param_dtype="float32")
@@ -535,16 +678,19 @@ def _rel(a, b) -> float:
 @pytest.fixture(scope="module")
 def train_run(tmp_path_factory):
     """The ``train`` case on four ranks, and the inputs it took: the
-    reference's reduced-config init (train_pair) and a B 4 batch."""
+    reference's reduced-config init (train_pair) and a B 4 batch, for each
+    arch and each TP_TRAIN case."""
     from test_torch_train import STEP_LR, train_batch, train_pair
     run_dir = tmp_path_factory.mktemp("train")
     inputs = dict(lr=STEP_LR)
     pairs = {}
-    for arch in ARCHS:
-        jm, jp, m, pp = train_pair(arch, block_kv=8)
+    cases = {a: (a, {}) for a in ARCHS}
+    cases.update(TP_TRAIN)
+    for name, (arch, over) in cases.items():
+        jm, jp, m, pp = train_pair(arch, block_kv=8, **over)
         jb, pb = train_batch(m.cfg, B=4)
-        inputs[arch] = dict(params=pp, batch=pb)
-        pairs[arch] = (jm, jp, m, pp, jb, pb)
+        inputs[name] = dict(params=pp, batch=pb)
+        pairs[name] = (jm, jp, m, pp, jb, pb)
     torch.save(inputs, os.path.join(run_dir, "inputs.pt"))
     _spawn("train", run_dir)
     out = np.load(os.path.join(run_dir, "train.npy"),
@@ -555,10 +701,10 @@ def train_run(tmp_path_factory):
 _REFERENCE_STEPS = {}
 
 
-def _reference_step(arch, ga, jm, jp, jb):
+def _reference_step(name, ga, jm, jp, jb):
     """(params, metrics) of the reference's jitted step at STEP_LR, once
-    per (arch, grad_accum)."""
-    if (arch, ga) not in _REFERENCE_STEPS:
+    per (case, grad_accum)."""
+    if (name, ga) not in _REFERENCE_STEPS:
         import jax
         from repro.optim import adamw as jadamw
         from repro.runtime import train_loop as jtrain_loop
@@ -567,53 +713,98 @@ def _reference_step(arch, ga, jm, jp, jb):
         jnew, _, jmet = jax.jit(jtrain_loop.make_train_step(
             jm, jopt, grad_accum=ga))(jp, jopt.init(jp), jb,
                                       jax.random.PRNGKey(0))
-        _REFERENCE_STEPS[arch, ga] = (jnew, jmet)
-    return _REFERENCE_STEPS[arch, ga]
+        _REFERENCE_STEPS[name, ga] = (jnew, jmet)
+    return _REFERENCE_STEPS[name, ga]
+
+
+def _against_reference(r, name, ga, pairs) -> None:
+    """The sharded step's loss and grad_norm within LOSS_RTOL of the
+    reference's jitted step, its updates within test_torch_train's
+    limits."""
+    import jax
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.optim.adamw import tree_unflatten
+    from test_torch_train import LOSS_RTOL, assert_same_update
+    jm, jp, m, pp, jb, pb = pairs[name]
+    jnew, jmet = _reference_step(name, ga, jm, jp, jb)
+    np.testing.assert_allclose(r["loss"], float(jmet["loss"]),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(r["grad_norm"], float(jmet["grad_norm"]),
+                               rtol=LOSS_RTOL)
+    ported = tree_unflatten(pp, [torch.from_numpy(a) for a in r["params"]])
+    assert_same_update(jax.tree.leaves(jp), jax.tree.leaves(
+        lm_params_to_reference(ported, m.cfg)), jax.tree.leaves(jnew))
+
+
+def _against_unsharded(r, moments: bool = True) -> None:
+    """Loss and grad_norm within SHARD_RTOL of the unsharded step's and,
+    with ``moments``, every moment leaf within SHARD_RTOL of its largest
+    entry; most leaves sharded (a wrong reduction on replicated leaves
+    alone would pass)."""
+    assert r["sharded"] >= r["leaves"] // 2, (r["sharded"], r["leaves"])
+    assert abs(r["loss"] - r["ref_loss"]) <= SHARD_RTOL * r["ref_loss"]
+    assert abs(r["grad_norm"] - r["ref_grad_norm"]) <= \
+        SHARD_RTOL * r["ref_grad_norm"]
+    if moments:
+        _moments_close(r)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_step_matches_unsharded_and_reference(train_run, arch,
                                                       mesh):
-    """At grad_accum 1 and 2: loss and grad_norm within SHARD_RTOL of the
-    unsharded step, every moment leaf within SHARD_RTOL of its largest
-    entry, the updates within test_torch_train's limits; the sharded
-    parameters' updates within the same limits of the reference's jitted
-    step; in float64 the parameters themselves within SHARD_RTOL. Most
-    leaves are sharded (the test would not see a wrong reduction on
-    replicated leaves alone)."""
-    import jax
-    from repro_torch.convert import lm_params_to_reference
-    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
-    from test_torch_train import LOSS_RTOL, assert_same_update
+    """At grad_accum 1 and 2, tensor-parallel over ``model``: loss and
+    grad_norm within SHARD_RTOL of the unsharded step, the updates within
+    test_torch_train's limits; the sharded parameters' updates within the
+    same limits of the reference's jitted step; in float64 every moment
+    leaf and the parameters themselves within SHARD_RTOL of the leaf's
+    largest entry, and so the float32 moments where ``model`` is 1 (on
+    (2, 2) the float32 attention and MLP outputs and their gradients are
+    sums over ``model`` rounded in another order: 1.0-1.3e-6 of some
+    leaves' largest moment). Most leaves are sharded (the test would not
+    see a wrong reduction on replicated leaves alone)."""
+    from repro_torch.optim.adamw import tree_leaves
+    from test_torch_train import assert_same_update
     out, pairs = train_run
-    jm, jp, m, pp, jb, pb = pairs[arch]
+    pp = pairs[arch][3]
     old = [t.double().numpy() for t in tree_leaves(pp)]
+    model_ways = MESHES[mesh][0][MESHES[mesh][1].index("model")]
     for ga in (1, 2):
         r = out[f"{arch}/float32/{mesh}/{ga}"]
-        assert r["sharded"] >= r["leaves"] // 2, (r["sharded"],
-                                                   r["leaves"])
-        assert abs(r["loss"] - r["ref_loss"]) <= SHARD_RTOL * r["ref_loss"]
-        assert abs(r["grad_norm"] - r["ref_grad_norm"]) <= \
-            SHARD_RTOL * r["ref_grad_norm"]
-        _moments_close(r)
+        _against_unsharded(r, moments=model_ways == 1)
         assert_same_update(old, r["params"], r["ref_params"])
-        jnew, jmet = _reference_step(arch, ga, jm, jp, jb)
-        np.testing.assert_allclose(r["loss"], float(jmet["loss"]),
-                                   rtol=LOSS_RTOL)
-        np.testing.assert_allclose(r["grad_norm"], float(jmet["grad_norm"]),
-                                   rtol=LOSS_RTOL)
-        ported = tree_unflatten(pp, [torch.from_numpy(a) for a in
-                                     r["params"]])
-        assert_same_update(jax.tree.leaves(jp), jax.tree.leaves(
-            lm_params_to_reference(ported, m.cfg)), jax.tree.leaves(jnew))
+        _against_reference(r, arch, ga, pairs)
         r64 = out[f"{arch}/float64/{mesh}/{ga}"]
         # (the loss and the norms compute in float32 whatever the dtype)
-        assert abs(r64["loss"] - r64["ref_loss"]) <= \
-            SHARD_RTOL * r64["ref_loss"]
-        _moments_close(r64)
+        _against_unsharded(r64)
         for a, b in zip(r64["params"], r64["ref_params"]):
             assert _rel(a, b) <= SHARD_RTOL, a.shape
+
+
+@pytest.mark.parametrize("case", list(TP_TRAIN))
+def test_tensor_parallel_step_with_shared_kv_heads(train_run, case):
+    """On (1, 4), where the kv heads do not divide ``model`` (replicated;
+    each rank projects the kv heads its q heads read, by index where
+    they straddle two) and their gradients are summed over ``model``:
+    loss and grad_norm within SHARD_RTOL of the unsharded step, the
+    updates within test_torch_train's limits of the unsharded and the
+    reference's steps; in float64 every moment leaf within SHARD_RTOL of
+    its largest entry. Two ranks share a kv head here, and each rank's
+    float32 attention backward (the blocked twin computes in float32
+    whatever the dtype, as the reference's does) sums its own q heads'
+    part of that head's gradient, so a float64 parameter whose gradient
+    is float32 rounding noise near Adam's eps (the key bias's) moves by
+    another fraction of lr: the float64 parameters are held by the same
+    update limits as the float32 ones."""
+    from repro_torch.optim.adamw import tree_leaves
+    from test_torch_train import assert_same_update
+    out, pairs = train_run
+    old = [t.double().numpy() for t in tree_leaves(pairs[case][3])]
+    for dtype in ("float32", "float64"):
+        r = out[f"{case}/{dtype}/1x4/1"]
+        _against_unsharded(r, moments=dtype == "float64")
+        assert_same_update(old, r["params"], r["ref_params"])
+    _against_reference(out[f"{case}/float32/1x4/1"], case, 1, pairs)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -776,8 +967,12 @@ def test_no_quiet_fallbacks_across_ranks(state_run):
 @pytest.fixture(scope="module")
 def serve_run(tmp_path_factory):
     """The ``serve`` case on four ranks, and the reference's side: each
-    arch's reduced float32 pair (live recurrences) and its prompts."""
+    arch's reduced float32 pair (live recurrences) and its prompts; each
+    TP_SERVE case's pair (train_pair: live gates) and its prompts with
+    frames or patches."""
     from test_torch_lm import _pair
+    from test_torch_lm_mla_moe import inputs as prompts
+    from test_torch_train import train_pair
     run_dir = tmp_path_factory.mktemp("serve")
     inputs, pairs = {}, {}
     for i, arch in enumerate(SERVE_ARCHS + ("minicpm3_4b",)):
@@ -785,10 +980,21 @@ def serve_run(tmp_path_factory):
         rng = np.random.default_rng(40 + i)
         toks = rng.integers(0, cfg.vocab, (SERVE_B, SERVE_S))
         one = rng.integers(0, cfg.vocab, (SEQ_CASES.get(
-            arch, (None, 1))[1], SEQ_S))
+            arch, (None, None, 1))[2], SEQ_S))
         inputs[arch] = dict(params=pp, tokens=torch.from_numpy(toks),
                             tokens1=torch.from_numpy(one))
         pairs[arch] = (jm, jp, toks, one)
+    for i, (name, (arch, _, batch, _)) in enumerate(SEQ_CASES.items()):
+        if name not in inputs:
+            one = np.random.default_rng(60 + i).integers(
+                0, pairs[arch][0].cfg.vocab, (batch, SEQ_S))
+            inputs[name] = dict(tokens1=torch.from_numpy(one))
+            pairs[name] = pairs[arch][:3] + (one,)
+    for i, (name, (arch, _, over)) in enumerate(TP_SERVE.items()):
+        jm, jp, m, pp = train_pair(arch, **over)
+        _, extra, jb, pb = prompts(m.cfg, B=SERVE_B, S=SERVE_S, seed=80 + i)
+        inputs[name] = dict(params=pp, batch=pb)
+        pairs[name] = (jm, jp, m.cfg, jb, extra)
     torch.save(inputs, os.path.join(run_dir, "inputs.pt"))
     _spawn("serve", run_dir)
     out = np.load(os.path.join(run_dir, "serve.npy"),
@@ -822,18 +1028,26 @@ def _reference_serve(jm, jp, toks, length, steps):
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_sharded_serving_is_bitwise_and_matches_reference(serve_run, arch,
                                                           mesh):
-    """Each rank's prefill logits and every decode step's logits bitwise
-    the unsharded steps' on its rows; against the unsharded steps on the
-    whole batch within SEQ_ATOL (the CPU's matmuls block by the number of
-    rows, so a row's last bit can move with the rows around it: mamba2's
-    one-row prefill on (4, 1) does) and the greedy tokens equal; on (2, 2)
-    cache leaves are split over ``model`` (gathered by each layer, written
-    back by block); the gathered logits and tokens within test_torch_lm's
+    """Each rank's prefill logits and every decode step's logits against
+    the unsharded steps' on its rows: bitwise where ``model`` is 1, within
+    SHARD_RTOL of the largest entry on (2, 2), where attention, MLPs, the
+    embedding and the logits are tensor-parallel (the sums over ``model``
+    add in another order); against the unsharded steps on the whole batch
+    within SEQ_ATOL (the CPU's matmuls block by the number of rows, so a
+    row's last bit can move with the rows around it: mamba2's one-row
+    prefill on (4, 1) does) and the greedy tokens equal; on (2, 2) cache
+    leaves are split over ``model`` (an attention cache's heads read and
+    written in place, the others gathered by each layer and written back
+    by block); the gathered logits and tokens within test_torch_lm's
     float32 limits of the reference's steps."""
     from test_torch_lm import F32_TOL
     out, pairs = serve_run
     r = out["batched"][f"{arch}/{mesh}"]
-    assert r["bitwise"] and r["steps"] == SERVE_N + 1
+    assert r["steps"] == SERVE_N + 1
+    if SERVE_MESHES[mesh][1] == 1:
+        assert r["bitwise"]
+    else:
+        assert r["rows_rel"] <= SHARD_RTOL, r["rows_rel"]
     assert r["tokens_equal"] and r["whole_max_abs"] <= SEQ_ATOL
     assert (r["split_cache"] > 0) == (mesh == "2x2"), r["split_cache"]
     jm, jp, toks, _ = pairs[arch]
@@ -845,26 +1059,76 @@ def test_sharded_serving_is_bitwise_and_matches_reference(serve_run, arch,
         np.testing.assert_allclose(port, ref, **F32_TOL)
 
 
+@pytest.mark.parametrize("case", list(TP_SERVE))
+def test_tensor_parallel_serving_matches_unsharded_and_reference(serve_run,
+                                                                 case):
+    """Tensor-parallel prefill and decode where the kv heads are
+    replicated over ``model`` (reduced qwen2-72B on (1, 4): the whole
+    decode cache written by every rank, its q head's kv head read), where
+    q heads straddle kv groups (by index), and for the encoder, self- and
+    cross-attention (SeamlessM4T) and the gated cross layers
+    (llama-3.2-vision) on (2, 2): every step's logits within SHARD_RTOL of
+    the unsharded steps' largest entry, the greedy tokens equal; the
+    gathered logits within test_torch_lm's float32 limits of the
+    reference's serving run and its greedy tokens equal."""
+    from test_torch_lm import F32_TOL
+    from test_torch_lm_mla_moe import reference_run
+    out, pairs = serve_run
+    r = out["tp"][case]
+    assert r["whole_rel"] <= SHARD_RTOL, r["whole_rel"]
+    assert r["tokens_equal"]
+    jm, jp, cfg, jb, extra = pairs[case]
+    tokens, logits, _, steps, _ = reference_run(jm, jp, cfg, jb, extra,
+                                                SERVE_N + 1)
+    np.testing.assert_array_equal(r["tokens"], np.asarray(tokens))
+    np.testing.assert_allclose(r["prefill"], np.asarray(logits), **F32_TOL)
+    for port, ref in zip(r["decode"], steps):
+        np.testing.assert_allclose(port, np.asarray(ref), **F32_TOL)
+
+
+@pytest.mark.parametrize("arch", GATHER_ARCHS)
+def test_tensor_parallel_prefill_gathers_no_tp_leaf_over_model(serve_run,
+                                                               arch):
+    """A prefill on (1, 4) gathers no leaf of the embedding, the logits
+    head, dense attention or a dense MLP over ``model`` (each rank keeps
+    its block), and every other leaf split over ``model`` — DBRX's
+    experts, MLA's heads, the Mamba-2 and RG-LRU mixers' channels —
+    whole, once (ROADMAP queue 1, [3b]'s remainder). Reduced qwen2-72B's
+    forward sums over ``model`` twice a layer (attention's and the MLP's
+    outputs) and once for the embedding."""
+    out, _ = serve_run
+    g = out["gathers"][arch]
+    assert g["split"]["tp"] > 0 and g["gathered"]["tp"] == 0, g
+    assert g["gathered"]["whole"] == g["split"]["whole"], g
+    assert (g["split"]["whole"] > 0) == (arch != "qwen2_72b"), g
+    if arch == "qwen2_72b":
+        from repro_torch.configs import get_config
+        assert g["reduces"] == 2 * get_config(arch, True).n_layers + 1, g
+
+
 # Placements of the caches' leaves past two dimensions, by case: KV
 # [B, S, Kh, D] split by sequence over data (batch 1), the RG-LRU conv
-# tails [1, 3, W] whole; MLA's latents [B, S, L] by rows over data and by
-# sequence over model (``seqshard``).
+# tails [1, 3, W] whole; MLA's latents [B, S, L] and gemma3's KV by rows
+# over data and by sequence over model (``seqshard``).
 SEQ_PLACEMENTS = dict(
     gemma3_4b=["(Shard(dim=1), Replicate())"],
     recurrentgemma_2b=["(Replicate(), Replicate())",
                        "(Shard(dim=1), Replicate())"],
-    minicpm3_4b=["(Shard(dim=0), Shard(dim=1))"])
+    minicpm3_4b=["(Shard(dim=0), Shard(dim=1))"],
+    gemma3_4b_seqshard=["(Shard(dim=0), Shard(dim=1))"])
 
 
 @pytest.mark.parametrize("arch", list(SEQ_CASES))
 def test_sequence_split_decode_matches_unsharded(serve_run, arch):
     """Caches split by sequence (each rank a segment of positions, never
-    gathered): batch 1 on four ``data`` ranks, and minicpm3's MLA latents
-    over ``model`` under ``seqshard``. The decode's softmax is combined
-    across segments — segments holding no valid position (outside the
-    local window, past the position) included — within SEQ_ATOL of the
-    unsharded decode, finite, with the same greedy tokens, which are the
-    reference's."""
+    gathered): batch 1 on four ``data`` ranks, and batch 2 over ``model``
+    under ``seqshard`` — minicpm3's MLA latents, and gemma3's KV beside
+    its tensor-parallel q heads (q gathered over ``model``, every head
+    attended over the segment, the rank's heads kept). The decode's
+    softmax is combined across segments — segments holding no valid
+    position (outside the local window, past the position) included —
+    within SEQ_ATOL of the unsharded decode, finite, with the same greedy
+    tokens, which are the reference's."""
     out, pairs = serve_run
     r = out["seq"][arch]
     assert r["placements"] == SEQ_PLACEMENTS[arch], r["placements"]
