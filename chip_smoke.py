@@ -155,7 +155,18 @@ Builds the port's kernels from the sources in this checkout, then:
      tokens — the prefill logits and every token bitwise the unsharded
      steps', the same kernel launches (28 wgmma flash calls a qwen2-1.5B
      prefill, the wgmma SSD, ``rglru_layer_fwd``), no plain version;
-     (c) the dry run of qwen2-72B train_4k on the 16x16 and 2x16x16
+     (e) qwen2-72B whole as rank 0 of an 8-way tensor-parallel
+     deployment over a fake process group (its collectives return at
+     once: one rank's compute), B 4 x 2048 prefill and 32 decode steps —
+     80 wgmma flash launches at the rank's 8 q heads, no plain version,
+     the rank's logits blocks finite; (f) DeepSeek-V2-236B whole, 60
+     layers, the same way as rank 0 of 8 (MLA at 16 of 128 heads, 20 of
+     160 routed experts: 60 ``flash_fwd_sm90<192, 128>`` launches); (g)
+     mamba2-2.7B (4 layers) and recurrentgemma-2B (3) at full width as
+     rank 0 of 2 (the wgmma SSD at 40 heads, ``rglru_layer_fwd`` at 1280
+     channels, the D 256 flash at 5 q heads) — each first kernel call
+     held against its plain version and timed at its shape beside its
+     bound; (c) the dry run of qwen2-72B train_4k on the 16x16 and 2x16x16
      production meshes: per-device bytes, and per-device FLOPs, bytes,
      collectives and roofline at 2 of 80 layers from ``python -m
      repro_torch.launch.dryrun`` over a fake process group.
@@ -2558,9 +2569,10 @@ def serve_arch(arch: str, cfg, B: int = 4, S: int = 2048,
 
 # The paper's §5 comparison schedulers, WaterWise through the annealed
 # Sinkhorn launch, and the learned-forecast round, by the names users type.
-COMPARISON = ("baseline", "round-robin", "least-load", "carbon-greedy-opt",
-              "water-greedy-opt", "ecovisor", "waterwise[backend=fused]",
-              "waterwise-forecast[forecaster=learned,backend=fused]")
+RULES = ("baseline", "round-robin", "least-load", "carbon-greedy-opt",
+         "water-greedy-opt", "ecovisor")
+COMPARISON = RULES + ("waterwise[backend=fused]",
+                      "waterwise-forecast[forecaster=learned,backend=fused]")
 # Run again in spawned worker processes, one a cell, through the auto-sized
 # "process" executor: four cells, so the card's cap on the pool
 # (experiments.executor.CARD_WORKERS) is what sizes it.
@@ -2671,7 +2683,7 @@ def phase_comparison(e2e: dict, fc: dict) -> dict:
             fail(f"{spec} through the registry differs from {phase}: {diff}")
         if row["_launches"] != want:
             fail(f"{spec} launched {row['_launches']}, {phase} {want}")
-    for spec in COMPARISON[:6]:
+    for spec in RULES:
         if by_spec[spec]["_launches"] != zero:
             fail(f"rule scheduler {spec} launched a kernel")
         if by_spec[spec]["unfinished"]:
@@ -3581,6 +3593,19 @@ DRYRUN_DEPTH, DRYRUN_FLOPS, DRYRUN_RTOL = 2, 90520730730496, 1e-2
 # The times are one rank's compute alone; its tokens are no result (the
 # gathered logits hold only this rank's vocabulary block).
 TP_ARCH, TP_MESH, TP_B, TP_S, TP_NEW = "qwen2_72b", (1, 8), 4, 2048, 32
+# (f) DeepSeek-V2-236B whole (60 layers), bf16, as rank 0 of 8 on a (1, 8)
+# mesh: the rank's 16 of 128 MLA heads, 20 of 160 routed experts and 1/8
+# of the shared experts, the dense layer's MLP and the vocabulary, about
+# 29.9 B parameters (60 GB) drawn on the card — DeepSeek's own bf16
+# serving layout on 8 x 80 GB. The same prefill and decode steps: one
+# flash_fwd_sm90<192, 128> launch a layer at [4, 2048, 16, 192/128].
+TP_MLA_ARCH, TP_MLA_MESH = "deepseek_v2_236b", (1, 8)
+# (g) the two mixers at full width as rank 0 of 2 on a (1, 2) mesh:
+# mamba2-2.7B at 4 layers (the wgmma SSD at the rank's 40 of 80 heads,
+# [4, 2048, 40, 64], N 128) and recurrentgemma-2B at 3 (rglru_layer_fwd at
+# its 1280 of 2560 channels, flash at D 256 on its 5 of 10 q heads over
+# the replicated kv head).
+TP_MIXERS, TP_MIXER_MESH = dict(mamba2_2_7b=4, recurrentgemma_2b=3), (1, 2)
 
 
 @contextlib.contextmanager
@@ -3959,20 +3984,21 @@ def tp_cache(model, mesh, B: int, length: int, device="cuda"):
 
 @contextlib.contextmanager
 def local_logits():
-    """The rank's vocabulary block of every logits gather over ``model``
-    (``TensorParallel.gather``'s input): shape and finiteness."""
-    from repro_torch.runtime import sharding
+    """The rank's vocabulary block of every step's last logits, before
+    ``models.model._whole_vocab`` gathers them over ``model``: shape and
+    finiteness."""
+    from repro_torch.models import model as model_mod
     seen = []
-    inner = sharding.TensorParallel.gather
+    inner = model_mod._whole_vocab
 
-    def gather(self, x, dim):
-        seen.append((tuple(x.shape), bool(torch.isfinite(x).all())))
-        return inner(self, x, dim)
-    sharding.TensorParallel.gather = gather
+    def whole_vocab(logits, params):
+        seen.append((tuple(logits.shape), bool(torch.isfinite(logits).all())))
+        return inner(logits, params)
+    model_mod._whole_vocab = whole_vocab
     try:
         yield seen
     finally:
-        sharding.TensorParallel.gather = inner
+        model_mod._whole_vocab = inner
 
 
 def tp_profile(fn) -> dict:
@@ -4001,16 +4027,75 @@ def tp_profile(fn) -> dict:
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
 
 
-def tp_qwen2_72b(dev) -> dict:
-    """(e): qwen2-72B whole as one rank of an 8-way tensor-parallel
-    deployment (``TP_MESH``), through ``make_prefill_step`` /
-    ``make_decode_step(mesh=)``: the prefill (a second, warm one timed)
-    and TP_NEW decode steps, the rank's logits finite, 80 wgmma flash
-    launches at the rank's heads and no plain version; then that flash
-    call timed beside the plain version, SDPA and its bound."""
+@contextlib.contextmanager
+def own_blocks():
+    """Under the fake process group, whose collectives return at once and
+    write nothing, the two collectives over ``model`` whose results other
+    ranks would fill are given this rank's numbers, so the values stay
+    finite and the work the same: an all-gather takes every rank's block
+    as this rank's, a reduce-scatter keeps this rank's partial block."""
+    from repro_torch.runtime import sharding
+    inner = sharding._model_gather, sharding._model_scatter_sum
+
+    def gather(x, dim, tp):
+        return torch.cat([x.contiguous()] * tp.size, dim=dim)
+
+    def scatter_sum(x, dim, tp):
+        n = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.rank * n, n).contiguous()
+    sharding._model_gather, sharding._model_scatter_sum = gather, scatter_sum
+    try:
+        yield
+    finally:
+        sharding._model_gather, sharding._model_scatter_sum = inner
+
+
+@contextlib.contextmanager
+def first_kernel_calls():
+    """Copies of the first model-path call's inputs and output of the SSD
+    wrapper (``ops.ssd_scan``) and the fused RG-LRU layer
+    (``ops.rglru_layer``), each of which launches its kernel."""
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    seen = {}
+    inner = sops.ssd_scan, rops.rglru_layer
+
+    def ssd(x, dt, A, Bm, Cm, *, chunk=256):
+        y, st = inner[0](x, dt, A, Bm, Cm, chunk=chunk)
+        if "ssd" not in seen:
+            seen["ssd"] = dict(args=[t.clone() for t in (x, dt, A, Bm, Cm)],
+                               chunk=min(chunk, x.shape[1]),
+                               out=(y.clone(), st.clone()))
+        return y, st
+
+    def layer(pre_r, pre_i, x, lam):
+        y = inner[1](pre_r, pre_i, x, lam)
+        if "rglru" not in seen:
+            seen["rglru"] = dict(args=[t.clone() for t in (pre_r, pre_i, x,
+                                                           lam)],
+                                 out=y.clone())
+        return y
+    sops.ssd_scan, rops.rglru_layer = ssd, layer
+    try:
+        yield seen
+    finally:
+        sops.ssd_scan, rops.rglru_layer = inner
+
+
+def tp_rank(cfg, mesh_shape, dev, where: str, new: int = TP_NEW,
+            profile: bool = False) -> dict:
+    """``cfg`` as rank 0 of a ``mesh_shape`` ("data", "model")
+    tensor-parallel deployment over the fake process group
+    (``launch.dryrun.fake_group``: its collectives return at once, and
+    ``own_blocks`` fills the two whose results other ranks would write),
+    through ``make_prefill_step`` / ``make_decode_step(mesh=)``: the
+    rank's blocks drawn on the card (``tp_share``), a B TP_B x TP_S
+    prefill (a second, warm one timed) and ``new`` decode steps; the
+    launches, flash calls by shape and plain-version calls of both turns,
+    the rank's logits blocks finite, and copies of the first flash, SSD
+    and fused RG-LRU calls. With ``profile``, one prefill and one decode
+    step under the profiler."""
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.launch.dryrun import fake_group
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import tree_leaves
@@ -4018,20 +4103,20 @@ def tp_qwen2_72b(dev) -> dict:
     from repro_torch.runtime.train_loop import (make_decode_step,
                                                 make_prefill_step)
     start = time.perf_counter()
-    cfg = get_config(TP_ARCH)
     model = Model(cfg)
-    where = f"{TP_ARCH} (13e)"
-    ranks = TP_MESH[0] * TP_MESH[1]
-    heads, kv = cfg.n_heads // TP_MESH[1], cfg.n_kv // TP_MESH[1]
+    ranks = mesh_shape[0] * mesh_shape[1]
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab, (TP_B, TP_S))).to(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with fake_group(ranks):
-        mesh = init_device_mesh("cuda", TP_MESH,
+    with fake_group(ranks), own_blocks():
+        mesh = init_device_mesh("cuda", mesh_shape,
                                 mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
         params = tp_share(model, mesh, torch.Generator(device="cuda")
                           .manual_seed(0))
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
         share = sum(t.to_local().numel() * t.to_local().element_size()
                     for t in tree_leaves(params))
         prefill = make_prefill_step(model, mesh)
@@ -4043,11 +4128,13 @@ def tp_qwen2_72b(dev) -> dict:
         walls, steps = [], []
         with torch.inference_mode():
             for turn in range(2):
-                cache = tp_cache(model, mesh, TP_B, TP_S + TP_NEW + 1)
+                cache = tp_cache(model, mesh, TP_B, TP_S + new + 1)
                 reset_lm_launches()
                 with plain_call_counter() as plain, \
                         flash_call_recorder() as shapes, \
-                        first_flash_call() as first, local_logits() as lg:
+                        first_flash_call() as first, \
+                        first_kernel_calls() as seen, \
+                        local_logits() as lg:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     logits, built = prefill(params, dict(tokens=toks))
@@ -4056,7 +4143,7 @@ def tp_qwen2_72b(dev) -> dict:
                     _splice(locals_(cache), locals_(built))
                     del built
                     tok = torch.argmax(logits, dim=-1)[:, None]
-                    for i in range(TP_NEW if turn else 0):
+                    for i in range(new if turn else 0):
                         t0 = time.perf_counter()
                         tok, _, cache = decode(params, cache, tok, TP_S + i)
                         torch.cuda.synchronize()
@@ -4064,74 +4151,233 @@ def tp_qwen2_72b(dev) -> dict:
                 launches = read_lm_launches()
                 if turn == 0:
                     prefill_launches = launches
+                    firsts = dict(seen, flash=dict(first))
+                    del first, seen
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            prof = dict(prefill=tp_profile(
-                lambda: prefill(params, dict(tokens=toks))),
-                        decode=tp_profile(lambda: decode(
-                            params, cache, tok, TP_S + TP_NEW)))
-            del cache
-        q_shape = tuple(first["q"].shape)
-        ref = flash_attention_ref(first["q"], first["k"], first["v"],
-                                  **first["kw"])
-        err, rel = hold_flash(f"{where} first flash call", first["out"],
-                              ref, torch.bfloat16)
-        del first, ref, params
+            prof = {}
+            if profile:
+                prof = dict(prefill=tp_profile(
+                    lambda: prefill(params, dict(tokens=toks))),
+                            decode=tp_profile(lambda: decode(
+                                params, cache, tok, TP_S + new)))
+            del cache, params
     torch.cuda.empty_cache()
-    want_q = (TP_B, TP_S, kv, heads // kv, cfg.head_dim_)
-    if q_shape != want_q:
-        fail(f"{where}: flash q {q_shape}, want the rank's heads {want_q}")
-    want = dict(flash=dict(wgmma=cfg.n_layers, scalar=0),
-                ssd=dict(wgmma=0, scalar=0),
-                rglru=dict(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0))
-    if prefill_launches != want or launches != want:
-        fail(f"{where}: launches {prefill_launches} (prefill) and "
-             f"{launches} (prefill and decode), want {want}")
-    if dict(shapes) != {("wgmma", 128, 128, True): cfg.n_layers}:
-        fail(f"{where}: flash launches by shape {dict(shapes)}")
-    if sum(plain.values()):
-        fail(f"{where}: plain versions ran: {dict(plain)}")
-    vocab_rows = cfg.padded_vocab // TP_MESH[1]
-    if len(lg) != 1 + TP_NEW or any(
+    vocab_rows = cfg.padded_vocab // mesh_shape[1]
+    if len(lg) != 1 + new or any(
             sh != (TP_B, vocab_rows) or not ok for sh, ok in lg):
         fail(f"{where}: the rank's logits blocks {lg[:3]} ..., want "
-             f"{1 + TP_NEW} finite blocks of ({TP_B}, {vocab_rows})")
+             f"{1 + new} finite blocks of ({TP_B}, {vocab_rows})")
     if tuple(logits.shape) != (TP_B, cfg.padded_vocab):
         fail(f"{where}: gathered logits {tuple(logits.shape)}")
-    timing = model_flash_timing(f"{TP_ARCH} (13e) rank heads", heads, kv,
-                                TP_S, TP_S, cfg.head_dim_, cfg.head_dim_,
-                                True, 13)
-    decode_ms = float(np.mean(steps[1:])) * 1e3
-    out = dict(layers=cfg.n_layers, mesh=list(TP_MESH), share_bytes=share,
-               prefill_ms=walls[1] * 1e3, first_prefill_ms=walls[0] * 1e3,
-               tokens_per_s=TP_B * TP_S / walls[1], decode_ms=decode_ms,
-               first_decode_ms=steps[0] * 1e3, peak_gib=peak,
-               launches=launches, flash_launches=cfg.n_layers,
-               flash_shape=list(want_q), flash_max_abs_err=err,
-               flash_rel_rms=rel, flash_timing=timing, profile=prof,
-               wall_s=time.perf_counter() - start)
-    print(f"  (e) {TP_ARCH} whole ({cfg.n_layers} layers), bf16, as rank "
-          f"0 of {ranks} on a {TP_MESH} (data, model) mesh over the card "
-          f"(the fake process group's collectives return at once and move "
-          f"nothing: one rank's compute alone, its tokens no result); the "
-          f"rank's share {share / 1e9:.2f} GB drawn on the card: B {TP_B} "
-          f"x {TP_S} prefill {out['prefill_ms']:.1f} ms warm (first "
-          f"{out['first_prefill_ms']:.1f} ms), {out['tokens_per_s']:.0f} "
-          f"tokens/s; {TP_NEW} decode steps {decode_ms:.2f} ms a step "
-          f"(after the first, {out['first_decode_ms']:.1f} ms); peak "
-          f"{peak:.2f} GiB; launches {launches}: {cfg.n_layers} "
-          f"flash_fwd_sm90<128, 128> a prefill at q {list(want_q)} (the "
-          f"rank's {heads} q heads over {kv} kv head), no plain version; "
-          f"the first flash call vs the plain version max |d| {err:.3e}, "
-          f"RMS(d) / RMS(plain) {rel:.3e}; the rank's logits blocks "
-          f"finite; {out['wall_s']:.1f} s", flush=True)
-    for name, p in prof.items():
-        print(f"    (e) one profiled {name}: wall {p['wall_ms']:.1f} ms, "
+    if sum(plain.values()):
+        fail(f"{where}: plain versions ran: {dict(plain)}")
+    return dict(layers=cfg.n_layers, mesh=list(mesh_shape), share_bytes=share,
+                draw_s=draw_s, prefill_ms=walls[1] * 1e3,
+                first_prefill_ms=walls[0] * 1e3,
+                tokens_per_s=TP_B * TP_S / walls[1],
+                decode_ms=float(np.mean(steps[1:])) * 1e3 if new else None,
+                first_decode_ms=steps[0] * 1e3 if new else None,
+                peak_gib=peak, launches=launches,
+                prefill_launches=prefill_launches, flash_shapes=dict(shapes),
+                firsts=firsts, profile=prof,
+                wall_s=time.perf_counter() - start)
+
+
+def want_launches(flash: int = 0, ssd: int = 0, rglru: int = 0) -> dict:
+    return dict(flash=dict(wgmma=flash, scalar=0),
+                ssd=dict(wgmma=ssd, scalar=0),
+                rglru=dict(layer_fwd=rglru, layer_bwd=0, fwd=0, bwd=0))
+
+
+def check_rank_launches(where: str, r: dict, want: dict, shapes: dict):
+    """One prefill's launches (and the prefill and decode steps' together:
+    decode launches no kernel) exactly ``want``, the flash calls by shape
+    ``shapes``."""
+    if r["prefill_launches"] != want or r["launches"] != want:
+        fail(f"{where}: launches {r['prefill_launches']} (prefill) and "
+             f"{r['launches']} (prefill and decode), want {want}")
+    if r["flash_shapes"] != shapes:
+        fail(f"{where}: flash launches by shape {r['flash_shapes']}, want "
+             f"{shapes}")
+
+
+def hold_first_flash(where: str, first: dict, want_q) -> tuple:
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    if tuple(first["q"].shape) != tuple(want_q):
+        fail(f"{where}: flash q {tuple(first['q'].shape)}, want the rank's "
+             f"heads {tuple(want_q)}")
+    ref = flash_attention_ref(first["q"], first["k"], first["v"],
+                              **first["kw"])
+    return hold_flash(f"{where} first flash call", first["out"], ref,
+                      torch.bfloat16)
+
+
+def report_rank(where: str, cfg, r: dict, what: str) -> None:
+    decode = ("" if r["decode_ms"] is None else
+              f"; {TP_NEW} decode steps {r['decode_ms']:.2f} ms a step "
+              f"(after the first, {r['first_decode_ms']:.1f} ms)")
+    print(f"  {where} {cfg.name} ({cfg.n_layers} layers), bf16, as rank 0 "
+          f"of {r['mesh'][0] * r['mesh'][1]} on a {tuple(r['mesh'])} (data, "
+          f"model) mesh over the card (the fake process group's "
+          f"collectives return at once and move nothing: one rank's "
+          f"compute alone, its tokens no result); the rank's share "
+          f"{r['share_bytes'] / 1e9:.2f} GB drawn on the card in "
+          f"{r['draw_s']:.1f} s: B {TP_B} x {TP_S} prefill "
+          f"{r['prefill_ms']:.1f} ms warm (first "
+          f"{r['first_prefill_ms']:.1f} ms), {r['tokens_per_s']:.0f} "
+          f"tokens/s{decode}; peak {r['peak_gib']:.2f} GiB; launches "
+          f"{r['launches']}: {what}, no plain version; the rank's logits "
+          f"blocks finite; {r['wall_s']:.1f} s", flush=True)
+    for name, p in r["profile"].items():
+        print(f"    {where} one profiled {name}: wall {p['wall_ms']:.1f} ms, "
               f"device {p['device_ms']:.1f} ms (busy "
               f"{p['device_ms'] / p['wall_ms'] * 100:.1f} %); by kind "
               + ", ".join(f"{k} {ms:.1f} ms" for k, ms in
                           sorted(p["by_kind"].items()))
               + "; top: " + "; ".join(f"{n[:50]} {ms:.2f}"
                                       for n, ms in p["top"]), flush=True)
+
+
+def tp_qwen2_72b(dev) -> dict:
+    """(e): qwen2-72B whole as one rank of an 8-way tensor-parallel
+    deployment (``TP_MESH``): ``tp_rank``'s run, 80 wgmma flash launches
+    at the rank's heads and no plain version, one prefill and one decode
+    step profiled; then that flash call timed beside the plain version,
+    SDPA and its bound."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TP_ARCH)
+    where = f"{TP_ARCH} (13e)"
+    heads, kv = cfg.n_heads // TP_MESH[1], cfg.n_kv // TP_MESH[1]
+    r = tp_rank(cfg, TP_MESH, dev, where, profile=True)
+    want_q = (TP_B, TP_S, kv, heads // kv, cfg.head_dim_)
+    err, rel = hold_first_flash(where, r.pop("firsts")["flash"], want_q)
+    check_rank_launches(where, r, want_launches(flash=cfg.n_layers),
+                        {("wgmma", 128, 128, True): cfg.n_layers})
+    timing = model_flash_timing(f"{TP_ARCH} (13e) rank heads", heads, kv,
+                                TP_S, TP_S, cfg.head_dim_, cfg.head_dim_,
+                                True, 13)
+    out = dict(r, flash_launches=cfg.n_layers, flash_shape=list(want_q),
+               flash_max_abs_err=err, flash_rel_rms=rel, flash_timing=timing)
+    report_rank("(e)", cfg, out, f"{cfg.n_layers} flash_fwd_sm90<128, 128> "
+                f"a prefill at q {list(want_q)} (the rank's {heads} q heads "
+                f"over {kv} kv head); the first flash call vs the plain "
+                f"version max |d| {err:.3e}, RMS(d) / RMS(plain) {rel:.3e}")
+    return out
+
+
+def tp_deepseek_v2(dev) -> dict:
+    """(f): DeepSeek-V2-236B whole as rank 0 of an 8-way deployment
+    (``TP_MLA_MESH``): MLA at the rank's 16 heads, 20 of the 160 routed
+    experts, 1/8 of the shared experts, the dense layer's MLP and the
+    vocabulary; one ``flash_fwd_sm90<192, 128>`` launch a layer at [4,
+    2048, 16, 192/128], no plain version; its first call held against the
+    plain version, then timed beside the plain version, SDPA and its
+    bound. Layers are cut only if the share does not fit the card."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TP_MLA_ARCH)
+    where = f"{TP_MLA_ARCH} (13f)"
+    heads = cfg.n_heads // TP_MLA_MESH[1]
+    r = tp_rank(cfg, TP_MLA_MESH, dev, where, profile=True)
+    D, Dv = cfg.d_nope + cfg.d_rope, cfg.d_v
+    want_q = (TP_B, TP_S, heads, 1, D)
+    err, rel = hold_first_flash(where, r.pop("firsts")["flash"], want_q)
+    check_rank_launches(where, r, want_launches(flash=cfg.n_layers),
+                        {("wgmma", D, Dv, True): cfg.n_layers})
+    timing = model_flash_timing(f"{TP_MLA_ARCH} (13f) rank heads", heads,
+                                heads, TP_S, TP_S, D, Dv, True, 14)
+    out = dict(r, flash_launches=cfg.n_layers, flash_shape=list(want_q),
+               flash_max_abs_err=err, flash_rel_rms=rel, flash_timing=timing,
+               experts=cfg.n_experts // TP_MLA_MESH[1])
+    report_rank("(f)", cfg, out, f"{cfg.n_layers} flash_fwd_sm90<{D}, {Dv}> "
+                f"a prefill at q {list(want_q)} (the rank's {heads} of "
+                f"{cfg.n_heads} MLA heads; {out['experts']} of "
+                f"{cfg.n_experts} routed experts); the first flash call vs "
+                f"the plain version max |d| {err:.3e}, RMS(d) / RMS(plain) "
+                f"{rel:.3e}")
+    return out
+
+
+def tp_mixers(dev) -> dict:
+    """(g): mamba2-2.7B and recurrentgemma-2B at full width, cut in depth
+    (``TP_MIXERS``), as rank 0 of 2 (``TP_MIXER_MESH``): the wgmma SSD at
+    the rank's heads, ``rglru_layer_fwd`` at its channels and
+    recurrentgemma's D 256 flash at its q heads over the replicated kv
+    head, no plain version; each kernel's first call held against its
+    plain version, then timed at that shape beside its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan import rglru_scan as rk
+    from repro_torch.kernels.rglru_scan.ref import rglru_layer_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    ways = TP_MIXER_MESH[1]
+    out = {}
+    for arch, depth in TP_MIXERS.items():
+        cfg = get_config(arch).replace(n_layers=depth)
+        where = f"{arch} (13g)"
+        r = tp_rank(cfg, TP_MIXER_MESH, dev, where)
+        firsts = r.pop("firsts")
+        if cfg.ssm:
+            H = cfg.d_inner // cfg.ssm_head_dim // ways
+            check_rank_launches(where, r, want_launches(ssd=depth), {})
+            f = firsts["ssd"]
+            x = f["args"][0]
+            if tuple(x.shape) != (TP_B, TP_S, H, cfg.ssm_head_dim):
+                fail(f"{where}: SSD x {tuple(x.shape)}, want the rank's "
+                     f"{H} heads")
+            raw, err = ssd_err(f["out"], ssd_ref(*f["args"],
+                                                 chunk=f["chunk"]),
+                               BF16_RTOL)
+            check(f"{where} first SSD call vs plain", err, SSD_ATOL)
+            timing = ssd_timing(ssd_inputs(TP_B, TP_S, H, cfg.ssm_head_dim,
+                                           cfg.ssm_groups, cfg.ssm_state,
+                                           torch.bfloat16, 15, True),
+                                f["chunk"])
+            out[arch] = dict(r, kernel="ssd_scan_sm90", shape=list(
+                x.shape), max_abs_err=raw, err_beyond_rtol=err,
+                timing=timing)
+            what = (f"{depth} ssd_scan_sm90 calls a prefill at x "
+                    f"{list(x.shape)}, N {cfg.ssm_state}; the first vs the "
+                    f"plain version max |d(y, state)| {raw:.3e} (beyond "
+                    f"rtol: {err:.3e})")
+        else:
+            W = cfg.lru_width // ways
+            heads = cfg.n_heads // ways
+            rec = n_recurrent(cfg)
+            check_rank_launches(where, r, want_launches(
+                flash=depth - rec, rglru=rec),
+                {("wgmma", cfg.head_dim_, cfg.head_dim_, True): depth - rec})
+            f = firsts["rglru"]
+            if tuple(f["out"].shape) != (TP_B, TP_S, W):
+                fail(f"{where}: RG-LRU y {tuple(f['out'].shape)}, want the "
+                     f"rank's {W} channels")
+            raw = (f["out"] - rglru_layer_ref(*f["args"])).abs().max().item()
+            check(f"{where} first rglru_layer_fwd call vs plain", raw,
+                  SCAN_ATOL)
+            pre_r, pre_i, xs, lam, _ = layer_inputs(TP_B, TP_S, W, dev,
+                                                    seed=16)
+            n = pre_r.numel()
+            timing = time_kernel(
+                lambda: rk.rglru_layer_fwd_cuda(pre_r, pre_i, xs, lam),
+                lambda: rglru_layer_ref(pre_r, pre_i, xs, lam),
+                bound(4 * (4 * n + W), LAYER_FWD_OPS * n), plain_reps=1)
+            report_timing(f"{where} rglru_layer_fwd", (TP_B, TP_S, W),
+                          timing)
+            want_q = (TP_B, TP_S, 1, heads, cfg.head_dim_)
+            ferr, frel = hold_first_flash(where, firsts["flash"], want_q)
+            flash = model_flash_timing(
+                f"{arch} (13g) rank heads", heads, cfg.n_kv, TP_S, TP_S,
+                cfg.head_dim_, cfg.head_dim_, True, 17)
+            out[arch] = dict(r, kernel="rglru_layer_fwd",
+                             shape=[TP_B, TP_S, W], max_abs_err=raw,
+                             timing=timing, flash_shape=list(want_q),
+                             flash_launches=depth - rec,
+                             flash_max_abs_err=ferr, flash_rel_rms=frel,
+                             flash_timing=flash)
+            what = (f"{rec} rglru_layer_fwd a prefill at [{TP_B}, {TP_S}, "
+                    f"{W}] (the first vs the plain version max |d| "
+                    f"{raw:.3e}) and {depth - rec} flash_fwd_sm90<256, 256> "
+                    f"at q {list(want_q)} (max |d| {ferr:.3e}, RMS(d) / "
+                    f"RMS(plain) {frel:.3e})")
+        report_rank("(g)", cfg, out[arch], what)
     return out
 
 
@@ -4144,14 +4390,18 @@ def phase_distribution(dev, workdir: str) -> dict:
           + ", ".join(f"{a} depth {d or 'full'}"
                       for a, d in SERVE_SHARDED.items())
           + f", bf16), (e) {TP_ARCH} whole as one rank of {TP_MESH} "
-          f"tensor-parallel, (c) the dry run of {DIST_ARCH} train_4k",
-          flush=True)
+          f"tensor-parallel, (f) {TP_MLA_ARCH} whole as one rank of "
+          f"{TP_MLA_MESH}, (g) "
+          + ", ".join(f"{a} depth {d}" for a, d in TP_MIXERS.items())
+          + f" at full width as one rank of {TP_MIXER_MESH}, (c) the dry "
+          f"run of {DIST_ARCH} train_4k", flush=True)
     serve = serve_qwen2_72b()
     with one_rank_mesh(workdir) as mesh:
         sharded = sharded_world1(dev, workdir, mesh)
         served = serve_sharded_world1(dev, mesh)
     return dict(serve=serve, sharded=sharded, served=served,
-                tp=tp_qwen2_72b(dev), dryrun=dryrun_train_4k(workdir))
+                tp=tp_qwen2_72b(dev), mla=tp_deepseek_v2(dev),
+                mixers=tp_mixers(dev), dryrun=dryrun_train_4k(workdir))
 
 
 def main() -> None:
@@ -4315,6 +4565,11 @@ def main() -> None:
             row["train_step"] = fc["step"]
             row["launches_phase8"] = serve["recurrentgemma_2b"][
                 "launches"]["rglru_layer_fwd"]
+            r13 = dist13["mixers"]["recurrentgemma_2b"]
+            row["launches_phase13g"] = r13["launches"]["rglru"]["layer_fwd"]
+            row["max_abs_err"] = max(row["max_abs_err"], r13["max_abs_err"])
+            row["rank_channels"] = dict(shape=r13["shape"], **{
+                k: v for k, v in r13["timing"].items() if k in keep})
         kernels.append(row)
     f128, f64 = lmk["flash"][128], lmk["flash"][64]
     flash = "src/repro/kernels/flash_attention/flash_attention.py:104"
@@ -4339,10 +4594,10 @@ def main() -> None:
         "flash_wgmma"]
     tp13 = dist13["tp"]
     by_model[f"{TP_ARCH} (13e, rank heads)"] = tp13["flash_launches"]
-    tp_flash = {f: tp13["flash_timing"][f] for f in (
-        "ms", "device_ms", "plain_ms", "library", "library_ms",
-        "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
-        "rel_rms")}
+    tp_keys = ("ms", "device_ms", "plain_ms", "library", "library_ms",
+               "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
+               "rel_rms")
+    tp_flash = {f: tp13["flash_timing"][f] for f in tp_keys}
     kernels.append(dict(
         name="flash_attention_sm90", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -4381,12 +4636,15 @@ def main() -> None:
                   "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
                   "scalar_err")
     by_model = wgmma_by_model(((256, 256),))
+    rg13 = dist13["mixers"]["recurrentgemma_2b"]
+    by_model["recurrentgemma_2b (13g, rank heads)"] = rg13["flash_launches"]
     kernels.append(dict(
         name="flash_attention_sm90_d256", route="cuda",
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces=flash, launches=sum(by_model.values()),
         launches_by_model=by_model,
-        max_abs_err=max(t["max_abs_err"] for t in gemma.values()),
+        max_abs_err=max([t["max_abs_err"] for t in gemma.values()]
+                        + [rg13["flash_max_abs_err"]]),
         ms=local["ms"], plain_ms=local["plain_ms"],
         bound_ms=local["bound_ms"], device_ms=local["device_ms"],
         bound_by=local["bound_by"], library_ms=local["library_ms"],
@@ -4396,9 +4654,14 @@ def main() -> None:
         main_path="gemma3_4b and recurrentgemma_2b Server.generate, bf16 "
                   "(phase 8): one call an attention layer's prefill",
         gemma_shapes={name: {f: t[f] for f in flash_keep}
-                      for name, t in gemma.items()}))
+                      for name, t in gemma.items()},
+        recurrentgemma_rank_heads=dict(
+            shape=rg13["flash_shape"], launches=rg13["flash_launches"],
+            **{f: rg13["flash_timing"][f] for f in tp_keys})))
     mla_dims = ((96, 64), (192, 128))
     by_model = wgmma_by_model(mla_dims)
+    mla13 = dist13["mla"]
+    by_model[f"{TP_MLA_ARCH} (13f, rank heads)"] = mla13["flash_launches"]
     mla = model_shapes(mla_dims)
     mini = lmk["model_flash"]["minicpm3_4b mla"]
     kernels.append(dict(
@@ -4406,7 +4669,8 @@ def main() -> None:
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces=flash, launches=sum(by_model.values()),
         launches_by_model=by_model,
-        max_abs_err=max(t["max_abs_err"] for t in mla.values()),
+        max_abs_err=max([t["max_abs_err"] for t in mla.values()]
+                        + [mla13["flash_max_abs_err"]]),
         ms=mini["ms"], plain_ms=mini["plain_ms"], bound_ms=mini["bound_ms"],
         device_ms=mini["device_ms"], bound_by=mini["bound_by"],
         library_ms=mini["library_ms"], library=mini["library"],
@@ -4415,7 +4679,12 @@ def main() -> None:
         mutants={name: lmk["model_flash"][name]["mutants"] for name in mla},
         main_path="minicpm3_4b (96, 64) and deepseek_v2_236b (192, 128) "
                   "Server.generate, bf16 (phase 8): one call an MLA layer's "
-                  "prefill, unpadded, reading the model layout in place",
+                  "prefill, unpadded, reading the model layout in place; "
+                  "deepseek_v2_236b whole on one tensor-parallel rank's 16 "
+                  "heads (phase 13(f))",
+        deepseek_v2_rank_heads=dict(
+            shape=mla13["flash_shape"], launches=mla13["flash_launches"],
+            **{f: mla13["flash_timing"][f] for f in tp_keys}),
         model_shapes=mla))
     kernels.append(dict(
         name="flash_attention", route="cuda",
@@ -4439,11 +4708,14 @@ def main() -> None:
             for name, t in gemma.items()}))
     t, t1 = lmk["ssd"][4], lmk["ssd"][1]
     ssd = "src/repro/kernels/ssd_scan/ssd_scan.py:93"
+    m13 = dist13["mixers"]["mamba2_2_7b"]
     kernels.append(dict(
         name="ssd_scan_sm90", route="cuda",
         source="src/repro_torch/csrc/ssd_scan_sm90.cu", replaces=ssd,
         launches=serve["mamba2_2_7b"]["launches"]["ssd_wgmma"],
-        max_abs_err=lmk["worst"]["ssd_sm90"], ms=t["ms"],
+        launches_phase13g=m13["launches"]["ssd"]["wgmma"],
+        max_abs_err=max(lmk["worst"]["ssd_sm90"], m13["max_abs_err"]),
+        ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
         bound_by=t["bound_by"], library_ms=t["library_ms"],
@@ -4454,7 +4726,11 @@ def main() -> None:
         main_path="mamba2_2_7b Server.generate, bf16 (phase 8)",
         b1=dict(shape=[1, 2048, 80, 64], **{
             key: t1[key] for key in ("ms", "device_ms", "launch_device_us",
-                                     "scalar_ms", "plain_ms", "bound_ms")})))
+                                     "scalar_ms", "plain_ms", "bound_ms")}),
+        rank_heads=dict(shape=m13["shape"], **{
+            key: m13["timing"][key] for key in (
+                "ms", "device_ms", "launch_device_us", "plain_ms",
+                "bound_ms", "bound_by")})))
     kernels.append(dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/csrc/ssd_scan.cu", replaces=ssd,

@@ -13,6 +13,19 @@ into the output), in plain PyTorch, as the reference leaves it to XLA;
 over a cache split by sequence it combines the segments across ranks as
 ``attention.decode_attention`` does.
 
+In a sharded step whose rules split the heads over ``model`` the
+sub-layer is tensor-parallel (``sharding.local_params``): every rank
+computes the latents (c_kv, k_rope) and the query latent whole from the
+replicated ``wq_a`` / ``wkv_a`` (their gradients summed over ``model``),
+expands q, k_nope and v for its own heads only through its blocks of
+``wq_b`` (or ``wq``), ``wkv_b_k`` and ``wkv_b_v``, attends them — through
+the flash kernel in prefill — and applies its rows of ``wo``; the sum
+over ``model`` follows. The latent cache has no ``model`` axis: every
+rank writes it whole and reads it whole. Where the cache is split by
+sequence over ``model`` too (``seqshard``), q is gathered over ``model``,
+every head attends the rank's segment, the segments are combined and
+the rank keeps its heads, as ``models/attention.py`` does.
+
 RoPE runs at the default base 1e4 in both places, as the reference calls
 it without the config's ``rope_theta``. The softmax scale is the
 reference's ``1 / np.sqrt(d_nope + d_rope)``, a numpy float64, which
@@ -86,6 +99,10 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
     (cache=(c_kv [B, Smax, kv_lora], k_rope [B, Smax, d_rope])): x
     [B, 1, d]; writes this token's latents at ``decode_pos`` in place and
     attends [0, decode_pos]."""
+    p, tp = sharding.local_params(p)
+    if tp is not None:
+        x = tp.copy(x)
+    heads = p["wkv_b_k"].shape[1]                      # the rank's
     B, Sq, _ = x.shape
     scale = 1.0 / np.sqrt(d_nope + d_rope)            # a numpy float64
     q_nope, q_rope = _queries(x, p, d_nope, positions)
@@ -95,7 +112,7 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
         k_nope = _project(c_new, p["wkv_b_k"])
         v = _project(c_new, p["wkv_b_v"])
         k = torch.cat([k_nope, r_new[:, :, None, :].expand(
-            B, Sq, n_heads, d_rope)], dim=-1)
+            B, Sq, heads, d_rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = attention.prefill_attention(
             q[:, :, :, None, :], k, v, kind="causal", block_kv=block_kv,
@@ -109,6 +126,11 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
         dt = x.dtype
         q_lat = torch.einsum("bshk,lhk->bshl", q_nope,
                              p["wkv_b_k"].to(dt))          # [B,1,H,kv_lora]
+        every = (tp is not None and seg is not None
+                 and sharding.MODEL in seg.axes)
+        if every:
+            # the segments over model hold other heads: attend them all
+            q_lat, q_rope = tp.gather(q_lat, 2), tp.gather(q_rope, 2)
         s = (torch.einsum("bshl,btl->bhst", q_lat, cc.to(dt))
              + torch.einsum("bshk,btk->bhst", q_rope, cr.to(dt)))
         s = attention._scaled_f32(s, scale)
@@ -125,7 +147,10 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
                 s, valid, lambda w: torch.einsum(
                     "bhst,btl->bhsl", w, cc.to(torch.float32)),
                 seg).permute(0, 2, 1, 3).to(dt)
+        if every:
+            o_lat = o_lat[:, :, tp.block(n_heads)]
         out = torch.einsum("bshl,lhv->bshv", o_lat, p["wkv_b_v"].to(dt))
         new_cache = (cc, cr)
 
-    return attention.project_out(out, p), new_cache
+    out = attention.project_out(out, p)
+    return (out if tp is None else tp.reduce(out)), new_cache

@@ -7,15 +7,41 @@ Top-k softmax router + sort-based capacity dispatch, per batch row:
      per token, the gates renormalised over the k;
   2. the S·k assignments are sorted by expert id (stably); each
      assignment's rank within its expert's segment is its capacity slot;
-  3. tokens scatter into an [E, C, d] buffer; an assignment whose slot is
+  3. tokens gather into an [E, C, d] buffer; an assignment whose slot is
      ≥ C is dropped;
   4. batched per-expert SwiGLU GEMMs [E, B·C, d] × [E, d, f];
   5. results gather back and combine with the gate weights.
 
 ``n_shared`` always-on experts (DeepSeek-V2) are one SwiGLU MLP added on
 top. The reference leaves all of this to XLA, so it is plain PyTorch here
-too: the router, the sort and scatter, and the expert GEMMs
+too: the router, the sort and gathers, and the expert GEMMs
 (``torch.bmm``).
+
+In a sharded step whose rules split the MoE over ``model``
+(``sharding.local_params``) the tokens are already on every ``model``
+rank (``act_batch`` never takes ``model``), so no all-to-all is needed:
+each rank routes all of its rows with the whole router (gathered whole,
+as a gate is) and computes its part of every token's output, which the
+sum over ``model`` adds up. Where ``model`` divides the experts the part
+is the rank's experts (expert-parallel): it dispatches only the
+assignments to them, into ``[E/m, B, C, d]``, keeping exactly the slots
+the unsharded dispatch keeps (a slot is the assignment's rank within its
+own expert's segment). Otherwise the rules split each expert's ``d_ff``
+over ``model`` and the rank computes every expert on its columns, as the
+dense MLP does. The routing is the same on every rank: the gates'
+gradient is summed over ``model`` (each gate's from the ranks that
+computed its expert) before the float32 router's backward, which every
+rank then runs whole, so the router's gradient and the routing path's
+part of the input's are the unsharded step's on every rank, not float32
+partial sums. The shared expert is the dense tensor-parallel MLP
+(``common.mlp_apply``).
+
+The dispatch and the combine are gathers, with no scatter of rows:
+each buffer slot takes its token's row (a zero row where the slot is
+empty), and each token sums its k results weighted by its gates (a zero
+row where the assignment was dropped or, under expert parallelism, is
+another rank's). The shapes depend on no routing, so nothing waits on
+the card, and the backward is the embedding's sum by index.
 
 Ties: ``jax.lax.top_k`` puts the lower index first among equal values;
 ``torch.topk`` promises no order among ties, so the top k are taken from a
@@ -24,9 +50,11 @@ stable descending sort, which keeps the reference's order.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import common
 from repro_torch.models.common import dense_init
+from repro_torch.runtime import sharding
 
 
 def init(gen, d_model, d_ff, n_experts, *, n_shared=0, shared_d_ff=None,
@@ -63,49 +91,79 @@ def route(x, router, top_k: int):
     return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), ids
 
 
-def apply(x, p, *, top_k, n_experts, capacity_factor=1.25):
-    """x: [B, S, d] → [B, S, d]."""
-    B, S, d = x.shape
-    C = capacity(S, top_k, n_experts, capacity_factor)
-    A = S * top_k                                           # assignments/row
-    gate, ids = route(x, p["router"], top_k)
-
+def dispatch(ids, top_k: int, n_experts: int, C: int, lo: int = 0,
+             hi: int = None):
+    """The capacity dispatch of ``ids`` [B, S, k] to experts ``[lo, hi)``
+    (every expert by default): per row's S·k assignments, sorted stably
+    by expert id, (sort_idx, keep, local expert index, slot) [B, A]; an
+    assignment is kept where its expert is in the range and its slot —
+    its rank within its expert's segment — is below ``C``, so a range's
+    kept assignments are the unsharded dispatch's kept assignments to
+    it, and their (expert, slot) pairs in a row are distinct."""
+    B = ids.shape[0]
+    hi = n_experts if hi is None else hi
+    A = ids.shape[1] * top_k
     flat_ids = ids.reshape(B, A)
     sort_idx = torch.argsort(flat_ids, dim=-1, stable=True)
     sorted_ids = torch.gather(flat_ids, 1, sort_idx)
-    experts = torch.arange(n_experts, device=x.device).expand(B, n_experts)
+    experts = torch.arange(n_experts, device=ids.device).expand(B, n_experts)
     seg_starts = torch.searchsorted(sorted_ids, experts.contiguous())
-    slot = (torch.arange(A, device=x.device)
+    slot = (torch.arange(A, device=ids.device)
             - torch.gather(seg_starts, 1, sorted_ids))
     keep = slot < C
-    token_of = sort_idx // top_k
-    rows = torch.arange(B, device=x.device)[:, None].expand(B, A)
-    e_idx = torch.where(keep, sorted_ids, 0)
-    s_idx = torch.where(keep, slot, 0)
+    if (lo, hi) != (0, n_experts):
+        keep &= (sorted_ids >= lo) & (sorted_ids < hi)
+    return sort_idx, keep, sorted_ids - lo, slot
 
-    tokens = torch.gather(x, 1, token_of[..., None].expand(B, A, d))
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    buf = torch.zeros((n_experts, B, C, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((e_idx, rows, s_idx),
-                   torch.where(keep[..., None], tokens, zero),
-                   accumulate=True)
+
+def apply(x, p, *, top_k, n_experts, capacity_factor=1.25):
+    """x: [B, S, d] → [B, S, d]."""
+    experts, tp = sharding.local_params(
+        {k: v for k, v in p.items() if k != "shared"})
+    x_in = x          # the routing's and the shared expert's input
+    if tp is not None:
+        x = tp.copy(x)
+    B, S, d = x.shape
+    C = capacity(S, top_k, n_experts, capacity_factor)
+    gate, ids = route(x_in, experts["router"], top_k)
+    held = experts["wi"].shape[0]             # the rank's experts, or all
+    lo = 0 if held == n_experts else tp.rank * held
+    sort_idx, keep, e_idx, s_idx = dispatch(ids, top_k, n_experts, C, lo,
+                                            lo + held)
+    A, dev = S * top_k, x.device
+    rows = torch.arange(B, device=dev)[:, None]
+    slots = held * B * C                 # the buffer's rows, then a zero row
+    at = torch.where(keep, (e_idx * B + rows) * C + s_idx, slots)
+    # Each slot's token (rows of x flattened), B·S (a zero row) where the
+    # slot is empty: the kept slots are distinct, and every other
+    # assignment writes a place of its own past them.
+    src = torch.full((slots + 1 + B * A,), B * S, device=dev)
+    spare = slots + 1 + rows * A + torch.arange(A, device=dev)
+    src.scatter_(0, torch.where(keep, at, spare).reshape(-1),
+                 (rows * S + sort_idx // top_k).reshape(-1))
+    xz = torch.cat([x.reshape(B * S, d), x.new_zeros(1, d)])
+    h = F.embedding(src[:slots], xz, padding_idx=B * S)
 
     # [E, B·C, d]: one batched GEMM per product over every row's slots, no
     # copy of the expert weights per row.
-    h = buf.view(n_experts, B * C, d)
-    wi, wg, wo = (p[k].to(x.dtype) for k in ("wi", "wg", "wo"))
-    y = torch.bmm(torch.nn.functional.silu(torch.bmm(h, wi))
-                  * torch.bmm(h, wg), wo).view(n_experts, B, C, d)
+    h = h.view(held, B * C, d)
+    wi, wg, wo = (experts[k].to(x.dtype) for k in ("wi", "wg", "wo"))
+    y = torch.bmm(F.silu(torch.bmm(h, wi)) * torch.bmm(h, wg), wo)
 
-    out_sorted = torch.where(keep[..., None], y[e_idx, rows, s_idx], zero)
-    gate_sorted = torch.gather(gate.reshape(B, A), 1, sort_idx)
-    contrib = out_sorted * gate_sorted[..., None].to(x.dtype)
-    out = torch.zeros_like(x).index_put_((rows, token_of), contrib,
-                                         accumulate=True)
+    # Each token's k results in the router's order (the zero row where
+    # dropped or another rank's), weighted by its gates and summed.
+    back = torch.empty_like(at).scatter_(1, sort_idx, at)
+    yz = torch.cat([y.reshape(slots, d), y.new_zeros(1, d)])
+    gates = gate.to(x.dtype)
+    if tp is not None:
+        gates = tp.copy(gates)
+    out = (F.embedding(back.view(B, S, top_k), yz, padding_idx=slots)
+           * gates[..., None]).sum(2)
+    if tp is not None:
+        out = tp.reduce(out)
     if "shared" in p:
-        out = out + common.mlp_apply(x, p["shared"])
+        out = out + common.mlp_apply(x_in, p["shared"])
     return out
-
 
 
 def aux_load_balance_loss(logits, ids, n_experts, top_k):

@@ -16,6 +16,17 @@ launch), on the CPU its plain version, a sequential loop (the reference
 uses an associative scan; both compute the same recurrence). The learned
 forecaster passes its own ``layer`` in train mode. Decode is plain
 PyTorch, as the reference's is plain jnp.
+
+In a sharded step whose rules split the channels over ``model``
+(``sharding.local_params``) the block is tensor-parallel: ``in_x`` and
+``in_gate`` are column-parallel (the rank's W/m channels), the conv, the
+gate biases, ``lam`` and the decode cache are the rank's channel blocks,
+and ``w_a`` / ``w_x`` are split by input rows, so each rank's float32
+product of its channels is a partial sum over every output channel,
+reduce-scattered over ``model`` to the rank's channels (the backward an
+all-gather) before the recurrence runs on them — through the fused
+kernel on the card. ``out`` is row-parallel, the sum over ``model``
+after it.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from repro_torch.kernels.rglru_scan import ops
 from repro_torch.kernels.rglru_scan.ref import rglru_gates
 from repro_torch.models.common import dense_init, zeros_init
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.runtime import sharding
 
 
 def block_init(gen: torch.Generator, d_model: int, *, lru_width: int,
@@ -73,40 +85,45 @@ def draw_live_block(rng: np.random.Generator, cfg) -> dict:
     return {k: v.astype(np.float32) for k, v in out.items()}
 
 
-def _layer_inputs(x, p):
+def _layer_inputs(x, p, tp=None):
     """(pre_r, pre_i, x, lam) of the recurrence: the two gate matmuls of
     the reference's ``_gates``, in float32 (every gate weight and bias is
-    cast, as the reference casts them)."""
+    cast, as the reference casts them). With ``tp`` ``x`` is the rank's
+    channels and ``w_a`` / ``w_x`` its input rows: each product is
+    reduce-scattered over ``model`` to the rank's channels."""
     f32 = torch.float32
     xf = x.to(f32)
-    return (xf @ p["w_a"].to(f32) + p["b_a"].to(f32),
-            xf @ p["w_x"].to(f32) + p["b_x"].to(f32), xf, p["lam"].to(f32))
+    pre = [xf @ p[w].to(f32) for w in ("w_a", "w_x")]
+    if tp is not None:
+        pre = [tp.scatter_sum(t, -1) for t in pre]
+    return (pre[0] + p["b_a"].to(f32), pre[1] + p["b_x"].to(f32), xf,
+            p["lam"].to(f32))
 
 
-def _gates(x, p):
+def _gates(x, p, tp=None):
     """(a, gated input) of the recurrence, both [B, S, W] float32."""
-    return rglru_gates(*_layer_inputs(x, p))
+    return rglru_gates(*_layer_inputs(x, p, tp))
 
 
-def rglru_scan(x, p, h0=None):
+def rglru_scan(x, p, h0=None, tp=None):
     """x: [B, S, W] -> (y in x's dtype, h_final [B, W] float32). Without
     ``h0`` it is the fused layer (``ops.rglru_layer``: the kernel on a
     CUDA tensor, the plain version on the CPU); with it, the carried state
     is folded in as a virtual step 0 (a = 1, bx = h0), as the reference
     does, and the recurrence over the gates is ``ops.rglru_scan``."""
     if h0 is None:
-        h = ops.rglru_layer(*_layer_inputs(x, p))
+        h = ops.rglru_layer(*_layer_inputs(x, p, tp))
     else:
-        a, bx = _gates(x, p)
+        a, bx = _gates(x, p, tp)
         a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
         bx = torch.cat([h0.to(torch.float32)[:, None], bx], dim=1)
         h = ops.rglru_scan(a, bx)[:, 1:]
     return h.to(x.dtype), h[:, -1]
 
 
-def rglru_step(x, p, h):
+def rglru_step(x, p, h, tp=None):
     """x: [B, 1, W], h: [B, W] -> (y [B, 1, W], h_new in h's dtype)."""
-    a, bx = _gates(x, p)
+    a, bx = _gates(x, p, tp)
     h_new = a[:, 0] * h.to(torch.float32) + bx[:, 0]
     return h_new[:, None].to(x.dtype), h_new.to(h.dtype)
 
@@ -116,7 +133,13 @@ def block_apply(x, p, mode="train", cache=None, layer=None):
     dict(conv [B, 3, W], state [B, W]) in x's dtype) | decode (cache: that
     dict). ``layer(pre_r, pre_i, x, lam)``, when given, is the gate math
     and recurrence of train mode (the learned forecaster passes the plain
-    version or the fused kernel wrapper); otherwise ``rglru_scan``'s."""
+    version or the fused kernel wrapper); otherwise ``rglru_scan``'s.
+    Tensor-parallel with a sharded step's blocks
+    (``sharding.local_params``; the forecaster's ``layer`` path runs
+    without a mesh)."""
+    p, tp = sharding.local_params(p)
+    if tp is not None:
+        x = tp.copy(x)
     gate = F.gelu(x @ p["in_gate"].to(x.dtype), approximate="tanh")
     u = x @ p["in_x"].to(x.dtype)
     conv_state = cache["conv"] if mode == "decode" else None
@@ -124,12 +147,13 @@ def block_apply(x, p, mode="train", cache=None, layer=None):
                                  p["conv_b"].to(x.dtype), conv_state)
     new_cache = None
     if mode == "decode":
-        y, h = rglru_step(u, p, cache["state"])
+        y, h = rglru_step(u, p, cache["state"], tp)
         new_cache = dict(conv=conv_state, state=h)
     elif layer is not None:
-        y = layer(*_layer_inputs(u, p)).to(u.dtype)
+        y = layer(*_layer_inputs(u, p, tp)).to(u.dtype)
     else:
-        y, h = rglru_scan(u, p)
+        y, h = rglru_scan(u, p, tp=tp)
         if mode == "prefill":
             new_cache = dict(conv=conv_state, state=h.to(x.dtype))
-    return (y * gate) @ p["out"].to(x.dtype), new_cache
+    out = (y * gate) @ p["out"].to(x.dtype)
+    return (out if tp is None else tp.reduce(out)), new_cache

@@ -8,6 +8,22 @@ chunk. On a CUDA tensor the prefill's scan is the hand-written kernel
 is the plain chunked twin ``ssd_chunked`` below, so the CPU tests compare
 like with like. Decode is the O(1) recurrent update.
 
+In a sharded step whose rules split the mixer over ``model`` and where
+``model`` divides the heads, the mixer is tensor-parallel
+(``sharding.local_params``): each rank computes its H/m heads. The
+packed leaves (``in_proj`` = [z | x B C | dt], the conv's [x | B | C])
+have ``model`` blocks that do not follow heads, so the rank takes them
+whole (``TensorParallel.whole``: the gradient summed over ``model``) and
+cuts its columns before the product (``local_columns``): its z, x and dt
+and every group's B and C. The SSD runs at the rank's heads
+(``local_groups`` picks the B/C groups they read); the gated RMSNorm's
+mean over d_inner sums each rank's squares over ``model`` (an
+all-reduce, and an all-reduce back); ``out_proj`` is row-parallel, the
+sum over ``model`` after it. The decode state holds the rank's heads in
+place; the conv tail, packed like the conv, is rebuilt whole (the x
+columns gathered over ``model``) for the rank's block to be written
+back.
+
 Shapes: x [B, S, H, P] (H heads × P head_dim = d_inner), B/C [B, S, G, N]
 (G groups broadcast over heads), dt [B, S, H], A [H] (negative).
 """
@@ -19,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, ones_init, zeros_init
 from repro_torch.numerics import softplus
+from repro_torch.runtime import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +189,41 @@ def _scan(xs, dt, A, Bm, Cm, chunk):
     return ssd_chunked(xs, dt, A, Bm, Cm, chunk=chunk)
 
 
+def local_columns(d_inner: int, gn: int, n_heads: int, rank: int,
+                  ways: int) -> tuple:
+    """(the ``in_proj`` column ranges, the conv column ranges) of rank
+    ``rank``'s heads of ``n_heads`` split ``ways`` ways, with ``gn`` =
+    groups × state: its z, x, every group's B and C, its dt of [z | x B C
+    | dt]; its x and every B and C of the conv's [x | B | C]. Concatenated
+    in order they give [z | x B C | dt] and [x | B | C] at its heads."""
+    dl, hl = d_inner // ways, n_heads // ways
+    own = slice(rank * dl, (rank + 1) * dl)        # the heads' channels
+    bc = slice(d_inner, d_inner + 2 * gn)
+    dt0 = 2 * d_inner + 2 * gn
+    return ((own, slice(d_inner + own.start, d_inner + own.stop),
+             slice(d_inner + bc.start, d_inner + bc.stop),
+             slice(dt0 + rank * hl, dt0 + (rank + 1) * hl)),
+            (own, bc))
+
+
+def local_groups(t, n_heads: int, lo: int, hl: int):
+    """The B or C groups [B, S, G, N] that heads ``[lo, lo + hl)`` read,
+    as [B, S, G', N] with hl a multiple of G' (local head j reads group
+    j // (hl / G'), as the SSD broadcasts them): a range of whole groups,
+    the one group a range of heads lies in, or one group a head."""
+    per = n_heads // t.shape[2]
+    if hl % per == 0:
+        return t[:, :, lo // per:(lo + hl) // per]
+    if per % hl == 0:
+        return t[:, :, lo // per:lo // per + 1]
+    return t.repeat_interleave(per, dim=2)[:, :, lo:lo + hl]
+
+
+def _cut(t, ranges, dim: int = -1):
+    return torch.cat([t.narrow(dim, r.start, r.stop - r.start)
+                      for r in ranges], dim=dim)
+
+
 def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
     """cfg: object with d_inner, ssm_head_dim, ssm_groups, ssm_state.
     mode: train (no cache out) | prefill (returns final state as cache) |
@@ -181,19 +233,39 @@ def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
     H = d_inner // Pd
     Bsz, S, _ = x.shape
 
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z, xbc, dt_raw = torch.split(
-        zxbcdt, [d_inner, d_inner + 2 * G * N, H], dim=-1)
+    p, tp = sharding.local_params(p, divides=(H,))
+    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    hl, dl, heads = H, d_inner, slice(None)
     conv_state = None if mode != "decode" else cache["conv"]
-    xbc, conv_state = _causal_conv(xbc, p["conv_w"].to(x.dtype),
-                                   p["conv_b"].to(x.dtype), conv_state)
-    xs, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
-    xs = xs.reshape(Bsz, S, H, Pd)
+    if tp is not None:
+        x = tp.copy(x)
+        hl, dl, heads = H // tp.size, d_inner // tp.size, tp.block(H)
+        cols, conv_cols = local_columns(d_inner, G * N, H, tp.rank, tp.size)
+        w_in = _cut(tp.whole(w_in, 1, 2 * d_inner + 2 * G * N + H), cols)
+        conv_dim = d_inner + 2 * G * N
+        conv_w = _cut(tp.whole(conv_w, 1, conv_dim), conv_cols)
+        conv_b = _cut(tp.whole(conv_b, 0, conv_dim), conv_cols)
+        if conv_state is not None:
+            conv_state = _cut(conv_state, conv_cols)
+
+    zxbcdt = x @ w_in.to(x.dtype)
+    z, xbc, dt_raw = torch.split(zxbcdt, [dl, dl + 2 * G * N, hl], dim=-1)
+    xbc, conv_state = _causal_conv(xbc, conv_w.to(x.dtype),
+                                   conv_b.to(x.dtype), conv_state)
+    xs, Bm, Cm = torch.split(xbc, [dl, G * N, G * N], dim=-1)
+    xs = xs.reshape(Bsz, S, hl, Pd)
     Bm = Bm.reshape(Bsz, S, G, N)
     Cm = Cm.reshape(Bsz, S, G, N)
+    if tp is not None:
+        Bm = local_groups(Bm, H, heads.start, hl)
+        Cm = local_groups(Cm, H, heads.start, hl)
+        if mode != "train":
+            # the packed tail whole: every rank's x columns, then B and C
+            conv_state = torch.cat([tp.gather(conv_state[..., :dl], -1),
+                                    conv_state[..., dl:]], dim=-1)
     dt = softplus(dt_raw.to(torch.float32)
-                  + p["dt_bias"].to(torch.float32))
-    A = -torch.exp(p["A_log"].to(torch.float32))
+                  + p["dt_bias"][heads].to(torch.float32))
+    A = -torch.exp(p["A_log"][heads].to(torch.float32))
 
     if mode == "decode":
         y, ssm_state = ssd_step(xs, dt, A, Bm, Cm, cache["state"])
@@ -203,11 +275,17 @@ def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
         new_cache = (dict(conv=conv_state, state=final)
                      if mode == "prefill" else None)
 
-    y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(Bsz, S, d_inner)
-    # Gated RMSNorm (Mamba-2 norm-before-out_proj).
+    y = y + xs * p["D"][heads].to(x.dtype)[None, None, :, None]
+    y = y.reshape(Bsz, S, dl)
+    # Gated RMSNorm (Mamba-2 norm-before-out_proj), its mean over every
+    # channel of d_inner.
     y = y * F.silu(z)
-    var = torch.mean(torch.square(y.to(torch.float32)), -1, keepdim=True)
+    sq = torch.square(y.to(torch.float32))
+    if tp is None:
+        var = torch.mean(sq, -1, keepdim=True)
+    else:
+        var = tp.sum(sq.sum(-1, keepdim=True)) / d_inner
     y = (y.to(torch.float32) * torch.rsqrt(var + 1e-6)
          * (1.0 + p["norm_scale"].to(torch.float32))).to(x.dtype)
-    return y @ p["out_proj"].to(x.dtype), new_cache
+    out = y @ p["out_proj"].to(x.dtype)
+    return (out if tp is None else tp.reduce(out)), new_cache

@@ -38,14 +38,15 @@ parameters come as ``runtime.sharding.ShardedLeaf`` blocks, and each layer
 takes its own inside its checkpointed body (``_remat``), so no gathered
 copy is kept for the backward. The sub-layers that compute
 tensor-parallel over ``model`` (``tensor_parallel_mask``: the embedding
-and logits head, dense attention, dense MLPs) take their leaves as the
-rank's ``model`` block (``sharding.local_params``); the others (norms and
-gates, MLA, MoE's routed experts, the Mamba-2 and RG-LRU mixers) are
+and logits head, dense attention, dense MLPs, MLA, MoE, the Mamba-2 and
+RG-LRU mixers) take their leaves as the rank's ``model`` block
+(``sharding.local_params``); the norms, the gates and MoE's router are
 gathered whole. In
 decode the caches come as ``runtime.sharding.CacheBlock`` blocks through
-the same hook: an attention cache's heads are read and written in place,
-other layers gather the ``model`` splits of their cache and write back
-the rank's block of what they leave. ``constrain`` pins the activations
+the same hook: an attention cache's heads, a Mamba-2 state's heads and
+an RG-LRU cache's channels are read and written in place; Mamba-2's
+packed conv tail is gathered over ``model`` and the rank's block of
+what the layer leaves written back. ``constrain`` pins the activations
 at the embedding and the logits to their logical axes, as the reference
 does.
 """
@@ -124,22 +125,32 @@ def constrain(x, axes, vocab=None):
     return sharding.check_rows(x, axes, layout, shape)
 
 
+# A sub-layer's parameter dict by a key only it holds: MLA (``wkv_a``),
+# MoE (``router``), the Mamba-2 mixer (``in_proj``) and the RG-LRU block
+# (``w_a``).
+_TP_KEYS = ("wkv_a", "router", "in_proj", "w_a")
+# Leaves of those that every rank uses whole, for the same whole gradient:
+# MoE's router (every rank routes all of its tokens).
+_WHOLE_KEYS = ("router",)
+
+
 def tensor_parallel_mask(tree):
     """``tree`` (a parameter tree, any leaves) with True at the leaves of
     the sub-layers that compute tensor-parallel over ``model`` in the
     sharded steps, each of which takes them through
     ``sharding.local_params``: the token embedding and logits head
     (``embed``), every dense attention (self, cross and the encoder's: a
-    dict holding ``wq``, ``wk``, ``wv`` and ``wo``; not MLA's) and every
-    dense MLP (a dict of ``wi``, ``wg`` and ``wo``; an MoE's shared expert
-    too); False elsewhere: norms, gates, MLA, MoE's router and routed
-    experts and the Mamba-2 and RG-LRU mixers, which gather their leaves
-    whole (ROADMAP queue 1, [3b]'s remainder)."""
+    dict holding ``wq``, ``wk``, ``wv`` and ``wo``), every dense MLP (a
+    dict of ``wi``, ``wg`` and ``wo``), MLA (its norms too), MoE (routed
+    and shared experts), the Mamba-2 mixer and the RG-LRU block; False at
+    the layers' norms, the cross layers' gates and MoE's router, which
+    are gathered whole."""
     def walk(t, on):
         if isinstance(t, dict):
             on = on or {"wq", "wk", "wv", "wo"} <= t.keys() or \
-                set(t) == {"wi", "wg", "wo"}
-            return {k: walk(v, on) for k, v in t.items()}
+                set(t) == {"wi", "wg", "wo"} or any(k in t for k in _TP_KEYS)
+            return {k: walk(v, on and k not in _WHOLE_KEYS)
+                    for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return type(t)(walk(v, on) for v in t)
         return on

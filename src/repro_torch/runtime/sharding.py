@@ -43,20 +43,31 @@ The rest is PyTorch's idiom:
     (its heads, MLP columns or vocabulary rows); ``copy`` (identity, its
     backward an all-reduce over ``model``) stands before a column-parallel
     product and ``reduce`` (an all-reduce, its backward the identity)
-    after a row-parallel one. The other sub-layers (MLA, MoE's experts,
-    the Mamba-2 and RG-LRU mixers: ROADMAP queue 1, [3b]'s remainder)
-    gather their leaves whole and compute the same rows on every
-    ``model`` rank.
+    after a row-parallel one. Every sub-layer with parameters split over
+    ``model`` takes them so: the token embedding and logits head, dense
+    attention, dense MLPs, MLA (by heads), MoE (by experts, or by each
+    expert's columns where ``model`` does not divide the experts), the
+    Mamba-2 mixer (by heads) and the RG-LRU block (by channels); only
+    norms, gates and MoE's router, for which every rank computes the
+    same whole gradient, are gathered whole (``materialize``). A leaf of
+    a tensor-parallel sub-layer that the rank needs whole though its
+    rules split it, and uses for its own part (Mamba-2's packed
+    ``in_proj`` and conv), comes through ``TensorParallel.whole``, whose
+    backward sums the gradient over ``model`` and keeps the rank's
+    block; ``TensorParallel.sum`` (an all-reduce both ways) and
+    ``scatter_sum`` (a reduce-scatter, its backward an all-gather) serve
+    the gated norm's statistics and the RG-LRU gates' partial products.
   * ``CacheBlock`` / ``write_back`` / ``place_cache`` and ``Segment`` —
-    the sharded serving steps' caches. An attention cache split over
-    ``model`` by ``kv_heads`` is the rank's heads, read and written in
-    place by its tensor-parallel attention. Another leaf split over
-    ``model`` (by ``heads``, ``mlp`` or ``conv_channels``) is gathered
-    before its layer uses it, and the layer writes back only the rank's
-    own block. A leaf split by ``cache_seq`` is never gathered: each rank
-    keeps its segment of positions, only the owner of the decoded
-    position writes it, and decode attention combines the segments
-    (``models/attention.py``).
+    the sharded serving steps' caches. A cache leaf split over ``model``
+    by ``kv_heads`` (attention), ``heads`` (the Mamba-2 state) or ``mlp``
+    (the RG-LRU's conv tail and state) is the rank's block, read and
+    written in place by its tensor-parallel layer. Another leaf split
+    over ``model`` (Mamba-2's packed conv tail, by ``conv_channels``) is
+    gathered before its layer uses it, and the layer writes back only
+    the rank's own block. A leaf split by ``cache_seq`` is never
+    gathered: each rank keeps its segment of positions, only the owner of
+    the decoded position writes it, and decode attention combines the
+    segments (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -573,22 +584,92 @@ class _Reduce(torch.autograd.Function):
         return grad, None
 
 
+def _model_gather(x, dim: int, tp) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``model`` concatenated along
+    ``dim`` in rank order (an all-gather)."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x, group=tp.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _model_scatter_sum(x, dim: int, tp) -> torch.Tensor:
+    """The sum of ``x`` over ``model``, this rank's block of it along
+    ``dim`` (a reduce-scatter)."""
+    import torch.distributed as dist
+    n = x.shape[dim] // tp.size
+    parts = [t.contiguous() for t in torch.split(x, n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=tp.group)
+    return out
+
+
 class _Gather(torch.autograd.Function):
     """All-gather over ``model`` along ``dim`` forward; backward the
-    rank's block of the gradient."""
+    rank's block of the gradient (every rank went on with the same whole,
+    so each holds the whole gradient)."""
 
     @staticmethod
     def forward(ctx, x, dim, tp):
-        import torch.distributed as dist
         ctx.dim, ctx.tp, ctx.n = dim, tp, x.shape[dim]
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(tp.size)]
-        dist.all_gather(parts, x, group=tp.group)
-        return torch.cat(parts, dim=dim)
+        return _model_gather(x, dim, tp)
 
     @staticmethod
     def backward(ctx, grad):
         return grad.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n), None, None
+
+
+class _Whole(torch.autograd.Function):
+    """All-gather over ``model`` along ``dim`` forward; backward the
+    gradient summed over ``model``, the rank's block of it (a
+    reduce-scatter): a parameter every rank uses whole, each for its own
+    part of the output, gets a part of its gradient from every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _model_gather(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_scatter_sum(grad, ctx.dim, ctx.tp), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter over ``model`` along ``dim`` forward (each rank's
+    partial sums, every rank keeps its block of the total); backward the
+    all-gather of the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _model_scatter_sum(x, dim, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_gather(grad, ctx.dim, ctx.tp), None, None
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce (sum) over the group forward and backward: a statistic
+    every rank needs whole (a norm's sum of squares over channels split
+    over ``model``), each rank's downstream its own channels."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -623,6 +704,29 @@ class TensorParallel:
         rank goes on with the whole)."""
         return _Gather.apply(x, dim, self)
 
+    def whole(self, x, dim: int, size: int):
+        """A parameter of ``size`` along ``dim`` whole, from the rank's
+        block of it (as it is where the rules replicate it, and
+        ``_GatherParam`` sums its gradient over ``model``); the backward
+        sums the gradient over ``model`` and keeps the rank's block."""
+        if x.shape[dim] == size:
+            return x
+        return _Whole.apply(x, dim, self)
+
+    def scatter_sum(self, x, dim: int):
+        """The sum over ``model`` of each rank's partial ``x``, this
+        rank's block of it along ``dim``; the backward all-gathers."""
+        return _ScatterSum.apply(x, dim, self)
+
+    def sum(self, x):
+        """The sum over ``model``, all-reduced in the backward too."""
+        return _Sum.apply(x, self.group)
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` entries split over ``model``."""
+        size = n // self.size
+        return slice(self.rank * size, (self.rank + 1) * size)
+
 
 def model_split(tree) -> Optional[TensorParallel]:
     """The ``model`` axis's ``TensorParallel`` where a tensor-parallel
@@ -646,26 +750,37 @@ def _leaves_of(tree):
     return [tree]
 
 
-def local_params(tree):
+def local_params(tree, divides: Sequence[int] = ()):
     """(a tensor-parallel sub-layer's parameters as this rank computes
     them, the ``model`` axis's ``TensorParallel`` or None). Each
     ``ShardedLeaf`` is gathered over the mesh axes other than ``model``
     and keeps the rank's ``model`` block (a leaf the rules replicate over
     ``model`` comes whole; its user takes its part, and its gradient is
-    summed over ``model``: ``_GatherParam``). Where no leaf is split over
-    ``model`` every leaf is gathered whole, as ``materialize`` does, and
-    the handle is None; so is it for plain tensors (the unsharded
-    steps)."""
+    summed over ``model``: ``_GatherParam``). Where no leaf is split over ``model``, or ``model`` does
+    not divide one of ``divides`` (the counts the sub-layer splits its
+    work by: the Mamba-2 mixer's heads), every leaf is gathered whole, as
+    ``materialize`` does, and the handle is None; so is it for plain
+    tensors (the unsharded steps)."""
     layout = _LAYOUT
     if layout is None:
         return tree, None
     tp = model_split(tree)
+    if tp is not None and any(n % tp.size for n in divides):
+        tp = None
 
     def leaf(x):
         if isinstance(x, ShardedLeaf):
             return _param(x, layout, tp is not None)
         return x
     return _tree_map(leaf, tree), tp
+
+
+# A cache leaf's dimensions that its layer reads and writes as the rank's
+# block, never gathered: a ``cache_seq`` segment, and the splits over
+# ``model`` of the layers that compute tensor-parallel whenever their
+# cache is so split (attention's kv heads, the Mamba-2 state's heads, the
+# RG-LRU's channels).
+IN_PLACE = ("cache_seq", "kv_heads", "heads", "mlp")
 
 
 class CacheBlock:
@@ -683,12 +798,13 @@ class CacheBlock:
 
     def gathered(self) -> list:
         """Per mesh dimension, the placement ``materialize`` gathers: the
-        splits of dimensions past the rows other than ``cache_seq`` and
-        ``kv_heads`` (an attention cache's heads are split over ``model``
-        only where the q heads are, and its tensor-parallel attention
-        reads and writes the rank's heads in place)."""
+        splits of dimensions past the rows other than ``IN_PLACE``'s (an
+        attention cache's heads are split over ``model`` only where the q
+        heads are, a Mamba-2 state's heads and an RG-LRU cache's channels
+        only where the layer computes tensor-parallel, and each such
+        layer reads and writes the rank's block in place)."""
         return [p if p.is_shard() and p.dim > 0
-                and self.axes[p.dim] not in ("cache_seq", "kv_heads")
+                and self.axes[p.dim] not in IN_PLACE
                 else None for p in self.placements]
 
 

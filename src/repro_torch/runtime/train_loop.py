@@ -21,14 +21,15 @@ segments across ranks (``models/attention.py``).
 
 Ranks along ``model`` compute tensor-parallel where the rules split a
 sub-layer over it: the embedding, the logits and the loss over the rank's
-vocabulary rows, attention over its heads (the decode cache's heads read
-and written in place), the dense MLPs over its columns, each gathered
-over the other axes only (``sharding.local_params``). MLA, MoE's experts
-and the Mamba-2 and RG-LRU mixers gather their parameters (and, in decode, the
-``model`` splits of their caches) whole and compute the same rows on
-every ``model`` rank (ROADMAP queue 1, [3b]'s remainder). The steps'
-logits come back gathered over ``model``. A layout that would split an
-activation's sequence or embedding raises
+vocabulary rows, attention and MLA over its heads (an attention decode
+cache's heads read and written in place; MLA's latent cache whole on
+every rank), the dense MLPs over its columns, MoE over its experts (or
+each expert's columns), the Mamba-2 mixer over its heads and the RG-LRU
+block over its channels (their decode state in place), each gathered
+over the other axes only (``sharding.local_params``). Only norms, gates
+and MoE's router are gathered whole. The steps' logits come back
+gathered over ``model``. A layout that would split an activation's
+sequence or embedding raises
 (``sharding.refuse_sequence_sharding``).
 """
 from __future__ import annotations

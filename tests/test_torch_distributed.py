@@ -36,8 +36,9 @@ in a JAX subprocess with four host devices.
   layers, recurrentgemma's local attention), and batch-2 decodes split by
   sequence over ``model`` (``seqshard``: minicpm3's MLA latents, gemma3's
   tensor-parallel attention), against the unsharded decode; the
-  parameter gathers over ``model`` of a prefill on (1, 4) (none for a
-  tensor-parallel sub-layer) and its sums over ``model``; the activation
+  parameter gathers over ``model`` of a prefill on (1, 4) (none but the
+  leaves a rank needs whole: MoE's router, gathered as a gate is, and
+  Mamba-2's packed ``in_proj`` and conv) and its sums over ``model``; the activation
   layouts that must raise (``act2d``, ``seqpar``).
 """
 import datetime
@@ -374,11 +375,27 @@ TP_SERVE = {"qwen2_72b/1x4": ("qwen2_72b", TP_MESH, {}),
                                           {}),
             "llama_3_2_vision_11b/2x2": ("llama_3_2_vision_11b", (2, 2),
                                          {})}
-# The parameter gathers of a prefill on (1, 4): qwen2-72B's sub-layers are
-# all tensor-parallel; DBRX's experts, minicpm3's MLA, mamba2's mixers and
-# recurrentgemma's RG-LRU blocks are still gathered whole over model.
+# The parameter gathers of a prefill on (1, 4): every sub-layer computes
+# tensor-parallel, so no leaf is gathered over model but those a rank
+# needs whole, once a layer each: MoE's router (unmarked, gathered by
+# materialize as a gate is) and Mamba-2's packed in_proj and conv
+# (TensorParallel.whole). The forward's sums over model by
+# kind: row-parallel outputs (TensorParallel.reduce: the embedding, and
+# each attention or MLA, dense MLP, MoE and its shared expert, Mamba-2
+# and RG-LRU mixer), the Mamba-2 norm's sums of squares (sum) and the
+# RG-LRU gates' reduce-scatters (scatter_sum, two a block) — by hand from
+# the reduced configs: qwen2-72B 2 layers; DBRX 2 of attention + MoE;
+# minicpm3 2 of MLA + MLP; mamba2 2 mixers; recurrentgemma 4 RG-LRU + 1
+# attention layer, each with its MLP; DeepSeek-V2 a dense layer (MLA +
+# MLP) and 2 of MLA + MoE + shared expert.
 GATHER_ARCHS = ("qwen2_72b", "dbrx_132b", "minicpm3_4b", "mamba2_2_7b",
-                "recurrentgemma_2b")
+                "recurrentgemma_2b", "deepseek_v2_236b")
+WHOLE_GATHERS = dict(dbrx_132b={"router": 2},
+                     mamba2_2_7b={"in_proj": 2, "conv_w": 2, "conv_b": 2},
+                     deepseek_v2_236b={"router": 2})
+MODEL_SUMS = dict(qwen2_72b=(5, 0, 0), dbrx_132b=(5, 0, 0),
+                  minicpm3_4b=(5, 0, 0), mamba2_2_7b=(3, 2, 0),
+                  recurrentgemma_2b=(11, 0, 8), deepseek_v2_236b=(9, 0, 0))
 
 
 def _gather_rows(t, mesh, rows: int):
@@ -477,43 +494,81 @@ def _serve_sharded(model, params, batch, mesh, length, steps, whole,
 
 
 def _prefill_gathers(model, params, toks, mesh) -> dict:
-    """One sharded prefill, with each parameter gather's bytes along
-    ``model`` (the result's, for a leaf split over it) summed by whether
-    the leaf's sub-layer is tensor-parallel, the bytes of every leaf
-    split over ``model`` by the same, and the sums over ``model``
-    (``TensorParallel.reduce``) the forward made."""
+    """One sharded prefill, with the parameter gathers along ``model`` of
+    a tensor-parallel leaf (``local_params``'s: the results' bytes), the
+    gathers of a leaf a rank needs whole (``materialize``'s of an
+    unmarked leaf and ``TensorParallel.whole``'s: count and bytes by leaf
+    name), the bytes of every tensor-parallel leaf split over ``model``
+    and the names of the unmarked ones, and the forward's collectives
+    over ``model`` by kind (``reduce``, ``sum``, ``scatter_sum``)."""
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.runtime import sharding
     from repro_torch.runtime.train_loop import (make_prefill_step,
                                                 shard_serve_state)
     sp, _ = shard_serve_state(model, params, None, mesh)
+
+    def names(tree, key=""):
+        """``tree`` with each leaf its dict key."""
+        if isinstance(tree, dict):
+            return {k: names(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [names(v, key) for v in tree]
+        return key
+    leaves = tree_leaves(sp)
     tp_of = {t.to_local().data_ptr(): bool(tp) for t, tp in zip(
-        tree_leaves(sp), tree_leaves(model.tensor_parallel_mask(sp)))}
-    split = dict(tp=0, whole=0)
-    for t in tree_leaves(sp):
+        leaves, tree_leaves(model.tensor_parallel_mask(sp)))}
+    name_of = {t.to_local().data_ptr(): (n, t.numel() * t.element_size())
+               for t, n in zip(leaves, tree_leaves(names(sp)))}
+    split = dict(tp=0, whole=set())
+    for t in leaves:
         if t.placements[-1].is_shard():
-            split["tp" if tp_of[t.to_local().data_ptr()] else "whole"] += \
-                t.numel() * t.element_size()
-    gathered, reduces = dict(tp=0, whole=0), [0]
-    inner_gather, inner_reduce = sharding._gather, sharding._Reduce.forward
+            if tp_of[t.to_local().data_ptr()]:
+                split["tp"] += t.numel() * t.element_size()
+            else:
+                split["whole"].add(name_of[t.to_local().data_ptr()][0])
+    gathered, whole, counts = dict(tp=0), {}, [0, 0, 0]
+    inner = (sharding._gather, sharding._model_gather,
+             sharding._Reduce.forward, sharding._Sum.forward,
+             sharding._ScatterSum.forward)
+
+    def named(x, out):
+        n, full = name_of[x.data_ptr()]
+        c, b = whole.get(n, (0, 0))
+        whole[n] = (c + 1, b + out.numel() * out.element_size())
+        assert out.numel() * out.element_size() == full, n
 
     def gather(local, placements_, mesh_):
-        out = inner_gather(local, placements_, mesh_)
+        out = inner[0](local, placements_, mesh_)
         if placements_[-1].is_shard():      # model, the last mesh axis
-            gathered["tp" if tp_of[local.data_ptr()] else "whole"] += \
-                out.numel() * out.element_size()
+            if tp_of[local.data_ptr()]:
+                gathered["tp"] += out.numel() * out.element_size()
+            else:
+                named(local, out)
         return out
 
-    def reduce(ctx, x, group):
-        reduces[0] += 1
-        return inner_reduce(ctx, x, group)
-    sharding._gather, sharding._Reduce.forward = gather, staticmethod(reduce)
+    def model_gather(x, dim, tp):
+        out = inner[1](x, dim, tp)
+        if x.data_ptr() in name_of:          # a parameter, not activations
+            named(x, out)
+        return out
+
+    def counted(i):
+        def fwd(ctx, *args):
+            counts[i] += 1
+            return inner[2 + i](ctx, *args)
+        return staticmethod(fwd)
+    sharding._gather, sharding._model_gather = gather, model_gather
+    sharding._Reduce.forward, sharding._Sum.forward = counted(0), counted(1)
+    sharding._ScatterSum.forward = counted(2)
     try:
         make_prefill_step(model, mesh)(sp, dict(tokens=toks))
     finally:
-        sharding._gather = inner_gather
-        sharding._Reduce.forward = staticmethod(inner_reduce)
-    return dict(gathered=gathered, split=split, reduces=reduces[0])
+        sharding._gather, sharding._model_gather = inner[:2]
+        sharding._Reduce.forward = staticmethod(inner[2])
+        sharding._Sum.forward = staticmethod(inner[3])
+        sharding._ScatterSum.forward = staticmethod(inner[4])
+    return dict(gathered=gathered, split=split, whole=whole,
+                sums=tuple(counts))
 
 
 def _rank_serve(rank: int, run_dir: str):
@@ -1089,21 +1144,25 @@ def test_tensor_parallel_serving_matches_unsharded_and_reference(serve_run,
 @pytest.mark.parametrize("arch", GATHER_ARCHS)
 def test_tensor_parallel_prefill_gathers_no_tp_leaf_over_model(serve_run,
                                                                arch):
-    """A prefill on (1, 4) gathers no leaf of the embedding, the logits
-    head, dense attention or a dense MLP over ``model`` (each rank keeps
-    its block), and every other leaf split over ``model`` — DBRX's
-    experts, MLA's heads, the Mamba-2 and RG-LRU mixers' channels —
-    whole, once (ROADMAP queue 1, [3b]'s remainder). Reduced qwen2-72B's
-    forward sums over ``model`` twice a layer (attention's and the MLP's
-    outputs) and once for the embedding."""
+    """A prefill on (1, 4) gathers no leaf over ``model`` — every leaf it
+    splits belongs to a tensor-parallel sub-layer (the embedding and
+    logits head, attention, MLA, dense MLPs, MoE's experts, the Mamba-2
+    and RG-LRU mixers), and each rank keeps its block — but those a rank
+    needs whole, by name, each once a layer at its full size: MoE's
+    router (DBRX, DeepSeek-V2: the one unmarked leaf split over
+    ``model``) and Mamba-2's packed ``in_proj``, ``conv_w`` and
+    ``conv_b``. The forward's sums over ``model`` are MODEL_SUMS's hand
+    counts: one a row-parallel sub-layer and the embedding, one a Mamba-2
+    norm, two reduce-scatters an RG-LRU block."""
     out, _ = serve_run
     g = out["gathers"][arch]
-    assert g["split"]["tp"] > 0 and g["gathered"]["tp"] == 0, g
-    assert g["gathered"]["whole"] == g["split"]["whole"], g
-    assert (g["split"]["whole"] > 0) == (arch != "qwen2_72b"), g
-    if arch == "qwen2_72b":
-        from repro_torch.configs import get_config
-        assert g["reduces"] == 2 * get_config(arch, True).n_layers + 1, g
+    want = WHOLE_GATHERS.get(arch, {})
+    assert g["split"]["tp"] > 0, g
+    assert g["split"]["whole"] == set(want) - {"in_proj", "conv_w",
+                                               "conv_b"}, g
+    assert g["gathered"] == dict(tp=0), g
+    assert {n: c for n, (c, _) in g["whole"].items()} == want, g["whole"]
+    assert g["sums"] == MODEL_SUMS[arch], g["sums"]
 
 
 # Placements of the caches' leaves past two dimensions, by case: KV

@@ -10,7 +10,8 @@ process group under fake tensors.
   tensor-parallel prefill from its parameters' specs and its
   activations; reduced qwen2-72B's train step on a (1, 4) mesh (its kv
   heads replicated and sliced) against the products of one rank's heads,
-  MLP columns and vocabulary rows.
+  MLP columns and vocabulary rows; reduced DeepSeek-V2's (MLA's heads,
+  the routed experts over ``model``) the same way.
 - A train cell's one counted microbatch times ``grad_accum`` (plus the
   accumulation and the update once) equals the count of every microbatch
   run, exactly.
@@ -182,8 +183,18 @@ def _tp_parity(_mesh: str) -> dict:
         grad_accum=1))
 
 
+def _tp_train_mla_moe(_mesh: str) -> dict:
+    """Reduced DeepSeek-V2's train cell on the (1, 4) fake mesh."""
+    from repro_torch.launch import dryrun
+    seq, batch = TP_SHAPE
+    return dryrun.run_cell("deepseek_v2_236b", "train_4k", False,
+                           overrides=dict(reduced=True, mesh=TP_MESH,
+                                          seq_len=seq, global_batch=batch,
+                                          grad_accum=1))
+
+
 CASES = dict(cells=_cells, hand=_hand, micro=_micro, tp_train=_tp_train,
-             tp_parity=_tp_parity)
+             tp_parity=_tp_parity, tp_train_mla_moe=_tp_train_mla_moe)
 
 
 def _run(case: str, mesh: str, tmp_path) -> dict:
@@ -235,13 +246,15 @@ def test_every_reduced_cell_counts_every_cost(mesh, tmp_path):
         if c["shape"] == "long_500k":
             # batch 1: the cache split by sequence over data, the
             # segments combined by all-reduces in every attention layer;
-            # mamba2 has none and only sums its vocab-parallel
-            # embedding [1, 1, d] over model (no MLP)
+            # mamba2 has none and only sums over model its vocab-parallel
+            # embedding [1, 1, d] and each tensor-parallel mixer's output
+            # [1, 1, d] and float32 norm statistic [1, 1, 1] (no MLP)
             cfg = get_config(c["arch"], reduced=True)
             embed = 2 * cfg.d_model * torch.empty(
                 (), dtype=cfg.compute_dtype).element_size()
             if cfg.family == "decoder":
-                assert coll["all-reduce"] == embed, name
+                assert coll["all-reduce"] == embed + cfg.n_layers * (
+                    embed + 2 * 4), name
             else:
                 assert coll["all-reduce"] > embed, name
         assert "memory" in c and c["memory"]["param_bytes"] > 0
@@ -369,6 +382,37 @@ def test_tensor_parallel_train_flops_match_hand_count(tmp_path):
                  + proj(heads * D, d) + 2 * proj(d, cols) + proj(cols, d)
                  + 7 * 2 * B * heads * S * S * D)
     assert c["flops_per_device"] == layers * per_layer + proj(d, vocab)
+    assert c["counted_microbatches"] == 1
+
+
+def test_tensor_parallel_mla_moe_train_flops_match_hand_count(tmp_path):
+    """Reduced DeepSeek-V2 (d 64; MLA of 4 heads, q_lora 32, kv_lora 16,
+    q/k 16 + 8 RoPE, v 16; a dense first layer of d_ff 128; 2 MoE layers
+    of 8 experts top-2 of d_ff 48 and a shared expert of 48; vocabulary
+    2048 padded, untied head; remat none) on (1, 4), B 8 x 32: one rank's
+    products are the replicated latents (``wq_a``, ``wkv_a``) and router
+    whole, its 1 MLA head (``wq_b``, ``wkv_b_k``, ``wkv_b_v``, ``wo``),
+    its 2 experts at capacity 10 a row (three batched products of [2,
+    8·10, 64] by 64 x 48), 12 shared-expert and 32 dense-MLP columns and
+    512 vocabulary rows. Each product is 2·(its sizes) forward and twice
+    that backward; per head the blocked attention computes its scores
+    (D 24) forward, again in the checkpointed block's recompute and twice
+    in the backward, and its values product (D 16) forward and twice in
+    the backward."""
+    c = _run("tp_train_mla_moe", "1x4", tmp_path)
+    S, B = TP_SHAPE
+    T, d = B * S, 64
+    C = 10                                  # int(32 · 2 / 8 · 1.25)
+
+    def proj(n, m):
+        return 3 * 2 * T * n * m
+    mla = (proj(d, 32) + proj(32, 24) + proj(d, 24) + 2 * proj(16, 16)
+           + proj(16, d) + 4 * 2 * B * S * S * 24 + 3 * 2 * B * S * S * 16)
+    moe = proj(d, 8) + 3 * 3 * 2 * 2 * B * C * d * 48
+    shared = 2 * proj(d, 12) + proj(12, d)
+    dense = 2 * proj(d, 32) + proj(32, d)
+    assert c["flops_per_device"] == (mla + dense + 2 * (mla + moe + shared)
+                                     + proj(d, 2048 // 4))
     assert c["counted_microbatches"] == 1
 
 

@@ -3,8 +3,9 @@ rank's q heads read (``models/attention._Heads``), which leaves compute
 tensor-parallel (``transformer.tensor_parallel_mask``), the loss's
 layout-independent sum (``common.softmax_xent``) and the flash kernel's
 input check on one rank's heads. The multi-rank steps are
-``test_torch_distributed.py``'s; this file imports neither jax nor the
-JAX package.
+``test_torch_distributed.py``'s and
+``test_torch_tensor_parallel_layers.py``'s; this file imports neither jax
+nor the JAX package.
 """
 import numpy as np
 import pytest
@@ -83,42 +84,61 @@ def _marked(mask, path=()):
 
 
 # The parameter dicts whose leaves compute tensor-parallel, by the last
-# two keys of their path (lists dropped), per family.
+# two keys of their path (lists dropped), per family: every sub-layer's.
 TP_SUBLAYERS = dict(
     qwen2_72b={("embed", "tokens"), ("embed", "head"), ("attn", "wq"),
                ("mlp", "wo")},
-    dbrx_132b={("embed", "head"), ("attn", "wk")},
-    minicpm3_4b={("embed", "tokens"), ("mlp", "wi")},
-    mamba2_2_7b={("embed", "tokens")},
-    recurrentgemma_2b={("rec1", "mlp"), ("attn", "wv")},
+    dbrx_132b={("embed", "head"), ("attn", "wk"), ("mlp", "wo"),
+               ("mlp", "wi")},
+    minicpm3_4b={("embed", "tokens"), ("mlp", "wi"), ("attn", "wkv_a"),
+                 ("attn", "wkv_b_k"), ("kv_norm", "scale")},
+    mamba2_2_7b={("embed", "tokens"), ("mixer", "in_proj"),
+                 ("mixer", "A_log"), ("mixer", "norm_scale")},
+    recurrentgemma_2b={("rec1", "mlp"), ("attn", "wv"), ("mixer", "w_a"),
+                       ("mixer", "lam"), ("mixer", "out")},
     llama_3_2_vision_11b={("cross", "wq"), ("selfs", "attn"),
                           ("cross", "mlp")},
     seamless_m4t_large_v2={("enc_layers", "attn"), ("self", "wo"),
                            ("cross", "wq")},
-    deepseek_v2_236b={("dense_layers", "mlp"), ("shared", "wi")})
-WHOLE_SUBLAYERS = dict(
-    dbrx_132b={"router"}, minicpm3_4b={"wkv_a", "wkv_b_k"},
-    mamba2_2_7b={"mixer"}, recurrentgemma_2b={"mixer"},
-    deepseek_v2_236b={"router", "wkv_b_v", "wq_b"})
+    deepseek_v2_236b={("dense_layers", "mlp"), ("shared", "wi"),
+                      ("mlp", "wo"), ("mlp", "wg"), ("attn", "wq_b"),
+                      ("attn", "wkv_b_v"), ("q_norm", "scale")})
+# Leaves every family gathers whole: the layers' norms, the final and
+# encoder norms, the vision cross layers' gates and MoE's router (every
+# rank routes all of its tokens, for the same whole gradient).
+WHOLE_SUBLAYERS = {"ln1", "ln2", "ln3", "final_norm", "enc_norm",
+                   "gate_attn", "gate_mlp", "router"}
+
+
+def _unmarked(mask, shapes, path=()):
+    if isinstance(mask, dict):
+        return {k2 for k, v in mask.items()
+                for k2 in _unmarked(v, shapes[k], path + (k,))}
+    if isinstance(mask, (list, tuple)):
+        return {k2 for v, t in zip(mask, shapes)
+                for k2 in _unmarked(v, t, path)}
+    return set() if mask else {path}
 
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_tensor_parallel_mask_names_the_dense_sublayers(arch):
-    """``Model.tensor_parallel_mask`` marks the embedding and logits head,
-    dense attention (self, cross, the encoder's) and dense MLPs (an MoE's
-    shared expert too), and nothing of MLA, MoE's router and routed
-    experts, the Mamba-2 and RG-LRU mixers, norms or gates: the leaves
-    ``materialize`` leaves to ``sharding.local_params``."""
+    """``Model.tensor_parallel_mask`` marks every sub-layer's leaves: the
+    embedding and logits head, dense attention (self, cross, the
+    encoder's), dense MLPs, MLA (its norms too), MoE (routed and shared
+    experts) and the Mamba-2 and RG-LRU mixers — the leaves
+    ``materialize`` leaves to ``sharding.local_params``; the only leaves
+    left unmarked, and so gathered whole, are the layers' norms, the
+    cross layers' gates and MoE's router."""
     model = Model(get_config(arch, reduced=True))
     shapes, _ = model.abstract_params()
-    marked = _marked(model.tensor_parallel_mask(shapes))
-    names = {n for path in marked for n in path}
+    mask = model.tensor_parallel_mask(shapes)
+    marked = _marked(mask)
     assert {("embed", "tokens")} <= marked
     for a, b in TP_SUBLAYERS.get(arch, ()):
         assert any(a in p and (b in p) for p in marked), (arch, a, b)
-    assert not names & (WHOLE_SUBLAYERS.get(arch, set()) | {
-        "ln1", "ln2", "ln3", "final_norm", "enc_norm", "gate_attn",
-        "gate_mlp", "router"}), (arch, names)
+    for path in _unmarked(mask, shapes):
+        assert path[-2] in WHOLE_SUBLAYERS or \
+            path[-1] in WHOLE_SUBLAYERS, (arch, path)
 
 
 @pytest.mark.parametrize("V", [2048, 4096 + 64, 100])
