@@ -3606,6 +3606,17 @@ TP_MLA_ARCH, TP_MLA_MESH = "deepseek_v2_236b", (1, 8)
 # its 1280 of 2560 channels, flash at D 256 on its 5 of 10 q heads over
 # the replicated kv head).
 TP_MIXERS, TP_MIXER_MESH = dict(mamba2_2_7b=4, recurrentgemma_2b=3), (1, 2)
+# (h) the residual stream split over model, on (e)'s share in (e)'s
+# process group (the parameters' placements do not change under these
+# rules): a B 4 x 2048 prefill of qwen2-72B as rank 0 of (1, 8) under
+# ``seqpar`` (the sequence: 256 positions a rank between sub-layers; a
+# warm second prefill timed) and one under ``act2d`` (the embedding: 1024
+# channels a rank), beside one under the baseline rules: walls, device
+# time by kind (one profiled prefill each) and peak memory; 80
+# flash_fwd_sm90<128, 128> launches at (e)'s shape, no plain version.
+SPLIT_VARIANTS = ("baseline", "seqpar", "act2d")
+# (c) the dry run's costs under the seqpar rules beside the baseline's.
+DRYRUN_VARIANTS = ("baseline", "seqpar")
 
 
 @contextlib.contextmanager
@@ -3880,7 +3891,9 @@ def dryrun_train_4k(workdir: str) -> dict:
     """(c): the dry run's per-device bytes of qwen2-72B train_4k on the
     production meshes, on the host; then its costs at DRYRUN_DEPTH layers
     through ``python -m repro_torch.launch.dryrun`` (a fake process group
-    of 256 and 512 ranks, in a process of its own)."""
+    of 256 and 512 ranks, in a process of its own) under each of
+    DRYRUN_VARIANTS' rules: FLOPs (the same under each), collectives by
+    kind, temporaries and peak."""
     from repro_torch.launch.dryrun import DEVICE_BYTES, build_cell
     out = {}
     for multi_pod in (False, True):
@@ -3899,37 +3912,52 @@ def dryrun_train_4k(workdir: str) -> dict:
     start = time.perf_counter()
     dest = os.path.join(workdir, "dryrun")
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DIST_ARCH, "--shape", "train_4k", "--both-meshes", "--out", dest,
-         "--force", "--override", f"cfg_n_layers={DRYRUN_DEPTH}"],
-        env=env, capture_output=True, text=True, timeout=300)
-    if res.returncode != 0 or "FAIL" in res.stdout:
-        fail(f"dry run costs: rc {res.returncode}\n{res.stdout[-3000:]}\n"
-             f"{res.stderr[-3000:]}")
     costs = {}
-    for tag, multi_pod in (("pod1", False), ("pod2", True)):
-        path = os.path.join(dest, f"{DIST_ARCH}.train_4k.{tag}.baseline"
-                                  f".json")
-        with open(path) as f:
-            c = json.load(f)
-        coll, r = c["collectives"], c["roofline"]
-        if not (c["flops_per_device"] > 0 and c["bytes_per_device"] > 0
-                and coll["total"] > 0 and c["counted_microbatches"] == 1):
-            fail(f"dry run costs {tag}: {c}")
-        check(f"dry run {tag} flops_per_device, relative",
-              abs(c["flops_per_device"] / DRYRUN_FLOPS - 1), DRYRUN_RTOL)
-        print(f"  (c) costs at {DRYRUN_DEPTH} of 80 layers on {c['mesh']}: "
-              f"per device and step {c['flops_per_device']:.6e} FLOPs, "
-              f"{c['bytes_per_device']:.6e} B (unfused), collectives "
-              f"{coll['total']:.6e} B (all-reduce {coll['all-reduce']:.6e},"
-              f" all-gather {coll['all-gather']:.6e}); roofline compute "
-              f"{r['t_compute']:.4f} s, memory {r['t_memory']:.4f} s, "
-              f"collective {r['t_collective']:.4f} s: {r['dominant']}; "
-              f"counted in {c['count_s']:.1f} s", flush=True)
-        costs[tag] = {k: c[k] for k in (
-            "flops_per_device", "bytes_per_device", "collectives",
-            "roofline", "count_s")}
+    for variant in DRYRUN_VARIANTS:
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DIST_ARCH, "--shape", "train_4k", "--both-meshes", "--out",
+             dest, "--force", "--variant", variant, "--override",
+             f"cfg_n_layers={DRYRUN_DEPTH}"],
+            env=env, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0 or "FAIL" in res.stdout:
+            fail(f"dry run costs ({variant}): rc {res.returncode}\n"
+                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        for tag, multi_pod in (("pod1", False), ("pod2", True)):
+            path = os.path.join(dest, f"{DIST_ARCH}.train_4k.{tag}."
+                                      f"{variant}.json")
+            with open(path) as f:
+                c = json.load(f)
+            coll, r, m = c["collectives"], c["roofline"], c["memory"]
+            if not (c["flops_per_device"] > 0 and c["bytes_per_device"] > 0
+                    and coll["total"] > 0 and c["counted_microbatches"] == 1
+                    and m["temp_bytes"] > 0):
+                fail(f"dry run costs {tag} {variant}: {c}")
+            # the split changes no product
+            check(f"dry run {tag} {variant} flops_per_device, relative",
+                  abs(c["flops_per_device"] / DRYRUN_FLOPS - 1), DRYRUN_RTOL)
+            was = costs.get(f"{tag}/baseline")
+            beside = "" if was is None else (
+                f" (baseline: {was['bytes_per_device']:.6e} B, collectives "
+                + ", ".join(f"{k} {was['collectives'][k]:.6e}" for k in (
+                    "all-reduce", "all-gather", "reduce-scatter"))
+                + f", temporaries {was['memory']['temp_bytes']:.6e} B)")
+            print(f"  (c) costs at {DRYRUN_DEPTH} of 80 layers on "
+                  f"{c['mesh']}, {variant} rules: per device and step "
+                  f"{c['flops_per_device']:.6e} FLOPs, "
+                  f"{c['bytes_per_device']:.6e} B (unfused), collectives "
+                  f"{coll['total']:.6e} B (all-reduce "
+                  f"{coll['all-reduce']:.6e}, all-gather "
+                  f"{coll['all-gather']:.6e}, reduce-scatter "
+                  f"{coll['reduce-scatter']:.6e}); temporaries "
+                  f"{m['temp_bytes']:.6e} B, peak {m['peak_bytes']:.6e} B"
+                  f"{beside}; roofline compute {r['t_compute']:.4f} s, "
+                  f"memory {r['t_memory']:.4f} s, collective "
+                  f"{r['t_collective']:.4f} s: {r['dominant']}; counted in "
+                  f"{c['count_s']:.1f} s", flush=True)
+            costs[f"{tag}/{variant}"] = {k: c[k] for k in (
+                "flops_per_device", "bytes_per_device", "collectives",
+                "roofline", "memory", "count_s")}
     out["costs"] = costs
     print(f"  (c) costs subprocess {time.perf_counter() - start:.1f} s",
           flush=True)
@@ -4030,12 +4058,18 @@ def tp_profile(fn) -> dict:
 @contextlib.contextmanager
 def own_blocks():
     """Under the fake process group, whose collectives return at once and
-    write nothing, the two collectives over ``model`` whose results other
+    write nothing, the collectives over ``model`` whose results other
     ranks would fill are given this rank's numbers, so the values stay
-    finite and the work the same: an all-gather takes every rank's block
-    as this rank's, a reduce-scatter keeps this rank's partial block."""
+    finite, of the right scale, and the work the same: an all-gather
+    (a sub-layer's entry, a packed leaf taken whole) takes every rank's
+    block as this rank's, a reduce-scatter (a sub-layer's exit under a
+    split residual stream, the RG-LRU gates) keeps this rank's partial
+    block, and a statistic's sum (``TensorParallel.sum``: the norms over a
+    split embedding, the Mamba-2 gated norm) counts this rank's partial
+    once for every rank."""
     from repro_torch.runtime import sharding
-    inner = sharding._model_gather, sharding._model_scatter_sum
+    tp_cls = sharding.TensorParallel
+    inner = sharding._model_gather, sharding._model_scatter_sum, tp_cls.sum
 
     def gather(x, dim, tp):
         return torch.cat([x.contiguous()] * tp.size, dim=dim)
@@ -4043,11 +4077,16 @@ def own_blocks():
     def scatter_sum(x, dim, tp):
         n = x.shape[dim] // tp.size
         return x.narrow(dim, tp.rank * n, n).contiguous()
+
+    def total(self, x):
+        return inner[2](self, x) * self.size
     sharding._model_gather, sharding._model_scatter_sum = gather, scatter_sum
+    tp_cls.sum = total
     try:
         yield
     finally:
-        sharding._model_gather, sharding._model_scatter_sum = inner
+        sharding._model_gather, sharding._model_scatter_sum = inner[:2]
+        tp_cls.sum = inner[2]
 
 
 @contextlib.contextmanager
@@ -4083,7 +4122,7 @@ def first_kernel_calls():
 
 
 def tp_rank(cfg, mesh_shape, dev, where: str, new: int = TP_NEW,
-            profile: bool = False) -> dict:
+            profile: bool = False, after=None) -> dict:
     """``cfg`` as rank 0 of a ``mesh_shape`` ("data", "model")
     tensor-parallel deployment over the fake process group
     (``launch.dryrun.fake_group``: its collectives return at once, and
@@ -4094,7 +4133,9 @@ def tp_rank(cfg, mesh_shape, dev, where: str, new: int = TP_NEW,
     launches, flash calls by shape and plain-version calls of both turns,
     the rank's logits blocks finite, and copies of the first flash, SSD
     and fused RG-LRU calls. With ``profile``, one prefill and one decode
-    step under the profiler."""
+    step under the profiler. ``after(model, mesh, params, toks)``, if
+    given, runs last on the same share in the same process group; its
+    result is the output's ``after``."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch.dryrun import fake_group
     from repro_torch.models.model import Model
@@ -4160,7 +4201,10 @@ def tp_rank(cfg, mesh_shape, dev, where: str, new: int = TP_NEW,
                     lambda: prefill(params, dict(tokens=toks))),
                             decode=tp_profile(lambda: decode(
                                 params, cache, tok, TP_S + new)))
-            del cache, params
+            del cache
+            later = None if after is None else after(model, mesh, params,
+                                                     toks)
+            del params
     torch.cuda.empty_cache()
     vocab_rows = cfg.padded_vocab // mesh_shape[1]
     if len(lg) != 1 + new or any(
@@ -4179,7 +4223,7 @@ def tp_rank(cfg, mesh_shape, dev, where: str, new: int = TP_NEW,
                 first_decode_ms=steps[0] * 1e3 if new else None,
                 peak_gib=peak, launches=launches,
                 prefill_launches=prefill_launches, flash_shapes=dict(shapes),
-                firsts=firsts, profile=prof,
+                firsts=firsts, profile=prof, after=later,
                 wall_s=time.perf_counter() - start)
 
 
@@ -4238,17 +4282,125 @@ def report_rank(where: str, cfg, r: dict, what: str) -> None:
                                       for n, ms in p["top"]), flush=True)
 
 
+def split_prefills(model, mesh, params, toks) -> dict:
+    """(h): ``tp_rank``'s ``after`` for (e): under each of SPLIT_VARIANTS'
+    rules, a prefill on the share ``params`` (two under ``seqpar``, the
+    second warm) with its launches, flash calls by shape, plain-version
+    calls, first flash call and the rank's logits blocks, its walls and
+    the peak memory past the share; then one prefill profiled."""
+    from repro_torch.launch.dryrun import VARIANTS
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import make_prefill_step
+    out = {}
+    for variant in SPLIT_VARIANTS:
+        with sharding.rule_overrides(VARIANTS[variant].get("rules")):
+            prefill = make_prefill_step(model, mesh)
+            split = sharding.step_layout(mesh, TP_B, TP_S,
+                                         model.cfg.d_model).split
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            walls, runs = [], []
+            with torch.inference_mode():
+                for _ in range(2 if variant == "seqpar" else 1):
+                    reset_lm_launches()
+                    with plain_call_counter() as plain, \
+                            flash_call_recorder() as shapes, \
+                            first_flash_call() as first, \
+                            local_logits() as lg:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        logits, built = prefill(params, dict(tokens=toks))
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t0)
+                    del built
+                    runs.append(dict(launches=read_lm_launches(),
+                                     flash_shapes=dict(shapes),
+                                     plain=dict(plain), first=dict(first),
+                                     logits=list(lg)))
+                    del first
+                peak = torch.cuda.max_memory_allocated()
+                prof = tp_profile(lambda: prefill(params, dict(tokens=toks)))
+        out[variant] = dict(split=split, walls_ms=[w * 1e3 for w in walls],
+                            peak_gib=peak / 2 ** 30,
+                            temp_gib=(peak - held) / 2 ** 30, runs=runs,
+                            profile=prof)
+    return out
+
+
+def check_split_prefills(cfg, e: dict, want_q) -> dict:
+    """(h)'s checks and report beside (e)'s prefill of the same run: each
+    prefill's layout split as its rules say, exactly (e)'s 80 flash
+    launches at its shape, no plain version, the rank's logits block
+    finite, the first flash call within FLASH_ATOL of the plain version."""
+    from repro_torch.runtime import sharding
+    h = e.pop("after")
+    want_split = dict(baseline=None, seqpar=sharding.SEQ,
+                      act2d=sharding.EMBED)
+    vocab_rows = cfg.padded_vocab // TP_MESH[1]
+    ep = e["profile"]["prefill"]
+    out = {}
+    for variant, r in h.items():
+        where = f"{TP_ARCH} (13h) {variant}"
+        if r["split"] != want_split[variant]:
+            fail(f"{where}: the residual stream is split at {r['split']}, "
+                 f"want {want_split[variant]}")
+        errs = []
+        for run in r["runs"]:
+            check_rank_launches(where, dict(prefill_launches=run["launches"],
+                                            launches=run["launches"],
+                                            flash_shapes=run["flash_shapes"]),
+                                want_launches(flash=cfg.n_layers),
+                                {("wgmma", 128, 128, True): cfg.n_layers})
+            if sum(run["plain"].values()):
+                fail(f"{where}: plain versions ran: {run['plain']}")
+            if run["logits"] != [((TP_B, vocab_rows), True)]:
+                fail(f"{where}: the rank's logits blocks {run['logits']}, "
+                     f"want one finite ({TP_B}, {vocab_rows})")
+            errs.append(hold_first_flash(where, run["first"], want_q))
+        p = r["profile"]
+        out[variant] = dict(
+            split=r["split"], walls_ms=r["walls_ms"], peak_gib=r["peak_gib"],
+            temp_gib=r["temp_gib"], flash_launches=cfg.n_layers,
+            flash_max_abs_err=max(err for err, _ in errs),
+            flash_rel_rms=max(rel for _, rel in errs),
+            profile={k: p[k] for k in ("wall_ms", "device_ms", "by_kind",
+                                       "top")})
+        kinds = ", ".join(f"{k} {p['by_kind'].get(k, 0.0):.1f} ms (13e "
+                          f"{ep['by_kind'].get(k, 0.0):.1f})"
+                          for k in ("gemm", "flash", "other"))
+        print(f"  (h) {TP_ARCH} as rank 0 of {TP_MESH} on (e)'s share, "
+              f"{variant} rules (residual stream split at {r['split']}): "
+              f"B {TP_B} x {TP_S} prefill "
+              + ", ".join(f"{w:.1f}" for w in r["walls_ms"])
+              + f" ms (13e warm {e['prefill_ms']:.1f} ms); profiled wall "
+              f"{p['wall_ms']:.1f} ms (13e {ep['wall_ms']:.1f}), device "
+              f"{p['device_ms']:.1f} ms (13e {ep['device_ms']:.1f}): "
+              f"{kinds}; peak {r['peak_gib']:.2f} GiB, "
+              f"{r['temp_gib']:.2f} GiB past the share; launches "
+              f"{cfg.n_layers} flash_fwd_sm90<128, 128> at q "
+              f"{list(want_q)}, no plain version; first flash call max |d| "
+              f"{out[variant]['flash_max_abs_err']:.3e}, RMS(d) / "
+              f"RMS(plain) {out[variant]['flash_rel_rms']:.3e}; the rank's "
+              f"logits block finite; top: "
+              + "; ".join(f"{n[:40]} {ms:.2f}" for n, ms in p["top"][:3]),
+              flush=True)
+    return out
+
+
 def tp_qwen2_72b(dev) -> dict:
     """(e): qwen2-72B whole as one rank of an 8-way tensor-parallel
     deployment (``TP_MESH``): ``tp_rank``'s run, 80 wgmma flash launches
     at the rank's heads and no plain version, one prefill and one decode
     step profiled; then that flash call timed beside the plain version,
-    SDPA and its bound."""
+    SDPA and its bound; and (h), ``split_prefills`` on the same share."""
     from repro_torch.configs import get_config
     cfg = get_config(TP_ARCH)
     where = f"{TP_ARCH} (13e)"
     heads, kv = cfg.n_heads // TP_MESH[1], cfg.n_kv // TP_MESH[1]
-    r = tp_rank(cfg, TP_MESH, dev, where, profile=True)
+    r = tp_rank(cfg, TP_MESH, dev, where, profile=True,
+                after=split_prefills)
     want_q = (TP_B, TP_S, kv, heads // kv, cfg.head_dim_)
     err, rel = hold_first_flash(where, r.pop("firsts")["flash"], want_q)
     check_rank_launches(where, r, want_launches(flash=cfg.n_layers),
@@ -4262,6 +4414,7 @@ def tp_qwen2_72b(dev) -> dict:
                 f"a prefill at q {list(want_q)} (the rank's {heads} q heads "
                 f"over {kv} kv head); the first flash call vs the plain "
                 f"version max |d| {err:.3e}, RMS(d) / RMS(plain) {rel:.3e}")
+    out["split"] = check_split_prefills(cfg, out, want_q)
     return out
 
 
@@ -4393,8 +4546,10 @@ def phase_distribution(dev, workdir: str) -> dict:
           f"tensor-parallel, (f) {TP_MLA_ARCH} whole as one rank of "
           f"{TP_MLA_MESH}, (g) "
           + ", ".join(f"{a} depth {d}" for a, d in TP_MIXERS.items())
-          + f" at full width as one rank of {TP_MIXER_MESH}, (c) the dry "
-          f"run of {DIST_ARCH} train_4k", flush=True)
+          + f" at full width as one rank of {TP_MIXER_MESH}, (h) (e)'s "
+          f"prefill with the residual stream split over model (seqpar, "
+          f"act2d), (c) the dry run of {DIST_ARCH} train_4k (baseline, "
+          f"seqpar)", flush=True)
     serve = serve_qwen2_72b()
     with one_rank_mesh(workdir) as mesh:
         sharded = sharded_world1(dev, workdir, mesh)
@@ -4594,6 +4749,9 @@ def main() -> None:
         "flash_wgmma"]
     tp13 = dist13["tp"]
     by_model[f"{TP_ARCH} (13e, rank heads)"] = tp13["flash_launches"]
+    for variant, h in tp13["split"].items():
+        by_model[f"{TP_ARCH} (13h, {variant})"] = h["flash_launches"] * len(
+            h["walls_ms"])
     tp_keys = ("ms", "device_ms", "plain_ms", "library", "library_ms",
                "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
                "rel_rms")
@@ -4603,9 +4761,11 @@ def main() -> None:
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces=flash, launches=sum(by_model.values()),
         launches_by_model=by_model,
-        max_abs_err=max(lmk["worst"]["flash_sm90"],
-                        dist13["serve"]["flash_max_abs_err"],
-                        tp13["flash_max_abs_err"]), ms=f128["ms"],
+        max_abs_err=max([lmk["worst"]["flash_sm90"],
+                         dist13["serve"]["flash_max_abs_err"],
+                         tp13["flash_max_abs_err"]]
+                        + [h["flash_max_abs_err"]
+                           for h in tp13["split"].values()]), ms=f128["ms"],
         plain_ms=f128["plain_ms"], bound_ms=f128["bound_ms"],
         device_ms=f128["device_ms"], plain_device_ms=f128["plain_device_ms"],
         bound_by=f128["bound_by"], library_ms=f128["library_ms"],
@@ -4615,14 +4775,18 @@ def main() -> None:
                   "llama_3_2_vision_11b (self and cross), "
                   "seamless_m4t_large_v2 (D 64: encoder, self, cross) and "
                   "qwen2_72b (group 8; phase 13(e) on one tensor-parallel "
-                  "rank's 8 q heads over its kv head), reading the model "
-                  "layout in place",
+                  "rank's 8 q heads over its kv head, and 13(h) with the "
+                  "residual stream split over model by sequence or "
+                  "embedding), reading the model layout in place",
         qwen2_72b=dict(shape=dist13["serve"]["flash_shape"],
                        max_abs_err=dist13["serve"]["flash_max_abs_err"],
                        rel_rms=dist13["serve"]["flash_rel_rms"]),
         qwen2_72b_rank_heads=dict(shape=tp13["flash_shape"],
                                   launches=tp13["flash_launches"],
                                   **tp_flash),
+        qwen2_72b_split={v: {k: h[k] for k in (
+            "split", "flash_launches", "flash_max_abs_err", "walls_ms",
+            "peak_gib")} for v, h in tp13["split"].items()},
         d64=dict(shape=[48, 2048, 64], **{
             key: f64[key] for key in ("ms", "device_ms", "plain_ms",
                                       "library_ms", "bound_ms",

@@ -22,6 +22,11 @@ repository root on the machine with the card:
     python3 kernel_probe.py steps [SRC]
         # kernels per learned-forecaster training step, of the port under
         # SRC (default: this checkout's src), e.g. an older tree's
+    python3 kernel_probe.py tp13 [ROOT ...]
+        # chip_smoke.py's phase 13(e) (and (h), where ROOT's script has
+        # it) through each ROOT's chip_smoke.py in turn, each in a process
+        # of its own (default: this checkout), e.g. ``.archive/parent .
+        # . .archive/parent`` with the parent tree unpacked there
     python3 kernel_probe.py ab OTHER.cu
         # the built flash_attention_sm90.cu, ssd_scan_sm90.cu or
         # rglru_scan.cu (by OTHER.cu's entry points) against OTHER.cu
@@ -581,6 +586,27 @@ def ab(other: str) -> None:
     return ab_flash(lib)
 
 
+_TP13 = """
+import os, sys, time, torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from repro_torch.kernels import _build
+_build.build(["flash_attention_sm90", "flash_attention"])
+for name in ("flash_attention_sm90", "flash_attention"):
+    _build.library(name)
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+cs.tp_qwen2_72b(torch.device("cuda"))
+print(f"[{os.getcwd()}] {time.perf_counter() - t0:.1f} s", flush=True)
+"""
+
+
+def tp13(*roots) -> None:
+    for root in roots or (HERE,):
+        subprocess.run([sys.executable, "-c", _TP13],
+                       cwd=os.path.abspath(root), check=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device available")
@@ -596,6 +622,8 @@ def main() -> None:
         steps(*sys.argv[2:])
     elif stage == "ptxas":
         ptxas(*sys.argv[2:])
+    elif stage == "tp13":
+        tp13(*sys.argv[2:])
     elif stage in stages:
         stages[stage]()
     else:

@@ -36,16 +36,24 @@ what that rank does:
   * ``roofline``: ``t_compute``, ``t_memory`` and ``t_collective`` and
     the ``dominant`` one, at the rates written into the cell as ``hw``.
 
+  * ``memory.temp_bytes`` / ``peak_bytes``: the most bytes alive at once
+    of the tensors the step makes (``LiveBytes``: activations, the
+    tensors autograd and remat save, gathered parameters, gradients and
+    collectives' buffers, unfused: no buffer is reused), and that plus
+    the state's bytes; ``fits_device`` reads the peak.
+
 A train cell runs one microbatch (``counted_microbatches`` 1) and
 multiplies its counts by ``grad_accum``; the accumulation, the gradient
 averaging and the AdamW update are counted once. The steps are
 ``make_train_step(mesh=)``'s parts and ``make_prefill_step`` /
 ``make_decode_step(mesh=)``; a decode cell decodes position ``seq_len -
-1``. A variant whose rules would split an activation's sequence or
-embedding (``act2d``, ``seqpar``, ``seqpar_seqshard``) raises
-``NotImplementedError`` (ROADMAP queue 1), and ``main`` prints it as a
-FAIL line; no cost is written as zero. Peak activation memory is not
-counted (ROADMAP queue 1).
+1``. Every variant runs: ``seqpar`` and ``seqpar_seqshard`` split the
+residual stream's sequence over ``model`` and ``act2d`` /
+``act2d_seqshard`` its embedding (``sharding.Layout.split``). A cell
+whose rules would split an activation's sequence over ``data`` or
+``pod`` (context parallelism) raises ``NotImplementedError`` (ROADMAP
+queue 1, [3d]), and ``main`` prints it as a FAIL line; no cost is
+written as zero.
 
 One process holds one default process group: ``run_cell`` refuses to
 start where one is live, and tears down only its own.
@@ -60,11 +68,13 @@ Usage:
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
 import time
 import traceback
+import weakref
 from typing import Dict, Optional
 
 import torch
@@ -171,7 +181,10 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
                overrides: Optional[Dict] = None) -> Dict:
     """Per-device bytes of one cell, from the meta device and the mesh's
     shape: parameters, AdamW state (train), inputs, decode caches, the
-    grad-accum count and the parameter count."""
+    grad-accum count and the parameter count. Each leaf is counted as its
+    spec places it (the reference's figure): under ``seqpar`` the tokens
+    and labels count the rank's S/m positions, though the sharded steps
+    hold them whole over ``model`` (``train_loop._local_rows``)."""
     t0 = time.time()
     cfg, shape, mesh, rules, ov = _cell(arch, shape_name, multi_pod,
                                         variant, overrides)
@@ -274,6 +287,49 @@ def _traffic_mode(costs: Costs):
     return Traffic()
 
 
+class LiveBytes:
+    """Bytes of the tensors alive in a region, and their peak: each new
+    storage a dispatched op returns (views share their base's) adds its
+    bytes when it is made and takes them off when it is freed (a weak
+    reference's callback). Tensors made before the region (the step's
+    state) are not counted; those autograd or remat keep for the backward
+    are, as long as they live. Use ``mode()`` as a dispatch mode around
+    the region (inside the ``FakeTensorMode``)."""
+
+    def __init__(self):
+        from torch.utils.weak import WeakIdKeyDictionary
+        self.now = self.peak = 0
+        self._seen = WeakIdKeyDictionary()
+
+    def _free(self, n: int, _ref) -> None:
+        self.now -= n
+
+    def add(self, out) -> None:
+        from torch.utils._pytree import tree_leaves
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            if st in self._seen:
+                continue
+            n = st.nbytes()
+            self._seen[st] = weakref.ref(st, functools.partial(self._free,
+                                                               n))
+            self.now += n
+            self.peak = max(self.peak, self.now)
+
+    def mode(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        live = self
+
+        class Live(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                live.add(out)
+                return out
+        return Live()
+
+
 def count(fn, *args):
     """(``fn(*args)``, its ``Costs``): FLOPs by ``FlopCounterMode``, bytes
     and collectives by ``_traffic_mode``."""
@@ -316,9 +372,11 @@ def fake_group(world_size: int):
         dist.destroy_process_group()
 
 
-def _step_costs(model, shape, mesh, ov, grad_accum):
+def _step_costs(model, shape, mesh, ov, grad_accum, live: LiveBytes):
     """(Costs of the cell's step on rank 0, microbatches counted), under
-    fake tensors on the live fake group's ``mesh``."""
+    fake tensors on the live fake group's ``mesh``; the bytes of the
+    tensors the step makes tracked by ``live`` (the state, made before,
+    not among them)."""
     from repro_torch.optim import adamw
     from repro_torch.runtime import train_loop
     pshapes, _ = model.abstract_params()
@@ -333,27 +391,32 @@ def _step_costs(model, shape, mesh, ov, grad_accum):
             step = train_loop.make_train_step(
                 model, opt, grad_accum=grad_accum, compress=compress,
                 mesh=mesh)
-            return count(step, sp, so, batch, gen)[1], grad_accum
+            with live.mode():
+                return count(step, sp, so, batch, gen)[1], grad_accum
         parts = train_loop.train_parts(model, opt, compress, mesh)
-        live, c_live = count(parts.live, sp)
         n = shape.global_batch // grad_accum
-        (loss, grads), c_mb = count(parts.grads, live,
-                                    {k: v[:n] for k, v in batch.items()})
-        (_, acc), c_acc = count(train_loop.accumulate,
-                                lambda live_, mb: (loss, grads), live,
-                                batch, grad_accum)
-        _, c_fin = count(parts.finish, sp, so, acc, gen)
+        mb = {k: v[:n] for k, v in batch.items()}
+        with live.mode():
+            live_params, c_live = count(parts.live, sp)
+            (loss, grads), c_mb = count(parts.grads, live_params, mb)
+            (_, acc), c_acc = count(train_loop.accumulate,
+                                    lambda live_, mb_: (loss, grads),
+                                    live_params, batch, grad_accum)
+            del grads
+            _, c_fin = count(parts.finish, sp, so, acc, gen)
         return c_live + c_mb * grad_accum + c_acc + c_fin, 1
     with torch.no_grad():
         if shape.kind == "prefill":
             sp, _ = train_loop.shard_serve_state(model, params, None, mesh)
             step = train_loop.make_prefill_step(model, mesh)
-            return count(step, sp, batch)[1], None
+            with live.mode():
+                return count(step, sp, batch)[1], None
         cache = batch.pop("cache")
         sp, sc = train_loop.shard_serve_state(model, params, cache, mesh)
         step = train_loop.make_decode_step(model, mesh)
-        return count(step, sp, sc, batch["tokens"],
-                     shape.seq_len - 1)[1], None
+        with live.mode():
+            return count(step, sp, sc, batch["tokens"],
+                         shape.seq_len - 1)[1], None
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -363,7 +426,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     of a fake process group of the mesh's size under fake tensors:
     ``flops_per_device``, ``bytes_per_device``, ``collectives``,
     ``roofline`` and ``hw`` in the reference's layout (train cells: one
-    microbatch counted and multiplied by ``grad_accum``)."""
+    microbatch counted and multiplied by ``grad_accum``), and
+    ``memory.temp_bytes`` (the peak of the bytes alive that the step made:
+    ``LiveBytes``) and ``memory.peak_bytes`` (the state's and that), the
+    reference's ``memory_analysis`` names; ``fits_device`` then reads the
+    peak."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.device_mesh import init_device_mesh
     res = build_cell(arch, shape_name, multi_pod, variant, overrides)
@@ -371,13 +438,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                               variant, overrides)
     model = Model(cfg)
     t0 = time.time()
+    live = LiveBytes()
     with fake_group(mesh_shape.size), sharding.rule_overrides(
             ov.get("rules")):
         mesh = init_device_mesh("cpu", mesh_shape.sizes,
                                 mesh_dim_names=mesh_shape.axis_names)
         with FakeTensorMode():
             costs, micro = _step_costs(model, shape, mesh, ov,
-                                       res.get("grad_accum", 1))
+                                       res.get("grad_accum", 1), live)
+    memory = res["memory"]
+    memory.update(temp_bytes=live.peak,
+                  peak_bytes=memory["state_bytes"] + live.peak)
+    memory["fits_device"] = memory["peak_bytes"] <= DEVICE_BYTES
     coll = dict(costs.collectives, total=sum(costs.collectives.values()))
     t = dict(compute=costs.flops / HW["peak_flops"],
              memory=costs.bytes / HW["hbm_bw"],
@@ -467,6 +539,8 @@ def main(argv=None):
                   f"{DEVICE_BYTES / 1e9:.0f}", flush=True)
             if "roofline" in res:
                 r, c = res["roofline"], res["collectives"]
+                print(f"        temporaries {m['temp_bytes'] / 1e9:8.3f} GB "
+                      f"peak {m['peak_bytes'] / 1e9:8.3f} GB", flush=True)
                 print(f"        flops {res['flops_per_device']:.4e} bytes "
                       f"{res['bytes_per_device']:.4e} collectives "
                       f"{c['total']:.4e} (ar {c['all-reduce']:.3e} ag "

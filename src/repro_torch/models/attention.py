@@ -316,7 +316,8 @@ class _Heads:
 
 def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
           rope_theta=10000.0, block_kv=1024, kv_x=None, kv_positions=None,
-          softmax_scale=None, cache=None, decode_pos=None, keep_kv=True):
+          softmax_scale=None, cache=None, decode_pos=None, keep_kv=True,
+          kv_split=sharding.AS_RESIDUAL):
     """One attention sub-layer. Returns (out, kv).
 
     Train/prefill (cache=None): x is [B, S, d] at positions
@@ -338,11 +339,18 @@ def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
     and reads its own). A decode cache split by sequence over ``model``
     itself gathers q over ``model``, attends every head over the rank's
     segment, combines the segments and keeps the rank's heads.
+
+    With the residual stream split over ``model`` (``Layout.split``) ``x``
+    is the rank's block and enters gathered (``sharding.sublayer_in``),
+    ``kv_x`` too, along ``kv_split`` (by default the residual stream's
+    dimension; None where it is whole on every rank, as the image
+    patches' sequence is); the output leaves as the rank's block
+    (``sublayer_out``).
     """
     p, tp = sharding.local_params(p)
-    if tp is not None:
-        x = tp.copy(x)
-        kv_x = None if kv_x is None else tp.copy(kv_x)
+    x = sharding.sublayer_in(x, tp)
+    if kv_x is not None:
+        kv_x = sharding.sublayer_in(kv_x, tp, kv_split)
     heads = _Heads(p, n_heads, n_kv, tp)
     q = project_q(x, p, rope_theta, positions)
     B, Sq = q.shape[:2]
@@ -381,4 +389,4 @@ def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
                                    softmax_scale=softmax_scale,
                                    segment=segment)
     out = project_out(out.reshape(B, Sq, heads.n_q, -1), p)
-    return (out if tp is None else tp.reduce(out)), kv
+    return sharding.sublayer_out(out, tp), kv

@@ -121,22 +121,63 @@ def ones_init(shape, axes, dtype=torch.float32, device=None) -> P:
     return P(torch.ones(shape, dtype=dtype, device=device), axes)
 
 
-def rms_norm(x, scale, eps=1e-6):
+def norm_block(d: int) -> int:
+    """The channels a norm's statistic over ``d`` sums in float32 before
+    the float64 sum of those sums: the largest power of two dividing
+    d / 16, at most 512 (a whole number of blocks on each rank wherever
+    ``act2d`` splits d over up to 16 ranks), or d where 16 does not divide
+    it. The split norm's statistic then rounds as the whole row's does: a
+    float32 sum over the ranks' blocks would round otherwise, by an ulp
+    that the float32 SSD and loss carry into the gradients."""
+    if d % 16:
+        return d
+    b = 1
+    while b < 512 and (d // 16) % (2 * b) == 0:
+        b *= 2
+    return b
+
+
+def _mean(t, tp=None):
+    """The mean of float32 ``t`` over its last dimension: ``norm_block``
+    sums in float32, their sum in float64, rounded once to float32. With
+    ``tp`` the dimension is the rank's block of one split over ``model``:
+    the ranks' float64 partial sums are summed over ``model``."""
+    n = t.shape[-1]
+    d = n * (1 if tp is None else tp.size)
+    block = math.gcd(norm_block(d), n)
+    s = t.unflatten(-1, (n // block, block)).sum(-1).to(
+        torch.float64).sum(-1, keepdim=True)
+    if tp is not None:
+        s = tp.sum(s)
+    return (s / d).to(t.dtype)
+
+
+def _block(w, tp):
+    """The rank's block of a norm's scale or bias with ``tp``."""
+    return w if tp is None else w[tp.block(w.shape[0])]
+
+
+def rms_norm(x, scale, eps=1e-6, tp=None):
     """RMS norm with the reference's ``(1 + scale)`` gain (zero-init scale
-    is the identity gain)."""
+    is the identity gain), its mean of squares summed by blocks
+    (``_mean``, ``norm_block``). With ``tp`` ``x`` is the rank's block of
+    the channels (``act2d``): the mean of squares sums every rank's, and
+    the rank applies its block of the scale."""
     xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    var = _mean(torch.square(xf), tp)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+    return (y * (1.0 + _block(scale, tp).to(torch.float32))).to(x.dtype)
 
 
-def layer_norm(x, scale, bias, eps=1e-5):
+def layer_norm(x, scale, bias, eps=1e-5, tp=None):
+    """Layer norm; with ``tp`` over the rank's block of the channels, as
+    ``rms_norm``."""
     xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    mu = _mean(xf, tp)
+    var = _mean(torch.square(xf - mu), tp)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)
-            + bias.to(torch.float32)).to(x.dtype)
+    return (y * _block(scale, tp).to(torch.float32)
+            + _block(bias, tp).to(torch.float32)).to(x.dtype)
 
 
 def norm_init(d, kind, dtype, device=None) -> dict:
@@ -147,10 +188,12 @@ def norm_init(d, kind, dtype, device=None) -> dict:
                 bias=zeros_init((d,), ("embed_nosplit",), dtype, device))
 
 
-def apply_norm(x, p, kind):
+def apply_norm(x, p, kind, tp=None):
+    """``kind``'s norm of ``x``; ``tp``: ``x`` is the rank's block of the
+    channels (``sharding.embed_split``)."""
     if kind == "rmsnorm":
-        return rms_norm(x, p["scale"])
-    return layer_norm(x, p["scale"], p["bias"])
+        return rms_norm(x, p["scale"], tp=tp)
+    return layer_norm(x, p["scale"], p["bias"], tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -169,14 +212,16 @@ def mlp_apply(x, p, gate="silu"):
     """SwiGLU, or GeGLU with ``gate="gelu"``: ``jax.nn.gelu``'s default,
     the tanh approximation. In a sharded step whose rules split ``mlp``
     over ``model``: ``wi`` and ``wg`` column-parallel on the rank's
-    columns, ``wo`` row-parallel, the sum over ``model`` after it."""
+    columns, ``wo`` row-parallel, the sum over ``model`` after it (with
+    the residual stream split over ``model``, the entry's all-gather and
+    the exit's reduce-scatter: ``sharding.sublayer_in`` /
+    ``sublayer_out``)."""
     p, tp = sharding.local_params(p)
-    if tp is not None:
-        x = tp.copy(x)
+    x = sharding.sublayer_in(x, tp)
     wi = x @ p["wi"].to(x.dtype)
     act = F.silu(wi) if gate == "silu" else F.gelu(wi, approximate="tanh")
     out = (act * (x @ p["wg"].to(x.dtype))) @ p["wo"].to(x.dtype)
-    return out if tp is None else tp.reduce(out)
+    return sharding.sublayer_out(out, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -227,25 +272,27 @@ def embed_tokens(tokens, p, dtype, tp=None):
     """Each token's row of the table. Vocab-parallel with ``tp`` (the
     table the rank's rows, ``sharding.local_params``): each rank looks up
     the tokens in its range, zeros for the rest, and the sum over
-    ``model`` has every row once."""
+    ``model`` has every row once (with the residual stream split over
+    ``model``, the rank's block of that sum: ``sharding.sublayer_out``)."""
     table = p["tokens"].to(dtype)
     if tp is None:
         return table[tokens]
     local = tokens - tp.rank * table.shape[0]
     mine = (local >= 0) & (local < table.shape[0])
     rows = table[torch.where(mine, local, torch.zeros_like(local))]
-    return tp.reduce(torch.where(mine[..., None], rows,
-                                 torch.zeros_like(rows)))
+    return sharding.sublayer_out(torch.where(
+        mine[..., None], rows, torch.zeros_like(rows)), tp)
 
 
 def logits_from_hidden(h, p, true_vocab, dtype, tp=None):
     """Logits over the padded vocabulary, the padded tail set to -1e9 in
     the compute dtype (out of the partition function). With ``tp``: the
     rank's vocabulary rows only (column-parallel), masked by their global
-    indices."""
+    indices, at every position (the entry gathers a split residual
+    stream: ``sharding.sublayer_in``)."""
     table = p.get("head")
     if tp is not None:
-        h = tp.copy(h)
+        h = sharding.sublayer_in(h, tp)
     if table is None:
         logits = h @ p["tokens"].to(dtype).T
     else:

@@ -100,8 +100,7 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
     [B, 1, d]; writes this token's latents at ``decode_pos`` in place and
     attends [0, decode_pos]."""
     p, tp = sharding.local_params(p)
-    if tp is not None:
-        x = tp.copy(x)
+    x = sharding.sublayer_in(x, tp)
     heads = p["wkv_b_k"].shape[1]                      # the rank's
     B, Sq, _ = x.shape
     scale = 1.0 / np.sqrt(d_nope + d_rope)            # a numpy float64
@@ -153,4 +152,4 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
         new_cache = (cc, cr)
 
     out = attention.project_out(out, p)
-    return (out if tp is None else tp.reduce(out)), new_cache
+    return sharding.sublayer_out(out, tp), new_cache

@@ -36,6 +36,15 @@ part of the input's are the unsharded step's on every rank, not float32
 partial sums. The shared expert is the dense tensor-parallel MLP
 (``common.mlp_apply``).
 
+With the residual stream split over ``model`` (``seqpar``, ``act2d``)
+the tokens enter gathered (``sharding.sublayer_in``: each row's whole
+sequence, so the capacity slots are the unsharded dispatch's), every rank
+routes them all, and the output leaves as the rank's block
+(``sublayer_out``). The gates' gradient is then left as the rank's part:
+the router's backward gives each rank a partial sum of the input's and
+the router's gradients, which the entry's reduce-scatter and
+``_GatherParam``'s sum over ``model`` add up.
+
 The dispatch and the combine are gathers, with no scatter of rows:
 each buffer slot takes its token's row (a zero row where the slot is
 empty), and each token sums its k results weighted by its gates (a zero
@@ -120,12 +129,12 @@ def apply(x, p, *, top_k, n_experts, capacity_factor=1.25):
     """x: [B, S, d] → [B, S, d]."""
     experts, tp = sharding.local_params(
         {k: v for k, v in p.items() if k != "shared"})
-    x_in = x          # the routing's and the shared expert's input
-    if tp is not None:
-        x = tp.copy(x)
+    x_in = x          # the shared expert's input (and the routing's)
+    split = sharding.residual_split() is not None
+    x = sharding.sublayer_in(x, tp)
     B, S, d = x.shape
     C = capacity(S, top_k, n_experts, capacity_factor)
-    gate, ids = route(x_in, experts["router"], top_k)
+    gate, ids = route(x if split else x_in, experts["router"], top_k)
     held = experts["wi"].shape[0]             # the rank's experts, or all
     lo = 0 if held == n_experts else tp.rank * held
     sort_idx, keep, e_idx, s_idx = dispatch(ids, top_k, n_experts, C, lo,
@@ -155,12 +164,11 @@ def apply(x, p, *, top_k, n_experts, capacity_factor=1.25):
     back = torch.empty_like(at).scatter_(1, sort_idx, at)
     yz = torch.cat([y.reshape(slots, d), y.new_zeros(1, d)])
     gates = gate.to(x.dtype)
-    if tp is not None:
+    if tp is not None and not split:
         gates = tp.copy(gates)
-    out = (F.embedding(back.view(B, S, top_k), yz, padding_idx=slots)
-           * gates[..., None]).sum(2)
-    if tp is not None:
-        out = tp.reduce(out)
+    out = sharding.sublayer_out(
+        (F.embedding(back.view(B, S, top_k), yz, padding_idx=slots)
+         * gates[..., None]).sum(2), tp)
     if "shared" in p:
         out = out + common.mlp_apply(x_in, p["shared"])
     return out

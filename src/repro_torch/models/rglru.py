@@ -138,8 +138,7 @@ def block_apply(x, p, mode="train", cache=None, layer=None):
     (``sharding.local_params``; the forecaster's ``layer`` path runs
     without a mesh)."""
     p, tp = sharding.local_params(p)
-    if tp is not None:
-        x = tp.copy(x)
+    x = sharding.sublayer_in(x, tp)
     gate = F.gelu(x @ p["in_gate"].to(x.dtype), approximate="tanh")
     u = x @ p["in_x"].to(x.dtype)
     conv_state = cache["conv"] if mode == "decode" else None
@@ -156,4 +155,4 @@ def block_apply(x, p, mode="train", cache=None, layer=None):
         if mode == "prefill":
             new_cache = dict(conv=conv_state, state=h.to(x.dtype))
     out = (y * gate) @ p["out"].to(x.dtype)
-    return (out if tp is None else tp.reduce(out)), new_cache
+    return sharding.sublayer_out(out, tp), new_cache

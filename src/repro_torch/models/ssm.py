@@ -231,14 +231,14 @@ def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
     d_inner = cfg.d_inner
     Pd, G, N = cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     H = d_inner // Pd
-    Bsz, S, _ = x.shape
 
     p, tp = sharding.local_params(p, divides=(H,))
+    x = sharding.sublayer_in(x, tp)
+    Bsz, S, _ = x.shape
     w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
     hl, dl, heads = H, d_inner, slice(None)
     conv_state = None if mode != "decode" else cache["conv"]
     if tp is not None:
-        x = tp.copy(x)
         hl, dl, heads = H // tp.size, d_inner // tp.size, tp.block(H)
         cols, conv_cols = local_columns(d_inner, G * N, H, tp.rank, tp.size)
         w_in = _cut(tp.whole(w_in, 1, 2 * d_inner + 2 * G * N + H), cols)
@@ -288,4 +288,4 @@ def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
     y = (y.to(torch.float32) * torch.rsqrt(var + 1e-6)
          * (1.0 + p["norm_scale"].to(torch.float32))).to(x.dtype)
     out = y @ p["out_proj"].to(x.dtype)
-    return (out if tp is None else tp.reduce(out)), new_cache
+    return sharding.sublayer_out(out, tp), new_cache

@@ -49,6 +49,20 @@ packed conv tail is gathered over ``model`` and the rank's block of
 what the layer leaves written back. ``constrain`` pins the activations
 at the embedding and the logits to their logical axes, as the reference
 does.
+
+Where the rules split the residual stream over ``model``
+(``sharding.Layout.split``: its sequence under ``seqpar``, its embedding
+under ``act2d``) every residual add, ``embed_scale``, gate and norm runs
+on the rank's block (a norm's statistics summed over ``model`` under
+``act2d``: ``_norm``), every sub-layer gathers its input on entry and
+leaves its output as the rank's block (``sharding.sublayer_in`` /
+``sublayer_out``; a sub-layer computed whole, heads that ``model`` does
+not divide, the same way), and ``positions`` are the whole sequence's:
+the tokens stay whole over ``model``. The encoder's frames take the
+rank's block as the decoder's stream does; the image patches' sequence
+stays whole, their embedding split under ``act2d``. A decode token's
+sequence of 1 does not split: ``seqpar`` decodes as the baseline does,
+``act2d`` carries [B, 1, d/m] between sub-layers.
 """
 from __future__ import annotations
 
@@ -110,19 +124,28 @@ def constrain(x, axes, vocab=None):
     """The reference's ``with_sharding_constraint`` by logical axes at the
     embedding and the logits. A no-op outside the sharded steps. Inside
     them, ``x`` holds this rank's rows of the batch, split over
-    ``act_batch``'s mesh axes, and the logits (last dimension ``vocab``
-    whole) the rank's block of the vocabulary where ``act_vocab`` splits
-    it over ``model``: checked against the layout here. The sequence and
-    the embedding stay whole on every rank; a layout whose rules would
-    split them (the reference's fall-through to ``act_seq`` where the
-    batch does not divide, ``act2d``) raises."""
+    ``act_batch``'s mesh axes, and of the residual stream the rank's
+    block of the dimension ``Layout.split`` names (the sequence where
+    ``act_seq`` resolves to ``model``, the embedding where ``act_embed``
+    does), checked against the layout here (``sharding.check_rows``). The
+    logits (last dimension ``vocab`` whole) hold every position — the
+    head's entry gathers a split sequence — and the rank's block of the
+    vocabulary where ``act_vocab`` splits it over ``model``
+    (``sharding.check_logits``). A layout whose rules would split the
+    sequence or the embedding over another axis (the reference's
+    fall-through to ``act_seq`` where the batch does not divide) raises."""
     layout = sharding.current_layout()
     if layout is None:
         return x
-    shape = None
     if vocab is not None:
-        shape = (layout.global_batch,) + tuple(x.shape[1:-1]) + (vocab,)
-    return sharding.check_rows(x, axes, layout, shape)
+        return sharding.check_logits(x, axes, layout, vocab)
+    return sharding.check_rows(x, axes, layout)
+
+
+def _norm(cfg, x, p):
+    """The config's norm of the residual stream ``x`` (the rank's block of
+    its channels under ``act2d``: ``sharding.embed_split``)."""
+    return apply_norm(x, p, cfg.norm, sharding.embed_split())
 
 
 # A sub-layer's parameter dict by a key only it holds: MLA (``wkv_a``),
@@ -328,7 +351,7 @@ def init(cfg, gen: torch.Generator) -> Dict[str, Any]:
 def decoder_layer_apply(cfg, p, x, positions, mode, cache, decode_pos,
                         i: int = 0, use_moe: bool = False):
     """Layer ``i`` of a decoder stack, or griffin's attention layer."""
-    h = apply_norm(x, p["ln1"], cfg.norm)
+    h = _norm(cfg, x, p["ln1"])
     if cfg.ssm:
         mix, new_cache = ssm.block_apply(h, p["mixer"], cfg, mode=mode,
                                          cache=cache, chunk=cfg.ssd_chunk)
@@ -348,7 +371,7 @@ def decoder_layer_apply(cfg, p, x, positions, mode, cache, decode_pos,
             cache=cache if mode == "decode" else None, decode_pos=decode_pos,
             keep_kv=mode != "train")
     x = x + mix
-    h2 = apply_norm(x, p["ln2"], cfg.norm)
+    h2 = _norm(cfg, x, p["ln2"])
     if use_moe:
         y = moe.apply(h2, p["mlp"], top_k=cfg.top_k, n_experts=cfg.n_experts,
                       capacity_factor=cfg.moe_capacity_factor)
@@ -360,24 +383,26 @@ def decoder_layer_apply(cfg, p, x, positions, mode, cache, decode_pos,
 
 def rec_layer_apply(cfg, p, x, mode, cache):
     """Griffin's recurrent layer: RG-LRU block, then a GeGLU MLP."""
-    h = apply_norm(x, p["ln1"], cfg.norm)
+    h = _norm(cfg, x, p["ln1"])
     mix, new_cache = rglru.block_apply(h, p["mixer"], mode=mode,
                                        cache=cache)
     x = x + mix
-    h2 = apply_norm(x, p["ln2"], cfg.norm)
+    h2 = _norm(cfg, x, p["ln2"])
     return x + mlp_apply(h2, p["mlp"], gate="gelu"), new_cache
 
 
 def _cross_attend(cfg, p, h, positions, memory=None, cache=None,
-                  keep_kv=True):
+                  keep_kv=True, kv_split=sharding.AS_RESIDUAL):
     """Cross-attention of ``h`` to static K/V (image or encoder memory),
-    no RoPE, kind ``full``: in prefill K/V are projected from ``memory``;
-    in decode ``cache`` is read and never written. Returns (out, (k, v)),
-    the second the static cross cache (``keep_kv=False``: dropped)."""
+    no RoPE, kind ``full``: in prefill K/V are projected from ``memory``
+    (split over ``model`` along ``kv_split``: by default as the residual
+    stream, as the encoder's memory is); in decode ``cache`` is read and
+    never written. Returns (out, (k, v)), the second the static cross
+    cache (``keep_kv=False``: dropped)."""
     return attention.apply(h, p, n_kv=cfg.n_kv, n_heads=cfg.n_heads,
                            positions=positions, kind="full",
                            rope_theta=None, block_kv=cfg.block_kv,
-                           kv_x=memory, cache=cache,
+                           kv_x=memory, kv_split=kv_split, cache=cache,
                            decode_pos=None if cache is None else 0,
                            keep_kv=keep_kv)
 
@@ -386,11 +411,15 @@ def cross_layer_apply(cfg, p, x, positions, patches=None, cache=None,
                       keep_kv=True):
     """Gated cross-attention to static image K/V (from ``patches`` in
     prefill, ``cache`` in decode), then a gated MLP. Returns (x, (k, v))."""
-    h = apply_norm(x, p["ln1"], cfg.norm)
+    h = _norm(cfg, x, p["ln1"])
+    # The patches' sequence (``act_img``) stays whole; under act2d their
+    # embedding is the rank's block, as the residual stream's is.
+    split = sharding.residual_split()
     mix, img_kv = _cross_attend(cfg, p["cross"], h, positions, patches,
-                                cache, keep_kv)
+                                cache, keep_kv,
+                                split if split == sharding.EMBED else None)
     x = x + torch.tanh(p["gate_attn"].to(x.dtype)) * mix
-    h2 = apply_norm(x, p["ln2"], cfg.norm)
+    h2 = _norm(cfg, x, p["ln2"])
     return x + torch.tanh(p["gate_mlp"].to(x.dtype)) * mlp_apply(
         h2, p["mlp"]), img_kv
 
@@ -479,21 +508,25 @@ def encode(cfg, params, frames, mode="prefill"):
     ``rope_theta``), then ``enc_norm``: the decoder's cross-attention
     memory. Each layer is checkpointed in ``train`` mode."""
     x = frames.to(cfg.compute_dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
+    # Every position of the frames (the rank holds its block of them
+    # where the layout splits the sequence over model).
+    n = x.shape[1] * (sharding.current_layout().split_ways
+                      if sharding.residual_split() == sharding.SEQ else 1)
+    positions = torch.arange(n, device=x.device)
 
     def layer(x, lp):
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = _norm(cfg, x, lp["ln1"])
         mix, _ = attention.apply(h, lp["attn"], n_kv=cfg.n_kv,
                                  n_heads=cfg.n_heads, positions=positions,
                                  kind="full", rope_theta=cfg.rope_theta,
                                  block_kv=cfg.block_kv, keep_kv=False)
         x = x + mix
-        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        h2 = _norm(cfg, x, lp["ln2"])
         return x + mlp_apply(h2, lp["mlp"])
 
     for lp in params["enc_layers"]:
         x = _remat(cfg, mode, layer, x, lp)
-    return apply_norm(x, params["enc_norm"], cfg.norm)
+    return _norm(cfg, x, params["enc_norm"])
 
 
 def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
@@ -505,7 +538,7 @@ def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
                                                   batch["frames"], mode)
 
     def layer(x, lp, cc):
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = _norm(cfg, x, lp["ln1"])
         mix, kv = attention.apply(
             h, lp["self"], n_kv=cfg.n_kv, n_heads=cfg.n_heads,
             positions=positions, kind="causal", rope_theta=cfg.rope_theta,
@@ -513,12 +546,12 @@ def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
             cache=cc["self"] if mode == "decode" else None,
             decode_pos=decode_pos, keep_kv=mode != "train")
         x = x + mix
-        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        h2 = _norm(cfg, x, lp["ln2"])
         mix, cross_kv = _cross_attend(
             cfg, lp["cross"], h2, positions, memory,
             cc["cross"] if mode == "decode" else None, mode != "train")
         x = x + mix
-        h3 = apply_norm(x, lp["ln3"], cfg.norm)
+        h3 = _norm(cfg, x, lp["ln3"])
         x = x + mlp_apply(h3, lp["mlp"])
         return x, (dict(self=kv, cross=cross_kv) if mode != "train"
                    else None)
@@ -548,8 +581,12 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
             {k: v for k, v in params.items()
              if k in ("final_norm", "enc_norm")}))
     embed, tp = sharding.local_params(params["embed"])
+    if tp is None and sharding.residual_split() is not None:
+        raise NotImplementedError(
+            "a residual stream split over model needs the vocab-parallel "
+            "embedding and head (the rules' vocab over model)")
     dtype = cfg.compute_dtype
-    tokens = batch["tokens"]
+    tokens = batch["tokens"]            # every position, on every rank
     B, S = tokens.shape
     x = embed_tokens(tokens, embed, dtype, tp)
     x = constrain(x, ("act_batch", "act_seq", "act_embed"))
@@ -576,7 +613,7 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
     if mode == "train":
         new_cache = None
 
-    x = apply_norm(x, params["final_norm"], cfg.norm)
+    x = _norm(cfg, x, params["final_norm"])
     logits = logits_from_hidden(x, embed, cfg.vocab, dtype, tp)
     return constrain(logits, ("act_batch", "act_seq", "act_vocab"),
                      cfg.padded_vocab), new_cache

@@ -57,6 +57,24 @@ The rest is PyTorch's idiom:
     block; ``TensorParallel.sum`` (an all-reduce both ways) and
     ``scatter_sum`` (a reduce-scatter, its backward an all-gather) serve
     the gated norm's statistics and the RG-LRU gates' partial products.
+  * The residual stream split over ``model`` (``Layout.split``): where
+    the rules resolve ``act_seq`` to ``model`` (the ``seqpar`` variants,
+    Megatron's sequence parallelism) the stream [B, S, d] between
+    sub-layers is the rank's S/m positions; where they resolve
+    ``act_embed`` to ``model`` (``act2d``) it is the rank's d/m
+    channels. Every sub-layer enters through ``sublayer_in`` (an
+    all-gather along the split dimension, its backward a reduce-scatter;
+    ``copy`` without a split) and leaves through ``sublayer_out`` (a
+    reduce-scatter, its backward an all-gather; ``reduce`` without a
+    split); one that computes whole (heads that ``model`` does not
+    divide) gathers its input the same way and keeps the rank's block of
+    its output. The norms, gates and residual adds run on the rank's
+    block (under ``act2d`` the norms' statistics summed over ``model``),
+    so each leaf gathered whole is summed over ``model`` in the backward
+    (``_GatherParam``). A split of the sequence or the embedding over
+    ``data`` or ``pod`` (context parallelism: the reference's
+    fall-through to ``act_seq`` where the batch does not divide) raises
+    (``refuse_sequence_sharding``).
   * ``CacheBlock`` / ``write_back`` / ``place_cache`` and ``Segment`` —
     the sharded serving steps' caches. A cache leaf split over ``model``
     by ``kv_heads`` (attention), ``heads`` (the Mamba-2 state) or ``mlp``
@@ -387,17 +405,39 @@ class Layout:
     of one microbatch (or serving batch) and the mesh axes its rows are
     split over (``act_batch``'s resolution); in decode, the mesh axes the
     caches' ``cache_seq`` is split over and its global length (empty and
-    0 when the caches hold every position)."""
+    0 when the caches hold every position); ``split``, the dimension of
+    the residual stream [B, S, d] split over ``model`` (``SEQ`` under
+    ``seqpar``, ``EMBED`` under ``act2d``), None where each rank holds
+    its rows whole."""
     mesh: object
     global_batch: int
     batch_axes: Tuple[str, ...]
     seq_axes: Tuple[str, ...] = ()
     seq_len: int = 0
+    split: Optional[int] = None
 
     @property
     def batch_ways(self) -> int:
         sizes = mesh_sizes(self.mesh)
         return math.prod(sizes[a] for a in self.batch_axes)
+
+    @property
+    def split_ways(self) -> int:
+        """How many blocks ``split`` cuts the residual stream into."""
+        return 1 if self.split is None else mesh_sizes(self.mesh)[MODEL]
+
+    def model_axis(self) -> "TensorParallel":
+        """The ``model`` axis as a ``TensorParallel`` (a ``DeviceMesh``
+        layout)."""
+        i = list(self.mesh.mesh_dim_names).index(MODEL)
+        return TensorParallel(coordinates(self.mesh)[MODEL],
+                              self.mesh.size(i), self.mesh.get_group(i))
+
+
+# The residual stream's logical axes, and the dimensions ``Layout.split``
+# names.
+RESIDUAL = ("act_batch", "act_seq", "act_embed")
+SEQ, EMBED = 1, 2
 
 
 _LAYOUT: Optional[Layout] = None
@@ -423,42 +463,91 @@ def batch_axes(global_batch: int, mesh, rules=None) -> Tuple[str, ...]:
                            rules)[0])
 
 
-def refuse_sequence_sharding(what: str, axes, shape, spec) -> None:
-    """Raise where an activation's layout would split anything but its
-    batch rows and its vocabulary (the logits', over ``model``): its
-    sequence (the reference's fall-through to ``act_seq`` when the batch
-    does not divide, or the ``seqpar`` variants) or its embedding
-    (``act2d``). The sharded steps compute whole sequences and
-    embeddings, and never replicate such a layout quietly. A cache's
-    ``cache_seq`` is not an activation: the serving steps split it
-    (``Segment``)."""
-    split = [a for a, e in zip(axes[1:], spec[1:])
-             if e is not None and a != "act_vocab"]
+def refuse_sequence_sharding(what: str, axes, shape, spec,
+                             mesh=None) -> None:
+    """Raise where an activation's layout would split a dimension past its
+    batch rows over a mesh axis other than ``model``: its sequence over
+    ``data`` or ``pod`` (the reference's fall-through to ``act_seq`` when
+    the batch does not divide, or ``seqpar`` there), which is context
+    parallelism — causal attention across segments, the SSD and RG-LRU
+    states and the causal conv's halo carried from rank to rank — and
+    never replicated quietly. A split over ``model`` alone (``seqpar``'s
+    sequence, ``act2d``'s embedding, the logits' vocabulary) is the
+    sharded steps' ``Layout.split``. A cache's ``cache_seq`` is not an
+    activation: the serving steps split it (``Segment``). With ``mesh``,
+    an axis of size 1 splits nothing."""
+    sizes = {} if mesh is None else mesh_sizes(mesh)
+
+    def others(e):
+        return [n for n in _names(e) if n != MODEL and sizes.get(n) != 1]
+    split = [f"{a} over {'+'.join(others(e))}"
+             for a, e in zip(axes[1:], spec[1:]) if others(e)]
     if split:
         raise NotImplementedError(
             f"{what} {tuple(shape)} resolves to {spec}: beyond its batch "
             f"rows it would be sharded ({', '.join(split)}), which waits "
-            f"for sequence sharding of activations (ROADMAP queue 1, the "
-            f"distribution items)")
+            f"for context parallelism (ROADMAP queue 1, [3d])")
 
 
-def check_rows(x, axes, layout: Layout, shape=None):
+def _model_dims(axes, spec) -> list:
+    """The dimensions past the rows that ``spec`` splits over ``model``,
+    a vocabulary's aside."""
+    return [d for d, (a, e) in enumerate(zip(axes, spec))
+            if d and a != "act_vocab" and MODEL in _names(e)]
+
+
+def step_layout(mesh, rows: int, seq: int, d_model: int) -> Layout:
+    """The layout of a sharded step whose global residual stream is
+    ``[rows, seq, d_model]``: the rows over ``act_batch``'s axes and
+    ``split`` the dimension that the rules give ``model``, if any. A
+    split over another axis raises (``refuse_sequence_sharding``)."""
+    shape = (rows, seq, d_model)
+    spec = spec_for(RESIDUAL, shape, mesh)
+    refuse_sequence_sharding("the residual stream", RESIDUAL, shape, spec,
+                             mesh)
+    dims = _model_dims(RESIDUAL, spec)
+    return Layout(mesh, rows, _names(spec[0]),
+                  split=dims[0] if dims else None)
+
+
+def check_rows(x, axes, layout: Layout):
     """``x``, this rank's block of an activation, checked against
-    ``layout``: its logical ``axes`` on the global ``shape`` (by default
-    the layout's rows and ``x``'s other dimensions) must split the batch
-    rows over the layout's axes, a vocabulary as the rules say (the
-    logits', over ``model``, where the head computes tensor-parallel), and
-    nothing else (``refuse_sequence_sharding``); ``x`` must be that
-    block's shape."""
-    if shape is None:
-        shape = (layout.global_batch,) + tuple(x.shape[1:])
+    ``layout``: its logical ``axes`` on the global shape (the layout's
+    rows, ``x``'s other dimensions, ``split``'s times the ``model`` ways)
+    must split the batch rows over the layout's axes, a vocabulary as the
+    rules say, the dimension the layout names over ``model`` and nothing
+    else (``refuse_sequence_sharding``); ``x`` must be that block's
+    shape."""
+    shape = [layout.global_batch] + list(x.shape[1:])
+    if layout.split is not None and layout.split < x.dim():
+        shape[layout.split] *= layout.split_ways
     spec = spec_for(axes, shape, layout.mesh)
-    refuse_sequence_sharding(f"activation {tuple(axes)}", axes, shape, spec)
+    refuse_sequence_sharding(f"activation {tuple(axes)}", axes, shape, spec,
+                             layout.mesh)
     want = local_shape(spec, shape, mesh_sizes(layout.mesh))
-    if _names(spec[0]) != layout.batch_axes or tuple(x.shape) != want:
+    dims = _model_dims(axes, spec)
+    if _names(spec[0]) != layout.batch_axes or tuple(x.shape) != want or \
+            (dims[0] if dims else None) != layout.split:
         raise ValueError(f"activation rows {tuple(x.shape)} over "
-                         f"{_names(spec[0])}, the layout's {want} over "
-                         f"{layout.batch_axes}")
+                         f"{_names(spec[0])} split over model at {dims}, "
+                         f"the layout's {want} over {layout.batch_axes} "
+                         f"split at {layout.split}")
+    return x
+
+
+def check_logits(x, axes, layout: Layout, vocab: int):
+    """The logits head's output ``x``, this rank's block, checked against
+    ``layout``: its rows over the layout's axes, every position (the
+    head's entry gathered a split sequence: ``sublayer_in``) and the
+    vocabulary of ``vocab`` entries split as ``axes[-1]`` resolves."""
+    spec = spec_for((axes[0], axes[-1]), (layout.global_batch, vocab),
+                    layout.mesh)
+    rows, cols = local_shape(spec, (layout.global_batch, vocab),
+                             mesh_sizes(layout.mesh))
+    want = (rows,) + tuple(x.shape[1:-1]) + (cols,)
+    if _names(spec[0]) != layout.batch_axes or tuple(x.shape) != want:
+        raise ValueError(f"logits {tuple(x.shape)} over {_names(spec[0])}, "
+                         f"the layout's {want} over {layout.batch_axes}")
     return x
 
 
@@ -504,7 +593,11 @@ class _GatherParam(torch.autograd.Function):
     tensor-parallel sub-layer that the rules replicate over ``model``
     (``wk`` / ``wv`` where the kv heads do not divide it) was used in part
     by each rank (the kv heads of its q heads), so its gradient is summed
-    over ``model`` too."""
+    over ``model`` too. So is a leaf gathered whole where the layout
+    splits the residual stream over ``model`` (``Layout.split``): each
+    rank applied it to its own positions or channels (a norm's scale, a
+    gate, the router) or kept its block of the output it computed whole
+    (``sublayer_out``)."""
 
     @staticmethod
     def forward(ctx, local, leaf: ShardedLeaf, layout: Layout,
@@ -512,7 +605,8 @@ class _GatherParam(torch.autograd.Function):
         placed = (_without_model(leaf.placements, leaf.mesh) if keep_model
                   else leaf.placements)
         ctx.leaf, ctx.layout, ctx.placed = leaf, layout, placed
-        ctx.partial = keep_model and not leaf.splits_model()
+        ctx.partial = (not leaf.splits_model() if keep_model
+                       else layout.split is not None)
         if not any(p.is_shard() for p in placed):
             return local.view_as(local)
         return _gather(local, placed, leaf.mesh)
@@ -726,6 +820,72 @@ class TensorParallel:
         """This rank's block of ``n`` entries split over ``model``."""
         size = n // self.size
         return slice(self.rank * size, (self.rank + 1) * size)
+
+    def enter(self, x, dim: Optional[int] = None):
+        """A tensor-parallel sub-layer's input: ``copy`` where ``x`` is
+        whole on every rank (``dim`` None); else ``x`` holds the rank's
+        block along ``dim`` and comes back whole (an all-gather), its
+        backward the sum over ``model`` of the gradient's parts, the
+        rank's block of it (a reduce-scatter)."""
+        return self.copy(x) if dim is None else _Whole.apply(x, dim, self)
+
+    def exit(self, x, dim: Optional[int] = None):
+        """A row-parallel sub-layer's output: ``reduce`` (dim None), or
+        the sum over ``model``'s rank's block along ``dim`` (a
+        reduce-scatter), its backward an all-gather."""
+        return self.reduce(x) if dim is None else self.scatter_sum(x, dim)
+
+
+# ``sublayer_in``'s default: the dimension the layout splits the residual
+# stream by.
+AS_RESIDUAL = -1
+
+
+def residual_split() -> Optional[int]:
+    """The dimension the current layout splits the residual stream by over
+    ``model`` (``Layout.split``), None outside a sharded step or where it
+    splits only the rows."""
+    return None if _LAYOUT is None else _LAYOUT.split
+
+
+def embed_split() -> Optional[TensorParallel]:
+    """The ``model`` axis where the current layout splits the residual
+    stream's embedding over it (``act2d``): a norm then sums its
+    statistics over it and applies its block of the scale. Else None."""
+    if _LAYOUT is None or _LAYOUT.split != EMBED:
+        return None
+    return _LAYOUT.model_axis()
+
+
+def sublayer_in(x, tp: Optional[TensorParallel], dim=AS_RESIDUAL):
+    """A sub-layer's input ``x``, this rank's block along ``dim`` (by
+    default the residual stream's ``Layout.split``; None: whole on every
+    rank): ``tp.enter`` where the sub-layer computes tensor-parallel; for
+    one that computes whole under a split, the all-gather with the same
+    reduce-scatter backward (each rank's output block depends on every
+    position); else ``x``."""
+    if dim == AS_RESIDUAL:
+        dim = residual_split()
+    if tp is not None:
+        return tp.enter(x, dim)
+    if dim is None:
+        return x
+    return _Whole.apply(x, dim, _LAYOUT.model_axis())
+
+
+def sublayer_out(y, tp: Optional[TensorParallel]):
+    """A sub-layer's output back on the residual stream's layout:
+    ``tp.exit`` along ``Layout.split`` where it computes tensor-parallel;
+    for one that computed whole under a split, the rank's block of ``y``
+    (its backward zero past the block: ``_GatherParam`` sums the leaves'
+    gradients over ``model``); else ``y``."""
+    dim = residual_split()
+    if tp is not None:
+        return tp.exit(y, dim)
+    if dim is None:
+        return y
+    return y[(slice(None),) * dim + (_LAYOUT.model_axis().block(
+        y.shape[dim]),)]
 
 
 def model_split(tree) -> Optional[TensorParallel]:

@@ -28,9 +28,16 @@ each expert's columns), the Mamba-2 mixer over its heads and the RG-LRU
 block over its channels (their decode state in place), each gathered
 over the other axes only (``sharding.local_params``). Only norms, gates
 and MoE's router are gathered whole. The steps' logits come back
-gathered over ``model``. A layout that would split an activation's
-sequence or embedding raises
-(``sharding.refuse_sequence_sharding``).
+gathered over ``model``.
+
+Where the rules split the residual stream over ``model`` — its sequence
+(``act_seq`` to ``model``: the ``seqpar`` variants) or its embedding
+(``act_embed`` to ``model``: ``act2d``) — each rank carries its block of
+the stream between sub-layers, and each sub-layer gathers it on entry and
+reduce-scatters its output (``sharding.sublayer_in`` / ``sublayer_out``);
+the tokens and labels stay whole over ``model``. A layout that would
+split an activation's sequence or embedding over ``data`` or ``pod``
+(context parallelism) raises (``sharding.refuse_sequence_sharding``).
 """
 from __future__ import annotations
 
@@ -183,20 +190,40 @@ def _need_group(what: str, mesh) -> None:
 # Logical axes of each input's dimensions past the rows.
 _INPUT_AXES = dict(tokens="act_seq", labels="act_seq", frames="act_seq",
                    patches="act_img")
+# Inputs every ``model`` rank holds whole past its rows: the
+# vocab-parallel embedding looks every position up in the rank's
+# vocabulary rows, and the vocab-parallel loss reads every position of
+# the head's output (whose entry gathered a split sequence).
+_WHOLE_OVER_MODEL = ("tokens", "labels")
 
 
-def _local_rows(mesh, batch):
+def _local_rows(model, mesh, batch):
     """This rank's rows of a (micro)batch of global rows, and the layout
-    they make; a layout that would split anything past the rows
-    raises."""
-    n = next(iter(batch.values())).shape[0]
-    layout = sharding.Layout(mesh, n, sharding.batch_axes(n, mesh))
+    they make (``sharding.step_layout``: the residual stream's split over
+    ``model``, if any). ``frames`` and ``patches`` take the rank's block of
+    what their rules split over ``model``, which must be the residual
+    stream's dimension (the frames' sequence or embedding, the patches'
+    embedding); ``tokens`` and ``labels`` only their rows. A layout that
+    would split anything past the rows over another axis raises."""
+    n, S = batch["tokens"].shape
+    layout = sharding.step_layout(mesh, n, S, model.cfg.d_model)
     out = {}
     for k, v in batch.items():
         logical = ("act_batch", _INPUT_AXES[k], "act_embed")[:v.dim()]
         spec = sharding.spec_for(logical, v.shape, mesh)
         sharding.refuse_sequence_sharding(f"input {k}", logical, v.shape,
-                                          spec)
+                                          spec, mesh)
+        if k in _WHOLE_OVER_MODEL:
+            spec = spec[:1] + (None,) * (v.dim() - 1)
+        else:
+            dims = sharding._model_dims(logical, spec)
+            want = layout.split if k == "frames" else (
+                sharding.EMBED if layout.split == sharding.EMBED else None)
+            if (dims[0] if dims else None) != want:
+                raise NotImplementedError(
+                    f"input {k} {tuple(v.shape)} resolves to {spec}, split "
+                    f"over model at {dims}; the residual stream's layout "
+                    f"needs it split at {want}")
         out[k] = v[sharding.local_slices(
             spec, v.shape, sharding.mesh_sizes(mesh),
             sharding.coordinates(mesh))]
@@ -241,7 +268,7 @@ def _sharded_parts(model, opt, compress, mesh) -> TrainParts:
     names = list(mesh.mesh_dim_names)
 
     def grads_of(live, mb):
-        rows, layout = _local_rows(mesh, mb)
+        rows, layout = _local_rows(model, mesh, mb)
         locals_ = [leaf.local for leaf in tree_leaves(live)]
         with sharding.activation_layout(layout):
             loss = model.loss(live, rows)
@@ -280,7 +307,7 @@ def make_prefill_step(model, mesh=None):
     live = _serving_leaves(model)
 
     def sharded_prefill_step(params, batch):
-        rows, layout = _local_rows(mesh, batch)
+        rows, layout = _local_rows(model, mesh, batch)
         with sharding.activation_layout(layout):
             logits, cache = model.prefill(live(params), rows)
         return logits, sharding.place_cache(cache, axes, layout, full)
@@ -310,7 +337,7 @@ def make_decode_step(model, mesh=None):
     memo = [None, None, None]
 
     def sharded_decode_step(params, cache, tokens, pos):
-        rows, layout = _local_rows(mesh, dict(tokens=tokens))
+        rows, layout = _local_rows(model, mesh, dict(tokens=tokens))
         if memo[0] is not cache or memo[1] != layout:
             memo[:] = [cache, layout,
                        sharding.cache_blocks(cache, axes, layout)]

@@ -38,8 +38,9 @@ in a JAX subprocess with four host devices.
   tensor-parallel attention), against the unsharded decode; the
   parameter gathers over ``model`` of a prefill on (1, 4) (none but the
   leaves a rank needs whole: MoE's router, gathered as a gate is, and
-  Mamba-2's packed ``in_proj`` and conv) and its sums over ``model``; the activation
-  layouts that must raise (``act2d``, ``seqpar``).
+  Mamba-2's packed ``in_proj`` and conv) and its sums over ``model``; a
+  sequence split over ``data`` (batch 1 on (2, 2)), which must raise in
+  the train step and prefill.
 """
 import datetime
 import json
@@ -359,6 +360,9 @@ SEQ_CASES = dict(gemma3_4b=("gemma3_4b", (4, 1), 1, "baseline"),
                  minicpm3_4b=("minicpm3_4b", (2, 2), 2, "seqshard"),
                  gemma3_4b_seqshard=("gemma3_4b", (2, 2), 2, "seqshard"))
 SEQ_S, SEQ_N = 20, 8
+# The rule sets under which a batch of 1 on (2, 2) splits the sequence
+# over data: refused (context parallelism).
+CONTEXT_VARIANTS = ("baseline", "seqpar")
 # The sequence-split decode against the unsharded one (float32): its
 # softmax is combined across segments in another order.
 SEQ_ATOL = 1e-5
@@ -648,21 +652,35 @@ def _rank_serve(rank: int, run_dir: str):
         out["gathers"][arch] = _prefill_gathers(
             model, model.init(torch.Generator().manual_seed(0)),
             inputs["qwen2_1_5b"]["tokens"], mesh)
-    # Activation layouts the steps refuse rather than replicate quietly.
+    # A sequence split over data (batch 1 on (2, 2): the reference's
+    # fall-through, and seqpar's sequence over data and model) is context
+    # parallelism, which the steps refuse rather than replicate quietly.
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import (make_train_step,
+                                                shard_train_state)
     cfg = get_config("qwen2_1_5b", reduced=True).replace(
         dtype="float32", param_dtype="float32")
     model = Model(cfg)
     mesh = _mesh((2, 2), ("data", "model"))
-    params, toks = inputs["qwen2_1_5b"]["params"], \
-        inputs["qwen2_1_5b"]["tokens"]
-    for variant in ("act2d", "seqpar", "seqpar_seqshard"):
-        with sharding.rule_overrides(VARIANTS[variant]["rules"]):
+    params, one = inputs["qwen2_1_5b"]["params"], \
+        inputs["qwen2_1_5b"]["tokens"][:1]
+    for variant in CONTEXT_VARIANTS:
+        with sharding.rule_overrides(VARIANTS[variant].get("rules")):
             sp, _ = shard_serve_state(model, params, None, mesh)
             try:
-                make_prefill_step(model, mesh)(sp, dict(tokens=toks))
-                out["raised"][variant] = "no error"
+                make_prefill_step(model, mesh)(sp, dict(tokens=one))
+                out["raised"][f"prefill/{variant}"] = "no error"
             except NotImplementedError as e:
-                out["raised"][variant] = str(e)
+                out["raised"][f"prefill/{variant}"] = str(e)
+            opt = adamw()
+            sp, so = shard_train_state(model, params, opt, mesh)
+            try:
+                with torch.enable_grad():
+                    make_train_step(model, opt, mesh=mesh)(
+                        sp, so, dict(tokens=one, labels=one))
+                out["raised"][f"train/{variant}"] = "no error"
+            except NotImplementedError as e:
+                out["raised"][f"train/{variant}"] = str(e)
     if rank == 0:
         np.save(os.path.join(run_dir, "serve.npy"), out, allow_pickle=True)
 
@@ -1198,14 +1216,19 @@ def test_sequence_split_decode_matches_unsharded(serve_run, arch):
     np.testing.assert_array_equal(r["tokens"], tokens)
 
 
-def test_serving_refuses_activation_splits(serve_run):
-    """``act2d`` (the embedding over ``model``) and ``seqpar`` (the
-    sequence over ``model``) raise naming ROADMAP queue 1 in the sharded
-    prefill, rather than replicate quietly."""
+@pytest.mark.parametrize("variant", CONTEXT_VARIANTS)
+@pytest.mark.parametrize("step", ["train", "prefill"])
+def test_a_sequence_split_over_data_raises_naming_context_parallelism(
+        serve_run, step, variant):
+    """A batch of 1 on (2, 2) would split the sequence over ``data`` (the
+    baseline rules' fall-through to ``act_seq``; under ``seqpar`` over
+    ``data`` and ``model``): the sharded train step and prefill raise
+    naming the context-parallelism item of ROADMAP queue 1, rather than
+    replicate quietly. (A split over ``model`` alone runs:
+    ``test_torch_sequence_parallel.py``.)"""
     out, _ = serve_run
-    for variant in ("act2d", "seqpar", "seqpar_seqshard"):
-        msg = out["raised"][variant]
-        assert "ROADMAP queue 1" in msg, (variant, msg)
+    msg = out["raised"][f"{step}/{variant}"]
+    assert "ROADMAP queue 1, [3d]" in msg, msg
 
 
 if __name__ == "__main__":
