@@ -166,7 +166,16 @@ Builds the port's kernels from the sources in this checkout, then:
      rank 0 of 2 (the wgmma SSD at 40 heads, ``rglru_layer_fwd`` at 1280
      channels, the D 256 flash at 5 q heads) — each first kernel call
      held against its plain version and timed at its shape beside its
-     bound; (c) the dry run of qwen2-72B train_4k on the 16x16 and 2x16x16
+     bound; (i) context parallelism: both flash kernels at query offsets
+     (off the tile grid, windows, MLA, float32) against the plain version,
+     and at offset 0 bitwise their outputs before the offset (digests);
+     then qwen2-72B at 16 layers, bf16, a batch-1 prefill of 32768
+     positions as the last of 8 sequence segments over ``data`` (rank 7
+     of the fake process group) — 16 ``flash_fwd_sm90<128, 128>``
+     launches of 4096 queries at offset 28672 against 32768 keys, no
+     plain version, the first held against the plain version and timed
+     beside it, SDPA with the offset-causal mask and its bound; (c) the
+     dry run of qwen2-72B train_4k on the 16x16 and 2x16x16
      production meshes: per-device bytes, and per-device FLOPs, bytes,
      collectives and roofline at 2 of 80 layers from ``python -m
      repro_torch.launch.dryrun`` over a fake process group.
@@ -2009,9 +2018,9 @@ def phase_lm_kernels(dev) -> dict:
 
 
 def check_masked_refusal() -> None:
-    """A causal or sliding prefill attention with Sq != Skv raises and
-    launches nothing: the kernel's mask puts q and kv positions both at
-    0."""
+    """A causal or sliding prefill attention with Sq != Skv at offset 0
+    raises and launches nothing: its queries are not the keys' last
+    positions, so its mask would not be the reference's."""
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.models import attention
     q = torch.zeros((1, 64, 2, 2, 64), dtype=torch.bfloat16, device="cuda")
@@ -4534,6 +4543,335 @@ def tp_mixers(dev) -> dict:
     return out
 
 
+# (i) context parallelism: CP_ARCH at CP_DEPTH of 80 layers, bf16, a
+# batch-1 prefill of CP_S positions (prefill_32k's sequence) as the last
+# of CP_WAYS ``data`` segments (rank CP_WAYS - 1 of a (CP_WAYS, 1) fake
+# process group): 4096 queries a layer at offset 28672 against the keys
+# of their 32768-position prefix, through the wgmma kernel.
+CP_ARCH, CP_DEPTH, CP_S, CP_WAYS = "qwen2_72b", 16, 32768, 8
+# The flash kernels at a query offset against the plain version (offsets
+# off the 128-row and 128-key tile grids, on it, sliding windows, MLA's
+# dims, a call whose K and V outgrow L2 so that the wgmma kernel deals
+# pairs of q tiles, and float32 on the scalar kernel): (label, B, Hq,
+# Hkv, Sq, q_offset, D, Dv, window, dtype); Skv = q_offset + Sq.
+FLASH_OFFSET_CASES = [
+    ("D 128 off-grid", 2, 4, 2, 200, 333, 128, 128, 0, torch.bfloat16),
+    ("D 64 on-grid", 1, 6, 3, 256, 128, 64, 64, 0, torch.bfloat16),
+    ("D 256 sliding", 1, 4, 1, 150, 77, 256, 256, 100, torch.bfloat16),
+    ("D 128 sliding far", 1, 2, 2, 256, 1000, 128, 128, 300,
+     torch.bfloat16),
+    ("MLA 96/64", 1, 4, 4, 130, 390, 96, 64, 0, torch.bfloat16),
+    ("MLA 192/128", 1, 2, 2, 64, 1, 192, 128, 0, torch.bfloat16),
+    ("D 128 pairs", 1, 8, 8, 2048, 14336, 128, 128, 0, torch.bfloat16),
+    ("f32 D 64", 1, 4, 2, 100, 333, 64, 64, 0, torch.float32),
+    ("f32 D 128 sliding", 1, 2, 1, 64, 70, 128, 128, 50, torch.float32),
+    ("f32 D 256", 1, 2, 2, 70, 129, 256, 256, 0, torch.float32),
+    ("bf16 D 16 scalar", 1, 2, 1, 33, 5, 16, 16, 0, torch.bfloat16)]
+# The outputs the flash kernels gave at offset 0, before it existed: sha256
+# of each FLASH_DIGEST_CASES output's bytes on its fixed inputs, from
+# ``kernel_probe.py digest`` on the tree before the offset (NVIDIA H100
+# 80GB HBM3, 700.00 W). The kernels hold no atomics and no order that
+# depends on timing, so an output is a function of its inputs.
+PARENT_FLASH_DIGESTS = {
+    "wgmma 64 causal":
+        "3032b3e5a7a3e0fbc4f3dd2dab9cf9c1cb1496944a94bd5b16b03c43b2a73cdc",
+    "wgmma 128 causal":
+        "34c030fe853389c13106a2f151b9fcc90a2e3f0768a55852a297379790d46624",
+    "wgmma 128 window":
+        "3ad5c439708b3a7fa1ff06109076b64c7e1571b206508f0aa8ba4d37f5899efa",
+    "wgmma 256 causal":
+        "efac54c775541aa0588512dfb76e56419c298c24b29c3e8f79d4a1a734cbf72a",
+    "wgmma 96/64 causal":
+        "9203c2346f73ec2ef2252707ca6d9629c19be4970a130e453271c46593cb527d",
+    "wgmma 192/128 causal":
+        "31e373ad4de723630a5c0610f5418a84eec249e6c71976d5d26ec1e67a3b9c41",
+    "wgmma 64 full":
+        "6c26f638c00460d05bca70b9867be61cc0ace62d7c1ccd71f52b5fecdd1033d2",
+    "wgmma 128 pairs":
+        "94007d37b3c1258589326e48cf78f7300f5d4af55c4096796437269740ed7022",
+    "scalar f32 64 causal":
+        "d71b03ff9be488e1f3d30ba219febb2eac3696513e819cfc7bab8f68d68bcd6e",
+    "scalar f32 128 window":
+        "9b2edf233665784f9739935e23ef54a5cf8122892f74bc250c5b8e1d9e94d23e",
+    "scalar f32 256 full":
+        "9a5960a5f1ae6df8d6f1290b6b1ea4ce520a09412b8869bc721ef757a41a4f29",
+    "scalar bf16 16 causal":
+        "d2b80140ec3313c002c5d3eb835e87399d1eb06866b90e163f468e4c6d32b208"}
+# (label, kernel, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window, dtype): the
+# wgmma kernel on the model layout, the scalar one heads first.
+FLASH_DIGEST_CASES = [
+    ("wgmma 64 causal", "wgmma", 2, 4, 2, 300, 300, 64, 64, True, 0,
+     torch.bfloat16),
+    ("wgmma 128 causal", "wgmma", 1, 8, 1, 520, 520, 128, 128, True, 0,
+     torch.bfloat16),
+    ("wgmma 128 window", "wgmma", 1, 4, 2, 700, 700, 128, 128, True, 250,
+     torch.bfloat16),
+    ("wgmma 256 causal", "wgmma", 1, 4, 4, 333, 333, 256, 256, True, 0,
+     torch.bfloat16),
+    ("wgmma 96/64 causal", "wgmma", 1, 4, 4, 400, 400, 96, 64, True, 0,
+     torch.bfloat16),
+    ("wgmma 192/128 causal", "wgmma", 1, 2, 2, 300, 300, 192, 128, True, 0,
+     torch.bfloat16),
+    ("wgmma 64 full", "wgmma", 1, 4, 4, 200, 333, 64, 64, False, 0,
+     torch.bfloat16),
+    ("wgmma 128 pairs", "wgmma", 1, 8, 8, 4096, 4096, 128, 128, True, 0,
+     torch.bfloat16),
+    ("scalar f32 64 causal", "scalar", 1, 4, 2, 300, 300, 64, 64, True, 0,
+     torch.float32),
+    ("scalar f32 128 window", "scalar", 1, 2, 1, 200, 200, 128, 128, True,
+     70, torch.float32),
+    ("scalar f32 256 full", "scalar", 1, 2, 2, 100, 150, 256, 256, False, 0,
+     torch.float32),
+    ("scalar bf16 16 causal", "scalar", 1, 2, 1, 99, 99, 16, 16, True, 0,
+     torch.bfloat16)]
+
+
+def flash_digests() -> dict:
+    """{label: sha256 of the output's bytes} of every FLASH_DIGEST_CASES
+    call at offset 0 (no offset passed: the call an older tree takes too),
+    on inputs drawn by numpy from fixed seeds."""
+    from repro_torch.kernels.flash_attention import flash_attention as fk
+    out = {}
+    for i, (label, kind, B, Hq, Hkv, Sq, Skv, D, Dv, causal, window,
+            dtype) in enumerate(FLASH_DIGEST_CASES):
+        rng = np.random.default_rng(100 + i)
+
+        def draw(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to("cuda").to(dtype)
+        with torch.no_grad():
+            if kind == "wgmma":
+                o = fk.flash_attention_cuda(
+                    draw(B, Sq, Hq, D), draw(B, Skv, Hkv, D),
+                    draw(B, Skv, Hkv, Dv), causal=causal, window=window)
+            else:
+                o = fk._launch("scalar", draw(B * Hq, Sq, D),
+                               draw(B * Hkv, Skv, D), draw(B * Hkv, Skv, D),
+                               causal=causal, window=window, scale=None,
+                               group=Hq // Hkv)
+        torch.cuda.synchronize()
+        out[label] = hashlib.sha256(o.contiguous().view(torch.uint8).cpu()
+                                    .numpy().tobytes()).hexdigest()
+    return out
+
+
+def flash_offset_checks(dev) -> dict:
+    """(i)'s kernel checks: every FLASH_OFFSET_CASES call through the
+    model-layout wrapper (one launch of the kernel ``kernel_call`` names)
+    against the plain version at the same offset within FLASH_ATOL and
+    FLASH_RRMS; then the offset-0 outputs' digests against the parent's
+    (PARENT_FLASH_DIGESTS): bitwise the kernels before the offset."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    worst = {}
+    for i, (label, B, Hq, Hkv, Sq, off, D, Dv, window,
+            dtype) in enumerate(FLASH_OFFSET_CASES):
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        G, Skv = Hq // Hkv, off + Sq
+        q = torch.randn((B, Sq, Hkv, G, D), generator=gen,
+                        device=dev).to(dtype)
+        k = torch.randn((B, Skv, Hkv, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Skv, Hkv, Dv), generator=gen,
+                        device=dev).to(dtype)
+        scale = 1.0 / np.sqrt(D) if D != Dv else None
+        call = fops.kernel_call(dtype, D, Dv)
+        with torch.no_grad(), flash_call_recorder() as seen:
+            out = fops.flash_attention(q, k, v, causal=True, window=window,
+                                       scale=scale, q_offset=off)
+        if dict(seen) != {(*call, True): 1}:
+            fail(f"flash at offset {off} ({label}) launched {dict(seen)}, "
+                 f"want one {call}")
+        ref = flash_attention_ref(q, k, v, causal=True, window=window,
+                                  scale=scale, q_offset=off)
+        err, rel = hold_flash(f"flash at offset {off} ({label})", out, ref,
+                              dtype)
+        worst[label] = err
+        print(f"  (i) flash {label}: {call[0]} kernel at {call[1]}/{call[2]},"
+              f" B {B}, {Hq} over {Hkv} heads, {Sq} queries at offset {off}"
+              f" against {Skv} keys, window {window}: max |d| {err:.3e}, "
+              f"RMS(d) / RMS(plain) {rel:.3e}", flush=True)
+    got = flash_digests()
+    if not PARENT_FLASH_DIGESTS:
+        fail("PARENT_FLASH_DIGESTS is empty")
+    differ = {k: v for k, v in got.items() if PARENT_FLASH_DIGESTS.get(k)
+              != v}
+    if differ or set(got) != set(PARENT_FLASH_DIGESTS):
+        fail(f"the flash kernels at offset 0 are not bitwise their outputs "
+             f"before the offset: {sorted(differ)}")
+    print(f"  (i) at offset 0 both flash kernels are bitwise their outputs "
+          f"before the offset: {len(got)} digests equal "
+          f"(PARENT_FLASH_DIGESTS)", flush=True)
+    return dict(offset_max_abs_err=worst, digests_equal=len(got))
+
+
+@contextlib.contextmanager
+def own_segments():
+    """Under the fake process group, whose collectives return at once and
+    write nothing, the exchanges between sequence segments
+    (``sharding._segment_gather`` and its backward's reduce-scatter) take
+    this rank's block as every segment's, so the values stay finite, of
+    the right scale, and the work the same."""
+    from repro_torch.runtime import sharding
+    inner = sharding._segment_gather, sharding._segment_scatter_sum
+
+    def gather(x, dim, cp):
+        return torch.cat([x.contiguous()] * cp.size, dim=dim)
+
+    def scatter_sum(x, dim, cp):
+        n = x.shape[dim] // cp.size
+        return x.narrow(dim, cp.index * n, n).contiguous()
+    sharding._segment_gather, sharding._segment_scatter_sum = (gather,
+                                                               scatter_sum)
+    try:
+        yield
+    finally:
+        sharding._segment_gather, sharding._segment_scatter_sum = inner
+
+
+def cp_qwen2_72b(dev) -> dict:
+    """(i): the offset kernels (``flash_offset_checks``), then CP_ARCH at
+    CP_DEPTH of 80 layers, full width, bf16, as the last of CP_WAYS
+    ``data`` segments (rank CP_WAYS - 1 of a (CP_WAYS, 1) fake process
+    group; ``own_segments`` fills the K/V all-gathers; the parameters
+    whole on the rank, the rules' ``embed`` taken off ``data``): one
+    batch-1 prefill of CP_S positions through ``make_prefill_step(mesh=)``
+    (a second, warm one timed), CP_DEPTH wgmma flash launches at [1,
+    CP_S / CP_WAYS, 8, 8, 128] against CP_S keys at offset CP_S (CP_WAYS
+    - 1) / CP_WAYS and no plain version; the first call held against the
+    plain version (``flash_attention_blocked``: the float32 scores of
+    ``attention_ref`` at 64 heads would take 34 GB) and timed alone beside
+    it, SDPA with the offset-causal boolean mask and the bound."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_blocked
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import make_prefill_step
+    start = time.perf_counter()
+    checks = flash_offset_checks(dev)
+    cfg = get_config(CP_ARCH).replace(n_layers=CP_DEPTH)
+    model = Model(cfg)
+    seg = CP_S // CP_WAYS
+    off = seg * (CP_WAYS - 1)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (1, CP_S))).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with fake_group(CP_WAYS, CP_WAYS - 1), own_segments(), \
+            sharding.rule_overrides({"embed": ()}):
+        mesh = init_device_mesh("cuda", (CP_WAYS, 1),
+                                mesh_dim_names=("data", "model"))
+        layout = sharding.step_layout(mesh, 1, CP_S, cfg.d_model)
+        cp = layout.context()
+        if layout.segment_axes != ("data",) or cp.index != CP_WAYS - 1:
+            fail(f"{CP_ARCH} (13i): segments {layout.segment_axes}, this "
+                 f"rank's {cp}, want the last of {CP_WAYS} over data")
+        params = tp_share(model, mesh, torch.Generator(device="cuda")
+                          .manual_seed(0))
+        share = sum(t.to_local().numel() * t.to_local().element_size()
+                    for t in tree_leaves(params))
+        prefill = make_prefill_step(model, mesh)
+        walls = []
+        with torch.inference_mode():
+            for turn in range(2):
+                reset_lm_launches()
+                with plain_call_counter() as plain, \
+                        flash_call_recorder() as shapes, \
+                        first_flash_call() as first:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, built = prefill(params, dict(tokens=toks))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                launches = read_lm_launches()
+                del built
+                if turn == 0:
+                    firsts = dict(first)
+                    del first
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params
+    torch.cuda.empty_cache()
+    where = f"{CP_ARCH} (13i)"
+    check_rank_launches(where, dict(prefill_launches=launches,
+                                    launches=launches,
+                                    flash_shapes=dict(shapes)),
+                        want_launches(flash=CP_DEPTH),
+                        {("wgmma", 128, 128, True): CP_DEPTH})
+    if sum(plain.values()):
+        fail(f"{where}: plain versions ran: {dict(plain)}")
+    if tuple(logits.shape) != (1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{where}: last logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    G = cfg.n_heads // cfg.n_kv
+    want_q = (1, seg, cfg.n_kv, G, cfg.head_dim_)
+    q, k, v, kw = (firsts[n] for n in ("q", "k", "v", "kw"))
+    if tuple(q.shape) != want_q or tuple(k.shape) != (
+            1, CP_S, cfg.n_kv, cfg.head_dim_) or kw["q_offset"] != off:
+        fail(f"{where}: first flash call q {tuple(q.shape)}, k "
+             f"{tuple(k.shape)} at offset {kw['q_offset']}; want q {want_q} "
+             f"against {CP_S} keys at offset {off}")
+    plain_fn = lambda: flash_attention_blocked(q, k, v, **kw)
+    with torch.no_grad():
+        err, rel = hold_flash(f"{where} first flash call", firsts["out"],
+                              plain_fn(), torch.bfloat16)
+        kernel = lambda: fops.flash_attention(q, k, v, **kw)
+        qp = torch.arange(seg, device=dev)[:, None] + off
+        mask = torch.arange(CP_S, device=dev)[None, :] <= qp
+        # heads first, the kv heads repeated for each of their q heads
+        q4 = q.flatten(2, 3).transpose(1, 2)
+        k4, v4 = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask)
+        lib_err = (library().transpose(1, 2).reshape(firsts["out"].shape)
+                   .float() - firsts["out"].float()).abs().max().item()
+        visible = seg * off + seg * (seg + 1) // 2
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        timing = dict(ms=cuda_ms(kernel, warmup=3, reps=10),
+                      device_ms=flash_kernel_device_ms(kernel, reps=3)[0],
+                      plain_ms=cuda_ms(plain_fn, warmup=1, reps=2),
+                      library_ms=cuda_ms(library, warmup=2, reps=5),
+                      library=("SDPA, offset-causal boolean mask, kv "
+                               "heads repeated"), library_err=lib_err,
+                      **bound(nbytes, 4 * cfg.head_dim_ * cfg.n_heads
+                              * visible, BF16_OPS_PER_S))
+    del q, k, v, q4, k4, v4, mask, firsts
+    torch.cuda.empty_cache()
+    out = dict(checks, layers=CP_DEPTH, segments=CP_WAYS, segment=seg,
+               q_offset=off, share_bytes=share,
+               prefill_ms=walls[1] * 1e3, first_prefill_ms=walls[0] * 1e3,
+               tokens_per_s=seg / walls[1], peak_gib=peak,
+               launches=launches, flash_launches=CP_DEPTH,
+               flash_shape=list(want_q), max_abs_err=err, rel_rms=rel,
+               timing=timing, wall_s=time.perf_counter() - start)
+    print(f"  (i) {CP_ARCH} ({CP_DEPTH} layers, bf16) as rank "
+          f"{CP_WAYS - 1} of a ({CP_WAYS}, 1) (data, model) mesh over the "
+          f"card, the last of {CP_WAYS} sequence segments (the fake process "
+          f"group's collectives move nothing: the segments' K/V are this "
+          f"rank's own); the parameters whole, "
+          f"{share / 1e9:.2f} GB: a batch-1 prefill of {CP_S} positions, "
+          f"the rank's {seg} at offset {off}: {walls[1] * 1e3:.1f} ms warm "
+          f"(first {walls[0] * 1e3:.1f} ms), {seg / walls[1]:.0f} tokens/s "
+          f"of the rank; peak {peak:.2f} GiB; launches {launches}: "
+          f"{CP_DEPTH} flash_fwd_sm90<128, 128> at q {list(want_q)} against "
+          f"{CP_S} keys, no plain version; the first vs the plain version "
+          f"max |d| {err:.3e}, RMS(d) / RMS(plain) {rel:.3e}; "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    print(f"  (i) that call alone: {timing['ms']:.3f} ms (device "
+          f"{timing['device_ms']}), plain (blocked, float32) "
+          f"{timing['plain_ms']:.3f} ms, {timing['library']} "
+          f"{timing['library_ms']:.3f} ms (max |d| to the kernel "
+          f"{lib_err:.3e}); bound {timing['bound_ms']:.3f} ms "
+          f"({timing['bound_by']}: {timing['nops']:.4e} FLOP at 989 "
+          f"TFLOP/s)", flush=True)
+    return out
+
+
 def phase_distribution(dev, workdir: str) -> dict:
     print(f"== phase 13: distribution — (a) {DIST_ARCH} at full width, "
           f"{DIST_DEPTH} of 80 layers, bf16, served (B 4, prompt 2048, 32 "
@@ -4548,15 +4886,19 @@ def phase_distribution(dev, workdir: str) -> dict:
           + ", ".join(f"{a} depth {d}" for a, d in TP_MIXERS.items())
           + f" at full width as one rank of {TP_MIXER_MESH}, (h) (e)'s "
           f"prefill with the residual stream split over model (seqpar, "
-          f"act2d), (c) the dry run of {DIST_ARCH} train_4k (baseline, "
-          f"seqpar)", flush=True)
+          f"act2d), (i) the flash kernels at a query offset, and "
+          f"{CP_ARCH} at {CP_DEPTH} layers as the last of {CP_WAYS} "
+          f"sequence segments of a {CP_S}-position prefill (context "
+          f"parallelism), (c) the dry run of {DIST_ARCH} train_4k "
+          f"(baseline, seqpar)", flush=True)
     serve = serve_qwen2_72b()
     with one_rank_mesh(workdir) as mesh:
         sharded = sharded_world1(dev, workdir, mesh)
         served = serve_sharded_world1(dev, mesh)
     return dict(serve=serve, sharded=sharded, served=served,
                 tp=tp_qwen2_72b(dev), mla=tp_deepseek_v2(dev),
-                mixers=tp_mixers(dev), dryrun=dryrun_train_4k(workdir))
+                mixers=tp_mixers(dev), cp=cp_qwen2_72b(dev),
+                dryrun=dryrun_train_4k(workdir))
 
 
 def main() -> None:
@@ -4850,6 +5192,25 @@ def main() -> None:
             shape=mla13["flash_shape"], launches=mla13["flash_launches"],
             **{f: mla13["flash_timing"][f] for f in tp_keys}),
         model_shapes=mla))
+    cp13 = dist13["cp"]
+    t = cp13["timing"]
+    kernels.append(dict(
+        name="flash_attention_sm90_offset", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
+        replaces=flash, launches=cp13["launches"]["flash"]["wgmma"],
+        max_abs_err=max([cp13["max_abs_err"]]
+                        + list(cp13["offset_max_abs_err"].values())),
+        ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], library=t["library"],
+        shape=cp13["flash_shape"], keys=CP_S, q_offset=cp13["q_offset"],
+        dtype="bfloat16", launches_per_call=1,
+        offset_zero_bitwise_digests=cp13["digests_equal"],
+        main_path=f"make_prefill_step(mesh=) of {CP_ARCH} at {CP_DEPTH} "
+                  f"layers, a batch-1 prefill of {CP_S} positions as the "
+                  f"last of {CP_WAYS} sequence segments over data (phase "
+                  f"13(i)): one call a layer at offset {cp13['q_offset']}",
+        offset_cases=cp13["offset_max_abs_err"]))
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu", replaces=flash,

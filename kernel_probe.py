@@ -22,6 +22,11 @@ repository root on the machine with the card:
     python3 kernel_probe.py steps [SRC]
         # kernels per learned-forecaster training step, of the port under
         # SRC (default: this checkout's src), e.g. an older tree's
+    python3 kernel_probe.py digest [SRC]
+        # sha256 of the flash kernels' outputs at offset 0 on fixed inputs
+        # (chip_smoke.FLASH_DIGEST_CASES), of the port under SRC (default:
+        # this checkout's src), e.g. the tree before the offset's, whose
+        # digests are chip_smoke.PARENT_FLASH_DIGESTS
     python3 kernel_probe.py tp13 [ROOT ...]
         # chip_smoke.py's phase 13(e) (and (h), where ROOT's script has
         # it) through each ROOT's chip_smoke.py in turn, each in a process
@@ -437,6 +442,19 @@ def steps(src=None) -> None:
           f"{train_step_profile()}; fit walls (s) {fits}", flush=True)
 
 
+def digest(src=None) -> None:
+    """The flash kernels' output digests at offset 0
+    (``chip_smoke.flash_digests``) with the port under ``src`` first on
+    the path, as one JSON line."""
+    import json
+    from chip_smoke import flash_digests
+    if src:                           # after chip_smoke put its src first
+        sys.path.insert(0, os.path.abspath(src))
+    import repro_torch
+    print(f"port from {os.path.dirname(repro_torch.__file__)}", flush=True)
+    print(json.dumps(flash_digests(), indent=1), flush=True)
+
+
 def ab_rglru(lib) -> None:
     """The built rglru_scan.cu's scan alone against a source with the
     per-lane kernels' ABI that the chunked ones replaced
@@ -505,14 +523,15 @@ AB_FLASH = [(f"D {D}", 12, 2, D, D, 2048, True, 0) for D in (128, 64)] + [
     ("seamless_m4t_large_v2 self", 16, 16, 64, 64, 2048, True, 0)]
 
 
-def ab_flash(lib) -> None:
+def ab_flash(lib, offset: bool) -> None:
     """The built flash kernel, reading the model layout [B, S, H, D] in
     place, against another build of its source on the same inputs: one
     with the older [BH, S, D] entry (``flash_attention_fwd_sm90``) is fed
     contiguous heads-first copies, made once outside the timing, at the
     square causal cases it takes; one with the strided entry reads what
     the built one reads. Prints max |d| (0 where only the addressing or
-    the order of work items changed) and both kernels' times."""
+    the order of work items changed) and both kernels' times. ``offset``:
+    the other's strided entry takes a query offset (passed 0)."""
     from repro_torch.kernels.flash_attention import flash_attention as fb
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     old = hasattr(lib, "flash_attention_fwd_sm90")
@@ -521,7 +540,8 @@ def ab_flash(lib) -> None:
                                                  + [ctypes.c_float, ptr])
     else:
         lib.flash_attention_fwd_sm90_strided.argtypes = (
-            [ptr] * 4 + [i32] * 7 + [ptr, i32, i32, ctypes.c_float, ptr])
+            [ptr] * 4 + [i32] * 7 + [ptr, i32, i32] + [i32] * offset
+            + [ctypes.c_float, ptr])
     B, S = 4, 2048
     for label, Hq, Hkv, D, Dv, Skv, causal, window in AB_FLASH:
         if old and (D != Dv or Skv != S or not causal):
@@ -557,7 +577,7 @@ def ab_flash(lib) -> None:
                 err = lib.flash_attention_fwd_sm90_strided(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o2.data_ptr(),
                     B, S, Skv, Hq, Hkv, D, Dv, strides, int(causal), window,
-                    scale, stream())
+                    *[0] * offset, scale, stream())
                 if err:
                     raise RuntimeError(f"launch failed: {err}")
                 return o2
@@ -583,7 +603,8 @@ def ab(other: str) -> None:
         return ab_ssd(lib)
     if hasattr(lib, "rglru_scan_fwd"):
         return ab_rglru(lib)
-    return ab_flash(lib)
+    with open(other) as f:
+        return ab_flash(lib, "int q_off" in f.read())
 
 
 _TP13 = """
@@ -620,6 +641,8 @@ def main() -> None:
         ab(sys.argv[2])
     elif stage == "steps" and len(sys.argv) <= 3:
         steps(*sys.argv[2:])
+    elif stage == "digest" and len(sys.argv) <= 3:
+        digest(*sys.argv[2:])
     elif stage == "ptxas":
         ptxas(*sys.argv[2:])
     elif stage == "tp13":

@@ -12,7 +12,12 @@
 //   o_i = sum_j softmax_j(scale * q_i . k_j + mask_ij) v_j
 //
 // where mask_ij is 0 where key j is visible to query i (j < Skv; causal:
-// j <= i; sliding: also i - j < window) and NEG_INF = -2e38 elsewhere.
+// j <= i + q_off; sliding: also i + q_off - j < window) and NEG_INF = -2e38
+// elsewhere. q_off, the global position of the first query counted from the
+// first key, is 0 for a whole sequence and r S / n for segment r of a
+// sequence split n ways (context parallelism: the queries of a segment
+// against the keys of its prefix); at q_off 0 every step is the one without
+// it.
 //
 // Design. The TPU grid walked the kv tiles of one (head, q tile) in order
 // and carried the f32 accumulator, running max and running sum in VMEM.
@@ -102,7 +107,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-          int group, int causal, int window, float scale) {
+          int group, int causal, int window, int q_off, float scale) {
   using G = Tile<D>;
   constexpr int BK = G::BK, CPT = G::CPT, DPT = G::DPT;
   constexpr int QS = G::QS, KS = G::KS, PS = G::PS;
@@ -139,8 +144,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int ik = 0; ik < nk; ++ik) {
     const int k_first = ik * BK;
     // Whole-tile liveness, the TPU kernel's rule (uniform over the block).
-    if (causal && k_first > q_first + BQ - 1) continue;
-    if (window && q_first - (k_first + BK - 1) >= window) continue;
+    if (causal && k_first > q_first + q_off + BQ - 1) continue;
+    if (window && q_first + q_off - (k_first + BK - 1) >= window) continue;
 
     __syncthreads();   // the previous tile's readers are done (and Qt set)
     for (int e = tid; e < BK * D; e += THREADS) {
@@ -175,7 +180,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const int qp = q_first + ty + 16 * i;
+      const int qp = q_first + q_off + ty + 16 * i;   // global position
       float mx = NEG_INF;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
@@ -236,8 +241,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int Sq, int Skv, int group, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int Sq, int Skv, int group, int causal, int window, int q_off,
+           float scale, cudaStream_t stream) {
   const size_t smem = Tile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -247,23 +252,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   flash_fwd<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, group, causal,
-      window, scale);
+      window, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int BH,
              int Sq, int Skv, int D, int group, int causal, int window,
-             float scale, cudaStream_t stream) {
+             int q_off, float scale, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, o, BH, Sq, Skv, group, causal,
-                                  window, scale, stream);
+                                  window, q_off, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, BH, Sq, Skv, group, causal,
-                                  window, scale, stream);
+                                  window, q_off, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, BH, Sq, Skv, group, causal,
-                                    window, scale, stream);
+                                    window, q_off, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, BH, Sq, Skv, group, causal,
-                                    window, scale, stream);
+                                    window, q_off, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -275,18 +280,20 @@ extern "C" {
 // o [BH, Sq, D] from q [BH, Sq, D] and k, v [BH / group, Skv, D], all
 // contiguous on the current device, of one type: dtype 0 float32, 1
 // bfloat16. D in {16, 64, 128, 256}. causal and window as in the
-// reference (window 0: none). Launches on `stream`; returns the CUDA error
-// code (0 on success).
+// reference (window 0: none); q_off >= 0 the first query's position counted
+// from the first key. Launches on `stream`; returns the CUDA error code (0
+// on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, int dtype, int BH, int Sq, int Skv, int D,
-                        int group, int causal, int window, float scale,
-                        cudaStream_t stream) {
+                        int group, int causal, int window, int q_off,
+                        float scale, cudaStream_t stream) {
+  if (q_off < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, BH, Sq, Skv, D, group, causal,
-                           window, scale, stream);
+                           window, q_off, scale, stream);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, BH, Sq, Skv, D, group,
-                                   causal, window, scale, stream);
+                                   causal, window, q_off, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -12,7 +12,10 @@
 //   o_i = sum_j softmax_j(scale * q_i . k_j + mask_ij) v_j
 //
 // where mask_ij is 0 where key j is visible to query i (j < Skv; causal:
-// j <= i; sliding: also i - j < window) and NEG_INF = -2e38 elsewhere. v's
+// j <= i + q_off; sliding: also i + q_off - j < window) and NEG_INF = -2e38
+// elsewhere. q_off is the first query's position counted from the first key:
+// 0 for a whole sequence, r S / n for segment r of a sequence split n ways
+// (context parallelism: a segment's queries against its prefix's keys). v's
 // head dim may differ from q's and k's (MLA: q and k carry d_nope + d_rope
 // columns, v d_v; reference repro/models/mla.py, scale 1 / sqrt(D_qk)).
 //
@@ -110,15 +113,23 @@
 //     them take turns at issuing their products, so one's softmax
 //     overlaps the other's wgmmas.
 //   * Masking. Whole kv tiles dead under the TPU kernel's liveness rule
-//     (flash_attention.py:48-53, at this kernel's 128 x BK tiles) are
-//     never loaded; within a consumer's 64 rows only tiles on the causal
-//     diagonal, on the window's edge or past Skv are masked element-wise,
+//     (flash_attention.py:48-53, at this kernel's 128 x BK tiles, the q
+//     tile at its global position q0 + q_off) are never loaded; within a
+//     consumer's 64 rows only tiles on the causal diagonal, on the
+//     window's edge or past Skv are masked element-wise,
 //     by a softmax instantiation of their own (MASK_APART): with the mask's
 //     integer arithmetic compiled into the one softmax, calls took up to
 //     9 % more (none at D 256; kernel_probe.py ab, NVIDIA H100 80GB HBM3,
 //     700 W). The D 256 tiles keep the one softmax (registers).
 //     gemma3's global layers pass the reference's BIG_WINDOW (2^30):
-//     `q0 - window - BK + 1` and `qp - kp < window` stay in int32.
+//     `q0 - window - BK + 1` and `qp - kp < window` stay in int32 (with an
+//     offset of up to 2^29 positions).
+//   * An offset moves only the mask and the live tile range: the items, the
+//     heaviest-first order (a later q tile still has more live kv tiles)
+//     and the pairs (tiles t and nq - 1 - t still hold as much work
+//     together as any other pair) are those of offset 0, so every q tile is
+//     visited and every live kv tile of it loaded; at offset 0 every
+//     instruction's operands are the ones without it.
 //   * Output: acc / max(l, 1e-30), rounded to bf16 and stored straight from
 //     registers at o's strides; rows past Sq are not stored. The quotient
 //     takes one correctly rounded reciprocal a row and a Markstein
@@ -543,8 +554,8 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DV / 2],
 }
 
 // One kv tile's online-softmax step on the score accumulator, in place.
-// Element 4j + e of `sc` is row row_lo + 8 (e / 2), key k0 + 8 j + col_in +
-// e % 2. Scales (by scale * log2 e) and, where MASKED and `masked`, masks,
+// Element 4j + e of `sc` is row row_lo + 8 (e / 2) (global positions: the
+// offset added), key k0 + 8 j + col_in + e % 2. Scales (by scale * log2 e) and, where MASKED and `masked`, masks,
 // updates the running max m and the thread's partial row sums l of its two
 // rows,
 // leaves P (float32) in `sc`, and returns in alpha the factor by which the
@@ -614,8 +625,9 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
   }
 }
 
-// The live kv tiles [t0, t1) of the q tile at q0: the TPU kernel's
-// whole-tile liveness rule at BQ x BK tiles.
+// The live kv tiles [t0, t1) of the q tile at global position q0 (its
+// local first row plus the offset): the TPU kernel's whole-tile liveness
+// rule at BQ x BK tiles.
 template <int BK>
 __device__ __forceinline__ void kv_tiles(int q0, int Skv, int causal,
                                          int window, int& t0, int& t1) {
@@ -646,7 +658,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap v_map,
                __nv_bfloat16* __restrict__ o, int64_t o_sb, int64_t o_ss,
                int64_t o_sh, int B, int Hq, int Sq, int Skv, int group,
-               int causal, int window, float scale_log2, int by_pairs) {
+               int causal, int window, int q_off, float scale_log2,
+               int by_pairs) {
   using L = Layout<DQK, DV>;
   constexpr int BK = L::BK, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -718,7 +731,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
         if (got == 0) break;
         if (got < 0) continue;
         ++r;                              // items loaded so far, less one
-        kv_tiles<BK>(q0, Skv, causal, window, t0, t1);
+        kv_tiles<BK>(q0 + q_off, Skv, causal, window, t0, t1);
         // Q is single-buffered: wait until both consumers are done with
         // the previous item's (their last S = Q K^T has completed).
         if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
@@ -767,9 +780,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       if (got == 0) break;
       if (got < 0) continue;
       ++r;                                // items taken so far, less one
-      kv_tiles<BK>(q0, Skv, causal, window, t0, t1);
+      kv_tiles<BK>(q0 + q_off, Skv, causal, window, t0, t1);
       const int qw = q0 + wg * 64;                        // my first row
       const int row_lo = qw + (tid / 32) * 16 + lane / 4;  // and row_lo + 8
+      const int gw = qw + q_off, g_lo = row_lo + q_off;   // global positions
       float acc[DV / 2];
 #pragma unroll
       for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
@@ -780,13 +794,13 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
       // instantiation, so that the unmasked tiles' softmax carries none
       // of it.
       auto softmax = [&](float (&sc)[BK / 2], int k0) {
-        const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > qw) ||
-                            (window && qw + 63 - k0 >= window);
+        const bool masked = k0 + BK > Skv || (causal && k0 + BK - 1 > gw) ||
+                            (window && gw + 63 - k0 >= window);
         if (Tiles<DQK, DV>::MASK_APART && !masked)
-          softmax_step<BK, false>(sc, m, l, alpha, k0, row_lo, col_in, Skv,
+          softmax_step<BK, false>(sc, m, l, alpha, k0, g_lo, col_in, Skv,
                                   causal, window, scale_log2, false);
         else
-          softmax_step<BK, true>(sc, m, l, alpha, k0, row_lo, col_in, Skv,
+          softmax_step<BK, true>(sc, m, l, alpha, k0, g_lo, col_in, Skv,
                                  causal, window, scale_log2, masked);
       };
 
@@ -948,7 +962,8 @@ int make_map(CUtensorMap* map, const void* ptr, int cols, int heads,
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int Hq, int Hkv, const int64_t* strides,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, int q_off, float scale,
+           cudaStream_t stream) {
   constexpr int BK = Tiles<DQK, DV>::BK;
   CUtensorMap q_map, k_map, v_map;
   int err = make_map(&q_map, q, DQK, Hq, Sq, B, strides, BQ);
@@ -982,7 +997,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                             stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), strides[9],
       strides[10], strides[11], B, Hq, Sq, Skv, Hq / Hkv, causal, window,
-      scale * LOG2E, by_pairs);
+      q_off, scale * LOG2E, by_pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -996,7 +1011,8 @@ extern "C" {
 // with unit column stride; bases 16-byte aligned and q, k, v strides
 // multiples of 8 elements (TMA's 16 bytes). Query head h reads kv head
 // h / (Hq / Hkv). (Dqk, Dv) in {(64, 64), (128, 128), (256, 256), (96, 64),
-// (192, 128)}. causal and window as in the reference (window 0: none).
+// (192, 128)}. causal and window as in the reference (window 0: none);
+// q_off >= 0 the first query's position counted from the first key.
 // Launches on `stream`; returns 0 on success, a CUDA error code, or 10000
 // (no cuTensorMapEncodeTiled) / 20000 + CUresult (a tensor map was
 // refused).
@@ -1004,14 +1020,15 @@ int flash_attention_fwd_sm90_strided(const void* q, const void* k,
                                      const void* v, void* o, int B, int Sq,
                                      int Skv, int Hq, int Hkv, int Dqk,
                                      int Dv, const int64_t* strides,
-                                     int causal, int window, float scale,
-                                     cudaStream_t stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0)
+                                     int causal, int window, int q_off,
+                                     float scale, cudaStream_t stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 ||
+      q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_DIMS(DQK, DV)                                                 \
   if (Dqk == DQK && Dv == DV)                                               \
     return launch<DQK, DV>(q, k, v, o, B, Sq, Skv, Hq, Hkv, strides, causal, \
-                           window, scale, stream);
+                           window, q_off, scale, stream);
   FLASH_DIMS(64, 64)
   FLASH_DIMS(128, 128)
   FLASH_DIMS(256, 256)

@@ -64,11 +64,11 @@ def _lib(name: str) -> ctypes.CDLL:
         if name == "scalar":
             lib = _build.library("flash_attention")
             fn = lib.flash_attention_fwd
-            fn.argtypes = [ptr] * 4 + [i32] * 8 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_float, ptr]
         else:
             lib = _build.library("flash_attention_sm90")
             fn = lib.flash_attention_fwd_sm90_strided
-            fn.argtypes = ([ptr] * 4 + [i32] * 7 + [ptr, i32, i32,
+            fn.argtypes = ([ptr] * 4 + [i32] * 7 + [ptr, i32, i32, i32,
                                                     ctypes.c_float, ptr])
         fn.restype = i32
         _LIBS[name] = lib
@@ -89,7 +89,8 @@ def _bshd(t: torch.Tensor) -> tuple:
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 group: int | None = None, window: int = 0) -> str:
+                 group: int | None = None, window: int = 0,
+                 q_offset: int = 0) -> str:
     """Raise on what neither kernel takes; return the variant that takes
     the rest. q, k and v are all the kernel layout [BH, S, D] (heads
     first; ``group`` query heads a kv head, default BHq / BHkv) or all the
@@ -135,6 +136,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{group}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     kind = variant(q.dtype, D, Dv)
     if kind == "scalar":
         if D not in HEAD_DIMS or Dv != D:
@@ -189,37 +192,41 @@ def _on_card(q, k, v) -> None:
 
 def flash_attention_bh_cuda(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            window: int = 0, scale=None,
-                            group: int = 1) -> torch.Tensor:
+                            window: int = 0, scale=None, group: int = 1,
+                            q_offset: int = 0) -> torch.Tensor:
     """q: [BHq, Sq, D]; k: [BHkv, Skv, D]; v: [BHkv, Skv, Dv] with BHq =
     BHkv * group, on the card. Returns [BHq, Sq, Dv] in q's dtype. Head
     ``h`` attends kv head ``h // group``; ``scale`` defaults to 1/sqrt(D)
     (the scalar kernel applies it to q in float32, the wgmma kernel to the
-    float32 scores). Forward only: raises when grad is enabled and an
-    input requires it (``ops.flash_attention_bh`` differentiates)."""
+    float32 scores); query row ``i`` sits at position ``q_offset + i`` of
+    the keys' (the causal and window masks' offset). Forward only: raises
+    when grad is enabled and an input requires it
+    (``ops.flash_attention_bh`` differentiates)."""
     _on_card(q, k, v)
-    kind = check_inputs(q, k, v, group=group, window=window)
+    kind = check_inputs(q, k, v, group=group, window=window,
+                        q_offset=q_offset)
     return _launch(kind, q, k, v, causal=causal, window=window, scale=scale,
-                   group=group)
+                   group=group, q_offset=q_offset)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         scale=None) -> torch.Tensor:
+                         scale=None, q_offset: int = 0) -> torch.Tensor:
     """The model layout on the card, read and written in place by the
     wgmma kernel: q [B, Sq, Hq, D], k [B, Skv, Hkv, D], v [B, Skv, Hkv,
     Dv] at any strides ``check_inputs`` takes (no copy is made) -> o [B,
     Sq, Hq, Dv], contiguous. Query head ``h`` attends kv head ``h //
-    (Hq / Hkv)``; ``scale`` defaults to 1/sqrt(D). Raises on what the
+    (Hq / Hkv)``; ``scale`` defaults to 1/sqrt(D); query row ``i`` sits at
+    key position ``q_offset + i``. Raises on what the
     wgmma kernel does not take (float32 and other head dims go through
     ``ops.flash_attention``'s heads-first path)."""
     _on_card(q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, S, H, D], got shape "
                          f"{tuple(q.shape)}")
-    kind = check_inputs(q, k, v, window=window)
+    kind = check_inputs(q, k, v, window=window, q_offset=q_offset)
     return _launch(kind, q, k, v, causal=causal, window=window, scale=scale,
-                   group=q.shape[2] // k.shape[2])
+                   group=q.shape[2] // k.shape[2], q_offset=q_offset)
 
 
 def _strides(t: torch.Tensor) -> list:
@@ -236,7 +243,7 @@ def _strides(t: torch.Tensor) -> list:
 
 
 def _launch(kind: str, q, k, v, *, causal: bool, window: int, scale,
-            group: int) -> torch.Tensor:
+            group: int, q_offset: int = 0) -> torch.Tensor:
     """One call of the ``kind`` kernel on CUDA inputs that ``check_inputs``
     passed: [BH, S, D] (both kernels) or [B, S, H, D] (wgmma). The scalar
     kernel takes every [BH, S, D] call, so timing code may hand it a call
@@ -258,14 +265,15 @@ def _launch(kind: str, q, k, v, *, causal: bool, window: int, scale,
             err = lib.flash_attention_fwd_sm90_strided(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
                 Sq, Skv, Hq, Hkv, D, Dv, strides, int(bool(causal)),
-                int(window), scale, stream)
+                int(window), int(q_offset), scale, stream)
         else:
             BH, Sq, _ = q.shape
             o = torch.empty_like(q)
             err = lib.flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 _DTYPES[q.dtype], BH, Sq, k.shape[1], D, group,
-                int(bool(causal)), int(window), scale, stream)
+                int(bool(causal)), int(window), int(q_offset), scale,
+                stream)
     if err != 0:
         raise RuntimeError(f"flash_attention ({kind}) launch failed: error "
                            f"{err}")

@@ -96,18 +96,19 @@ def _device_type(q) -> str:
 
 
 def flash_attention_bh(q, k, v, *, causal=True, window=0, scale=None,
-                       group=1):
+                       group=1, q_offset=0):
     """q: [BHq, Sq, D]; k: [BHkv, Skv, D]; v: [BHkv, Skv, Dv] ->
-    [BHq, Sq, Dv]."""
+    [BHq, Sq, Dv]; query row ``i`` at key position ``q_offset + i``."""
     refuse_dtensors("flash_attention_bh", q, k, v)
-    kw = dict(causal=causal, window=window, scale=scale, group=group)
+    kw = dict(causal=causal, window=window, scale=scale, group=group,
+              q_offset=q_offset)
     if _device_type(q) == "cpu":
         return flash_attention_bh_ref(q, k, v, **kw)
     return _Flash.apply(_kernel.flash_attention_bh_cuda,
                         flash_attention_bh_blocked, kw, q, k, v)
 
 
-def _flash_cuda(q, k, v, *, causal, window, scale):
+def _flash_cuda(q, k, v, *, causal, window, scale, q_offset):
     """The model layout on the card: one launch of the kernel
     ``kernel_call`` names."""
     B, Sq, Kh, G, D = q.shape
@@ -122,24 +123,28 @@ def _flash_cuda(q, k, v, *, causal, window, scale):
                 f"without a copy for the wgmma kernel, got strides "
                 f"{q.stride()}") from err
         o = _kernel.flash_attention_cuda(qh, k, v, causal=causal,
-                                         window=window, scale=scale)
+                                         window=window, scale=scale,
+                                         q_offset=q_offset)
         return o.view(B, Sq, Kh, G, Dv)
     Dp = call[1]
     if Dp != D:
         scale = scale if scale is not None else 1.0 / np.sqrt(D)
     o = _kernel.flash_attention_bh_cuda(
         *(_heads_first(t, Dp) for t in (q, k, v)), causal=causal,
-        window=window, scale=scale, group=G)
+        window=window, scale=scale, group=G, q_offset=q_offset)
     return o[..., :Dv].reshape(B, Kh, G, Sq, Dv).permute(0, 3, 1, 2, 4)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
-                    block_kv=1024):
+                    block_kv=1024, q_offset=0):
     """q: [B, Sq, Kh, G, D]; k: [B, Skv, Kh, D]; v: [B, Skv, Kh, Dv] ->
     [B, Sq, Kh, G, Dv]. ``scale`` defaults to 1/sqrt(D); ``block_kv`` is
-    the backward's kv block (the model's ``cfg.block_kv``)."""
+    the backward's kv block (the model's ``cfg.block_kv``); query row
+    ``i`` sits at key position ``q_offset + i`` (a sequence segment's
+    queries against its prefix's keys; the backward at the same
+    positions)."""
     refuse_dtensors("flash_attention", q, k, v)
-    kw = dict(causal=causal, window=window, scale=scale)
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
     if _device_type(q) == "cpu":
         return flash_attention_ref(q, k, v, **kw)
     return _Flash.apply(

@@ -15,15 +15,18 @@ from torch.utils.checkpoint import checkpoint
 NEG_INF = -2.0e38
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                  q_offset=0):
     """q: [BH, Sq, D]; k: [BH, Skv, D]; v: [BH, Skv, Dv] (kv heads already
-    expanded). float32 softmax attention over the whole score matrix."""
+    expanded). float32 softmax attention over the whole score matrix, query
+    row ``i`` at key position ``q_offset + i`` (a sequence segment's
+    queries against its prefix's keys)."""
     BH, Sq, D = q.shape
     Skv = k.shape[1]
     scale = scale if scale is not None else 1.0 / np.sqrt(D)
     s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
                      k.to(torch.float32)) * float(np.float32(scale))
-    qp = torch.arange(Sq, device=q.device)[:, None]
+    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Skv, device=q.device)[None, :]
     valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -38,16 +41,18 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
 
 
 def flash_attention_bh_ref(q, k, v, *, causal=True, window=0, scale=None,
-                           group=1):
+                           group=1, q_offset=0):
     """The kernel's function on its layout: q [BHq, Sq, D], k [BHkv, Skv,
     D] and v [BHkv, Skv, Dv], head ``h`` attending kv head ``h //
     group``."""
     k = k.repeat_interleave(group, dim=0)
     v = v.repeat_interleave(group, dim=0)
-    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                         q_offset=q_offset)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                        q_offset=0):
     """The kernel's function on the model layout, unpadded: q [B, Sq, Kh,
     G, D], k [B, Skv, Kh, D], v [B, Skv, Kh, Dv] -> [B, Sq, Kh, G, Dv], at
     any strides; query head ``(kh, g)`` attends kv head ``kh``."""
@@ -58,7 +63,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
                       .reshape(-1, Skv, D),
                       v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
                       .reshape(-1, Skv, Dv),
-                      causal=causal, window=window, scale=scale)
+                      causal=causal, window=window, scale=scale,
+                      q_offset=q_offset)
     return o.view(B, Kh, G, Sq, Dv).permute(0, 3, 1, 2, 4)
 
 
@@ -131,10 +137,11 @@ def online_softmax_attention(qf, k, v, q_pos, kv_pos, *, kind="causal",
 
 
 def flash_attention_blocked(q, k, v, *, causal=True, window=0, scale=None,
-                            block_kv=1024):
+                            block_kv=1024, q_offset=0):
     """The kernel's function on the model layout (q [B, Sq, Kh, G, D], k
     [B, Skv, Kh, D], v [B, Skv, Kh, Dv]) by ``online_softmax_attention``
-    at positions ``arange``, the algorithm the reference differentiates.
+    at q positions ``q_offset + arange(Sq)`` and kv positions
+    ``arange(Skv)``, the algorithm the reference differentiates.
     The scale (1/sqrt(D) unless given) is applied in float32, as the
     kernel applies it."""
     if not causal and window:
@@ -143,14 +150,15 @@ def flash_attention_blocked(q, k, v, *, causal=True, window=0, scale=None,
     scale = np.float32(1.0 / np.sqrt(D) if scale is None else scale)
     return online_softmax_attention(
         q.to(torch.float32) * float(scale), k, v,
-        torch.arange(Sq, device=q.device),
+        q_offset + torch.arange(Sq, device=q.device),
         torch.arange(Skv, device=q.device),
         kind="full" if not causal else "sliding" if window else "causal",
         window=window, block_kv=block_kv).to(q.dtype)
 
 
 def flash_attention_bh_blocked(q, k, v, *, causal=True, window=0,
-                               scale=None, group=1, block_kv=1024):
+                               scale=None, group=1, block_kv=1024,
+                               q_offset=0):
     """``flash_attention_blocked`` on the kernel's layout: q [BHq, Sq, D],
     k [BHkv, Skv, D], v [BHkv, Skv, Dv], head ``h`` attending kv head
     ``h // group`` — viewed as the model layout with one kv head a row."""
@@ -158,6 +166,6 @@ def flash_attention_bh_blocked(q, k, v, *, causal=True, window=0,
     qm = q.view(BHq // group, group, Sq, D).permute(0, 2, 1, 3)[:, :, None]
     o = flash_attention_blocked(qm, k[:, :, None], v[:, :, None],
                                 causal=causal, window=window, scale=scale,
-                                block_kv=block_kv)
+                                block_kv=block_kv, q_offset=q_offset)
     return o[:, :, 0].permute(0, 2, 1, 3).reshape(BHq, Sq, -1)
 

@@ -50,9 +50,15 @@ averaging and the AdamW update are counted once. The steps are
 1``. Every variant runs: ``seqpar`` and ``seqpar_seqshard`` split the
 residual stream's sequence over ``model`` and ``act2d`` /
 ``act2d_seqshard`` its embedding (``sharding.Layout.split``). A cell
-whose rules would split an activation's sequence over ``data`` or
-``pod`` (context parallelism) raises ``NotImplementedError`` (ROADMAP
-queue 1, [3d]), and ``main`` prints it as a FAIL line; no cost is
+whose microbatch (or prefill batch) ``data`` does not divide splits the
+sequence over ``data`` (context parallelism: ``Layout.segment_axes``,
+e.g. ``train_4k`` with a ``grad_accum`` override that leaves fewer rows
+than ``data``): it counts the rank of the last segment, whose causal
+attention covers the longest prefix (``counted_rank``, ``counted_segment``),
+with its K/V all-gathers, the recurrent layers' state and conv-tail
+all-gathers and their backwards' reduce-scatters among the collectives.
+``overrides["rank"]`` counts another rank of the mesh. A cell that fails
+(an embedding split over ``data``) is printed as a FAIL line; no cost is
 written as zero.
 
 One process holds one default process group: ``run_cell`` refuses to
@@ -354,8 +360,8 @@ def fake_tree(tree):
 
 
 @contextlib.contextmanager
-def fake_group(world_size: int):
-    """A fake default process group of ``world_size`` ranks at rank 0,
+def fake_group(world_size: int, rank: int = 0):
+    """A fake default process group of ``world_size`` ranks at ``rank``,
     torn down on exit. Refuses to start where a group is live."""
     import torch.distributed as dist
     # Importing the module registers the "fake" backend.
@@ -364,7 +370,7 @@ def fake_group(world_size: int):
         raise RuntimeError(
             "the dry run needs its own fake process group and a process "
             "group is already live; run it in a process of its own")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
     try:
         yield
@@ -419,6 +425,27 @@ def _step_costs(model, shape, mesh, ov, grad_accum, live: LiveBytes):
                          shape.seq_len - 1)[1], None
 
 
+def counted_rank(cfg, shape, mesh_shape, grad_accum: int) -> tuple:
+    """(the rank ``run_cell`` counts, its segment and the segments) of the
+    cell's step under the live rules: rank 0 where each rank holds every
+    position of its rows; under context parallelism the first rank of the
+    last segment (its coordinates on the segment axes the last, 0
+    elsewhere: the mesh's row-major order)."""
+    rows, seq = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        rows //= grad_accum
+    if shape.kind == "decode":
+        seq = 1
+    layout = sharding.step_layout(mesh_shape, rows, seq, cfg.d_model)
+    if not layout.segment_axes:
+        return 0, 0, 1
+    names, sizes = mesh_shape.axis_names, mesh_shape.sizes
+    rank = 0
+    for name, size in zip(names, sizes):
+        rank = rank * size + (size - 1 if name in layout.segment_axes else 0)
+    return rank, layout.segment_ways - 1, layout.segment_ways
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              variant: str = "baseline",
              overrides: Optional[Dict] = None) -> Dict:
@@ -430,7 +457,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     ``memory.temp_bytes`` (the peak of the bytes alive that the step made:
     ``LiveBytes``) and ``memory.peak_bytes`` (the state's and that), the
     reference's ``memory_analysis`` names; ``fits_device`` then reads the
-    peak."""
+    peak. Counted on ``counted_rank``'s rank (``overrides["rank"]``: any
+    other)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.device_mesh import init_device_mesh
     res = build_cell(arch, shape_name, multi_pod, variant, overrides)
@@ -439,7 +467,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     model = Model(cfg)
     t0 = time.time()
     live = LiveBytes()
-    with fake_group(mesh_shape.size), sharding.rule_overrides(
+    with sharding.rule_overrides(ov.get("rules")):
+        rank, segment, segments = counted_rank(cfg, shape, mesh_shape,
+                                               res.get("grad_accum", 1))
+    rank = int(ov.get("rank", rank))
+    with fake_group(mesh_shape.size, rank), sharding.rule_overrides(
             ov.get("rules")):
         mesh = init_device_mesh("cpu", mesh_shape.sizes,
                                 mesh_dim_names=mesh_shape.axis_names)
@@ -471,6 +503,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         count_s=round(time.time() - t0, 3))
     if micro is not None:
         res["counted_microbatches"] = micro
+    res["counted_rank"] = rank
+    if segments > 1 and "rank" not in ov:
+        # [this segment, of how many]: the last, the longest causal prefix
+        res["counted_segment"] = [segment, segments]
     if shape.kind == "decode":
         res["decode_pos"] = shape.seq_len - 1
     return res
@@ -537,6 +573,12 @@ def main(argv=None):
                   + f" inputs {m['input_bytes'] / 1e6:9.3f} MB"
                   f" state {m['state_bytes'] / 1e9:8.3f} GB of "
                   f"{DEVICE_BYTES / 1e9:.0f}", flush=True)
+            if "counted_segment" in res:
+                i, n = res["counted_segment"]
+                print(f"        the sequence in {n} segments over data "
+                      f"(context parallelism): counted on rank "
+                      f"{res['counted_rank']}, segment {i + 1} of {n}, the "
+                      f"last (the longest causal prefix)", flush=True)
             if "roofline" in res:
                 r, c = res["roofline"], res["collectives"]
                 print(f"        temporaries {m['temp_bytes'] / 1e9:8.3f} GB "

@@ -16,6 +16,19 @@ whose cache is split by sequence (``runtime/sharding.py``), each rank
 attends its segment of the cache and the segments' partial softmaxes are
 combined across ranks (``combine_segments``).
 
+Under context parallelism (``runtime/sharding.py``'s
+``ContextParallel``: a rank holds segment ``r`` of ``n`` of a sequence)
+a layer projects the segment's own Q, K and V at their global positions
+(RoPE too) and all-gathers K and V over the segments (its backward a
+reduce-scatter: each segment's K and V gradient sums every later
+segment's queries' parts). A causal or sliding layer's queries attend the
+prefix ``[0, (r+1) S/n)`` at query offset ``r S/n`` — the flash kernel's
+offset on the card, the blocked twin's positions on the CPU; the encoder
+and cross-attention to the encoder's memory attend every gathered key,
+cross-attention to whole image patches its own. A prefill's cache is the
+segment's own K and V, placed by ``cache_seq``; a cross-attention's
+static cache the gathered memory's.
+
 In a sharded step whose rules split the heads over ``model`` the
 sub-layer is tensor-parallel (``sharding.local_params``): each rank
 projects its q heads and the kv heads they read (column-parallel),
@@ -227,15 +240,18 @@ def update_cache(cache_k, cache_v, k_new, v_new, pos, segment=None):
 # ---------------------------------------------------------------------------
 
 def prefill_attention(q, k, v, *, kind="causal", window=0, block_kv=1024,
-                      softmax_scale=None):
+                      softmax_scale=None, q_offset=0):
     """Every prefill attention: q [B, Sq, Kh, G, D]; k [B, Skv, Kh, D];
     v [B, Skv, Kh, Dv] (Dv may differ from D: MLA), at q positions
-    ``arange(Sq)`` and kv positions ``arange(Skv)`` on every device. On a
-    CUDA tensor the flash kernel, causal unless ``kind`` is ``"full"`` and
-    windowed only for ``"sliding"`` (under grad its wrapper's backward is
-    ``blocked_attention``'s gradient at ``block_kv``); on the CPU
-    ``blocked_attention`` at those positions. The kernel's mask puts q and kv positions both at 0,
-    so a causal or sliding call with Sq ≠ Skv raises (on either device)
+    ``q_offset + arange(Sq)`` and kv positions ``arange(Skv)`` on every
+    device (``q_offset``, a sequence segment's first position, is 0 for a
+    whole sequence). On a CUDA tensor the flash kernel, causal unless
+    ``kind`` is ``"full"`` and windowed only for ``"sliding"``, at that
+    offset (under grad its wrapper's backward is ``blocked_attention``'s
+    gradient at ``block_kv``); on the CPU ``blocked_attention`` at those
+    positions. A causal or sliding call's queries must be the last Sq of
+    the keys' positions (q_offset + Sq == Skv: a segment against its
+    prefix, or Sq == Skv from 0); any other raises (on either device)
     rather than mis-masks. The scale: a numpy float (MLA's) goes to the
     kernel, which applies it in float32 as the reference promotes; a
     Python float scales q in its own dtype first, as the reference
@@ -243,13 +259,16 @@ def prefill_attention(q, k, v, *, kind="causal", window=0, block_kv=1024,
     Sq, Skv = q.shape[1], k.shape[1]
     if kind not in ("causal", "sliding", "full"):
         raise ValueError(kind)
-    if kind != "full" and Sq != Skv:
+    if kind != "full" and q_offset + Sq != Skv:
         raise ValueError(
-            f"a {kind} prefill attention needs Sq == Skv (q and kv "
-            f"positions both from 0), got Sq {Sq}, Skv {Skv}")
+            f"a {kind} prefill attention needs its queries at the keys' "
+            f"last positions (q_offset + Sq == Skv), got Sq {Sq} at offset "
+            f"{q_offset}, Skv {Skv}")
+    if kind == "full":
+        q_offset = 0
     if q.device.type != "cuda":
         return blocked_attention(
-            q, k, v, torch.arange(Sq, device=q.device),
+            q, k, v, q_offset + torch.arange(Sq, device=q.device),
             torch.arange(Skv, device=q.device), kind=kind, window=window,
             block_kv=block_kv, softmax_scale=softmax_scale)
     scale = softmax_scale
@@ -259,7 +278,25 @@ def prefill_attention(q, k, v, *, kind="causal", window=0, block_kv=1024,
     return flash_ops.flash_attention(
         q, k, v, causal=kind != "full",
         window=window if kind == "sliding" else 0, scale=scale,
-        block_kv=block_kv)
+        block_kv=block_kv, q_offset=q_offset)
+
+
+def segment_keys(kv, Sq: int, kind: str, segmented: bool = True):
+    """(the keys and values a prefill's ``Sq`` queries attend, their
+    offset) from ``kv``, a tuple of [B, S, ...] tensors projected from
+    this rank's positions: as they are, at offset 0, outside context
+    parallelism or where they are not ``segmented`` (whole on every
+    rank); else gathered over the segments along the sequence and, for a
+    causal or sliding ``kind``, cut to the prefix that ends with this
+    segment, the queries at offset ``r Sq``."""
+    cp = sharding.context_parallel()
+    if cp is None or not segmented:
+        return kv, 0
+    keys = tuple(cp.gather(t, 1) for t in kv)
+    if kind == "full":
+        return keys, 0
+    offset = cp.start(Sq)
+    return tuple(t[:, :offset + Sq] for t in keys), offset
 
 
 class _Heads:
@@ -346,6 +383,14 @@ def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
     dimension; None where it is whole on every rank, as the image
     patches' sequence is); the output leaves as the rank's block
     (``sublayer_out``).
+
+    Under context parallelism (``sharding.context_parallel``) ``x`` is the
+    rank's segment at global ``positions``; K and V are gathered over the
+    segments (``kv_x`` too where it is laid out as the residual stream:
+    the encoder's memory), a causal or sliding layer attends the prefix
+    at its segment's offset, and the K and V returned are the segment's
+    own (self-attention: the cache placed by ``cache_seq``) or the
+    gathered memory's (cross-attention's static cache).
     """
     p, tp = sharding.local_params(p)
     x = sharding.sublayer_in(x, tp)
@@ -359,10 +404,14 @@ def apply(x, p, *, n_kv, n_heads, positions, kind="causal", window=0,
         kv_pos = positions if kv_positions is None else kv_positions
         kv = project_kv(src, p if keep_kv else heads.weights(p), rope_theta,
                         kv_pos)
+        keys, offset = segment_keys(kv, Sq, kind, kv_x is None
+                                    or kv_split == sharding.AS_RESIDUAL)
+        if kv_x is not None:
+            kv = keys
         out = prefill_attention(q.reshape(B, Sq, *heads.layout, -1),
-                                *map(heads.select, kv), kind=kind,
+                                *map(heads.select, keys), kind=kind,
                                 window=window, block_kv=block_kv,
-                                softmax_scale=softmax_scale)
+                                softmax_scale=softmax_scale, q_offset=offset)
     else:
         kv, segment = cache, None
         if kind != "full":      # static cross caches are never split

@@ -26,6 +26,14 @@ sequence over ``model`` too (``seqshard``), q is gathered over ``model``,
 every head attends the rank's segment, the segments are combined and
 the rank keeps its heads, as ``models/attention.py`` does.
 
+Under context parallelism (``sharding.context_parallel``) a rank's
+segment computes its own latents at their global positions, all-gathers
+the latents (c_kv, k_rope) over the segments — [S, kv_lora + d_rope] a
+row, where the expanded K and V would be heads × (D_qk + D_v) — and
+expands the prefix that ends with its segment into its heads' K and V;
+its queries attend them at the segment's offset. The prefill's cache is
+the segment's own latents, placed by ``cache_seq``.
+
 RoPE runs at the default base 1e4 in both places, as the reference calls
 it without the config's ``rope_theta``. The softmax scale is the
 reference's ``1 / np.sqrt(d_nope + d_rope)``, a numpy float64, which
@@ -108,14 +116,16 @@ def apply(x, p, *, n_heads, q_lora, kv_lora, d_nope, d_rope, d_v,
     c_new, r_new = latent(x, p, kv_lora, positions)
 
     if cache is None:
-        k_nope = _project(c_new, p["wkv_b_k"])
-        v = _project(c_new, p["wkv_b_v"])
-        k = torch.cat([k_nope, r_new[:, :, None, :].expand(
-            B, Sq, heads, d_rope)], dim=-1)
+        (c_kv, k_rope), offset = attention.segment_keys((c_new, r_new), Sq,
+                                                        "causal")
+        k_nope = _project(c_kv, p["wkv_b_k"])
+        v = _project(c_kv, p["wkv_b_v"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, c_kv.shape[1], heads, d_rope)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = attention.prefill_attention(
             q[:, :, :, None, :], k, v, kind="causal", block_kv=block_kv,
-            softmax_scale=scale)[:, :, :, 0]
+            softmax_scale=scale, q_offset=offset)[:, :, :, 0]
         new_cache = (c_new, r_new)
     else:
         cc, cr = cache

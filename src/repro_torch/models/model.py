@@ -61,16 +61,24 @@ class Model:
         ``frames`` or ``patches`` as ``prefill`` takes them. Train mode:
         each layer under ``cfg.remat``. In a sharded step whose head
         splits the vocabulary over ``model``, the loss is vocab-parallel
-        (``softmax_xent``'s ``tp``)."""
+        (``softmax_xent``'s ``tp``). A rank's loss is the mean over its
+        rows and its segment of the sequence; the sharded step averages
+        it over them (``sharding.Layout.mean_axes``: every rank's tokens
+        are an equal share)."""
         logits, _ = transformer.apply(self.cfg, params, batch, "train")
         return softmax_xent(logits, batch["labels"],
                             sharding.model_split(params["embed"]))
 
     def prefill(self, params, batch):
         """(the last position's logits over the whole vocabulary, the
-        built cache)."""
+        built cache). Under context parallelism the last position is the
+        last segment's, its logits all-gathered to every rank."""
         logits, cache = transformer.apply(self.cfg, params, batch, "prefill")
-        return _whole_vocab(logits[:, -1], params), cache
+        last = logits[:, -1]
+        cp = sharding.context_parallel()
+        if cp is not None:
+            last = cp.stack(last)[-1]
+        return _whole_vocab(last, params), cache
 
     def decode(self, params, cache, tokens, pos: int):
         """One token per row at position ``pos``; the KV caches are

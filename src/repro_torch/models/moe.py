@@ -45,6 +45,14 @@ the router's backward gives each rank a partial sum of the input's and
 the router's gradients, which the entry's reduce-scatter and
 ``_GatherParam``'s sum over ``model`` add up.
 
+Under context parallelism (``sharding.context_parallel``) a row's
+sequence is split into segments: the capacity C comes from the whole
+sequence's S, and an assignment's slot counts the same expert's
+assignments on the earlier segments first (an exclusive prefix over the
+segments of the per-expert counts, all-gathered), so each segment keeps
+exactly the unsharded dispatch's assignments; each rank computes its
+own tokens' rows of the [E, C] buffer.
+
 The dispatch and the combine are gathers, with no scatter of rows:
 each buffer slot takes its token's row (a zero row where the slot is
 empty), and each token sums its k results weighted by its gates (a zero
@@ -101,14 +109,16 @@ def route(x, router, top_k: int):
 
 
 def dispatch(ids, top_k: int, n_experts: int, C: int, lo: int = 0,
-             hi: int = None):
+             hi: int = None, before=None):
     """The capacity dispatch of ``ids`` [B, S, k] to experts ``[lo, hi)``
     (every expert by default): per row's S·k assignments, sorted stably
     by expert id, (sort_idx, keep, local expert index, slot) [B, A]; an
     assignment is kept where its expert is in the range and its slot —
-    its rank within its expert's segment — is below ``C``, so a range's
-    kept assignments are the unsharded dispatch's kept assignments to
-    it, and their (expert, slot) pairs in a row are distinct."""
+    its rank within its expert's segment, after ``before`` [B, E] (the
+    row's assignments to each expert that come earlier: the earlier
+    sequence segments') — is below ``C``, so a range's kept assignments
+    are the unsharded dispatch's kept assignments to it, and their
+    (expert, slot) pairs in a row are distinct."""
     B = ids.shape[0]
     hi = n_experts if hi is None else hi
     A = ids.shape[1] * top_k
@@ -119,10 +129,22 @@ def dispatch(ids, top_k: int, n_experts: int, C: int, lo: int = 0,
     seg_starts = torch.searchsorted(sorted_ids, experts.contiguous())
     slot = (torch.arange(A, device=ids.device)
             - torch.gather(seg_starts, 1, sorted_ids))
+    if before is not None:
+        slot = slot + torch.gather(before, 1, sorted_ids)
     keep = slot < C
     if (lo, hi) != (0, n_experts):
         keep &= (sorted_ids >= lo) & (sorted_ids < hi)
     return sort_idx, keep, sorted_ids - lo, slot
+
+
+def earlier_counts(ids, n_experts: int, cp):
+    """[B, E]: each row's assignments ``ids`` [B, S, k] to each expert on
+    the segments before this one (the segments' counts all-gathered)."""
+    B = ids.shape[0]
+    counts = torch.zeros((B, n_experts), dtype=torch.int64,
+                         device=ids.device).scatter_add_(
+        1, ids.reshape(B, -1), torch.ones_like(ids.reshape(B, -1)))
+    return cp.stack(counts)[:cp.index].sum(0)
 
 
 def apply(x, p, *, top_k, n_experts, capacity_factor=1.25):
@@ -133,12 +155,15 @@ def apply(x, p, *, top_k, n_experts, capacity_factor=1.25):
     split = sharding.residual_split() is not None
     x = sharding.sublayer_in(x, tp)
     B, S, d = x.shape
-    C = capacity(S, top_k, n_experts, capacity_factor)
+    cp = sharding.context_parallel()
+    C = capacity(S * (1 if cp is None else cp.size), top_k, n_experts,
+                 capacity_factor)
     gate, ids = route(x if split else x_in, experts["router"], top_k)
     held = experts["wi"].shape[0]             # the rank's experts, or all
     lo = 0 if held == n_experts else tp.rank * held
-    sort_idx, keep, e_idx, s_idx = dispatch(ids, top_k, n_experts, C, lo,
-                                            lo + held)
+    sort_idx, keep, e_idx, s_idx = dispatch(
+        ids, top_k, n_experts, C, lo, lo + held,
+        None if cp is None else earlier_counts(ids, n_experts, cp))
     A, dev = S * top_k, x.device
     rows = torch.arange(B, device=dev)[:, None]
     slots = held * B * C                 # the buffer's rows, then a zero row

@@ -27,6 +27,19 @@ reduce-scattered over ``model`` to the rank's channels (the backward an
 all-gather) before the recurrence runs on them — through the fused
 kernel on the card. ``out`` is row-parallel, the sum over ``model``
 after it.
+
+Under context parallelism (``sharding.context_parallel``) a rank's
+segment runs the conv with the previous segment's tail as its leading
+context (``ssm.segment_conv``) and the fused layer from h = 0; the
+segments' final states and products of a are all-gathered, each forms
+the state h_in entering it (``sharding.segment_carry``) and runs its
+recurrence again from h_in through the ``h0`` path (a virtual step 0 of
+a = 1, bx = h_in) — the scan-only kernel on the card. That equals the
+fused layer's output plus the carried term prod_{s<=t} a_s h_in, for the
+same one scan, and steps in the unsharded recurrence's order from the
+incoming state (the float64 steps' gradients then stay about twice as
+close to the unsharded step's). A prefill's cache is the state after the
+last segment and the last segment's conv tail, the same on every rank.
 """
 from __future__ import annotations
 
@@ -37,7 +50,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rglru_scan import ops
 from repro_torch.kernels.rglru_scan.ref import rglru_gates
 from repro_torch.models.common import dense_init, zeros_init
-from repro_torch.models.ssm import _causal_conv
+from repro_torch.models.ssm import _causal_conv, segment_conv
 from repro_torch.runtime import sharding
 
 
@@ -105,20 +118,36 @@ def _gates(x, p, tp=None):
     return rglru_gates(*_layer_inputs(x, p, tp))
 
 
-def rglru_scan(x, p, h0=None, tp=None):
+def _from(a, bx, h0):
+    """The recurrence over gates (a, bx) [B, S, W] from the state ``h0``
+    [B, W], folded in as a virtual step 0 (a = 1, bx = h0), as the
+    reference does: ``ops.rglru_scan`` of S + 1 steps, the first
+    dropped."""
+    a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
+    bx = torch.cat([h0.to(torch.float32)[:, None], bx], dim=1)
+    return ops.rglru_scan(a, bx)[:, 1:]
+
+
+def rglru_scan(x, p, h0=None, tp=None, cp=None):
     """x: [B, S, W] -> (y in x's dtype, h_final [B, W] float32). Without
     ``h0`` it is the fused layer (``ops.rglru_layer``: the kernel on a
-    CUDA tensor, the plain version on the CPU); with it, the carried state
-    is folded in as a virtual step 0 (a = 1, bx = h0), as the reference
-    does, and the recurrence over the gates is ``ops.rglru_scan``."""
-    if h0 is None:
-        h = ops.rglru_layer(*_layer_inputs(x, p, tp))
-    else:
-        a, bx = _gates(x, p, tp)
-        a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
-        bx = torch.cat([h0.to(torch.float32)[:, None], bx], dim=1)
-        h = ops.rglru_scan(a, bx)[:, 1:]
-    return h.to(x.dtype), h[:, -1]
+    CUDA tensor, the plain version on the CPU); with it, the recurrence
+    over the gates from ``h0`` (``_from``). With ``cp`` (a segment of a
+    sequence) the fused layer from zero gives the segment's final state,
+    the segments' exchange the state h_in that enters it
+    (``sharding.segment_carry``), and y is the recurrence over the gates
+    from h_in; h_final is then the state after the last segment."""
+    if h0 is not None:
+        h = _from(*_gates(x, p, tp), h0)
+        return h.to(x.dtype), h[:, -1]
+    inputs = _layer_inputs(x, p, tp)
+    h = ops.rglru_layer(*inputs)
+    if cp is None:
+        return h.to(x.dtype), h[:, -1]
+    a, bx = rglru_gates(*inputs)
+    h_in, last = sharding.segment_carry(h[:, -1], torch.prod(a, dim=1), cp)
+    h = _from(a, bx, h_in)
+    return h.to(x.dtype), last
 
 
 def rglru_step(x, p, h, tp=None):
@@ -141,9 +170,10 @@ def block_apply(x, p, mode="train", cache=None, layer=None):
     x = sharding.sublayer_in(x, tp)
     gate = F.gelu(x @ p["in_gate"].to(x.dtype), approximate="tanh")
     u = x @ p["in_x"].to(x.dtype)
-    conv_state = cache["conv"] if mode == "decode" else None
-    u, conv_state = _causal_conv(u, p["conv_w"].to(x.dtype),
-                                 p["conv_b"].to(x.dtype), conv_state)
+    cp = None if mode == "decode" else sharding.context_parallel()
+    conv = _causal_conv if cp is None else segment_conv
+    u, conv_state = conv(u, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype),
+                         cache["conv"] if mode == "decode" else cp)
     new_cache = None
     if mode == "decode":
         y, h = rglru_step(u, p, cache["state"], tp)
@@ -151,7 +181,7 @@ def block_apply(x, p, mode="train", cache=None, layer=None):
     elif layer is not None:
         y = layer(*_layer_inputs(u, p, tp)).to(u.dtype)
     else:
-        y, h = rglru_scan(u, p, tp=tp)
+        y, h = rglru_scan(u, p, tp=tp, cp=cp)
         if mode == "prefill":
             new_cache = dict(conv=conv_state, state=h.to(x.dtype))
     out = (y * gate) @ p["out"].to(x.dtype)

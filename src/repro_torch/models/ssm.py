@@ -24,6 +24,16 @@ place; the conv tail, packed like the conv, is rebuilt whole (the x
 columns gathered over ``model``) for the rank's block to be written
 back.
 
+Under context parallelism (``sharding.context_parallel``) a rank's
+segment runs the conv with the previous segment's last d_conv - 1 inputs
+as its leading context (``sharding.halo``) and the SSD — the kernel on
+the card — from a zero state; the segments' final states and total
+decays exp(sum dt A) are all-gathered, each segment forms the state
+entering it from the earlier ones (``sharding.segment_carry``) and adds
+its term C_t exp(cumsum(dt A))_t h_in, the chunk loop's ``y_inter`` over
+the whole segment. A prefill's cache is the state after the last
+segment and the last segment's conv tail, the same on every rank.
+
 Shapes: x [B, S, H, P] (H heads × P head_dim = d_inner), B/C [B, S, G, N]
 (G groups broadcast over heads), dt [B, S, H], A [H] (negative).
 """
@@ -178,6 +188,35 @@ def _causal_conv(u, w, b, state=None):
     return F.silu(y + b), new_state
 
 
+def carry_in(y, final, dt, A, Cm, cp):
+    """(y, final state) of a segment's SSD run from a zero state, with the
+    state that enters the segment from the earlier ones added (``cp``, its
+    ``ContextParallel``): y_t += C_t exp(cumsum(dt A))_t h_in in float32,
+    and the state after the last segment (the prefill's cache)."""
+    a = torch.cumsum(dt.to(torch.float32) * A.to(torch.float32), dim=1)
+    h_in, last = sharding.segment_carry(
+        final.to(torch.float32), torch.exp(a[:, -1])[..., None, None], cp)
+    Cf = Cm.to(torch.float32).repeat_interleave(
+        dt.shape[2] // Cm.shape[2], dim=2)
+    term = torch.einsum("blhn,bhpn,blh->blhp", Cf, h_in, torch.exp(a))
+    return (y.to(torch.float32) + term).to(y.dtype), last.to(final.dtype)
+
+
+def segment_conv(u, w, b, cp):
+    """``_causal_conv`` of this rank's segment of a sequence (``cp``, its
+    ``ContextParallel``): the previous segment's last d_conv - 1 inputs
+    lead it (``sharding.halo``; zeros before the first). Returns (y, the
+    last segment's last d_conv - 1 inputs: the conv cache a prefill of
+    the whole sequence leaves)."""
+    width = w.shape[0] - 1
+    if u.shape[1] < width:
+        raise ValueError(f"a sequence segment of {u.shape[1]} positions is "
+                         f"shorter than the causal conv's context of "
+                         f"{width}")
+    before, last = sharding.halo(u[:, u.shape[1] - width:], cp)
+    return _causal_conv(u, w, b, before)[0], last
+
+
 def _scan(xs, dt, A, Bm, Cm, chunk):
     """The prefill's SSD: the kernel on the card, the plain twin on the
     CPU (the same chunk length either way)."""
@@ -250,8 +289,10 @@ def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
 
     zxbcdt = x @ w_in.to(x.dtype)
     z, xbc, dt_raw = torch.split(zxbcdt, [dl, dl + 2 * G * N, hl], dim=-1)
-    xbc, conv_state = _causal_conv(xbc, conv_w.to(x.dtype),
-                                   conv_b.to(x.dtype), conv_state)
+    cp = None if mode == "decode" else sharding.context_parallel()
+    conv = _causal_conv if cp is None else segment_conv
+    xbc, conv_state = conv(xbc, conv_w.to(x.dtype), conv_b.to(x.dtype),
+                           conv_state if cp is None else cp)
     xs, Bm, Cm = torch.split(xbc, [dl, G * N, G * N], dim=-1)
     xs = xs.reshape(Bsz, S, hl, Pd)
     Bm = Bm.reshape(Bsz, S, G, N)
@@ -272,6 +313,8 @@ def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
         new_cache = dict(conv=conv_state, state=ssm_state)
     else:
         y, final = _scan(xs, dt, A, Bm, Cm, min(chunk, S))
+        if cp is not None:
+            y, final = carry_in(y, final, dt, A, Cm, cp)
         new_cache = (dict(conv=conv_state, state=final)
                      if mode == "prefill" else None)
 

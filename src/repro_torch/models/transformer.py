@@ -63,6 +63,14 @@ rank's block as the decoder's stream does; the image patches' sequence
 stays whole, their embedding split under ``act2d``. A decode token's
 sequence of 1 does not split: ``seqpar`` decodes as the baseline does,
 ``act2d`` carries [B, 1, d/m] between sub-layers.
+
+Where the rules split the sequence over ``data`` (context parallelism:
+``sharding.Layout.segment_axes``, a batch that ``data`` does not divide)
+each rank runs its segment of every row: its tokens, ``positions`` from
+the segment's first global position, the encoder's frames likewise. The
+sub-layers that mix positions exchange across segments (attention's K
+and V, the Mamba-2 and RG-LRU states and conv halos, MoE's capacity
+counts); the rest is per position.
 """
 from __future__ import annotations
 
@@ -131,9 +139,10 @@ def constrain(x, axes, vocab=None):
     logits (last dimension ``vocab`` whole) hold every position — the
     head's entry gathers a split sequence — and the rank's block of the
     vocabulary where ``act_vocab`` splits it over ``model``
-    (``sharding.check_logits``). A layout whose rules would split the
-    sequence or the embedding over another axis (the reference's
-    fall-through to ``act_seq`` where the batch does not divide) raises."""
+    (``sharding.check_logits``). Under context parallelism the rank holds
+    its segment of the sequence (``Layout.segment_axes``). A layout whose
+    rules would split the embedding over another axis than ``model``
+    raises."""
     layout = sharding.current_layout()
     if layout is None:
         return x
@@ -503,6 +512,15 @@ def _vision_stack(cfg, params, batch, x, positions, mode, cache,
     return x, out
 
 
+def _positions(n: int, device):
+    """The global positions of the rank's ``n`` positions of a sequence:
+    ``arange(n)``, from its segment's first position under context
+    parallelism."""
+    cp = sharding.context_parallel()
+    return torch.arange(n, device=device) + (0 if cp is None
+                                              else cp.start(n))
+
+
 def encode(cfg, params, frames, mode="prefill"):
     """Bidirectional encoder over frame embeddings [B, S_src, d] (RoPE at
     ``rope_theta``), then ``enc_norm``: the decoder's cross-attention
@@ -512,7 +530,7 @@ def encode(cfg, params, frames, mode="prefill"):
     # where the layout splits the sequence over model).
     n = x.shape[1] * (sharding.current_layout().split_ways
                       if sharding.residual_split() == sharding.SEQ else 1)
-    positions = torch.arange(n, device=x.device)
+    positions = _positions(n, x.device)
 
     def layer(x, lp):
         h = _norm(cfg, x, lp["ln1"])
@@ -596,7 +614,7 @@ def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
         positions = torch.full((1,), decode_pos, dtype=torch.int64,
                                device=x.device)
     else:
-        positions = torch.arange(S, device=x.device)
+        positions = _positions(S, x.device)
 
     if cfg.family == "griffin":
         x, new_cache = _griffin_stack(cfg, params, x, positions, mode,

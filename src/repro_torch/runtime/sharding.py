@@ -71,10 +71,21 @@ The rest is PyTorch's idiom:
     its output. The norms, gates and residual adds run on the rank's
     block (under ``act2d`` the norms' statistics summed over ``model``),
     so each leaf gathered whole is summed over ``model`` in the backward
-    (``_GatherParam``). A split of the sequence or the embedding over
-    ``data`` or ``pod`` (context parallelism: the reference's
-    fall-through to ``act_seq`` where the batch does not divide) raises
-    (``refuse_sequence_sharding``).
+    (``_GatherParam``).
+  * Context parallelism (``Layout.segment_axes``, ``ContextParallel``):
+    where the batch does not divide ``data`` the reference's rules fall
+    through to ``act_seq`` → ``data`` (and ``seqpar``'s to ``data`` and
+    ``model``), and each rank holds a contiguous segment of the sequence:
+    segment ``r`` of ``n`` is positions ``[r S/n, (r+1) S/n)``, the block
+    ``NamedSharding`` gives it (under ``seqpar`` the ``model`` ranks split
+    the segment further, as ``Layout.split`` does a whole sequence). The
+    sub-layers that mix positions exchange what crosses a segment's edge
+    over the segment axes: attention all-gathers K and V (its backward a
+    reduce-scatter), the Mamba-2 and RG-LRU layers gather each segment's
+    final state and decay and the causal conv's tail (the halo). The
+    loss and the gradients are averaged over the segments as over the
+    rows. An embedding split over ``data`` or ``pod``, which no rule set
+    of the reference makes, raises (``refuse_sequence_sharding``).
   * ``CacheBlock`` / ``write_back`` / ``place_cache`` and ``Segment`` —
     the sharded serving steps' caches. A cache leaf split over ``model``
     by ``kv_heads`` (attention), ``heads`` (the Mamba-2 state) or ``mlp``
@@ -408,18 +419,48 @@ class Layout:
     0 when the caches hold every position); ``split``, the dimension of
     the residual stream [B, S, d] split over ``model`` (``SEQ`` under
     ``seqpar``, ``EMBED`` under ``act2d``), None where each rank holds
-    its rows whole."""
+    its rows whole; ``segment_axes``, the mesh axes other than ``model``
+    that split the residual stream's sequence into contiguous segments
+    (context parallelism: ``act_seq`` where the batch does not divide),
+    empty where each rank holds every position of its rows."""
     mesh: object
     global_batch: int
     batch_axes: Tuple[str, ...]
     seq_axes: Tuple[str, ...] = ()
     seq_len: int = 0
     split: Optional[int] = None
+    segment_axes: Tuple[str, ...] = ()
 
     @property
     def batch_ways(self) -> int:
         sizes = mesh_sizes(self.mesh)
         return math.prod(sizes[a] for a in self.batch_axes)
+
+    @property
+    def segment_ways(self) -> int:
+        """How many segments the sequence is split into."""
+        sizes = mesh_sizes(self.mesh)
+        return math.prod(sizes[a] for a in self.segment_axes)
+
+    @property
+    def mean_axes(self) -> Tuple[str, ...]:
+        """The mesh axes over which each rank's loss covers its share of
+        the tokens, equal shares: its rows' and its segments'. The loss
+        and the gradients are averaged over them."""
+        return self.batch_axes + self.segment_axes
+
+    @property
+    def mean_ways(self) -> int:
+        return self.batch_ways * self.segment_ways
+
+    def context(self) -> Optional["ContextParallel"]:
+        """This rank's segment as a ``ContextParallel`` (a ``DeviceMesh``
+        layout), or None where the sequence is not split."""
+        if not self.segment_axes:
+            return None
+        n, idx = _blocks((self.segment_axes,), mesh_sizes(self.mesh),
+                         coordinates(self.mesh))[0]
+        return ContextParallel(idx, n, self.segment_axes, self.mesh)
 
     @property
     def split_ways(self) -> int:
@@ -463,30 +504,36 @@ def batch_axes(global_batch: int, mesh, rules=None) -> Tuple[str, ...]:
                            rules)[0])
 
 
+def _segment_names(entry, mesh) -> Tuple[str, ...]:
+    """The mesh axes of a spec entry other than ``model``, less those of
+    size 1 (which split nothing)."""
+    sizes = {} if mesh is None else mesh_sizes(mesh)
+    return tuple(n for n in _names(entry)
+                 if n != MODEL and sizes.get(n) != 1)
+
+
 def refuse_sequence_sharding(what: str, axes, shape, spec,
                              mesh=None) -> None:
     """Raise where an activation's layout would split a dimension past its
-    batch rows over a mesh axis other than ``model``: its sequence over
-    ``data`` or ``pod`` (the reference's fall-through to ``act_seq`` when
-    the batch does not divide, or ``seqpar`` there), which is context
-    parallelism — causal attention across segments, the SSD and RG-LRU
-    states and the causal conv's halo carried from rank to rank — and
-    never replicated quietly. A split over ``model`` alone (``seqpar``'s
+    batch rows, other than a sequence (``act_seq``), over a mesh axis
+    other than ``model``: an embedding over ``data`` or ``pod``, which no
+    rule set of the reference makes, and which no step computes. A
+    sequence over ``data`` or ``pod`` is context parallelism
+    (``Layout.segment_axes``); a split over ``model`` alone (``seqpar``'s
     sequence, ``act2d``'s embedding, the logits' vocabulary) is the
     sharded steps' ``Layout.split``. A cache's ``cache_seq`` is not an
     activation: the serving steps split it (``Segment``). With ``mesh``,
     an axis of size 1 splits nothing."""
-    sizes = {} if mesh is None else mesh_sizes(mesh)
-
-    def others(e):
-        return [n for n in _names(e) if n != MODEL and sizes.get(n) != 1]
-    split = [f"{a} over {'+'.join(others(e))}"
-             for a, e in zip(axes[1:], spec[1:]) if others(e)]
+    split = [f"{a} over {'+'.join(_segment_names(e, mesh))}"
+             for a, e in zip(axes[1:], spec[1:])
+             if a != "act_seq" and _segment_names(e, mesh)]
     if split:
         raise NotImplementedError(
             f"{what} {tuple(shape)} resolves to {spec}: beyond its batch "
-            f"rows it would be sharded ({', '.join(split)}), which waits "
-            f"for context parallelism (ROADMAP queue 1, [3d])")
+            f"rows it would be sharded ({', '.join(split)}) over a mesh "
+            f"axis other than model, which only a sequence is (context "
+            f"parallelism); no rule set of the reference splits another "
+            f"dimension so")
 
 
 def _model_dims(axes, spec) -> list:
@@ -498,47 +545,60 @@ def _model_dims(axes, spec) -> list:
 
 def step_layout(mesh, rows: int, seq: int, d_model: int) -> Layout:
     """The layout of a sharded step whose global residual stream is
-    ``[rows, seq, d_model]``: the rows over ``act_batch``'s axes and
-    ``split`` the dimension that the rules give ``model``, if any. A
-    split over another axis raises (``refuse_sequence_sharding``)."""
+    ``[rows, seq, d_model]``: the rows over ``act_batch``'s axes,
+    ``split`` the dimension that the rules give ``model``, if any, and
+    ``segment_axes`` the other axes the rules split the sequence over
+    (context parallelism: a batch that ``data`` does not divide). An
+    embedding split over another axis raises
+    (``refuse_sequence_sharding``)."""
     shape = (rows, seq, d_model)
     spec = spec_for(RESIDUAL, shape, mesh)
     refuse_sequence_sharding("the residual stream", RESIDUAL, shape, spec,
                              mesh)
     dims = _model_dims(RESIDUAL, spec)
     return Layout(mesh, rows, _names(spec[0]),
-                  split=dims[0] if dims else None)
+                  split=dims[0] if dims else None,
+                  segment_axes=_segment_names(spec[1], mesh))
 
 
 def check_rows(x, axes, layout: Layout):
     """``x``, this rank's block of an activation, checked against
     ``layout``: its logical ``axes`` on the global shape (the layout's
-    rows, ``x``'s other dimensions, ``split``'s times the ``model`` ways)
-    must split the batch rows over the layout's axes, a vocabulary as the
-    rules say, the dimension the layout names over ``model`` and nothing
-    else (``refuse_sequence_sharding``); ``x`` must be that block's
-    shape."""
+    rows, ``x``'s other dimensions, ``split``'s times the ``model`` ways,
+    the sequence's times the segments) must split the batch rows over
+    the layout's axes, the sequence into the layout's segments, a
+    vocabulary as the rules say, the dimension the layout names over
+    ``model`` and nothing else (``refuse_sequence_sharding``); ``x`` must
+    be that block's shape."""
     shape = [layout.global_batch] + list(x.shape[1:])
     if layout.split is not None and layout.split < x.dim():
         shape[layout.split] *= layout.split_ways
+    seq = list(axes).index("act_seq") if "act_seq" in axes else None
+    if seq is not None:
+        shape[seq] *= layout.segment_ways
     spec = spec_for(axes, shape, layout.mesh)
     refuse_sequence_sharding(f"activation {tuple(axes)}", axes, shape, spec,
                              layout.mesh)
     want = local_shape(spec, shape, mesh_sizes(layout.mesh))
     dims = _model_dims(axes, spec)
+    segments = () if seq is None else _segment_names(spec[seq], layout.mesh)
     if _names(spec[0]) != layout.batch_axes or tuple(x.shape) != want or \
-            (dims[0] if dims else None) != layout.split:
+            (dims[0] if dims else None) != layout.split or \
+            segments != layout.segment_axes:
         raise ValueError(f"activation rows {tuple(x.shape)} over "
                          f"{_names(spec[0])} split over model at {dims}, "
-                         f"the layout's {want} over {layout.batch_axes} "
-                         f"split at {layout.split}")
+                         f"its sequence over {segments}; the layout's "
+                         f"{want} over {layout.batch_axes} split at "
+                         f"{layout.split}, segments over "
+                         f"{layout.segment_axes}")
     return x
 
 
 def check_logits(x, axes, layout: Layout, vocab: int):
     """The logits head's output ``x``, this rank's block, checked against
-    ``layout``: its rows over the layout's axes, every position (the
-    head's entry gathered a split sequence: ``sublayer_in``) and the
+    ``layout``: its rows over the layout's axes, every position of the
+    rank's segment (the head's entry gathered a sequence split over
+    ``model``: ``sublayer_in``) and the
     vocabulary of ``vocab`` entries split as ``axes[-1]`` resolves."""
     spec = spec_for((axes[0], axes[-1]), (layout.global_batch, vocab),
                     layout.mesh)
@@ -597,7 +657,11 @@ class _GatherParam(torch.autograd.Function):
     splits the residual stream over ``model`` (``Layout.split``): each
     rank applied it to its own positions or channels (a norm's scale, a
     gate, the router) or kept its block of the output it computed whole
-    (``sublayer_out``)."""
+    (``sublayer_out``). Ranks on other segments of a split sequence
+    computed other tokens' losses, as ranks on other rows did: the sum
+    and the mean run over the segment axes too (``Layout.mean_axes``;
+    each rank's gradient already holds the other segments' losses'
+    parts that reached its leaves through the exchanges' backwards)."""
 
     @staticmethod
     def forward(ctx, local, leaf: ShardedLeaf, layout: Layout,
@@ -616,13 +680,13 @@ class _GatherParam(torch.autograd.Function):
         import torch.distributed as dist
         leaf, layout = ctx.leaf, ctx.layout
         names = list(leaf.mesh.mesh_dim_names)
-        if layout.batch_ways > 1 or ctx.partial:
+        if layout.mean_ways > 1 or ctx.partial:
             grad = grad.clone(memory_format=torch.contiguous_format)
-        if layout.batch_ways > 1:
-            for name in layout.batch_axes:
+        if layout.mean_ways > 1:
+            for name in layout.mean_axes:
                 dist.all_reduce(grad, group=leaf.mesh.get_group(
                     names.index(name)))
-            grad = grad / layout.batch_ways
+            grad = grad / layout.mean_ways
         if ctx.partial:
             dist.all_reduce(grad, group=leaf.mesh.get_group(
                 names.index(MODEL)))
@@ -834,6 +898,124 @@ class TensorParallel:
         the sum over ``model``'s rank's block along ``dim`` (a
         reduce-scatter), its backward an all-gather."""
         return self.reduce(x) if dim is None else self.scatter_sum(x, dim)
+
+
+def _segment_gather(x, dim: int, cp) -> torch.Tensor:
+    """The segments' blocks of ``x`` concatenated along ``dim`` in segment
+    order: all-gathers over each segment axis, innermost first (nested
+    major-to-minor, as ``_gather``)."""
+    import torch.distributed as dist
+    names = list(cp.mesh.mesh_dim_names)
+    out = x.contiguous()
+    for name in reversed(cp.axes):
+        i = names.index(name)
+        parts = [torch.empty_like(out) for _ in range(cp.mesh.size(i))]
+        dist.all_gather(parts, out, group=cp.mesh.get_group(i))
+        out = torch.cat(parts, dim=dim)
+    return out
+
+
+def _segment_scatter_sum(x, dim: int, cp) -> torch.Tensor:
+    """The sum over the segments' ranks of ``x``, this segment's block of
+    it along ``dim``: reduce-scatters over each segment axis, outermost
+    first (the inverse order of ``_segment_gather``)."""
+    import torch.distributed as dist
+    names = list(cp.mesh.mesh_dim_names)
+    out = x
+    for name in cp.axes:
+        i = names.index(name)
+        parts = [t.contiguous() for t in torch.chunk(out, cp.mesh.size(i),
+                                                     dim=dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=cp.mesh.get_group(i))
+    return out
+
+
+class _SegmentGather(torch.autograd.Function):
+    """All-gather over the segment axes along ``dim`` forward; backward the
+    gradient summed over the segments' ranks, this segment's block of it
+    (a reduce-scatter): every segment used every segment's block (the K
+    and V of a prefix, the states and tails before it), each for its own
+    tokens' losses."""
+
+    @staticmethod
+    def forward(ctx, x, dim, cp):
+        ctx.dim, ctx.cp = dim, cp
+        return _segment_gather(x, dim, cp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _segment_scatter_sum(grad, ctx.dim, ctx.cp), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ContextParallel:
+    """This rank's segment of a sequence split over mesh ``axes`` (nested
+    major-to-minor): segment ``index`` of ``size``, which holds positions
+    ``[index n, (index + 1) n)`` of a sequence of ``size n``; and the
+    exchanges between segments."""
+    index: int
+    size: int
+    axes: Tuple[str, ...]
+    mesh: object
+
+    def start(self, n: int) -> int:
+        """The first position of this segment, of ``n`` positions."""
+        return self.index * n
+
+    def gather(self, x, dim: int):
+        """Every segment's ``x`` concatenated along ``dim`` in segment
+        order (the whole sequence's K and V from each segment's); the
+        backward sums each block's gradient over the segments and keeps
+        this segment's."""
+        return _SegmentGather.apply(x, dim, self)
+
+    def stack(self, x):
+        """[size, *x.shape]: every segment's ``x`` (a final state, a
+        decay, a conv tail), differentiable as ``gather``."""
+        return self.gather(x.unsqueeze(0), 0)
+
+
+def context_parallel() -> Optional[ContextParallel]:
+    """This rank's segment under the current layout, or None outside a
+    sharded step or where the sequence is not split."""
+    return None if _LAYOUT is None else _LAYOUT.context()
+
+
+def segment_carry(final, decay, cp: ContextParallel):
+    """(the state entering this segment, the state after the last segment)
+    of a linear recurrence h_t = a_t h_{t-1} + b_t that each segment ran
+    from zero: ``final`` this segment's last state, ``decay`` the product
+    of its a_t (broadcast against ``final``). One all-gather of both
+    (differentiable: each segment's incoming state depends on the earlier
+    segments' finals and decays); then h_in[0] = 0 and h_in[r + 1] =
+    decay[r] h_in[r] + final[r], in the states' dtype. Every segment's
+    result depends on the gathered tensor, so every rank's backward runs
+    its reduce-scatter."""
+    B = final.shape[0]
+    nf = final[0].numel()
+    both = cp.stack(torch.cat([final.reshape(B, -1),
+                               decay.reshape(B, -1).to(final.dtype)], 1))
+    finals = both[..., :nf].reshape(cp.size, *final.shape)
+    decays = both[..., nf:].reshape(cp.size, *decay.shape)
+    h = finals[0] * 0
+    into = h
+    for r in range(cp.size):
+        if r == cp.index:
+            into = h
+        h = decays[r] * h + finals[r]
+    return into, h
+
+
+def halo(tail, cp: ContextParallel) -> tuple:
+    """(the inputs just before this segment of a causal conv, the inputs
+    the sequence ends with), both as ``tail`` [B, w, C], this segment's own
+    last w inputs, gathered over the segments (the gradient of the
+    previous segment's reaches its inputs): the previous segment's tail,
+    zeros on the first; and the last segment's tail (a prefill's conv
+    cache)."""
+    tails = cp.stack(tail)
+    return (tails[cp.index - 1] if cp.index else tails[0] * 0), tails[-1]
 
 
 # ``sublayer_in``'s default: the dimension the layout splits the residual
@@ -1065,6 +1247,11 @@ def place_cache(cache, axes, layout: Layout, full=None):
     """The cache a prefill built for this rank's rows as DTensors placed by
     its logical ``axes`` at the global batch: each rank keeps its block of
     the dimensions past the rows (of a ``cache_seq`` split, its segment).
+    Under context parallelism (``Layout.segment_axes``) a ``cache_seq``
+    dimension holds the rank's segment of the sequence: its global length
+    is the segments' sum, and the rank keeps the part of its segment that
+    its block under the rules covers (all of it where ``cache_seq``
+    splits over the segment axes, as the default rules do).
     ``full``, the cache's meta tree at any lengths (``Model.cache_axes``),
     gives each leaf's whole size of its dimensions past the rows other
     than lengths: a dimension the prefill built as the rank's block
@@ -1074,9 +1261,14 @@ def place_cache(cache, axes, layout: Layout, full=None):
     sizes, coords = mesh_sizes(layout.mesh), coordinates(layout.mesh)
     whole = iter([x for x in _leaves_of(full) if x is not None]
                  if full is not None else ())
+    cp = layout.context()
 
     def leaf(ax, t):
         shape = [layout.global_batch] + list(t.shape[1:])
+        seg = ax.index("cache_seq") if cp is not None and \
+            "cache_seq" in ax else None
+        if seg is not None:
+            shape[seg] *= cp.size
         if full is not None:
             m = next(whole)
             for d, a in enumerate(ax):
@@ -1087,13 +1279,24 @@ def place_cache(cache, axes, layout: Layout, full=None):
             raise ValueError(f"cache rows over {_names(spec[0])}, the "
                              f"batch's over {layout.batch_axes}")
         for d in range(1, t.dim()):
-            if t.shape[d] != shape[d] and MODEL not in _names(spec[d]):
+            if d != seg and t.shape[d] != shape[d] and \
+                    MODEL not in _names(spec[d]):
                 # built as the rank's block, kept whole by the layout (kv
                 # heads where a sequence split takes model): gathered
                 t = _gather(t, _shard_on(layout.mesh, d), layout.mesh)
-        sl = local_slices(spec, shape, sizes, coords)
+        sl = list(local_slices(spec, shape, sizes, coords))
+        if seg is not None:
+            # the block in the segment's own positions
+            at = cp.start(t.shape[seg])
+            sl[seg] = slice(sl[seg].start - at, sl[seg].stop - at)
+            if sl[seg].start < 0 or sl[seg].stop > t.shape[seg]:
+                raise ValueError(
+                    f"a cache leaf {ax}: the rules place positions "
+                    f"[{sl[seg].start + at}, {sl[seg].stop + at}) on this "
+                    f"rank, outside its segment [{at}, "
+                    f"{at + t.shape[seg]})")
         block = t[(slice(None),) + tuple(
-            sl[d] if t.shape[d] == shape[d] else slice(None)
+            sl[d] if t.shape[d] == shape[d] or d == seg else slice(None)
             for d in range(1, t.dim()))]
         want = local_shape(spec, shape, sizes)
         if tuple(block.shape[1:]) != want[1:]:

@@ -35,9 +35,20 @@ Where the rules split the residual stream over ``model`` — its sequence
 (``act_embed`` to ``model``: ``act2d``) — each rank carries its block of
 the stream between sub-layers, and each sub-layer gathers it on entry and
 reduce-scatters its output (``sharding.sublayer_in`` / ``sublayer_out``);
-the tokens and labels stay whole over ``model``. A layout that would
-split an activation's sequence or embedding over ``data`` or ``pod``
-(context parallelism) raises (``sharding.refuse_sequence_sharding``).
+the tokens and labels stay whole over ``model``.
+
+Where the rules split the sequence over ``data`` (a train microbatch or a
+prefill batch that ``data`` does not divide: the reference's fall-through
+to ``act_seq``, and ``seqpar``'s over ``data`` and ``model``) each rank
+takes its contiguous segment of every row's tokens, labels and frames
+(``sharding.Layout.segment_axes``; the image patches stay whole) and the
+model exchanges across segments what crosses their edges (context
+parallelism). The loss and the gradients are averaged over the segments
+as over the rows; a prefill's last logits are the last segment's, on
+every rank, and its cache is placed by its logical axes (an attention
+cache's positions are the rank's segment). A layout that would split an
+embedding over ``data`` or ``pod`` raises
+(``sharding.refuse_sequence_sharding``).
 """
 from __future__ import annotations
 
@@ -200,11 +211,14 @@ _WHOLE_OVER_MODEL = ("tokens", "labels")
 def _local_rows(model, mesh, batch):
     """This rank's rows of a (micro)batch of global rows, and the layout
     they make (``sharding.step_layout``: the residual stream's split over
-    ``model``, if any). ``frames`` and ``patches`` take the rank's block of
-    what their rules split over ``model``, which must be the residual
-    stream's dimension (the frames' sequence or embedding, the patches'
-    embedding); ``tokens`` and ``labels`` only their rows. A layout that
-    would split anything past the rows over another axis raises."""
+    ``model``, if any, and its sequence's segments). ``frames`` and
+    ``patches`` take the rank's block of what their rules split over
+    ``model``, which must be the residual stream's dimension (the frames'
+    sequence or embedding, the patches' embedding); ``tokens`` and
+    ``labels`` only their rows. Under context parallelism every input's
+    sequence but the patches' takes the rank's segment, which must be the
+    residual stream's. A layout that would split anything else past the
+    rows over another axis raises."""
     n, S = batch["tokens"].shape
     layout = sharding.step_layout(mesh, n, S, model.cfg.d_model)
     out = {}
@@ -213,8 +227,14 @@ def _local_rows(model, mesh, batch):
         spec = sharding.spec_for(logical, v.shape, mesh)
         sharding.refuse_sequence_sharding(f"input {k}", logical, v.shape,
                                           spec, mesh)
+        segments = sharding._segment_names(spec[1], mesh)
+        if k != "patches" and segments != layout.segment_axes:
+            raise NotImplementedError(
+                f"input {k} {tuple(v.shape)} resolves to {spec}: its "
+                f"sequence splits over {segments}, the residual stream's "
+                f"over {layout.segment_axes}")
         if k in _WHOLE_OVER_MODEL:
-            spec = spec[:1] + (None,) * (v.dim() - 1)
+            spec = spec[:1] + (segments or None,) + (None,) * (v.dim() - 2)
         else:
             dims = sharding._model_dims(logical, spec)
             want = layout.split if k == "frames" else (
@@ -274,11 +294,11 @@ def _sharded_parts(model, opt, compress, mesh) -> TrainParts:
             loss = model.loss(live, rows)
             grads = torch.autograd.grad(loss, locals_)
         loss = loss.detach()
-        if layout.batch_ways > 1:
-            for name in layout.batch_axes:
+        if layout.mean_ways > 1:
+            for name in layout.mean_axes:
                 dist.all_reduce(loss, group=mesh.get_group(
                     names.index(name)))
-            loss = loss / layout.batch_ways
+            loss = loss / layout.mean_ways
         return loss, grads
 
     def finish(params, opt_state, grads, gen=None):

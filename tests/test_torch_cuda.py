@@ -513,6 +513,58 @@ def test_wgmma_flash_kernel_matches_plain_on_card(card, D, causal, window,
                                rtol=BF16_RTOL)
 
 
+# Query offsets of a sequence segment against its prefix's keys: (D, Dv,
+# Sq, q_offset, window, dtype); offsets on and off the 128-row and -key
+# tiles, windows, MLA's dims, bf16 on the wgmma kernel and float32 on the
+# scalar one; and one whose K and V outgrow L2, so that the wgmma kernel
+# deals pairs of q tiles.
+OFFSET_FLASH = [(64, 64, 300, 333, 0, torch.bfloat16),
+                (128, 128, 256, 128, 0, torch.bfloat16),
+                (128, 128, 200, 1000, 300, torch.bfloat16),
+                (256, 256, 150, 77, 100, torch.bfloat16),
+                (96, 64, 130, 390, 0, torch.bfloat16),
+                (192, 128, 64, 1, 0, torch.bfloat16),
+                (128, 128, 2048, 14336, 0, torch.bfloat16),
+                (64, 64, 100, 333, 0, torch.float32),
+                (128, 128, 64, 70, 50, torch.float32),
+                (256, 256, 70, 129, 0, torch.float32)]
+
+
+@pytest.mark.parametrize("D,Dv,Sq,off,window,dtype", OFFSET_FLASH)
+def test_flash_kernels_at_a_query_offset_on_card(card, D, Dv, Sq, off,
+                                                 window, dtype):
+    """The model-layout wrapper with ``q_offset``: one launch of the kernel
+    ``kernel_call`` names, its Sq queries at offset ``off`` against the
+    off + Sq keys of their prefix, against the plain version at the same
+    offset and against rows [off, off + Sq) of the whole prefix's plain
+    attention (bf16 limit 2e-2 plus one bf16 step, float32 2e-5); at
+    offset 0 the call is bitwise the call without the keyword."""
+    from repro_torch.kernels.flash_attention import flash_attention as fb
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator().manual_seed(D + Sq + off)
+    Kh, G, S = 2, 4 if D == Dv else 1, off + Sq
+    q = torch.randn((1, S, Kh, G, D), generator=gen).to(card, dtype)
+    k = torch.randn((1, S, Kh, D), generator=gen).to(card, dtype)
+    v = torch.randn((1, S, Kh, Dv), generator=gen).to(card, dtype)
+    scale = 1.0 / np.sqrt(D) if D != Dv else None
+    kw = dict(causal=True, window=window, scale=scale)
+    before = fb.LAUNCHES
+    out = fops.flash_attention(q[:, off:], k, v, q_offset=off, **kw)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    tol = (dict(atol=2e-2, rtol=BF16_RTOL) if dtype == torch.bfloat16
+           else dict(atol=2e-5, rtol=0))
+    ref = flash_attention_ref(q[:, off:], k, v, q_offset=off, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    whole = flash_attention_ref(q, k, v, **kw)[:, off:]
+    torch.testing.assert_close(out.float(), whole.float(), **tol)
+    head = q[:, :Sq].contiguous()
+    assert torch.equal(
+        fops.flash_attention(head, k[:, :Sq], v[:, :Sq], q_offset=0, **kw),
+        fops.flash_attention(head, k[:, :Sq], v[:, :Sq], **kw))
+
+
 @pytest.mark.parametrize("group", [1, 2, 10])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 300),
                                            (False, 0)])

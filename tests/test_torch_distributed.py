@@ -314,21 +314,32 @@ def _rank_state(rank: int, run_dir: str):
         except TypeError as e:
             out["raised"][name] = "DTensor" if "DTensor" in str(e) else \
                 str(e)
-    # No quiet fallbacks: too few ranks for the production mesh, and a
-    # batch that would shard the sequence.
+    # No quiet fallbacks: too few ranks for the production mesh; a batch
+    # of 2 on four data ranks shards the sequence (context parallelism:
+    # the step against the unsharded one), and an embedding split over
+    # data, which no rule set of the reference makes, raises.
     try:
         make_production_mesh()
         out["raised"]["production_mesh"] = "no error"
     except RuntimeError as e:
         out["raised"]["production_mesh"] = str(e)
     mesh41 = _mesh((4, 1), ("data", "model"))
+    two = {k: v[:2] for k, v in batch.items()}
+    with sharding.rule_overrides({"act_seq": (), "act_embed": ("data",)}):
+        sp41, so41 = shard_train_state(model, params, opt, mesh41)
+        try:
+            make_train_step(model, opt, mesh=mesh41)(sp41, so41, two)
+            out["raised"]["embedding"] = "no error"
+        except NotImplementedError as e:
+            out["raised"]["embedding"] = str(e)
     sp41, so41 = shard_train_state(model, params, opt, mesh41)
-    try:
-        make_train_step(model, opt, mesh=mesh41)(
-            sp41, so41, {k: v[:2] for k, v in batch.items()})
-        out["raised"]["sequence"] = "no error"
-    except NotImplementedError as e:
-        out["raised"]["sequence"] = str(e)
+    _, _, got = make_train_step(model, opt, mesh=mesh41)(sp41, so41, two)
+    _, _, want = make_train_step(model, opt)(params, opt.init(params), two)
+    out["sequence"] = dict(
+        segments=sharding.step_layout(mesh41, 2, two["tokens"].shape[1],
+                                      cfg.d_model).segment_axes,
+        **{k: float(got[k]) for k in ("loss", "grad_norm")},
+        **{f"want_{k}": float(want[k]) for k in ("loss", "grad_norm")})
     out["world"] = dist.get_world_size()
     if rank == 0:
         np.save(os.path.join(run_dir, "state_meta.npy"),
@@ -361,7 +372,8 @@ SEQ_CASES = dict(gemma3_4b=("gemma3_4b", (4, 1), 1, "baseline"),
                  gemma3_4b_seqshard=("gemma3_4b", (2, 2), 2, "seqshard"))
 SEQ_S, SEQ_N = 20, 8
 # The rule sets under which a batch of 1 on (2, 2) splits the sequence
-# over data: refused (context parallelism).
+# over data (context parallelism: two segments, under seqpar each split
+# over model).
 CONTEXT_VARIANTS = ("baseline", "seqpar")
 # The sequence-split decode against the unsharded one (float32): its
 # softmax is combined across segments in another order.
@@ -586,7 +598,7 @@ def _rank_serve(rank: int, run_dir: str):
     from repro_torch.launch.dryrun import VARIANTS
     _init(rank, run_dir)
     inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
-    out = dict(batched={}, seq={}, raised={}, tp={}, gathers={})
+    out = dict(batched={}, seq={}, context={}, tp={}, gathers={})
     torch.set_grad_enabled(False)
     length = SERVE_S + SERVE_N + 1
     for arch in SERVE_ARCHS:
@@ -654,7 +666,7 @@ def _rank_serve(rank: int, run_dir: str):
             inputs["qwen2_1_5b"]["tokens"], mesh)
     # A sequence split over data (batch 1 on (2, 2): the reference's
     # fall-through, and seqpar's sequence over data and model) is context
-    # parallelism, which the steps refuse rather than replicate quietly.
+    # parallelism: the steps against the unsharded ones.
     from repro_torch.optim import adamw
     from repro_torch.runtime.train_loop import (make_train_step,
                                                 shard_train_state)
@@ -664,23 +676,29 @@ def _rank_serve(rank: int, run_dir: str):
     mesh = _mesh((2, 2), ("data", "model"))
     params, one = inputs["qwen2_1_5b"]["params"], \
         inputs["qwen2_1_5b"]["tokens"][:1]
+    want_logits, _ = make_prefill_step(model)(params, dict(tokens=one))
+    opt = adamw()
+    with torch.enable_grad():
+        _, _, want = make_train_step(model, opt)(
+            params, opt.init(params), dict(tokens=one, labels=one))
     for variant in CONTEXT_VARIANTS:
         with sharding.rule_overrides(VARIANTS[variant].get("rules")):
+            segments = sharding.step_layout(mesh, 1, one.shape[1],
+                                            cfg.d_model).segment_axes
             sp, _ = shard_serve_state(model, params, None, mesh)
-            try:
-                make_prefill_step(model, mesh)(sp, dict(tokens=one))
-                out["raised"][f"prefill/{variant}"] = "no error"
-            except NotImplementedError as e:
-                out["raised"][f"prefill/{variant}"] = str(e)
-            opt = adamw()
+            logits, _ = make_prefill_step(model, mesh)(sp, dict(tokens=one))
+            out["context"][f"prefill/{variant}"] = dict(
+                segments=segments,
+                max_abs=(logits - want_logits).abs().max().item())
             sp, so = shard_train_state(model, params, opt, mesh)
-            try:
-                with torch.enable_grad():
-                    make_train_step(model, opt, mesh=mesh)(
-                        sp, so, dict(tokens=one, labels=one))
-                out["raised"][f"train/{variant}"] = "no error"
-            except NotImplementedError as e:
-                out["raised"][f"train/{variant}"] = str(e)
+            with torch.enable_grad():
+                _, _, got = make_train_step(model, opt, mesh=mesh)(
+                    sp, so, dict(tokens=one, labels=one))
+            out["context"][f"train/{variant}"] = dict(
+                segments=segments, loss_rel=abs(
+                    float(got["loss"]) / float(want["loss"]) - 1),
+                grad_norm_rel=abs(float(got["grad_norm"])
+                                  / float(want["grad_norm"]) - 1))
     if rank == 0:
         np.save(os.path.join(run_dir, "serve.npy"), out, allow_pickle=True)
 
@@ -1022,8 +1040,12 @@ def test_elastic_restart_on_the_mesh_equals_a_clean_run(state_run):
 
 def test_no_quiet_fallbacks_across_ranks(state_run):
     """Every kernel wrapper refuses a DTensor; the production mesh on four
-    ranks raises; a batch of 2 on four data ranks (whose rules would shard
-    the sequence) raises naming the ROADMAP item."""
+    ranks raises; a batch of 2 on four data ranks, whose rules shard the
+    sequence, takes the context-parallel step (four segments over
+    ``data``), its loss and grad norm within SHARD_RTOL of the unsharded
+    step's, never a replicated sequence; an embedding split over
+    ``data``, which no rule set of the reference makes, raises naming
+    it."""
     _, meta, _, _, _ = state_run
     assert meta["world"] == WORLD
     assert set(meta["raised"]) >= {"flash_attention", "flash_attention_bh",
@@ -1034,7 +1056,11 @@ def test_no_quiet_fallbacks_across_ranks(state_run):
         assert meta["raised"][name] == "DTensor", (name,
                                                    meta["raised"][name])
     assert "256 ranks" in meta["raised"]["production_mesh"]
-    assert "ROADMAP" in meta["raised"]["sequence"]
+    s = meta["sequence"]
+    assert s["segments"] == ("data",), s
+    for k in ("loss", "grad_norm"):
+        assert abs(s[k] - s[f"want_{k}"]) <= SHARD_RTOL * s[f"want_{k}"], s
+    assert "act_embed over data" in meta["raised"]["embedding"]
 
 
 @pytest.fixture(scope="module")
@@ -1220,15 +1246,21 @@ def test_sequence_split_decode_matches_unsharded(serve_run, arch):
 @pytest.mark.parametrize("step", ["train", "prefill"])
 def test_a_sequence_split_over_data_raises_naming_context_parallelism(
         serve_run, step, variant):
-    """A batch of 1 on (2, 2) would split the sequence over ``data`` (the
+    """A batch of 1 on (2, 2) splits the sequence over ``data`` (the
     baseline rules' fall-through to ``act_seq``; under ``seqpar`` over
-    ``data`` and ``model``): the sharded train step and prefill raise
-    naming the context-parallelism item of ROADMAP queue 1, rather than
-    replicate quietly. (A split over ``model`` alone runs:
-    ``test_torch_sequence_parallel.py``.)"""
+    ``data`` and ``model``): context parallelism, no longer refused. The
+    sharded prefill's last logits within SEQ_ATOL of the unsharded
+    prefill's, the sharded train step's loss and grad norm within
+    SHARD_RTOL of the unsharded step's (float32). The float64 cases of
+    every family: ``test_torch_context_parallel.py``."""
     out, _ = serve_run
-    msg = out["raised"][f"{step}/{variant}"]
-    assert "ROADMAP queue 1, [3d]" in msg, msg
+    r = out["context"][f"{step}/{variant}"]
+    assert r["segments"] == ("data",), r
+    if step == "prefill":
+        assert r["max_abs"] <= SEQ_ATOL, r
+    else:
+        assert r["loss_rel"] <= SHARD_RTOL, r
+        assert r["grad_norm_rel"] <= SHARD_RTOL, r
 
 
 if __name__ == "__main__":

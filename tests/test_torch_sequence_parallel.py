@@ -560,20 +560,27 @@ def test_layout_split_on_the_production_meshes(multi_pod):
 
 
 def test_a_sequence_split_over_data_is_refused_without_ranks():
-    """A batch of 1 on four ``data`` ranks would split the sequence over
+    """A batch of 1 on four ``data`` ranks splits the sequence over
     ``data`` (the reference's fall-through) — under ``seqpar`` over
-    ``data`` and ``model`` — which is context parallelism: ``step_layout``
-    raises naming its ROADMAP item, under both rule sets."""
+    ``data`` and ``model`` — which is context parallelism, no longer
+    refused: ``step_layout`` gives the four segments over ``data`` under
+    both rule sets (under ``seqpar`` the ``model`` split within them),
+    and none at a batch that ``data`` divides. Only an embedding split
+    over ``data``, which no rule set of the reference makes, raises."""
     from repro_torch.launch.dryrun import VARIANTS
     from repro_torch.runtime import sharding
     mesh = sharding.MeshShape(("data", "model"), (4, 2))
     for variant in ("baseline", "seqpar"):
+        split = sharding.SEQ if variant == "seqpar" else None
         with sharding.rule_overrides(VARIANTS[variant].get("rules")):
-            with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP queue 1, \[3d\]"):
-                sharding.step_layout(mesh, 1, 64, 32)
-            assert sharding.step_layout(mesh, 4, 64, 32).split == (
-                sharding.SEQ if variant == "seqpar" else None)
+            layout = sharding.step_layout(mesh, 1, 64, 32)
+            assert layout.segment_axes == ("data",)
+            assert layout.segment_ways == 4 and layout.split == split
+            layout = sharding.step_layout(mesh, 4, 64, 32)
+            assert layout.segment_axes == () and layout.split == split
+    with sharding.rule_overrides({"act_seq": (), "act_embed": ("data",)}):
+        with pytest.raises(NotImplementedError, match="act_embed over data"):
+            sharding.step_layout(mesh, 1, 64, 32)
 
 
 def test_live_bytes_match_a_hand_count():

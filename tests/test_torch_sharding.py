@@ -339,16 +339,28 @@ def test_placements_and_blocks_nest_major_to_minor():
 
 def test_constrain_refuses_a_sequence_sharded_layout():
     """With no layout ``constrain`` is the identity; at batch 1 on four
-    data ranks the rules would shard the sequence (the reference's
-    fall-through): it raises naming the ROADMAP item, never replicates;
-    rows that do not match the layout raise too."""
+    data ranks the rules shard the sequence (the reference's
+    fall-through): under a layout with its segments over ``data`` the
+    rank's segment passes, and the whole sequence under a layout without
+    them raises rather than pass as replicated; an embedding split over
+    ``data``, which no rule set of the reference makes, raises; rows
+    that do not match the layout raise too."""
+    residual = ("act_batch", "act_seq", "act_embed")
     x = torch.zeros(1, 8, 4)
-    assert transformer.constrain(x, ("act_batch", "act_seq",
-                                     "act_embed")) is x
+    assert transformer.constrain(x, residual) is x
     mesh = sharding.MeshShape(("data", "model"), (4, 1))
+    segment = x[:, :2]
+    with sharding.activation_layout(sharding.Layout(
+            mesh, 1, (), segment_axes=("data",))):
+        assert transformer.constrain(segment, residual) is segment
     with sharding.activation_layout(sharding.Layout(mesh, 1, ())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.constrain(x, ("act_batch", "act_seq", "act_embed"))
+        with pytest.raises(ValueError, match="segments"):
+            transformer.constrain(x, residual)
+        with sharding.rule_overrides({"act_seq": (),
+                                      "act_embed": ("data",)}):
+            with pytest.raises(NotImplementedError,
+                               match="act_embed over data"):
+                transformer.constrain(x, residual)
     layout = sharding.Layout(mesh, 8, sharding.batch_axes(8, mesh))
     assert layout.batch_axes == ("data",) and layout.batch_ways == 4
     with sharding.activation_layout(layout):
@@ -356,7 +368,7 @@ def test_constrain_refuses_a_sequence_sharded_layout():
         assert transformer.constrain(y, ("act_batch", "act_seq",
                                          "act_vocab")) is y
         with pytest.raises(ValueError, match="rows"):
-            transformer.constrain(x, ("act_batch", "act_seq", "act_embed"))
+            transformer.constrain(x, residual)
 
 
 def test_production_mesh_shapes_need_no_ranks():
