@@ -58,10 +58,18 @@ Builds the port's kernels from the sources in this checkout, then:
      1/sqrt(D_v), a non-causal call's last kv tile dropped) and times
      them beside the plain versions, their bounds and, for attention,
      ``scaled_dot_product_attention``; the two SSD kernels on the same
-     bf16 inputs; checks that a causal or sliding prefill attention with
-     Sq != Skv raises, that both kernels' launchers refuse an input that
-     requires grad under grad (they are forward-only), and that their
-     public wrappers carry its gradient;
+     bf16 inputs; both SSD kernels from an initial state h0 (mamba2-2.7B's
+     prefill shape, a ragged S, float32 on the scalar kernel) against the
+     plain version with the same ``init_state``, timed beside the call
+     from zero and the final-state-from-zero entry (``ssd_final_cuda``,
+     held to the plain final from zero); a sequence of 32768 positions at
+     mamba2-2.7B's widths split after 28672 (the tail, 16 chunks, from
+     the head's float32 final) against the whole run, and from the bf16
+     final (printed); the calls without h0 bitwise their outputs before
+     h0 (``PARENT_SSD_DIGESTS``); checks that a causal or sliding prefill
+     attention with Sq != Skv raises, that both kernels' launchers refuse
+     an input that requires grad under grad (they are forward-only), and
+     that their public wrappers carry its gradient;
   7. serves qwen2-1.5B and mamba2-2.7B at depth 2, gemma3-4B at depth 6
      (five local layers, one global), recurrentgemma-2B at depth 4 (one
      group of two RG-LRU layers and a local attention layer, then one
@@ -174,7 +182,12 @@ Builds the port's kernels from the sources in this checkout, then:
      of the fake process group) — 16 ``flash_fwd_sm90<128, 128>``
      launches of 4096 queries at offset 28672 against 32768 keys, no
      plain version, the first held against the plain version and timed
-     beside it, SDPA with the offset-causal mask and its bound; (c) the
+     beside it, SDPA with the offset-causal mask and its bound; (j)
+     mamba2-2.7B at all 64 layers the same way, bf16, the last of 8
+     segments of a 32768-position prefill — each layer's SSD one launch
+     of the final-state-from-zero entry and one wgmma scan from the
+     carried state (64 + 64), no plain version, the first from h0 held
+     against the plain version; (c) the
      dry run of qwen2-72B train_4k on the 16x16 and 2x16x16
      production meshes: per-device bytes, and per-device FLOPs, bytes,
      collectives and roofline at 2 of 80 layers from ``python -m
@@ -1898,6 +1911,277 @@ def ssd_timing(args, L: int) -> dict:
     return t
 
 
+# The SSD kernels from an initial state h0 (the state a context-parallel
+# segment receives): (b, S, H, P, G, N, chunk, dtype). The wgmma kernel at
+# mamba2-2.7B's prefill shape and at a ragged S; the scalar kernel in
+# float32 at the same prefill shape and at a small ragged one.
+SSD_H0_CASES = [(4, 2048, 80, 64, 1, 128, 256, torch.bfloat16),
+                (2, 1100, 80, 64, 1, 128, 256, torch.bfloat16),
+                (4, 2048, 80, 64, 1, 128, 256, torch.float32),
+                (2, 300, 4, 16, 2, 8, 16, torch.float32)]
+# The split-versus-whole check: one sequence of SPLIT_S positions at
+# mamba2-2.7B's widths, bf16, cut after SPLIT_HEAD (the last of 8 segments
+# of 4096 positions, 16 chunks of 256, runs from the state of the first
+# 28672).
+SPLIT_S, SPLIT_HEAD = 32768, 28672
+
+
+def ssd_state_of(b, S, H, P, G, N, chunk, dtype, seed):
+    """A realistic incoming state: the float32 final of the kernel's scan
+    from zero over another model-like draw of the same shape."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    with torch.no_grad():
+        return sk.ssd_final_cuda(*ssd_inputs(b, S, H, P, G, N, dtype, seed,
+                                             True), chunk=chunk)
+
+
+def ssd_h0_case(b, S, H, P, G, N, chunk, dtype, seed) -> dict:
+    """The kernel ``variant`` chooses from h0 (``ssd_state_of``) against
+    the plain chunked version with the same ``init_state``: y and the
+    state in x's dtype, at the SSD's limits; one call of the variant,
+    counted as a call from a state; the state carried (y moves against
+    the call from zero); and the ``ssd_final_cuda`` entry against the
+    plain final from zero (``ssd_final_ref``) at the same limit. Returns
+    the errors and the inputs."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_final_ref, ssd_ref
+    args = ssd_inputs(b, S, H, P, G, N, dtype, seed, True)
+    h0 = ssd_state_of(b, S, H, P, G, N, chunk, dtype, seed + 1000)
+    L = min(chunk, S)
+    kind = sk.variant(dtype, P, N, L)
+    before = (dict(sk.LAUNCHES_BY_VARIANT), dict(sk.LAUNCHES_FROM_STATE))
+    y, st = sk.ssd_scan_cuda(*args, chunk=chunk, h0=h0)
+    if (sk.LAUNCHES_BY_VARIANT, sk.LAUNCHES_FROM_STATE) != (
+            {**before[0], kind: before[0][kind] + 1},
+            {**before[1], kind: before[1][kind] + 1}):
+        fail(f"ssd scan from h0 did not call its {kind} kernel once")
+    yr, sr = ssd_ref(*args, chunk=L, init_state=h0)
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    raw, err = ssd_err((y, st), (yr, sr), rtol)
+    y0, _ = sk.ssd_scan_cuda(*args, chunk=chunk)
+    moved = (y.float() - y0.float()).abs().max().item()
+    final = sk.ssd_final_cuda(*args, chunk=chunk)
+    final_err = (final - ssd_final_ref(*args, chunk=L)).abs().max().item()
+    torch.cuda.synchronize()
+    print(f"  ssd from h0 b={b} S={S} H={H} P={P} G={G} N={N} chunk={chunk} "
+          f"{str(dtype)[6:]} model-like ({kind} kernel): max|d(y, state)|="
+          f"{raw:.3e} (beyond rtol {rtol:.2e}: {err:.3e}); max|y - y from "
+          f"zero|={moved:.3e}; the final-from-zero entry: max|d| to the "
+          f"plain final {final_err:.3e}", flush=True)
+    check("ssd scan from h0", err, SSD_ATOL)
+    check("ssd final from zero vs plain", final_err, SSD_ATOL)
+    if moved < 1e-2:
+        fail(f"ssd scan from h0: y moved {moved:.3e} from the call from "
+             f"zero; the state was not carried")
+    return dict(raw=raw, err=err, final_err=final_err, kind=kind,
+                args=args, h0=h0)
+
+
+def ssd_h0_timing(args, h0, L: int) -> dict:
+    """The kernel ``variant`` chooses from h0 beside the same call from
+    zero, the final-from-zero entry and the plain versions of both, by
+    CUDA events and by the profiler (the wgmma kernel's launches by name
+    too), beside each one's bound: the scan's (h0 read too) as
+    ``ssd_timing`` counts it; the final's x, dt, A and B read and the
+    float32 state written, 2 L N P operations per (b, h, chunk), at the
+    inputs' type's rate."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_final_ref, ssd_ref
+    x, dt, A, Bm, Cm = args
+    b, S, H, P = x.shape
+    N = Bm.shape[3]
+    nc = -(-S // L)
+    kind = sk.variant(x.dtype, P, N, L)
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    item = x.element_size()
+    nops = 2 * b * H * nc * (L * (L + 1) // 2 * (N + P) + 2 * L * N * P)
+    small = dt.numel() * 4 + A.numel() * 4
+    scan_bytes = item * (2 * x.numel() + 2 * Bm.numel() + b * H * P * N) \
+        + small + h0.numel() * 4
+    final_bytes = item * (x.numel() + Bm.numel()) + small + h0.numel() * 4
+    calls = dict(
+        h0=lambda: sk.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L, h0=h0),
+        zero=lambda: sk.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=L),
+        final=lambda: sk.ssd_final_cuda(x, dt, A, Bm, Cm, chunk=L),
+        plain=lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=L, init_state=h0),
+        plain_final=lambda: ssd_final_ref(x, dt, A, Bm, Cm, chunk=L))
+    reps = 50 if kind == "wgmma" else 10
+    t = {}
+    for name, fn in calls.items():
+        plain = name.startswith("plain")
+        t[f"{name}_ms"] = cuda_ms(fn, warmup=2 if plain else 5,
+                                  reps=5 if plain else reps)
+        t[f"{name}_device_ms"] = profiled_device_ms(fn, reps=2 if plain
+                                                    else 10)
+    if kind == "wgmma":
+        t["h0_launch_device_us"] = device_us_by_kernel(calls["h0"])
+        t["final_launch_device_us"] = device_us_by_kernel(calls["final"])
+    t["h0_bound"] = bound(scan_bytes, nops, rate)
+    t["final_bound"] = bound(final_bytes, 2 * b * H * nc * L * N * P, rate)
+    print(f"  timing ssd from h0 at ({b}, {S}, {H}, {P}; N {N}, L {L}) "
+          f"{str(x.dtype)[6:]} ({kind} kernel): from h0 "
+          f"{t['h0_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['h0_device_ms'])}), from zero "
+          f"{t['zero_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['zero_device_ms'])}), final from zero "
+          f"{t['final_ms'] * 1e3:.2f} us (device "
+          f"{fmt_us(t['final_device_ms'])}), plain from h0 "
+          f"{t['plain_ms'] * 1e3:.2f} us, plain final "
+          f"{t['plain_final_ms'] * 1e3:.2f} us; bounds: the scan "
+          f"{t['h0_bound']['bound_ms'] * 1e3:.2f} us "
+          f"({t['h0_bound']['bound_by']}), the final "
+          f"{t['final_bound']['bound_ms'] * 1e3:.2f} us "
+          f"({t['final_bound']['bound_by']}); by launch "
+          f"{t.get('h0_launch_device_us')} / "
+          f"{t.get('final_launch_device_us')}; library call: none",
+          flush=True)
+    return t
+
+
+def ssd_split_check() -> dict:
+    """The carried state across a segment boundary of 16 chunks on the
+    card: the wgmma kernel over SPLIT_S positions at mamba2-2.7B's widths
+    (bf16, batch 1), against the last SPLIT_S - SPLIT_HEAD positions run
+    from the float32 final of the first SPLIT_HEAD (``ssd_final_cuda``):
+    the tail's y and final state within the SSD's limits of the whole
+    run's (and whether bitwise). The same from the bf16 final (the state
+    in x's dtype, as the context-parallel path took it before the
+    float32 final): printed, nothing gated on it."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    args = ssd_inputs(1, SPLIT_S, 80, 64, 1, 128, torch.bfloat16, 36, True)
+    head = [t[:, :SPLIT_HEAD].contiguous() if t.dim() > 1 else t
+            for t in args]
+    tail = [t[:, SPLIT_HEAD:].contiguous() if t.dim() > 1 else t
+            for t in args]
+    with torch.no_grad():
+        y, st = sk.ssd_scan_cuda(*args, chunk=256)
+        h32 = sk.ssd_final_cuda(*head, chunk=256)
+        yt, stt = sk.ssd_scan_cuda(*tail, chunk=256, h0=h32)
+        _, h16 = sk.ssd_scan_cuda(*head, chunk=256)
+        y16, st16 = sk.ssd_scan_cuda(*tail, chunk=256, h0=h16.float())
+    torch.cuda.synchronize()
+    want = (y[:, SPLIT_HEAD:], st)
+    raw, err = ssd_err((yt, stt), want, BF16_RTOL)
+    raw16, err16 = ssd_err((y16, st16), want, BF16_RTOL)
+    bitwise = torch.equal(yt, want[0]) and torch.equal(stt, want[1])
+    print(f"  ssd split vs whole at (1, {SPLIT_S}, 80, 64), N 128, L 256, "
+          f"bf16: the last {SPLIT_S - SPLIT_HEAD} positions from the "
+          f"float32 final of the first {SPLIT_HEAD} ({SPLIT_HEAD // 256} "
+          f"chunks) vs the whole run's: max|d(y, state)| {raw:.3e} "
+          f"(beyond rtol {err:.3e}), bitwise {bitwise}; from the bf16 "
+          f"final instead: max|d| {raw16:.3e} (beyond rtol {err16:.3e}; "
+          f"not gated)", flush=True)
+    check("ssd split vs whole", err, SSD_ATOL)
+    return dict(max_abs_err=raw, err_beyond_rtol=err, bitwise=bitwise,
+                bf16_final_max_abs_err=raw16, bf16_final_beyond_rtol=err16)
+
+
+# The SSD kernels' outputs with no h0, from before the initial state: sha256
+# of each SSD_DIGEST_CASES call's (y, state) bytes on its fixed inputs,
+# from ``kernel_probe.py digest`` on the tree before h0 (NVIDIA H100 80GB
+# HBM3, 700.00 W). The kernels hold no atomics and no order that depends
+# on timing, so an output is a function of its inputs.
+PARENT_SSD_DIGESTS = {
+    "wgmma 600 N128 L256":
+        "8e57129ed74f13dc6b75e53ba21a459c00d88af64d249132206ecc9128084548",
+    "wgmma 300 G2 N64 L64":
+        "56c4aa5305a7a7675a9f55ca37630a61cfbd0367f257281345e043140191435c",
+    "wgmma mamba2 b1":
+        "7adcacdbab04f134e4f378075ee294fde239b2b2dadea2853c3ad696b88ded63",
+    "scalar f32 100":
+        "ca13941a53e6d4c8bf9f27d64739478c489cfadf5e048367becb0b01c0dd2e19",
+    "scalar f32 mamba2 b1":
+        "dbe0e3debb74af640b3e7b558476e83d1a6067c9edbc00de5cf6d60320863518",
+    "scalar bf16 160 P32":
+        "10b81bfa30c83cd42da2d584ba499c2e80f846d8b58804ca7b6fd57e8d3428d7",
+    "scalar bf16 600 N128":
+        "fbbcbe139c511471333e8c90c4ec92b62a5a6eccb03c4f1d014b4d5cd7ba12e3"}
+# (label, kernel, b, S, H, P, G, N, chunk, dtype): the wgmma kernel through
+# ``ssd_scan_cuda``, the scalar one through ``_launch`` (on bf16 inputs
+# the wgmma kernel would take, too).
+SSD_DIGEST_CASES = [
+    ("wgmma 600 N128 L256", "wgmma", 1, 600, 8, 64, 1, 128, 256,
+     torch.bfloat16),
+    ("wgmma 300 G2 N64 L64", "wgmma", 2, 300, 8, 64, 2, 64, 64,
+     torch.bfloat16),
+    ("wgmma mamba2 b1", "wgmma", 1, 2048, 80, 64, 1, 128, 256,
+     torch.bfloat16),
+    ("scalar f32 100", "scalar", 2, 100, 4, 16, 2, 8, 16, torch.float32),
+    ("scalar f32 mamba2 b1", "scalar", 1, 2048, 80, 64, 1, 128, 256,
+     torch.float32),
+    ("scalar bf16 160 P32", "scalar", 2, 160, 4, 32, 2, 64, 64,
+     torch.bfloat16),
+    ("scalar bf16 600 N128", "scalar", 1, 600, 8, 64, 1, 128, 256,
+     torch.bfloat16)]
+
+
+def ssd_digests() -> dict:
+    """{label: sha256 of (y, state)} of every SSD_DIGEST_CASES call with
+    no h0 (the call an older tree takes too), on inputs drawn by numpy
+    from fixed seeds."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    out = {}
+    for i, (label, kind, b, S, H, P, G, N, chunk, dtype) in enumerate(
+            SSD_DIGEST_CASES):
+        rng = np.random.default_rng(400 + i)
+
+        def draw(shape, scale=1.0, shift=0.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale
+                                     + shift).astype(np.float32)).cuda()
+        x = draw((b, S, H, P)).to(dtype)
+        dt = draw((b, S, H), 0.1).abs() + 0.05
+        A = -draw((H,), 0.3).abs() - 0.2
+        Bm, Cm = (draw((b, S, G, N)).to(dtype) for _ in range(2))
+        with torch.no_grad():
+            if kind == "wgmma":
+                y, st = sk.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk)
+            else:
+                y, st = sk._launch("scalar", x, dt, A, Bm, Cm,
+                                   min(chunk, S))
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in (y, st):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        out[label] = h.hexdigest()
+    return out
+
+
+def ssd_h0_checks() -> dict:
+    """Phase 6's initial-state part: SSD_H0_CASES held and the first of
+    each variant timed; the split-versus-whole check; the digests of the
+    calls with no h0 against the parent's (bitwise the kernels before
+    h0)."""
+    out = dict(cases={}, timing={})
+    for i, case in enumerate(SSD_H0_CASES):
+        r = ssd_h0_case(*case, seed=80 + i)
+        out["cases"][str(case[:-1] + (str(case[-1])[6:],))] = dict(
+            max_abs_err=r["raw"], err_beyond_rtol=r["err"],
+            final_max_abs_err=r["final_err"], kind=r["kind"])
+        if r["kind"] not in out["timing"] and case[:2] == (4, 2048):
+            out["timing"][r["kind"]] = ssd_h0_timing(r["args"], r["h0"],
+                                                     case[6])
+        del r
+    out["worst"] = {k: max([c["max_abs_err"] for c in out["cases"].values()
+                            if c["kind"] == k]
+                           + [c["final_max_abs_err"] for c in
+                              out["cases"].values() if c["kind"] == k])
+                    for k in ("wgmma", "scalar")}
+    out["split"] = ssd_split_check()
+    got = ssd_digests()
+    if not PARENT_SSD_DIGESTS:
+        fail("PARENT_SSD_DIGESTS is empty")
+    differ = sorted(k for k, v in got.items()
+                    if PARENT_SSD_DIGESTS.get(k) != v)
+    if differ or set(got) != set(PARENT_SSD_DIGESTS):
+        fail(f"the SSD kernels with no h0 are not bitwise their outputs "
+             f"before h0: {differ}")
+    print(f"  with no h0 both SSD kernels are bitwise their outputs before "
+          f"h0: {len(got)} digests equal (PARENT_SSD_DIGESTS)", flush=True)
+    out["digests_equal"] = len(got)
+    return out
+
+
 def phase_lm_kernels(dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention as fk
     from repro_torch.kernels.flash_attention import ops as fops
@@ -2012,9 +2296,13 @@ def phase_lm_kernels(dev) -> dict:
         worst[key[kind]] = max(worst[key[kind]], err)
         ssd_t[b] = ssd_timing(args, L=256)
         worst["ssd"] = max(worst["ssd"], ssd_t[b]["scalar_raw_err"])
+    del args
+    h0 = ssd_h0_checks()
+    worst["ssd_sm90"] = max(worst["ssd_sm90"], h0["worst"]["wgmma"])
+    worst["ssd"] = max(worst["ssd"], h0["worst"]["scalar"])
     check_refusal()
     return dict(worst=worst, flash=flash_t, gemma_flash=gemma_t, ssd=ssd_t,
-                model_flash=model_t)
+                model_flash=model_t, ssd_h0=h0)
 
 
 def check_masked_refusal() -> None:
@@ -2152,7 +2440,7 @@ def dead_gates(params) -> dict:
 def gates_matter(model, params, toks, extra) -> float:
     """Max |d last logits| of one prefill with the live gates against one
     with zero gates: the cross layers must change the logits."""
-    t = torch.as_tensor(toks, dtype=torch.int64, device="cuda")
+    t = torch.as_tensor(toks, dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         live, _ = model.prefill(params, dict(tokens=t, **extra))
         dead, _ = model.prefill(dead_gates(params), dict(tokens=t, **extra))
@@ -2192,7 +2480,7 @@ def serve_logits(model, params, toks, stream, device, extra=None) -> list:
     from repro_torch.runtime.serve_loop import _splice
     extra = {k: v.to(device) for k, v in (extra or {}).items()}
     with torch.inference_mode():
-        t = torch.as_tensor(toks, dtype=torch.int64, device=device)
+        t = torch.as_tensor(toks, dtype=torch.int32, device=device)
         B, S = t.shape
         cache = model.init_cache(B, S + stream.shape[1], device,
                                  **model.cache_lengths(extra))
@@ -2200,7 +2488,7 @@ def serve_logits(model, params, toks, stream, device, extra=None) -> list:
         cache = _splice(cache, built)
         out = [last.float().cpu().numpy()]
         for i in range(stream.shape[1] - 1):
-            tok = torch.as_tensor(stream[:, i:i + 1], dtype=torch.int64,
+            tok = torch.as_tensor(stream[:, i:i + 1], dtype=torch.int32,
                                   device=device)
             logits, cache = model.decode(params, cache, tok, S + i)
             out.append(logits.float().cpu().numpy())
@@ -2289,7 +2577,7 @@ def phase_lm_parity(dev) -> dict:
         extra = lm_inputs(cfg, 2, PARITY_FRAMES, seed=5)
         host_extra = {k: v.cpu() for k, v in extra.items()}
         fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
-        sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+        reset_ssd_launches()
         rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
         with scan_recorder() as card_scans, \
                 flash_call_recorder() as shapes, \
@@ -2305,7 +2593,7 @@ def phase_lm_parity(dev) -> dict:
         n_rec = n_recurrent(cfg)
         want_shapes = flash_calls(cfg)
         want = dict(wgmma=0, scalar=sum(want_shapes.values()))
-        want_ssd = dict(wgmma=0, scalar=cfg.n_layers if cfg.ssm else 0)
+        want_ssd = ssd_counts(scalar=cfg.n_layers if cfg.ssm else 0)
         want_rglru = dict(layer_fwd=n_rec, layer_bwd=0, fwd=0, bwd=0)
         if sum(plain_calls.values()):
             fail(f"{arch}: the plain versions ran in the card's float32 "
@@ -2391,7 +2679,8 @@ def plain_call_counter():
     targets = [(attention, "online_softmax_attention"),
                (fref, "online_softmax_attention"),
                (fops, "flash_attention_bh_ref"), (ssm, "ssd_chunked"),
-               (sops, "ssd_ref"), (rops, "rglru_layer_ref"),
+               (sops, "ssd_ref"), (sops, "ssd_final_ref"),
+               (rops, "rglru_layer_ref"),
                (rops, "rglru_scan_ref")]
     saved = [getattr(mod, name) for mod, name in targets]
 
@@ -2413,7 +2702,7 @@ def prefill_profile(model, params, toks, extra) -> dict:
     """The profiler's device time of one prefill, by kernel name, the host
     wall around it, and whether its last logits are finite."""
     from torch.profiler import ProfilerActivity, profile
-    t = torch.as_tensor(toks, dtype=torch.int64, device="cuda")
+    t = torch.as_tensor(toks, dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2490,7 +2779,7 @@ def serve_arch(arch: str, cfg, B: int = 4, S: int = 2048,
             flash_call_recorder() as shapes:
         fk.LAUNCHES, sk.LAUNCHES = 0, 0
         fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
-        sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+        reset_ssd_launches()
         rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
         with obs.capture() as reg:
             tokens = server.generate(batch, max_new=NEW)
@@ -2516,7 +2805,8 @@ def serve_arch(arch: str, cfg, B: int = 4, S: int = 2048,
              f"take the wgmma flash kernel")
     want = dict(flash_attention=n_attn, ssd_scan=n_ssd,
                 flash_wgmma=n_attn, flash_scalar=0, ssd_wgmma=n_ssd,
-                ssd_scalar=0, rglru_layer_fwd=n_rec, rglru_layer_bwd=0,
+                ssd_scalar=0, ssd_wgmma_final=0, ssd_scalar_final=0,
+                rglru_layer_fwd=n_rec, rglru_layer_bwd=0,
                 rglru_fwd=0, rglru_bwd=0)
     prof = prefill_profile(model, params, toks, extra)
     gates = (gates_matter(model, params, toks, extra)
@@ -3205,8 +3495,22 @@ def reset_lm_launches() -> None:
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     fk.LAUNCHES, sk.LAUNCHES = 0, 0
     fk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
-    sk.LAUNCHES_BY_VARIANT.update(wgmma=0, scalar=0)
+    reset_ssd_launches()
     rk.LAUNCHES.update(layer_fwd=0, layer_bwd=0, fwd=0, bwd=0)
+
+
+def reset_ssd_launches() -> None:
+    """Every SSD count by entry, and the calls from a state, to 0."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    sk.LAUNCHES_BY_VARIANT.update(dict.fromkeys(sk.LAUNCHES_BY_VARIANT, 0))
+    sk.LAUNCHES_FROM_STATE.update(dict.fromkeys(sk.LAUNCHES_FROM_STATE, 0))
+
+
+def ssd_counts(**counts) -> dict:
+    """The SSD's ``LAUNCHES_BY_VARIANT`` with ``counts`` and 0 elsewhere:
+    the scan by variant, the final state from zero apart."""
+    return dict(dict(wgmma=0, scalar=0, wgmma_final=0, scalar_final=0),
+                **counts)
 
 
 def read_lm_launches() -> dict:
@@ -3273,7 +3577,7 @@ def check_train_launches(cfg, got: dict, shapes, grad_accum: int,
         by_kind[kind] += n
     ssd_kind = "wgmma" if cfg.compute_dtype == torch.bfloat16 else "scalar"
     want = dict(flash=dict(wgmma=by_kind["wgmma"], scalar=by_kind["scalar"]),
-                ssd={**dict(wgmma=0, scalar=0), ssd_kind: n_ssd},
+                ssd=ssd_counts(**{ssd_kind: n_ssd}),
                 rglru=rglru)
     if got != want or +shapes != +want_shapes:
         fail(f"{where}: launches {got} by (variant, D_qk, D_v, causal) "
@@ -3803,7 +4107,7 @@ def serve_sharded(arch: str, depth, dev, mesh) -> dict:
     model = Model(cfg)
     params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(0), 8)
     toks = torch.from_numpy(np.random.default_rng(4).integers(
-        0, cfg.vocab, (B, S))).to(dev)
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
 
     def locals_(tree):
         return [t.to_local() if hasattr(t, "to_local") else t
@@ -3846,7 +4150,7 @@ def serve_sharded(arch: str, depth, dev, mesh) -> dict:
     ref, got = runs["unsharded"], runs["sharded"]
     n_attn = sum(flash_calls(cfg).values())
     want = dict(flash=dict(wgmma=n_attn, scalar=0),
-                ssd=dict(wgmma=cfg.n_layers if cfg.ssm else 0, scalar=0),
+                ssd=ssd_counts(wgmma=cfg.n_layers if cfg.ssm else 0),
                 rglru=dict(layer_fwd=n_recurrent(cfg), layer_bwd=0, fwd=0,
                            bwd=0))
     where = f"{arch} (13d)"
@@ -4108,8 +4412,8 @@ def first_kernel_calls():
     seen = {}
     inner = sops.ssd_scan, rops.rglru_layer
 
-    def ssd(x, dt, A, Bm, Cm, *, chunk=256):
-        y, st = inner[0](x, dt, A, Bm, Cm, chunk=chunk)
+    def ssd(x, dt, A, Bm, Cm, *, chunk=256, h0=None):
+        y, st = inner[0](x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
         if "ssd" not in seen:
             seen["ssd"] = dict(args=[t.clone() for t in (x, dt, A, Bm, Cm)],
                                chunk=min(chunk, x.shape[1]),
@@ -4156,7 +4460,7 @@ def tp_rank(cfg, mesh_shape, dev, where: str, new: int = TP_NEW,
     model = Model(cfg)
     ranks = mesh_shape[0] * mesh_shape[1]
     toks = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab, (TP_B, TP_S))).to(dev)
+        0, cfg.vocab, (TP_B, TP_S)).astype(np.int32)).to(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with fake_group(ranks), own_blocks():
@@ -4236,9 +4540,10 @@ def tp_rank(cfg, mesh_shape, dev, where: str, new: int = TP_NEW,
                 wall_s=time.perf_counter() - start)
 
 
-def want_launches(flash: int = 0, ssd: int = 0, rglru: int = 0) -> dict:
+def want_launches(flash: int = 0, ssd: int = 0, rglru: int = 0,
+                  ssd_final: int = 0) -> dict:
     return dict(flash=dict(wgmma=flash, scalar=0),
-                ssd=dict(wgmma=ssd, scalar=0),
+                ssd=ssd_counts(wgmma=ssd, wgmma_final=ssd_final),
                 rglru=dict(layer_fwd=rglru, layer_bwd=0, fwd=0, bwd=0))
 
 
@@ -4758,7 +5063,7 @@ def cp_qwen2_72b(dev) -> dict:
     seg = CP_S // CP_WAYS
     off = seg * (CP_WAYS - 1)
     toks = torch.from_numpy(np.random.default_rng(6).integers(
-        0, cfg.vocab, (1, CP_S))).to(dev)
+        0, cfg.vocab, (1, CP_S)).astype(np.int32)).to(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with fake_group(CP_WAYS, CP_WAYS - 1), own_segments(), \
@@ -4872,6 +5177,144 @@ def cp_qwen2_72b(dev) -> dict:
     return out
 
 
+# (j) context parallelism through the SSD: CPJ_ARCH at full depth and
+# width, bf16, a batch-1 prefill of CP_S positions as the last of CP_WAYS
+# ``data`` segments, as (i) runs qwen2-72B: 4096 positions a layer (16
+# chunks of 256) from the state the earlier segments hand on.
+CPJ_ARCH = "mamba2_2_7b"
+
+
+@contextlib.contextmanager
+def first_state_call():
+    """Copies of the first SSD kernel call from a state (``h0``) on the
+    model path: its inputs, h0, chunk and (y, state)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    seen, inner = {}, sk.ssd_scan_cuda
+
+    def scan(x, dt, A, Bm, Cm, *, chunk=256, h0=None):
+        out = inner(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        if h0 is not None and "args" not in seen:
+            seen.update(args=[t.clone() for t in (x, dt, A, Bm, Cm)],
+                        h0=h0.clone(), chunk=min(chunk, x.shape[1]),
+                        out=[t.clone() for t in out])
+        return out
+    sk.ssd_scan_cuda = scan
+    try:
+        yield seen
+    finally:
+        sk.ssd_scan_cuda = inner
+
+
+def cp_mamba2(dev, cfg=None, S: int = CP_S, ways: int = CP_WAYS) -> dict:
+    """(j): ``cfg`` (CPJ_ARCH's, all 64 layers, bf16) as the last of
+    ``ways`` ``data`` segments (rank ways - 1 of a (ways, 1) fake process
+    group; the parameters whole on the rank): one batch-1 prefill of
+    ``S`` positions through ``make_prefill_step(mesh=)`` (a second, warm
+    one timed). Each layer's SSD makes one launch of the final-state-
+    from-zero entry (``ssd_final_cuda``, 2 device launches) and one of the
+    wgmma scan from the carried state (``h0``): n_layers of each, no plain
+    version. On the fake group the segments' gathered finals are this
+    rank's own (``own_segments``), so h0 here is a state of the right
+    scale, not the sequence's: the carried values are proved by the CPU
+    gloo tests (``tests/test_torch_context_parallel.py``) and by phase 6's
+    split-versus-whole check, not by this run. The first call from h0 is
+    held against the plain version with the same ``init_state``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import make_prefill_step
+    start = time.perf_counter()
+    cfg = cfg or get_config(CPJ_ARCH)
+    model = Model(cfg)
+    seg = S // ways
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, S)).astype(np.int32)).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    where = f"{cfg.name} (13j)"
+    with fake_group(ways, ways - 1), own_segments(), \
+            sharding.rule_overrides({"embed": ()}):
+        mesh = init_device_mesh(dev.type, (ways, 1),
+                                mesh_dim_names=("data", "model"))
+        layout = sharding.step_layout(mesh, 1, S, cfg.d_model)
+        cp = layout.context()
+        if layout.segment_axes != ("data",) or cp.index != ways - 1:
+            fail(f"{where}: segments {layout.segment_axes}, this rank's "
+                 f"{cp}, want the last of {ways} over data")
+        params = tp_share(model, mesh, torch.Generator(device=dev)
+                          .manual_seed(0))
+        prefill = make_prefill_step(model, mesh)
+        walls = []
+        with torch.inference_mode():
+            for turn in range(2):
+                reset_lm_launches()
+                with plain_call_counter() as plain, \
+                        first_state_call() as first:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, built = prefill(params, dict(tokens=toks))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                launches = read_lm_launches()
+                from_state = dict(sk.LAUNCHES_FROM_STATE)
+                del built
+                if turn == 0:
+                    firsts = dict(first)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    check_rank_launches(where, dict(prefill_launches=launches,
+                                    launches=launches, flash_shapes={}),
+                        want_launches(ssd=n, ssd_final=n), {})
+    if from_state != dict(wgmma=n, scalar=0):
+        fail(f"{where}: SSD calls from a state {from_state}, want {n} "
+             f"wgmma")
+    if sum(plain.values()):
+        fail(f"{where}: plain versions ran: {dict(plain)}")
+    if tuple(logits.shape) != (1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{where}: last logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    H = cfg.d_inner // cfg.ssm_head_dim
+    x = firsts["args"][0]
+    if tuple(x.shape) != (1, seg, H, cfg.ssm_head_dim):
+        fail(f"{where}: first SSD call from a state at x "
+             f"{tuple(x.shape)}, want the segment's (1, {seg}, {H}, "
+             f"{cfg.ssm_head_dim})")
+    with torch.no_grad():
+        raw, err = ssd_err(firsts["out"], ssd_ref(
+            *firsts["args"], chunk=firsts["chunk"],
+            init_state=firsts["h0"]), BF16_RTOL)
+    check(f"{where} first SSD call from h0 vs plain", err, SSD_ATOL)
+    h0_max = firsts["h0"].abs().max().item()
+    del firsts
+    out = dict(layers=n, segments=ways, segment=seg, q_offset=seg * (
+        ways - 1), prefill_ms=walls[1] * 1e3, first_prefill_ms=walls[0] * 1e3,
+        tokens_per_s=seg / walls[1], peak_gib=peak, launches=launches,
+        from_state=from_state, shape=list(x.shape), max_abs_err=raw,
+        err_beyond_rtol=err, h0_max_abs=h0_max,
+        wall_s=time.perf_counter() - start)
+    print(f"  (j) {cfg.name} ({n} layers, bf16) as rank {ways - 1} of a "
+          f"({ways}, 1) (data, model) mesh, the last of {ways} sequence "
+          f"segments (the fake process group's exchanges move nothing: the "
+          f"segments' finals are this rank's own, max |h0| {h0_max:.3e}): "
+          f"a batch-1 prefill of {S} positions, the rank's {seg}: "
+          f"{walls[1] * 1e3:.1f} ms warm (first {walls[0] * 1e3:.1f} ms), "
+          f"{seg / walls[1]:.0f} tokens/s of the rank; peak {peak:.2f} GiB; "
+          f"launches {launches}, from a state {from_state}: {n} "
+          f"ssd_final_cuda (wgmma_final) and {n} wgmma scans from h0 at x "
+          f"{list(x.shape)}, no plain version; the first from h0 vs the "
+          f"plain version max |d(y, state)| {raw:.3e} (beyond rtol "
+          f"{err:.3e}); {time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
 def phase_distribution(dev, workdir: str) -> dict:
     print(f"== phase 13: distribution — (a) {DIST_ARCH} at full width, "
           f"{DIST_DEPTH} of 80 layers, bf16, served (B 4, prompt 2048, 32 "
@@ -4889,8 +5332,9 @@ def phase_distribution(dev, workdir: str) -> dict:
           f"act2d), (i) the flash kernels at a query offset, and "
           f"{CP_ARCH} at {CP_DEPTH} layers as the last of {CP_WAYS} "
           f"sequence segments of a {CP_S}-position prefill (context "
-          f"parallelism), (c) the dry run of {DIST_ARCH} train_4k "
-          f"(baseline, seqpar)", flush=True)
+          f"parallelism), (j) {CPJ_ARCH} at full depth the same way, its "
+          f"SSD from the carried state, (c) the dry run of {DIST_ARCH} "
+          f"train_4k (baseline, seqpar)", flush=True)
     serve = serve_qwen2_72b()
     with one_rank_mesh(workdir) as mesh:
         sharded = sharded_world1(dev, workdir, mesh)
@@ -4898,7 +5342,7 @@ def phase_distribution(dev, workdir: str) -> dict:
     return dict(serve=serve, sharded=sharded, served=served,
                 tp=tp_qwen2_72b(dev), mla=tp_deepseek_v2(dev),
                 mixers=tp_mixers(dev), cp=cp_qwen2_72b(dev),
-                dryrun=dryrun_train_4k(workdir))
+                cp_ssd=cp_mamba2(dev), dryrun=dryrun_train_4k(workdir))
 
 
 def main() -> None:
@@ -5234,12 +5678,31 @@ def main() -> None:
     t, t1 = lmk["ssd"][4], lmk["ssd"][1]
     ssd = "src/repro/kernels/ssd_scan/ssd_scan.py:93"
     m13 = dist13["mixers"]["mamba2_2_7b"]
+    j13 = dist13["cp_ssd"]
+    h0 = lmk["ssd_h0"]
+
+    def from_state(kind):
+        """The phase-6 timing of the ``kind`` kernel from h0 beside the
+        same call from zero, and the plain version from h0."""
+        r = h0["timing"][kind]
+        return dict(shape=[4, 2048, 80, 64], ms=r["h0_ms"],
+                    device_ms=r["h0_device_ms"], zero_ms=r["zero_ms"],
+                    zero_device_ms=r["zero_device_ms"],
+                    plain_ms=r["plain_ms"],
+                    plain_device_ms=r["plain_device_ms"],
+                    launch_device_us=r.get("h0_launch_device_us"),
+                    **r["h0_bound"])
     kernels.append(dict(
         name="ssd_scan_sm90", route="cuda",
         source="src/repro_torch/csrc/ssd_scan_sm90.cu", replaces=ssd,
         launches=serve["mamba2_2_7b"]["launches"]["ssd_wgmma"],
         launches_phase13g=m13["launches"]["ssd"]["wgmma"],
-        max_abs_err=max(lmk["worst"]["ssd_sm90"], m13["max_abs_err"]),
+        launches_phase13j_from_state=j13["from_state"]["wgmma"],
+        from_state=from_state("wgmma"),
+        split_vs_whole=h0["split"], no_h0_bitwise_digests=h0[
+            "digests_equal"],
+        max_abs_err=max(lmk["worst"]["ssd_sm90"], m13["max_abs_err"],
+                        j13["max_abs_err"]),
         ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         device_ms=t["device_ms"], plain_device_ms=t["plain_device_ms"],
@@ -5267,9 +5730,37 @@ def main() -> None:
         bound_by=t["scalar32_bound"]["bound_by"], library_ms=None,
         shape=[4, 2048, 80, 64], dtype="float32",
         launches_per_call=sk.KERNELS_PER_CALL["scalar"],
-        bf16_inputs_ms=t["scalar_ms"],
+        bf16_inputs_ms=t["scalar_ms"], from_state=from_state("scalar"),
         main_path="mamba2_2_7b Server.generate, float32 at depth 2 "
                   "(phase 7)"))
+    for kind, source, dtype, path, n in (
+            ("wgmma", "ssd_scan_sm90.cu", "bfloat16",
+             f"make_prefill_step(mesh=) of {CPJ_ARCH} at all "
+             f"{j13['layers']} layers, a batch-1 prefill of {CP_S} "
+             f"positions as the last of {CP_WAYS} sequence segments over "
+             f"data (phase 13(j)): one call a layer, before the scan from "
+             f"the carried state", j13["launches"]["ssd"]["wgmma_final"]),
+            ("scalar", "ssd_scan.cu", "float32",
+             "none: a float32 context-parallel segment's SSD (the CPU "
+             "tests' path on the card)",
+             j13["launches"]["ssd"]["scalar_final"])):
+        r = h0["timing"][kind]
+        kernels.append(dict(
+            name=f"ssd_scan{'_sm90' if kind == 'wgmma' else ''}_final",
+            route="cuda", source=f"src/repro_torch/csrc/{source}",
+            replaces=ssd, launches=n,
+            max_abs_err=max(c["final_max_abs_err"] for c in h0[
+                "cases"].values() if c["kind"] == kind),
+            ms=r["final_ms"], device_ms=r["final_device_ms"],
+            plain_ms=r["plain_final_ms"],
+            plain_device_ms=r["plain_final_device_ms"],
+            bound_ms=r["final_bound"]["bound_ms"],
+            bound_by=r["final_bound"]["bound_by"], library_ms=None,
+            shape=[4, 2048, 80, 64], dtype=dtype,
+            launches_per_call=sk.KERNELS_PER_CALL[f"{kind}_final"],
+            launch_device_us=r.get("final_launch_device_us"),
+            entry="ssd_final_cuda: the final state from zero in float32, "
+                  "no y", main_path=path))
     # Each kernel's launches on phase 12's training runs: (a)'s and (c)'s
     # one step each, (b)'s last step.
     runs = {f"{a} (a)": r for a, r in train["parity"].items()}
@@ -5290,6 +5781,8 @@ def main() -> None:
         flash_attention=flash_pick("scalar"),
         ssd_scan_sm90=launch_pick("ssd", "wgmma"),
         ssd_scan=launch_pick("ssd", "scalar"),
+        ssd_scan_sm90_final=launch_pick("ssd", "wgmma_final"),
+        ssd_scan_final=launch_pick("ssd", "scalar_final"),
         rglru_layer_fwd=launch_pick("rglru", "layer_fwd"),
         rglru_layer_bwd=launch_pick("rglru", "layer_bwd"),
         rglru_scan_fwd=launch_pick("rglru", "fwd"),

@@ -16,6 +16,12 @@ repository root on the machine with the card:
                                       # chunk, strided views, then the
                                       # minicpm3 / DeepSeek-V2 prefill calls
     python3 kernel_probe.py ssd       # wgmma SSD kernel vs scalar and plain
+    python3 kernel_probe.py ssdh0     # wgmma SSD scan from h0 vs from
+                                      # zero vs the final-from-zero entry,
+                                      # in turns over nine rounds
+    python3 kernel_probe.py cpj       # chip_smoke.py's 13(j) prefill: the
+                                      # SSD calls' share by CUDA events,
+                                      # then device time by kernel family
     python3 kernel_probe.py rglru     # fused and scan-only RG-LRU vs plain
     python3 kernel_probe.py alloc     # host time of the fused backward's
                                       # output allocations, two ways
@@ -23,10 +29,12 @@ repository root on the machine with the card:
         # kernels per learned-forecaster training step, of the port under
         # SRC (default: this checkout's src), e.g. an older tree's
     python3 kernel_probe.py digest [SRC]
-        # sha256 of the flash kernels' outputs at offset 0 on fixed inputs
-        # (chip_smoke.FLASH_DIGEST_CASES), of the port under SRC (default:
-        # this checkout's src), e.g. the tree before the offset's, whose
-        # digests are chip_smoke.PARENT_FLASH_DIGESTS
+        # sha256 of the flash kernels' outputs at offset 0 and of the SSD
+        # kernels' with no initial state on fixed inputs
+        # (chip_smoke.FLASH_DIGEST_CASES, SSD_DIGEST_CASES), of the port
+        # under SRC (default: this checkout's src), e.g. the tree before
+        # the offset's or before h0, whose digests are
+        # chip_smoke.PARENT_FLASH_DIGESTS and PARENT_SSD_DIGESTS
     python3 kernel_probe.py tp13 [ROOT ...]
         # chip_smoke.py's phase 13(e) (and (h), where ROOT's script has
         # it) through each ROOT's chip_smoke.py in turn, each in a process
@@ -304,6 +312,133 @@ def ssd() -> None:
         sys.exit("ssd: the wgmma kernel is beyond the limit")
 
 
+def ssdh0(rounds: int = 9) -> None:
+    """The wgmma SSD scan from an initial state h0 beside the same call
+    from zero and the final-from-zero entry (``ssd_final_cuda``) at
+    mamba2-2.7B's widths, bf16: B 4 at 2048 positions (phase 6's shape)
+    and B 1 at 4096 (13(j)'s segment). The three are timed in turns,
+    ``rounds`` rounds of 50 calls each by CUDA events, the order reversed
+    every other round; prints each round's times and the medians."""
+    from chip_smoke import ssd_inputs, ssd_state_of
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    bf16 = torch.bfloat16
+    for b, S in ((4, 2048), (1, 4096)):
+        args = ssd_inputs(b, S, 80, 64, 1, 128, bf16, 80 + b, True)
+        h0 = ssd_state_of(b, S, 80, 64, 1, 128, 256, bf16, 90 + b)
+        calls = dict(
+            h0=lambda: sk.ssd_scan_cuda(*args, chunk=256, h0=h0),
+            zero=lambda: sk.ssd_scan_cuda(*args, chunk=256),
+            final=lambda: sk.ssd_final_cuda(*args, chunk=256))
+        t = {k: [] for k in calls}
+        for r in range(rounds):
+            for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+                t[k].append(cuda_ms(calls[k], 5, 50) * 1e3)
+        ratio = [a / z for a, z in zip(t["h0"], t["zero"])]
+        med = {k: float(np.median(v)) for k, v in t.items()}
+        print(f"ssd ({b}, {S}, 80, 64) N 128 L 256 bf16, {rounds} rounds "
+              f"of 50 calls, us: from h0 {[round(x, 2) for x in t['h0']]}"
+              f"; from zero {[round(x, 2) for x in t['zero']]}; final from "
+              f"zero {[round(x, 2) for x in t['final']]}; medians h0 "
+              f"{med['h0']:.2f}, zero {med['zero']:.2f}, final "
+              f"{med['final']:.2f}; h0 / zero by round min "
+              f"{min(ratio):.4f} median {float(np.median(ratio)):.4f} max "
+              f"{max(ratio):.4f}", flush=True)
+
+
+def cpj() -> None:
+    """chip_smoke.py's 13(j) prefill (mamba2-2.7B, all 64 layers, bf16,
+    batch 1, the last of 8 ``data`` segments of 32768 positions, on a
+    fake process group), two warm calls, then: one call with a CUDA event
+    pair around each SSD call (the scan from h0 and the final-from-zero
+    entry), the SSD's share of the wall; one call under the profiler,
+    device time by kernel family and the ten largest kernels."""
+    import re
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import CP_S, CP_WAYS, CPJ_ARCH, own_segments, tp_share
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.train_loop import make_prefill_step
+    dev = torch.device("cuda")
+    cfg = get_config(CPJ_ARCH)
+    model = Model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, CP_S)).astype(np.int32)).to(dev)
+    events = {"scan": [], "final": []}
+    inner = dict(scan=sk.ssd_scan_cuda, final=sk.ssd_final_cuda)
+
+    def timed(kind):
+        def call(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = inner[kind](*a, **k)
+            e1.record()
+            events[kind].append((e0, e1))
+            return out
+        return call
+    with fake_group(CP_WAYS, CP_WAYS - 1), own_segments(), \
+            sharding.rule_overrides({"embed": ()}), torch.inference_mode():
+        mesh = init_device_mesh("cuda", (CP_WAYS, 1),
+                                mesh_dim_names=("data", "model"))
+        params = tp_share(model, mesh, torch.Generator(device=dev)
+                          .manual_seed(0))
+        prefill = make_prefill_step(model, mesh)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, dict(tokens=toks))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        walls = [run() for _ in range(3)]
+        sk.ssd_scan_cuda, sk.ssd_final_cuda = timed("scan"), timed("final")
+        try:
+            wall = run()
+        finally:
+            sk.ssd_scan_cuda, sk.ssd_final_cuda = inner["scan"], \
+                inner["final"]
+        ssd = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in events.items()}
+        print(f"13(j) {cfg.name} ({cfg.n_layers} layers, bf16), the last of "
+              f"{CP_WAYS} segments of {CP_S}: warm walls ms "
+              f"{[round(w, 1) for w in walls]}; timed call {wall:.1f} ms, "
+              f"of which the SSD's calls (events around each) "
+              f"{sum(ssd.values()):.2f} ms = "
+              f"{100 * sum(ssd.values()) / wall:.1f} % (scans from h0 "
+              f"{ssd['scan']:.2f} ms in {len(events['scan'])} calls, finals "
+              f"from zero {ssd['final']:.2f} ms in {len(events['final'])})",
+              flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = run()
+    fam = {}
+    rows = []
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us <= 0:
+            continue
+        name = ev.key
+        kind = ("ssd" if re.search(r"ssd_", name) else
+                "gemm" if re.search(r"gemm|cutlass|xmma|nvjet|gemv|sm90_",
+                                    name) else
+                "copy" if re.search(r"[Cc]opy|cat|Memcpy|Memset", name)
+                else "elementwise/reduce/other")
+        fam[kind] = fam.get(kind, 0.0) + us / 1e3
+        rows.append((us / 1e3, ev.count, name[:90]))
+    total = sum(fam.values())
+    print(f"13(j) profiled call: wall {wall:.1f} ms, device time "
+          f"{total:.2f} ms (idle {100 * (1 - total / wall):.1f} %); by "
+          f"family ms " + ", ".join(f"{k} {v:.2f} ({100 * v / total:.1f} %)"
+                                    for k, v in sorted(fam.items(),
+                                                       key=lambda i: -i[1])),
+          flush=True)
+    for ms, n, name in sorted(rows, reverse=True)[:10]:
+        print(f"  {ms:9.3f} ms {n:5d} calls  {name}", flush=True)
+
+
 def ab_ssd(lib) -> None:
     """The built ssd_scan_sm90.cu against another version of it, at
     mamba2-2.7B's prefill shape, B 4 and B 1."""
@@ -444,15 +579,17 @@ def steps(src=None) -> None:
 
 def digest(src=None) -> None:
     """The flash kernels' output digests at offset 0
-    (``chip_smoke.flash_digests``) with the port under ``src`` first on
-    the path, as one JSON line."""
+    (``chip_smoke.flash_digests``) and the SSD kernels' with no initial
+    state (``chip_smoke.ssd_digests``) with the port under ``src`` first
+    on the path, as JSON."""
     import json
-    from chip_smoke import flash_digests
+    from chip_smoke import flash_digests, ssd_digests
     if src:                           # after chip_smoke put its src first
         sys.path.insert(0, os.path.abspath(src))
     import repro_torch
     print(f"port from {os.path.dirname(repro_torch.__file__)}", flush=True)
-    print(json.dumps(flash_digests(), indent=1), flush=True)
+    print(json.dumps(dict(flash=flash_digests(), ssd=ssd_digests()),
+                     indent=1), flush=True)
 
 
 def ab_rglru(lib) -> None:
@@ -636,7 +773,7 @@ def main() -> None:
                          text=True).stdout.strip(), flush=True)
     stage = sys.argv[1] if len(sys.argv) > 1 else "flash"
     stages = dict(sinkhorn=sinkhorn, flash=flash, flash256=flash256, mla=mla,
-                  ssd=ssd, rglru=rglru, alloc=alloc)
+                  ssd=ssd, ssdh0=ssdh0, cpj=cpj, rglru=rglru, alloc=alloc)
     if stage == "ab" and len(sys.argv) == 3:
         ab(sys.argv[2])
     elif stage == "steps" and len(sys.argv) <= 3:

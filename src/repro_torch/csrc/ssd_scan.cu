@@ -9,8 +9,12 @@
 //         + exp(acs_l) C_l . state                                    (inter)
 //   state <- exp(acs_{L-1}) state + sum_s exp(acs_{L-1} - acs_s) dt_s x_s B_s^T
 //
-// with B and C read at group g = h / (H / G). Returns y [b, S, H, P] and the
-// final state [b, H, P, N], both in x's type.
+// with B and C read at group g = h / (H / G), and the state entering the
+// first chunk h0 [b, H, P, N] (float32), or zero. Returns y [b, S, H, P] and
+// the final state [b, H, P, N] in x's type, and the final state in float32
+// where the caller asks for it (the value a context-parallel segment hands
+// on). With no y asked for, the block walks the chunks for the state alone
+// (the final state from zero of a segment, ssd_scan.py::ssd_final_cuda).
 //
 // Design. The TPU grid walked the chunks of one (b, h) in order and carried
 // the [P, N] state in VMEM. Here one block owns one (b, h) stream and walks
@@ -83,7 +87,8 @@ template <typename T, int PT>
 __global__ void __launch_bounds__(THREADS)
 ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
         const float* __restrict__ A, const T* __restrict__ Bm,
-        const T* __restrict__ Cm, T* __restrict__ y, T* __restrict__ st,
+        const T* __restrict__ Cm, const float* __restrict__ h0,
+        T* __restrict__ y, T* __restrict__ st, float* __restrict__ st32,
         int S, int H, int P, int G, int N, int L) {
   extern __shared__ float smem[];
   float* StT = smem;              // [N][P]   state, n-major
@@ -107,7 +112,10 @@ ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
   const T* Bb = Bm + static_cast<size_t>(b) * S * bs + static_cast<size_t>(g) * N;
   const T* Cb = Cm + static_cast<size_t>(b) * S * bs + static_cast<size_t>(g) * N;
 
-  for (int e = tid; e < N * P; e += THREADS) StT[e] = 0.f;
+  const float* h0b =
+      h0 != nullptr ? h0 + static_cast<size_t>(blockIdx.x) * P * N : nullptr;
+  for (int e = tid; e < N * P; e += THREADS)
+    StT[e] = h0b != nullptr ? h0b[(e % P) * N + e / P] : 0.f;
 
   const int nc = (S + L - 1) / L;
   const int nt = (L + TL - 1) / TL;
@@ -145,7 +153,7 @@ ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
 
     // y for each row tile: intra-chunk dual form, then the inter term.
-    for (int lt = 0; lt < nt; ++lt) {
+    for (int lt = 0; y != nullptr && lt < nt; ++lt) {
       const int l0 = lt * TL;
       for (int e = tid; e < TL * N; e += THREADS) {
         const int r = e / N, n = e % N, l = l0 + r;
@@ -222,7 +230,9 @@ ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
         }
       }
 
-      if (c > 0) {   // the carried state is zero before the first chunk
+      // The carried state is zero before the first chunk unless h0 is
+      // given.
+      if (c > 0 || h0 != nullptr) {
         float in[RPT][PT];
 #pragma unroll
         for (int i = 0; i < RPT; ++i)
@@ -334,17 +344,19 @@ ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();   // the state is complete before the next chunk
   }
 
-  T* sb = st + static_cast<size_t>(blockIdx.x) * P * N;
+  const size_t out = static_cast<size_t>(blockIdx.x) * P * N;
   for (int e = tid; e < P * N; e += THREADS) {
-    const int p = e / N, n = e % N;
-    sb[e] = from_f<T>(StT[n * P + p]);
+    const float v = StT[(e % N) * P + e / N];
+    if (st != nullptr) st[out + e] = from_f<T>(v);
+    if (st32 != nullptr) st32[out + e] = v;
   }
 }
 
 template <typename T, int PT>
 int launch(const void* x, const float* dt, const float* A, const void* B,
-           const void* C, void* y, void* st, int b, int S, int H, int P,
-           int G, int N, int L, cudaStream_t stream) {
+           const void* C, const float* h0, void* y, void* st, float* st32,
+           int b, int S, int H, int P, int G, int N, int L,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(P, N, L);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_fwd<T, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -352,21 +364,25 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_fwd<T, PT><<<b * H, THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<T*>(y), static_cast<T*>(st), S,
-      H, P, G, N, L);
+      static_cast<const T*>(C), h0, static_cast<T*>(y), static_cast<T*>(st),
+      st32, S, H, P, G, N, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* x, const float* dt, const float* A, const void* B,
-             const void* C, void* y, void* st, int b, int S, int H, int P,
-             int G, int N, int L, cudaStream_t stream) {
+             const void* C, const float* h0, void* y, void* st, float* st32,
+             int b, int S, int H, int P, int G, int N, int L,
+             cudaStream_t stream) {
   if (P <= 16)
-    return launch<T, 1>(x, dt, A, B, C, y, st, b, S, H, P, G, N, L, stream);
+    return launch<T, 1>(x, dt, A, B, C, h0, y, st, st32, b, S, H, P, G, N, L,
+                        stream);
   if (P <= 32)
-    return launch<T, 2>(x, dt, A, B, C, y, st, b, S, H, P, G, N, L, stream);
+    return launch<T, 2>(x, dt, A, B, C, h0, y, st, st32, b, S, H, P, G, N, L,
+                        stream);
   if (P <= 64)
-    return launch<T, 4>(x, dt, A, B, C, y, st, b, S, H, P, G, N, L, stream);
+    return launch<T, 4>(x, dt, A, B, C, h0, y, st, st32, b, S, H, P, G, N, L,
+                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -381,20 +397,23 @@ long long ssd_scan_smem_bytes(int P, int N, int L) {
 }
 
 // y [b, S, H, P] and the final state [b, H, P, N] from x [b, S, H, P],
-// dt [b, S, H] (float32), A [H] (float32) and B, C [b, S, G, N]; x, B, C, y
-// and the state of one type (dtype 0 float32, 1 bfloat16); all contiguous
-// on the current device. P <= 64, G divides H, chunk length L >= 1.
-// Launches on `stream`; returns the CUDA error code (0 on success).
+// dt [b, S, H] (float32), A [H] (float32), B, C [b, S, G, N] and the state
+// entering the first chunk h0 [b, H, P, N] (float32; null: zero); x, B, C,
+// y and st of one type (dtype 0 float32, 1 bfloat16), st32 the final state
+// in float32; all contiguous on the current device. y, st and st32 may each
+// be null (not written; with y null no output is formed). P <= 64, G
+// divides H, chunk length L >= 1. Launches on `stream`; returns the CUDA
+// error code (0 on success).
 int ssd_scan_fwd(const void* x, const float* dt, const float* A,
-                 const void* B, const void* C, void* y, void* st, int dtype,
-                 int b, int S, int H, int P, int G, int N, int L,
-                 cudaStream_t stream) {
+                 const void* B, const void* C, const float* h0, void* y,
+                 void* st, float* st32, int dtype, int b, int S, int H, int P,
+                 int G, int N, int L, cudaStream_t stream) {
   if (dtype == 0)
-    return dispatch<float>(x, dt, A, B, C, y, st, b, S, H, P, G, N, L,
-                           stream);
+    return dispatch<float>(x, dt, A, B, C, h0, y, st, st32, b, S, H, P, G, N,
+                           L, stream);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, dt, A, B, C, y, st, b, S, H, P, G, N,
-                                   L, stream);
+    return dispatch<__nv_bfloat16>(x, dt, A, B, C, h0, y, st, st32, b, S, H,
+                                   P, G, N, L, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -13,8 +13,13 @@
 //         + exp(acs_l) C_l . h_in                                     (inter)
 //   h_in <- exp(acs_{L-1}) h_in + sum_s exp(acs_{L-1} - acs_s) dt_s x_s B_s^T
 //
-// with B and C read at group g = h / (H / G). Returns y [b, S, H, P] and the
-// final state [b, H, P, N] in bf16.
+// with B and C read at group g = h / (H / G), and h_in entering the first
+// chunk h0 [b, H, P, N] (float32), or zero. Returns y [b, S, H, P] and the
+// final state [b, H, P, N] in bf16, and the final state in float32 where the
+// caller asks for it (the value a context-parallel segment hands on). With
+// no y asked for, launches 1 and 2 run alone and write only the float32
+// final state: the final state from zero of a segment
+// (ssd_scan.py::ssd_final_cuda).
 //
 // Design. The TPU grid walked the chunks of one (b, h) stream in order with
 // the state in VMEM; the scalar kernel does the same with one block per
@@ -31,9 +36,9 @@
 //      (64 KB at N 128), so three CTAs share an SM and one's loads overlap
 //      another's products.
 //   2. ssd_state_pass, one thread per 4 elements of (b, h, P, N): walks the
-//      chunks in order, h_in[0] = 0, h_in[c+1] = decay_c h_in[c] + S_c, in
-//      float32; writes h_in[c] for c >= 1 as a bf16 hi + lo pair (the
-//      operand of launch 3) and the final state.
+//      chunks in order, h_in[0] = h0 (or 0), h_in[c+1] = decay_c h_in[c] +
+//      S_c, in float32; writes h_in[c] as a bf16 hi + lo pair (the operand
+//      of launch 3; for c = 0 only where h0 is given) and the final state.
 //   3. ssd_chunk_scan, one CTA per (b, c, h) holding its whole chunk (C, B,
 //      x and h_in: 192 KB at L 256, N 128), one mbarrier per row tile so
 //      that the first tile's products start while the later tiles are in
@@ -465,20 +470,26 @@ ssd_chunk_state(const __grid_constant__ CUtensorMap x_map,
 // ---- launch 2: the state pass -------------------------------------------
 //
 // One thread per 4 consecutive elements of a (b, h) stream's [P, N] state,
-// walking the chunks in order in float32. h_in[c] (c >= 1) goes out as a
-// bf16 hi + lo pair, hin[(b, c, h)][2][P][N]; the final state in bf16.
+// walking the chunks in order in float32 from h0 (or zero). h_in[c] goes
+// out as a bf16 hi + lo pair, hin[(b, c, h)][2][P][N], for c >= 1 and, where
+// h0 is given, c = 0 (no hin: the final state alone); the final state in
+// bf16 (st) and in float32 (st32), each where asked for.
 __global__ void __launch_bounds__(PASS_THREADS)
 ssd_state_pass(const float* __restrict__ sc, const float* __restrict__ decay,
+               const float* __restrict__ h0,
                __nv_bfloat16* __restrict__ hin,
-               __nv_bfloat16* __restrict__ st, int b, int nc, int H, int PN) {
+               __nv_bfloat16* __restrict__ st, float* __restrict__ st32,
+               int b, int nc, int H, int PN) {
   const int q = blockIdx.x * PASS_THREADS + threadIdx.x;
   const int per = PN / 4;
   if (q >= b * H * per) return;
   const int e = (q % per) * 4, bh = q / per, h = bh % H, bb = bh / H;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  const size_t at = static_cast<size_t>(bh) * PN + e;
+  float4 v = h0 != nullptr ? *reinterpret_cast<const float4*>(h0 + at)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int c = 0; c < nc; ++c) {
     const size_t item = (static_cast<size_t>(bb) * nc + c) * H + h;
-    if (c > 0) {
+    if (hin != nullptr && (c > 0 || h0 != nullptr)) {
       __nv_bfloat16* hp = hin + item * 2 * PN + e;
       uint2 hi, lo;
       split_bf16(v.x, v.y, hi.x, lo.x);
@@ -491,12 +502,15 @@ ssd_state_pass(const float* __restrict__ sc, const float* __restrict__ decay,
     v = make_float4(fmaf(d, v.x, s.x), fmaf(d, v.y, s.y), fmaf(d, v.z, s.z),
                     fmaf(d, v.w, s.w));
   }
-  uint2 out;
-  const __nv_bfloat162 o01 = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 o23 = __floats2bfloat162_rn(v.z, v.w);
-  out.x = *reinterpret_cast<const uint32_t*>(&o01);
-  out.y = *reinterpret_cast<const uint32_t*>(&o23);
-  *reinterpret_cast<uint2*>(st + static_cast<size_t>(bh) * PN + e) = out;
+  if (st != nullptr) {
+    uint2 out;
+    const __nv_bfloat162 o01 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 o23 = __floats2bfloat162_rn(v.z, v.w);
+    out.x = *reinterpret_cast<const uint32_t*>(&o01);
+    out.y = *reinterpret_cast<const uint32_t*>(&o23);
+    *reinterpret_cast<uint2*>(st + at) = out;
+  }
+  if (st32 != nullptr) *reinterpret_cast<float4*>(st32 + at) = v;
 }
 
 // ---- launch 3: the chunk's output -----------------------------------------
@@ -545,7 +559,8 @@ __device__ __forceinline__ void weights(const float (&sc)[32], int row_lo,
 
 // Dynamic shared memory (from a 1024-aligned base): Ct [nt][NC], Bt
 // [nt][NC] and Xt [nt] tiles, Ht [2][NC] tiles of h_in (hi, lo; [P rows]
-// [N]), then nt + 1 mbarriers.
+// [N]), then nt + 1 mbarriers. `has_h0`: the state entering chunk 0 is
+// launch 2's h_in[0] (from h0), not zero.
 template <int NC>
 __global__ void __launch_bounds__(SCAN_THREADS, 1)
 ssd_chunk_scan(const __grid_constant__ CUtensorMap x_map,
@@ -554,7 +569,7 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap h_map,
                const __grid_constant__ CUtensorMap y_map,
                const float* __restrict__ dt, const float* __restrict__ A,
-               int S, int H, int G, int L) {
+               int S, int H, int G, int L, int has_h0) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int nt = L / TR, nc = (S + L - 1) / L;
@@ -572,6 +587,9 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap x_map,
   const int c = bc % nc, bb = bc / nc, g = h / (H / G);
   const int cs = c * L, valid = min(L, S - cs);
   const int nvt = (valid + TR - 1) / TR;
+  // A state enters the chunk: every chunk but the first, and the first
+  // where h0 is given.
+  const bool carried = c > 0 || has_h0;
 
   float d[MAX_L / SCAN_THREADS];
   load_dt<SCAN_THREADS>(dt + (static_cast<size_t>(bb) * S + cs) * H + h, H,
@@ -585,8 +603,8 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap x_map,
       mbar_expect_tx(bar0 + 8 * t, (2 * NC + 1) * TILE);
     }
     mbar_init(hbar, 1);
-    // The state entering chunk 0 is zero: nothing to load.
-    if (c > 0) mbar_expect_tx(hbar, 2 * NC * TILE);
+    // Without h0 the state entering chunk 0 is zero: nothing to load.
+    if (carried) mbar_expect_tx(hbar, 2 * NC * TILE);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -602,7 +620,7 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap x_map,
     }
     tma_load_4d(x_s + t * TILE, &x_map, bar, 0, h, cs + t * TR, bb);
   }
-  if (threadIdx.x == 32 * MAX_TILES && c > 0)
+  if (threadIdx.x == 32 * MAX_TILES && carried)
     for (int part = 0; part < 2; ++part)
       for (int k = 0; k < NC; ++k)
         tma_load_3d(h_s + (part * NC + k) * TILE, &h_map, hbar, k * 64, 0,
@@ -650,7 +668,7 @@ ssd_chunk_scan(const __grid_constant__ CUtensorMap x_map,
     const uint32_t c_tile = c_s + lt * NC * TILE;
     float acc[32];
     mbar_wait(bar0 + 8 * lt, 0);
-    if (c > 0) {
+    if (carried) {
       // y = exp(acs_l) (C h_in^T): h_in is the K-major B operand.
       mbar_wait(hbar, 0);
       wgmma_fence();
@@ -805,9 +823,9 @@ int scan_smem(int NC, int nt) {
 
 template <int NC>
 int launch(const void* x, const float* dt, const float* A, const void* B,
-           const void* C, void* y, void* st, float* sc, float* decay,
-           void* hin, int b, int S, int H, int G, int L,
-           cudaStream_t stream) {
+           const void* C, const float* h0, void* y, void* st, float* st32,
+           float* sc, float* decay, void* hin, int b, int S, int H, int G,
+           int L, cudaStream_t stream) {
   constexpr int N = 64 * NC;
   const int nt = L / TR, nc = (S + L - 1) / L, items = b * nc * H;
   CUtensorMap x_map, b_map, c_map, h_map, y_map;
@@ -820,9 +838,10 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   const cuuint64_t hd[3] = {N, HD, static_cast<cuuint64_t>(2) * items};
   int err = make_map(&x_map, x, 4, xd, 2, TR);
   if (err == 0) err = make_map(&b_map, B, 4, bd, 2, TR);
-  if (err == 0) err = make_map(&c_map, C, 4, bd, 2, TR);
-  if (err == 0) err = make_map(&h_map, hin, 3, hd, 1, HD);
-  if (err == 0) err = make_map(&y_map, y, 4, xd, 2, TR);
+  // Launch 3's maps, where there is a y to form.
+  if (err == 0 && y != nullptr) err = make_map(&c_map, C, 4, bd, 2, TR);
+  if (err == 0 && y != nullptr) err = make_map(&h_map, hin, 3, hd, 1, HD);
+  if (err == 0 && y != nullptr) err = make_map(&y_map, y, 4, xd, 2, TR);
   if (err != 0) return err;
 
   const int smem1 = state_smem(NC), smem3 = scan_smem(NC, nt);
@@ -851,14 +870,14 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
     return static_cast<int>(cerr);
   const int quads = b * H * HD * N / 4;
   ssd_state_pass<<<(quads + PASS_THREADS - 1) / PASS_THREADS, PASS_THREADS,
-                   0, stream>>>(sc, decay,
-                                static_cast<__nv_bfloat16*>(hin),
-                                static_cast<__nv_bfloat16*>(st), b, nc, H,
-                                HD * N);
-  if ((cerr = cudaGetLastError()) != cudaSuccess)
+                   0, stream>>>(
+      sc, decay, h0,
+      y != nullptr ? static_cast<__nv_bfloat16*>(hin) : nullptr,
+      static_cast<__nv_bfloat16*>(st), st32, b, nc, H, HD * N);
+  if ((cerr = cudaGetLastError()) != cudaSuccess || y == nullptr)
     return static_cast<int>(cerr);
   ssd_chunk_scan<NC><<<items, SCAN_THREADS, smem3, stream>>>(
-      x_map, b_map, c_map, h_map, y_map, dt, A, S, H, G, L);
+      x_map, b_map, c_map, h_map, y_map, dt, A, S, H, G, L, h0 != nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -867,26 +886,30 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
 extern "C" {
 
 // y [b, S, H, 64] and the final state [b, H, 64, N] from x [b, S, H, 64],
-// dt [b, S, H] (float32), A [H] (float32) and B, C [b, S, G, N]; x, B, C, y
-// and the state bfloat16; N in {64, 128}; chunk length L a multiple of 64 up
-// to 256; G divides H; all contiguous and 16-byte aligned on the current
-// device. Scratch from the caller, with nc = ceil(S / L): sc float32
-// [b, nc, H, 64, N], decay float32 [b, nc, H], hin bfloat16
-// [b, nc, H, 2, 64, N]. Launches the three kernels on `stream`; returns 0 on
-// success, a CUDA error code, or 10000 (no cuTensorMapEncodeTiled) /
-// 20000 + CUresult (a tensor map was refused).
+// dt [b, S, H] (float32), A [H] (float32), B, C [b, S, G, N] and the state
+// entering the first chunk h0 [b, H, 64, N] (float32; null: zero); x, B, C,
+// y and st bfloat16, st32 the final state in float32; N in {64, 128}; chunk
+// length L a multiple of 64 up to 256; G divides H; all contiguous and
+// 16-byte aligned on the current device. st and st32 may each be null (not
+// written); with y null only launches 1 and 2 run (hin unused). Scratch
+// from the caller, with nc = ceil(S / L): sc float32 [b, nc, H, 64, N],
+// decay float32 [b, nc, H], hin bfloat16 [b, nc, H, 2, 64, N]. Launches the
+// kernels on `stream`; returns 0 on success, a CUDA error code, or 10000
+// (no cuTensorMapEncodeTiled) / 20000 + CUresult (a tensor map was
+// refused).
 int ssd_scan_fwd_sm90(const void* x, const float* dt, const float* A,
-                      const void* B, const void* C, void* y, void* st,
-                      float* sc, float* decay, void* hin, int b, int S,
-                      int H, int G, int N, int L, cudaStream_t stream) {
+                      const void* B, const void* C, const float* h0, void* y,
+                      void* st, float* st32, float* sc, float* decay,
+                      void* hin, int b, int S, int H, int G, int N, int L,
+                      cudaStream_t stream) {
   if (b < 1 || S < 1 || H < 1 || G < 1 || H % G != 0 || L < TR ||
       L > MAX_L || L % TR != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (N) {
-    case 64: return launch<1>(x, dt, A, B, C, y, st, sc, decay, hin, b, S,
-                              H, G, L, stream);
-    case 128: return launch<2>(x, dt, A, B, C, y, st, sc, decay, hin, b, S,
-                               H, G, L, stream);
+    case 64: return launch<1>(x, dt, A, B, C, h0, y, st, st32, sc, decay,
+                              hin, b, S, H, G, L, stream);
+    case 128: return launch<2>(x, dt, A, B, C, h0, y, st, st32, sc, decay,
+                               hin, b, S, H, G, L, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -51,13 +51,13 @@ class SyntheticTokens:
         return torch.Generator().manual_seed(int(seed))
 
     def batch(self, step: int, extras: Optional[Dict] = None) -> Dict:
-        """{tokens, labels}: [global_batch, seq_len] int64 on the device,
-        labels the tokens shifted by one (both cut from one draw of
-        seq_len + 1), updated with ``extras``."""
+        """{tokens, labels}: [global_batch, seq_len] int32 on the device,
+        as the reference draws them, labels the tokens shifted by one (both
+        cut from one draw of seq_len + 1), updated with ``extras``."""
         u = torch.rand((self.global_batch, self.seq_len + 1),
                        generator=self._generator(step), dtype=torch.float64)
         toks = torch.searchsorted(self._cdf, u, right=True).clamp_(
-            max=self.vocab - 1)
+            max=self.vocab - 1).to(torch.int32)
         dev = platform.device(self.device)
         out = dict(tokens=toks[:, :-1].to(dev), labels=toks[:, 1:].to(dev))
         if extras:

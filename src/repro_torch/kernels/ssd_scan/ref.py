@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the SSD scan: the counterpart of
 ``repro/kernels/ssd_scan/ref.py``. ``ssd_ref`` is the model's chunked form
 (``models/ssm.py::ssd_chunked``), ``ssd_naive`` the sequential recurrence;
-the CUDA kernels are held against both. ``ssd_chunk_parallel`` is the
+the CUDA kernels are held against both. ``ssd_final_ref`` is the final
+state from zero alone (``models/ssm.py::ssd_final_state``), the plain
+version of the kernels' ``ssd_final_cuda`` entry. ``ssd_chunk_parallel`` is the
 plain twin of the chunk-parallel design of ``csrc/ssd_scan_sm90.cu``,
 stage by stage, and with ``rounding="kernel"`` it rounds the three
 operands that kernel feeds as bf16 hi + lo pairs as the kernel does, so
@@ -12,6 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.ssm import ssd_chunked as ssd_ref  # noqa: F401
+from repro_torch.models.ssm import \
+    ssd_final_state as ssd_final_ref  # noqa: F401
 
 
 def ssd_naive(x, dt, A, Bm, Cm):

@@ -190,8 +190,8 @@ class Model:
         {tokens, labels [, frames | patches]}, prefill {tokens [, frames |
         patches]}, decode {tokens [B, 1], cache} (an ``init_cache`` of
         ``seq_len`` positions, ``enc_ctx`` encoder positions for encdec).
-        Tokens are int64; frames [B, S, d] and patches [B, n_img_tokens,
-        d] in the compute dtype."""
+        Tokens are int32, as the reference's; frames [B, S, d] and patches
+        [B, n_img_tokens, d] in the compute dtype."""
         return split_tree(self._input_tree(shape, device, enc_ctx))[0]
 
     def abstract_inputs(self, shape, enc_ctx: int = 4096):
@@ -206,7 +206,7 @@ class Model:
         dt = cfg.compute_dtype
 
         def tok(s):
-            return P(torch.zeros((B, s), dtype=torch.int64, device=device),
+            return P(torch.zeros((B, s), dtype=torch.int32, device=device),
                      ("act_batch", "act_seq"))
         out: Dict[str, Any] = {}
         if shape.kind in ("train", "prefill"):

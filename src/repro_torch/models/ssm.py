@@ -26,18 +26,22 @@ back.
 
 Under context parallelism (``sharding.context_parallel``) a rank's
 segment runs the conv with the previous segment's last d_conv - 1 inputs
-as its leading context (``sharding.halo``) and the SSD — the kernel on
-the card — from a zero state; the segments' final states and total
-decays exp(sum dt A) are all-gathered, each segment forms the state
-entering it from the earlier ones (``sharding.segment_carry``) and adds
-its term C_t exp(cumsum(dt A))_t h_in, the chunk loop's ``y_inter`` over
-the whole segment. A prefill's cache is the state after the last
-segment and the last segment's conv tail, the same on every rank.
+as its leading context (``sharding.halo``); its SSD forms the segment's
+final state from zero in float32 (the kernels' ``ssd_final_cuda`` entry
+on the card), the segments' final states and decays (the product of
+their chunks' exp(sum dt A)) are all-gathered, each segment forms the
+state h_in entering it from the earlier ones (``sharding.segment_carry``)
+and runs the scan from it (``h0``: the kernel on the card), so that the
+state enters every chunk as the unsharded chunk loop carries it, in
+float32. A prefill's cache is the state after the last segment and the
+last segment's conv tail, the same on every rank.
 
 Shapes: x [B, S, H, P] (H heads × P head_dim = d_inner), B/C [B, S, G, N]
 (G groups broadcast over heads), dt [B, S, H], A [H] (negative).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -61,12 +65,20 @@ def _segsum(a):
     return out.masked_fill(~mask, -torch.inf)
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, init_state=None):
-    """Returns (y [B,S,H,P], final_state [B,H,P,N]), in x's dtype; float32
-    inside."""
-    b, S, H, Pd = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    S0 = S
+def work_dtype(x) -> torch.dtype:
+    """The type the plain SSD computes in: float32, as the reference does
+    (whose JAX has no float64 by default), or float64 for float64 inputs,
+    so that a float64 step is free of float32 rounding in its SSD as it is
+    elsewhere (the kernels take float32 and bf16 only)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _chunks(x, dt, A, Bm, Cm, chunk: int):
+    """(x·dt, dt·A, B, C) in ``work_dtype(x)``, padded to whole chunks and
+    cut into them: [B, nc, L, ...], B and C repeated over their groups'
+    heads."""
+    b, S, H, _ = x.shape
+    G = Bm.shape[2]
     pad = (-S) % chunk
     if pad:
         # dt=0 padding is exact: a = dt·A = 0 ⇒ decay 1 (state preserved),
@@ -75,22 +87,46 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, init_state=None):
         dt = F.pad(dt, (0, 0, 0, pad))
         Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-        S = S + pad
-    nc = S // chunk
+    nc = (S + pad) // chunk
     rep = H // G
 
-    xf = x.to(torch.float32)
-    a = dt.to(torch.float32) * A.to(torch.float32)            # [B,S,H] (<0)
-    xdt = xf * dt.to(torch.float32)[..., None]                # fold dt into x
-    Bf = Bm.to(torch.float32).repeat_interleave(rep, dim=2)   # [B,S,H,N]
-    Cf = Cm.to(torch.float32).repeat_interleave(rep, dim=2)
+    w = work_dtype(x)
+    xf = x.to(w)
+    a = dt.to(w) * A.to(w)                                    # [B,S,H] (<0)
+    xdt = xf * dt.to(w)[..., None]                            # fold dt into x
+    Bf = Bm.to(w).repeat_interleave(rep, dim=2)               # [B,S,H,N]
+    Cf = Cm.to(w).repeat_interleave(rep, dim=2)
 
     def to_chunks(t):
         return t.reshape(b, nc, chunk, *t.shape[2:])
+    return tuple(map(to_chunks, (xdt, a, Bf, Cf)))
 
-    xc, ac, Bc, Cc = map(to_chunks, (xdt, a, Bf, Cf))
-    state = (torch.zeros((b, H, Pd, N), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.to(torch.float32))
+
+def _next_state(state, xk, Bk, acs):
+    """The state after a chunk: the old one decayed, this chunk's
+    injected."""
+    decay_tail = torch.exp(acs[:, -1:, :] - acs)               # [B,L,H]
+    return (state * torch.exp(acs[:, -1, :])[..., None, None]
+            + torch.einsum("blhn,blhp,blh->bhpn", Bk, xk, decay_tail))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, init_state=None):
+    """Returns (y [B,S,H,P], final_state [B,H,P,N]), in x's dtype; float32
+    inside (``work_dtype``). ``init_state`` [B,H,P,N]: the state entering
+    the first chunk (zero where None)."""
+    y, state = _ssd_loop(x, dt, A, Bm, Cm, chunk, init_state)
+    return y, state.to(x.dtype)
+
+
+def _ssd_loop(x, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """``ssd_chunked`` with the final state in ``work_dtype(x)``."""
+    b, S, H, Pd = x.shape
+    N = Bm.shape[3]
+    xc, ac, Bc, Cc = _chunks(x, dt, A, Bm, Cm, chunk)
+    nc = xc.shape[1]
+    w = work_dtype(x)
+    state = (torch.zeros((b, H, Pd, N), dtype=w, device=x.device)
+             if init_state is None else init_state.to(w))
     ys = []
     for k in range(nc):
         xk, ak, Bk, Ck = xc[:, k], ac[:, k], Bc[:, k], Cc[:, k]
@@ -103,12 +139,40 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, init_state=None):
         y_inter = torch.einsum("blhn,bhpn,blh->blhp", Ck, state,
                                torch.exp(acs))
         # New state: decay old + inject this chunk.
-        decay_tail = torch.exp(acs[:, -1:, :] - acs)           # [B,L,H]
-        state = (state * torch.exp(acs[:, -1, :])[..., None, None]
-                 + torch.einsum("blhn,blhp,blh->bhpn", Bk, xk, decay_tail))
+        state = _next_state(state, xk, Bk, acs)
         ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(b, S, H, Pd)[:, :S0]
-    return y.to(x.dtype), state.to(x.dtype)
+    y = torch.stack(ys, dim=1).reshape(b, nc * chunk, H, Pd)[:, :S]
+    return y.to(x.dtype), state
+
+
+def ssd_final_state(x, dt, A, Bm, Cm, chunk: int = 256):
+    """The final state [B,H,P,N] of ``ssd_chunked`` from a zero state, in
+    ``work_dtype(x)`` (float32 but for float64 inputs), without forming y:
+    the chunk loop's state updates alone, in its order (bitwise its final
+    before the cast to x's dtype). The plain twin of the kernels'
+    ``ssd_final_cuda`` entry."""
+    b, _, H, Pd = x.shape
+    xc, ac, Bc, _ = _chunks(x, dt, A, Bm, Cm, chunk)
+    state = torch.zeros((b, H, Pd, Bm.shape[3]), dtype=work_dtype(x),
+                        device=x.device)
+    for k in range(xc.shape[1]):
+        state = _next_state(state, xc[:, k], Bc[:, k],
+                            torch.cumsum(ac[:, k], dim=1))
+    return state
+
+
+def chunk_decay(dt, A, chunk: int, dtype=torch.float32):
+    """[B, H]: the product over a sequence's chunks of each chunk's decay
+    exp(sum dt·A), in ``dtype``: what the scan multiplies a state entering
+    the sequence by on its way through, in the chunk loop's order (each
+    chunk's cumsum, as ``ssd_chunked`` forms it)."""
+    a = dt.to(dtype) * A.to(dtype)
+    a = F.pad(a, (0, 0, 0, (-a.shape[1]) % chunk))
+    acs = torch.cumsum(a.unflatten(1, (-1, chunk)), dim=2)    # [B,nc,L,H]
+    out = torch.exp(acs[:, 0, -1])
+    for k in range(1, acs.shape[1]):
+        out = out * torch.exp(acs[:, k, -1])
+    return out
 
 
 def ssd_step(x, dt, A, Bm, Cm, state):
@@ -188,20 +252,6 @@ def _causal_conv(u, w, b, state=None):
     return F.silu(y + b), new_state
 
 
-def carry_in(y, final, dt, A, Cm, cp):
-    """(y, final state) of a segment's SSD run from a zero state, with the
-    state that enters the segment from the earlier ones added (``cp``, its
-    ``ContextParallel``): y_t += C_t exp(cumsum(dt A))_t h_in in float32,
-    and the state after the last segment (the prefill's cache)."""
-    a = torch.cumsum(dt.to(torch.float32) * A.to(torch.float32), dim=1)
-    h_in, last = sharding.segment_carry(
-        final.to(torch.float32), torch.exp(a[:, -1])[..., None, None], cp)
-    Cf = Cm.to(torch.float32).repeat_interleave(
-        dt.shape[2] // Cm.shape[2], dim=2)
-    term = torch.einsum("blhn,bhpn,blh->blhp", Cf, h_in, torch.exp(a))
-    return (y.to(torch.float32) + term).to(y.dtype), last.to(final.dtype)
-
-
 def segment_conv(u, w, b, cp):
     """``_causal_conv`` of this rank's segment of a sequence (``cp``, its
     ``ContextParallel``): the previous segment's last d_conv - 1 inputs
@@ -217,15 +267,82 @@ def segment_conv(u, w, b, cp):
     return _causal_conv(u, w, b, before)[0], last
 
 
-def _scan(xs, dt, A, Bm, Cm, chunk):
-    """The prefill's SSD: the kernel on the card, the plain twin on the
-    CPU (the same chunk length either way)."""
+def _scan(xs, dt, A, Bm, Cm, chunk, cp=None):
+    """The prefill's SSD, (y, final state) in x's dtype: the kernel on the
+    card, the plain twin on the CPU (the same chunk length either way);
+    with ``cp`` (a segment of a sequence) ``_SegmentScan``, whose final
+    state is the last segment's."""
+    if xs.device.type == "cuda":
+        xs, Bm, Cm = xs.contiguous(), Bm.contiguous(), Cm.contiguous()
+    if cp is not None:
+        return _SegmentScan.apply(cp, chunk, xs, dt, A, Bm, Cm)
     if xs.device.type == "cuda":
         # Imported here: the kernel's plain version imports this module.
         from repro_torch.kernels.ssd_scan import ops
-        return ops.ssd_scan(xs.contiguous(), dt, A, Bm.contiguous(),
-                            Cm.contiguous(), chunk=chunk)
+        return ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=chunk)
     return ssd_chunked(xs, dt, A, Bm, Cm, chunk=chunk)
+
+
+def _plain_segment(x, dt, A, Bm, Cm, h0, *, chunk):
+    return _ssd_loop(x, dt, A, Bm, Cm, chunk, h0)
+
+
+class _SegmentScan(torch.autograd.Function):
+    """A segment's SSD under context parallelism (``cp``), from the state
+    the earlier segments hand on.
+
+    Forward: the segment's final state from zero in float32 (the kernels'
+    ``ssd_final_cuda`` entry on the card; ``ssd_final_state`` on the CPU,
+    in ``work_dtype``); the segments' finals and decays (``chunk_decay``:
+    the product of their chunks') exchanged by ``sharding.segment_carry``,
+    which gives the state h_in entering this segment and the state after
+    the last; then the scan from h_in (``h0`` of the kernel;
+    ``init_state`` of the plain version), so that the state enters each
+    chunk as the unsharded chunk loop carries it, in float32 or wider.
+    Returns (y, the last state in x's dtype).
+
+    Backward: the unsharded loop's, segment by segment. The cotangent that
+    y puts on h_in (the scan's vjp in h0 alone) and the decays are
+    exchanged over the segments (``sharding.segment_carry_cotangent``,
+    the adjoint of ``segment_carry``), which gives the total cotangent on
+    the state leaving this segment; then one vjp of the scan from h_in
+    with cotangents (dy, that state's) gives the segment's input
+    gradients, the two cotangents merged chunk by chunk in the unsharded
+    order. So dt and A, float32 in the model, take their gradients from
+    one vjp, rounded to float32 once, as in the unsharded step. Autograd
+    through the three parts (the from-zero final, the decays, the scan
+    from h_in) rounds three float32 gradients of dt and A and sums them:
+    a reduced mamba2 float64 step's layer-1 ``dt_bias`` gradient, a sum
+    with much cancellation, then lands 2.61e-6 of its largest entry off
+    the unsharded step's at S 64 on (4, 1) (1.31e-6 with dt and A widened
+    to float64 before the three parts), this backward 1.63e-7. The vjps
+    are of the plain version, as ``ops.ssd_scan``'s backward is."""
+
+    @staticmethod
+    def forward(ctx, cp, chunk, xs, dt, A, Bm, Cm):
+        # Imported here: the kernel's plain version imports this module.
+        from repro_torch.kernels.ssd_scan import ops
+        decay = chunk_decay(dt, A, chunk, work_dtype(xs))
+        h_in, last = sharding.segment_carry(
+            ops.ssd_final(xs, dt, A, Bm, Cm, chunk=chunk),
+            decay[..., None, None], cp)
+        y, _ = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=chunk, h0=h_in)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(xs, dt, A, Bm, Cm, h_in, decay)
+            ctx.cp, ctx.chunk = cp, chunk
+        return y, last.to(xs.dtype)
+
+    @staticmethod
+    def backward(ctx, gy, glast):
+        from repro_torch.kernels import plain_vjp
+        xs, dt, A, Bm, Cm, h_in, decay = ctx.saved_tensors
+        plain = functools.partial(_plain_segment, chunk=ctx.chunk)
+        local, = plain_vjp(lambda h0: plain(xs, dt, A, Bm, Cm, h0)[0],
+                           (h_in,), (gy,))
+        out = sharding.segment_carry_cotangent(local, decay,
+                                               glast.to(local.dtype), ctx.cp)
+        grads = plain_vjp(plain, (xs, dt, A, Bm, Cm, h_in), (gy, out))
+        return (None, None, *grads[:5])
 
 
 def local_columns(d_inner: int, gn: int, n_heads: int, rank: int,
@@ -312,9 +429,7 @@ def block_apply(x, p, cfg, mode="train", cache=None, chunk=256):
         y, ssm_state = ssd_step(xs, dt, A, Bm, Cm, cache["state"])
         new_cache = dict(conv=conv_state, state=ssm_state)
     else:
-        y, final = _scan(xs, dt, A, Bm, Cm, min(chunk, S))
-        if cp is not None:
-            y, final = carry_in(y, final, dt, A, Cm, cp)
+        y, final = _scan(xs, dt, A, Bm, Cm, min(chunk, S), cp)
         new_cache = (dict(conv=conv_state, state=final)
                      if mode == "prefill" else None)
 

@@ -583,8 +583,8 @@ def _encdec_stack(cfg, params, batch, x, positions, mode, cache,
 
 
 def apply(cfg, params, batch, mode, cache=None, decode_pos=None):
-    """Returns (logits, new_cache). batch: tokens [B, S] (int64 on the
-    parameters' device), and ``frames`` [B, S_src, d] (encdec) or
+    """Returns (logits, new_cache). batch: tokens [B, S] (int32, as the
+    reference draws them, on the parameters' device), and ``frames`` [B, S_src, d] (encdec) or
     ``patches`` [B, n_img, d] (vision) outside decode. In a sharded step
     whose head splits the vocabulary over ``model`` the logits are the
     rank's block of it. The cache is

@@ -34,13 +34,14 @@ class Server:
         """batch["tokens"]: [B, S] integer prompts (numpy or a tensor);
         ``frames`` [B, S_src, d] (encdec) or ``patches`` [B, n_img, d]
         (vision), numpy or tensors, go to the prefill, and the cross
-        caches take the lengths ``Model.cache_lengths`` gives. Returns the
-        [B, max_new] greedy tokens as int32. Spans ``serve.prefill`` (to
+        caches take the lengths ``Model.cache_lengths`` gives. Tokens are
+        int32, as the reference's. Returns the [B, max_new] greedy tokens
+        as int32. Spans ``serve.prefill`` (to
         the first token, synchronized) and ``serve.decode`` (the other
         max_new - 1 steps, to the tokens on the host) time the two phases
         when ``repro_torch.obs`` is on."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 dtype=torch.int64).to(self.device)
+                                 dtype=torch.int32).to(self.device)
         B, S = tokens.shape
         inputs = dict(tokens=tokens)
         for key in ("frames", "patches"):
@@ -53,7 +54,8 @@ class Server:
                                               **lengths)
                 last_logits, built = self.prefill_step(self.params, inputs)
                 cache = _splice(cache, built)
-                tok = torch.argmax(last_logits, dim=-1)[:, None]
+                tok = torch.argmax(last_logits, dim=-1).to(
+                    torch.int32)[:, None]
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             out = [tok]
@@ -62,7 +64,7 @@ class Server:
                     tok, _, cache = self.decode_step(self.params, cache, tok,
                                                      S + i)
                     out.append(tok)
-                result = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+                result = torch.cat(out, dim=1).cpu().numpy()
         return result
 
 

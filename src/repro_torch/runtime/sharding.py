@@ -1007,6 +1007,27 @@ def segment_carry(final, decay, cp: ContextParallel):
     return into, h
 
 
+def segment_carry_cotangent(local, decay, glast, cp: ContextParallel):
+    """The adjoint of ``segment_carry`` for a recurrence whose segments
+    rerun from the state entering them: the total cotangent on the state
+    leaving this segment. ``local`` is the cotangent a segment's outputs
+    put on the state entering it, ``decay`` [B, H] its decay and
+    ``glast`` the cotangent on the state after the last segment (summed
+    over the ranks that return it). One all-gather of the three; then
+    T[n] = sum glast, T[s] = local[s] + decay[s] T[s + 1], and this
+    segment's T[index + 1]."""
+    B, nf = local.shape[0], local[0].numel()
+    both = _segment_gather(torch.cat(
+        [local.reshape(B, -1), glast.reshape(B, -1),
+         decay.reshape(B, -1)], 1)[None], 0, cp)
+    locals_ = both[..., :nf].reshape(cp.size, *local.shape)
+    t = both[..., nf:2 * nf].sum(0).reshape(local.shape)
+    decays = both[..., 2 * nf:].reshape(cp.size, *decay.shape)
+    for s in range(cp.size - 1, cp.index, -1):
+        t = locals_[s] + decays[s][..., None, None] * t
+    return t
+
+
 def halo(tail, cp: ContextParallel) -> tuple:
     """(the inputs just before this segment of a causal conv, the inputs
     the sequence ends with), both as ``tail`` [B, w, C], this segment's own

@@ -336,7 +336,7 @@ def make_prefill_step(model, mesh=None):
 
 def make_decode_step(model, mesh=None):
     """``decode_step(params, cache, tokens, pos) -> (next tokens, logits,
-    cache)``. With ``mesh``: ``params`` and ``cache`` DTensor trees
+    cache)``, the next tokens int32 [B, 1], as the reference's. With ``mesh``: ``params`` and ``cache`` DTensor trees
     (``shard_serve_state``, or a sharded prefill's cache spliced into
     one) and ``tokens`` the global [B, 1], the same on every rank; the
     tokens and logits returned are this rank's rows (the logits over the
@@ -345,7 +345,7 @@ def make_decode_step(model, mesh=None):
     if mesh is None:
         def decode_step(params, cache, tokens, pos):
             logits, cache = model.decode(params, cache, tokens, pos)
-            next_tok = torch.argmax(logits, dim=-1)[:, None]
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
             return next_tok, logits, cache
         return decode_step
     _need_group("make_decode_step", mesh)
@@ -365,5 +365,6 @@ def make_decode_step(model, mesh=None):
         with sharding.activation_layout(layout):
             logits, _ = model.decode(live(params), blocks, rows["tokens"],
                                      pos)
-        return torch.argmax(logits, dim=-1)[:, None], logits, cache
+        return (torch.argmax(logits, dim=-1).to(torch.int32)[:, None],
+                logits, cache)
     return sharded_decode_step

@@ -13,7 +13,7 @@ package, and leave their results in ``DIR``. The dry-run cells run it as
 ``python tests/test_torch_context_parallel.py dryrun OUT``. Both start
 before the reference's side runs in the test process, and run beside it.
 
-- Train in float64 (TRAIN_S: segments of 8): batch 1 and batch 2 on
+- Train in float64 (segments of 8): batch 1 and batch 2 on
   (4, 1) under the baseline rules (the sequence in four segments) for
   reduced
   qwen2-72B, mamba2-2.7B (the conv halo, the SSD state), recurrentgemma-2B
@@ -25,6 +25,13 @@ before the reference's side runs in the test process, and run beside it.
   gradient norm, every leaf's gradient and the AdamW step against the
   unsharded step's; the loss and gradients against the reference's
   ``jax.value_and_grad``.
+- Mamba-2 with two or more SSD chunks in every segment (MULTI_CHUNK):
+  train in float64 at S 64 and 80 on (4, 1) (two chunks of 8 a segment,
+  and two and a ragged third) and S 32 on (2, 2) under the baseline rules
+  and ``seqpar``, against the unsharded step and the reference; S 64 on
+  (4, 1) and S 32 on (2, 2) under ``seqpar`` in float32 (F32_MULTI_CHUNK);
+  a float64 prefill of 64 positions on (4, 1) and greedy decode against
+  the unsharded steps and the reference ``Server``.
 - Prefill (float32, batch 1 on (4, 1)): the last logits against the
   unsharded step's, then greedy decode on the segments' caches (gathered,
   spliced and placed again) against the unsharded steps and the reference
@@ -55,21 +62,45 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 ARCHS = ("qwen2_72b", "mamba2_2_7b", "recurrentgemma_2b", "deepseek_v2_236b",
          "seamless_m4t_large_v2")
-# Train cases: name -> (arch, mesh, batch, variant).
+# Outside MULTI_CHUNK every data segment holds eight positions (S 32 on
+# (4, 1), 16 on (2, 2)): mamba2's reduced SSD chunk, as train_4k's 4096
+# positions in 16 segments of 256 are the SSD's chunk each, and the
+# conv's context of 3 fits.
+# Mamba-2 with several SSD chunks of 8 in every segment, as a prefill_32k
+# segment of 4096 positions on 8 data ranks holds 16 chunks of 256: each
+# segment's scan starts from the state the earlier segments hand on (the
+# kernels' h0), so the state enters every chunk as the unsharded chunk
+# loop carries it. Name -> (mesh, batch, variant, S): two chunks a
+# segment, two and a ragged third of four positions, and two on (2, 2)
+# (the mixer tensor-parallel over model too; under seqpar the segments
+# split over model as well).
+MULTI_CHUNK = {"mamba2_2_7b/b1/4x1/S64": ((4, 1), 1, "baseline", 64),
+               "mamba2_2_7b/b1/4x1/S80": ((4, 1), 1, "baseline", 80),
+               "mamba2_2_7b/b1/2x2/S32": ((2, 2), 1, "baseline", 32),
+               "mamba2_2_7b/seqpar/2x2/S32": ((2, 2), 1, "seqpar", 32)}
+# The same in float32, as the card trains, against the unsharded float32
+# step within F32_CP_RTOL of each leaf's largest entry: the largest
+# reading, layer 1's dt_bias gradient (a sum with much cancellation), was
+# 6.21e-6 at S 64 on (4, 1) and 4.47e-6 on (2, 2); a carried state
+# rounded to bf16 on its way between segments moves them 9.4e-4 and
+# 7.0e-4.
+F32_MULTI_CHUNK = {"mamba2_2_7b/b1/4x1/S64/float32": ((4, 1), 1, "baseline",
+                                                      64),
+                   "mamba2_2_7b/seqpar/2x2/S32/float32": ((2, 2), 1,
+                                                          "seqpar", 32)}
+F32_CP_RTOL = 2e-5
+# Train cases: name -> (arch, mesh, batch, variant, S).
 TRAIN = dict(
-    {f"{a}/b1/4x1": (a, (4, 1), 1, "baseline") for a in ARCHS},
-    **{f"{a}/b2/4x1": (a, (4, 1), 2, "baseline") for a in ARCHS},
-    **{f"{a}/seqpar/2x2": (a, (2, 2), 1, "seqpar") for a in ARCHS},
-    **{f"{a}/act2d/2x2": (a, (2, 2), 1, "act2d")
-       for a in ("qwen2_72b", "mamba2_2_7b", "seamless_m4t_large_v2")})
-# Every data segment holds eight positions (32 on (4, 1), 16 on (2, 2)):
-# mamba2's reduced SSD chunk, as train_4k's 4096 positions in 16 segments
-# of 256 are the SSD's chunk each, and the conv's context of 3 fits.
-# Where a segment holds two chunks, the carried state's term is added to
-# the kernel's output, where the chunk loop adds it inside: mamba2's
-# float64 step on (2, 2) at S 32 then moves a leaf's gradient 1.19e-6
-# of its largest entry (ROADMAP queue 3).
-TRAIN_S = {(4, 1): 32, (2, 2): 16}
+    {f"{a}/b1/4x1": (a, (4, 1), 1, "baseline", 32) for a in ARCHS},
+    **{f"{a}/b2/4x1": (a, (4, 1), 2, "baseline", 32) for a in ARCHS},
+    **{f"{a}/seqpar/2x2": (a, (2, 2), 1, "seqpar", 16) for a in ARCHS},
+    **{f"{a}/act2d/2x2": (a, (2, 2), 1, "act2d", 16)
+       for a in ("qwen2_72b", "mamba2_2_7b", "seamless_m4t_large_v2")},
+    **{name: ("mamba2_2_7b", *case) for name, case in MULTI_CHUNK.items()})
+# The multi-chunk prefill: mamba2 in float64, a batch-1 prompt of
+# MULTI_SERVE_S positions on (4, 1) (segments of two chunks), decode
+# caches of MULTI_SERVE_LEN positions (four segments of 18).
+MULTI_SERVE_S, MULTI_SERVE_LEN = 64, 72
 # Prefill: batch 1 on (4, 1), prompts of CP_SERVE_S (segments of 4), the
 # decode caches of CP_SERVE_LEN positions (four segments of 6).
 CP_SERVE_S, CP_SERVE_LEN = 16, 24
@@ -112,19 +143,24 @@ def _rank_all(rank: int, run_dir: str):
     inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
     out = dict(train={}, serve={}, seconds={}, old={}, ref_new={})
     wholes = {}
-    for name, (arch, shape, B, variant) in TRAIN.items():
+    cases = [(name, case, "float64") for name, case in TRAIN.items()] + [
+        (name, ("mamba2_2_7b", *case), "float32")
+        for name, case in F32_MULTI_CHUNK.items()]
+    for name, (arch, shape, B, variant, S), dtype in cases:
         t0 = time.perf_counter()
-        model = Model(_config(arch, "float64"))
-        params = tree_map(lambda t: t.double(), inputs[arch]["params"])
-        S = TRAIN_S[shape]
-        batch = {k: v.double() if v.is_floating_point() else v
+        model = Model(_config(arch, dtype))
+        wide = getattr(torch, dtype)
+        params = tree_map(lambda t: t.to(wide), inputs[arch]["params"])
+        batch = {k: v.to(wide) if v.is_floating_point() else v
                  for k, v in inputs[arch][f"batch{B}/{S}"].items()}
-        key = f"{arch}/b{B}/{S}"
+        key = f"{arch}/b{B}/{S}" + ("/float32" if dtype == "float32"
+                                     else "")
         if key not in wholes:
             wholes[key] = _whole_train(model, params, batch, inputs["lr"])
             out["ref_new"][key] = [t.numpy()
                                    for t in tree_leaves(wholes[key][2])]
-            out["old"][arch] = [t.numpy() for t in tree_leaves(params)]
+            out["old"].setdefault(arch, [t.numpy()
+                                         for t in tree_leaves(params)])
         mesh = _mesh(shape, ("data", "model"))
         with sharding.rule_overrides(VARIANTS[variant].get("rules")):
             r = _train_case(model, params, batch, mesh, wholes[key],
@@ -146,6 +182,18 @@ def _rank_all(rank: int, run_dir: str):
             mesh, 1, CP_SERVE_S, model.cfg.d_model).segment_axes
         out["serve"][name] = r
         out["seconds"][name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = Model(_config("mamba2_2_7b", "float64"))
+    params = tree_map(lambda t: t.double(), inputs["mamba2_2_7b"]["params"])
+    batch = dict(tokens=inputs["multi_prompt"])
+    whole = _serve_unsharded(model, params, batch, MULTI_SERVE_LEN, SERVE_N)
+    mesh = _mesh((4, 1), ("data", "model"))
+    r = _serve_resharded(model, params, batch, mesh, MULTI_SERVE_LEN,
+                         SERVE_N, whole)
+    r["segments"] = sharding.step_layout(
+        mesh, 1, MULTI_SERVE_S, model.cfg.d_model).segment_axes
+    out["serve_multi"] = r
+    out["seconds"]["serve_multi"] = time.perf_counter() - t0
     if rank == 0:
         np.save(os.path.join(run_dir, "ranks.npy"), out, allow_pickle=True)
 
@@ -241,7 +289,7 @@ def runs(tmp_path_factory):
     for i, arch in enumerate(ARCHS):
         jm, jp, m, pp = train_pair(arch, block_kv=8)
         batches = {(B, S): train_batch(m.cfg, B=B, S=S, seed=30 + B)
-                   for B, S in ((1, 32), (2, 32), (1, 16))}
+                   for a, _, B, _, S in TRAIN.values() if a == arch}
         sjm, sjp, sm, spp = train_pair(arch)
         _, extra, sjb, spb = prompts(sm.cfg, B=1, S=CP_SERVE_S,
                                      seed=140 + i)
@@ -249,6 +297,9 @@ def runs(tmp_path_factory):
                             **{f"batch{B}/{S}": b for (B, S), (_, b)
                                in batches.items()})
         pairs[arch] = (jm, jp, batches, m.cfg, sjm, sjp, sm.cfg, sjb, extra)
+    inputs["multi_prompt"] = torch.from_numpy(np.random.default_rng(
+        150).integers(0, pairs["mamba2_2_7b"][3].vocab,
+                      (1, MULTI_SERVE_S)).astype(np.int32))
     torch.save(inputs, os.path.join(run_dir, "inputs.pt"))
     ranks = _start(["ranks", run_dir])
     ref = {}
@@ -265,6 +316,10 @@ def runs(tmp_path_factory):
         ref[arch] = dict(tokens=np.asarray(tokens),
                          logits=np.asarray(logits),
                          steps=[np.asarray(s) for s in steps])
+    jm, jp, _, cfg = pairs["mamba2_2_7b"][:4]
+    tokens = reference_run(jm, jp, cfg, dict(tokens=jax.numpy.asarray(
+        inputs["multi_prompt"].numpy())), {}, SERVE_N + 1)[0]
+    ref["serve_multi"] = dict(tokens=np.asarray(tokens))
     _wait(ranks, "four gloo ranks", deadline)
     out = np.load(os.path.join(run_dir, "ranks.npy"),
                   allow_pickle=True).item()
@@ -292,8 +347,8 @@ def test_context_parallel_train_step_matches_unsharded_and_reference(
     from repro_torch.runtime import sharding
     from test_torch_train import GRAD_REL, LOSS_RTOL, assert_same_update
     out, _, ref = runs
-    arch, shape, B, variant = TRAIN[case]
-    key = f"{arch}/b{B}/{TRAIN_S[shape]}"
+    arch, shape, B, variant, S = TRAIN[case]
+    key = f"{arch}/b{B}/{S}"
     r = out["train"][case]
     assert r["segments"] == ("data",), r["segments"]
     assert r["split"] == dict(baseline=None, seqpar=sharding.SEQ,
@@ -310,6 +365,50 @@ def test_context_parallel_train_step_matches_unsharded_and_reference(
         np.testing.assert_allclose(a, b, rtol=0,
                                    atol=GRAD_REL * np.abs(b).max())
     assert_same_update(out["old"][arch], r["new"], out["ref_new"][key])
+
+
+@pytest.mark.parametrize("case", list(F32_MULTI_CHUNK))
+def test_float32_multi_chunk_train_step_matches_unsharded_and_reference(
+        runs, case):
+    """Mamba-2 in float32 with two SSD chunks in every segment: the
+    sharded step's loss and gradient norm within SHARD_RTOL of the
+    unsharded float32 step's, every leaf's gradient and updated parameter
+    within F32_CP_RTOL of the leaf's largest entry of its (a carried state
+    rounded below float32 between segments misses it), the loss within
+    LOSS_RTOL and each gradient within GRAD_REL of the reference's
+    ``jax.value_and_grad``."""
+    from test_torch_train import GRAD_REL, LOSS_RTOL
+    out, _, ref = runs
+    shape, B, variant, S = F32_MULTI_CHUNK[case]
+    r = out["train"][case]
+    assert r["segments"] == ("data",), r["segments"]
+    assert abs(r["sharded_loss"] - r["loss"]) <= SHARD_RTOL * r["loss"]
+    assert abs(r["sharded_grad_norm"] - r["grad_norm"]) <= \
+        SHARD_RTOL * r["grad_norm"]
+    assert max(r["grad_rel"]) <= F32_CP_RTOL, max(r["grad_rel"])
+    assert max(r["step_rel"]) <= F32_CP_RTOL, max(r["step_rel"])
+    want = ref[f"mamba2_2_7b/b{B}/{S}"]
+    assert r["sharded_loss"] == pytest.approx(want["loss"], rel=LOSS_RTOL)
+    for a, b in zip(r["grads"], want["grads"], strict=True):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=GRAD_REL * np.abs(b).max())
+
+
+def test_multi_chunk_prefill_and_decode_match_unsharded(runs):
+    """Mamba-2 in float64, a batch-1 prefill of MULTI_SERVE_S positions in
+    four segments of two SSD chunks each over ``data``: each segment's
+    scan runs from the state the earlier ones hand on, and the prefill's
+    cache holds the state after the last. Its last logits and every
+    decode step's on the segments' caches within SEQ_ATOL and SHARD_RTOL
+    of the unsharded steps', the same greedy tokens, which are the
+    reference ``Server``'s on the same prompt."""
+    out, _, ref = runs
+    r = out["serve_multi"]
+    assert r["segments"] == ("data",), r["segments"]
+    assert r["whole_max_abs"] <= SEQ_ATOL, r["whole_max_abs"]
+    assert r["whole_rel"] <= SHARD_RTOL, r["whole_rel"]
+    assert r["tokens_equal"]
+    np.testing.assert_array_equal(r["tokens"], ref["serve_multi"]["tokens"])
 
 
 @pytest.mark.parametrize("arch", list(SERVE))

@@ -859,8 +859,7 @@ def test_wgmma_ssd_kernel_matches_plain_on_card(card, b, S, H, P, G, N,
     before = dict(sb.LAUNCHES_BY_VARIANT)
     y, st = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    assert sb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
-                                          scalar=before["scalar"])
+    assert sb.LAUNCHES_BY_VARIANT == {**before, "wgmma": before["wgmma"] + 1}
     yr, sr = ssd_ref(x, dt, A, Bm, Cm, chunk=min(chunk, S))
     assert float(yr.float().abs().max()) > 0.0
     torch.testing.assert_close(y.float(), yr.float(), atol=2e-3,
@@ -876,15 +875,15 @@ def test_ssd_variant_sends_bf16_to_wgmma_and_float32_to_scalar(card):
     x, dt, A, Bm, Cm = _ssd_model_like(card, 1, 1, 512, 8, 64, 1, 128)
     before = dict(sb.LAUNCHES_BY_VARIANT)
     y16, s16 = sb.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=256)
-    assert sb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
-                                          scalar=before["scalar"])
+    assert sb.LAUNCHES_BY_VARIANT == {**before, "wgmma": before["wgmma"] + 1}
     y32, s32 = sb.ssd_scan_cuda(x.float(), dt, A, Bm.float(), Cm.float(),
                                 chunk=256)
     torch.cuda.synchronize()
-    assert sb.LAUNCHES_BY_VARIANT == dict(wgmma=before["wgmma"] + 1,
-                                          scalar=before["scalar"] + 1)
+    assert sb.LAUNCHES_BY_VARIANT == {**before, "wgmma": before["wgmma"] + 1,
+                                      "scalar": before["scalar"] + 1}
     assert y16.dtype == torch.bfloat16 and y32.dtype == torch.float32
-    assert sb.KERNELS_PER_CALL == dict(wgmma=3, scalar=1)
+    assert sb.KERNELS_PER_CALL == dict(wgmma=3, scalar=1, wgmma_final=2,
+                                       scalar_final=1)
     torch.testing.assert_close(y16.float(), y32, atol=2e-3, rtol=BF16_RTOL)
     torch.testing.assert_close(s16.float(), s32, atol=2e-3, rtol=BF16_RTOL)
 
@@ -916,6 +915,133 @@ def test_ssd_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="aligned"):
         sb.ssd_scan_cuda(xm, torch.zeros((1, 64, 4), device=card),
                          torch.zeros(4, device=card), Bw, Bw, chunk=64)
+    assert sb.LAUNCHES_BY_VARIANT == before
+
+
+def _ssd_draw(card, seed, b, S, H, P, G, N, dtype):
+    """test_ssd_scan_sweep's draws on the CPU, copied: x, B, C standard
+    normal in ``dtype``, dt in [0.1, 0.6), A in (-1.2, -0.2]; and an
+    initial state h0 [b, H, P, N], float32 standard normal."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, S, H, P), generator=gen).to(card, dtype)
+    dt = (torch.rand((b, S, H), generator=gen) * 0.5 + 0.1).to(card)
+    A = (-torch.rand(H, generator=gen) - 0.2).to(card)
+    Bm, Cm = (torch.randn((b, S, G, N), generator=gen).to(card, dtype)
+              for _ in range(2))
+    h0 = torch.randn((b, H, P, N), generator=gen).to(card)
+    return [x, dt, A, Bm, Cm], h0
+
+
+# (b, S, H, P, G, N, chunk, dtype): the wgmma kernel (bf16, P 64) with one
+# and several chunks, a ragged S and G 2; the scalar kernel in float32
+# and in bf16 at a chunk the wgmma kernel does not take.
+SSD_H0_CASES = [(1, 256, 8, 64, 1, 128, 256, torch.bfloat16),
+                (1, 600, 8, 64, 1, 128, 256, torch.bfloat16),
+                (2, 300, 8, 64, 2, 64, 64, torch.bfloat16),
+                (2, 100, 4, 16, 2, 8, 16, torch.float32),
+                (2, 160, 4, 32, 2, 64, 64, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype", SSD_H0_CASES)
+def test_ssd_h0_matches_plain_on_card(card, b, S, H, P, G, N, chunk, dtype):
+    """Both SSD kernels from an initial state h0 against the plain
+    chunked version with the same ``init_state``, within the SSD's limits
+    (2e-3, and one bf16 step of |ref| in bf16), on y and the state; one
+    call of the variant, counted as a call from a state. The float32
+    final of the ``ssd_final_cuda`` entry (launches 1 and 2; the scalar
+    walk for the state alone) against the plain final from zero
+    (``ssd_final_ref``) at the same limits, counted apart."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    from repro_torch.kernels.ssd_scan.ref import ssd_final_ref, ssd_ref
+    args, h0 = _ssd_draw(card, S + H + N, b, S, H, P, G, N, dtype)
+    L = min(chunk, S)
+    kind = sb.variant(dtype, P, N, L)
+    before = (dict(sb.LAUNCHES_BY_VARIANT), dict(sb.LAUNCHES_FROM_STATE))
+    y, st = sb.ssd_scan_cuda(*args, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES_BY_VARIANT == {**before[0], kind: before[0][kind] + 1}
+    assert sb.LAUNCHES_FROM_STATE == {**before[1], kind: before[1][kind] + 1}
+    assert st.dtype == dtype
+    yr, sr = ssd_ref(*args, chunk=L, init_state=h0)
+    rtol = 0 if dtype == torch.float32 else BF16_RTOL
+    for got, want in ((y, yr), (st, sr)):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                                   rtol=rtol)
+    y0, _ = sb.ssd_scan_cuda(*args, chunk=chunk)
+    assert float((y0.float() - y.float()).abs().max()) > 1e-2
+    final = sb.ssd_final_cuda(*args, chunk=chunk)
+    assert final.dtype == torch.float32
+    torch.testing.assert_close(final, ssd_final_ref(*args, chunk=L),
+                               atol=2e-3, rtol=rtol)
+    assert sb.LAUNCHES_BY_VARIANT[f"{kind}_final"] == \
+        before[0][f"{kind}_final"] + 1
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype,head", [
+    (1, 1100, 8, 64, 1, 128, 256, torch.bfloat16, 768),
+    (2, 300, 8, 64, 2, 64, 64, torch.bfloat16, 128),
+    (2, 100, 4, 16, 2, 8, 16, torch.float32, 48)])
+def test_ssd_split_at_a_chunk_boundary_is_the_whole_on_card(
+        card, b, S, H, P, G, N, chunk, dtype, head):
+    """A sequence cut after ``head`` positions (whole chunks): the tail's
+    scan from the head's float32 final (``ssd_final_cuda``) gives the
+    whole scan's tail and final state bit for bit (the same chunk states,
+    the same float32 pass, the same operands), the last chunk ragged."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    args, _ = _ssd_draw(card, S + head, b, S, H, P, G, N, dtype)
+    cut = [(t[:, :head].contiguous(), t[:, head:].contiguous())
+           if t.dim() > 1 else (t, t) for t in args]
+    y, st = sb.ssd_scan_cuda(*args, chunk=chunk)
+    h = sb.ssd_final_cuda(*[c[0] for c in cut], chunk=chunk)
+    yt, stt = sb.ssd_scan_cuda(*[c[1] for c in cut], chunk=chunk, h0=h)
+    torch.cuda.synchronize()
+    assert torch.equal(yt, y[:, head:]) and torch.equal(stt, st)
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype", [
+    (2, 192, 4, 64, 2, 64, 64, torch.bfloat16),
+    (2, 100, 4, 16, 2, 8, 32, torch.float32)])
+def test_ssd_wrapper_carries_h0_gradient_on_card(card, b, S, H, P, G, N,
+                                                 chunk, dtype):
+    """``ops.ssd_scan`` with ``h0`` under grad: one kernel call, and the
+    six gradients (h0's too) equal autograd through the plain version
+    with ``init_state`` within the SSD's limits."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    args, h0 = _ssd_draw(card, S + P + 1, b, S, H, P, G, N, dtype)
+    gen = torch.Generator().manual_seed(S)
+    wy = torch.randn((b, S, H, P), generator=gen).to(card)
+    ws = torch.randn((b, H, P, N), generator=gen).to(card)
+
+    def run(fn):
+        live = [t.clone().requires_grad_(True) for t in (*args, h0)]
+        y, st = fn(*live)
+        loss = (y.float() * wy).sum() + (st.float() * ws).sum()
+        return [y.detach(), st.detach(), *torch.autograd.grad(loss, live)]
+    got = run(lambda *t: sops.ssd_scan(*t[:5], chunk=chunk, h0=t[5]))
+    want = run(lambda *t: ssd_ref(*t[:5], chunk=chunk, init_state=t[5]))
+    rtol = 0 if dtype == torch.float32 else BF16_RTOL
+    for a, b_ in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b_.float(), atol=2e-3,
+                                   rtol=rtol)
+
+
+def test_ssd_kernel_rejects_bad_h0_on_card(card):
+    """An h0 on the CPU, of another shape or type, or not 16-byte aligned
+    is refused before a launch."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sb
+    args, h0 = _ssd_draw(card, 5, 1, 128, 4, 64, 1, 64, torch.bfloat16)
+    before = dict(sb.LAUNCHES_BY_VARIANT)
+    with pytest.raises(ValueError, match="h0 must be a CUDA tensor"):
+        sb.ssd_scan_cuda(*args, chunk=64, h0=h0.cpu())
+    with pytest.raises(TypeError, match="h0 must be torch.float32"):
+        sb.ssd_scan_cuda(*args, chunk=64, h0=h0.bfloat16())
+    with pytest.raises(ValueError, match="h0"):
+        sb.ssd_scan_cuda(*args, chunk=64, h0=h0[:, :2].contiguous())
+    flat = torch.zeros(h0.numel() + 1, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        sb.ssd_scan_cuda(*args, chunk=64, h0=flat[1:].view(h0.shape))
     assert sb.LAUNCHES_BY_VARIANT == before
 
 

@@ -173,8 +173,7 @@ def test_cache_and_input_specs_match_reference(arch):
         rvalues, raxes = jax_split_tree(jax.eval_shape(
             lambda: jm.make_inputs(JAX_SHAPES[cell])))
         pairs = _paired(values, axes, rvalues, raxes)
-        # tokens are int64 in the port, int32 in the reference
-        _same_leaves(pairs, dtypes=False)
+        _same_leaves(pairs)
         _same_specs(pairs)
 
 
@@ -376,3 +375,62 @@ def test_production_mesh_shapes_need_no_ranks():
     assert production_mesh_shape(multi_pod=True).shape == dict(
         pod=2, data=16, model=16)
     assert production_mesh_shape(multi_pod=True).size == 512
+
+
+# -- token dtype ---------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2_72b", "mamba2_2_7b",
+                                  "seamless_m4t_large_v2",
+                                  "llama_3_2_vision_11b"])
+def test_tokens_and_labels_are_the_references_dtype(arch):
+    """``make_inputs`` and ``abstract_inputs`` (train, prefill, decode)
+    and the pipeline's batches hold tokens and labels in the reference's
+    dtype (int32), leaf for leaf against its ``make_inputs`` and its
+    ``SyntheticTokens``."""
+    import dataclasses
+    from repro.data.pipeline import SyntheticTokens as JaxTokens
+    from repro_torch.data import SyntheticTokens
+    model = Model(get_config(arch, reduced=True))
+    jm = JaxModel(jax_get_config(arch, reduced=True))
+    for cell in ("train_4k", "prefill_32k", "decode_32k"):
+        shape = dataclasses.replace(SHAPES[cell], global_batch=2,
+                                    seq_len=16)
+        jshape = dataclasses.replace(JAX_SHAPES[cell], global_batch=2,
+                                     seq_len=16)
+        rvalues, _ = jax_split_tree(jax.eval_shape(
+            lambda: jm.make_inputs(jshape)))
+        values = model.make_inputs(shape, "cpu")
+        meta, _ = model.abstract_inputs(shape)
+        for key in ("tokens", "labels"):
+            if key not in rvalues:
+                assert key not in values
+                continue
+            want = np.dtype(rvalues[key].dtype).name
+            assert want == "int32"
+            assert str(values[key].dtype) == f"torch.{want}", (cell, key)
+            assert str(meta[key].dtype) == f"torch.{want}", (cell, key)
+    ref = JaxTokens(vocab=128, seq_len=16, global_batch=2).batch(0)
+    port = SyntheticTokens(128, 16, 2, device="cpu").batch(0)
+    for key in ("tokens", "labels"):
+        assert str(port[key].dtype) == \
+            f"torch.{np.dtype(ref[key].dtype).name}" == "torch.int32"
+
+
+def test_dryrun_input_bytes_equal_reference_shard_bytes():
+    """Reduced qwen2-72B's train_4k cell on 16 x 16: the dry run's
+    per-device input bytes equal the reference's shard-shape sum over
+    its ``make_inputs`` leaves, 524,288 B (tokens and labels, [16, 4096]
+    int32 each)."""
+    cell = dryrun.build_cell("qwen2_72b", "train_4k", False,
+                             overrides=dict(reduced=True))
+    names, sizes = MESHES[0]
+    mesh = AbstractMesh(sizes, names)
+    jm = JaxModel(jax_get_config("qwen2_72b", reduced=True))
+    values, axes = jax_split_tree(jax.eval_shape(
+        lambda: jm.make_inputs(JAX_SHAPES["train_4k"])))
+    want = 0
+    for v, a in ref_leaves(values, axes).values():
+        shard = NamedSharding(mesh, jshard.spec_for(a, v.shape, mesh)
+                              ).shard_shape(v.shape)
+        want += int(np.prod(shard)) * np.dtype(v.dtype).itemsize
+    assert cell["memory"]["input_bytes"] == want == 524_288

@@ -281,3 +281,181 @@ def test_kernel_launch_refuses_autograd():
         with pytest.raises(RuntimeError,
                            match=r"forward-only.*ops\.ssd_scan"):
             binding._launch("scalar", *args, S)
+
+
+# -- the initial state (h0) and the final state from zero --------------------
+
+def _h0(seed, b, H, P, N):
+    return np.random.default_rng(seed).standard_normal(
+        (b, H, P, N)).astype(np.float32)
+
+
+# (S, chunk): segments of one, two and three chunks, and three with a
+# ragged last chunk of 8 rows.
+H0_SEGMENTS = [(16, 16), (32, 16), (48, 16), (40, 16)]
+
+
+@pytest.mark.parametrize("S,chunk", H0_SEGMENTS)
+def test_plain_with_h0_matches_reference(S, chunk):
+    """The port's SSD from a given state against the reference's
+    ``ssd_chunked(..., init_state=)`` on the same float32 inputs, at the
+    tolerance of the chunked forms against each other (1e-4)."""
+    arrs = _inputs(40 + S, 2, S, 4, 16, 2, 8)
+    h0 = _h0(S, 2, 4, 16, 8)
+    yj, sj = jssm.ssd_chunked(*_jax(arrs), chunk=chunk,
+                              init_state=jnp.asarray(h0))
+    y, st = ops.ssd_scan(*_torch(arrs), chunk=chunk,
+                         h0=torch.from_numpy(h0))
+    _close(y, yj, 1e-4)
+    _close(st, sj, 1e-4)
+    # the state is carried: the same call from zero differs
+    y0, _ = ops.ssd_scan(*_torch(arrs), chunk=chunk)
+    assert float((y - y0).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("S,chunk", [(32, 16), (40, 16)])
+def test_h0_gradient_matches_jax_grad(S, chunk):
+    """The gradient of a weighted sum of (y, final state) against every
+    input, ``h0`` included, through the port's plain SSD against
+    ``jax.grad`` of the reference's ``ssd_chunked(..., init_state=)``,
+    within 1e-4 of each gradient's largest entry."""
+    import jax
+    b, H, P, G, N = 2, 4, 16, 2, 8
+    arrs = [*_inputs(50 + S, b, S, H, P, G, N), _h0(60 + S, b, H, P, N)]
+    rng = np.random.default_rng(70 + S)
+    wy = rng.standard_normal((b, S, H, P)).astype(np.float32)
+    ws = rng.standard_normal((b, H, P, N)).astype(np.float32)
+
+    def jloss(x, dt, A, Bm, Cm, h0):
+        y, st = jssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk,
+                                 init_state=h0)
+        return jnp.sum(y * wy) + jnp.sum(st * ws)
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*_jax(arrs))
+    live = [t.requires_grad_(True) for t in _torch(arrs)]
+    y, st = ops.ssd_scan(*live[:5], chunk=chunk, h0=live[5])
+    (torch.sum(y * torch.from_numpy(wy))
+     + torch.sum(st * torch.from_numpy(ws))).backward()
+    for t, w in zip(live, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max())
+    assert float(live[5].grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("head,S,chunk", [(32, 48, 8), (24, 40, 8),
+                                          (16, 40, 16)])
+def test_split_run_from_the_heads_final_equals_the_whole(head, S, chunk):
+    """A sequence cut at a chunk boundary: the tail's scan from the head's
+    float32 final state (``ssd_final``) is bitwise the whole scan's tail
+    (the last tail chunk ragged in the second and third cases), and its
+    final state the whole scan's; ``ssd_final`` is bitwise the whole
+    scan's float32 final and the float32 ``ssd_scan``'s state."""
+    arrs = _torch(_inputs(80 + head, 2, S, 4, 16, 2, 8))
+    head_args = [t[:, :head] if t.dim() > 1 else t for t in arrs]
+    tail_args = [t[:, head:] if t.dim() > 1 else t for t in arrs]
+    yw, sw = ops.ssd_scan(*arrs, chunk=chunk)
+    h = ops.ssd_final(*head_args, chunk=chunk)
+    assert h.dtype == torch.float32
+    assert torch.equal(h, ops.ssd_scan(*head_args, chunk=chunk)[1])
+    y, st = ops.ssd_scan(*tail_args, chunk=chunk, h0=h)
+    assert torch.equal(y, yw[:, head:])
+    assert torch.equal(st, sw)
+    assert torch.equal(ops.ssd_final(*arrs, chunk=chunk), sw)
+
+
+def test_final_from_zero_in_the_work_dtype():
+    """``ssd_final`` hands back the state in the plain SSD's work dtype,
+    float32 for bf16 and float32 inputs and float64 for float64 ones,
+    equal to ``ssd_chunked``'s state before its cast to x's dtype; and
+    ``chunk_decay`` is the product of the chunks' decays, within float32
+    rounding of exp(sum dt A)."""
+    for dtype, work in ((torch.float64, torch.float64),
+                        (torch.bfloat16, torch.float32)):
+        x, dt, A, Bm, Cm = (t.to(dtype) if i not in (1, 2) else t
+                            for i, t in enumerate(
+                                _torch(_inputs(90, 1, 40, 4, 16, 2, 8))))
+        assert ssm.work_dtype(x) == work
+        f = ops.ssd_final(x, dt, A, Bm, Cm, chunk=16)
+        assert f.dtype == work
+        _, st = ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=16)
+        assert torch.equal(f.to(dtype), st)
+    d = ssm.chunk_decay(dt, A, 16)
+    assert d.shape == (1, 4)
+    torch.testing.assert_close(d, torch.exp((dt * A).sum(1)), rtol=1e-5,
+                               atol=0)
+
+
+# Digests (sha256, first 16 hex digits) of (y, state) of ``ops.ssd_scan``
+# without h0 on H0_NONE_CASES's fixed numpy inputs, as the plain version
+# gave them before the initial state was added. (float64 inputs compute
+# in float64 since, ``ssm.work_dtype``.)
+H0_NONE_CASES = [(2, 40, 4, 16, 2, 8, 16, torch.float32),
+                 (1, 64, 8, 64, 1, 32, 32, torch.float32),
+                 (2, 50, 4, 16, 2, 8, 16, torch.bfloat16)]
+H0_NONE_DIGESTS = ["c4671dea02cabd00", "13b75571216e3131",
+                   "10e0a2c7fbbd74d2"]
+
+
+@pytest.mark.parametrize("i", range(len(H0_NONE_CASES)))
+def test_no_h0_is_bitwise_what_it_was(i):
+    """``h0=None`` (and no h0 at all) gives bit for bit what the plain SSD
+    gave before the initial state existed."""
+    import hashlib
+    b, S, H, P, G, N, chunk, dtype = H0_NONE_CASES[i]
+    rng = np.random.default_rng(300 + i)
+    x = torch.from_numpy(rng.standard_normal((b, S, H, P)).astype(
+        np.float32)).to(dtype)
+    dt = torch.from_numpy((rng.random((b, S, H)) * 0.5 + 0.1).astype(
+        np.float32))
+    A = torch.from_numpy((-rng.random(H) - 0.2).astype(np.float32))
+    Bm, Cm = (torch.from_numpy(rng.standard_normal((b, S, G, N)).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    for kw in (dict(), dict(h0=None)):
+        h = hashlib.sha256()
+        for t in ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, **kw):
+            h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+        assert h.hexdigest()[:16] == H0_NONE_DIGESTS[i]
+
+
+def test_check_inputs_refuses_bad_h0():
+    """Device-free: an ``h0`` of the wrong shape, dtype, device,
+    layout or alignment is refused; a good one passes."""
+    b, S, H, P, G, N = 1, 64, 8, 64, 1, 128
+    x = torch.zeros((b, S, H, P), dtype=torch.bfloat16)
+    dt, A = torch.zeros((b, S, H)), torch.zeros(H)
+    Bm = torch.zeros((b, S, G, N), dtype=torch.bfloat16)
+    good = torch.zeros((b, H, P, N))
+    assert binding.check_inputs(x, dt, A, Bm, Bm, h0=good) == "wgmma"
+    with pytest.raises(ValueError, match=r"h0 \(1, 8, 64, 64\)"):
+        binding.check_inputs(x, dt, A, Bm, Bm, h0=good[..., :64]
+                             .contiguous())
+    with pytest.raises(ValueError, match="h0 must have 4 dimensions"):
+        binding.check_inputs(x, dt, A, Bm, Bm, h0=good[0])
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError, match="h0 must be torch.float32"):
+            binding.check_inputs(x, dt, A, Bm, Bm, h0=good.to(dtype))
+    with pytest.raises(ValueError, match="one device"):
+        binding.check_inputs(x, dt, A, Bm, Bm,
+                             h0=torch.zeros((b, H, P, N), device="meta"))
+    with pytest.raises(ValueError, match="h0 must be contiguous"):
+        binding.check_inputs(x, dt, A, Bm, Bm, h0=torch.zeros(
+            (b, H, N, P)).transpose(2, 3))
+    off = torch.zeros(b * H * P * N + 1)[1:].view(b, H, P, N)
+    with pytest.raises(ValueError, match="h0 must be 16-byte aligned"):
+        binding.check_inputs(x, dt, A, Bm, Bm, h0=off)
+
+
+def test_launchers_refuse_h0_that_requires_grad_and_cpu_tensors():
+    """The launcher is forward-only for ``h0`` too, and the card entries
+    refuse a CPU ``h0`` before anything is built."""
+    b, S, H, P, G, N = 1, 8, 2, 16, 1, 8
+    x, dt, A = torch.zeros((b, S, H, P)), torch.zeros((b, S, H)), \
+        torch.zeros(H)
+    Bm = torch.zeros((b, S, G, N))
+    h0 = torch.zeros((b, H, P, N), requires_grad=True)
+    with pytest.raises(RuntimeError, match=r"forward-only.*ops\.ssd_scan"):
+        binding._launch("scalar", x, dt, A, Bm, Bm.clone(), S, h0=h0)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        binding.ssd_scan_cuda(x, dt, A, Bm, Bm, h0=h0.detach())
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        binding.ssd_final_cuda(x, dt, A, Bm, Bm)

@@ -372,7 +372,7 @@ def test_pipeline_is_deterministic_resumable_and_shifted():
                           device="cpu")
     b5a, b5b, b6 = src.batch(5), src.batch(5), src.batch(6)
     assert b5a["tokens"].shape == b5a["labels"].shape == (4, 16)
-    assert b5a["tokens"].dtype == torch.int64
+    assert b5a["tokens"].dtype == b5a["labels"].dtype == torch.int32
     assert torch.equal(b5a["tokens"], b5b["tokens"])
     assert not torch.equal(b5a["tokens"], b6["tokens"])
     assert torch.equal(b5a["tokens"][:, 1:], b5a["labels"][:, :-1])
