@@ -78,8 +78,9 @@ Builds the port's kernels from the sources in this checkout, then:
      at depth 5 (one cross layer with live gates and four decoder layers;
      4096 image tokens) and SeamlessM4T-large-v2 at 1 + 1 layers (400
      frames), all at full width in float32, through ``Server.generate`` on
-     the card and on the CPU (the same weights) and compares logits and
-     tokens, with one scalar flash call per prefill attention and no call
+     the card and on the CPU (the same weights; the CPU's logits recorded
+     inside its one greedy generate) and compares logits and tokens,
+     with one scalar flash call per prefill attention and no call
      of a plain version in the card's generate;
   8. serves all nine in bf16 on the card (B 4, prompt 2048, 32 new
      tokens; full depth but DeepSeek-V2 cut to its dense layer and six MoE
@@ -98,8 +99,10 @@ Builds the port's kernels from the sources in this checkout, then:
   9. runs the paper's comparison on the cell of phases 3 and 5, built by
      the port's scenario registry, through a serial ``ExperimentPlan`` of
      policy specs (the six §5 rule schedulers, ``waterwise[backend=fused]``
-     and ``waterwise-forecast[forecaster=learned,backend=fused]``) on the
-     card: prints the tidy table with savings against ``baseline`` and each
+     and ``waterwise-forecast[forecaster=learned,backend=fused]``; the two
+     greedy oracles on ``ORACLE_CELL``, a tenth of the cell's days, beside
+     its baseline) on the card: prints the tidy table with savings
+     against ``baseline`` and each
      cell's wall time, checks that the two pipeline rows equal phases 3 and
      5 (totals and kernel launch counts), runs four policies again through
      the auto-sized ``"process"`` executor (spawned workers, at most
@@ -192,6 +195,27 @@ Builds the port's kernels from the sources in this checkout, then:
      production meshes: per-device bytes, and per-device FLOPs, bytes,
      collectives and roofline at 2 of 80 layers from ``python -m
      repro_torch.launch.dryrun`` over a fake process group.
+ 14. the port's examples (``examples_torch/*.py``) on the card, through
+     their own functions: (a) ``train_100m`` at its defaults (62.4M
+     parameters, B 4 x 128, 200 steps, a failure injected after step 60,
+     async checkpoints every 25 steps) — exactly one restart, the
+     injected one, 210 steps run, finite losses, the replay of steps
+     51-60 within REPLAY_RTOL of their first pass, 12 wgmma flash
+     launches every forward step; step walls, commits' bytes and
+     seconds, the loss curve; (b) ``serve_batch`` at its defaults — its
+     asserts, one wgmma flash call a layer's prefill (window 64 on the
+     local layers), no plain version, the first decode step's logits
+     against a float32 CPU run; both examples' flash calls held against
+     the plain version at their shapes and timed beside it, SDPA and the
+     bound; (c) ``geo_schedule_training`` on qwen2-1.5B train_4k pod1
+     baseline, written by the port's dry run (started in a process of its
+     own at the phase's start), at the card's power limit; (d)
+     ``serve_stream``, ``forecast_shift``, ``workflow_run``,
+     ``scenario_sweep`` and ``quickstart`` at their CI-smoke sizes, with
+     their references' asserts and their kernels' launches
+     (``sinkhorn_anneal_adaptive`` one a warm-started solve, the fused
+     RG-LRU pair on the learned forecaster's row), those kernels held
+     against their plain versions at the examples' shapes.
 
 The LM weights are random, drawn from a seed; the Mamba-2 mixers' conv and
 SSM scalars, the RG-LRU blocks' conv, gate biases and decay and the vision
@@ -277,15 +301,19 @@ def cuda_ms(fn, warmup: int = 20, reps: int = 200) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def profiled_device_ms(fn, reps: int = 50):
+def profiled_device_ms(fn, reps: int = 50, host_ops: bool = True):
     """Device time of ``fn()`` in ms from the profiler: the sum of the
     kernels' own device time over ``reps`` calls, per call. None when the
-    profiler reports no device time (then it was not measured)."""
+    profiler reports no device time (then it was not measured).
+    ``host_ops=False`` records the device activity alone (the same kernel
+    times, without recording every host operation of a long loop)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1050,7 +1078,8 @@ def time_kernel(kernel, plain, b: dict, composition=None,
              plain_ms=cuda_ms(plain, warmup=min(20, plain_reps),
                               reps=plain_reps),
              plain_device_ms=profiled_device_ms(plain,
-                                                reps=min(50, plain_reps)),
+                                                reps=min(50, plain_reps),
+                                                host_ops=plain_reps > 1),
              **b)
     if composition is not None:
         t.update(composition_ms=cuda_ms(composition),
@@ -1078,6 +1107,7 @@ def phase_scan(dev) -> dict:
                                                     rglru_scan_ref)
     print("== phase 4: RG-LRU kernels (the fused layer, the scan alone) vs "
           "plain versions on the card", flush=True)
+    start = time.perf_counter()
     worst = dict(layer_fwd=0.0, layer_bwd=0.0, fwd=0.0, bwd=0.0)
     for shape in SCAN_SHAPES:
         fwd, bwd, _ = hold_layer(shape, False, dev, seed=sum(shape))
@@ -1090,13 +1120,17 @@ def phase_scan(dev) -> dict:
         fwd, bwd = hold_scan(shape, dev, seed=sum(shape) + 1)
         worst["fwd"] = max(worst["fwd"], fwd)
         worst["bwd"] = max(worst["bwd"], bwd)
+    print(f"  [the holds: {time.perf_counter() - start:.1f} s]", flush=True)
     timings = {}
     for shape in ((64, 48, 16), (16, 48, 16), GRIFFIN):
+        start = time.perf_counter()
         pre_r, pre_i, x, lam, gy = layer_inputs(*shape, dev, seed=3)
         n, W = pre_r.numel(), shape[-1]
-        # The plain versions at griffin's shape take seconds a call: one
-        # warm-up and one timed call each.
-        reps = 1 if shape == GRIFFIN else 200
+        # The plain versions take milliseconds a call at the forecaster's
+        # shapes (20 timed and 20 profiled calls each) and seconds at
+        # griffin's (one warm-up and one timed call each, profiled without
+        # recording the host operations of their 2048-step loops).
+        reps = 1 if shape == GRIFFIN else 20
         # Forward: pre_r, pre_i, x, lam in, y out.
         timings[("layer_fwd", shape)] = time_kernel(
             lambda: rk.rglru_layer_fwd_cuda(pre_r, pre_i, x, lam),
@@ -1132,6 +1166,8 @@ def phase_scan(dev) -> dict:
             lambda: rk.rglru_scan_bwd_cuda(a, ys, gy),
             lambda: rglru_scan_bwd_ref(a, ys, gy),
             bound(5 * 4 * n, SCAN_BWD_OPS * n), plain_reps=reps)
+        print(f"  [the timings at {shape}: "
+              f"{time.perf_counter() - start:.1f} s]", flush=True)
     for (name, shape), t in timings.items():
         report_timing(name, shape, t)
     return dict(worst=worst, clamp_rel=clamp_rel,
@@ -2495,6 +2531,29 @@ def serve_logits(model, params, toks, stream, device, extra=None) -> list:
     return out
 
 
+def logit_recording_server(model, params, device) -> tuple:
+    """(a ``Server`` on ``device`` whose prefill and decode steps append
+    each step's [B, V] logits, as float32 numpy, to a list; that list):
+    one greedy generate gives its tokens and the logits ``serve_logits``
+    would give along them."""
+    from repro_torch.runtime.serve_loop import Server
+    server = Server(model, params, device=device)
+    seen = []
+    prefill, decode = server.prefill_step, server.decode_step
+
+    def prefill_step(p, batch):
+        last, built = prefill(p, batch)
+        seen.append(last.float().cpu().numpy())
+        return last, built
+
+    def decode_step(p, cache, tokens, pos):
+        tok, logits, cache = decode(p, cache, tokens, pos)
+        seen.append(logits.float().cpu().numpy())
+        return tok, logits, cache
+    server.prefill_step, server.decode_step = prefill_step, decode_step
+    return server, seen
+
+
 def n_recurrent(cfg) -> int:
     """RG-LRU layers of a griffin stack (0 for the other families)."""
     if cfg.family != "griffin":
@@ -2605,13 +2664,18 @@ def phase_lm_parity(dev) -> dict:
                  f"{dict(shapes)} (want {want}, {dict(want_shapes)}), the "
                  f"SSD kernels {ssd_launches} (want {want_ssd}) and the "
                  f"RG-LRU kernels {rglru_launches} (want {want_rglru})")
+        # One pass on the CPU: the greedy generate's own logits are the
+        # teacher-forced run along its tokens.
+        host_server, host_steps = logit_recording_server(model, host_params,
+                                                         "cpu")
         with scan_recorder() as host_scans:
-            host_tokens = Server(model, host_params, device="cpu").generate(
+            host_tokens = host_server.generate(
                 dict(tokens=toks, **host_extra), max_new=8)
         card_steps = serve_logits(model, card_params, toks, host_tokens, dev,
                                   extra)
-        host_steps = serve_logits(model, host_params, toks, host_tokens,
-                                  "cpu", host_extra)
+        if len(host_steps) != len(card_steps):
+            fail(f"{arch}: {len(host_steps)} logit steps recorded on the "
+                 f"CPU, {len(card_steps)} on the card")
         errs = [float(np.abs(a - b).max()) for a, b in zip(card_steps,
                                                            host_steps)]
         live = np.ones(2, bool)
@@ -2872,6 +2936,11 @@ RULES = ("baseline", "round-robin", "least-load", "carbon-greedy-opt",
          "water-greedy-opt", "ecovisor")
 COMPARISON = RULES + ("waterwise[backend=fused]",
                       "waterwise-forecast[forecaster=learned,backend=fused]")
+# The two greedy oracles' host loops take ~33 s each on the cell (ROADMAP
+# 2b item 8); they run on ORACLE_CELL, the same scenario over a tenth of
+# the days (~5k jobs), beside its own baseline for their savings.
+ORACLES = ("carbon-greedy-opt", "water-greedy-opt")
+ORACLE_CELL = "diurnal[days=0.005,jobs_per_day=1e6,tolerance=0.5,seed=3]"
 # Run again in spawned worker processes, one a cell, through the auto-sized
 # "process" executor: four cells, so the card's cap on the pool
 # (experiments.executor.CARD_WORKERS) is what sizes it.
@@ -2953,20 +3022,28 @@ def phase_comparison(e2e: dict, fc: dict) -> dict:
     from repro_torch.kernels import _build
     print("== phase 9: the paper's comparison on the cell, through the "
           "policy and scenario registries", flush=True)
-    plan = experiments.ExperimentPlan.build([CELL], COMPARISON)
+    on_cell = tuple(p for p in COMPARISON if p not in ORACLES)
     t0 = time.perf_counter()
-    rows = plan.run(counting_serial(), strict=True)     # device None: card
+    rows = experiments.ExperimentPlan.build([CELL], on_cell).run(
+        counting_serial(), strict=True)                 # device None: card
     serial_s = time.perf_counter() - t0
+    oracle_rows = experiments.ExperimentPlan.build(
+        [ORACLE_CELL], ("baseline",) + ORACLES).run(counting_serial(),
+                                                    strict=True)
     print(f"  (a) serial plan, {len(rows)} cells on the card in "
-          f"{serial_s:.3f} s:", flush=True)
-    print(experiments.to_table(rows, experiments.TABLE_COLS + (
-        "moved_pct", "mean_solve_ms")), flush=True)
-    for r in rows:
+          f"{serial_s:.3f} s; the oracles on {ORACLE_CELL}:", flush=True)
+    for table in (rows, oracle_rows):
+        print(experiments.to_table(table, experiments.TABLE_COLS + (
+            "moved_pct", "mean_solve_ms")), flush=True)
+    for r in rows + oracle_rows:
         live = {k: v for k, v in r["_launches"].items() if v}
-        print(f"    {r['spec']}: wall {r['wall_s']:.3f} s, launches "
-              f"{live or 'none'}", flush=True)
+        print(f"    {r['spec']} ({r['jobs']} jobs): wall {r['wall_s']:.3f} "
+              f"s, launches {live or 'none'}", flush=True)
     zero = dict.fromkeys(read_launches(), 0)
-    by_spec = dict(zip(COMPARISON, rows))
+    by_spec = dict(zip(on_cell, rows))
+    by_spec.update(zip(ORACLES, oracle_rows[1:]))
+    if oracle_rows[0]["_launches"] != zero or oracle_rows[0]["unfinished"]:
+        fail(f"baseline on {ORACLE_CELL}: {oracle_rows[0]}")
     for spec, run, want, phase in (
             ("waterwise[backend=fused]", e2e["card"],
              dict(zero, sinkhorn=e2e["launches"]), "phase 3"),
@@ -2988,7 +3065,7 @@ def phase_comparison(e2e: dict, fc: dict) -> dict:
         if by_spec[spec]["unfinished"]:
             fail(f"{spec} left {by_spec[spec]['unfinished']} jobs unfinished")
     savings = {r["spec"]: (r["carbon_savings_pct"], r["water_savings_pct"])
-               for r in rows}
+               for r in list(by_spec.values())}
 
     workers = experiments.executor.auto_workers(len(PROCESS_POLICIES))
     print(f"  (b) {', '.join(PROCESS_POLICIES)}: serial, then \"process\" "
@@ -3040,7 +3117,8 @@ def phase_comparison(e2e: dict, fc: dict) -> dict:
         fail(f"trace report failed: {out} {report.stderr.strip()}")
     return dict(launches=by_spec, savings=savings, serial_s=serial_s,
                 process_s=process_s, process_mib=mem.peak_mib,
-                walls={r["spec"]: r["wall_s"] for r in rows}, rows=by_spec)
+                walls={r["spec"]: r["wall_s"] for r in by_spec.values()},
+                rows=by_spec)
 
 
 # --- Many cells on one card (phase 10) ----------------------------------------
@@ -5345,6 +5423,488 @@ def phase_distribution(dev, workdir: str) -> dict:
                 cp_ssd=cp_mamba2(dev), dryrun=dryrun_train_4k(workdir))
 
 
+# --- The port's examples (phase 14) ------------------------------------------
+
+EXAMPLES = os.path.join(HERE, "examples_torch")
+# (a) train_100m at its defaults: 200 steps at B 4 x S 128, a failure
+# injected after step 60, a checkpoint every 25 steps, so the restart
+# restores step 50 and steps 51-60 run twice: 210 forward steps, each 12
+# wgmma flash launches (one a layer; remat "none", and the backward is
+# the plain version's gradient, no launch).
+EX_STEPS, EX_FAIL, EX_EVERY, EX_BATCH, EX_SEQ = 200, 60, 25, 4, 128
+# The replay of steps 51-60 against their first pass on the card, loss and
+# grad norm relative to the first pass's: the same state, batches and
+# generators. It read 0 (bitwise) on an NVIDIA H100 80GB HBM3 at 700 W;
+# the limit leaves room for a library's backward
+# that sums with atomics in another order (float32 ulps a step, grown
+# over ten AdamW steps). The CPU replays bitwise (the tests).
+REPLAY_RTOL = 1e-5
+# (b) serve_batch: the first decode step's logits, bf16 on the card
+# against float32 on the CPU from the same weights (bf16 values) and
+# tokens: max |d| over the CPU logits' largest |entry|. It read 1.756e-3
+# on an NVIDIA H100 80GB HBM3 at 700 W (six layers' bf16 roundings; the
+# random weights' logits reach ~1e9).
+SERVE_LOGITS_REL = 1e-2
+# (c) the dry-run cell geo_schedule_training reads: qwen2-1.5B train_4k
+# on one pod under the baseline rules, written by the port's dry run.
+GEO_ARCH = "qwen2_1_5b"
+# (d) the scheduler examples at their CI-smoke sizes, but forecast_shift
+# at 0.005 days (0.01 took 34.6 s on an NVIDIA H100 80GB HBM3 at 700 W,
+# its CI smoke's 0.05 longer: every forecast row's `torch` Sinkhorn is
+# hundreds of small launches a round); its learned row still trains, 300
+# steps, and conditions.
+STREAM_SMOKE = dict(duration=30.0, jobs_per_day=1e5, round_s=5.0,
+                    queue_bound=10_000, shed_policy="reject-new", burst=1.0,
+                    seed=0)
+SHIFT_DAYS, SHIFT_TOL = 0.005, 3.0
+WORKFLOW_SMOKE = dict(days=0.05, seed=0, jobs_per_day=6000.0)
+
+
+def card_name_power() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` unrun)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ex_log(text) -> None:
+    """An example's own lines, indented under the phase's."""
+    for line in str(text).split("\n"):
+        print(f"    | {line}", flush=True)
+
+
+@contextlib.contextmanager
+def one_process():
+    """Sweeps sized automatically run serially in this process, where the
+    kernels' launch counts are read (a spawned worker's are its own)."""
+    from repro_torch.experiments import executor
+    auto = executor.auto_workers
+    executor.auto_workers = lambda n_cells, device=None: 1
+    try:
+        yield
+    finally:
+        executor.auto_workers = auto
+
+
+def example_flash(name: str, B: int, Hq: int, Hkv: int, S: int, D: int,
+                  window: int, seed: int) -> dict:
+    """At an example's prefill call shape (model layout, bf16, causal,
+    ``window`` 0 for none): the wrapper's one wgmma launch held against
+    the plain version, then timed beside it, SDPA (causal, or with a
+    boolean window mask) and the bound over the unmasked pairs."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bh_ref
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    G = Hq // Hkv
+    q = torch.randn((B, S, Hkv, G, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    kernel = lambda: fops.flash_attention(q, k, v, causal=True,
+                                          window=window)
+    with flash_call_recorder() as seen:
+        out = kernel()
+    if dict(seen) != {("wgmma", D, D, True): 1}:
+        fail(f"{name}: the flash wrapper launched {dict(seen)}, want one "
+             f"wgmma call at D {D}")
+    bh = model_to_bh(q, k, v)
+    plain = lambda: flash_attention_bh_ref(*bh, causal=True, window=window,
+                                           group=G)
+    err, rel = hold_flash(f"flash attention, {name}", out_to_bh(out),
+                          plain(), torch.bfloat16)
+    q4, k4, v4 = (t.view(B, -1, S, D) for t in bh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    w = window if 0 < window < S else S
+    if w >= S:
+        lib_name = "SDPA causal (enable_gqa)"
+        library = lambda: sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+    else:
+        lib_name = "SDPA with an explicit boolean window mask"
+        pos = torch.arange(S, device="cuda")
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < w))
+        library = lambda: sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    pairs = B * Hq * (w * (w + 1) // 2 + (S - w) * w)
+    elems = 2 * q.numel() + k.numel() + v.numel()
+    t = dict(name=name, shape=[B, S, Hkv, G, D], window=window,
+             ms=cuda_ms(kernel, warmup=10, reps=100),
+             plain_ms=cuda_ms(plain, warmup=2, reps=10),
+             library_ms=cuda_ms(library, warmup=10, reps=100),
+             library=lib_name, max_abs_err=err, rel_rms=rel,
+             **bound(2 * elems, 4 * pairs * D, BF16_OPS_PER_S))
+    print(f"  flash at {name} [B {B}, S {S}, {Hq} q heads over {Hkv}, D "
+          f"{D}], window {window or 'none'}: max|do| {err:.3e}, rel RMS "
+          f"{rel:.3e}; wgmma kernel {t['ms'] * 1e3:.2f} us, plain "
+          f"{t['plain_ms'] * 1e3:.2f} us, {lib_name} "
+          f"{t['library_ms'] * 1e3:.2f} us, bound "
+          f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']})", flush=True)
+    return t
+
+
+def replay_gap(out: dict) -> dict:
+    """Each step run twice (before and after the restore) against its
+    first pass: the steps, and the largest relative difference of the
+    loss and of the grad norm."""
+    first, again = {}, {}
+    for s, loss, gn in zip(out["steps"], out["losses"], out["grad_norms"]):
+        (again if s in first else first)[s] = (loss, gn)
+    steps = sorted(again)
+    rel = [max(abs(again[s][i] - first[s][i]) / abs(first[s][i])
+               for s in steps) if steps else float("nan") for i in (0, 1)]
+    return dict(steps=steps, loss_rel=rel[0], grad_norm_rel=rel[1],
+                bitwise=all(again[s] == first[s] for s in steps))
+
+
+def example_train(dev, workdir: str) -> dict:
+    """(a) ``examples_torch/train_100m.py`` at its defaults on the card."""
+    from repro_torch.data import SyntheticTokens
+    ex = load_example("train_100m")
+    cfg = ex.config()
+    model, params, opt = ex.build(cfg, EX_STEPS, dev)
+    print(f"  (a) train_100m: {model.param_count() / 1e6:.1f}M params "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv}, {cfg.param_dtype} parameters, "
+          f"{cfg.dtype} compute), B {EX_BATCH} x S {EX_SEQ}, {EX_STEPS} "
+          f"steps, a failure after step {EX_FAIL}, a checkpoint every "
+          f"{EX_EVERY}; on {card_name_power()}", flush=True)
+    data = SyntheticTokens(cfg.vocab, EX_SEQ, EX_BATCH, device=dev)
+    ckpt = os.path.join(workdir, "train_100m")
+    reset_lm_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = ex.train(model, params, opt, data.batch, steps=EX_STEPS,
+                       ckpt_dir=ckpt, inject_failure=EX_FAIL,
+                       ckpt_every=EX_EVERY, log=ex_log)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = read_lm_launches()
+    verdict = ex.report(out, log=ex_log)
+    # One more step of the final state, profiled (after the counts): where
+    # a step's wall goes.
+    from repro_torch.runtime.train_loop import make_train_step
+    _, _, prof = train_profile(make_train_step(model, opt), *out["state"],
+                               data.batch(EX_STEPS))
+    print(f"  (a) one profiled step after the run: wall "
+          f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
+          f"(busy {prof['device_ms'] / prof['wall_ms'] * 100:.1f} %); "
+          f"flash_fwd_sm90 {prof['ours']['flash_attention_sm90']:.3f} ms; "
+          f"top kernels (device ms): " + "; ".join(
+              f"{name[:60]} {ms:.2f}" for name, ms in prof["top"][:5]),
+          flush=True)
+    replay = replay_gap(out)
+    walls = np.asarray(out["walls_s"])
+    med = float(np.median(walls))
+    copy_s = [c["copy_s"] for c in out["commits"]]
+    print(f"  (a) {out['steps_run']} steps run, {out['restarts']} "
+          f"restart(s) ({out['causes']}); median step wall "
+          f"{med * 1e3:.2f} ms ({EX_BATCH * EX_SEQ / med:.0f} tokens/s; "
+          f"min {walls.min() * 1e3:.2f}, max {walls.max() * 1e3:.2f} ms); "
+          f"{len(out['commits'])} commits of "
+          f"{out['commits'][0]['bytes'] / 1e9:.3f} GB, the copy off the "
+          f"card {min(copy_s):.3f}-{max(copy_s):.3f} s on the step path; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; replay of steps {replay['steps'][0] + 1}-"
+          f"{replay['steps'][-1] + 1}: loss {replay['loss_rel']:.3e}, grad "
+          f"norm {replay['grad_norm_rel']:.3e} relative (limit "
+          f"{REPLAY_RTOL:.0e}; bitwise {replay['bitwise']}); launches "
+          f"{launches}; verdict {verdict}", flush=True)
+    want_flash = dict(wgmma=cfg.n_layers * out["steps_run"], scalar=0)
+    if out["restarts"] != 1 or out["causes"] != [
+            f"RuntimeError: injected failure at step {EX_FAIL}"]:
+        fail(f"train_100m restarted {out['restarts']} times: "
+             f"{out['causes']}")
+    if out["steps_run"] != EX_STEPS + EX_FAIL % EX_EVERY:
+        fail(f"train_100m ran {out['steps_run']} steps, want "
+             f"{EX_STEPS + EX_FAIL % EX_EVERY}")
+    if not np.isfinite(out["losses"]).all() or not np.isfinite(
+            out["grad_norms"]).all():
+        fail("train_100m: a loss or grad norm is not finite")
+    if replay["steps"] != list(range(EX_FAIL - EX_FAIL % EX_EVERY,
+                                     EX_FAIL)):
+        fail(f"train_100m replayed steps {replay['steps']}")
+    check("train_100m replay, loss", replay["loss_rel"], REPLAY_RTOL)
+    check("train_100m replay, grad norm", replay["grad_norm_rel"],
+          REPLAY_RTOL)
+    if launches["flash"] != want_flash or any(launches["ssd"].values()) \
+            or any(launches["rglru"].values()):
+        fail(f"train_100m launched {launches}, want flash {want_flash} "
+             f"and nothing else")
+    return dict(launches=launches["flash"]["wgmma"],
+                steps_run=out["steps_run"], restarts=out["restarts"],
+                median_step_ms=med * 1e3, replay=replay, verdict=verdict,
+                profiled_step=dict(wall_ms=prof["wall_ms"],
+                                   device_ms=prof["device_ms"]),
+                commits=out["commits"],
+                loss_first10=float(np.mean(out["losses"][:10])),
+                loss_last10=float(np.mean(out["losses"][-10:])),
+                flash=example_flash("train_100m", EX_BATCH, cfg.n_heads,
+                                    cfg.n_kv, EX_SEQ, cfg.head_dim, 0, 14))
+
+
+def example_serve(dev) -> dict:
+    """(b) ``examples_torch/serve_batch.py`` at its defaults: its asserts,
+    one wgmma flash call a layer's prefill (the window on the local
+    layers), no plain version, and the first decode step's logits against
+    a float32 CPU run of the same weights."""
+    from repro_torch.models.model import Model, to_device
+    from repro_torch.optim.adamw import tree_map
+    ex = load_example("serve_batch")
+    cfg = ex.config()
+    model, params = ex.build(cfg, dev)
+    toks = ex.prompts(cfg, ex.B, ex.S)
+    print(f"  (b) serve_batch: {model.param_count() / 1e6:.1f}M-param "
+          f"gemma3-family model, {cfg.n_layers} layers, window "
+          f"{cfg.window}, B {ex.B} x S {ex.S}, {ex.NEW} new tokens, "
+          f"{cfg.dtype}", flush=True)
+    reset_lm_launches()
+    with flash_call_recorder() as shapes, plain_call_counter() as plain:
+        tokens = ex.serve(model, params, toks, ex.NEW, dev, log=ex_log)
+    launches = read_lm_launches()
+    want_shapes = flash_calls(cfg)
+    want = dict(wgmma=sum(want_shapes.values()), scalar=0)
+    if launches["flash"] != want or +shapes != +want_shapes or \
+            sum(plain.values()):
+        fail(f"serve_batch: flash launches {launches['flash']} by shape "
+             f"{dict(shapes)} (want {want}, {dict(want_shapes)}); plain "
+             f"calls {dict(plain)}")
+    host = tree_map(lambda t: t.float(), to_device(params, "cpu"))
+    model32 = Model(cfg.replace(dtype="float32", param_dtype="float32"))
+    card = serve_logits(model, params, toks, tokens[:, :2], dev)[1]
+    cpu = serve_logits(model32, host, toks, tokens[:, :2], "cpu")[1]
+    err = float(np.abs(card - cpu).max())
+    rel = err / float(np.abs(cpu).max())
+    ai, bi = card.argmax(-1), cpu.argmax(-1)
+    gap = cpu[np.arange(len(bi)), bi] - cpu[np.arange(len(bi)), ai]
+    print(f"  (b) launches {launches}; flash calls {dict(shapes)}; the "
+          f"first decode step's logits, bf16 card vs float32 CPU: max|d| "
+          f"{err:.3e}, over max|cpu| {rel:.3e} (limit "
+          f"{SERVE_LOGITS_REL:.0e}); argmax equal {(ai == bi).tolist()}",
+          flush=True)
+    check("serve_batch first decode logits, relative", rel,
+          SERVE_LOGITS_REL)
+    if not ((ai == bi) | (gap <= TIE_GAP)).all():
+        fail(f"serve_batch: card argmax {ai} vs cpu {bi}, gap {gap}")
+    flash = [example_flash(f"serve_batch {kind}", ex.B, cfg.n_heads,
+                           cfg.n_kv, ex.S, cfg.head_dim, window, 15)
+             for kind, window in (("local", cfg.window), ("global", 0))]
+    return dict(launches=launches["flash"]["wgmma"], logits_rel=rel,
+                flash=flash)
+
+
+def start_dryrun(workdir: str) -> tuple:
+    """(c)'s dry run of GEO_ARCH train_4k on one pod, started in a process
+    of its own (host work, beside (a) and (b) on the card): (process, its
+    output directory, its start time)."""
+    dest = os.path.join(workdir, "dryrun14")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         GEO_ARCH, "--shape", "train_4k", "--out", dest], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, dest, time.perf_counter()
+
+
+def example_geo(dev, dryrun: tuple) -> dict:
+    """(c) ``examples_torch/geo_schedule_training.py`` on the dry-run cell
+    the port wrote into the work directory, at the card's power limit."""
+    ex = load_example("geo_schedule_training")
+    proc, dest, start = dryrun
+    try:
+        log, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"the dry run of {GEO_ARCH} train_4k took over 300 s")
+    if proc.returncode != 0:
+        fail(f"dry run of {GEO_ARCH} train_4k: rc {proc.returncode}\n"
+             f"{log[-3000:]}")
+    dry_s = time.perf_counter() - start
+    cells = ex.load_cells(dest)
+    name, watts = ex.card_power()
+    if len(cells) != 1 or not all(cells[0]["roofline"][k] > 0 for k in (
+            "t_compute", "t_memory", "t_collective")):
+        fail(f"geo_schedule_training read {len(cells)} cells from {dest}")
+    c = cells[0]
+    r = c["roofline"]
+    print(f"  (c) geo_schedule_training: {GEO_ARCH} train_4k pod1 baseline "
+          f"by the port's dry run, done {dry_s:.1f} s after its start "
+          f"(count {c['count_s']:.1f} s; {c['chips']} devices "
+          f"on {c['mesh']}; roofline compute {r['t_compute']:.4f} s, "
+          f"memory {r['t_memory']:.4f} s, collective "
+          f"{r['t_collective']:.4f} s a step); {name} at {watts:.2f} W a "
+          f"device", flush=True)
+    jobs = ex.make_jobs(cells, watts)
+    out = ex.schedule(jobs, len(cells), dev, log=ex_log)
+    for k in ("baseline", "waterwise"):
+        if not (np.isfinite(out[k]["carbon_kg"]) and out[k]["carbon_kg"] > 0
+                and np.isfinite(out[k]["water_kl"])):
+            fail(f"geo_schedule_training {k}: {out[k]}")
+    sv = out["savings"]
+    print(f"  (c) at {watts:.2f} W a device ({name}): baseline "
+          f"{out['baseline']['carbon_kg']:.1f} kg, "
+          f"{out['baseline']['water_kl']:.1f} kL; waterwise "
+          f"{out['waterwise']['carbon_kg']:.1f} kg, "
+          f"{out['waterwise']['water_kl']:.1f} kL; savings carbon "
+          f"{sv['carbon_savings_pct']:.1f} %, water "
+          f"{sv['water_savings_pct']:.1f} %", flush=True)
+    return dict(cell=f"{GEO_ARCH}.train_4k.pod1.baseline", dryrun_s=dry_s,
+                chip_w=watts, savings=sv)
+
+
+def example_schedulers(dev) -> dict:
+    """(d) ``serve_stream``, ``forecast_shift``, ``workflow_run``,
+    ``scenario_sweep`` and ``quickstart`` at their CI-smoke sizes, each
+    with its reference's asserts and its kernels' launches; the fused
+    kernels on the two that launch them held against their plain
+    versions at the examples' shapes."""
+    out = {}
+    ex = load_example("serve_stream")
+    start = time.perf_counter()
+    reset_launches()
+    rep, reg = ex.serve(device=dev, log=ex_log, **STREAM_SMOKE)
+    code = ex.verdict(rep, reg, True, log=ex_log)
+    got = read_launches()
+    solves = sum(reg.hists[h].count for h in (
+        "solver.sinkhorn_iters_cold", "solver.sinkhorn_iters_warm")
+        if h in reg.hists)
+    print(f"  (d) serve_stream --duration {STREAM_SMOKE['duration']:.0f} "
+          f"--round-s {STREAM_SMOKE['round_s']:.0f} --assert-clean: exit "
+          f"{code}, {time.perf_counter() - start:.1f} s; {solves} warm-"
+          f"started solves; launches {got}", flush=True)
+    if code != 0:
+        fail("serve_stream --assert-clean failed")
+    if got["sinkhorn_adaptive"] != solves or solves == 0 or any(
+            n for k, n in got.items() if k != "sinkhorn_adaptive"):
+        fail(f"serve_stream: launches {got}, want {solves} of "
+             f"sinkhorn_anneal_adaptive and nothing else")
+    errs = [hold_adaptive(512, 40, 14, warm)[0] for warm in (False, True)]
+    out["serve_stream"] = dict(launches=got["sinkhorn_adaptive"],
+                               max_abs_err=max(errs))
+
+    # scenario_sweep's cells run in spawned workers (its process
+    # executor, at the size "process" takes on the card, named so that
+    # one_process below leaves it), beside forecast_shift here; its lines
+    # print after.
+    import threading
+    from repro_torch.experiments.executor import CARD_WORKERS
+    sweep_lines, sweep = [], {}
+    sweep_ex = load_example("scenario_sweep")
+
+    def run_sweep():
+        t0 = time.perf_counter()
+        try:
+            sweep["rows"] = sweep_ex.run(
+                0.1, sweep_ex.SCHEDULERS, sweep_ex.SCENARIOS,
+                f"process[max_workers={CARD_WORKERS}]", "", dev,
+                log=sweep_lines.append)
+        finally:
+            sweep["s"] = time.perf_counter() - t0
+    sweeper = threading.Thread(target=run_sweep)
+    sweeper.start()
+
+    ex = load_example("forecast_shift")
+    start = time.perf_counter()
+    reset_launches()
+    with one_process():
+        rows = ex.sweep(SHIFT_DAYS, SHIFT_TOL, dev)
+    got = read_launches()
+    ex.summary(rows, log=ex_log)
+    print(f"  (d) forecast_shift --days {SHIFT_DAYS}: {len(rows)} rows in "
+          f"{time.perf_counter() - start:.1f} s (serially in this "
+          f"process); launches {got}", flush=True)
+    if len(rows) != 8 or any(r.get("error") for r in rows) or not all(
+            np.isfinite(r["carbon_kg"]) for r in rows):
+        fail(f"forecast_shift rows: {rows}")
+    # The learned row of each scenario trains once (its first round),
+    # one fused backward a training step.
+    import inspect
+    from repro_torch.forecast import learned
+    steps = inspect.signature(learned.LearnedForecaster).parameters[
+        "train_steps"].default
+    if not (got["layer_fwd"] > 0
+            and got["layer_bwd"] == len(ex.SCENARIOS) * steps):
+        fail(f"forecast_shift: the learned rows launched {got}, want "
+             f"{len(ex.SCENARIOS)} x {steps} fused backwards")
+    errs = []
+    for shape in ((64, 48, 16), (16, 48, 16)):
+        fwd, bwd, _ = hold_layer(shape, False, dev, seed=sum(shape) + 14)
+        errs.append(max(fwd, bwd))
+    out["forecast_shift"] = dict(launches={k: got[k] for k in (
+        "layer_fwd", "layer_bwd")}, all_launches=got, max_abs_err=max(errs))
+
+    sweeper.join()
+    for line in sweep_lines:
+        ex_log(line)
+    rows = sweep.get("rows")
+    print(f"  (d) scenario_sweep (its defaults; the process executor's "
+          f"spawned workers, beside forecast_shift): "
+          f"{len(rows or ())} rows in {sweep['s']:.1f} s", flush=True)
+    if rows is None or len(rows) != 9 or any(r.get("error") for r in rows):
+        fail(f"scenario_sweep rows: {rows}")
+
+    ex = load_example("workflow_run")
+    start = time.perf_counter()
+    reset_launches()
+    res = ex.run(device=dev, log=ex_log, **WORKFLOW_SMOKE)
+    got = read_launches()
+    clean = all(viol == 0 and unfinished == 0
+                for _, viol, _, unfinished in res.values())
+    print(f"  (d) workflow_run --days {WORKFLOW_SMOKE['days']} "
+          f"--assert-clean: clean {clean}, "
+          f"{time.perf_counter() - start:.1f} s; launches {got}",
+          flush=True)
+    if not clean or any(got.values()):
+        fail(f"workflow_run: clean {clean}, launches {got} (its specs "
+             f"solve on the host)")
+
+    ex = load_example("quickstart")
+    start = time.perf_counter()
+    reset_launches()
+    res = ex.compare(ex.DAYS, dev, log=ex_log)
+    got = read_launches()
+    print(f"  (d) quickstart: {len(res)} schedulers in "
+          f"{time.perf_counter() - start:.1f} s; launches {got}", flush=True)
+    jobs = {s["jobs"] for s in res.values()}
+    if any(got.values()) or len(jobs) != 1 or not all(
+            np.isfinite(s["carbon_kg"]) for s in res.values()):
+        fail(f"quickstart: launches {got} (host solvers), jobs {jobs}")
+    return out
+
+
+def phase_examples(dev, workdir: str) -> dict:
+    print("== phase 14: the port's examples (examples_torch/*.py) on the "
+          "card", flush=True)
+    out = {}
+    dryrun = start_dryrun(workdir)
+    try:
+        for key, fn, args in (("train", example_train, (dev, workdir)),
+                              ("serve", example_serve, (dev,)),
+                              ("geo", example_geo, (dev, dryrun)),
+                              ("schedulers", example_schedulers, (dev,))):
+            start = time.perf_counter()
+            out[key] = fn(*args)
+            print(f"  [{key}: {time.perf_counter() - start:.1f} s]",
+                  flush=True)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device available")
@@ -5392,6 +5952,7 @@ def main() -> None:
         srv = timed("phase 11", phase_serve, *e2e["cell"])
         train = timed("phase 12", phase_lm_train, dev)
         dist13 = timed("phase 13", phase_distribution, dev, workdir)
+        ex14 = timed("phase 14", phase_examples, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     reactive9 = cmp9["launches"]["waterwise[backend=fused]"]["_launches"]
@@ -5436,7 +5997,9 @@ def main() -> None:
         source="src/repro_torch/csrc/sinkhorn.cu",
         replaces="src/repro/kernels/sinkhorn/sinkhorn.py:83",
         launches=srv["launches"], launches_storm=srv["storm_launches"],
-        max_abs_err=k["adaptive_max_abs_err"], ms=t["ms"],
+        launches_phase14=ex14["schedulers"]["serve_stream"]["launches"],
+        max_abs_err=max(k["adaptive_max_abs_err"], ex14["schedulers"][
+            "serve_stream"]["max_abs_err"]), ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         device_ms=t["device_ms"], bound_by=t["bound_by"], library_ms=None,
         shape=[512, 40], warm=True, iterations=t["used"],
@@ -5445,7 +6008,8 @@ def main() -> None:
         cold_512_40=adaptive_fields((False, 512, 40)),
         warm_2048_40=adaptive_fields((True, 2048, 40)),
         main_path="every warm-started fused round of phase 11(a), one a "
-                  "round; (b)'s storm too"))
+                  "round; (b)'s storm too; examples_torch/serve_stream.py "
+                  "(phase 14(d))"))
     t = k["timings"][(512, 6)]
     kernels.append(dict(
         name="sinkhorn_iteration", route="cuda",
@@ -5500,6 +6064,11 @@ def main() -> None:
         if "composition_ms" in t:
             row.update(composition_ms=t["composition_ms"],
                        composition_device_ms=t["composition_device_ms"])
+        shift = ex14["schedulers"]["forecast_shift"]
+        row["launches_phase14"] = shift["all_launches"][entry]
+        if entry in shift["launches"]:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     shift["max_abs_err"])
         if entry == "layer_bwd":
             row.update(clamp_max_rel_err=scan["clamp_rel"])
         if entry == "layer_fwd":
@@ -5538,6 +6107,11 @@ def main() -> None:
     for variant, h in tp13["split"].items():
         by_model[f"{TP_ARCH} (13h, {variant})"] = h["flash_launches"] * len(
             h["walls_ms"])
+    ex_flash = [ex14["train"]["flash"]] + ex14["serve"]["flash"]
+    by_model["examples_torch/train_100m.py (14a), all steps"] = ex14[
+        "train"]["launches"]
+    by_model["examples_torch/serve_batch.py (14b)"] = ex14["serve"][
+        "launches"]
     tp_keys = ("ms", "device_ms", "plain_ms", "library", "library_ms",
                "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
                "rel_rms")
@@ -5551,7 +6125,9 @@ def main() -> None:
                          dist13["serve"]["flash_max_abs_err"],
                          tp13["flash_max_abs_err"]]
                         + [h["flash_max_abs_err"]
-                           for h in tp13["split"].values()]), ms=f128["ms"],
+                           for h in tp13["split"].values()]
+                        + [t["max_abs_err"] for t in ex_flash]),
+        ms=f128["ms"],
         plain_ms=f128["plain_ms"], bound_ms=f128["bound_ms"],
         device_ms=f128["device_ms"], plain_device_ms=f128["plain_device_ms"],
         bound_by=f128["bound_by"], library_ms=f128["library_ms"],
@@ -5563,7 +6139,14 @@ def main() -> None:
                   "qwen2_72b (group 8; phase 13(e) on one tensor-parallel "
                   "rank's 8 q heads over its kv head, and 13(h) with the "
                   "residual stream split over model by sequence or "
-                  "embedding), reading the model layout in place",
+                  "embedding), reading the model layout in place; the "
+                  "examples' train_100m (every forward step: 12 a step) "
+                  "and serve_batch (window 64 on the local layers), D 64, "
+                  "phase 14",
+        example_shapes={t["name"]: {f: t[f] for f in (
+            "shape", "window", "ms", "plain_ms", "library", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err", "rel_rms")}
+            for t in ex_flash},
         qwen2_72b=dict(shape=dist13["serve"]["flash_shape"],
                        max_abs_err=dist13["serve"]["flash_max_abs_err"],
                        rel_rms=dist13["serve"]["flash_rel_rms"]),
@@ -5797,12 +6380,7 @@ def main() -> None:
             name: pick(r) for name, r in dist13["served"].items()
             if pick(r)}
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_power())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,6 +28,7 @@ import json
 import os
 import shutil
 import threading
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -50,10 +51,16 @@ def _to_numpy(leaf) -> np.ndarray:
 def _map_leaves(fn, tree, prefix: str = ""):
     """``tree`` with each leaf replaced by ``fn(path, leaf)``, walked in
     ``jax.tree_util``'s order (dict keys sorted, sequences in index
-    order); dicts, lists and tuples keep their kind."""
+    order, a named tuple's fields in their order, each path part
+    ``.name`` as the reference writes a ``GetAttrKey``); dicts, lists,
+    tuples and named tuples keep their kind."""
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, tree[k], f"{prefix}{k}/")
                 for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, getattr(tree, f),
+                                        f"{prefix}.{f}/")
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_leaves(fn, v, f"{prefix}{i}/")
                           for i, v in enumerate(tree))
@@ -183,7 +190,12 @@ def _at(tree, key: str):
     """The node of ``tree`` at a ``/``-joined path (list indices as
     decimal strings)."""
     for part in key.split("/") if key else ():
-        tree = tree[part] if isinstance(tree, dict) else tree[int(part)]
+        if isinstance(tree, dict):
+            tree = tree[part]
+        elif part.startswith("."):
+            tree = getattr(tree, part[1:])
+        else:
+            tree = tree[int(part)]
     return tree
 
 
@@ -219,6 +231,10 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._collective = False
         self.saved_steps = []
+        # One record a commit: step, bytes, the copy off the device inside
+        # ``maybe_save`` (on the caller's path) and the background write,
+        # in seconds.
+        self.commits = []
 
     def maybe_save(self, step: int, tree, extra=None) -> bool:
         """A sharded tree is gathered here, on every rank (a collective);
@@ -228,11 +244,18 @@ class AsyncCheckpointer:
             return False
         self.wait()                       # at most one in flight
         self._collective = _collective(tree)
+        t0 = time.perf_counter()
         host_tree = _map_leaves(lambda _, x: np.array(_to_numpy(x)), tree)
+        record = dict(step=step, copy_s=time.perf_counter() - t0,
+                      bytes=sum(int(x.nbytes)
+                                for x in _flatten(host_tree).values()))
 
         def work():
+            t1 = time.perf_counter()
             if not self._collective or _rank() == 0:
                 _write(self.directory, step, host_tree, extra)
+            record["write_s"] = time.perf_counter() - t1
+            self.commits.append(record)
             self.saved_steps.append(step)
 
         self._thread = threading.Thread(target=work, daemon=True)

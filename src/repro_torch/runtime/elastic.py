@@ -65,15 +65,20 @@ class FailureInjector:
 def _like(restored, state):
     """``restored`` (numpy leaves, and bf16 CPU tensors where the state is
     bf16) in ``state``'s leaf types: a tensor leaf comes back as a tensor on
-    that leaf's device; dicts, lists and tuples keep their kind."""
+    that leaf's device, a Python int or float (AdamW's step count) as one;
+    dicts, lists, tuples and named tuples keep their kind."""
     if isinstance(state, dict):
         return {k: _like(restored[k], state[k]) for k in state}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_like(r, s) for r, s in zip(restored, state)))
     if isinstance(state, (list, tuple)):
         return type(state)(_like(r, s) for r, s in zip(restored, state))
     if isinstance(restored, torch.Tensor) and is_dtensor(restored):
         return restored
     if isinstance(state, torch.Tensor):
         return torch.as_tensor(restored).to(state.device)
+    if isinstance(state, (int, float)) and not isinstance(state, bool):
+        return type(state)(restored)
     return restored
 
 
@@ -88,8 +93,11 @@ def run_elastic(state, step_fn: Callable, batch_fn: Callable, *,
     ``restore_checkpoint`` takes it: (mesh, placements) leaves) places
     each restored leaf on the current mesh. With DTensor leaves every rank
     runs this loop in step, with the same failures.
-    Returns dict(state, restarts, steps_run)."""
+    Returns dict(state, restarts, steps_run), and beside them ``causes``
+    (each restart's exception, as text) and ``commits`` (the
+    checkpointer's records: step, bytes, copy and write seconds)."""
     ckpt = AsyncCheckpointer(ckpt_dir, every=ckpt_every)
+    causes = []
     restarts = 0
     step = 0
     steps_run = 0
@@ -105,7 +113,8 @@ def run_elastic(state, step_fn: Callable, batch_fn: Callable, *,
             ckpt.maybe_save(step, state)
             if injector is not None:
                 injector.check(step)
-        except (RuntimeError, TimeoutError):
+        except (RuntimeError, TimeoutError) as err:
+            causes.append(f"{type(err).__name__}: {err}")
             restarts += 1
             if restarts > max_restarts:
                 raise
@@ -118,4 +127,5 @@ def run_elastic(state, step_fn: Callable, batch_fn: Callable, *,
             else:
                 step = 0
     ckpt.wait()
-    return dict(state=state, restarts=restarts, steps_run=steps_run)
+    return dict(state=state, restarts=restarts, steps_run=steps_run,
+                causes=causes, commits=ckpt.commits)

@@ -189,3 +189,38 @@ def test_elastic_restart_recovers_bf16_lists(tmp_path):
     assert isinstance(faulty["state"]["layers"][1]["norms"], tuple)
     for a, b in zip(_leaves(clean["state"]), _leaves(faulty["state"])):
         assert b.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("direction", ["port_to_ref", "ref_to_port"])
+def test_adamw_state_crosses(tmp_path, direction):
+    """A (params, AdamW state) tree, the state a named tuple whose step is
+    a Python int in the port and an int32 scalar in the reference: the
+    port writes a field under the reference's ``.name`` key, the files
+    cross both ways, and ``run_elastic``'s restore gives the port's state
+    back with its named tuple and its int step."""
+    from repro.optim.adamw import AdamWState as RefState
+    from repro_torch.optim.adamw import AdamWState
+    tree = _list_tree(3)
+    port = (_map(torch.from_numpy, tree),
+            AdamWState(step=7, mu=_map(torch.from_numpy, _list_tree(4)),
+                       nu=_map(torch.from_numpy, _list_tree(5))))
+    ref = (_map(jnp.asarray, tree),
+           RefState(step=jnp.asarray(7, jnp.int32),
+                    mu=_map(jnp.asarray, _list_tree(4)),
+                    nu=_map(jnp.asarray, _list_tree(5))))
+    d = str(tmp_path)
+    if direction == "port_to_ref":
+        save_checkpoint(d, 1, port)
+        keys = sorted(np.load(f"{d}/step-1/state.npz").files)
+        ref_store.save_checkpoint(str(tmp_path / "r"), 1, ref)
+        assert keys == sorted(np.load(f"{tmp_path}/r/step-1/state.npz").files)
+        assert "1/.step" in keys and "1/.mu/layers/0/w" in keys
+        back = ref_store.restore_checkpoint(d, 1, ref)
+        assert int(back[1].step) == 7
+    else:
+        ref_store.save_checkpoint(d, 1, ref)
+    back = elastic._like(restore_checkpoint(d, 1, port), port)
+    assert isinstance(back[1], AdamWState)
+    assert isinstance(back[1].step, int) and back[1].step == 7
+    for a, b in zip(_leaves(back), _leaves(port)):
+        assert torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b

@@ -146,12 +146,57 @@ def test_port_sources_never_import_jax_or_reference():
 
 def test_card_scripts_never_import_jax_or_reference():
     """The scripts run on the card (``chip_smoke.py``, ``kernel_probe.py``,
-    ``train_probe.py``) import neither JAX nor the reference package."""
+    ``train_probe.py`` and the examples, ``examples_torch/*.py``) import
+    neither JAX nor the reference package."""
     root = SRC.parent
+    examples = sorted(p.relative_to(root).as_posix()
+                      for p in (root / "examples_torch").glob("*.py"))
+    assert examples == [f"examples_torch/{n}.py" for n in EXAMPLES]
     hits = [(name, m.group(0).strip())
-            for name in ("chip_smoke.py", "kernel_probe.py", "train_probe.py")
+            for name in ("chip_smoke.py", "kernel_probe.py",
+                         "train_probe.py", *examples)
             for m in _FORBIDDEN.finditer((root / name).read_text())]
     assert hits == []
+
+
+# The port's examples, the reference's file names, and for each the
+# function its main hands the device to.
+EXAMPLES = {"forecast_shift": "sweep", "geo_schedule_training": "schedule",
+            "quickstart": "compare", "scenario_sweep": "run",
+            "serve_batch": "build", "serve_stream": "serve",
+            "train_100m": "build", "workflow_run": "run"}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_example_without_cuda_raises(name, monkeypatch):
+    """Each example runs on the card: with no card its ``main`` raises
+    before any work; ``--device cpu`` reaches its work on the CPU (the
+    work function is stopped there, holding the device it was given)."""
+    import importlib.util
+    path = SRC.parent / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Reached(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise Reached([a for a in (*args, *kwargs.values())
+                       if isinstance(a, torch.device)])
+    monkeypatch.setattr(mod, EXAMPLES[name], stop)
+    argv = []
+    if name == "geo_schedule_training":
+        argv = ["--chip-w", "700"]
+        monkeypatch.setattr(mod, "load_cells", lambda *a: [dict(
+            arch="qwen2_1_5b", params=1.5e9, chips=256, roofline=dict(
+                t_compute=1.0, t_memory=2.0, t_collective=3.0))])
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        mod.main(argv)
+    with pytest.raises(Reached) as got:
+        mod.main(argv + ["--device", "cpu"])
+    assert got.value.args[0] == [torch.device("cpu")]
 
 
 def test_device_without_cuda_raises(monkeypatch):
